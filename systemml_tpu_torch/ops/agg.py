@@ -1,0 +1,62 @@
+"""Aggregations: full, row-wise and column-wise.
+
+Port of systemml_tpu/ops/agg.py, dense branches. DML shape conventions
+as there: full aggregates return scalars (0-d tensors), rowX returns
+(n,1), colX returns (1,m). Kahan-compensated sums (`compensated_sum`,
+off by default), cumulative and statistical aggregates wait (ROADMAP
+queue 1, algorithm breadth).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from systemml_tpu_torch.utils.config import get_config
+
+
+def _keep(direction: str, r):
+    if direction == "all":
+        return r
+    return r.reshape(-1, 1) if direction == "row" else r.reshape(1, -1)
+
+
+def _reduce(fn, x, direction: str):
+    if direction == "all":
+        return fn(x)
+    return _keep(direction, fn(x, dim=1 if direction == "row" else 0))
+
+
+def _minmax(fn):
+    def f(x, dim=None):
+        return fn(x) if dim is None else fn(x, dim=dim).values
+    return f
+
+
+_AGGS = {
+    "sum": torch.sum,
+    "mean": torch.mean,
+    "min": _minmax(torch.min),
+    "max": _minmax(torch.max),
+    "prod": lambda x, dim=None: torch.prod(x) if dim is None
+    else torch.prod(x, dim=dim),
+    "var": lambda x, dim=None: torch.var(x, dim=dim, correction=1),
+    "sd": lambda x, dim=None: torch.std(x, dim=dim, correction=1),
+    "sumsq": lambda x, dim=None: torch.sum(x * x, dim=dim),
+}
+
+
+def agg(op: str, x, direction: str = "all"):
+    if not isinstance(x, torch.Tensor) or x.layout != torch.strided:
+        raise NotImplementedError(
+            f"aggregate {op} on {type(x).__name__}: only dense tensors are "
+            f"ported (ROADMAP queue 1: sparse plane, compressed LA)")
+    if op == "sum" and get_config().compensated_sum:
+        raise NotImplementedError(
+            "compensated_sum waits for ROADMAP queue 1, algorithm "
+            "breadth")
+    fn = _AGGS.get(op)
+    if fn is None:
+        raise NotImplementedError(
+            f"aggregate {op!r} waits for ROADMAP queue 1, algorithm "
+            f"breadth")
+    return _reduce(fn, x, direction)

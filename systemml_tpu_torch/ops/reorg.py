@@ -1,0 +1,80 @@
+"""Reorganization: transpose, concatenation, reshape, indexing.
+
+Port of systemml_tpu/ops/reorg.py, dense branches. `transpose` returns
+the transposed VIEW, never a copy: matmult and tsmm hand the view to
+cuBLAS as a transposed operand, so `t(X) %*% y` over an 8 GB X costs no
+second X. Indexing with traced bounds (the fused-loop minibatch path),
+sort and the triangular extractions wait (ROADMAP queue
+1: fused loop regions, algorithm breadth).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _dense(x):
+    if not isinstance(x, torch.Tensor) or x.layout != torch.strided:
+        raise NotImplementedError(
+            f"reorg on {type(x).__name__}: only dense tensors are ported "
+            f"(ROADMAP queue 1: sparse plane, compressed LA)")
+    return x
+
+
+def transpose(x):
+    return _dense(x).T
+
+
+def rev(x):
+    """Reverse row order (reference: LibMatrixReorg.rev)."""
+    return torch.flip(_dense(x), dims=(0,))
+
+
+def diag(x):
+    """Vector (n,1) -> diagonal matrix; matrix -> main diagonal as (n,1)
+    (reference: ReorgOp DIAG, LibMatrixReorg.diag)."""
+    x = _dense(x)
+    if x.shape[1] == 1:
+        return torch.diag(x.reshape(-1))
+    return torch.diagonal(x).reshape(-1, 1)
+
+
+def reshape(x, rows: int, cols: int, byrow: bool = True):
+    """matrix(X, rows, cols, byrow) (reference: ReorgOp RESHAPE).
+    byrow=True reads/fills row-major (DML default), False column-major."""
+    x = _dense(x)
+    if byrow:
+        return x.reshape(rows, cols)
+    return x.T.reshape(-1).reshape(cols, rows).T
+
+
+def _concat(xs, dim):
+    xs = [_dense(x) for x in xs]
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return torch.cat([x.to(dtype) for x in xs], dim=dim)
+
+
+def cbind(*xs):
+    return _concat([x if x.ndim == 2 else x.reshape(-1, 1) for x in xs], 1)
+
+
+def rbind(*xs):
+    return _concat(xs, 0)
+
+
+def right_index(x, rl, ru, cl, cu):
+    """X[rl:ru, cl:cu] with 1-based inclusive static bounds (a view)."""
+    return _dense(x)[rl - 1:ru, cl - 1:cu]
+
+
+def left_index(x, y, rl, ru, cl, cu):
+    """X[rl:ru, cl:cu] = Y, copy-on-write like the reference's
+    LeftIndexingOp. A scalar y broadcasts over the whole range; a genuine
+    matrix must have the range's shape."""
+    out = _dense(x).clone()
+    if isinstance(y, torch.Tensor) and y.ndim > 0:
+        y = y.reshape(ru - rl + 1, cu - cl + 1)
+    out[rl - 1:ru, cl - 1:cu] = y
+    return out

@@ -1,0 +1,141 @@
+"""Runtime data objects: the symbol-table value types.
+
+Port of systemml_tpu/runtime/data.py over torch.Tensor. A MatrixObject
+holds a 2-D tensor on the device the config names (the card, or the CPU
+when the caller asks for it); numpy appears only at host boundaries.
+Frames wait (ROADMAP queue 1, parfor, transform and frames); sparse
+matrices wait (sparse plane).
+
+`from_reference` carries values from the JAX package into the port, the
+way the tests feed both packages from one seed.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from systemml_tpu_torch.lang.ast import DataType, ValueType
+
+
+class Data:
+    data_type: DataType = DataType.UNKNOWN
+
+
+class ScalarObject(Data):
+    data_type = DataType.SCALAR
+
+    __slots__ = ("value", "value_type")
+
+    def __init__(self, value, value_type: Optional[ValueType] = None):
+        if value_type is None:
+            if isinstance(value, bool):
+                value_type = ValueType.BOOLEAN
+            elif isinstance(value, (int, np.integer)):
+                value_type = ValueType.INT
+            elif isinstance(value, str):
+                value_type = ValueType.STRING
+            else:
+                value_type = ValueType.DOUBLE
+        self.value = value
+        self.value_type = value_type
+
+    def __repr__(self):
+        return f"Scalar({self.value!r})"
+
+
+class MatrixObject(Data):
+    """A 2-D matrix backed by a dense torch.Tensor (a 1-D tensor becomes
+    a column)."""
+
+    data_type = DataType.MATRIX
+
+    __slots__ = ("array",)
+
+    def __init__(self, array: torch.Tensor):
+        if not isinstance(array, torch.Tensor):
+            raise TypeError(f"MatrixObject holds a torch.Tensor, not "
+                            f"{type(array).__name__}")
+        if array.ndim == 1:
+            array = array.reshape(-1, 1)
+        self.array = array
+
+    @property
+    def shape(self):
+        return tuple(self.array.shape)
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.array.shape[0])
+
+    @property
+    def num_cols(self) -> int:
+        return int(self.array.shape[1])
+
+    def to_numpy(self) -> np.ndarray:
+        return self.array.detach().cpu().numpy()
+
+    def __repr__(self):
+        return (f"Matrix({self.num_rows}x{self.num_cols}, "
+                f"dtype={self.array.dtype}, device={self.array.device})")
+
+
+class ListObject(Data):
+    """Ordered, optionally named value list (reference: ListObject,
+    runtime/instructions/cp/ListObject.java)."""
+
+    data_type = DataType.LIST
+
+    __slots__ = ("items", "names")
+
+    def __init__(self, items: List[Data], names: Optional[List[str]] = None):
+        self.items = items
+        self.names = names
+
+    def get(self, key) -> Data:
+        if isinstance(key, str):
+            if not self.names:
+                raise KeyError(f"unnamed list has no entry {key!r}")
+            return self.items[self.names.index(key)]
+        return self.items[int(key) - 1]  # 1-based
+
+    def __len__(self):
+        return len(self.items)
+
+    def __repr__(self):
+        return f"List(n={len(self.items)})"
+
+
+def from_reference(values: Dict[str, Any], device,
+                   dtype: Optional[torch.dtype] = None) -> Dict[str, Data]:
+    """The JAX package's values, given as numpy arrays or Python scalars
+    (its inputs, or what its MLResults return from get_matrix and
+    get_scalar), as the port's data objects on `device`.
+
+    Floating matrices take `dtype`, or the port's value dtype for
+    `device` under the active config's precision policy when `dtype` is
+    None (utils/config.default_dtype); a 1-D array becomes a column.
+    Scalars stay host values."""
+    from systemml_tpu_torch.utils.config import default_dtype
+
+    device = torch.device(device)
+    if dtype is None:
+        dtype = default_dtype(device)
+    out: Dict[str, Data] = {}
+    for name, v in values.items():
+        if isinstance(v, np.generic):
+            v = v.item()
+        if isinstance(v, (bool, int, float, str)):
+            out[name] = ScalarObject(v)
+            continue
+        a = np.asarray(v)
+        if a.ndim == 0:
+            out[name] = ScalarObject(a.item())
+            continue
+        t = torch.from_numpy(np.array(a, copy=True, order="C"))
+        if t.is_floating_point():
+            t = t.to(dtype)
+        out[name] = MatrixObject(t.to(device))
+    return out

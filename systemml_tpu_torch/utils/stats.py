@@ -1,0 +1,139 @@
+"""Execution statistics: timers, counters, heavy hitters.
+
+Port of systemml_tpu/utils/stats.py, trimmed to the counters that the
+port's eager runtime touches: run time, executed blocks, function calls,
+per-op heavy hitters, and the optimizer/rewrite event families that the
+copied HOP passes (hops/rewrite.py, hoist.py, ipa.py) report. Every
+family lives in a run-scoped ``MetricsRegistry`` (obs/metrics.py), as in
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import threading
+import time
+from typing import Optional
+
+# the Statistics of the currently executing Program: deep layers (the
+# rewrite passes) report here without threading the object through
+# every signature
+_current: contextvars.ContextVar[Optional["Statistics"]] = \
+    contextvars.ContextVar("stats_current", default=None)
+
+
+def current() -> Optional["Statistics"]:
+    return _current.get()
+
+
+@contextlib.contextmanager
+def stats_scope(st: Optional["Statistics"]):
+    """Install `st` as the ambient Statistics for the block (compile-time
+    rewrite counters), restoring the previous one on exit."""
+    tok = _current.set(st)
+    try:
+        yield st
+    finally:
+        _current.reset(tok)
+
+
+# the estim_counts label groups: prefix -> display group
+ESTIM_GROUPS = (
+    ("rw_", "rewrites"),          # per-rule rewrite fires
+)
+
+
+class Statistics:
+    def __init__(self):
+        self._lock = threading.Lock()
+        # fine-grained mode synchronises the device after each timed op
+        # so that op_time reflects execution, not the asynchronous launch
+        self.fine_grained = False
+        self.reset()
+
+    def reset(self):
+        from systemml_tpu_torch.obs.metrics import MetricsRegistry
+
+        reg = self.registry = MetricsRegistry()
+        self.run_start = 0.0
+        self.run_time = 0.0
+        self._active_runs = 0
+        reg.gauge("run_seconds", "total execution wall time (union of "
+                  "overlapping runs)", unit="s", fn=lambda: self.run_time)
+        self._eager_total = reg.counter(
+            "eager_blocks_total", "program blocks executed eagerly")
+        self.fcall_counts = reg.labeled(
+            "fcall_total", "DML function invocations")
+        self.op_time = reg.labeled(
+            "op_seconds", "per-instruction wall time (heavy hitters)",
+            unit="s", value_type=float)
+        self.op_count = reg.labeled(
+            "op_total", "per-instruction execution count")
+        self.estim_counts = reg.labeled(
+            "optimizer_events_total",
+            "optimizer decisions + rw_ rewrite fires",
+            groups=ESTIM_GROUPS)
+
+    @property
+    def eager_blocks(self) -> int:
+        return self._eager_total.value
+
+    def start_run(self):
+        with self._lock:
+            self._active_runs += 1
+            if self._active_runs == 1:
+                self.run_start = time.perf_counter()
+
+    def end_run(self):
+        with self._lock:
+            self._active_runs = max(0, self._active_runs - 1)
+            if self._active_runs == 0:
+                self.run_time += time.perf_counter() - self.run_start
+
+    def count_block(self):
+        self._eager_total.inc()
+
+    def count_fcall(self, name: str):
+        self.fcall_counts.inc(name)
+
+    def count_estim(self, kind: str, n: int = 1):
+        self.estim_counts.inc(kind, n)
+
+    def time_op(self, op: str, seconds: float):
+        with self._lock:
+            self.op_time.inc(op, seconds)
+            self.op_count.inc(op)
+
+    def heavy_hitters(self, n: int = 10):
+        return sorted(self.op_time.items(), key=lambda kv: -kv[1])[:n]
+
+    def display(self, max_heavy_hitters: int = 10) -> str:
+        lines = [
+            "SystemML-TPU (PyTorch port) Statistics:",
+            f"Total execution time:\t\t{self.run_time:.3f} sec.",
+            f"Executed blocks (eager):\t{self.eager_blocks}.",
+        ]
+        hh = self.heavy_hitters(max_heavy_hitters)
+        if hh:
+            lines.append(f"Heavy hitter instructions (top {len(hh)}):")
+            lines.append("  #  Instruction\tTime(s)\tCount")
+            for i, (op, t) in enumerate(hh, 1):
+                lines.append(f"  {i}  {op}\t{t:.3f}\t{self.op_count[op]}")
+        g = self.estim_counts.grouped()
+        rw, opt = g["rewrites"], g[""]
+        if rw:
+            top = sorted(rw.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
+            suffix = ", ..." if len(rw) > len(top) else ""
+            lines.append(
+                f"Rewrites fired:\t\t{sum(rw.values())} "
+                f"({len(rw)} rules; top: "
+                + ", ".join(f"{k}={v}" for k, v in top) + suffix + ")")
+        if opt:
+            lines.append("Optimizer decisions: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(opt.items())))
+        if self.fcall_counts:
+            top = sorted(self.fcall_counts.items(), key=lambda kv: -kv[1])[:5]
+            lines.append("Function calls: " +
+                         ", ".join(f"{k}={v}" for k, v in top))
+        return "\n".join(lines)

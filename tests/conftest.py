@@ -50,3 +50,5 @@ def _fresh_config():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running fixtures")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips with a reason without one)")

@@ -1,0 +1,78 @@
+"""The port stands alone: systemml_tpu_torch and chip_smoke.py import
+neither jax nor the JAX package (systemml_tpu).
+
+1. In a subprocess where a sys.meta_path finder refuses `jax`, `jax.*`,
+   `systemml_tpu` and `systemml_tpu.*` (and nothing else, so
+   `systemml_tpu_torch` imports), the port runs a 50 x 4 LinearRegCG on
+   the CPU; afterwards neither package is in sys.modules.
+2. No source file of the port, and not chip_smoke.py, names them in an
+   import or a dotted module path.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r'''
+import importlib.abc
+import sys
+
+BLOCKED = ("jax", "systemml_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+
+import numpy as np
+
+from systemml_tpu_torch.api.mlcontext import MLContext, dmlFromFile
+
+rng = np.random.default_rng(0)
+x = rng.standard_normal((50, 4))
+beta_true = rng.standard_normal((4, 1))
+res = MLContext(device="cpu").execute(
+    dmlFromFile("scripts/algorithms/LinearRegCG.dml").input("X", x)
+    .input("y", x @ beta_true).arg("tol", 1e-12).arg("reg", 0.0)
+    .output("beta"))
+assert np.allclose(res.get_matrix("beta"), beta_true, rtol=1e-8)
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("ISOLATED_OK")
+'''
+
+
+def test_port_runs_with_jax_and_jax_package_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b)|systemml_tpu\.", re.MULTILINE)
+
+
+def test_sources_name_neither_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "systemml_tpu_torch")):
+        files += [os.path.join(d, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh"))]
+    hits = []
+    for path in files:
+        with open(path) as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                hits.append(f"{os.path.relpath(path, ROOT)}: {m.group(0)!r}")
+    assert len(files) > 20
+    assert not hits, hits
