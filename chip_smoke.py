@@ -8,16 +8,21 @@ systemml_tpu_torch.api.mlcontext.MLContext on the card at 2,000,000 x
 PyTorch version. Phases:
 
 0. environment: torch and CUDA versions, the card, its power limit;
-1. build: every kernel library from systemml_tpu_torch/codegen/csrc/, one
-   nvcc per source, started together; build seconds and ptxas report;
+1. build: every kernel library of the path from
+   systemml_tpu_torch/codegen/csrc/; build seconds and ptxas report;
 2. each kernel against its plain version at the main path's shapes and
    others: normwise relative error against the plain version in fp64 on
    the card (bar 1e-4: fp32 sums over up to 2e6 rows in another order),
-   and bit-identical output from two launches;
+   and bit-identical output from two launches; X contiguous and as a
+   column slice of a wider matrix, which the kernel reads in place;
 3. the main path, with every launch counter set to 0 just before and read
    just after: each kernel of the path must have launched (mmchain once
    per CG iteration), beta must be within 1e-3 of beta_true, and the
-   peak of allocated device memory below twice the bytes of X;
+   peak of allocated device memory below twice the bytes of X. The run
+   is timed without a profiler: host clock and CUDA events around the
+   program's execution and around its CG loop. Two more runs under
+   torch.profiler (device activity only, then host and device) give the
+   device's busy share and the profiler's own cost;
 4. times with CUDA events: each kernel, its plain version, the library
    call that computes the same function, and the least time the card
    could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32,
@@ -42,6 +47,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 M, K = 2_000_000, 1_000        # scripts/perftest/run_perftest.py scale L
 KERNEL_BAR = 1e-4
+KERNEL_SOURCES = ("mmchain",)  # systemml_tpu_torch/codegen/csrc/<name>.cu
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -85,9 +91,54 @@ def time_ms(fns, reps: int = 20, warm: int = 3):
     return acc
 
 
-def profile_main_path(ml, script):
-    """One more run of the main path under torch.profiler. Returns (and
-    prints) the device's busy share of the run's wall time (parse and
+class PhaseTimer:
+    """Windows of the program's execution and of its while loops, on the
+    host clock and in CUDA events, taken without a profiler: for the
+    duration of a with-block it wraps Program.execute and
+    WhileBlock.execute of the port's runtime. `windows[label]` lists
+    (host ms, device ms, host start, host end, start event, end event) in
+    the order the windows close."""
+
+    def __init__(self):
+        from systemml_tpu_torch.runtime import program
+        self._classes = {"execute": program.Program,
+                         "loop": program.WhileBlock}
+        self.windows = {label: [] for label in self._classes}
+
+    def __enter__(self):
+        self._orig = {label: cls.execute
+                      for label, cls in self._classes.items()}
+        for label, cls in self._classes.items():
+            cls.execute = self._wrap(label, self._orig[label])
+        return self
+
+    def __exit__(self, *exc):
+        for label, cls in self._classes.items():
+            cls.execute = self._orig[label]
+        torch.cuda.synchronize()
+        self.windows = {label: [(1e3 * (t1 - t0), e0.elapsed_time(e1), t0,
+                                 t1, e0, e1) for t0, t1, e0, e1 in ws]
+                        for label, ws in self.windows.items()}
+
+    def _wrap(self, label, orig):
+        def execute(blk, *args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            try:
+                return orig(blk, *args, **kwargs)
+            finally:
+                t1 = time.perf_counter()
+                e1.record()
+                self.windows[label].append((t0, t1, e0, e1))
+        return execute
+
+
+def profile_main_path(ml, script, host_activity: bool):
+    """One more run of the main path under torch.profiler, recording the
+    device's activity, and the host's too when `host_activity`. Returns
+    (and prints) the device's busy share of the run's wall time (parse and
     compile included), the CG loop's period (median time from one mmchain
     launch to the next) and the busy share inside the loop, and device ms
     by kernel name. Says "not measured" when the profiler records no
@@ -98,8 +149,11 @@ def profile_main_path(ml, script):
     from torch.profiler import ProfilerActivity, profile
 
     printer, ml.printer = ml.printer, (lambda s: None)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    what = "host and device" if host_activity else "device only"
+    activities = [ProfilerActivity.CUDA]
+    if host_activity:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         ml.execute(script)
         torch.cuda.synchronize()
@@ -108,8 +162,8 @@ def profile_main_path(ml, script):
     ks = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                 key=lambda e: e.time_range.start)
     if not ks:
-        print("[profile] the profiler recorded no kernels: device busy share "
-              "not measured")
+        print(f"[profile {what}] the profiler recorded no kernels: device "
+              f"busy share not measured")
         return {}
     by_name = {}
     for e in ks:
@@ -125,17 +179,88 @@ def profile_main_path(ml, script):
         out["cg_iteration_ms"] = statistics.median(
             (b - a) / 1e3 for a, b in zip(starts, starts[1:]))
         out["cg_loop_busy_share"] = in_loop / (starts[-1] - starts[0])
-    print(f"[profile] main path under torch.profiler: wall {wall_ms:.1f} ms "
+    print(f"[profile {what}] main path under torch.profiler: wall {wall_ms:.1f} ms "
           f"(parse and compile included), kernels {device_ms:.1f} ms, device "
           f"busy {100 * out['device_busy_share']:.1f}%")
     if "cg_iteration_ms" in out:
-        print(f"[profile] CG loop: {out['cg_iteration_ms']:.3f} ms per "
+        print(f"[profile {what}] CG loop: {out['cg_iteration_ms']:.3f} ms per "
               f"iteration (mmchain launch to launch), device busy "
               f"{100 * out['cg_loop_busy_share']:.1f}% inside the loop")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (ms, n) in top:
-        print(f"[profile]   {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+        print(f"[profile {what}]   {ms:9.3f} ms  x{n:<4d} {name[:90]}")
     out["top_kernels_ms"] = {name[:90]: ms for name, (ms, _) in top}
+    if host_activity:
+        ops = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_cpu_time_total)[:8]
+        for e in ops:
+            print(f"[profile {what}]   host {e.self_cpu_time_total / 1e3:8.3f}"
+                  f" ms own  x{e.count:<4d} {e.key[:80]}")
+        out["top_host_ops_ms"] = {e.key[:80]: e.self_cpu_time_total / 1e3
+                                  for e in ops}
+    return out
+
+
+def host_profile(ml, script) -> dict:
+    """One more run of the main path with cProfile on during the program's
+    execution (parse and compile left out): the Python functions that take
+    the host's time, by their own time. Prints and returns the top 12."""
+    import cProfile
+    import pstats
+
+    from systemml_tpu_torch.runtime import program
+
+    prof = cProfile.Profile()
+    orig = program.Program.execute
+
+    def execute(*args, **kwargs):
+        prof.enable()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            prof.disable()
+
+    printer, ml.printer = ml.printer, (lambda s: None)
+    program.Program.execute = execute
+    try:
+        ml.execute(script)
+    finally:
+        program.Program.execute = orig
+        ml.printer = printer
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:12]
+    out = {}
+    for (path, line, fn), (_, calls, own, cum, _) in rows:
+        where = (os.path.relpath(path, ROOT) if path.startswith(ROOT)
+                 else os.path.basename(path))
+        name = f"{where}:{line} {fn}"
+        print(f"[cprofile] {1e3 * own:8.3f} ms own {1e3 * cum:8.3f} ms "
+              f"cumulative x{calls:<5d} {name[:90]}")
+        out[name[:90]] = 1e3 * own
+    return out
+
+
+def phase_windows(timer: PhaseTimer, iters: int, label: str) -> dict:
+    """An unprofiled run's execution split into the prologue before the
+    CG loop, the loop and the epilogue after it, each on the host clock
+    and in device time between CUDA events. Prints and returns them."""
+    (ex_h, ex_d, ex_t0, ex_t1, ex_e0, ex_e1), = timer.windows["execute"]
+    lp_h, lp_d, lp_t0, lp_t1, lp_e0, lp_e1 = max(timer.windows["loop"])
+    out = {"execute_host_ms": ex_h, "execute_device_window_ms": ex_d,
+           "prologue_host_ms": 1e3 * (lp_t0 - ex_t0),
+           "prologue_device_window_ms": ex_e0.elapsed_time(lp_e0),
+           "loop_host_ms": lp_h, "loop_device_window_ms": lp_d,
+           "epilogue_host_ms": 1e3 * (ex_t1 - lp_t1),
+           "epilogue_device_window_ms": lp_e1.elapsed_time(ex_e1),
+           "cg_iteration_ms": lp_d / max(iters, 1)}
+    print(f"[windows] {label}, host clock / device window between "
+          f"CUDA events: execution {ex_h:.3f} / {ex_d:.3f} ms = prologue "
+          f"{out['prologue_host_ms']:.3f} / "
+          f"{out['prologue_device_window_ms']:.3f} + CG loop {lp_h:.3f} / "
+          f"{lp_d:.3f} + epilogue {out['epilogue_host_ms']:.3f} / "
+          f"{out['epilogue_device_window_ms']:.3f}; CG loop "
+          f"{out['cg_iteration_ms']:.3f} ms per iteration over {iters}")
     return out
 
 
@@ -157,12 +282,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # true fp32 references
 
     # ---- 1. build ---------------------------------------------------------
-    sources = sorted(f[:-3] for f in os.listdir(build.CSRC)
-                     if f.endswith(".cu"))
     t0 = time.perf_counter()
-    build.build(sources)
-    print(f"[build] {len(sources)} libraries {sources} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    for src in KERNEL_SOURCES:
+        build.load(src)
+    print(f"[build] {len(KERNEL_SOURCES)} libraries {list(KERNEL_SOURCES)} "
+          f"in {time.perf_counter() - t0:.1f} s")
     for src, (secs, report) in build.build_reports.items():
         lines = [ln.strip() for ln in report.splitlines()
                  if "ptxas" in ln and ("registers" in ln or "spill" in ln
@@ -175,8 +299,12 @@ def main() -> None:
     # ---- 2. kernels against their plain versions --------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     max_abs_err = 0.0
-    for m, k, c in ((M, K, 1), (100_003, K, 4), (4_097, 128, 8)):
-        x = torch.randn(m, k, generator=gen, device=dev)
+    # (m, k, c, width of the matrix X is a column slice of, first column)
+    for m, k, c, width, col0 in ((M, K, 1, K, 0), (100_003, K, 4, K, 0),
+                                 (4_097, 128, 8, 128, 0),
+                                 (100_003, K, 4, 1_004, 4),
+                                 (4_097, 128, 8, 130, 1)):
+        x = torch.randn(m, width, generator=gen, device=dev)[:, col0:col0 + k]
         v = torch.randn(k, c, generator=gen, device=dev)
         wcols = {"XtXv": 0, "XtwXv": 1, "XtXvy": c}
         xd = x.double()
@@ -193,14 +321,17 @@ def main() -> None:
             abs_err = float((out.double() - ref).abs().max())
             same = bool(torch.equal(out, again))
             print(f"[kernel] mmchain {ctype} m={m} k={k} c={c} "
-                  f"w=({m},{wc}): normwise {err:.3e} (bar {KERNEL_BAR:g}), "
+                  f"w=({m},{wc}) X[:, {col0}:{col0 + k}] of width {width}: "
+                  f"normwise {err:.3e} (bar {KERNEL_BAR:g}), "
                   f"max abs {abs_err:.3e}, repeat bit-identical {same}",
                   flush=True)
             if not math.isfinite(err) or err > KERNEL_BAR:
-                fail(f"mmchain {ctype} at ({m}, {k}, {c}): normwise error "
+                fail(f"mmchain {ctype} at ({m}, {k}, {c}), width {width}: "
+                     f"normwise error "
                      f"{err} > {KERNEL_BAR}")
             if not same:
-                fail(f"mmchain {ctype} at ({m}, {k}, {c}): two launches "
+                fail(f"mmchain {ctype} at ({m}, {k}, {c}), width {width}: two "
+                     f"launches "
                      f"differ")
             if (m, k, c) == (M, K, 1) and ctype == "XtXv":
                 max_abs_err = abs_err
@@ -235,9 +366,10 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.mmchain_kernel.launches = 0
     t0 = time.perf_counter()
-    res = ml.execute(linregcg(x, y))
-    beta = res.get_tensor("beta")
-    torch.cuda.synchronize()
+    with PhaseTimer() as timer:
+        res = ml.execute(linregcg(x, y))
+        beta = res.get_tensor("beta")
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {"mmchain": kernels.mmchain_kernel.launches}
     exec_secs = ml._stats.run_time
@@ -268,8 +400,20 @@ def main() -> None:
     if peak >= 2 * x_bytes:
         fail(f"peak device memory {peak} B >= 2 x X ({x_bytes} B): X was "
              f"copied")
+    windows = {"first": phase_windows(timer, iters, "timed run")}
+    # the same run again, unprofiled: what of the timed run's host time is
+    # its first use of full-size buffers
+    ml.printer = lambda s: None
+    with PhaseTimer() as timer:
+        ml.execute(linregcg(x, y)).get_tensor("beta")
+        torch.cuda.synchronize()
+    ml.printer = printer
+    windows["second"] = phase_windows(timer, iters, "second unprofiled run")
     del res, beta
-    profiled = profile_main_path(ml, linregcg(x, y))
+    profiled = {"device_only": profile_main_path(ml, linregcg(x, y), False),
+                "host_and_device": profile_main_path(ml, linregcg(x, y),
+                                                     True),
+                "python_host_ms": host_profile(ml, linregcg(x, y))}
     del y
 
     # ---- 4. times -----------------------------------------------------------
@@ -299,7 +443,8 @@ def main() -> None:
         "library_ms": lib_ms}],
         "card": smi, "main_path": {
             "iterations": iters, "seconds": secs, "exec_seconds": exec_secs,
-            "beta_rel_err": rel, "peak_bytes": peak, "profile": profiled}}
+            "beta_rel_err": rel, "peak_bytes": peak, "windows": windows,
+            "profile": profiled}}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` becomes `_build/lib<name>-<hash>.so`: nvcc for
 `sm_90a`, a plain C interface, loaded with ctypes. The hash covers the
 source and the flags, so an edited source never loads a stale library.
-Nothing here runs at import: the CPU tests import every module, and this
-machine may have no nvcc.
+Nothing here runs at import: the CPU tests import every module, and a
+machine without a card may have no nvcc.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -47,30 +47,23 @@ def _target(name: str) -> Tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(names: Iterable[str]) -> List[str]:
-    """Compile every library in `names` that is not built yet: one nvcc
-    process per source, all started together. Returns the library paths
-    in the order of `names`; raises with the compiler's output on a
-    failed build."""
-    names = list(names)
+def _build(name: str) -> str:
+    """The path of library `name`, compiling it first if it is not built
+    yet; raises with the compiler's output on a failed build."""
+    src, lib = _target(name)
+    if os.path.exists(lib):
+        return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = []
-    for name in names:
-        src, lib = _target(name)
-        if os.path.exists(lib):
-            continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-        procs.append((name, lib, tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    for name, lib, tmp, t0, p in procs:
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
-        os.replace(tmp, lib)
-        build_reports[name] = (time.perf_counter() - t0, out)
-    return [_target(n)[1] for n in names]
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    p = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{p.stdout}")
+    os.replace(tmp, lib)
+    build_reports[name] = (time.perf_counter() - t0, p.stdout)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -78,5 +71,5 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = _loaded[name] = ctypes.CDLL(build([name])[0])
+            lib = _loaded[name] = ctypes.CDLL(_build(name))
         return lib

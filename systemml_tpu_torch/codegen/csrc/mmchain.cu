@@ -15,10 +15,12 @@
 //
 // Design:
 // - A block of 256 threads owns a contiguous range of rows. It walks the
-//   range in chunks of 8 rows, which are contiguous in memory: the chunk is
-//   copied into shared memory with 16-byte loads (4-byte loads when k is
-//   not a multiple of 4), zero-filled past the end of the range. That is
-//   the ragged edge masked in the kernel: X is never padded or copied.
+//   range in chunks of 8 rows: the chunk is copied into shared memory with
+//   16-byte loads (4-byte loads when k, the row stride or X's address does
+//   not allow them), zero-filled past the end of the range. That is the
+//   ragged edge masked in the kernel: X is never padded or copied. Rows
+//   may lie ldx >= k floats apart, so a column slice X[, a:b] of a wider
+//   matrix is read in place.
 // - Warp r forms xv[r] = X[r, :] . v for chunk row r (one warp per row,
 //   lanes strided over k, a shuffle reduction), applies w or y, and zeroes
 //   rows past the end of the range.
@@ -52,11 +54,46 @@ size_t smem_bytes(int k, int c) {
   return sizeof(float) * ((size_t)kRows * k + (size_t)c * k + (size_t)kRows * c);
 }
 
-template <int C>
+// Copies chunk rows r0 .. r0 + kRows - 1 of X (rows ldx elements apart, k
+// elements each; an element is a float or a float4) into dst, k elements
+// per row, and zero-fills the rows at or past `left`. kFlat: ldx == k, the
+// chunk is one contiguous span (a separate instantiation, so that the
+// strided walk's registers do not cost the contiguous case occupancy).
+template <bool kFlat, typename T>
+__device__ __forceinline__ void load_chunk(T* __restrict__ dst,
+                                           const T* __restrict__ x,
+                                           long long ldx, int k, long long r0,
+                                           long long left) {
+  const int tid = threadIdx.x;
+  const int n = kRows * k;
+  const int nv = (int)(left < kRows ? left : kRows) * k;
+  const T zero = {};
+  if constexpr (kFlat) {
+    const T* src = x + r0 * ldx;
+#pragma unroll 4
+    for (int i = tid; i < n; i += kThreads) {
+      dst[i] = i < nv ? __ldg(src + i) : zero;
+    }
+  } else {
+    // element i is X[r0 + row, col] with i = row * k + col; (row, col)
+    // steps with i, so there is no division per element
+    const int step_r = kThreads / k, step_c = kThreads % k;
+    int row = tid / k, col = tid % k;
+#pragma unroll 4
+    for (int i = tid; i < n; i += kThreads) {
+      dst[i] = i < nv ? __ldg(x + (r0 + row) * ldx + col) : zero;
+      row += step_r;
+      col += step_c;
+      if (col >= k) { col -= k; ++row; }
+    }
+  }
+}
+
+template <int C, bool kFlat>
 __global__ void __launch_bounds__(kThreads)
 mmchain_partial(const float* __restrict__ x, const float* __restrict__ v,
                 const float* __restrict__ w, float* __restrict__ partial,
-                long long m, int k, int ctype, int w_cols,
+                long long m, long long ldx, int k, int ctype, int w_cols,
                 long long rows_per_block, int vec) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;               // kRows x k
@@ -83,23 +120,13 @@ mmchain_partial(const float* __restrict__ x, const float* __restrict__ v,
 
   for (long long r0 = r_begin; r0 < r_end; r0 += kRows) {
     const long long left = r_end - r0;
-    const long long n = (left < kRows ? left : kRows) * (long long)k;
     __syncthreads();  // the previous chunk is consumed; vt is written
     if (vec) {
-      const float4* src = reinterpret_cast<const float4*>(x + r0 * k);
-      float4* dst = reinterpret_cast<float4*>(xs);
-      const int n4 = (kRows * k) >> 2;
-      const long long nv4 = n >> 2;
-#pragma unroll 4
-      for (int i = tid; i < n4; i += kThreads) {
-        dst[i] = i < nv4 ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+      load_chunk<kFlat>(reinterpret_cast<float4*>(xs),
+                 reinterpret_cast<const float4*>(x), ldx >> 2, k >> 2, r0,
+                 left);
     } else {
-      const float* src = x + r0 * k;
-#pragma unroll 4
-      for (int i = tid; i < kRows * k; i += kThreads) {
-        xs[i] = i < n ? __ldg(src + i) : 0.f;
-      }
+      load_chunk<kFlat>(xs, x, ldx, k, r0, left);
     }
     __syncthreads();
 
@@ -178,27 +205,34 @@ __global__ void mmchain_reduce(const float* __restrict__ partial,
   out[e] = s;
 }
 
-template <int C>
-cudaError_t occupancy(int k, int* blocks_per_sm) {
+template <typename Kernel>
+cudaError_t occupancy_of(Kernel kernel, int k, int c, int* blocks_per_sm) {
   // the limit is raised to what the largest k needs, so that a launch at
   // any k of this instantiation finds it high enough
   cudaError_t e = cudaFuncSetAttribute(
-      mmchain_partial<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxK, C));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(kMaxK, c));
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, mmchain_partial<C>, kThreads, smem_bytes(k, C));
+      blocks_per_sm, kernel, kThreads, smem_bytes(k, c));
+}
+
+template <int C>
+cudaError_t occupancy(int k, int flat, int* blocks_per_sm) {
+  return flat ? occupancy_of(mmchain_partial<C, true>, k, C, blocks_per_sm)
+              : occupancy_of(mmchain_partial<C, false>, k, C, blocks_per_sm);
 }
 
 template <int C>
 void launch_partial(const float* x, const float* v, const float* w,
-                    float* partial, long long m, int k, int ctype, int w_cols,
-                    int grid, cudaStream_t stream) {
+                    float* partial, long long m, long long ldx, int k,
+                    int ctype, int w_cols, int grid, cudaStream_t stream) {
   long long per = (m + grid - 1) / grid;
   per = (per + kRows - 1) / kRows * kRows;
-  const int vec = (k % 4 == 0) && ((uintptr_t)x % 16 == 0);
-  mmchain_partial<C><<<grid, kThreads, smem_bytes(k, C), stream>>>(
-      x, v, w, partial, m, k, ctype, w_cols, per, vec);
+  const int vec = (k % 4 == 0) && (ldx % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  auto kernel = ldx == k ? mmchain_partial<C, true> : mmchain_partial<C, false>;
+  kernel<<<grid, kThreads, smem_bytes(k, C), stream>>>(
+      x, v, w, partial, m, ldx, k, ctype, w_cols, per, vec);
 }
 
 }  // namespace
@@ -208,30 +242,32 @@ extern "C" {
 // Rows of X per chunk: the wrapper sizes the grid with it.
 int smtorch_mmchain_chunk_rows() { return kRows; }
 
-// Resident blocks per SM of the partial kernel for (k, c); also raises its
-// dynamic shared-memory limit. Returns a cudaError_t.
-int smtorch_mmchain_blocks_per_sm(int k, int c, int* blocks_per_sm) {
+// Resident blocks per SM of the partial kernel for (k, c) and rows that
+// are contiguous (flat: ldx == k) or not; also raises its dynamic
+// shared-memory limit. Returns a cudaError_t.
+int smtorch_mmchain_blocks_per_sm(int k, int c, int flat, int* blocks_per_sm) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   switch (c) {
-    case 1: return (int)occupancy<1>(k, blocks_per_sm);
-    case 2: return (int)occupancy<2>(k, blocks_per_sm);
-    case 3: return (int)occupancy<3>(k, blocks_per_sm);
-    case 4: return (int)occupancy<4>(k, blocks_per_sm);
-    case 5: return (int)occupancy<5>(k, blocks_per_sm);
-    case 6: return (int)occupancy<6>(k, blocks_per_sm);
-    case 7: return (int)occupancy<7>(k, blocks_per_sm);
-    case 8: return (int)occupancy<8>(k, blocks_per_sm);
+    case 1: return (int)occupancy<1>(k, flat, blocks_per_sm);
+    case 2: return (int)occupancy<2>(k, flat, blocks_per_sm);
+    case 3: return (int)occupancy<3>(k, flat, blocks_per_sm);
+    case 4: return (int)occupancy<4>(k, flat, blocks_per_sm);
+    case 5: return (int)occupancy<5>(k, flat, blocks_per_sm);
+    case 6: return (int)occupancy<6>(k, flat, blocks_per_sm);
+    case 7: return (int)occupancy<7>(k, flat, blocks_per_sm);
+    case 8: return (int)occupancy<8>(k, flat, blocks_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// x (m, k), v (k, c), w (m, w_cols) or null, partial (grid, k, c) scratch,
-// out (k, c); all fp32, contiguous, on the current device. Launches on
-// `stream` and returns cudaGetLastError().
+// x (m, k) with rows ldx >= k floats apart (a column or row slice of a
+// wider matrix); v (k, c), w (m, w_cols) or null, partial (grid, k, c)
+// scratch and out (k, c) contiguous; all fp32 on the current device.
+// Launches on `stream` and returns cudaGetLastError().
 int smtorch_mmchain(const void* x, const void* v, const void* w, void* partial,
-                    void* out, long long m, int k, int c, int ctype, int w_cols,
-                    int grid, void* stream) {
-  if (k < 1 || k > kMaxK || c < 1 || c > 8 || grid < 1 || m < 0)
+                    void* out, long long m, long long ldx, int k, int c,
+                    int ctype, int w_cols, int grid, void* stream) {
+  if (k < 1 || k > kMaxK || c < 1 || c > 8 || grid < 1 || m < 0 || ldx < k)
     return (int)cudaErrorInvalidValue;
   if (ctype != 0 && w == nullptr) return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
@@ -240,14 +276,14 @@ int smtorch_mmchain(const void* x, const void* v, const void* w, void* partial,
   float* pf = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 1: launch_partial<1>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
-    case 2: launch_partial<2>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
-    case 3: launch_partial<3>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
-    case 4: launch_partial<4>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
-    case 5: launch_partial<5>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
-    case 6: launch_partial<6>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
-    case 7: launch_partial<7>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
-    case 8: launch_partial<8>(xf, vf, wf, pf, m, k, ctype, w_cols, grid, s); break;
+    case 1: launch_partial<1>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
+    case 2: launch_partial<2>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
+    case 3: launch_partial<3>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
+    case 4: launch_partial<4>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
+    case 5: launch_partial<5>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
+    case 6: launch_partial<6>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
+    case 7: launch_partial<7>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
+    case 8: launch_partial<8>(xf, vf, wf, pf, m, ldx, k, ctype, w_cols, grid, s); break;
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -8,7 +8,7 @@ outer-product kernels wait (ROADMAP, spoof codegen).
 Every kernel here has:
 
 - a wrapper that launches it on a CUDA tensor, after checking device,
-  dtype, shape and contiguity, and raises on what the kernel does not
+  dtype, shape and layout, and raises on what the kernel does not
   take; on a CPU tensor the wrapper runs the plain version instead, and
   only because the tensor lies on the CPU;
 - a plain PyTorch version of the same function (`*_plain`), which the
@@ -39,8 +39,9 @@ MMCHAIN_MAX_K = 2048
 MMCHAIN_MAX_C = 8
 
 _mmchain_lib: Optional[ctypes.CDLL] = None
-# (device index, k, c) -> blocks of the partial kernel resident per SM
-_mmchain_occupancy: Dict[Tuple[int, int, int], int] = {}
+# (device index, k, c, rows contiguous) -> blocks of the partial kernel
+# resident per SM
+_mmchain_occupancy: Dict[Tuple[int, int, int, bool], int] = {}
 
 
 def mmchain_supported(m: int, k: int, c: int, dtype) -> bool:
@@ -83,16 +84,28 @@ def _library() -> ctypes.CDLL:
     if _mmchain_lib is None:
         lib = build.load("mmchain")
         lib.smtorch_mmchain_blocks_per_sm.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         lib.smtorch_mmchain_blocks_per_sm.restype = ctypes.c_int
         lib.smtorch_mmchain_chunk_rows.argtypes = []
         lib.smtorch_mmchain_chunk_rows.restype = ctypes.c_int
         lib.smtorch_mmchain.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.smtorch_mmchain.restype = ctypes.c_int
         _mmchain_lib = lib
     return _mmchain_lib
+
+
+def mmchain_row_stride(x) -> Optional[int]:
+    """The distance in elements between X's rows when the kernel can read
+    X in place: its rows contiguous and apart (a contiguous X, or a row
+    or column slice of one). None for any other layout, a transposed
+    view among them."""
+    m, k = x.shape
+    ldx = x.stride(0) if m > 1 else k
+    if (k > 1 and x.stride(1) != 1) or ldx < k:
+        return None
+    return ldx
 
 
 def _check(err: int, what: str) -> None:
@@ -100,12 +113,14 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
-def _mmchain_grid(lib, dev: torch.device, m: int, k: int, c: int) -> int:
-    key = (dev.index, k, c)
+def _mmchain_grid(lib, dev: torch.device, m: int, k: int, c: int,
+                  flat: bool) -> int:
+    key = (dev.index, k, c, flat)
     per_sm = _mmchain_occupancy.get(key)
     if per_sm is None:
         n = ctypes.c_int(0)
-        _check(lib.smtorch_mmchain_blocks_per_sm(k, c, ctypes.byref(n)),
+        _check(lib.smtorch_mmchain_blocks_per_sm(k, c, int(flat),
+                                                 ctypes.byref(n)),
                "mmchain occupancy query")
         if n.value < 1:
             raise RuntimeError(f"mmchain kernel cannot be resident at k={k}, "
@@ -122,8 +137,9 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
 
     x (m, k); v (k,) or (k, c); w/y (m, 1), broadcast over c, or (m, c).
     Returns (k, c). On a CUDA tensor it launches the kernel, or raises
-    when the kernel does not take the input (not fp32, X not contiguous,
-    k or c outside mmchain_supported); on a CPU tensor it runs
+    when the kernel does not take the input (not fp32, X's rows not
+    contiguous, k or c outside mmchain_supported). X may be a row or
+    column slice of a wider matrix: the kernel reads it in place; on a CPU tensor it runs
     mmchain_plain. `precise` is accepted for the JAX package's signature
     and changes nothing: the kernel always multiplies in true fp32."""
     if x.device.type == "cpu":
@@ -138,8 +154,10 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
         raise TypeError("mmchain_kernel takes fp32 operands only")
     if any(t.device != x.device for t in operands):
         raise ValueError("mmchain_kernel: operands on different devices")
-    if not x.is_contiguous():
-        raise ValueError("mmchain_kernel: X must be contiguous")
+    ldx = mmchain_row_stride(x)
+    if ldx is None:
+        raise ValueError(f"mmchain_kernel: X's rows are not contiguous and "
+                         f"apart (strides {tuple(x.stride())})")
     if not mmchain_supported(m, k, c, x.dtype):
         raise ValueError(f"mmchain_kernel takes {MMCHAIN_MIN_K} <= k <= "
                          f"{MMCHAIN_MAX_K} and c <= {MMCHAIN_MAX_C}; got "
@@ -148,14 +166,14 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
     w = None if w is None else w.contiguous()
     lib = _library()
     with torch.cuda.device(x.device):
-        grid = _mmchain_grid(lib, x.device, m, k, c)
+        grid = _mmchain_grid(lib, x.device, m, k, c, ldx == k)
         partial = torch.empty((grid, k, c), dtype=torch.float32,
                               device=x.device)
         out = torch.empty((k, c), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.smtorch_mmchain(
             x.data_ptr(), v.data_ptr(), None if w is None else w.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), m, k, c,
+            partial.data_ptr(), out.data_ptr(), m, ldx, k, c,
             MMCHAIN_CTYPES[ctype], 1 if w is None else w.shape[1], grid,
             stream)
     _check(err, "mmchain kernel launch")

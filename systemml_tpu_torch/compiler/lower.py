@@ -525,7 +525,8 @@ def _bi_print(ev, pos, named, h):
 
 
 def _matrix_to_string(x, rows=100, cols=100, decimal=3) -> str:
-    arr = x.detach().cpu().numpy()[:int(rows), :int(cols)]
+    # slice on the device first: only what is printed crosses to the host
+    arr = x[:int(rows), :int(cols)].detach().cpu().numpy()
     return "\n".join(" ".join(f"{v:.{int(decimal)}f}" for v in row)
                      for row in arr)
 

@@ -51,13 +51,18 @@ def mmchain(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
     dtype alone: a CUDA tensor that meets it takes the single-pass hand
     kernel; everything else takes the two-pass arm, two torch.matmul
     calls (the JAX package's jnp_two_pass). On the CPU the two are the
-    same arithmetic. `precise` is accepted and changes nothing: the
+    same arithmetic. The kernel reads a row or column slice of a wider X
+    in place; an X of another layout (a transposed view from t()) is
+    laid out row-major first, as the JAX package's transpose
+    materialises it. `precise` is accepted and changes nothing: the
     kernel always computes in true fp32. The kernel backend's registry,
     cost model and tuner wait (ROADMAP queue 1, kernel backend and tuner)."""
     _dense(x, v, w)
     m, k = x.shape
     c = v.shape[1] if v.ndim == 2 else 1
-    if x.device.type == "cuda" and x.is_contiguous() \
-            and kernels.mmchain_supported(m, k, c, x.dtype):
+    if x.device.type == "cuda" and kernels.mmchain_supported(m, k, c,
+                                                             x.dtype):
+        if kernels.mmchain_row_stride(x) is None:
+            x = x.contiguous()
         return kernels.mmchain_kernel(x, v, w, ctype, precise=precise)
     return kernels.mmchain_plain(x, v, w, ctype)

@@ -12,7 +12,8 @@ What waits: the fused whole-block compile and the fused loop regions
 buffer pool, layout propagation, the exec-type planner and MESH mode,
 spoof codegen at optlevel >= 3, automatic compression (compressed LA),
 the lifetime analysis, and parfor. A config that asks for one of
-them outright (optlevel >= 3, exec_mode MESH, cla "true") raises
+them outright (optlevel >= 3, exec_mode MESH, cla "true"), or sets any
+other field the port does not read (utils/config.check_ported), raises
 NotImplementedError. `codegen_enabled` and cla "auto" name optimizations
 whose absence leaves the results as they are: the blocks run eagerly,
 as they do in the JAX package when it does not fuse them, and nothing is
@@ -29,7 +30,7 @@ from systemml_tpu_torch.hops.builder import (BlockHops, DMLValidationError,
                                              HopBuilder)
 from systemml_tpu_torch.hops.hop import Hop
 from systemml_tpu_torch.lang import ast as A
-from systemml_tpu_torch.utils.config import get_config
+from systemml_tpu_torch.utils.config import check_ported, get_config
 
 
 class DMLRuntimeError(Exception):
@@ -549,6 +550,7 @@ def _merge_two_blocks(a: "BasicBlock", b: "BasicBlock") -> "BasicBlock":
 
 
 def _check_config_supported(cfg) -> None:
+    check_ported(cfg)
     if cfg.optlevel >= 3:
         raise NotImplementedError(
             "optlevel >= 3 (spoof fusion codegen) waits for ROADMAP queue "

@@ -463,6 +463,57 @@ class DMLConfig:
         return cfg
 
 
+# The fields the port reads or checks. Every other field is copied only so
+# that config files parse: set to anything but its default it raises
+# (check_ported), since it would change nothing here.
+PORTED_FIELDS = frozenset({
+    "device", "optlevel", "exec_mode", "codegen_enabled", "cla",
+    "floating_point_precision", "matmul_precision", "compensated_sum",
+    "sparsity_turn_point", "trace_max_events", "stats_max_heavy_hitters",
+    "liveness_enabled", "validate_enabled"})
+
+# field-name prefix -> the ROADMAP queue-1 item that brings it
+_WAITING = (
+    (("stats", "explain", "scratch_dir"), "CLI and io/"),
+    (("loopfuse_", "compile_timeout_s", "xla_cache_dir", "bufferpool_",
+      "mem_"), "fused loop regions (CUDA graphs) and the buffer pool"),
+    (("pallas_mode", "codegen_"), "kernel backend and tuner"),
+    (("ultra_sparsity_turn_point", "blocksize"), "sparse plane"),
+    (("conv_",), "DNN and models"),
+    (("cla_",), "compressed LA"),
+    (("parfor_", "remote_deadline_s"), "parfor, transform and frames"),
+    (("serving_",), "serving and export"),
+    (("profile_", "obs_", "donation_sanitizer"),
+     "observability and static analysis"),
+    (("resil_", "fault_injection", "elastic_", "mesh_", "distributed_",
+      "comm_"), "distributed and elastic"),
+    (("fleet_",), "fleet"),
+)
+
+
+def check_ported(cfg: DMLConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item that brings it,
+    for a setting the port would ignore: a field outside PORTED_FIELDS
+    that differs from its default, and the bfloat16 precision policy."""
+    if cfg.floating_point_precision == "bfloat16":
+        raise NotImplementedError(
+            "floating_point_precision bfloat16 waits for ROADMAP queue 1, "
+            "algorithm breadth and precision policies")
+    for f in dataclasses.fields(cfg):
+        if f.name in PORTED_FIELDS:
+            continue
+        default = (f.default if f.default is not dataclasses.MISSING
+                   else f.default_factory())
+        if getattr(cfg, f.name) == default:
+            continue
+        item = next((item for prefixes, item in _WAITING
+                     if f.name.startswith(prefixes)), None)
+        raise NotImplementedError(
+            f"config {f.name}={getattr(cfg, f.name)!r}: the port does not "
+            f"read it yet" + (f"; it waits for ROADMAP queue 1, {item}"
+                              if item else ""))
+
+
 _local = threading.local()
 _global_config = DMLConfig()
 
@@ -497,18 +548,21 @@ def default_dtype(device=None):
     (default: the configured device) (systemml_tpu/utils/config.py:472-493):
 
     - "double": native torch.float64 (no double-float pairs),
-    - "single" and "bfloat16": torch.float32 (bfloat16 is a compute
-      policy of the matmult family, storage stays fp32),
+    - "single": torch.float32,
     - "auto": fp64 on the CPU (as the JAX package under x64) and fp32 on
-      the card (as on the TPU)."""
+      the card (as on the TPU).
+    The "bfloat16" mixed policy waits (check_ported raises on it)."""
     import torch
 
     cfg = get_config()
     prec = cfg.floating_point_precision
     if prec == "double":
         return torch.float64
-    if prec in ("single", "bfloat16"):
+    if prec == "single":
         return torch.float32
+    if prec != "auto":
+        check_ported(cfg)
+        raise ValueError(f"unknown floating_point_precision {prec!r}")
     dev = torch.device(cfg.device if device is None else device)
     return torch.float64 if dev.type == "cpu" else torch.float32
 

@@ -84,3 +84,29 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kernels.mmchain_kernel(x.T.contiguous().T, v)
     with pytest.raises(ValueError):
         kernels.mmchain_kernel(x[:, :100].contiguous(), v[:100])
+
+
+@pytest.mark.parametrize("width,rows,cols", [
+    (260, slice(5, None), slice(0, 200)),    # 16-byte loads
+    (260, slice(0, None), slice(1, 131)),    # misaligned start
+    (260, slice(3, None), slice(3, 259)),    # misaligned, k % 4 == 0
+    (258, slice(0, None), slice(0, 128)),    # row stride % 4 != 0
+])
+def test_kernel_reads_slices_in_place(cuda, width, rows, cols):
+    x, v, w = _inputs(cuda, 4, 1, k=width, m=901)
+    xs = x[rows, cols]
+    assert not xs.is_contiguous()
+    _check(xs, v[:xs.shape[1]], w[rows], "XtwXv")
+
+
+def test_dispatch_launches_on_views(cuda):
+    x, v, _ = _inputs(cuda, 1, 0, k=300)
+    b, _, _ = _inputs(cuda, 1, 0, k=M, m=K, seed=4)
+    before = kernels.mmchain_kernel.launches
+    for xs in (x[:, :200], x[10:, 50:250], b.T):   # X[, a:b], t(B)
+        vs = v[:xs.shape[1]]
+        out = mult.mmchain(xs, vs)
+        ref = kernels.mmchain_plain(xs.double(), vs.double())
+        err = torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref)
+        assert float(err) <= 1e-5
+    assert kernels.mmchain_kernel.launches == before + 3

@@ -134,3 +134,18 @@ def test_carry_beta_from_jax_into_port():
     rp = MLContext(device="cpu").execute(script)
     np.testing.assert_allclose(rp.get_matrix("pred"), rj.get_matrix("pred"),
                                rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("bufferpool_enabled", False, "buffer pool"),
+    ("pallas_mode", "always", "kernel backend and tuner"),
+    ("mesh_shape", {"dp": 4}, "distributed and elastic"),
+    ("floating_point_precision", "bfloat16", "precision policies"),
+])
+def test_setting_the_port_does_not_read_raises(key, value, item):
+    """A setting the port would ignore raises, naming its ROADMAP item,
+    instead of running with no effect."""
+    cfg = DMLConfig(device="cpu")
+    cfg.set(key, value)
+    with pytest.raises(NotImplementedError, match=item):
+        MLContext(cfg).execute(dml("x = 1"))

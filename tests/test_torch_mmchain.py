@@ -107,3 +107,15 @@ def test_support_predicate_is_shape_and_dtype_only():
     assert not pk.mmchain_supported(4097, 2049, 1, torch.float32)
     assert not pk.mmchain_supported(4097, 1000, 9, torch.float32)
     assert not pk.mmchain_supported(4097, 1000, 1, torch.float64)
+
+
+def test_row_stride_reads_slices_in_place_and_refuses_transposes():
+    x = torch.zeros(40, 300, dtype=torch.float32)
+    assert pk.mmchain_row_stride(x) == 300
+    assert pk.mmchain_row_stride(x[:, :200]) == 300     # column slice
+    assert pk.mmchain_row_stride(x[5:, 1:131]) == 300   # row and column
+    assert pk.mmchain_row_stride(x[7:8]) == 300         # one row: its k
+    assert pk.mmchain_row_stride(x.T.contiguous().T) is None  # t() view
+    assert pk.mmchain_row_stride(x[:, ::2]) is None
+    assert pk.mmchain_row_stride(
+        torch.zeros(1, 300).expand(40, 300)) is None    # rows overlap
