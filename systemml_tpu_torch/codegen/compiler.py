@@ -1,0 +1,335 @@
+# Port of systemml_tpu/codegen/compiler.py: SpoofCompiler, _extract_cell, _apply
+# and compile_spoof (lines 33-284) are copied with their imports pointed at
+# systemml_tpu_torch; execute_spoof is rewritten without the kernel backend.
+"""Codegen planner: template matching over HOP DAGs + plan cache.
+
+TPU-native equivalent of the reference's SpoofCompiler
+(hops/codegen/SpoofCompiler.java:100 — generateCode at :168, plan cache
+:162, template matching via TemplateCell/Row/MultiAgg/OuterProduct in
+hops/codegen/template/, memo table CPlanMemoTable.java:46, cost-based
+selection PlanSelectionFuseCostBasedV2).
+
+Matching is two-phase, like the reference: candidate enumeration records
+every template match (plus trimmed / leaf variants) in a MemoTable
+(codegen/memo.py), then cost-based selection picks the compatible subset
+with the lowest modeled time — including the "don't fuse, XLA-default
+wins" arm. Selected plans replace their region with `spoof` hops carrying
+a CPlan; execution (execute_spoof below, codegen/kernels.py) streams the
+region through one hand-written CUDA kernel on the card (csrc/spoof.cuh
+instantiated with the plan's expression). On the CPU the same CPlan
+evaluates as torch ops, the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+from systemml_tpu_torch.codegen.cplan import CELL_BINARY, CELL_UNARY, CNode
+from systemml_tpu_torch.codegen.memo import (MemoEntry, MemoTable,
+                                             build_consumers, select_plans)
+from systemml_tpu_torch.hops.builder import BlockHops
+from systemml_tpu_torch.hops.hop import Hop, postorder
+
+# minimum fused-op count for a plan to be worth a spoof operator
+MIN_FUSED_OPS = 2
+
+
+class SpoofCompiler:
+    def __init__(self):
+        # plan cache: structural key -> compiled callable (reference:
+        # SpoofCompiler.PLAN_CACHE, hops/codegen/SpoofCompiler.java:162)
+        self.plan_cache: Dict[Tuple, object] = {}
+
+    def compile_block(self, blk: BlockHops) -> int:
+        """Enumerate template matches, select by cost, apply winners;
+        returns #spoof operators created."""
+        roots = blk.roots()
+        materialized = {h.id for h in blk.writes.values()}
+        materialized |= {h.id for h in blk.sinks}
+        hop_by_id = {h.id: h for h in postorder(roots)}
+        memo = MemoTable([], build_consumers(roots), materialized)
+        memo.entries.extend(self._enumerate(blk, memo))
+        if not memo.entries:
+            return 0
+        chosen = select_plans(memo, None, hop_by_id)
+        for e in chosen:
+            self._apply(blk, e)
+        return len(chosen)
+
+    # ---- candidate enumeration ------------------------------------------
+
+    def _enumerate(self, blk: BlockHops, memo: MemoTable) -> List[MemoEntry]:
+        roots = blk.roots()
+        ext = memo.ext_consumed
+        entries: List[MemoEntry] = []
+        # multi-agg groups (several full aggregates over one shared source)
+        by_src: Dict[int, List[Hop]] = {}
+        for h in postorder(roots):
+            if h.op.startswith("ua(") and h.params.get("dir") == "all" and \
+                    h.params.get("aop") in ("sum", "min", "max"):
+                by_src.setdefault(h.inputs[0].id, []).append(h)
+        for _src_id, aggs in by_src.items():
+            if len(aggs) < 2:
+                continue
+            plan, leaves, nops, mm, cover = _extract_cell(
+                aggs[0].inputs[0], allow_one_mm=False)
+            if plan is not None and nops >= 1 and mm is None:
+                entries.append(MemoEntry(
+                    "multiagg", list(aggs), cover, plan, leaves, nops,
+                    {"aggs": [a.params["aop"] for a in aggs]}))
+        # per-root cell / row / outer candidates
+        for h in postorder(roots):
+            if h.op.startswith("ua(") and h.params.get("dir") == "all" \
+                    and h.params.get("aop") == "sum":
+                entries.extend(self._cands_agg_cell(h, ext))
+            elif h.op.startswith("ua(") and h.params.get("dir") == "row" \
+                    and h.params.get("aop") in ("sum", "min", "max"):
+                entries.extend(self._cands_row(h, ext))
+        return entries
+
+    def _cands_agg_cell(self, agg: Hop, ext) -> List[MemoEntry]:
+        src = agg.inputs[0]
+        out: List[MemoEntry] = []
+        plan, leaves, nops, mm, cover = _extract_cell(src, allow_one_mm=True)
+        base_cover = cover  # allow_one_mm=False cover for the trim pass
+        if plan is not None and nops >= MIN_FUSED_OPS and mm is not None:
+            # OuterProduct: one interior U %*% t(V) plus exactly one other
+            # matrix leaf (the X in sum(f(X, UV))); scalars ride along
+            u, vt = mm.inputs
+            v = vt.inputs[0]
+            real = [l for l in leaves if l != "UV"]
+            mat = [l for l in real if _hop_of(l).dt == "matrix"]
+            sca = [l for l in real if _hop_of(l).dt != "matrix"]
+            if len(mat) == 1:
+                oplan = _clone(plan)
+                _rename_leaf(oplan, _name_of(mat[0]), "X")
+                out.append(MemoEntry(
+                    "outer", [agg], cover | {mm.id}, oplan,
+                    [mat[0]] + sca, nops,
+                    {"mm": mm, "u": u, "v": v,
+                     "scalar_names": [_name_of(l) for l in sca]}))
+        if plan is not None and nops >= MIN_FUSED_OPS and mm is None:
+            out.append(MemoEntry("cell", [agg], cover, plan, leaves, nops,
+                                 {"agg": "sum"}))
+        if mm is not None:
+            # leaf variant: the product is a plain kernel input (wins when
+            # it is materialized for another consumer anyway)
+            plan2, leaves2, nops2, mm2, cover2 = _extract_cell(
+                src, allow_one_mm=False)
+            base_cover = cover2
+            if plan2 is not None and nops2 >= MIN_FUSED_OPS and mm2 is None:
+                out.append(MemoEntry("cell", [agg], cover2, plan2, leaves2,
+                                     nops2, {"agg": "sum"}))
+        out.extend(self._trimmed("cell", agg, src, ext, {"agg": "sum"},
+                                 base_cover))
+        return out
+
+    def _cands_row(self, agg: Hop, ext) -> List[MemoEntry]:
+        src = agg.inputs[0]
+        out: List[MemoEntry] = []
+        plan, leaves, nops, mm, cover = _extract_cell(src, allow_one_mm=False)
+        if plan is not None and nops >= MIN_FUSED_OPS and mm is None:
+            out.append(MemoEntry("row", [agg], cover, plan, leaves, nops,
+                                 {"row_agg": agg.params["aop"]}))
+        out.extend(self._trimmed("row", agg, src, ext,
+                                 {"row_agg": agg.params.get("aop")}, cover))
+        return out
+
+    def _trimmed(self, template: str, agg: Hop, src: Hop,
+                 ext, extra: dict, cover: Set[int]) -> List[MemoEntry]:
+        """Variant that stops at externally-consumed interior hops (they
+        materialize regardless, so the kernel reads them as inputs instead
+        of recomputing). Reference analog: the material-point partitioning
+        in PlanSelectionFuseCostBasedV2.getMaterializationPoints."""
+        if not cover:
+            return []
+        footprint = cover | {agg.id}
+        stop = {hid for hid in cover if ext(hid, footprint)}
+        if not stop:
+            return []
+        plan2, leaves2, nops2, mm2, cover2 = _extract_cell(
+            src, allow_one_mm=False, stop=stop)
+        if plan2 is None or nops2 < MIN_FUSED_OPS or mm2 is not None \
+                or cover2 == cover:
+            return []
+        e = MemoEntry(template, [agg], cover2, plan2, leaves2, nops2,
+                      dict(extra))
+        e.extra["trimmed"] = True
+        return [e]
+
+    # ---- applying selected plans ----------------------------------------
+
+    def _apply(self, blk: BlockHops, e: MemoEntry):
+        if e.template == "outer":
+            sp = Hop("spoof", [_hop_of(e.leaves[0])] +
+                     [_hop_of(l) for l in e.leaves[1:]] +
+                     [e.extra["u"], e.extra["v"]],
+                     {"template": "outer", "plan": e.plan,
+                      "scalar_names": e.extra["scalar_names"],
+                      "cost_ratio": e.cost_ratio()},
+                     dt="scalar")
+            _replace(blk, e.roots[0], sp)
+        elif e.template == "cell":
+            sp = Hop("spoof", [_hop_of(l) for l in e.leaves],
+                     {"template": "cell", "plan": e.plan, "agg": "sum",
+                      "leaf_names": [_name_of(l) for l in e.leaves],
+                      "cost_ratio": e.cost_ratio()},
+                     dt="scalar")
+            _replace(blk, e.roots[0], sp)
+        elif e.template == "row":
+            sp = Hop("spoof", [_hop_of(l) for l in e.leaves],
+                     {"template": "row", "plan": e.plan,
+                      "row_agg": e.extra["row_agg"],
+                      "leaf_names": [_name_of(l) for l in e.leaves],
+                      "cost_ratio": e.cost_ratio()},
+                     dt="matrix")
+            _replace(blk, e.roots[0], sp)
+        elif e.template == "multiagg":
+            sp = Hop("spoof", [_hop_of(l) for l in e.leaves],
+                     {"template": "multiagg", "plan": e.plan,
+                      "aggs": e.extra["aggs"],
+                      "leaf_names": [_name_of(l) for l in e.leaves],
+                      "cost_ratio": e.cost_ratio()},
+                     dt="list")
+            for i, a in enumerate(e.roots):
+                pick = Hop("pick", [sp], {"index": i}, dt="scalar")
+                _replace(blk, a, pick)
+        else:
+            raise ValueError(f"unknown template {e.template!r}")
+
+
+# --------------------------------------------------------------------------
+# cplan extraction
+# --------------------------------------------------------------------------
+
+def _extract_cell(h: Hop, allow_one_mm: bool,
+                  stop: Optional[Set[int]] = None
+                  ) -> Tuple[Optional[CNode], List, int, Optional[Hop],
+                             Set[int]]:
+    """Extract a maximal elementwise CPlan rooted at `h`. Leaves are
+    non-fusible hops (tread, lit stays inline, matmult when allowed, any
+    hop id in `stop`). Returns (plan, leaves, n_fused_ops, mm_hop|None,
+    covered interior hop ids)."""
+    leaves: List = []
+    cover: Set[int] = set()
+    state = {"nops": 0, "mm": None, "ok": True}
+    stop = stop or set()
+
+    def visit(x: Hop) -> Optional[CNode]:
+        if not state["ok"]:
+            return None
+        if x.op == "lit" and not isinstance(x.value, str):
+            return CNode("lit", value=float(x.value)
+                         if not isinstance(x.value, bool) else float(x.value))
+        if (x.op in CELL_BINARY or x.op in CELL_UNARY) and x.id not in stop:
+            kids = [visit(c) for c in x.inputs]
+            if any(k is None for k in kids):
+                state["ok"] = False
+                return None
+            state["nops"] += 1
+            cover.add(x.id)
+            return CNode(x.op, kids)
+        if allow_one_mm and x.op == "ba+*" and state["mm"] is None and \
+                x.inputs[1].op == "reorg(t)" and x.id not in stop:
+            state["mm"] = x
+            leaves.append("UV")
+            return CNode("in", name="UV")
+        # leaf: any other hop (tread, call:, ba+*, ...) enters as an input
+        name = f"i{len(leaves)}"
+        leaves.append((name, x))
+        return CNode("in", name=name)
+
+    plan = visit(h)
+    if not state["ok"] or plan is None:
+        return None, [], 0, None, set()
+    return plan, leaves, state["nops"], state["mm"], cover
+
+
+def _hop_of(leaf) -> Hop:
+    return leaf[1]
+
+
+def _name_of(leaf) -> str:
+    return leaf[0]
+
+
+def _rename_leaf(plan: CNode, old: str, new: str):
+    if plan.op == "in" and plan.name == old:
+        plan.name = new
+    for c in plan.inputs:
+        _rename_leaf(c, old, new)
+
+
+def _clone(plan: CNode) -> CNode:
+    return CNode(plan.op, [_clone(c) for c in plan.inputs],
+                 value=plan.value, name=plan.name)
+
+
+def _replace(blk: BlockHops, old: Hop, new: Hop):
+    for h in postorder(blk.roots()):
+        if old in h.inputs:
+            h.inputs = [new if c is old else c for c in h.inputs]
+    blk.writes = {k: (new if v is old else v) for k, v in blk.writes.items()}
+    blk.sinks = [new if s is old else s for s in blk.sinks]
+
+
+_GLOBAL = SpoofCompiler()
+
+
+def compile_spoof(blk: BlockHops) -> int:
+    """Entry point called from the compile pipeline at optlevel >= 3, after
+    program-wide size propagation so plan selection sees concrete dims
+    (reference: DMLTranslator.rewriteHopsDAG codegen step,
+    parser/DMLTranslator.java:287-295; selection during recompile has dims
+    the same way)."""
+    return _GLOBAL.compile_block(blk)
+
+
+
+
+# --------------------------------------------------------------------------
+# spoof execution (reference: SpoofCPInstruction dispatching the janino-
+# compiled operator). The JAX package dispatches through its kernel
+# backend (systemml_tpu/codegen/compiler.py:445-502); the port has no
+# backend yet (ROADMAP queue 1), so the cell and row templates go straight
+# to their kernel wrappers, which launch the hand-written kernel for a
+# CUDA tensor and run the plain version for a CPU tensor.
+# --------------------------------------------------------------------------
+
+_WAITING_TEMPLATES = {
+    "multiagg": "the multi-aggregate template waits for its kernel, K3 "
+                "(ROADMAP queue 2)",
+    "outer": "the outer-product template waits for its kernel, K5 "
+             "(ROADMAP queue 2)",
+}
+
+
+def execute_spoof(h: Hop, arg_values: List) -> object:
+    from systemml_tpu_torch.codegen import kernels
+
+    t = h.params["template"]
+    if t in _WAITING_TEMPLATES:
+        raise NotImplementedError(_WAITING_TEMPLATES[t])
+    plan: CNode = h.params["plan"]
+    names = h.params["leaf_names"]
+    env = dict(zip(names, arg_values))
+    if t == "cell":
+        return kernels.cell_kernel(plan, names, h.params.get("agg"), env)
+    if t == "row":
+        return kernels.row_kernel(plan, names, h.params["row_agg"], env)
+    raise ValueError(f"unknown spoof template {t!r}")
+
+
+def program_plans(program) -> List[Tuple[str, CNode]]:
+    """(template, plan) of every cell and row spoof hop of a compiled
+    program, predicates included, each distinct plan once: the kernels
+    that build.build_plans compiles before the program runs."""
+    from systemml_tpu_torch.runtime.program import iter_spoof_hops
+
+    seen: Dict[Tuple, Tuple[str, CNode]] = {}
+    for h in iter_spoof_hops(program):
+        t = h.params["template"]
+        if t in ("cell", "row"):
+            seen.setdefault((t, h.params["plan"].key()),
+                            (t, h.params["plan"]))
+    return list(seen.values())

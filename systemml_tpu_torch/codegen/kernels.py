@@ -2,15 +2,20 @@
 
 Port of the kernels of systemml_tpu/codegen/kernels.py that the port's
 paths run. So far: mmchain (that file's `mmchain_kernel`, line 347), the
-kernel of the LinearRegCG loop body. The cell, multi-aggregate, row and
-outer-product kernels wait (ROADMAP, spoof codegen).
+kernel of the LinearRegCG loop body, and the spoof cell and row templates
+(`cell_kernel`, line 124, and `row_kernel`, line 199), the fused plans of
+optlevel 3. The multi-aggregate and outer-product kernels wait (ROADMAP
+queue 2, K3 and K5).
 
 Every kernel here has:
 
 - a wrapper that launches it on a CUDA tensor, after checking device,
   dtype, shape and layout, and raises on what the kernel does not
   take; on a CPU tensor the wrapper runs the plain version instead, and
-  only because the tensor lies on the CPU;
+  only because the tensor lies on the CPU (the spoof wrappers also run
+  it, on any device, for a leaf layout that the JAX package's kernel
+  refuses and its dispatch sends to its jnp arm, counting
+  spoof_plain_by_layout);
 - a plain PyTorch version of the same function (`*_plain`), which the
   CPU tests use and chip_smoke.py compares the kernel with;
 - a launch counter, `<wrapper>.launches`, a plain integer that grows by
@@ -20,7 +25,7 @@ Every kernel here has:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -182,3 +187,277 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
 
 
 mmchain_kernel.launches = 0
+
+
+# --------------------------------------------------------------------------
+# spoof cell and row templates: one fused plan over row tiles
+# (csrc/spoof.cuh instantiated per plan; reference: SpoofCellwise,
+# SpoofRowwise)
+# --------------------------------------------------------------------------
+
+SPOOF_DTYPES = {torch.float32: 0, torch.float64: 1}
+SPOOF_AGGS = {"sum": 0, "min": 1, "max": 2}
+SPOOF_MAX_LEAVES = 64      # spoof::kMaxLeaves
+SPOOF_THREADS = 256        # spoof::kThreads
+SPOOF_BLOCKS_PER_SM = 8    # grid-stride grids hold at most this many
+
+
+def _matrices(names: Sequence[str], env: Dict[str, object]):
+    """The plan's matrix leaves (2-D tensors), in the order of `names`;
+    the first is the main leaf, as in the JAX package."""
+    return [n for n in names
+            if isinstance(env[n], torch.Tensor) and env[n].ndim == 2]
+
+
+def spoof_layout_ok(names: Sequence[str], env: Dict[str, object]) -> bool:
+    """Whether every matrix leaf has a layout the kernels take, as the JAX
+    package's `_leaf_layout` (systemml_tpu/codegen/kernels.py:88-116)
+    decides it: with the main leaf (m, n), each matrix leaf is (m, n),
+    (m, 1), (1, n) or (1, 1). Another shape (Kmeans' (m, 1) main leaf
+    beside an (m, k) leaf) takes the plain arm there and here."""
+    mats = _matrices(names, env)
+    m, n = env[mats[0]].shape
+    for nm in mats:
+        am, an = env[nm].shape
+        if not ((am == m and an in (n, 1)) or (am == 1 and an in (1, n))):
+            return False
+    return True
+
+
+def _plain_env(names: Sequence[str], env: Dict[str, object], main):
+    """Every leaf as a tensor of the main leaf's dtype on its device,
+    which is what the kernel reads."""
+    out = {}
+    for nm in names:
+        v = env[nm]
+        if isinstance(v, torch.Tensor):
+            out[nm] = v.to(main.dtype)
+        else:
+            out[nm] = torch.tensor(float(v), dtype=main.dtype,
+                                   device=main.device)
+    return out
+
+
+def _plain_value(plan, names, env):
+    """The plan's value, in the main leaf's dtype. Its shape is the
+    broadcast of the leaves' shapes: the main leaf's (m, n) when the
+    layout is one the kernels take (the main leaf is one of the leaves).
+    A plan without a matrix leaf is evaluated on its scalars, as the JAX
+    package does when it has no matrix to tile (`has_matrix`)."""
+    from systemml_tpu_torch.codegen.cplan import emit
+
+    mats = _matrices(names, env)
+    if not mats:
+        return torch.as_tensor(emit(plan, env))
+    main = env[mats[0]]
+    return emit(plan, _plain_env(names, env, main)).to(main.dtype)
+
+
+def cell_plain(plan, names: Sequence[str], agg: Optional[str],
+               env: Dict[str, object]):
+    """The plain version of the cell template: the plan evaluated by torch
+    ops, then its full sum (agg "sum", a 0-d tensor) or its values (agg
+    None, (m, n) for the layouts the kernel takes)."""
+    val = _plain_value(plan, names, env)
+    return torch.sum(val) if agg == "sum" else val.contiguous()
+
+
+def row_plain(plan, names: Sequence[str], row_agg: str,
+              env: Dict[str, object]):
+    """The plain version of the row template: the plan evaluated by torch
+    ops, each row reduced under sum, min or max, as (m, 1).
+    min and max propagate NaN, as jnp.min/jnp.max."""
+    val = _plain_value(plan, names, env)
+    if val.ndim < 2:
+        val = val.reshape(1, -1)
+    _check_row_width(row_agg, val.shape[1])
+    if row_agg == "sum":
+        return torch.sum(val, dim=1, keepdim=True)
+    if row_agg in ("min", "max"):
+        red = torch.amin if row_agg == "min" else torch.amax
+        return red(val, dim=1, keepdim=True)
+    raise ValueError(f"unknown row aggregate {row_agg!r}")
+
+
+def _check_row_width(row_agg: str, n: int) -> None:
+    """min and max of a row of no cells have no value, as jnp.min/jnp.max
+    of an empty axis; a row sum of no cells is 0."""
+    if n == 0 and row_agg in ("min", "max"):
+        raise ValueError(f"row {row_agg} of rows with no columns")
+
+
+def _count_plain_by_layout() -> None:
+    from systemml_tpu_torch.utils import stats as stats_mod
+
+    st = stats_mod.current()
+    if st is not None:
+        st.count_estim("spoof_plain_by_layout")
+
+
+def _spoof_leaves(order, env, main):
+    """Per leaf, in `order` (the plan's input names: the order of the
+    generated source's LEAF(i)), the ctypes arrays of pointers (None for a
+    host number), row strides, column strides and host numbers, and the
+    tensors the pointers point into. A tensor of another dtype than the
+    main leaf's is cast on the device (a 0-d sum among them: no host
+    read)."""
+    n = len(order)
+    ptrs, rs, cs, scal = ((ctypes.c_void_p * n)(), (ctypes.c_longlong * n)(),
+                          (ctypes.c_longlong * n)(), (ctypes.c_double * n)())
+    keep = []
+    for i, nm in enumerate(order):
+        v = env[nm]
+        if not isinstance(v, torch.Tensor):
+            scal[i] = float(v)
+            continue
+        if v.device != main.device:
+            raise ValueError(f"spoof leaf {nm!r} is on {v.device}, the "
+                             f"main leaf on {main.device}")
+        if v.dtype != main.dtype:
+            v = v.to(main.dtype)
+        if v.ndim == 2:
+            rs[i] = v.stride(0) if v.shape[0] > 1 else 0
+            cs[i] = v.stride(1) if v.shape[1] > 1 else 0
+        elif v.numel() != 1:
+            raise ValueError(f"spoof leaf {nm!r} has shape {tuple(v.shape)}")
+        keep.append(v)
+        ptrs[i] = v.data_ptr()
+    return (ptrs, rs, cs, scal), keep
+
+
+_ARGTYPES = {
+    # dtype, agg, ptrs, rs, cs, scal, n_leaves, m, n, out, partial, grid,
+    # stream
+    "cell": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int, ctypes.c_void_p]),
+    # dtype, row_agg, ptrs, rs, cs, scal, n_leaves, m, n, out, grid, stream
+    "row": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_void_p]),
+}
+_sm_count: Dict[int, int] = {}
+
+
+def _launcher(plan, template: str):
+    """(extern "C" launcher, leaf order) of `plan`'s library, built at
+    first use (codegen/build.py), kept on the plan object: a loop launches
+    the same plan many times, and generating and hashing its source again
+    would cost more host time than the kernel takes."""
+    cache = plan.__dict__.setdefault("_spoof_launchers", {})
+    hit = cache.get(template)
+    if hit is None:
+        order = plan.input_names()
+        if len(order) > SPOOF_MAX_LEAVES:
+            raise ValueError(f"spoof kernel takes at most {SPOOF_MAX_LEAVES} "
+                             f"leaves; the plan has {len(order)}")
+        fn = getattr(build.load_plan(template, plan),
+                     f"smtorch_spoof_{template}")
+        fn.argtypes = _ARGTYPES[template]
+        fn.restype = ctypes.c_int
+        hit = cache[template] = (fn, order)
+    return hit
+
+
+def _spoof_grid(dev: torch.device, work: int) -> int:
+    sms = _sm_count.get(dev.index)
+    if sms is None:
+        sms = _sm_count[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return max(1, min(-(-work // SPOOF_THREADS), SPOOF_BLOCKS_PER_SM * sms))
+
+
+def _kernel_main(names: Sequence[str], env: Dict[str, object], what: str):
+    """The main leaf when a kernel is to run this call, else None and the
+    caller runs its plain version: for a plan without a matrix leaf, for
+    a leaf layout the JAX package's kernel refuses (on any device; counted
+    in spoof_plain_by_layout) and for a CPU main leaf. Raises on a CUDA
+    main leaf the kernels do not take. An empty main leaf launches too:
+    the kernels' loops then run no iteration (a sum of nothing is 0)."""
+    mats = _matrices(names, env)
+    if not mats:
+        return None
+    if not spoof_layout_ok(names, env):
+        _count_plain_by_layout()
+        return None
+    main = env[mats[0]]
+    if main.device.type == "cpu":
+        return None
+    if main.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {main.device}")
+    if main.dtype not in SPOOF_DTYPES:
+        raise TypeError(f"{what} takes fp32 and fp64 main leaves; got "
+                        f"{main.dtype}")
+    return main
+
+
+def cell_kernel(plan, names: Sequence[str], agg: Optional[str],
+                env: Dict[str, object]):
+    """The cell template (systemml_tpu/codegen/kernels.py:124): the plan
+    evaluated at every cell of the main leaf's (m, n), written out as
+    (m, n) (agg None) or summed (agg "sum", a 0-d tensor), in the main
+    leaf's dtype.
+
+    `env` maps each name of `names` to a tensor (2-D, or a 0-d/one-element
+    scalar) or a Python number. A leaf layout that the JAX package's
+    kernel refuses takes the plain arm, on any device, and counts
+    `spoof_plain_by_layout`. Otherwise, on a CUDA main leaf it launches
+    the plan's kernel (csrc/spoof.cuh), or raises on what the kernel does
+    not take; on a CPU main leaf it runs cell_plain. A plan with no matrix
+    leaf runs on its scalars."""
+    if agg not in (None, "sum"):
+        raise ValueError(f"unknown cell aggregate {agg!r}")
+    main = _kernel_main(names, env, "cell_kernel")
+    if main is None:
+        return cell_plain(plan, names, agg, env)
+    fn, order = _launcher(plan, "cell")
+    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, main)
+    m, n = main.shape
+    with torch.cuda.device(main.device):
+        grid = _spoof_grid(main.device, m * n)
+        if agg is None:
+            out = torch.empty((m, n), dtype=main.dtype, device=main.device)
+            partial = None
+        else:
+            out = torch.empty((), dtype=main.dtype, device=main.device)
+            partial = torch.empty(grid, dtype=torch.float64,
+                                  device=main.device)
+        err = fn(SPOOF_DTYPES[main.dtype], 0 if agg is None else 1, ptrs, rs,
+                 cs, scal, len(order), m, n, out.data_ptr(),
+                 None if partial is None else partial.data_ptr(), grid,
+                 torch.cuda.current_stream(main.device).cuda_stream)
+    _check(err, "spoof cell kernel launch")
+    del keep
+    cell_kernel.launches += 1
+    return out
+
+
+def row_kernel(plan, names: Sequence[str], row_agg: str,
+               env: Dict[str, object]):
+    """The row template (systemml_tpu/codegen/kernels.py:199): the plan
+    evaluated over the main leaf's (m, n), then each row reduced under
+    `row_agg` ("sum", "min" or "max"), giving (m, 1) in the main leaf's
+    dtype. Dispatch as cell_kernel's."""
+    if row_agg not in SPOOF_AGGS:
+        raise ValueError(f"unknown row aggregate {row_agg!r}")
+    main = _kernel_main(names, env, "row_kernel")
+    if main is None:
+        return row_plain(plan, names, row_agg, env)
+    m, n = main.shape
+    _check_row_width(row_agg, n)
+    fn, order = _launcher(plan, "row")
+    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, main)
+    with torch.cuda.device(main.device):
+        grid = _spoof_grid(main.device, m if n <= 32 else 32 * m)
+        out = torch.empty((m, 1), dtype=main.dtype, device=main.device)
+        err = fn(SPOOF_DTYPES[main.dtype], SPOOF_AGGS[row_agg], ptrs, rs, cs,
+                 scal, len(order), m, n, out.data_ptr(), grid,
+                 torch.cuda.current_stream(main.device).cuda_stream)
+    _check(err, "spoof row kernel launch")
+    del keep
+    row_kernel.launches += 1
+    return out
+
+
+cell_kernel.launches = 0
+row_kernel.launches = 0

@@ -9,9 +9,10 @@ NotImplementedError that names its ROADMAP item:
 - block and loop-region analysis for whole-block / whole-loop compilation
   (analyze_block, plan_loop_regions; fused loop regions, CUDA graphs),
 - MESH dispatch and collectives (distributed and elastic),
-- spoof operators (spoof codegen), quaternary ops and sparse operands
-  (sparse plane), attention and the DNN builtins (DNN and models),
-  compressed inputs (compressed LA),
+- quaternary ops and sparse operands (sparse plane), attention and the
+  DNN builtins (DNN and models), compressed inputs (compressed LA),
+- the multi-aggregate and outer-product spoof templates (queue 2, K3 and
+  K5; codegen/compiler.execute_spoof raises for them),
 - every builtin outside _BUILTINS (see _WAITING_BUILTINS).
 """
 
@@ -160,7 +161,6 @@ def _waits(what: str, item: str) -> NotImplementedError:
 
 _WAIT_OPS = (
     ("q(", "weighted quaternary ops wait", "sparse plane"),
-    ("spoof", "spoof operators wait", "spoof codegen"),
     ("attention", "attention waits", "DNN and models"),
     ("cum(", "cumulative aggregates wait", "algorithm breadth"),
 )
@@ -339,6 +339,11 @@ class Evaluator:
                     return v
                 raise DMLValidationError("function returns a single value")
             return v[i]
+        if op == "spoof":
+            from systemml_tpu_torch.codegen.compiler import execute_spoof
+
+            args = [self.eval(c) for c in h.inputs]
+            return execute_spoof(h, args)
         if op == "fcall":
             args = [self.eval(c) for c in h.inputs]
             return self.call_function(
@@ -575,6 +580,17 @@ def _bi_log(ev, pos, named, h):
     return cellwise.log_base(cellwise.as_tensor(pos[0]), float(_scalar(pos[1])))
 
 
+def _bi_rexpand(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    direction = str(named.get("dir", "cols")).lower()
+    return param.rexpand(named.get("target", pos[0] if pos else None),
+                         int(_scalar(named["max"])),
+                         "cols" if direction.startswith("c") else "rows",
+                         bool(_scalar(named.get("cast", True))),
+                         bool(_scalar(named.get("ignore", True))))
+
+
 def _bi_nnz(ev, pos, named, h):
     x = _mat(pos[0])
     return torch.count_nonzero(x).to(x.dtype)
@@ -591,7 +607,7 @@ _BUILTINS: Dict[str, Callable] = {
     "ifelse": _bi_ifelse, "log": _bi_log,
     "exists": lambda ev, pos, named, h: pos[0] is not None,
     "time": lambda ev, pos, named, h: int(time.time_ns()),
-    "nnz": _bi_nnz,
+    "nnz": _bi_nnz, "rexpand": _bi_rexpand,
     "sumSq": lambda ev, pos, named, h: __import__(
         "systemml_tpu_torch.ops.agg", fromlist=["agg"]).agg(
         "sumsq", _mat(pos[0])),
@@ -611,7 +627,7 @@ _WAITING_BUILTINS: Dict[str, str] = {
     **{n: _BREADTH for n in (
         "rand", "Rand", "seq", "sample", "solve", "inv", "inverse",
         "cholesky", "det", "trace", "qr", "lu", "eigen", "svd", "map",
-        "table", "removeEmpty", "replace", "rexpand", "outer", "order",
+        "table", "removeEmpty", "replace", "outer", "order",
         "quantile", "median", "interQuartileMean", "iqm", "colMedians",
         "colIQMs", "moment", "centralMoment", "cov", "cdf", "icdf",
         "invcdf", "pnorm", "qnorm", "pt", "qt", "pf", "qf", "pchisq",

@@ -7,17 +7,21 @@ configured device. `compile_program` keeps the JAX package's validate,
 HOP build, superblock merge, hoist, liveness, IPA size propagation and
 dynamic-rewrite stages.
 
+At optlevel >= 3 the spoof fusion pass (codegen/compiler.py) runs per
+basic block after the dynamic rewrites, and on loop and if predicates;
+on the card the program's fused plans are then built into kernels
+(codegen/build.py) before it runs.
+
 What waits: the fused whole-block compile and the fused loop regions
 (ROADMAP queue 1, fused loop regions: CUDA graphs here), the
 buffer pool, layout propagation, the exec-type planner and MESH mode,
-spoof codegen at optlevel >= 3, automatic compression (compressed LA),
-the lifetime analysis, and parfor. A config that asks for one of
-them outright (optlevel >= 3, exec_mode MESH, cla "true"), or sets any
-other field the port does not read (utils/config.check_ported), raises
-NotImplementedError. `codegen_enabled` and cla "auto" name optimizations
-whose absence leaves the results as they are: the blocks run eagerly,
-as they do in the JAX package when it does not fuse them, and nothing is
-compressed.
+automatic compression (compressed LA), the lifetime analysis, and
+parfor. A config that asks for one of them outright (exec_mode MESH, cla
+"true"), or sets any other field the port does not read
+(utils/config.check_ported), raises NotImplementedError.
+`codegen_enabled` and cla "auto" name optimizations whose absence leaves
+the results as they are: the blocks run eagerly, as they do in the JAX
+package when it does not fuse them, and nothing is compressed.
 """
 
 from __future__ import annotations
@@ -409,6 +413,10 @@ class ProgramCompiler:
         tmp.writes = {CompiledPredicate._PRED: hop}
         tmp.reads = set(reads)
         rewrite_block(tmp)
+        if get_config().optlevel >= 3:
+            from systemml_tpu_torch.codegen.compiler import compile_spoof
+
+            compile_spoof(tmp)  # predicate dims unknown: structural match
         return CompiledPredicate(tmp.writes[CompiledPredicate._PRED],
                                  tmp.reads, self.program)
 
@@ -551,10 +559,6 @@ def _merge_two_blocks(a: "BasicBlock", b: "BasicBlock") -> "BasicBlock":
 
 def _check_config_supported(cfg) -> None:
     check_ported(cfg)
-    if cfg.optlevel >= 3:
-        raise NotImplementedError(
-            "optlevel >= 3 (spoof fusion codegen) waits for ROADMAP queue "
-            "1, spoof codegen with kernels K2 and K3")
     if cfg.exec_mode == "MESH":
         raise NotImplementedError(
             "exec_mode MESH waits for ROADMAP queue 1, distributed and "
@@ -567,13 +571,13 @@ def _check_config_supported(cfg) -> None:
 def compile_program(ast_prog: A.DMLProgram,
                     clargs: Optional[Dict[str, Any]] = None,
                     outputs: Optional[Sequence[str]] = None,
-                    input_names: Optional[Sequence[str]] = None
-                    ) -> Program:
+                    input_names: Optional[Sequence[str]] = None) -> Program:
     """outputs = the caller's requested result variables (MLContext); they
     seed the exit-live set of the rmvar liveness pass. None keeps every
     top-level write alive to program end. input_names = in-memory
     bindings the caller will supply at execute time (they count as
-    defined for the validate pass)."""
+    defined for the validate pass). At optlevel 3 on the card the
+    program's fused plans are built before it returns."""
     from systemml_tpu_torch.obs import trace as obs
     from systemml_tpu_torch.utils import stats as stats_mod
 
@@ -631,7 +635,35 @@ def compile_program(ast_prog: A.DMLProgram,
             dsp.set(applied=total_dyn, rounds=rounds)
         if total_dyn:
             prog.stats.count_estim("dynamic_rewrites", total_dyn)
+    if cfg.optlevel >= 3:
+        _spoof_codegen(prog, cfg)
     return prog
+
+
+def _spoof_codegen(prog: "Program", cfg) -> None:
+    """Operator-fusion codegen with dims in hand: enumerate template
+    matches into the memo table and select by cost (reference:
+    SpoofCompiler.generateCode + PlanSelectionFuseCostBasedV2). Per-block
+    isolation, as in the JAX package: a selection fault in one block
+    leaves that block unfused and is counted in spoof_compile_errors, not
+    raised. On the card, the kernels of every selected cell and row plan
+    are then built, all nvcc runs together, before the program runs."""
+    from systemml_tpu_torch.codegen import build
+    from systemml_tpu_torch.codegen.compiler import (compile_spoof,
+                                                     program_plans)
+    from systemml_tpu_torch.obs import trace as obs
+    from systemml_tpu_torch.utils import stats as stats_mod
+
+    with stats_mod.stats_scope(prog.stats), \
+            obs.span("spoof_codegen", obs.CAT_COMPILE):
+        for bb in iter_basic_blocks(prog):
+            try:
+                compile_spoof(bb.hops)
+            except Exception:  # except-ok: per-block spoof isolation; counted, not fatal
+                prog.stats.count_estim("spoof_compile_errors", 1)
+    if cfg.device != "cpu":
+        with obs.span("spoof_build", obs.CAT_COMPILE) as sp:
+            sp.set(built=len(build.build_plans(program_plans(prog))))
 
 
 def iter_basic_blocks(program: "Program"):
@@ -650,3 +682,40 @@ def iter_basic_blocks(program: "Program"):
     yield from walk(program.blocks)
     for fb in program.functions.values():
         yield from walk(fb.blocks)
+
+
+def _predicates(block: ProgramBlock):
+    if isinstance(block, IfBlock):
+        return [block.pred]
+    if isinstance(block, WhileBlock):
+        return [block.pred]
+    if isinstance(block, ForBlock):
+        return [p for p in (block.from_h, block.to_h, block.incr_h)
+                if p is not None]
+    return []
+
+
+def iter_spoof_hops(program: "Program"):
+    """Every spoof hop of the program: in its basic blocks, including
+    control-flow and function bodies, and in its loop and if predicates."""
+    from systemml_tpu_torch.hops.hop import postorder
+
+    def walk(blocks):
+        for b in blocks:
+            for p in _predicates(b):
+                yield p.block
+            if isinstance(b, BasicBlock):
+                yield b
+            elif isinstance(b, IfBlock):
+                yield from walk(b.if_body)
+                yield from walk(b.else_body)
+            elif isinstance(b, (WhileBlock, ForBlock)):
+                yield from walk(b.body)
+
+    bodies = [program.blocks] + [fb.blocks
+                                 for fb in program.functions.values()]
+    for blocks in bodies:
+        for bb in walk(blocks):
+            for h in postorder(bb.hops.roots()):
+                if h.op == "spoof":
+                    yield h

@@ -3,9 +3,9 @@
 Port of systemml_tpu/utils/stats.py, trimmed to the counters that the
 port's eager runtime touches: run time, executed blocks, function calls,
 per-op heavy hitters, and the optimizer/rewrite event families that the
-copied HOP passes (hops/rewrite.py, hoist.py, ipa.py) report. Every
-family lives in a run-scoped ``MetricsRegistry`` (obs/metrics.py), as in
-the JAX package.
+copied HOP passes (hops/rewrite.py, hoist.py, ipa.py) and the spoof
+fusion pass (codegen/) report. Every family lives in a run-scoped
+``MetricsRegistry`` (obs/metrics.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +41,13 @@ def stats_scope(st: Optional["Statistics"]):
 # the estim_counts label groups: prefix -> display group
 ESTIM_GROUPS = (
     ("rw_", "rewrites"),          # per-rule rewrite fires
+    # spoof fusion (optlevel >= 3): spoof_candidates, spoof_selected,
+    # spoof_nofuse_by_cost and spoof_structural_fallback from plan
+    # selection (codegen/memo.py); spoof_compile_errors, blocks whose
+    # selection failed and run unfused (runtime/program.py);
+    # spoof_plain_by_layout, kernel wrapper calls whose leaf layout the
+    # kernels refuse, which run the plain version (codegen/kernels.py)
+    ("spoof_", "spoof"),
 )
 
 
@@ -121,7 +128,7 @@ class Statistics:
             for i, (op, t) in enumerate(hh, 1):
                 lines.append(f"  {i}  {op}\t{t:.3f}\t{self.op_count[op]}")
         g = self.estim_counts.grouped()
-        rw, opt = g["rewrites"], g[""]
+        rw, spoof, opt = g["rewrites"], g["spoof"], g[""]
         if rw:
             top = sorted(rw.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
             suffix = ", ..." if len(rw) > len(top) else ""
@@ -129,6 +136,9 @@ class Statistics:
                 f"Rewrites fired:\t\t{sum(rw.values())} "
                 f"({len(rw)} rules; top: "
                 + ", ".join(f"{k}={v}" for k, v in top) + suffix + ")")
+        if spoof:
+            lines.append("Spoof fusion: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(spoof.items())))
         if opt:
             lines.append("Optimizer decisions: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(opt.items())))

@@ -1,5 +1,6 @@
-"""The hand-written mmchain kernel (systemml_tpu_torch/codegen/csrc/
-mmchain.cu) on the card, against its plain version.
+"""The hand-written kernels on the card, against their plain versions:
+mmchain (systemml_tpu_torch/codegen/csrc/mmchain.cu) and the spoof cell
+and row templates (csrc/spoof.cuh, one generated source per plan).
 
 Marked `gpu`: without a CUDA card every test skips, with the reason,
 from the `cuda` fixture (decided at run time, never at import, so every
@@ -9,15 +10,21 @@ test worker collects the same tests). On the card:
 
 Bar: normwise relative error <= 1e-5 against the plain version run in
 fp64 on the card from the same fp32 inputs (fp32 sums over 1,037 rows in
-another order), and bit-identical output from two launches.
+another order; the spoof kernels' fp32 exp/pow/tan are within a few ulp),
+<= 1e-12 for the spoof kernels in fp64, NaN at the same places, and
+bit-identical output from two launches.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from systemml_tpu_torch.codegen import kernels
+from systemml_tpu_torch.codegen.cplan import CNode
 from systemml_tpu_torch.ops import mult
+from systemml_tpu_torch.utils import stats
 
 pytestmark = pytest.mark.gpu
 
@@ -110,3 +117,185 @@ def test_dispatch_launches_on_views(cuda):
         err = torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref)
         assert float(err) <= 1e-5
     assert kernels.mmchain_kernel.launches == before + 3
+
+
+
+# ---- spoof cell and row templates ----------------------------------------
+
+def _n(op, *kids):
+    return CNode(op, list(kids))
+
+
+def _in(name):
+    return CNode("in", name=name)
+
+
+def _lit(v):
+    return CNode("lit", value=v)
+
+
+# every layout: i0 (m, n), i1 (1, n), i2 (m, 1), i3 (1, 1), s a Python
+# number, t a 0-d tensor; min, max, sigmoid, pow, a comparison (of exact
+# inputs: fp32 and fp64 agree on it) and x^2
+SPOOF_PLAN = _n(
+    "b(+)",
+    _n("b(*)", _n("b(min)", _in("i0"), _in("i1")),
+       _n("b(-)", _in("s"), _in("i2"))),
+    _n("b(+)", _n("b(^)", _n("b(max)", _in("i0"), _in("t")), _lit(2.0)),
+       _n("b(+)", _n("b(*)", _n("u(sigmoid)", _in("i3")),
+                     _n("b(>)", _in("i0"), _n("u(abs)", _in("i2")))),
+          _n("b(^)", _n("u(abs)", _in("i2")), _lit(0.5)))))
+SPOOF_NAMES = ["i0", "i1", "s", "i2", "t", "i3"]
+
+
+def _spoof_env(dev, dtype, m, n, seed=7, nan=False):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev, dtype)
+    env = {"i0": t(rng.standard_normal((m, n))),
+           "i1": t(rng.standard_normal((1, n))),
+           "i2": t(rng.standard_normal((m, 1))),
+           "i3": t(rng.standard_normal((1, 1))),
+           "s": 0.25, "t": torch.tensor(-0.5, device=dev,
+                                        dtype=torch.float64)}
+    if nan:   # every 7th row NaN (through min and max), the rest finite
+        env["i0"][::7, 0] = float("nan")
+    return env
+
+
+def _spoof_check(out, again, ref, dtype):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(out.nan_to_num(0.0), again.nan_to_num(0.0))
+    ok = ~ref.isnan()
+    err = (torch.linalg.norm(out.double()[ok] - ref[ok])
+           / torch.linalg.norm(ref[ok]))
+    assert float(err) <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def _double(env):
+    return {k: (v.double() if isinstance(v, torch.Tensor) else v)
+            for k, v in env.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("agg", [None, "sum"])
+@pytest.mark.parametrize("m,n", [(1037, 7), (100_003, 1), (33, 300)])
+def test_spoof_cell_matches_plain(cuda, dtype, agg, m, n):
+    env = _spoof_env(cuda, dtype, m, n)
+    before = kernels.cell_kernel.launches
+    out = kernels.cell_kernel(SPOOF_PLAN, SPOOF_NAMES, agg, env)
+    again = kernels.cell_kernel(SPOOF_PLAN, SPOOF_NAMES, agg, env)
+    assert kernels.cell_kernel.launches == before + 2
+    ref = kernels.cell_plain(SPOOF_PLAN, SPOOF_NAMES, agg, _double(env))
+    _spoof_check(out, again, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("row_agg", ["sum", "min", "max"])
+@pytest.mark.parametrize("m,n", [(1037, 5), (515, 32), (300, 33),
+                                 (64, 1000)])
+def test_spoof_row_matches_plain(cuda, dtype, row_agg, m, n):
+    """One thread per row for n <= 32, one warp per row above; NaN in the
+    leaves of min and max."""
+    env = _spoof_env(cuda, dtype, m, n, nan=True)
+    before = kernels.row_kernel.launches
+    out = kernels.row_kernel(SPOOF_PLAN, SPOOF_NAMES, row_agg, env)
+    again = kernels.row_kernel(SPOOF_PLAN, SPOOF_NAMES, row_agg, env)
+    assert kernels.row_kernel.launches == before + 2
+    ref = kernels.row_plain(SPOOF_PLAN, SPOOF_NAMES, row_agg, _double(env))
+    _spoof_check(out, again, ref, dtype)
+
+
+@pytest.mark.parametrize("m,n", [(0, 7), (0, 1), (5, 0)])
+def test_spoof_empty_main_leaf_launches(cuda, m, n):
+    """An empty main leaf launches both templates (their loops run no
+    iteration): cell gives an empty (m, n) or a sum of 0, a row sum of no
+    cells 0; a row min or max of no cells raises, as the plain version."""
+    env = _spoof_env(cuda, torch.float32, m, n)
+    before = (kernels.cell_kernel.launches, kernels.row_kernel.launches)
+    cells = kernels.cell_kernel(SPOOF_PLAN, SPOOF_NAMES, None, env)
+    total = kernels.cell_kernel(SPOOF_PLAN, SPOOF_NAMES, "sum", env)
+    rows = kernels.row_kernel(SPOOF_PLAN, SPOOF_NAMES, "sum", env)
+    torch.cuda.synchronize()
+    assert (kernels.cell_kernel.launches, kernels.row_kernel.launches) \
+        == (before[0] + 2, before[1] + 1)
+    assert cells.shape == (m, n) and cells.dtype == torch.float32
+    assert total.shape == () and float(total) == 0.0
+    assert rows.shape == (m, 1) and bool((rows == 0).all())
+    for row_agg in ("min", "max"):
+        if n == 0:
+            with pytest.raises(ValueError):
+                kernels.row_kernel(SPOOF_PLAN, SPOOF_NAMES, row_agg, env)
+        else:
+            out = kernels.row_kernel(SPOOF_PLAN, SPOOF_NAMES, row_agg, env)
+            assert out.shape == (0, 1)
+
+
+def test_spoof_refused_layout_takes_plain_arm(cuda):
+    plan = _n("b(-)", _in("a"), _in("b"))
+    env = {"a": torch.ones(40, 1, device=cuda),
+           "b": torch.ones(40, 3, device=cuda)}
+    st = stats.Statistics()
+    before = kernels.cell_kernel.launches
+    with stats.stats_scope(st):
+        out = kernels.cell_kernel(plan, ["a", "b"], "sum", env)
+    assert kernels.cell_kernel.launches == before
+    assert st.estim_counts["spoof_plain_by_layout"] == 1
+    assert float(out) == 0.0
+
+
+def test_spoof_refuses_what_the_kernel_does_not_take(cuda):
+    plan = _n("u(exp)", _in("a"))
+    with pytest.raises(TypeError):
+        kernels.cell_kernel(plan, ["a"], "sum",
+                            {"a": torch.ones(4, 4, device=cuda,
+                                             dtype=torch.float16)})
+    with pytest.raises(ValueError):
+        kernels.row_kernel(plan, ["a"], "prod",
+                           {"a": torch.ones(4, 4, device=cuda)})
+
+
+def test_optlevel3_program_launches_spoof_kernels(cuda):
+    """L2SVM and MultiLogReg at optlevel 3 on the card: every fused plan
+    is built before the program runs, the cell (and, for MultiLogReg, the
+    row) kernel launches, and the results agree with optlevel 2."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dmlFromFile
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((3000, 40)).astype(np.float32)
+    z = x @ rng.standard_normal((40, 1)).astype(np.float32)
+    cases = [("l2-svm.dml", {"X": x, "Y": np.where(z >= 0, 1.0, -1.0)},
+              {"maxiter": 5}, "w"),
+             ("MultiLogReg.dml",
+              {"X": x, "Y_vec": 1.0 + (np.argsort(np.argsort(z[:, 0])) * 5)
+               // len(z)}, {"moi": 3}, "B")]
+    for script, inputs, args, out in cases:
+        results = {}
+        for optlevel in (2, 3):
+            cfg = DMLConfig()
+            cfg.optlevel = optlevel
+            ml = MLContext(cfg)
+            ml.printer = lambda s: None
+            s = dmlFromFile(os.path.join(root, "scripts", "algorithms",
+                                         script))
+            for k, v in inputs.items():
+                s.input(k, np.asarray(v, np.float32).reshape(len(x), -1))
+            for k, v in args.items():
+                s.arg(k, v)
+            cell0, row0 = (kernels.cell_kernel.launches,
+                           kernels.row_kernel.launches)
+            results[optlevel] = ml.execute(s.output(out)).get_tensor(out)
+            torch.cuda.synchronize()
+            launched = (kernels.cell_kernel.launches - cell0,
+                        kernels.row_kernel.launches - row0)
+            if optlevel == 3:
+                assert launched[0] > 0
+                assert (launched[1] > 0) == (script == "MultiLogReg.dml")
+                assert ml._stats.estim_counts["spoof_plain_by_layout"] == 0
+            else:
+                assert launched == (0, 0)
+        a, b = results[3].double(), results[2].double()
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-3

@@ -4,7 +4,8 @@ neither jax nor the JAX package (systemml_tpu).
 1. In a subprocess where a sys.meta_path finder refuses `jax`, `jax.*`,
    `systemml_tpu` and `systemml_tpu.*` (and nothing else, so
    `systemml_tpu_torch` imports), the port runs a 50 x 4 LinearRegCG on
-   the CPU; afterwards neither package is in sys.modules.
+   the CPU, and l2-svm at optlevel 3 (spoof fusion); afterwards neither
+   package is in sys.modules.
 2. No source file of the port, and not chip_smoke.py, names them in an
    import or a dotted module path.
 """
@@ -44,6 +45,17 @@ res = MLContext(device="cpu").execute(
     .input("y", x @ beta_true).arg("tol", 1e-12).arg("reg", 0.0)
     .output("beta"))
 assert np.allclose(res.get_matrix("beta"), beta_true, rtol=1e-8)
+# spoof fusion at optlevel 3 (plan selection, the cell kernel's plain arm)
+from systemml_tpu_torch.utils.config import DMLConfig
+cfg = DMLConfig(device="cpu")
+cfg.optlevel = 3
+ml = MLContext(cfg)
+ml.printer = lambda s: None
+res = ml.execute(
+    dmlFromFile("scripts/algorithms/l2-svm.dml").input("X", x)
+    .input("Y", np.sign(x @ beta_true)).arg("maxiter", 3).output("w"))
+assert np.isfinite(res.get_matrix("w")).all()
+assert ml._stats.op_count["spoof"] > 0
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
