@@ -12,16 +12,24 @@ those paths against its plain PyTorch version:
   MultiLogReg (moi 10, 5 classes from the quintiles of X w + noise) at
   optlevel 3, where the spoof fusion pass runs their fused plans through
   kernels K2 (the cell template) and K4 (the row template), and at
-  optlevel 2 beside them.
+  optlevel 2 beside them;
+- LinearRegCG-cla: LinearRegCG with cla "auto" on a categorical X of
+  2,458,285 x 68 fp32 (the Census shape of the CLA evaluation, Elgohary
+  et al., VLDB 2016; synthetic: column j takes d_j values, d_j in 2..8,
+  uniform codes, dictionary values drawn N(0, 1) and standardised per
+  column), which compresses X at loop entry and runs each CG iteration's
+  compressed mmchain through kernel K6; beside it the same script with
+  cla "false", and l2-svm on the same X with both.
 
 Phases:
 
 0. environment: torch and CUDA versions, the card, its power limit;
 1. build: the paths' programs are compiled at optlevel 3, each building
    its fused plans (one generated source per plan, csrc/spoof.cuh) as
-   compile_program does on the card, while csrc/mmchain.cu builds beside
-   them; then the kernel phase's other plans; one nvcc per source, a
-   program's together; nvcc seconds and ptxas report per source;
+   compile_program does on the card, while csrc/mmchain.cu and
+   csrc/cla_chain.cu build beside them; then the kernel phase's other
+   plans; one nvcc per source, a program's together; nvcc seconds and
+   ptxas report per source;
 2. each kernel against its plain version: mmchain at the main path's
    shapes and others (normwise relative error against the plain version
    in fp64 on the card, bar 1e-4: fp32 sums over up to 2e6 rows in
@@ -31,8 +39,14 @@ Phases:
    (100,003, 7) plan with (1, n), (m, 1), (1, 1), host-number and 0-d
    leaves, and a plan of every cell op with NaN into min and max, 0 into
    sign and x.5 into round (bars: 1e-5 normwise in fp32 against the
-   plain version in fp64, 1e-12 in fp64, NaN at the same places). Every
-   kernel runs twice: the two results must be bit-identical;
+   plain version in fp64, 1e-12 in fp64, NaN at the same places); K6
+   against chain_plain in fp64 on the card at the Census shape (68
+   groups of up to 8 codes over 2,458,285 rows) and at a ragged
+   (100,003, 7) block, every chain type, k = 1 and 4, fp32 and fp64
+   (bars 1e-5 and 1e-12 normwise), and two blocks that K6 refuses by
+   layout (a dictionary of 9, an uncompressed column) taking the gather
+   arm, counted, with no launch. Every kernel runs twice: the two
+   results must be bit-identical;
 3. the paths, each with every launch counter set to 0 just before it and
    read just after: LinearRegCG at optlevel 2 (mmchain once per CG
    iteration, beta within 1e-3 of beta_true, peak allocated below twice
@@ -43,14 +57,23 @@ Phases:
    kernel, and for MultiLogReg the row kernel, must launch; no plan may
    take the plain arm by layout and no block may fail to compile), the
    seconds per outer iteration without a profiler, the difference from
-   the optlevel-2 run (bar 1e-3 normwise) and the peak memory;
+   the optlevel-2 run (bar 1e-3 normwise) and the peak memory; then
+   LinearRegCG-cla at optlevel 2 with cla "auto" (X compressed once, K6
+   once per CG iteration, cla_chain_plain_by_layout 0, beta within 1e-3
+   of the cla "false" run's and of beta_true) and "false", and l2-svm on
+   the same X with both (w within 1e-3); the loop-entry compression
+   (sample, host copy, compress()) is timed apart from the loops;
 4. times: each kernel and its plain version at the paths' shapes (CUDA
    events over back-to-back calls; for the spoof kernels, whose calls are
    shorter on the card than on the host, also the device time per call
    from torch.profiler), the library call that computes the same
    function where there is one, and the least time the card could take
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32, the H100
-   SXM's published peaks); and the host time of one spoof wrapper call.
+   SXM's published peaks); and the host time of one spoof wrapper call;
+   K6 at the path's own compressed X, its plain version, the whole
+   compressed chain around it, the gather arm, and as its yardstick the
+   two-pass torch.matmul on the dense X (no single torch call computes
+   a compressed chain).
 
 Prints a {"kernels": [...]} line before the last, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero; without a CUDA
@@ -73,7 +96,11 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 M, K = 2_000_000, 1_000        # scripts/perftest/run_perftest.py scale L
 KERNEL_BAR = 1e-4
 SPOOF_BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
-KERNEL_SOURCES = ("mmchain",)  # systemml_tpu_torch/codegen/csrc/<name>.cu
+# systemml_tpu_torch/codegen/csrc/<name>.cu
+KERNEL_SOURCES = ("mmchain", "cla_chain")
+# the Census data of the CLA evaluation (UCI US Census 1990): rows, columns
+CENSUS_N, CENSUS_M = 2_458_285, 68
+CHAIN_BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ALG = os.path.join(ROOT, "scripts", "algorithms")
 
@@ -119,35 +146,49 @@ def time_ms(fns, reps: int = 20, warm: int = 3):
 
 
 class PhaseTimer:
-    """Windows of the program's execution and of its while loops, on the
-    host clock and in CUDA events, taken without a profiler: for the
-    duration of a with-block it wraps Program.execute and
-    WhileBlock.execute of the port's runtime. `windows[label]` lists
-    (host ms, device ms, host start, host end, start event, end event) in
-    the order the windows close."""
+    """Windows of the program's execution, of its while loops, and of the
+    compressed X's set-up: the loop-entry compression and the first
+    builds of its device forms (K6's layout, the mirror of the other
+    compressed ops), on the host clock and in CUDA events, taken without
+    a profiler: for the duration of a with-block it wraps Program.execute,
+    WhileBlock.execute and _maybe_auto_compress of the port's runtime and
+    chain_layout and device_mirror of compress/device.py (those two are
+    cached: only a first call builds). `windows[label]` lists (host ms,
+    device ms, host start, host end, start event, end event) in the order
+    the windows close; `compressed` the compressed blocks the compression
+    bound."""
+
+    SETUP = ("compress", "layout", "mirror")
 
     def __init__(self):
+        from systemml_tpu_torch.compress import device as cla_dev
         from systemml_tpu_torch.runtime import program
-        self._classes = {"execute": program.Program,
-                         "loop": program.WhileBlock}
-        self.windows = {label: [] for label in self._classes}
+        self._targets = {"execute": (program.Program, "execute"),
+                         "loop": (program.WhileBlock, "execute"),
+                         "compress": (program, "_maybe_auto_compress"),
+                         "layout": (cla_dev, "chain_layout"),
+                         "mirror": (cla_dev, "device_mirror")}
+        self.windows = {label: [] for label in self._targets}
+        self.compressed = []
 
     def __enter__(self):
-        self._orig = {label: cls.execute
-                      for label, cls in self._classes.items()}
-        for label, cls in self._classes.items():
-            cls.execute = self._wrap(label, self._orig[label])
+        self._orig = {label: getattr(owner, attr)
+                      for label, (owner, attr) in self._targets.items()}
+        for label, (owner, attr) in self._targets.items():
+            setattr(owner, attr, self._wrap(label, self._orig[label]))
         return self
 
     def __exit__(self, *exc):
-        for label, cls in self._classes.items():
-            cls.execute = self._orig[label]
+        for label, (owner, attr) in self._targets.items():
+            setattr(owner, attr, self._orig[label])
         torch.cuda.synchronize()
         self.windows = {label: [(1e3 * (t1 - t0), e0.elapsed_time(e1), t0,
                                  t1, e0, e1) for t0, t1, e0, e1 in ws]
                         for label, ws in self.windows.items()}
 
     def _wrap(self, label, orig):
+        from systemml_tpu_torch.compress import is_compressed
+
         def execute(blk, *args, **kwargs):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -159,17 +200,23 @@ class PhaseTimer:
                 t1 = time.perf_counter()
                 e1.record()
                 self.windows[label].append((t0, t1, e0, e1))
+                if label == "compress":
+                    self.compressed += [
+                        v for v in args[0].vars.values()
+                        if is_compressed(v) and all(
+                            v is not c for c in self.compressed)]
         return execute
 
 
-def profile_main_path(ml, script, host_activity: bool):
+def profile_main_path(ml, script, host_activity: bool,
+                      kernel: str = "mmchain_partial"):
     """One more run of the main path under torch.profiler, recording the
     device's activity, and the host's too when `host_activity`. Returns
     (and prints) the device's busy share of the run's wall time (parse and
-    compile included), the CG loop's period (median time from one mmchain
-    launch to the next) and the busy share inside the loop, and device ms
-    by kernel name. Says "not measured" when the profiler records no
-    kernels."""
+    compile included), the CG loop's period (median time from one launch
+    of `kernel`, the loop body's, to the next) and the busy share inside
+    the loop, and device ms by kernel name. Says "not measured" when the
+    profiler records no kernels."""
     import statistics
 
     from torch.autograd import DeviceType
@@ -199,7 +246,7 @@ def profile_main_path(ml, script, host_activity: bool):
     device_ms = sum(ms for ms, _ in by_name.values())
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_busy_share": device_ms / wall_ms}
-    starts = [e.time_range.start for e in ks if "mmchain_partial" in e.name]
+    starts = [e.time_range.start for e in ks if kernel in e.name]
     if len(starts) >= 2:
         in_loop = sum(e.time_range.elapsed_us() for e in ks
                       if starts[0] <= e.time_range.start < starts[-1])
@@ -211,7 +258,7 @@ def profile_main_path(ml, script, host_activity: bool):
           f"busy {100 * out['device_busy_share']:.1f}%")
     if "cg_iteration_ms" in out:
         print(f"[profile {what}] CG loop: {out['cg_iteration_ms']:.3f} ms per "
-              f"iteration (mmchain launch to launch), device busy "
+              f"iteration ({kernel} launch to launch), device busy "
               f"{100 * out['cg_loop_busy_share']:.1f}% inside the loop")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (ms, n) in top:
@@ -271,15 +318,22 @@ def host_profile(ml, script) -> dict:
 def phase_windows(timer: PhaseTimer, iters: int, label: str,
                   loop: str = "CG loop") -> dict:
     """An unprofiled run's execution split into the prologue before its
-    outer loop, the loop (the longest while-loop window) and the epilogue
-    after it, each on the host clock and in device time between CUDA
-    events. Prints and returns them."""
+    outer loop, the loop (the longest while-loop window, less the set-up
+    windows of a compressed X inside it: its compression at loop entry
+    and the first builds of its device forms) and the epilogue after it,
+    each on the host clock and in device time between CUDA events; and
+    that set-up apart. Prints and returns them."""
     (ex_h, ex_d, ex_t0, ex_t1, ex_e0, ex_e1), = timer.windows["execute"]
     lp_h, lp_d, lp_t0, lp_t1, lp_e0, lp_e1 = max(timer.windows["loop"])
+    comp = [w for label in PhaseTimer.SETUP for w in timer.windows[label]
+            if lp_t0 <= w[2] and w[3] <= lp_t1]
+    comp_h, comp_d = sum(w[0] for w in comp), sum(w[1] for w in comp)
+    lp_h, lp_d = lp_h - comp_h, lp_d - comp_d
     out = {"execute_host_ms": ex_h, "execute_device_window_ms": ex_d,
            "prologue_host_ms": 1e3 * (lp_t0 - ex_t0),
            "prologue_device_window_ms": ex_e0.elapsed_time(lp_e0),
            "loop_host_ms": lp_h, "loop_device_window_ms": lp_d,
+           "compress_host_ms": comp_h, "compress_device_window_ms": comp_d,
            "epilogue_host_ms": 1e3 * (ex_t1 - lp_t1),
            "epilogue_device_window_ms": lp_e1.elapsed_time(ex_e1),
            "iteration_ms": lp_d / max(iters, 1),
@@ -287,7 +341,9 @@ def phase_windows(timer: PhaseTimer, iters: int, label: str,
     print(f"[windows] {label}, host clock / device window between "
           f"CUDA events: execution {ex_h:.3f} / {ex_d:.3f} ms = prologue "
           f"{out['prologue_host_ms']:.3f} / "
-          f"{out['prologue_device_window_ms']:.3f} + {loop} {lp_h:.3f} / "
+          f"{out['prologue_device_window_ms']:.3f} + loop-entry "
+          f"compression and device layouts {comp_h:.3f} / {comp_d:.3f} + "
+          f"{loop} {lp_h:.3f} / "
           f"{lp_d:.3f} + epilogue {out['epilogue_host_ms']:.3f} / "
           f"{out['epilogue_device_window_ms']:.3f}; {loop} "
           f"{out['iteration_ms']:.3f} ms per iteration over {iters}")
@@ -413,15 +469,20 @@ def compile_paths(data):
 
 
 def reset_launches(kernels) -> None:
+    from systemml_tpu_torch.compress import device as cla_dev
+
     for k in (kernels.mmchain_kernel, kernels.cell_kernel,
-              kernels.row_kernel):
+              kernels.row_kernel, cla_dev.chain_kernel):
         k.launches = 0
 
 
 def read_launches(kernels) -> dict:
+    from systemml_tpu_torch.compress import device as cla_dev
+
     return {"mmchain": kernels.mmchain_kernel.launches,
             "spoof_cell": kernels.cell_kernel.launches,
-            "spoof_row": kernels.row_kernel.launches}
+            "spoof_row": kernels.row_kernel.launches,
+            "cla_chain": cla_dev.chain_kernel.launches}
 
 
 def run_path(name, optlevel, data, dev, kernels):
@@ -479,6 +540,8 @@ def run_path(name, optlevel, data, dev, kernels):
                  "launched")
     elif launches["spoof_cell"] or launches["spoof_row"]:
         fail(f"{name} optlevel {optlevel} launched spoof kernels")
+    if launches["cla_chain"] or events.get("cla_auto_compressed", 0):
+        fail(f"{name} optlevel {optlevel}: the dense X was compressed")
     return {"out": out, "iterations": iters, "seconds": secs,
             "exec_seconds": ml._stats.run_time, "launches": launches,
             "peak_bytes": peak, "windows": windows, "lines": lines,
@@ -674,6 +737,274 @@ def spoof_bound(plan, env, out_bytes, cells):
 
 
 # --------------------------------------------------------------------------
+# compressed LA: K6 against its plain version, and the LinearRegCG-cla path
+# --------------------------------------------------------------------------
+
+def make_census(dev):
+    """The categorical X (CENSUS_N, CENSUS_M) fp32 and the scripts'
+    targets, from one seeded generator on the card. Column j takes d_j
+    values, d_j in 2..8, with uniform codes; its dictionary is drawn
+    N(0, 1) and standardised (mean 0, variance 1 under uniform codes):
+    with the raw draws, the columns' shared nonzero means and the
+    near-constant columns leave t(X) X ill-conditioned, and 20 CG
+    iterations stop far from the solution in either cla mode."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, m = CENSUS_N, CENSUS_M
+    x = torch.empty(n, m, device=dev)
+    dims = torch.randint(2, 9, (m,), generator=gen, device=dev).tolist()
+    for j, d in enumerate(dims):
+        dct = torch.randn(d, generator=gen, device=dev)
+        dct = (dct - dct.mean()) / dct.std(correction=0)
+        x[:, j] = dct[torch.randint(0, d, (n,), generator=gen, device=dev)]
+    beta_true = torch.randn(m, 1, generator=gen, device=dev)
+    y = x @ beta_true + 0.01 * torch.randn(n, 1, generator=gen, device=dev)
+    w_svm = torch.randn(m, 1, generator=gen, device=dev)
+    z = x @ w_svm + 0.1 * torch.randn(n, 1, generator=gen, device=dev)
+    return {"X": x, "y": y, "beta_true": beta_true,
+            "Y_svm": torch.where(z >= 0, 1.0, -1.0), "dims": dims}
+
+
+def chain_codes(dev, gen, n, groups, dmax):
+    """(groups, n) uint8 codes in K6's layout; group 0 takes dmax values,
+    the others 1..dmax."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    ds = [dmax] + torch.randint(1, dmax + 1, (groups - 1,), generator=gen,
+                                device=dev).tolist()
+    return cla_dev.chain_codes(torch.stack(
+        [torch.randint(0, d, (n,), generator=gen, device=dev)
+         .to(torch.uint8) for d in ds]))
+
+
+def check_chain_kernel(dev) -> float:
+    """K6 against chain_plain in fp64 on the card, twice; then two blocks
+    that K6 refuses by layout through the compressed mmchain. Returns the
+    max abs error at the path's shape in fp32, k = 1, XtXv."""
+    import numpy as np
+
+    from systemml_tpu_torch.compress import compress
+    from systemml_tpu_torch.compress import device as cla_dev
+    from systemml_tpu_torch.ops import mult
+    from systemml_tpu_torch.utils import stats
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    abs_err = None
+    for n, groups, dmax in ((CENSUS_N, CENSUS_M, 8), (100_003, 7, 5)):
+        codes = chain_codes(dev, gen, n, groups, dmax)
+        for dtype in (torch.float32, torch.float64):
+            for k in (1, 4):
+                sv = torch.randn(dmax, groups, k, generator=gen, device=dev,
+                                 dtype=dtype)
+                for ctype, wc in (("XtXv", 0), ("XtwXv", 1), ("XtXvy", k)):
+                    w = (torch.randn(n, wc, generator=gen, device=dev,
+                                     dtype=dtype) if wc else None)
+                    before = cla_dev.chain_kernel.launches
+                    out = cla_dev.chain_kernel(codes, sv, w, ctype)
+                    again = cla_dev.chain_kernel(codes, sv, w, ctype)
+                    ref = cla_dev.chain_plain(
+                        codes, sv.double(),
+                        None if w is None else w.double(), ctype)
+                    torch.cuda.synchronize()
+                    err = normwise(out, ref)
+                    err_abs = float((out - ref).abs().max())
+                    same = bool(torch.equal(out, again))
+                    print(f"[kernel] cla_chain {ctype} codes ({groups}, {n}) "
+                          f"dmax {dmax} k={k} w=({n},{wc}) "
+                          f"{str(dtype)[6:]}: normwise {err:.3e} (bar "
+                          f"{CHAIN_BARS[dtype]:g}), max abs {err_abs:.3e}, "
+                          f"repeat bit-identical {same}", flush=True)
+                    if cla_dev.chain_kernel.launches != before + 2:
+                        fail("cla_chain: the kernel did not launch")
+                    if not err <= CHAIN_BARS[dtype] or not same:
+                        fail(f"cla_chain {ctype} ({groups}, {n}) k={k} "
+                             f"{dtype}: normwise {err}, repeat identical "
+                             f"{same}")
+                    if (n, dtype, k, ctype) == (CENSUS_N, torch.float32, 1,
+                                                "XtXv"):
+                        abs_err = err_abs
+        del codes
+    # blocks that K6 refuses by layout take the gather arm, counted
+    rng = np.random.default_rng(5)
+    n = 100_003
+    base = [rng.standard_normal(d)[rng.integers(0, d, n)] for d in (2, 5, 8)]
+    for label, extra in (
+            ("a dictionary of 9", rng.standard_normal(9)[
+                rng.integers(0, 9, n)]),
+            ("an uncompressed column", rng.standard_normal(n))):
+        xh = np.column_stack(base + [extra]).astype(np.float32)
+        c = compress(xh)
+        v = torch.randn(4, 1, generator=gen, device=dev)
+        st = stats.Statistics()
+        before = cla_dev.chain_kernel.launches
+        with stats.stats_scope(st):
+            out = mult.mmchain(c, v)
+        xd = torch.from_numpy(xh).to(dev).double()
+        err = normwise(out, xd.T @ (xd @ v.double()))
+        by_layout = st.estim_counts.get("cla_chain_plain_by_layout", 0)
+        print(f"[kernel] cla_chain refused by layout, {label} ({n} x 4): "
+              f"cla_chain_plain_by_layout {by_layout}, K6 launches "
+              f"{cla_dev.chain_kernel.launches - before}, gather arm "
+              f"normwise {err:.3e}", flush=True)
+        if by_layout != 1 or cla_dev.chain_kernel.launches != before \
+                or not err <= 1e-5:
+            fail(f"the compressed mmchain on a block with {label} did not "
+                 f"take the gather arm by layout")
+    torch.cuda.empty_cache()
+    return abs_err
+
+
+def run_cla_path(name, cla, data, dev, kernels):
+    """One unprofiled run at optlevel 2 with `cla` on the categorical X,
+    after a warm-up on its first 200,000 rows (which compresses too, so
+    that the compressed ops' first calls, their allocations and cuBLAS's
+    choices for the table's shape, are not in the timed loop); the launch
+    counters are set to 0 just before it and read just after."""
+    from systemml_tpu_torch.api.mlcontext import MLContext
+
+    cfg = config(2)
+    cfg.cla = cla
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+    ml.execute(path_script(name, data, rows=200_000))
+    lines = []
+    ml.printer = lines.append
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)   # the data of every path
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with PhaseTimer() as timer:
+        out = ml.execute(path_script(name, data)).get_tensor(PATHS[name][3])
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    iters = outer_iterations(name, lines)
+    events = {k: v for k, v in ml._stats.estim_counts.items()
+              if k.startswith(("cla_", "kb_pick_cla_"))}
+    windows = phase_windows(timer, iters, f"{name}-cla cla={cla}",
+                            PATHS[name][5])
+    comp_s = sum(w[0] for w in timer.windows["compress"]) / 1e3
+    layout_ms = windows["compress_host_ms"] - 1e3 * comp_s
+    windows["compression_s"] = comp_s
+    for s in lines[-1:]:
+        print(f"[script] {s}")
+    print(f"[cla] {name} cla={cla} on ({CENSUS_N}, {CENSUS_M}) fp32: {iters} "
+          f"outer iterations, {windows['iteration_ms']:.3f} ms per outer "
+          f"iteration (device window; host "
+          f"{windows['iteration_host_ms']:.3f} ms), loop-entry compression "
+          f"{comp_s:.3f} s, device layouts in the loop {layout_ms:.3f} ms; "
+          f"{secs:.3f} s in all; "
+          f"launches {launches}; {events}; peak allocated "
+          f"{peak / 1e9:.3f} GB, {(peak - base) / 1e9:.3f} GB over the "
+          f"data allocated before the run (X "
+          f"{CENSUS_N * CENSUS_M * 4 / 1e9:.3f} GB among it)", flush=True)
+    if out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        fail(f"{name} cla={cla}: output {out.dtype} not finite fp32")
+    compressed = events.get("cla_auto_compressed", 0)
+    if compressed != (1 if cla == "auto" else 0):
+        fail(f"{name} cla={cla}: cla_auto_compressed {compressed}")
+    if events.get("cla_chain_plain_by_layout", 0):
+        fail(f"{name} cla={cla}: the compressed mmchain took the gather arm "
+             f"by layout")
+    chain = iters if (name == "LinearRegCG" and cla == "auto") else 0
+    if launches["cla_chain"] != chain or iters < 1:
+        fail(f"{name} cla={cla}: K6 launched {launches['cla_chain']} times "
+             f"in {iters} outer iterations")
+    result = {"out": out, "iterations": iters, "seconds": secs,
+              "exec_seconds": ml._stats.run_time, "launches": launches,
+              "peak_bytes": peak, "peak_over_data_bytes": peak - base,
+              "windows": windows, "events": events,
+              "compressed": timer.compressed}
+    if name == "LinearRegCG" and cla == "auto":
+        # the CG loop's period and busy share, from K6's launches
+        result["profile"] = profile_main_path(
+            ml, path_script(name, data), False, kernel="cla_chain_partial")
+    return result
+
+
+def cla_paths(dev, kernels) -> dict:
+    """LinearRegCG-cla and l2-svm on the categorical X, each with cla
+    "auto" and "false"; the outputs agree within 1e-3, and beta is within
+    1e-3 of beta_true."""
+    data = make_census(dev)
+    print(f"[cla] categorical X ({CENSUS_N}, {CENSUS_M}) fp32, "
+          f"{CENSUS_N * CENSUS_M * 4 / 1e9:.3f} GB dense; values per "
+          f"column {data['dims']}", flush=True)
+    out = {"data": data}
+    for name in ("LinearRegCG", "l2-svm"):
+        runs = {cla: run_cla_path(name, cla, data, dev, kernels)
+                for cla in ("auto", "false")}
+        a, b = runs["auto"]["out"].double(), runs["false"]["out"].double()
+        diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        print(f"[cla] {name}: |cla auto - cla false| / |cla false| = "
+              f"{diff:.3e} (bar 1e-3); ms per outer iteration "
+              f"{runs['auto']['windows']['iteration_ms']:.3f} / "
+              f"{runs['false']['windows']['iteration_ms']:.3f}", flush=True)
+        if not diff <= 1e-3:
+            fail(f"{name}: cla auto is {diff} from cla false")
+        if name == "LinearRegCG":
+            bt = data["beta_true"].double()
+            rel = float(torch.linalg.norm(a - bt) / torch.linalg.norm(bt))
+            print(f"[cla] LinearRegCG-cla: |beta - beta_true| / "
+                  f"|beta_true| = {rel:.3e} (bar 1e-3)", flush=True)
+            if not rel <= 1e-3:
+                fail(f"LinearRegCG-cla: beta is {rel} from beta_true")
+            runs["auto"]["beta_true_rel_err"] = rel
+        runs["auto"]["diff_from_cla_false"] = diff
+        out[name] = runs
+    return out
+
+
+def time_chain_kernel(cla, dev, smi, max_abs_err) -> dict:
+    """K6 at the path's own compressed X (the block LinearRegCG-cla bound
+    at its loop entry), k = 1, fp32: the kernel, its plain version, the
+    whole compressed chain around it (table, kernel, output assembly), the
+    gather arm, and the two-pass torch.matmul on the dense X. Returns the
+    kernel's record."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    c = cla["LinearRegCG"]["auto"]["compressed"][0]
+    lay = cla_dev.chain_layout(c)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    v = torch.randn(CENSUS_M, 1, generator=gen, device=dev)
+    sv = cla_dev.chain_table(lay, v)
+    xc = cla["data"]["X"]
+    kern_ms, plain_ms, call_ms, gather_ms, dense_ms = time_ms([
+        lambda: cla_dev.chain_kernel(lay.codes, sv),
+        lambda: cla_dev.chain_plain(lay.codes, sv),
+        lambda: cla_dev.chain_mmchain(c, v),
+        lambda: cla_dev.gather_mmchain(c, v, None, "XtXv"),
+        lambda: torch.matmul(xc.T, torch.matmul(xc, v)),
+    ], reps=10)
+    k = 1
+    nbytes = (lay.codes.numel() + sv.numel() * sv.element_size()
+              + 8 * lay.dmax * lay.groups * k)   # codes, table in; out
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2.0 * lay.groups * lay.n * k / FP32_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[times] cla_chain XtXv codes ({lay.groups}, {lay.n}) dmax "
+          f"{lay.dmax} k=1 fp32 on {smi}: kernel {kern_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+          f"{bytes_ms:.4f}, operations {ops_ms:.4f}); the whole compressed "
+          f"chain (table, kernel, assembly) {call_ms:.4f} ms, the gather "
+          f"arm {gather_ms:.4f} ms; yardstick, the two-pass torch.matmul "
+          f"on the dense X ({xc.numel() * 4 / 1e9:.3f} GB) {dense_ms:.4f} "
+          f"ms (no single torch call computes a compressed chain)",
+          flush=True)
+    return {"name": "cla_chain", "route": "cuda",
+            "source": "systemml_tpu_torch/codegen/csrc/cla_chain.cu",
+            "replaces": "systemml_tpu/compress/device.py:525 "
+                        "_chain_kernel_call",
+            "launches": cla["LinearRegCG"]["auto"]["launches"]["cla_chain"],
+            "max_abs_err": max_abs_err["cla_chain"], "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "chain_call_ms": call_ms,
+            "gather_arm_ms": gather_ms, "dense_two_pass_ms": dense_ms}
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -778,6 +1109,7 @@ def main() -> None:
         del xk, v, xd, w, out, again, ref
     torch.cuda.empty_cache()
     max_abs_err.update(check_spoof_kernels(progs, dev, kernels))
+    max_abs_err["cla_chain"] = check_chain_kernel(dev)
 
     # ---- 3. the paths -------------------------------------------------------
     # LinearRegCG at optlevel 2: the first slice's main path, K1
@@ -884,6 +1216,8 @@ def main() -> None:
         del runs, a, b
     del beta
     torch.cuda.empty_cache()
+    # this slice's path: LinearRegCG-cla (K6), and l2-svm on the same X
+    cla = cla_paths(dev, kernels)
 
     # ---- 4. times -----------------------------------------------------------
     v = torch.randn(K, 1, generator=gen, device=dev)
@@ -953,6 +1287,7 @@ def main() -> None:
             "call_ms": call_ms, "plain_call_ms": plain_call_ms,
             "plan": plan.pretty()})
         del env
+    records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
     # the host time of one spoof wrapper call (a tiny input: the launch,
     # not the work); hops/cost.py HwProfile.h100().dispatch_us
     plan0, names0 = kernel_plans(progs)[1][2], ["i0", "i1"]
@@ -969,9 +1304,15 @@ def main() -> None:
     print(f"[dispatch] host time of one spoof row wrapper call on "
           f"(1024, 5): {host_us:.2f} us; chip_smoke total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    cla_summary = {
+        name: {mode: {k: v for k, v in r.items()
+                      if k not in ("out", "compressed")}
+               for mode, r in cla[name].items()}
+        for name in ("LinearRegCG", "l2-svm")}
     print(json.dumps({"kernels": records, "card": smi,
                       "spoof_dispatch_us": host_us, "main_path": main_path,
-                      "paths": paths, "build_seconds": build_s,
+                      "paths": paths, "cla_paths": cla_summary,
+                      "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

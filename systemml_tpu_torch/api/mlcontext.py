@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from systemml_tpu_torch.compress import CompressedMatrixBlock
 from systemml_tpu_torch.lang import ast as A
 from systemml_tpu_torch.lang.parser import parse, parse_file, resolve_imports
 from systemml_tpu_torch.runtime.data import (ListObject, MatrixObject,
@@ -52,7 +53,7 @@ class MLResults:
         v = self.get(name)
         if isinstance(v, torch.Tensor):
             return v.detach().cpu().numpy()
-        if isinstance(v, MatrixObject):
+        if isinstance(v, (MatrixObject, CompressedMatrixBlock)):
             return v.to_numpy()
         return np.asarray(v)
 

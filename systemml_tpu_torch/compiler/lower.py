@@ -10,7 +10,8 @@ NotImplementedError that names its ROADMAP item:
   (analyze_block, plan_loop_regions; fused loop regions, CUDA graphs),
 - MESH dispatch and collectives (distributed and elastic),
 - quaternary ops and sparse operands (sparse plane), attention and the
-  DNN builtins (DNN and models), compressed inputs (compressed LA),
+  DNN builtins (DNN and models), the mesh branches of compressed
+  operands (distributed and elastic),
 - the multi-aggregate and outer-product spoof templates (queue 2, K3 and
   K5; codegen/compiler.execute_spoof raises for them),
 - every builtin outside _BUILTINS (see _WAITING_BUILTINS).
@@ -25,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from systemml_tpu_torch.compress import is_compressed
 from systemml_tpu_torch.hops.builder import BlockHops, DMLValidationError
 from systemml_tpu_torch.hops.hop import Hop
 
@@ -263,6 +265,9 @@ class Evaluator:
             r = self._reassoc_matmult(h)
             if r is not None:
                 return r
+            r = self._compressed_t_matmult(h.inputs[0], h.inputs[1])
+            if r is not None:
+                return r
             return mult.matmult(self._m(h.inputs[0]), self._m(h.inputs[1]))
         if op == "tsmm":
             return mult.tsmm(self._m(h.inputs[0]), h.params.get("left", True))
@@ -376,6 +381,8 @@ class Evaluator:
         if len(chain) < 3:
             return None
         vals = [self._m(c) for c in chain]
+        if any(is_compressed(v) for v in vals):
+            return None  # compressed factors keep pairwise dispatch
         dims = [int(vals[0].shape[0])] + [int(v.shape[1]) for v in vals]
         split = _mm_chain_order(dims)
         if self.stats is not None:
@@ -388,6 +395,22 @@ class Evaluator:
             return mult.matmult(build(i, k), build(k + 1, j))
 
         return build(0, len(vals) - 1)
+
+    def _compressed_t_matmult(self, a_hop: Hop, b_hop: Hop):
+        """t(X) %*% Y with X compressed: one left_mult on the compressed
+        form, never a decompressing transpose (the per-iteration cliff).
+        Returns None when a_hop isn't a transpose of a compressed value."""
+        if a_hop.op != "reorg(t)":
+            return None
+        x = self.eval(a_hop.inputs[0])
+        if not is_compressed(x):
+            return None
+        from systemml_tpu_torch.compress import device as cla_dev
+
+        y = self._m(b_hop)
+        if is_compressed(y):
+            y = y.to_dense()
+        return cla_dev.left_mult(x, y.T).T
 
     def _m(self, h: Hop):
         return _mat(self.eval(h))
@@ -592,8 +615,26 @@ def _bi_rexpand(ev, pos, named, h):
 
 
 def _bi_nnz(ev, pos, named, h):
+    if is_compressed(pos[0]):
+        return float(np.count_nonzero(pos[0].decompress()))
     x = _mat(pos[0])
     return torch.count_nonzero(x).to(x.dtype)
+
+
+def _bi_compress(ev, pos, named, h):
+    """compress(X) (reference: RewriteCompressedReblock /
+    CompressedMatrixBlock.compress:228; compile-time injected there,
+    explicit builtin here, with the same compressed op dispatch). The
+    planner runs on the host: X crosses to it once."""
+    from systemml_tpu_torch.compress import compress
+
+    if is_compressed(pos[0]):
+        return pos[0]
+    return compress(_mat(pos[0]).detach().cpu().numpy())
+
+
+def _bi_decompress(ev, pos, named, h):
+    return pos[0].to_dense() if is_compressed(pos[0]) else pos[0]
 
 
 _BUILTINS: Dict[str, Callable] = {
@@ -608,6 +649,7 @@ _BUILTINS: Dict[str, Callable] = {
     "exists": lambda ev, pos, named, h: pos[0] is not None,
     "time": lambda ev, pos, named, h: int(time.time_ns()),
     "nnz": _bi_nnz, "rexpand": _bi_rexpand,
+    "compress": _bi_compress, "decompress": _bi_decompress,
     "sumSq": lambda ev, pos, named, h: __import__(
         "systemml_tpu_torch.ops.agg", fromlist=["agg"]).agg(
         "sumsq", _mat(pos[0])),
@@ -617,7 +659,6 @@ _IO = "the CLI and io/"
 _BREADTH = "algorithm breadth"
 _NN = "DNN and models"
 _FRAMES = "parfor, transform and frames"
-_CLA = "compressed LA with K6"
 # the JAX package's builtins that the port does not run yet, with the
 # ROADMAP item that brings each (validate.py accepts their names, so a
 # script that calls one fails here, by name, and not as a typo)
@@ -643,5 +684,4 @@ _WAITING_BUILTINS: Dict[str, str] = {
     **{n: _FRAMES for n in (
         "as.frame", "transformmeta", "transform", "transformencode",
         "transformapply", "transformdecode", "transformcolmap")},
-    **{n: _CLA for n in ("compress", "decompress")},
 }

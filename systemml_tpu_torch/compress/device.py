@@ -1,0 +1,628 @@
+"""Device-side compressed linear algebra.
+
+Port of systemml_tpu/compress/device.py. A compressed block's device
+mirror keeps each group's codes as a narrow (uint8/uint16) tensor and its
+dictionary on the device, built once per block and cached on it. The ops:
+
+- right mult  X @ W  = gather(dict @ W[cols], codes), summed over groups;
+- left mult  Y^T @ X = segment sums of Y^T's rows by code (`bincount`
+  with weights) times the dictionary;
+- tsmm  t(X) @ X from per-group code counts and joint code histograms;
+- mmchain  t(X) %*% (w? * (X %*% v) -? y): kernel K6 (csrc/cla_chain.cu)
+  when the block is all coded with at most 8 dictionary rows per group
+  and the operands lie on the card, else the right mult feeding the left
+  mult (the JAX package's gather_segment arm).
+
+The JAX package leaves the first three to XLA; here they are torch ops
+(gather, `bincount`, `torch.matmul`). On the card `bincount` adds with
+float atomics, so a left mult and the gather arm are not bit-identical run
+to run (last-bit differences); K6 is. (`index_add_` onto a few bins
+contends on its atomics in device memory; `bincount` sums a small
+histogram in shared memory first, at the price of a host synchronisation
+per call, where it reads the largest code.)
+
+Each op family chooses between its coded arm and its decompress_dense arm
+(and mmchain between K6 and the gather arm) with the JAX package's
+analytic costs (`_cla_cost_*`) read against hops/cost.HwProfile of the
+configured device: the kernel backend's registry, tuner and measured
+verdicts wait (ROADMAP queue 1, kernel backend and tuner). As there, a
+choice is made once per kernel key (op, device, dtype, power-of-two
+shape bucket, group layout) and process, and counted then in the stats as
+kb_pick_<family>.<arm>, under the JAX package's names. A compressed
+mmchain that K6 cannot take by its layout or shape (an uncompressed
+group, a dictionary of more than 8 rows, more than 8 columns of v, or a
+table past the kernel's shared memory) counts cla_chain_plain_by_layout
+and takes the gather arm, decided before any launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from systemml_tpu_torch.compress.block import CompressedMatrixBlock
+from systemml_tpu_torch.compress.colgroup import ColGroupUncompressed
+from systemml_tpu_torch.utils import stats as stats_mod
+from systemml_tpu_torch.utils.config import get_config
+
+
+class DeviceGroup:
+    """One column group on the device: coded (dict + codes) or dense
+    values."""
+
+    def __init__(self, cols: np.ndarray, device, dict_dev=None,
+                 codes_dev=None, vals_dev=None):
+        self.cols = np.asarray(cols, dtype=np.int64)
+        self.cols_dev = torch.from_numpy(self.cols).to(device)
+        self.dict = dict_dev      # (d, g) or None
+        self.codes = codes_dev    # (n,) narrow uint or None
+        self.vals = vals_dev      # (n, g) dense fallback or None
+
+    @property
+    def coded(self) -> bool:
+        return self.dict is not None
+
+    def index(self) -> torch.Tensor:
+        """The codes widened to int32, the index type of torch's gather
+        and scatter ops (a temporary of the call)."""
+        return self.codes.to(torch.int32)
+
+
+class DeviceCompressed:
+    """Device mirror of a CompressedMatrixBlock."""
+
+    def __init__(self, groups: List[DeviceGroup], shape: Tuple[int, int]):
+        self.groups = groups
+        self.shape = shape
+
+
+def device_mirror(c: CompressedMatrixBlock) -> DeviceCompressed:
+    """Build (and cache) the device tensors of a compressed block, on the
+    configured device."""
+    cached = getattr(c, "_device_mirror", None)
+    if cached is not None:
+        return cached
+    dev = torch.device(get_config().device)
+    groups = []
+    for g in c.groups:
+        if isinstance(g, ColGroupUncompressed):
+            groups.append(DeviceGroup(
+                g.cols, dev,
+                vals_dev=torch.from_numpy(np.ascontiguousarray(
+                    g.values())).to(dev)))
+        else:
+            groups.append(DeviceGroup(
+                g.cols, dev,
+                dict_dev=torch.from_numpy(np.ascontiguousarray(
+                    g.dictionary())).to(dev),
+                # the narrow uint width is kept
+                codes_dev=torch.from_numpy(np.ascontiguousarray(
+                    g.codes())).to(dev)))
+    dc = DeviceCompressed(groups, c.shape)
+    c._device_mirror = dc
+    return dc
+
+
+def _mm(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def _right(dc: DeviceCompressed, w):
+    """X @ W from the per-group tensors, summed in group order."""
+    out = None
+    for g in dc.groups:
+        wg = w.index_select(0, g.cols_dev)
+        if g.coded:
+            part = _mm(g.dict, wg).index_select(0, g.index())
+        else:
+            part = _mm(g.vals, wg)
+        out = part if out is None else out + part
+    return out
+
+
+def _left(dc: DeviceCompressed, yt):
+    """Y^T @ X -> (k, m); yt is (k, n)."""
+    out = torch.zeros((yt.shape[0], dc.shape[1]), dtype=yt.dtype,
+                      device=yt.device)
+    for g in dc.groups:
+        if g.coded:
+            part = _mm(_segment_sums(g, yt), g.dict)
+        else:
+            part = _mm(yt, g.vals)
+        out[:, g.cols_dev] = part.to(out.dtype)
+    return out
+
+
+def _segment_sums(g: DeviceGroup, yt):
+    """(k, d): each row of yt (k, n) summed by code, one bincount for all
+    k rows (bin code + d * row)."""
+    d, k = g.dict.shape[0], yt.shape[0]
+    idx = g.codes.long()
+    if k > 1:
+        idx = (idx[None, :] + d * torch.arange(k, device=idx.device)[:, None])
+    return torch.bincount(idx.reshape(-1), weights=yt.reshape(-1),
+                          minlength=d * k).reshape(k, d).to(yt.dtype)
+
+
+def _tsmm_pair(gi: DeviceGroup, gj: DeviceGroup, dtype):
+    if gi.coded and gj.coded:
+        di, dj = gi.dict.to(dtype), gj.dict.to(dtype)
+        if gi is gj:
+            cnt = torch.bincount(gi.index(), minlength=di.shape[0]).to(dtype)
+            return torch.matmul(di.T, cnt[:, None] * di)
+        joint = torch.bincount(
+            gi.codes.long() * dj.shape[0] + gj.codes.long(),
+            minlength=di.shape[0] * dj.shape[0]).reshape(
+                di.shape[0], dj.shape[0]).to(dtype)
+        return torch.matmul(torch.matmul(di.T, joint), dj)
+    vi = gi.vals if not gi.coded else gi.dict.index_select(0, gi.index())
+    vj = gj.vals if not gj.coded else gj.dict.index_select(0, gj.index())
+    return torch.matmul(vi.to(dtype).T, vj.to(dtype))
+
+
+def _tsmm(dc: DeviceCompressed):
+    m = dc.shape[1]
+    first = dc.groups[0] if dc.groups else None
+    dtype = (torch.float32 if first is None
+             else (first.dict if first.coded else first.vals).dtype)
+    dev = torch.device(get_config().device) if first is None \
+        else first.cols_dev.device
+    out = torch.zeros((m, m), dtype=dtype, device=dev)
+    for i, gi in enumerate(dc.groups):
+        for gj in dc.groups[i:]:
+            blk = _tsmm_pair(gi, gj, dtype)
+            out[gi.cols_dev[:, None], gj.cols_dev[None, :]] = blk
+            if gj is not gi:
+                out[gj.cols_dev[:, None], gi.cols_dev[None, :]] = blk.T
+    return out
+
+
+# --------------------------------------------------------------------------
+# variant choice: the JAX package's analytic costs (device.py:155-195,
+# :385-394) and its once-per-key selection (codegen/backend.py select)
+# --------------------------------------------------------------------------
+
+
+def _host_meta(c: CompressedMatrixBlock):
+    """(layout signature, code bytes, K6 shape) of a block, from its
+    HOST-side group metadata only, computed once and cached on it (a
+    block's groups do not change): the per-group kind and columns (as a
+    string, whose hash Python keeps: the choice's key hashes it per
+    call), the bytes a coded op streams, and (dmax, groups) when every
+    group is coded (else None, the JAX package's _tpu_chain_layout
+    refusal)."""
+    meta = getattr(c, "_cla_host_meta", None)
+    if meta is None:
+        n = c.shape[0]
+        code_bytes = 0.0
+        sig = []
+        for g in c.groups:
+            if isinstance(g, ColGroupUncompressed):
+                sig.append(("dense", tuple(int(x) for x in g.cols)))
+                code_bytes += float(g.values().nbytes)
+            else:
+                d = int(g.dictionary().shape[0])
+                width = 1 if d <= 256 else (2 if d <= 65536 else 4)
+                sig.append(("coded", tuple(int(x) for x in g.cols)))
+                code_bytes += float(width * n)
+        coded = [g for g in c.groups
+                 if not isinstance(g, ColGroupUncompressed)]
+        shape = (None if not coded or len(coded) != len(c.groups) else
+                 (max(int(g.dictionary().shape[0]) for g in coded),
+                  len(coded)))
+        meta = c._cla_host_meta = (repr(tuple(sig)), code_bytes, shape)
+    return meta
+
+
+def _cla_ctx(c: CompressedMatrixBlock, k: int) -> dict:
+    """Key/cost context from HOST-side group metadata only: building the
+    device mirror here would upload every code array even when selection
+    picks decompress_dense (which never reads it)."""
+    n, m = c.shape
+    sig, code_bytes, _ = _host_meta(c)
+    return {"c": c, "rows": n, "cols": m, "k": k,
+            "groups": len(c.groups), "code_bytes": code_bytes,
+            "layout_sig": sig, "shape": (n, m, k)}
+
+
+def _cla_cost_coded(ctx) -> float:
+    from systemml_tpu_torch.hops.cost import (QUATERNARY_GATHER_OVERHEAD,
+                                              HwProfile)
+
+    hw = HwProfile.detect()
+    gather_flops = QUATERNARY_GATHER_OVERHEAD * ctx["rows"] \
+        * ctx["groups"] * max(ctx["k"], 1)
+    return (ctx["code_bytes"] / hw.hbm_bw
+            + gather_flops / hw.peak_flops_f32 + hw.dispatch_us * 1e-6)
+
+
+def _cla_cost_dense(ctx) -> float:
+    from systemml_tpu_torch.hops.cost import HwProfile
+
+    hw = HwProfile.detect()
+    cells = float(ctx["rows"]) * ctx["cols"]
+    host_decompress = cells * 8.0 / 1e9   # numpy scatter, ~1 GB/s
+    return (host_decompress + cells * hw.bytes_per_cell / hw.hbm_bw
+            + 2.0 * cells * max(ctx["k"], 1) / hw.peak_flops_f32)
+
+
+def _cla_cost_tpu_chain(ctx) -> float:
+    """The JAX package's cost of its chain kernel: code bytes stream once,
+    compare/dot work scales rows * groups * dmax (kept for the choice;
+    K6 looks each row's entry up instead)."""
+    from systemml_tpu_torch.hops.cost import HwProfile
+
+    hw = HwProfile.detect()
+    vpu_flops = 2.0 * ctx["rows"] * ctx["groups"] * CHAIN_MAX_DICT \
+        * max(ctx["k"], 1)
+    return (ctx["code_bytes"] / hw.hbm_bw
+            + vpu_flops / hw.peak_flops_f32 + hw.dispatch_us * 1e-6)
+
+
+# family -> its arms in registration order (a tie goes to the first) and
+# their costs
+_COSTS = {
+    "cla_right": {"coded": _cla_cost_coded,
+                  "decompress_dense": _cla_cost_dense},
+    "cla_left": {"coded": _cla_cost_coded,
+                 "decompress_dense": _cla_cost_dense},
+    "cla_tsmm": {"coded": _cla_cost_coded,
+                 "decompress_dense": _cla_cost_dense},
+    "cla_mmchain": {"tpu_chain": _cla_cost_tpu_chain,
+                    "gather_segment": _cla_cost_coded},
+}
+
+# kernel key -> the arm chosen, per process (codegen/backend.py _DECISIONS
+# in the JAX package)
+_DECISIONS: Dict[tuple, str] = {}
+_lock = threading.Lock()
+
+
+def reset_decisions() -> None:
+    """Forget every choice made, as a new process starts (tests)."""
+    with _lock:
+        _DECISIONS.clear()
+
+
+def _shape_bucket(dims) -> Tuple[int, ...]:
+    """Per-dim next power of two (codegen/backend.py shape_bucket)."""
+    return tuple(0 if d <= 0 else 1 << max(0, d - 1).bit_length()
+                 for d in (int(x) for x in dims))
+
+
+def _select(op: str, ctx: dict, arms: List[str], dtype: str,
+            extra=None) -> str:
+    """The arm of `op` with the least modeled time among `arms`, chosen
+    once per kernel key and counted then as kb_pick_<op>.<arm>."""
+    key = (op, get_config().device, dtype, _shape_bucket(ctx["shape"]),
+           ctx["layout_sig"], extra, tuple(arms))
+    with _lock:
+        hit = _DECISIONS.get(key)
+    if hit is not None:
+        return hit
+    costs = {a: _COSTS[op][a](ctx) for a in arms}
+    choice = min(costs, key=costs.get)
+    with _lock:
+        _DECISIONS[key] = choice
+    _count(f"kb_pick_{op}.{choice}")
+    return choice
+
+
+def _count(kind: str) -> None:
+    st = stats_mod.current()
+    if st is not None:
+        st.count_estim(kind)
+
+
+def _dense_of(c: CompressedMatrixBlock, like):
+    return torch.as_tensor(c.decompress(), dtype=like.dtype,
+                           device=like.device)
+
+
+def right_mult(c: CompressedMatrixBlock, w):
+    """X @ W -> dense (n, k) on the device."""
+    if w.ndim == 1:
+        w = w.reshape(-1, 1)
+    ctx = _cla_ctx(c, int(w.shape[1]))
+    arm = _select("cla_right", ctx, ["coded", "decompress_dense"],
+                  str(w.dtype))
+    if arm == "coded":
+        return _right(device_mirror(c), w)
+    return torch.matmul(_dense_of(c, w), w)
+
+
+def left_mult(c: CompressedMatrixBlock, yt):
+    """Y^T @ X -> dense (k, m) on the device. yt is (k, n)."""
+    if yt.ndim == 1:
+        yt = yt.reshape(1, -1)
+    ctx = _cla_ctx(c, int(yt.shape[0]))
+    arm = _select("cla_left", ctx, ["coded", "decompress_dense"],
+                  str(yt.dtype))
+    if arm == "coded":
+        return _left(device_mirror(c), yt)
+    return torch.matmul(yt, _dense_of(c, yt))
+
+
+def tsmm(c: CompressedMatrixBlock):
+    """t(X) @ X via code counts and joint code histograms."""
+    ctx = _cla_ctx(c, c.shape[1])
+    arm = _select("cla_tsmm", ctx, ["coded", "decompress_dense"], "f32")
+    if arm == "coded":
+        return _tsmm(device_mirror(c))
+    x = c.to_dense()
+    return torch.matmul(x.T, x)
+
+
+def gather_mmchain(c: CompressedMatrixBlock, v, w, ctype: str):
+    """The gather arm: the right mult feeding the left mult."""
+    dc = device_mirror(c)
+    n, m = dc.shape
+    xv = _right(dc, v.reshape(m, -1))
+    if ctype == "XtwXv":
+        xv = w.reshape(n, -1) * xv
+    elif ctype == "XtXvy":
+        xv = xv - w.reshape(n, -1)
+    return _left(dc, xv.T).T
+
+
+def mmchain(c: CompressedMatrixBlock, v, w=None, ctype: str = "XtXv"):
+    """t(X) %*% (w? * (X %*% v) -? y) with X compressed; X's dense form
+    never exists. K6 (chain_mmchain) when the block's layout and v's width
+    fit it and v lies on the card; otherwise the gather arm, and
+    cla_chain_plain_by_layout counts the calls whose layout or shape K6
+    refuses."""
+    if ctype not in CHAIN_CTYPES:
+        raise ValueError(f"unknown mmchain ctype {ctype!r}")
+    if ctype != "XtXv" and w is None:
+        raise ValueError(f"mmchain {ctype} needs w/y")
+    k = int(v.shape[1]) if v.ndim == 2 else 1
+    ctx = _cla_ctx(c, k)
+    fits = chain_supported(c, k, v.dtype)
+    if not fits:
+        _count("cla_chain_plain_by_layout")
+    arms = (["tpu_chain", "gather_segment"]
+            if fits and v.device.type == "cuda" else ["gather_segment"])
+    arm = _select("cla_mmchain", ctx, arms, "f32", ctype)
+    if arm == "tpu_chain":
+        return chain_mmchain(c, v, w, ctype)
+    return gather_mmchain(c, v, w, ctype)
+
+
+# --------------------------------------------------------------------------
+# K6: the compressed chain kernel (csrc/cla_chain.cu; replaces
+# systemml_tpu/compress/device.py:525 _chain_kernel_call)
+# --------------------------------------------------------------------------
+
+CHAIN_CTYPES = {"XtXv": 0, "XtwXv": 1, "XtXvy": 2}
+CHAIN_DTYPES = {torch.float32: 0, torch.float64: 1}
+# what the kernel takes (csrc/cla_chain.cu): at most 8 dictionary rows per
+# group (the JAX package's _TPU_CHAIN_DMAX), at most 8 columns of v, and a
+# block's shared memory within the card's 227 KB
+CHAIN_MAX_DICT = 8
+CHAIN_MAX_K = 8
+CHAIN_TILE = 256            # rows per tile = threads per block
+CHAIN_MAX_SMEM = 232448
+CHAIN_BLOCKS_PER_SM = 4
+
+
+def chain_smem_bytes(dmax: int, groups: int, k: int) -> int:
+    """A block's shared memory (csrc/cla_chain.cu smem_bytes): the table
+    and one histogram per row slice (CHAIN_TILE // (groups * k) slices,
+    at least 1) in double, the tile's z in double, and its codes, each
+    group's row padded by 4 bytes."""
+    pairs = groups * k
+    slices = 1 if pairs >= CHAIN_TILE else CHAIN_TILE // pairs
+    return (8 * (dmax * pairs * (1 + slices) + CHAIN_TILE * k)
+            + groups * (CHAIN_TILE + 4))
+
+
+def chain_supported(c: CompressedMatrixBlock, k: int, dtype) -> bool:
+    """Whether K6 takes the block with k columns of v of `dtype`: the JAX
+    package's predicate (every group coded, dmax <= 8), and this kernel's
+    own bounds (k <= 8, fp32 or fp64, the shared memory of a block). From
+    host metadata alone: nothing is uploaded."""
+    shape = _host_meta(c)[2]
+    if shape is None:
+        return False
+    dmax, groups = shape
+    return (dmax <= CHAIN_MAX_DICT and 1 <= k <= CHAIN_MAX_K
+            and dtype in CHAIN_DTYPES
+            and chain_smem_bytes(dmax, groups, k) <= CHAIN_MAX_SMEM)
+
+
+def chain_codes(codes):
+    """codes (G, n) uint8 in the layout K6 reads: a view of a (G, n rounded
+    up to 16) tensor, each row starting 16 bytes aligned (the padding
+    bytes are zero and never counted)."""
+    G, n = codes.shape
+    buf = torch.zeros((G, -(-n // 16) * 16), dtype=torch.uint8,
+                      device=codes.device)
+    buf[:, :n] = codes
+    return buf[:, :n]
+
+
+class ChainLayout:
+    """K6's device form of an all-coded block, built once and cached on
+    it: the codes as one (G, n) uint8 tensor (chain_codes), and the
+    dictionaries spread into one (dmax * G, m) matrix `a`, a[j * G + g,
+    cols_g[t]] = dict_g[j, t] (0 past a dictionary's rows), in which the
+    value table is a @ v and the output a^T @ part (`a64`, in double, as
+    the histograms are)."""
+
+    def __init__(self, c: CompressedMatrixBlock, device):
+        n, m = c.shape
+        dmax, G = _host_meta(c)[2]
+        codes = np.empty((G, n), dtype=np.uint8)
+        a = np.zeros((dmax, G, m), dtype=c.groups[0].dictionary().dtype)
+        for i, g in enumerate(c.groups):
+            d = g.dictionary()
+            codes[i] = g.codes()
+            a[:d.shape[0], i][:, g.cols] = d
+        self.dmax, self.groups, self.n, self.m = dmax, G, n, m
+        self.codes = chain_codes(torch.from_numpy(codes).to(device))
+        self.a = torch.from_numpy(a.reshape(dmax * G, m)).to(device)
+        self.a64 = self.a.double()
+
+
+def chain_layout(c: CompressedMatrixBlock) -> ChainLayout:
+    lay = getattr(c, "_chain_layout", None)
+    if lay is None:
+        if _host_meta(c)[2] is None:
+            raise ValueError("K6 takes a block whose groups are all coded")
+        lay = c._chain_layout = ChainLayout(c, get_config().device)
+    return lay
+
+
+def chain_mmchain(c: CompressedMatrixBlock, v, w=None,
+                  ctype: str = "XtXv"):
+    """The compressed mmchain through K6 (chain_kernel), as the JAX
+    package's tpu_mmchain: the value table sv[j, g, :] = dict_g[j, :] @
+    v[cols_g, :] and the output out[cols_g, :] = dict_g^T @ part[:, g, :]
+    are torch ops around the kernel's pass over the rows (one product
+    each, with the layout's `a`). Returns (m, k) in v's dtype. The caller
+    checks chain_supported first."""
+    lay = chain_layout(c)
+    v = v.reshape(lay.m, -1)
+    wv = None if ctype == "XtXv" else w.reshape(lay.n, -1).to(v.dtype)
+    part = chain_kernel(lay.codes, chain_table(lay, v), wv, ctype)
+    out = torch.matmul(lay.a64.T, part.reshape(lay.dmax * lay.groups, -1))
+    return out.to(v.dtype)
+
+
+def chain_table(lay: ChainLayout, v):
+    """The value table sv[j, g, :] = dict_g[j, :] @ v[cols_g, :],
+    (dmax, G, k) contiguous in v's dtype; v is (m, k)."""
+    return torch.matmul(lay.a.to(v.dtype), v).reshape(
+        lay.dmax, lay.groups, -1)
+
+
+def _chain_operands(codes, sv, w, ctype: str):
+    if ctype not in CHAIN_CTYPES:
+        raise ValueError(f"unknown mmchain ctype {ctype!r}")
+    if codes.ndim != 2 or sv.ndim != 3 or sv.shape[1] != codes.shape[0]:
+        raise ValueError(f"chain: codes {tuple(codes.shape)} and table "
+                         f"{tuple(sv.shape)} do not match (G, n) and "
+                         f"(dmax, G, k)")
+    n, k = codes.shape[1], sv.shape[2]
+    if ctype == "XtXv":
+        return None
+    if w is None:
+        raise ValueError(f"mmchain {ctype} needs w/y")
+    w = w.reshape(n, -1)
+    if w.shape[1] not in (1, k):
+        raise ValueError(f"chain {ctype}: w/y has {w.shape[1]} columns, v "
+                         f"has {k}")
+    return w
+
+
+def chain_plain(codes, sv, w=None, ctype: str = "XtXv"):
+    """The plain version of K6: codes (G, n) of dictionary rows, the value
+    table sv (dmax, G, k), w or y (n, 1) or (n, k). Returns the histograms
+    part[j, g, :] = sum of z over the rows with code_g == j, (dmax, G, k)
+    in float64, with z = w? * xv -? y and xv[r] = sum_g sv[code_g[r], g];
+    sums in double, as the kernel's."""
+    w = _chain_operands(codes, sv, w, ctype)
+    G, n = codes.shape
+    dmax, _, k = sv.shape
+    svd = sv.double()
+    idx = [codes[g].long() for g in range(G)]
+    xv = torch.zeros((n, k), dtype=torch.float64, device=sv.device)
+    for g in range(G):
+        xv += svd[:, g, :].index_select(0, idx[g])
+    z = xv
+    if ctype == "XtwXv":
+        z = w.double() * xv
+    elif ctype == "XtXvy":
+        z = xv - w.double()
+    part = torch.zeros((dmax, G, k), dtype=torch.float64, device=sv.device)
+    for g in range(G):
+        part[:, g, :] = torch.zeros((dmax, k), dtype=torch.float64,
+                                    device=sv.device).index_add_(0, idx[g], z)
+    return part
+
+
+_chain_lib: Optional[ctypes.CDLL] = None
+
+
+def _chain_library() -> ctypes.CDLL:
+    global _chain_lib
+    if _chain_lib is None:
+        from systemml_tpu_torch.codegen import build
+
+        lib = build.load("cla_chain")
+        lib.smtorch_cla_chain.argtypes = (
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+            + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.smtorch_cla_chain.restype = ctypes.c_int
+        _chain_lib = lib
+    return _chain_lib
+
+
+def chain_kernel(codes, sv, w=None, ctype: str = "XtXv"):
+    """K6: the compressed chain's pass over the rows (csrc/cla_chain.cu),
+    the function of chain_plain. On a CUDA tensor it launches the kernel,
+    or raises on what the kernel does not take: codes not a (G, n) uint8
+    tensor whose rows start 16 bytes aligned (chain_codes lays them out
+    so), a table not contiguous (dmax, G, k) fp32 or fp64 with dmax <= 8
+    and k <= 8, w/y of another dtype, or a table past a block's shared
+    memory. The codes must index rows of the table (the layout that
+    builds them guarantees it). On a CPU tensor it runs chain_plain.
+    Returns (dmax, G, k) float64."""
+    if codes.device.type == "cpu":
+        return chain_plain(codes, sv, w, ctype)
+    if codes.device.type != "cuda":
+        raise ValueError(f"chain_kernel: unsupported device {codes.device}")
+    w = _chain_operands(codes, sv, w, ctype)
+    G, n = codes.shape
+    dmax, _, k = sv.shape
+    operands = (codes, sv) if w is None else (codes, sv, w)
+    if any(t.device != codes.device for t in operands):
+        raise ValueError("chain_kernel: operands on different devices")
+    if codes.dtype != torch.uint8:
+        raise TypeError("chain_kernel takes uint8 codes")
+    ldc = codes.stride(0)
+    if (codes.stride(1) != 1 or ldc % 16 or ldc < n
+            or codes.data_ptr() % 16):
+        raise ValueError("chain_kernel reads code rows 16 bytes aligned "
+                         "(chain_codes lays them out so); got strides "
+                         f"{tuple(codes.stride())}")
+    if sv.dtype not in CHAIN_DTYPES or not sv.is_contiguous():
+        raise TypeError("chain_kernel takes a contiguous fp32 or fp64 table")
+    if w is not None:
+        if w.dtype != sv.dtype:
+            raise TypeError("chain_kernel: w/y and the table differ in dtype")
+        w = w.contiguous()
+    if not (1 <= dmax <= CHAIN_MAX_DICT and 1 <= k <= CHAIN_MAX_K
+            and chain_smem_bytes(dmax, G, k) <= CHAIN_MAX_SMEM):
+        raise ValueError(f"chain_kernel takes dmax <= {CHAIN_MAX_DICT}, k <= "
+                         f"{CHAIN_MAX_K} and {CHAIN_MAX_SMEM} B of shared "
+                         f"memory; got dmax={dmax}, G={G}, k={k}")
+    lib = _chain_library()
+    with torch.cuda.device(codes.device):
+        sms = torch.cuda.get_device_properties(
+            codes.device).multi_processor_count
+        tiles = -(-n // CHAIN_TILE)
+        grid = max(1, min(tiles, CHAIN_BLOCKS_PER_SM * sms))
+        partial = torch.empty((grid, dmax, G, k), dtype=torch.float64,
+                              device=codes.device)
+        out = torch.empty((dmax, G, k), dtype=torch.float64,
+                          device=codes.device)
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = lib.smtorch_cla_chain(
+            codes.data_ptr(), ldc, sv.data_ptr(),
+            None if w is None else w.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n, G, dmax, k, CHAIN_CTYPES[ctype],
+            1 if w is None else w.shape[1], CHAIN_DTYPES[sv.dtype], grid,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"cla_chain kernel launch failed: CUDA error {err}")
+    chain_kernel.launches += 1
+    return out
+
+
+chain_kernel.launches = 0

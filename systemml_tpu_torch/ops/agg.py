@@ -1,17 +1,19 @@
 """Aggregations: full, row-wise and column-wise.
 
-Port of systemml_tpu/ops/agg.py, dense branches. DML shape conventions
-as there: full aggregates return scalars (0-d tensors), rowX returns
-(n,1), colX returns (1,m). Kahan-compensated sums (`compensated_sum`,
-off by default), cumulative and statistical aggregates wait (ROADMAP
-queue 1, algorithm breadth).
+Port of systemml_tpu/ops/agg.py, dense and compressed branches. DML
+shape conventions as there: full aggregates return scalars (0-d tensors;
+a compressed operand's full sum, min, max and mean are host floats, as
+in the JAX package), rowX returns (n,1), colX returns (1,m).
+Kahan-compensated sums (`compensated_sum`, off by default), cumulative
+and statistical aggregates wait (ROADMAP queue 1, algorithm breadth).
 """
 
 from __future__ import annotations
 
 import torch
 
-from systemml_tpu_torch.utils.config import get_config
+from systemml_tpu_torch.compress import is_compressed
+from systemml_tpu_torch.utils.config import default_dtype, get_config
 
 
 def _keep(direction: str, r):
@@ -45,11 +47,42 @@ _AGGS = {
 }
 
 
+def _agg_compressed(op: str, x, direction: str):
+    """Aggregates over dictionaries + counts, no decompression (reference:
+    CompressedMatrixBlock.aggregateUnaryOperations). None -> the caller
+    decompresses."""
+    if direction == "all":
+        if op == "sum":
+            return x.sum()
+        if op in ("min", "max"):
+            return x.minmax(op)
+        if op == "mean":
+            return x.sum() / (x.shape[0] * x.shape[1])
+        return None
+    if direction == "col":
+        if op == "sum":
+            return _keep("col", _device_vector(x.col_sums()))
+        if op in ("min", "max"):
+            return _keep("col", _device_vector(x.col_minmax(op)))
+    return None
+
+
+def _device_vector(v):
+    return torch.as_tensor(v, dtype=default_dtype(),
+                           device=get_config().device)
+
+
 def agg(op: str, x, direction: str = "all"):
+    if is_compressed(x):
+        r = _agg_compressed(op, x, direction)
+        if r is not None:
+            return r
+        x = x.to_dense()  # no compressed form of this aggregate
     if not isinstance(x, torch.Tensor) or x.layout != torch.strided:
         raise NotImplementedError(
-            f"aggregate {op} on {type(x).__name__}: only dense tensors are "
-            f"ported (ROADMAP queue 1: sparse plane, compressed LA)")
+            f"aggregate {op} on {type(x).__name__}: only dense and "
+            f"compressed operands are ported (ROADMAP queue 1: sparse "
+            f"plane)")
     if op == "sum" and get_config().compensated_sum:
         raise NotImplementedError(
             "compensated_sum waits for ROADMAP queue 1, algorithm "

@@ -6,7 +6,10 @@ there:
 - `/` is true division (inf/nan propagate as in R),
 - `%%` / `%/%` follow R semantics (sign of divisor; intdiv = floor),
 - broadcasting covers matrix-scalar, matrix-rowvector, matrix-colvector.
-Compressed, double-float and sparse operands wait (ROADMAP queue 1).
+A compressed operand with a host scalar maps its dictionaries only for
+* / + - ^ min max (and a scalar on the left for * + -), and a compressed
+operand of a unary op likewise; any other op on it decompresses, as in
+the JAX package. Double-float and sparse operands wait (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from systemml_tpu_torch.compress import is_compressed
 from systemml_tpu_torch.utils.config import default_dtype, get_config
 
 
@@ -39,9 +43,9 @@ def _operands(a, b):
     for v in (a, b):
         if not isinstance(v, (torch.Tensor, bool, int, float)):
             raise NotImplementedError(
-                f"cellwise op on {type(v).__name__}: only dense tensors and "
-                f"scalars are ported (ROADMAP queue 1: sparse plane, "
-                f"compressed LA)")
+                f"cellwise op on {type(v).__name__}: only dense tensors, "
+                f"compressed matrices and scalars are ported (ROADMAP "
+                f"queue 1: sparse plane)")
     if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
         a = as_tensor(a)
     if isinstance(a, bool):
@@ -93,10 +97,38 @@ _REL = {
 }
 
 
+def _binary_compressed(op: str, a, b):
+    """Compressed scalar ops run on dictionaries only (reference:
+    CompressedMatrixBlock.scalarOperations). None -> caller decompresses."""
+    scalar = lambda v: isinstance(v, (int, float, bool))
+    if is_compressed(a) and scalar(b):
+        bf = float(b)
+        if op in ("*", "/", "+", "-", "^", "min", "max"):
+            fns = {"*": lambda d: d * bf, "/": lambda d: d / bf,
+                   "+": lambda d: d + bf, "-": lambda d: d - bf,
+                   "^": lambda d: d ** bf,
+                   "min": lambda d: np.minimum(d, bf),
+                   "max": lambda d: np.maximum(d, bf)}
+            return a.value_map(fns[op])
+    if scalar(a) and is_compressed(b):
+        af = float(a)
+        if op in ("*", "+"):
+            return b.value_map(lambda d: d * af if op == "*" else d + af)
+        if op == "-":
+            return b.value_map(lambda d: af - d)
+    return None
+
+
 def binary_op(op: str, a, b):
     """Dispatch a DML binary operator to torch. a/b: tensor or python
     scalar; a scalar pair is lifted to a tensor (the evaluator computes
     host scalar pairs itself before it gets here)."""
+    if is_compressed(a) or is_compressed(b):
+        r = _binary_compressed(op, a, b)
+        if r is not None:
+            return r
+        a = a.to_dense() if is_compressed(a) else a
+        b = b.to_dense() if is_compressed(b) else b
     a, b = _operands(a, b)
     if op in _ARITH:
         return _ARITH[op](a, b)
@@ -151,12 +183,18 @@ _UNARY = {
 
 def unary_op(op: str, x):
     """Dispatch a DML unary builtin (abs/sin/.../sigmoid) to torch."""
+    if is_compressed(x):
+        # any elementwise fn maps over dictionaries (zero need not be
+        # preserved: dictionaries hold explicit values)
+        return x.value_map(
+            lambda d: unary_op(op, torch.from_numpy(d)).numpy())
     if isinstance(x, (bool, int, float)):
         x = as_tensor(x)
     if not isinstance(x, torch.Tensor):
         raise NotImplementedError(
-            f"unary {op} on {type(x).__name__}: only dense tensors are "
-            f"ported (ROADMAP queue 1: sparse plane, compressed LA)")
+            f"unary {op} on {type(x).__name__}: only dense tensors and "
+            f"compressed matrices are ported (ROADMAP queue 1: sparse "
+            f"plane)")
     fn = _UNARY.get(op)
     if fn is None:
         raise NotImplementedError(

@@ -1,12 +1,14 @@
 """Matrix multiplication family.
 
-Port of systemml_tpu/ops/mult.py, dense branches. `matmult` and `tsmm`
-are torch.matmul (the JAX package leaves them to XLA; here cuBLAS runs
-them, in true fp32 under the "highest" policy, utils/config.py). mmchain
-dispatches between the hand kernel (codegen/kernels.py) and the two-pass
-arm by shape and dtype, before any launch. Sparse, compressed and
-double-float operands, pmm and the weighted quaternary ops wait (ROADMAP
-queue 1: sparse plane, compressed LA).
+Port of systemml_tpu/ops/mult.py, dense and compressed branches. Dense
+`matmult` and `tsmm` are torch.matmul (the JAX package leaves them to
+XLA; here cuBLAS runs them, in true fp32 under the "highest" policy,
+utils/config.py). Dense mmchain dispatches between the hand kernel
+(codegen/kernels.py) and the two-pass arm by shape and dtype, before any
+launch. A compressed operand (compress/) takes the compressed ops of
+compress/device.py: right and left mult, left tsmm, and mmchain, which
+runs kernel K6 on the card. Sparse and double-float operands, pmm and
+the weighted quaternary ops wait (ROADMAP queue 1: sparse plane).
 """
 
 from __future__ import annotations
@@ -14,29 +16,48 @@ from __future__ import annotations
 import torch
 
 from systemml_tpu_torch.codegen import kernels
+from systemml_tpu_torch.compress import device as cla_dev
+from systemml_tpu_torch.compress import is_compressed
 
 
 def _dense(*xs) -> None:
     for x in xs:
         if x is not None and not isinstance(x, torch.Tensor):
             raise NotImplementedError(
-                f"matrix multiply on {type(x).__name__}: only dense tensors "
-                f"are ported (sparse and compressed operands wait for "
-                f"ROADMAP queue 1, sparse plane and compressed LA)")
+                f"matrix multiply on {type(x).__name__}: only dense and "
+                f"compressed operands are ported (sparse operands wait for "
+                f"ROADMAP queue 1, sparse plane)")
         if x is not None and x.layout != torch.strided:
             raise NotImplementedError(
                 "sparse tensors wait for ROADMAP queue 1, sparse plane")
 
 
+def _dense_value(x):
+    """The other side of a compressed product, dense (a compressed one is
+    decompressed, as the JAX package's ensure_dense does)."""
+    return x.to_dense() if is_compressed(x) else x
+
+
 def matmult(a, b):
-    """A %*% B (reference: LibMatrixMult.matrixMult)."""
+    """A %*% B (reference: LibMatrixMult.matrixMult). A compressed A takes
+    the compressed right mult, a compressed B the left mult A @ X."""
+    if is_compressed(a):
+        return cla_dev.right_mult(a, _dense_value(b))
+    if is_compressed(b):
+        return cla_dev.left_mult(b, _dense_value(a))
     _dense(a, b)
     return torch.matmul(a, b)
 
 
 def tsmm(x, left: bool = True):
     """t(X)%*%X (left) or X%*%t(X) (right), reference MMTSJ. cuBLAS takes
-    the transposed view without a copy."""
+    the transposed view without a copy. A compressed X takes the
+    compressed tsmm when left; right has no compressed form and
+    decompresses."""
+    if is_compressed(x):
+        if left:
+            return cla_dev.tsmm(x)
+        x = x.to_dense()
     _dense(x)
     return torch.matmul(x.T, x) if left else torch.matmul(x, x.T)
 
@@ -56,7 +77,10 @@ def mmchain(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
     laid out row-major first, as the JAX package's transpose
     materialises it. `precise` is accepted and changes nothing: the
     kernel always computes in true fp32. The kernel backend's registry,
-    cost model and tuner wait (ROADMAP queue 1, kernel backend and tuner)."""
+    cost model and tuner wait (ROADMAP queue 1, kernel backend and tuner).
+    A compressed X takes compress/device.mmchain (K6 on the card)."""
+    if is_compressed(x):
+        return cla_dev.mmchain(x, v, w, ctype)
     _dense(x, v, w)
     m, k = x.shape
     c = v.shape[1] if v.ndim == 2 else 1

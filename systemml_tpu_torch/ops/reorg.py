@@ -5,19 +5,24 @@ the transposed VIEW, never a copy: matmult and tsmm hand the view to
 cuBLAS as a transposed operand, so `t(X) %*% y` over an 8 GB X costs no
 second X. Indexing with traced bounds (the fused-loop minibatch path),
 sort and the triangular extractions wait (ROADMAP queue
-1: fused loop regions, algorithm breadth).
+1: fused loop regions, algorithm breadth). A compressed operand is
+decompressed first, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 
+from systemml_tpu_torch.compress import is_compressed
+
 
 def _dense(x):
+    if is_compressed(x):
+        x = x.to_dense()
     if not isinstance(x, torch.Tensor) or x.layout != torch.strided:
         raise NotImplementedError(
-            f"reorg on {type(x).__name__}: only dense tensors are ported "
-            f"(ROADMAP queue 1: sparse plane, compressed LA)")
+            f"reorg on {type(x).__name__}: only dense and compressed "
+            f"matrices are ported (ROADMAP queue 1: sparse plane)")
     return x
 
 

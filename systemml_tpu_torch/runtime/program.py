@@ -12,16 +12,22 @@ basic block after the dynamic rewrites, and on loop and if predicates;
 on the card the program's fused plans are then built into kernels
 (codegen/build.py) before it runs.
 
+Automatic compression (compress/rewrite.py) runs as in the JAX package:
+unless cla is "false", compile_program marks each loop's loop-invariant
+matmult inputs, and at While/For entry a marked matrix is compressed when
+its estimated ratio clears cla_min_ratio (cla "auto"), or always (cla
+"true"); the loop then runs the compressed ops (compress/device.py). A
+failure there raises: the loop does not run dense unseen.
+
 What waits: the fused whole-block compile and the fused loop regions
 (ROADMAP queue 1, fused loop regions: CUDA graphs here), the
 buffer pool, layout propagation, the exec-type planner and MESH mode,
-automatic compression (compressed LA), the lifetime analysis, and
-parfor. A config that asks for one of them outright (exec_mode MESH, cla
-"true"), or sets any other field the port does not read
+the lifetime analysis, and parfor. A config that asks for one of them
+outright (exec_mode MESH), or sets any other field the port does not read
 (utils/config.check_ported), raises NotImplementedError.
-`codegen_enabled` and cla "auto" name optimizations whose absence leaves
-the results as they are: the blocks run eagerly, as they do in the JAX
-package when it does not fuse them, and nothing is compressed.
+`codegen_enabled` names an optimization whose absence leaves the results
+as they are: the blocks run eagerly, as they do in the JAX package when
+it does not fuse them.
 """
 
 from __future__ import annotations
@@ -135,9 +141,19 @@ class WhileBlock(ProgramBlock):
         self.body = body
 
     def execute(self, ec):
+        _maybe_auto_compress(self, ec)
         while self.pred.eval_bool(ec):
             for b in self.body:
                 b.execute(ec)
+
+
+def _maybe_auto_compress(loop, ec):
+    """Loop-entry compressed reblock (reference: the injected compression
+    op of RewriteCompressedReblock executing before the loop)."""
+    if getattr(loop, "cla_candidates", None):
+        from systemml_tpu_torch.compress.rewrite import apply_auto_compression
+
+        apply_auto_compression(ec, loop)
 
 
 class ForBlock(ProgramBlock):
@@ -165,6 +181,7 @@ class ForBlock(ProgramBlock):
         return out
 
     def execute(self, ec):
+        _maybe_auto_compress(self, ec)
         for i in self._range(ec):
             ec.vars[self.var] = i
             for b in self.body:
@@ -563,9 +580,6 @@ def _check_config_supported(cfg) -> None:
         raise NotImplementedError(
             "exec_mode MESH waits for ROADMAP queue 1, distributed and "
             "elastic")
-    if str(cfg.cla).lower() == "true":
-        raise NotImplementedError(
-            "cla=true waits for ROADMAP queue 1, compressed LA with K6")
 
 
 def compile_program(ast_prog: A.DMLProgram,
@@ -637,6 +651,15 @@ def compile_program(ast_prog: A.DMLProgram,
             prog.stats.count_estim("dynamic_rewrites", total_dyn)
     if cfg.optlevel >= 3:
         _spoof_codegen(prog, cfg)
+    if cfg.cla != "false":
+        # compressed-reblock injection: mark loop-invariant matmult inputs
+        # for sample-estimated compression at loop entry (reference:
+        # hops/rewrite/RewriteCompressedReblock.java)
+        from systemml_tpu_torch.compress.rewrite import plan_auto_compression
+
+        n_cla = plan_auto_compression(prog)
+        if n_cla:
+            prog.stats.count_estim("cla_candidates", n_cla)
     return prog
 
 

@@ -468,8 +468,9 @@ class DMLConfig:
 # (check_ported), since it would change nothing here.
 PORTED_FIELDS = frozenset({
     "device", "optlevel", "exec_mode", "codegen_enabled", "cla",
-    "floating_point_precision", "matmul_precision", "compensated_sum",
-    "sparsity_turn_point", "trace_max_events", "stats_max_heavy_hitters",
+    "cla_min_ratio", "blocksize", "floating_point_precision",
+    "matmul_precision", "compensated_sum", "sparsity_turn_point",
+    "trace_max_events", "stats_max_heavy_hitters",
     "liveness_enabled", "validate_enabled"})
 
 # field-name prefix -> the ROADMAP queue-1 item that brings it
@@ -478,9 +479,8 @@ _WAITING = (
     (("loopfuse_", "compile_timeout_s", "xla_cache_dir", "bufferpool_",
       "mem_"), "fused loop regions (CUDA graphs) and the buffer pool"),
     (("pallas_mode", "codegen_"), "kernel backend and tuner"),
-    (("ultra_sparsity_turn_point", "blocksize"), "sparse plane"),
+    (("ultra_sparsity_turn_point",), "sparse plane"),
     (("conv_",), "DNN and models"),
-    (("cla_",), "compressed LA"),
     (("parfor_", "remote_deadline_s"), "parfor, transform and frames"),
     (("serving_",), "serving and export"),
     (("profile_", "obs_", "donation_sanitizer"),

@@ -1,6 +1,8 @@
 """The hand-written kernels on the card, against their plain versions:
-mmchain (systemml_tpu_torch/codegen/csrc/mmchain.cu) and the spoof cell
-and row templates (csrc/spoof.cuh, one generated source per plan).
+mmchain (systemml_tpu_torch/codegen/csrc/mmchain.cu), the spoof cell
+and row templates (csrc/spoof.cuh, one generated source per plan) and the
+compressed chain K6 (csrc/cla_chain.cu, against compress/device.py
+chain_plain; also the compressed mmchain's choice of K6 by layout).
 
 Marked `gpu`: without a CUDA card every test skips, with the reason,
 from the `cuda` fixture (decided at run time, never at import, so every
@@ -11,7 +13,7 @@ test worker collects the same tests). On the card:
 Bar: normwise relative error <= 1e-5 against the plain version run in
 fp64 on the card from the same fp32 inputs (fp32 sums over 1,037 rows in
 another order; the spoof kernels' fp32 exp/pow/tan are within a few ulp),
-<= 1e-12 for the spoof kernels in fp64, NaN at the same places, and
+<= 1e-12 for the spoof kernels and K6 in fp64, NaN at the same places, and
 bit-identical output from two launches.
 """
 
@@ -299,3 +301,108 @@ def test_optlevel3_program_launches_spoof_kernels(cuda):
                 assert launched == (0, 0)
         a, b = results[3].double(), results[2].double()
         assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-3
+
+
+# ---- K6: the compressed chain (csrc/cla_chain.cu) -------------------------
+
+CHAIN_BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _chain_inputs(dev, dmax, groups, n, k, wc, dtype, seed=5):
+    rng = np.random.default_rng(seed)
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    codes = cla_dev.chain_codes(torch.from_numpy(
+        rng.integers(0, dmax, (groups, n)).astype(np.uint8)).to(dev))
+    sv = torch.from_numpy(rng.standard_normal((dmax, groups, k))).to(
+        dev, dtype)
+    w = (torch.from_numpy(rng.standard_normal((n, wc))).to(dev, dtype)
+         if wc else None)
+    return codes, sv, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ctype,k,wc", [("XtXv", 1, 0), ("XtXv", 4, 0),
+                                        ("XtwXv", 1, 1), ("XtwXv", 4, 1),
+                                        ("XtXvy", 1, 1), ("XtXvy", 4, 4)])
+@pytest.mark.parametrize("dmax,groups,n", [(8, 68, 100_003), (1, 3, 1037),
+                                           (5, 7, 255), (3, 200, 4097)])
+def test_cla_chain_matches_plain(cuda, dtype, ctype, k, wc, dmax, groups, n):
+    """K6 against chain_plain in fp64 on the card, from the same inputs;
+    two launches bit-identical."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    codes, sv, w = _chain_inputs(cuda, dmax, groups, n, k, wc, dtype)
+    before = cla_dev.chain_kernel.launches
+    out = cla_dev.chain_kernel(codes, sv, w, ctype)
+    again = cla_dev.chain_kernel(codes, sv, w, ctype)
+    ref = cla_dev.chain_plain(codes, sv.double(),
+                              None if w is None else w.double(), ctype)
+    torch.cuda.synchronize()
+    assert cla_dev.chain_kernel.launches == before + 2
+    assert out.dtype == torch.float64 and out.shape == (dmax, groups, k)
+    assert torch.equal(out, again)
+    err = torch.linalg.norm(out - ref) / torch.linalg.norm(ref)
+    assert float(err) <= CHAIN_BARS[dtype]
+
+
+def test_cla_mmchain_takes_kernel_by_layout(cuda):
+    """A compressed X on the card: mmchain launches K6 when every group is
+    coded with at most 8 dictionary rows; a block with a dictionary of 9
+    or an uncompressed column takes the gather arm, counted, with no
+    launch."""
+    from systemml_tpu_torch.compress import compress
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    rng = np.random.default_rng(8)
+    n = 20_011
+    cols = [rng.standard_normal(d)[rng.integers(0, d, n)]
+            for d in (2, 5, 8, 3)]
+    blocks = {
+        "coded": np.column_stack(cols),
+        "dmax 9": np.column_stack(
+            cols + [rng.standard_normal(9)[rng.integers(0, 9, n)]]),
+        "uncompressed": np.column_stack(cols + [rng.standard_normal(n)]),
+    }
+    for label, x in blocks.items():
+        c = compress(x.astype(np.float32))
+        v = torch.from_numpy(rng.standard_normal((x.shape[1], 1))
+                             .astype(np.float32)).to(cuda)
+        y = torch.from_numpy(rng.standard_normal((n, 1))
+                             .astype(np.float32)).to(cuda)
+        st = stats.Statistics()
+        before = cla_dev.chain_kernel.launches
+        with stats.stats_scope(st):
+            out = mult.mmchain(c, v, y, "XtXvy")
+            again = mult.mmchain(c, v, y, "XtXvy")
+        torch.cuda.synchronize()
+        xd = torch.from_numpy(x.astype(np.float32)).to(cuda).double()
+        ref = xd.T @ (xd @ v.double() - y.double())
+        err = torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref)
+        assert out.dtype == torch.float32 and float(err) <= 1e-5, label
+        by_layout = st.estim_counts.get("cla_chain_plain_by_layout", 0)
+        if label == "coded":
+            assert cla_dev.chain_kernel.launches == before + 2
+            assert by_layout == 0 and torch.equal(out, again)
+        else:
+            assert cla_dev.chain_kernel.launches == before, label
+            assert by_layout == 2, label
+
+
+def test_cla_chain_refuses_what_the_kernel_does_not_take(cuda):
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    codes, sv, w = _chain_inputs(cuda, 8, 4, 300, 1, 1, torch.float32)
+    with pytest.raises(TypeError):
+        cla_dev.chain_kernel(codes.int(), sv, w, "XtwXv")
+    with pytest.raises(ValueError):   # rows not 16 bytes apart
+        cla_dev.chain_kernel(codes.contiguous()[:, 1:], sv, w[1:], "XtwXv")
+    with pytest.raises(TypeError):
+        cla_dev.chain_kernel(codes, sv, w.double(), "XtwXv")
+    with pytest.raises(TypeError):
+        cla_dev.chain_kernel(codes, sv.half(), None, "XtXv")
+    with pytest.raises(ValueError):
+        cla_dev.chain_kernel(codes, torch.zeros(9, 4, 1, device=cuda), None,
+                             "XtXv")
+    with pytest.raises(ValueError):
+        cla_dev.chain_kernel(codes, sv, None, "XtwXv")

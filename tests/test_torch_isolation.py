@@ -4,8 +4,9 @@ neither jax nor the JAX package (systemml_tpu).
 1. In a subprocess where a sys.meta_path finder refuses `jax`, `jax.*`,
    `systemml_tpu` and `systemml_tpu.*` (and nothing else, so
    `systemml_tpu_torch` imports), the port runs a 50 x 4 LinearRegCG on
-   the CPU, and l2-svm at optlevel 3 (spoof fusion); afterwards neither
-   package is in sys.modules.
+   the CPU, l2-svm at optlevel 3 (spoof fusion), and LinearRegCG on a
+   compressed X (cla "true"); afterwards neither package is in
+   sys.modules.
 2. No source file of the port, and not chip_smoke.py, names them in an
    import or a dotted module path.
 """
@@ -56,6 +57,18 @@ res = ml.execute(
     .input("Y", np.sign(x @ beta_true)).arg("maxiter", 3).output("w"))
 assert np.isfinite(res.get_matrix("w")).all()
 assert ml._stats.op_count["spoof"] > 0
+# compressed LA: LinearRegCG compresses its categorical X at loop entry
+cfg = DMLConfig(device="cpu")
+cfg.cla = "true"
+ml = MLContext(cfg)
+ml.printer = lambda s: None
+xc = np.floor(rng.random((200, 4)) * 3)
+res = ml.execute(
+    dmlFromFile("scripts/algorithms/LinearRegCG.dml").input("X", xc)
+    .input("y", xc @ beta_true).arg("tol", 1e-12).arg("reg", 0.0)
+    .output("beta"))
+assert ml._stats.estim_counts["cla_auto_compressed"] == 1
+assert np.allclose(res.get_matrix("beta"), beta_true, rtol=1e-6)
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
