@@ -19,7 +19,18 @@ those paths against its plain PyTorch version:
   uniform codes, dictionary values drawn N(0, 1) and standardised per
   column), which compresses X at loop entry and runs each CG iteration's
   compressed mmchain through kernel K6; beside it the same script with
-  cla "false", and l2-svm on the same X with both.
+  cla "false", and l2-svm on the same X with both;
+- ALS-CG-ml10m: scripts/algorithms/ALS-CG.dml (rank 10, reg 0.01, maxi
+  5, mii 3, the arguments of scripts/perftest/run_perftest.py:216-218) on
+  a dense fp32 ratings matrix of the MovieLens 10M shape (GroupLens
+  ml-10M100K: 71,567 users x 10,681 movies, 10,000,054 ratings, 1.308%
+  dense; synthetic: a Bernoulli pattern at that density, each rating a
+  rank-10 product plus noise rounded to half stars in 0.5..5.0), at
+  optlevel 3, where its loss check runs the outer-product template
+  through kernel K5 and its CG reductions through K2, and at optlevel 2
+  (the dense wdivmm arm); then a user's ratings summary (sum, min and max
+  of the mean-centred observed ratings) on the same V, which runs the
+  multi-aggregate template through kernel K3.
 
 Phases:
 
@@ -29,7 +40,8 @@ Phases:
    compile_program does on the card, while csrc/mmchain.cu and
    csrc/cla_chain.cu build beside them; then the kernel phase's other
    plans; one nvcc per source, a program's together; nvcc seconds and
-   ptxas report per source;
+   ptxas report per source; ALS-CG and the ratings summary build theirs
+   (K5's outer plan, K3's multi-aggregate plan, ALS-CG's cell plans);
 2. each kernel against its plain version: mmchain at the main path's
    shapes and others (normwise relative error against the plain version
    in fp64 on the card, bar 1e-4: fp32 sums over up to 2e6 rows in
@@ -45,8 +57,15 @@ Phases:
    (100,003, 7) block, every chain type, k = 1 and 4, fp32 and fp64
    (bars 1e-5 and 1e-12 normwise), and two blocks that K6 refuses by
    layout (a dictionary of 9, an uncompressed column) taking the gather
-   arm, counted, with no launch. Every kernel runs twice: the two
-   results must be bit-identical;
+   arm, counted, with no launch; K5 against outer_plain in fp64 on the
+   card at ALS-CG-ml10m's shape (X its 0/1 pattern, rank 10, its loss
+   plan) and at a ragged (100,003, 777, r = 3) X, fp32 and fp64 (bars
+   1e-5 and 1e-12), with a plan of a host-number and a 0-d scalar leaf,
+   and NaN in X; K3 against multiagg_plain likewise, on the ratings
+   summary's plan over V and on the ragged and NaN plans above, every
+   aggregate order; the port's rand() on the card against its rand() on
+   the CPU, bit for bit, in fp32 and fp64. Every kernel runs twice: the
+   two results must be bit-identical;
 3. the paths, each with every launch counter set to 0 just before it and
    read just after: LinearRegCG at optlevel 2 (mmchain once per CG
    iteration, beta within 1e-3 of beta_true, peak allocated below twice
@@ -63,6 +82,14 @@ Phases:
    of the cla "false" run's and of beta_true) and "false", and l2-svm on
    the same X with both (w within 1e-3); the loop-entry compression
    (sample, host copy, compress()) is timed apart from the loops;
+   ALS-CG-ml10m at optlevels 3 and 2 (at 3: the templates selected, K5
+   once per outer iteration, K2 launching, no compile error, the plain
+   arm by layout only for the two regularizer plans that the JAX
+   package's kernel refuses too; L and R within 1e-3 normwise and the
+   loss within 1e-3 of optlevel 2; ms per outer iteration without a
+   profiler and the peak allocated memory), then the ratings summary at
+   optlevels 3 (K3 once) and 2 (s, lo and hi within 1e-5 relative; s, a
+   cancellation near 0, within 1e-6 x sum|Z|);
 4. times: each kernel and its plain version at the paths' shapes (CUDA
    events over back-to-back calls; for the spoof kernels, whose calls are
    shorter on the card than on the host, also the device time per call
@@ -73,7 +100,10 @@ Phases:
    K6 at the path's own compressed X, its plain version, the whole
    compressed chain around it, the gather arm, and as its yardstick the
    two-pass torch.matmul on the dense X (no single torch call computes
-   a compressed chain).
+   a compressed chain); K5 and K3 at ALS-CG-ml10m's shape against their
+   plain versions and bounds, with yardsticks (no single torch call
+   computes either): torch.matmul(U, V.T), the unfused route's first
+   step, for K5, and the unfused sequence (the plain version) for K3.
 
 Prints a {"kernels": [...]} line before the last, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero; without a CUDA
@@ -101,6 +131,16 @@ KERNEL_SOURCES = ("mmchain", "cla_chain")
 # the Census data of the CLA evaluation (UCI US Census 1990): rows, columns
 CENSUS_N, CENSUS_M = 2_458_285, 68
 CHAIN_BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
+# MovieLens 10M (GroupLens ml-10M100K): users, movies, ratings
+ML10M_USERS, ML10M_MOVIES, ML10M_RATINGS = 71_567, 10_681, 10_000_054
+# scripts/perftest/run_perftest.py:216-218
+ALS_ARGS = {"rank": 10, "reg": 0.01, "maxi": 5, "mii": 3}
+# a user's summary of mean-centred observed ratings: one multi-aggregate
+# plan at optlevel 3
+SUMMARY = ("mu = sum(V) / sum(V != 0)\nZ = (V != 0) * (V - mu)\n"
+           "s = sum(Z)\nlo = min(Z)\nhi = max(Z)\n")
+AGG_ORDERS = (("sum", "min", "max"), ("max", "sum"), ("min",),
+              ("min", "min", "sum", "max", "sum", "max", "min", "sum"))
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ALG = os.path.join(ROOT, "scripts", "algorithms")
 
@@ -209,7 +249,7 @@ class PhaseTimer:
 
 
 def profile_main_path(ml, script, host_activity: bool,
-                      kernel: str = "mmchain_partial"):
+                      kernel: str = "mmchain_partial", loop: str = "CG loop"):
     """One more run of the main path under torch.profiler, recording the
     device's activity, and the host's too when `host_activity`. Returns
     (and prints) the device's busy share of the run's wall time (parse and
@@ -257,7 +297,7 @@ def profile_main_path(ml, script, host_activity: bool,
           f"(parse and compile included), kernels {device_ms:.1f} ms, device "
           f"busy {100 * out['device_busy_share']:.1f}%")
     if "cg_iteration_ms" in out:
-        print(f"[profile {what}] CG loop: {out['cg_iteration_ms']:.3f} ms per "
+        print(f"[profile {what}] {loop}: {out['cg_iteration_ms']:.3f} ms per "
               f"iteration ({kernel} launch to launch), device busy "
               f"{100 * out['cg_loop_busy_share']:.1f}% inside the loop")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -472,7 +512,8 @@ def reset_launches(kernels) -> None:
     from systemml_tpu_torch.compress import device as cla_dev
 
     for k in (kernels.mmchain_kernel, kernels.cell_kernel,
-              kernels.row_kernel, cla_dev.chain_kernel):
+              kernels.row_kernel, kernels.outer_kernel,
+              kernels.multiagg_kernel, cla_dev.chain_kernel):
         k.launches = 0
 
 
@@ -482,6 +523,8 @@ def read_launches(kernels) -> dict:
     return {"mmchain": kernels.mmchain_kernel.launches,
             "spoof_cell": kernels.cell_kernel.launches,
             "spoof_row": kernels.row_kernel.launches,
+            "spoof_outer": kernels.outer_kernel.launches,
+            "spoof_multiagg": kernels.multiagg_kernel.launches,
             "cla_chain": cla_dev.chain_kernel.launches}
 
 
@@ -1005,6 +1048,470 @@ def time_chain_kernel(cla, dev, smi, max_abs_err) -> dict:
 
 
 # --------------------------------------------------------------------------
+# ALS-CG-ml10m and the ratings summary: K5 (outer) and K3 (multiagg)
+# --------------------------------------------------------------------------
+
+def make_ratings(dev):
+    """V (ML10M_USERS, ML10M_MOVIES) fp32 of the MovieLens 10M shape, from
+    one seeded generator on the card: a Bernoulli pattern at the published
+    density; each rating a rank-10 product (mean 3.5, sd about 1.1) plus
+    N(0, 0.5^2) noise, rounded to half stars and clipped to 0.5..5.0."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    users, movies = ML10M_USERS, ML10M_MOVIES
+    a = torch.randn(users, 10, generator=gen, device=dev)
+    b = torch.randn(movies, 10, generator=gen, device=dev)
+    v = torch.matmul(a, b.T).mul_(0.35).add_(3.5)
+    v.add_(torch.randn(users, movies, generator=gen, device=dev), alpha=0.5)
+    v.mul_(2.0).round_().div_(2.0).clamp_(0.5, 5.0)
+    density = ML10M_RATINGS / (users * movies)
+    v.mul_(torch.rand(users, movies, generator=gen, device=dev) < density)
+    return v
+
+
+def als_script(v):
+    from systemml_tpu_torch.api.mlcontext import dmlFromFile
+
+    s = dmlFromFile(os.path.join(ALG, "ALS-CG.dml")).input("V", v)
+    for k, val in ALS_ARGS.items():
+        s.arg(k, val)
+    return s.output("L", "R")
+
+
+def summary_script(v):
+    from systemml_tpu_torch.api.mlcontext import dml
+
+    return dml(SUMMARY).input("V", v).output("s", "lo", "hi")
+
+
+def compile_als():
+    """ALS-CG and the ratings summary at optlevel 3 on the card (inputs
+    unbound: compile_program reads their names); each builds its plans."""
+    from systemml_tpu_torch.runtime.program import compile_program
+    from systemml_tpu_torch.utils.config import get_config, set_config
+
+    old = get_config()
+    set_config(config(3))
+    try:
+        progs = {}
+        for name, s in (("ALS-CG", als_script(None)),
+                        ("summary", summary_script(None))):
+            progs[name] = compile_program(
+                s.parse(), clargs=s._args, outputs=s._outputs,
+                input_names=list(s._inputs))
+        return progs
+    finally:
+        set_config(old)
+
+
+def _plan_of(prog, template):
+    from systemml_tpu_torch.runtime.program import iter_spoof_hops
+
+    hops = [h for h in iter_spoof_hops(prog)
+            if h.params["template"] == template]
+    if len(hops) != 1:
+        fail(f"expected one {template} plan, found {templates_of(prog)}")
+    return hops[0]
+
+
+def _scalar_outer_plan():
+    """An outer plan with a host-number leaf a and a 0-d tensor leaf b:
+    (X - a * UV) * exp(min(UV, b))."""
+    from systemml_tpu_torch.codegen.cplan import CNode
+
+    i = lambda nm: CNode("in", name=nm)
+    n = lambda op, *kids: _n(CNode, op, *kids)
+    return n("b(*)", n("b(-)", i("X"), n("b(*)", i("a"), i("UV"))),
+             n("u(exp)", n("b(min)", i("UV"), i("b"))))
+
+
+def _check_scalars(label, outs, agains, refs, bar, abs_errs, key,
+                   scales=None):
+    """outs/agains from the kernel, refs from the plain version in fp64,
+    one per aggregate: each error relative to |ref| (to its scale, the sum
+    of the summands' magnitudes, for a sum that may cancel to near 0)
+    within bar, NaN where ref is NaN, bit-identical repeats. Prints one
+    line with the largest error."""
+    torch.cuda.synchronize()
+    worst, worst_abs, ok, same = 0.0, 0.0, True, True
+    for i, (out, again, ref) in enumerate(zip(outs, agains, refs)):
+        o, a, r = float(out), float(again), float(ref)
+        same &= (o == a) or (o != o and a != a)
+        if r != r:
+            ok &= o != o
+            continue
+        abs_err = abs(o - r)
+        den = abs(r) if scales is None or scales[i] is None else scales[i]
+        err = abs_err / den if den else abs_err
+        ok &= err <= bar
+        worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+    print(f"[kernel] {label}: largest relative error {worst:.3e} (bar "
+          f"{bar:g}), abs {worst_abs:.3e}, NaN as the plain version and "
+          f"within the bar {ok}, repeat bit-identical {same}", flush=True)
+    if not ok or not same:
+        fail(f"{label}: relative error {worst}, NaN places or bar {ok}, "
+             f"repeat identical {same}")
+    if key is not None:
+        abs_errs[key] = max(abs_errs.get(key, 0.0), worst_abs)
+
+
+def check_outer_kernel(als_hop, v32, dev, kernels, abs_errs) -> None:
+    """K5 against outer_plain in fp64 on the card: at ALS-CG-ml10m's shape
+    (X its 0/1 pattern, U and V rank 10, its loss plan) and at a ragged
+    (100,003, 777, r = 3) X of ratings, fp32 and fp64, with the loss plan
+    and a plan of a host-number and a 0-d scalar leaf, without and with
+    NaN in X; each twice."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    loss_plan, scal_plan = als_hop.params["plan"], _scalar_outer_plan()
+    for shape in ((ML10M_USERS, ML10M_MOVIES, 10), (100_003, 777, 3)):
+        m, n, r = shape
+        if m == ML10M_USERS:
+            x32 = (v32 != 0).to(torch.float32)
+        else:
+            x32 = torch.randint(1, 11, (m, n), generator=gen,
+                                device=dev).float().div_(2.0)
+            x32.mul_(torch.rand(m, n, generator=gen, device=dev) < 0.3)
+        u32 = torch.randn(m, r, generator=gen, device=dev) / math.sqrt(r)
+        w32 = torch.randn(n, r, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.float64):
+            x, u, w = x32.to(dtype), u32.to(dtype), w32.to(dtype)
+            extra = {"a": 0.5, "b": torch.tensor(0.75, device=dev,
+                                                 dtype=torch.float64)}
+            for nan in (False, True):
+                if nan:
+                    keep = float(x[m // 2, n // 3])
+                    x[m // 2, n // 3] = float("nan")
+                for label, plan in (("ALS-CG loss", loss_plan),
+                                    ("scalar leaves", scal_plan)):
+                    before = kernels.outer_kernel.launches
+                    out = kernels.outer_kernel(plan, x, u, w, extra)
+                    again = kernels.outer_kernel(plan, x, u, w, extra)
+                    ref = kernels.outer_plain(plan, x.double(), u.double(),
+                                              w.double(), extra)
+                    if kernels.outer_kernel.launches != before + 2:
+                        fail(f"outer {label}: the kernel did not launch")
+                    key = ("outer" if (m, dtype, nan, label) == (
+                        ML10M_USERS, torch.float32, False, "ALS-CG loss")
+                        else None)
+                    _check_scalars(
+                        f"outer {label} X ({m}, {n}) r={r} "
+                        f"{str(dtype)[6:]}{' NaN in X' if nan else ''}",
+                        [out], [again], [ref], SPOOF_BARS[dtype], abs_errs,
+                        key)
+                    del ref
+                if nan:
+                    x[m // 2, n // 3] = keep
+            del x, u, w
+            torch.cuda.empty_cache()
+        del x32, u32, w32
+    torch.cuda.empty_cache()
+
+
+def check_multiagg_kernel(summary_hop, v32, progs, dev, kernels,
+                          abs_errs) -> None:
+    """K3 against multiagg_plain in fp64 on the card: the ratings
+    summary's plan over V (fp32 and fp64, with and without a NaN in V)
+    and the kernel phase's ragged (100,003, 7) plans of every layout and
+    of NaN, every aggregate order of AGG_ORDERS; each twice."""
+    plan = summary_hop.params["plan"]
+    names = list(summary_hop.params["leaf_names"])
+    if len(names) != 4:
+        fail(f"the summary's plan has leaves {names}")
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def cases():   # one at a time: V in fp64 alone is 6.1 GB
+        for dtype in (torch.float32, torch.float64):
+            vd = v32.to(dtype)
+            env = {names[0]: vd, names[1]: vd, names[2]: vd.sum(),
+                   names[3]: (vd != 0).sum().to(dtype)}
+            yield (f"summary V ({ML10M_USERS}, {ML10M_MOVIES})", plan,
+                   names, env, dtype, vd)
+        for label, _, rplan, rnames, hop in kernel_plans(progs)[2:]:
+            if label == "every op":
+                continue
+            for dtype in (torch.float32, torch.float64):
+                yield (f"{label} (100003, 7)", rplan, rnames,
+                       kernel_env(label, hop, rnames, dtype, dev, gen),
+                       dtype, None)
+
+    for label, cplan, cnames, env, dtype, poke in cases():
+        envd = {k: (t.double() if isinstance(t, torch.Tensor) else t)
+                for k, t in env.items()}
+        for nan in ((False, True) if poke is not None else (False,)):
+            if nan:
+                keep = float(poke[123, 456])
+                poke[123, 456] = float("nan")
+                envd = {k: (t.double() if isinstance(t, torch.Tensor) else t)
+                        for k, t in env.items()}
+            # a sum's error is held against the sum of |value| (the
+            # summary's sum cancels to near 0)
+            scale = float(kernels._plain_value(cplan, cnames, envd).abs()
+                          .nansum())
+            for aggs in AGG_ORDERS:
+                before = kernels.multiagg_kernel.launches
+                out = kernels.multiagg_kernel(cplan, cnames, aggs, env)
+                again = kernels.multiagg_kernel(cplan, cnames, aggs, env)
+                ref = kernels.multiagg_plain(cplan, cnames, aggs, envd)
+                if kernels.multiagg_kernel.launches != before + 2:
+                    fail(f"multiagg {label}: the kernel did not launch")
+                key = ("multiagg" if (poke is not None and dtype ==
+                                      torch.float32 and not nan) else None)
+                _check_scalars(
+                    f"multiagg {label} {str(dtype)[6:]} "
+                    f"{'NaN ' if nan else ''}aggs {list(aggs)}", out, again,
+                    ref, SPOOF_BARS[dtype], abs_errs, key,
+                    [scale if a == "sum" else None for a in aggs])
+            if nan:
+                poke[123, 456] = keep
+        del env, envd, poke
+        torch.cuda.empty_cache()
+
+
+def check_rand(dev) -> None:
+    """The port's rand() on the card against its rand() on the CPU, bit
+    for bit, in fp32 and fp64: ALS-CG's factor draw at the path's shape
+    and a ranged, sparse draw."""
+    from systemml_tpu_torch.ops import datagen
+
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.float64, torch.int64)):
+        for rows, cols, lo, hi, sp, seed in (
+                (ML10M_USERS, 10, 0.0, 1.0, 1.0, 1234),
+                (1000, 1000, -2.5, 3.7, 0.3, 7)):
+            a = datagen.rand(rows, cols, lo, hi, sp, seed=seed, dtype=dtype,
+                             device=dev)
+            b = datagen.rand(rows, cols, lo, hi, sp, seed=seed, dtype=dtype,
+                             device="cpu")
+            same = bool(torch.equal(a.cpu().view(bits), b.view(bits)))
+            print(f"[kernel] rand ({rows}, {cols}) [{lo}, {hi}) sparsity {sp} "
+                  f"seed {seed} {str(dtype)[6:]}: card equals CPU bit for bit "
+                  f"{same}", flush=True)
+            if not same:
+                fail(f"rand {rows}x{cols} {dtype}: the card's draw differs "
+                     f"from the CPU's")
+
+
+_LOSS_MARK = "ALS-CG: iterations = "
+
+
+def run_als(optlevel, v, dev, kernels) -> dict:
+    """One unprofiled run of ALS-CG-ml10m through MLContext, after a
+    warm-up on the first 8,192 users; the launch counters are set to 0
+    just before it and read just after."""
+    from systemml_tpu_torch.api.mlcontext import MLContext
+
+    ml = MLContext(config(optlevel))
+    ml.printer = lambda s: None
+    ml.execute(als_script(v[:8192]))
+    lines = []
+    ml.printer = lines.append
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with PhaseTimer() as timer:
+        res = ml.execute(als_script(v))
+        lo, ro = res.get_tensor("L"), res.get_tensor("R")
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    hits = [s for s in lines if s.startswith(_LOSS_MARK)]
+    if len(hits) != 1:
+        fail(f"ALS-CG optlevel {optlevel} printed {lines}")
+    iters = int(hits[0][len(_LOSS_MARK):].split(",")[0])
+    loss = float(hits[0].split("loss = ")[1])
+    events = dict(ml._stats.estim_counts.items())
+    windows = phase_windows(timer, iters, f"ALS-CG-ml10m optlevel {optlevel}",
+                            "outer loop")
+    print(f"[script] {hits[0]}")
+    print(f"[als] ALS-CG-ml10m optlevel {optlevel}: {iters} outer "
+          f"iterations, {secs:.3f} s with parse and compile, "
+          f"{ml._stats.run_time:.3f} s executing; "
+          f"{windows['iteration_ms']:.3f} ms per outer iteration (device "
+          f"window; host {windows['iteration_host_ms']:.3f} ms); launches "
+          f"{launches}; events { {k: c for k, c in events.items() if k.startswith(('spoof_', 'spx_', 'cla_'))} }; "
+          f"peak allocated {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
+          f"over the data allocated before the run, V "
+          f"{v.numel() * 4 / 1e9:.3f} GB among it)", flush=True)
+    for t, nm in ((lo, "L"), (ro, "R")):
+        if t.dtype != torch.float32 or t.device != v.device \
+                or not bool(torch.isfinite(t).all()) or t.shape[1] != 10:
+            fail(f"ALS-CG optlevel {optlevel}: {nm} is {t.dtype} "
+                 f"{tuple(t.shape)} on {t.device}, or not finite")
+    if events.get("spoof_compile_errors", 0):
+        fail(f"ALS-CG optlevel {optlevel}: spoof_compile_errors "
+             f"{events['spoof_compile_errors']}")
+    if launches["cla_chain"] or events.get("cla_auto_compressed", 0):
+        fail(f"ALS-CG optlevel {optlevel}: a value was compressed")
+    if optlevel >= 3:
+        if launches["spoof_outer"] != iters or iters < 1:
+            fail(f"ALS-CG optlevel 3: K5 launched {launches['spoof_outer']} "
+                 f"times in {iters} outer iterations")
+        if launches["spoof_cell"] < 1:
+            fail("ALS-CG optlevel 3: the spoof cell kernel never launched")
+        # sum((wrowL * L) * L) and sum((wrowR * R) * R): an (n, 1) main
+        # leaf beside an (n, rank) leaf, a layout that the JAX package's
+        # kernel refuses too (its _leaf_layout), run by the plain arm
+        if events.get("spoof_plain_by_layout", 0) != 2 * iters:
+            fail(f"ALS-CG optlevel 3: spoof_plain_by_layout "
+                 f"{events.get('spoof_plain_by_layout', 0)}, not the two "
+                 f"regularizer plans per outer iteration ({2 * iters})")
+    else:
+        if any(launches[k] for k in ("spoof_cell", "spoof_row",
+                                     "spoof_outer", "spoof_multiagg")):
+            fail(f"ALS-CG optlevel 2 launched spoof kernels: {launches}")
+        if not events.get("spx_wdivmm_dense", 0):
+            fail("ALS-CG optlevel 2 did not run the dense wdivmm arm")
+    # device time by kernel and the device's busy share from one more run
+    # under torch.profiler; at optlevel 3 also the outer loop's period (K5
+    # launches once per outer iteration)
+    profile = profile_main_path(ml, als_script(v), False, kernel="outer_sum",
+                                loop="outer loop")
+    return {"L": lo, "R": ro, "iterations": iters, "loss": loss,
+            "profile": profile,
+            "seconds": secs, "exec_seconds": ml._stats.run_time,
+            "launches": launches, "peak_bytes": peak,
+            "peak_over_data_bytes": peak - base, "windows": windows,
+            "events": {k: c for k, c in events.items()
+                       if k.startswith(("spoof_", "spx_", "cla_"))}}
+
+
+def run_summary(optlevel, v, kernels) -> dict:
+    from systemml_tpu_torch.api.mlcontext import MLContext
+
+    ml = MLContext(config(optlevel))
+    ml.printer = lambda s: None
+    ml.execute(summary_script(v[:8192]))
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    res = ml.execute(summary_script(v))
+    vals = {k: float(res.get(k)) for k in ("s", "lo", "hi")}
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    events = dict(ml._stats.estim_counts.items())
+    print(f"[summary] ratings summary optlevel {optlevel}: {vals}, "
+          f"{secs:.3f} s with parse and compile; launches {launches}; "
+          f"spoof_plain_by_layout {events.get('spoof_plain_by_layout', 0)}",
+          flush=True)
+    want = 1 if optlevel >= 3 else 0
+    if launches["spoof_multiagg"] != want:
+        fail(f"summary optlevel {optlevel}: K3 launched "
+             f"{launches['spoof_multiagg']} times, not {want}")
+    if events.get("spoof_plain_by_layout", 0) or \
+            events.get("spoof_compile_errors", 0):
+        fail(f"summary optlevel {optlevel}: {events}")
+    return {"values": vals, "seconds": secs, "launches": launches}
+
+
+def als_paths(v, progs, dev, kernels) -> dict:
+    """ALS-CG-ml10m at optlevels 3 and 2, then the ratings summary at 3
+    and 2, on V."""
+    for name in ("ALS-CG", "summary"):
+        for t in templates_of(progs[name]):
+            print(f"[plans] {name} optlevel 3: {t[0]} {t[1]}: {t[2]}")
+    runs = {o: run_als(o, v, dev, kernels) for o in (3, 2)}
+    diffs = {}
+    for nm in ("L", "R"):
+        a, b = runs[3][nm].double(), runs[2][nm].double()
+        diffs[nm] = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    loss_rel = abs(runs[3]["loss"] - runs[2]["loss"]) / abs(runs[2]["loss"])
+    print(f"[als] ALS-CG-ml10m: |optlevel 3 - optlevel 2| / |optlevel 2|: L "
+          f"{diffs['L']:.3e}, R {diffs['R']:.3e}, loss {loss_rel:.3e} (bars "
+          f"1e-3); outer iterations {runs[3]['iterations']} / "
+          f"{runs[2]['iterations']}; ms per outer iteration "
+          f"{runs[3]['windows']['iteration_ms']:.3f} / "
+          f"{runs[2]['windows']['iteration_ms']:.3f}", flush=True)
+    if not (diffs["L"] <= 1e-3 and diffs["R"] <= 1e-3 and loss_rel <= 1e-3):
+        fail(f"ALS-CG optlevel 3 is {diffs}, loss {loss_rel} from optlevel 2")
+    summ = {o: run_summary(o, v, kernels) for o in (3, 2)}
+    z_abs = float((v - v.sum(dtype=torch.float64) / (v != 0).sum())
+                  .mul_(v != 0).abs().sum(dtype=torch.float64))
+    s3, s2 = summ[3]["values"], summ[2]["values"]
+    errs = {"s": abs(s3["s"] - s2["s"]) / z_abs,
+            "lo": abs(s3["lo"] - s2["lo"]) / abs(s2["lo"]),
+            "hi": abs(s3["hi"] - s2["hi"]) / abs(s2["hi"])}
+    print(f"[summary] optlevel 3 against 2: s {errs['s']:.3e} of sum|Z| = "
+          f"{z_abs:.6e} (bar 1e-6), lo {errs['lo']:.3e}, hi {errs['hi']:.3e} "
+          f"relative (bars 1e-5)", flush=True)
+    if not (errs["s"] <= 1e-6 and errs["lo"] <= 1e-5 and errs["hi"] <= 1e-5):
+        fail(f"ratings summary optlevel 3 is {errs} from optlevel 2")
+    out = {f"optlevel{o}": {k: val for k, val in r.items()
+                            if k not in ("L", "R")} for o, r in runs.items()}
+    out.update({"diff_from_optlevel2": diffs, "loss_rel_diff": loss_rel,
+                "templates": templates_of(progs["ALS-CG"]),
+                "summary": {f"optlevel{o}": r for o, r in summ.items()},
+                "summary_errors": errs,
+                "factors": (runs[3]["L"], runs[3]["R"])})
+    return out
+
+
+def time_outer_and_multiagg(als, v, progs, smi, abs_errs, kernels) -> list:
+    """K5 and K3 at ALS-CG-ml10m's shape against their plain versions and
+    bounds: K5 on the loss plan with X = V's 0/1 pattern and the optlevel-3
+    run's L and R, K3 on the summary's plan over V. Returns their
+    records."""
+    loss_hop = _plan_of(progs["ALS-CG"], "outer")
+    plan = loss_hop.params["plan"]
+    lf, rf = als["factors"]
+    x = (v != 0).to(torch.float32)
+    m, n = x.shape
+    r = lf.shape[1]
+    kern_ms, plain_ms, mm_ms = time_ms([
+        lambda: kernels.outer_kernel(plan, x, lf, rf, {}),
+        lambda: kernels.outer_plain(plan, x, lf, rf, {}),
+        lambda: torch.matmul(lf, rf.T),
+    ], reps=10)
+    nbytes = (x.numel() + lf.numel() + rf.numel()) * 4 + 4
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * (2.0 * r + plan_ops(plan)) * m * n / FP32_OPS_PER_S
+    outer_bound = max(bytes_ms, ops_ms)
+    print(f"[times] spoof_outer {plan.pretty()} X ({m}, {n}) r={r} fp32 on "
+          f"{smi}: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{outer_bound:.4f} ms (bytes {bytes_ms:.4f}, operations "
+          f"{ops_ms:.4f}); yardstick torch.matmul(U, V.T) alone (the "
+          f"unfused route's first step) {mm_ms:.4f} ms; no single torch call "
+          f"computes the outer template", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    hop = _plan_of(progs["summary"], "multiagg")
+    mplan, names = hop.params["plan"], list(hop.params["leaf_names"])
+    aggs = list(hop.params["aggs"])
+    env = {names[0]: v, names[1]: v, names[2]: v.sum(),
+           names[3]: (v != 0).sum().to(torch.float32)}
+    magg_ms, mplain_ms = time_ms([
+        lambda: kernels.multiagg_kernel(mplan, names, aggs, env),
+        lambda: kernels.multiagg_plain(mplan, names, aggs, env),
+    ], reps=10)
+    mb_ms, mb_by = spoof_bound(mplan, env, 4 * len(aggs), m * n)
+    print(f"[times] spoof_multiagg {mplan.pretty()} {aggs} over V ({m}, {n}) "
+          f"fp32 on {smi}: kernel {magg_ms:.4f} ms, plain (the unfused torch "
+          f"sequence, the yardstick) {mplain_ms:.4f} ms, bound {mb_ms:.4f} "
+          f"ms ({mb_by}); no single torch call computes the multi-aggregate "
+          f"template", flush=True)
+    return [{
+        "name": "spoof_outer", "route": "cuda",
+        "source": "systemml_tpu_torch/codegen/csrc/spoof.cuh",
+        "replaces": "systemml_tpu/codegen/kernels.py:419 outer_sum_kernel",
+        "launches": als["optlevel3"]["launches"]["spoof_outer"],
+        "max_abs_err": abs_errs["outer"], "ms": kern_ms,
+        "plain_ms": plain_ms, "bound_ms": outer_bound,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "yardstick_matmul_ms": mm_ms,
+        "plan": plan.pretty()}, {
+        "name": "spoof_multiagg", "route": "cuda",
+        "source": "systemml_tpu_torch/codegen/csrc/spoof.cuh",
+        "replaces": "systemml_tpu/codegen/kernels.py:242 multiagg_kernel",
+        "launches": als["summary"]["optlevel3"]["launches"]["spoof_multiagg"],
+        "max_abs_err": abs_errs["multiagg"], "ms": magg_ms,
+        "plain_ms": mplain_ms, "bound_ms": mb_ms, "bound_by": mb_by,
+        "library_ms": None, "yardstick_unfused_ms": mplain_ms,
+        "plan": mplan.pretty(), "aggs": aggs}]
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1037,8 +1544,9 @@ def main() -> None:
     with ThreadPoolExecutor(max_workers=1) as pool:
         named = pool.submit(build.build_plans, (), KERNEL_SOURCES)
         progs = compile_paths(data)
+        als_progs = compile_als()
         compile_s = time.perf_counter() - t0
-        for pname, prog in progs.items():
+        for pname, prog in list(progs.items()) + list(als_progs.items()):
             for t in templates_of(prog):
                 print(f"[plans] {pname} optlevel 3: {t[0]} {t[1]}: {t[2]}")
         plans = {}
@@ -1047,7 +1555,8 @@ def main() -> None:
                 plans[(t, plan.key())] = (t, plan)
         built = build.build_plans(plans.values()) + named.result()
     build_s = time.perf_counter() - t0
-    n_path_plans = len({(t, p.key()) for prog in progs.values()
+    n_path_plans = len({(t, p.key()) for prog in list(progs.values())
+                        + list(als_progs.values())
                         for t, p in program_plans(prog)})
     print(f"[build] compiled the paths, building their {n_path_plans} "
           f"fused plans, in {compile_s:.1f} s; the named sources and the "
@@ -1056,7 +1565,7 @@ def main() -> None:
           f"{len(build.build_reports)} in all")
     print_build_reports(build)
     nvcc_by_path = {}
-    for pname, prog in progs.items():
+    for pname, prog in list(progs.items()) + list(als_progs.items()):
         # a library built by an earlier run of this checkout has no report
         secs = [build.build_reports.get(build.plan_source(t, p)[0],
                                         (0.0, ""))[0]
@@ -1110,6 +1619,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     max_abs_err.update(check_spoof_kernels(progs, dev, kernels))
     max_abs_err["cla_chain"] = check_chain_kernel(dev)
+    ratings = make_ratings(dev)
+    n_ratings = int((ratings != 0).sum())
+    print(f"[als] ratings V ({ML10M_USERS}, {ML10M_MOVIES}) fp32, "
+          f"{ratings.numel() * 4 / 1e9:.3f} GB dense: {n_ratings} ratings "
+          f"({100 * n_ratings / ratings.numel():.3f}% dense; MovieLens 10M "
+          f"has {ML10M_RATINGS}), mean rating "
+          f"{float(ratings.sum(dtype=torch.float64)) / n_ratings:.4f}",
+          flush=True)
+    check_outer_kernel(_plan_of(als_progs["ALS-CG"], "outer"), ratings, dev,
+                       kernels, max_abs_err)
+    check_multiagg_kernel(_plan_of(als_progs["summary"], "multiagg"),
+                          ratings, progs, dev, kernels, max_abs_err)
+    check_rand(dev)
 
     # ---- 3. the paths -------------------------------------------------------
     # LinearRegCG at optlevel 2: the first slice's main path, K1
@@ -1218,6 +1740,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     # this slice's path: LinearRegCG-cla (K6), and l2-svm on the same X
     cla = cla_paths(dev, kernels)
+    torch.cuda.empty_cache()
+    # this slice's paths: ALS-CG-ml10m (K5, K2) and the ratings summary (K3)
+    als = als_paths(ratings, als_progs, dev, kernels)
 
     # ---- 4. times -----------------------------------------------------------
     v = torch.randn(K, 1, generator=gen, device=dev)
@@ -1246,8 +1771,9 @@ def main() -> None:
         else "operations",
         "library_ms": lib_ms}]
     gen = torch.Generator(device=dev).manual_seed(3)
-    spoof_launches = {k: sum(paths[p]["optlevel3"]["launches"][k]
-                             for p in paths)
+    by_path = {p: paths[p]["optlevel3"]["launches"] for p in paths}
+    by_path["ALS-CG-ml10m"] = als["optlevel3"]["launches"]
+    spoof_launches = {k: sum(c[k] for c in by_path.values())
                       for k in ("spoof_cell", "spoof_row")}
     replaces = {"spoof_cell": "systemml_tpu/codegen/kernels.py:124 "
                               "cell_kernel",
@@ -1280,14 +1806,15 @@ def main() -> None:
             "name": key, "route": "cuda",
             "source": "systemml_tpu_torch/codegen/csrc/spoof.cuh",
             "replaces": replaces[key], "launches": spoof_launches[key],
-            "launches_by_path": {p: paths[p]["optlevel3"]["launches"][key]
-                                 for p in paths},
+            "launches_by_path": {p: c[key] for p, c in by_path.items()},
             "max_abs_err": max_abs_err[key], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "call_ms": call_ms, "plain_call_ms": plain_call_ms,
             "plan": plan.pretty()})
         del env
     records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
+    records.extend(time_outer_and_multiagg(als, ratings, als_progs, smi,
+                                           max_abs_err, kernels))
     # the host time of one spoof wrapper call (a tiny input: the launch,
     # not the work); hops/cost.py HwProfile.h100().dispatch_us
     plan0, names0 = kernel_plans(progs)[1][2], ["i0", "i1"]
@@ -1312,6 +1839,8 @@ def main() -> None:
     print(json.dumps({"kernels": records, "card": smi,
                       "spoof_dispatch_us": host_us, "main_path": main_path,
                       "paths": paths, "cla_paths": cla_summary,
+                      "als_paths": {k: r for k, r in als.items()
+                                    if k != "factors"},
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path}))
     print(json.dumps({"ok": True, "device": {

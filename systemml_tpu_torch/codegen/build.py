@@ -44,7 +44,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 300.0
 SPOOF_HEADER = os.path.join(CSRC, "spoof.cuh")
 # template -> the launcher macro of csrc/spoof.cuh that a source exports
-SPOOF_LAUNCHERS = {"cell": "SPOOF_CELL_LAUNCHER", "row": "SPOOF_ROW_LAUNCHER"}
+SPOOF_LAUNCHERS = {"cell": "SPOOF_CELL_LAUNCHER", "row": "SPOOF_ROW_LAUNCHER",
+                   "multiagg": "SPOOF_MULTIAGG_LAUNCHER",
+                   "outer": "SPOOF_OUTER_LAUNCHER"}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -130,9 +132,9 @@ namespace {{
 struct Plan {{
   template <typename T>
   __device__ __forceinline__ T operator()(const spoof::Args<T>& a, long long r,
-                                          long long c) const {{
+                                          long long c{params}) const {{
     using namespace spoof::ops;
-#define LEAF(i) spoof::leaf<T>(a, i, r, c)
+#define LEAF(i) {leaf}
     return {expr};
 #undef LEAF
   }}
@@ -146,15 +148,23 @@ _header_bytes: List[bytes] = []
 
 
 def plan_source(template: str, plan) -> Tuple[str, str]:
-    """(name, source text) of `plan`'s library for `template` ("cell" or
-    "row"). The name carries the hash of the text, csrc/spoof.cuh and the
-    flags."""
+    """(name, source text) of `plan`'s library for `template` ("cell",
+    "row", "multiagg" or "outer"). An outer plan's functor takes the cell's
+    uv = U[r, :] . V[c, :] as an argument, and its leaf "UV" reads it; its
+    other leaves ("X" and the scalars) are read as any template's. The
+    name carries the hash of the text, csrc/spoof.cuh and the flags."""
     from systemml_tpu_torch.codegen.cplan import emit_cuda
 
     if template not in SPOOF_LAUNCHERS:
         raise ValueError(f"no CUDA skeleton for spoof template {template!r}")
+    leaf, params = "spoof::leaf<T>(a, i, r, c)", ""
+    names = plan.input_names()
+    if template == "outer":
+        params = ", T uv"
+        if "UV" in names:
+            leaf = f"((i) == {names.index('UV')} ? uv : {leaf})"
     text = _SOURCE.format(template=template, pretty=plan.pretty()[:2000],
-                          expr=emit_cuda(plan),
+                          expr=emit_cuda(plan), leaf=leaf, params=params,
                           launcher=SPOOF_LAUNCHERS[template])
     if not _header_bytes:
         with open(SPOOF_HEADER, "rb") as f:

@@ -285,51 +285,48 @@ def compile_spoof(blk: BlockHops) -> int:
     return _GLOBAL.compile_block(blk)
 
 
-
-
 # --------------------------------------------------------------------------
 # spoof execution (reference: SpoofCPInstruction dispatching the janino-
 # compiled operator). The JAX package dispatches through its kernel
 # backend (systemml_tpu/codegen/compiler.py:445-502); the port has no
-# backend yet (ROADMAP queue 1), so the cell and row templates go straight
-# to their kernel wrappers, which launch the hand-written kernel for a
-# CUDA tensor and run the plain version for a CPU tensor.
+# backend yet (ROADMAP queue 1), so each template goes straight to its
+# kernel wrapper, which launches the hand-written kernel for a CUDA tensor
+# and runs the plain version for a CPU tensor.
 # --------------------------------------------------------------------------
-
-_WAITING_TEMPLATES = {
-    "multiagg": "the multi-aggregate template waits for its kernel, K3 "
-                "(ROADMAP queue 2)",
-    "outer": "the outer-product template waits for its kernel, K5 "
-             "(ROADMAP queue 2)",
-}
-
 
 def execute_spoof(h: Hop, arg_values: List) -> object:
     from systemml_tpu_torch.codegen import kernels
 
     t = h.params["template"]
-    if t in _WAITING_TEMPLATES:
-        raise NotImplementedError(_WAITING_TEMPLATES[t])
     plan: CNode = h.params["plan"]
+    if t == "outer":
+        # inputs: X, the scalar leaves, U, V (SpoofCompiler._apply). A
+        # sparse X, sampled on its pattern (the JAX package's
+        # _outer_sampled), waits for the sparse plane with every sparse
+        # value: the port's X is a dense tensor
+        sca = h.params["scalar_names"]
+        extra = dict(zip(sca, arg_values[1:1 + len(sca)]))
+        return kernels.outer_kernel(plan, arg_values[0], arg_values[-2],
+                                    arg_values[-1], extra)
     names = h.params["leaf_names"]
     env = dict(zip(names, arg_values))
     if t == "cell":
         return kernels.cell_kernel(plan, names, h.params.get("agg"), env)
     if t == "row":
         return kernels.row_kernel(plan, names, h.params["row_agg"], env)
+    if t == "multiagg":
+        return kernels.multiagg_kernel(plan, names, h.params["aggs"], env)
     raise ValueError(f"unknown spoof template {t!r}")
 
 
 def program_plans(program) -> List[Tuple[str, CNode]]:
-    """(template, plan) of every cell and row spoof hop of a compiled
-    program, predicates included, each distinct plan once: the kernels
-    that build.build_plans compiles before the program runs."""
+    """(template, plan) of every spoof hop of a compiled program,
+    predicates included, each distinct plan once: the kernels that
+    build.build_plans compiles before the program runs."""
     from systemml_tpu_torch.runtime.program import iter_spoof_hops
 
     seen: Dict[Tuple, Tuple[str, CNode]] = {}
     for h in iter_spoof_hops(program):
         t = h.params["template"]
-        if t in ("cell", "row"):
-            seen.setdefault((t, h.params["plan"].key()),
-                            (t, h.params["plan"]))
+        seen.setdefault((t, h.params["plan"].key()), (t, h.params["plan"]))
     return list(seen.values())

@@ -1,14 +1,18 @@
 // Spoof (fused-operator) kernels for Hopper (sm_90a): the hand-written
-// skeletons of the cell and row templates. A generated source per plan
-// (codegen/build.py: plan_source) includes this header, defines one
-// functor `Plan` whose body is the plan's expression (codegen/cplan.py:
-// emit_cuda), and exports extern "C" launchers that instantiate the
-// skeletons below with it, for float and double.
+// skeletons of the cell, row, multi-aggregate and outer-product
+// templates. A generated source per plan (codegen/build.py: plan_source)
+// includes this header, defines one functor `Plan` whose body is the
+// plan's expression (codegen/cplan.py: emit_cuda), and exports an
+// extern "C" launcher that instantiates the template's skeleton below
+// with it, for float and double.
 //
 // Replaces systemml_tpu/codegen/kernels.py::cell_kernel (line 124: the
-// elementwise arm, pallas_call at :149, and the full-sum arm, :183) and
+// elementwise arm, pallas_call at :149, and the full-sum arm, :183),
 // ::row_kernel (line 199, pallas_call at :225: each row reduced under sum,
-// min or max). Mosaic compiled each plan for the TPU; a CUDA kernel cannot
+// min or max), ::multiagg_kernel (line 242, pallas_call at :296: one plan
+// reduced under several full aggregates) and ::outer_sum_kernel (line
+// 419, pallas_call at :458: sum(f(X, U %*% t(V))) without the (m, n)
+// product). Mosaic compiled each plan for the TPU; a CUDA kernel cannot
 // interpret a Python plan tree, so the plan is compiled in as a functor.
 //
 // Bound: bytes. A plan does a few operations per element on leaves that
@@ -41,7 +45,25 @@
 //   value is evaluated at every (r, c) of the main leaf's (m, n), which is
 //   the JAX kernel's broadcast to (tile, n) before the reduction.
 // - min and max propagate NaN, as jnp.minimum/jnp.maximum; no fminf/fmaxf.
-// Simple and right first: no TMA, no cp.async, no vector loads.
+// - Multi-aggregate: the cell walk of cell_sum, each cell's value reduced
+//   into one accumulator per aggregate (sum, min or max, any order, at
+//   most kMaxAggs), in double, each starting at its neutral element (0,
+//   +inf, -inf); the block's partials go to one (blocks, n_aggs) buffer,
+//   and a second kernel combines each column in block order under its own
+//   combiner. The walk carries (row, column) from step to step: no 64-bit
+//   division per cell. Bound: bytes, as the cell sum (the V-shaped
+//   ratings summary, 764M fp32 cells read once: >= 0.913 ms).
+// - Outer product: a block takes kOuterRows rows of X and kThreads
+//   columns; its U rows sit in shared memory (zero-padded to the rank
+//   bucket RB in 4..32, so each row is a few 16-byte broadcast reads), each
+//   thread keeps its column's V row in registers, forms uv = sum_k
+//   U[i,k] V[j,k] in a fixed k order by FMA (true fp32, or fp64; the
+//   padding adds exact zeros), reads X[i,j] coalesced along the row,
+//   evaluates the plan on (X, uv) and sums in double. Per-block partials
+//   are summed in block order by sum_partials. Bound: bytes of X when the
+//   rank is small (ALS-CG-ml10m, 71,567 x 10,681 fp32, rank 10: X's
+//   3.058 GB take >= 0.913 ms, its 1.53e10 FLOP >= 0.23 ms at 67 TFLOP/s).
+// Simple and right first: no TMA, no cp.async, no vector loads of leaves.
 
 #pragma once
 
@@ -252,6 +274,159 @@ row_warp(const __grid_constant__ Args<T> a, long long m, long long n,
   }
 }
 
+// ---- multi-aggregate template ----------------------------------------------
+
+constexpr int kMaxAggs = 8;
+
+struct Aggs {
+  int n;                // aggregates, 1..kMaxAggs
+  int code[kMaxAggs];   // RowAgg: kSum, kMin, kMax
+};
+
+__device__ __forceinline__ double agg_neutral(int code) {
+  return code == kSum ? 0.0 : (code == kMin ? CUDART_INF : -CUDART_INF);
+}
+
+__device__ __forceinline__ double agg_combine(int code, double a, double b) {
+  return code == kSum ? a + b
+                      : (code == kMin ? ops::op_min(a, b) : ops::op_max(a, b));
+}
+
+// fixed-order tree over the block's kThreads values under `code`'s
+// combiner; every thread gets the result, and s may be reused after it
+__device__ __forceinline__ double block_reduce(double* s, double v, int code) {
+  const int tid = threadIdx.x;
+  s[tid] = v;
+  __syncthreads();
+#pragma unroll
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (tid < w) s[tid] = agg_combine(code, s[tid], s[tid + w]);
+    __syncthreads();
+  }
+  const double r = s[0];
+  __syncthreads();
+  return r;
+}
+
+// partial[block * n_aggs + k] = aggregate k of the plan over the block's
+// grid-stride share of the (m, n) cells
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+multiagg(const __grid_constant__ Args<T> a, const Aggs g, long long m,
+         long long n, double* __restrict__ partial) {
+  __shared__ double s[kThreads];
+  const P plan{};
+  double acc[kMaxAggs];
+#pragma unroll
+  for (int k = 0; k < kMaxAggs; ++k)
+    acc[k] = agg_neutral(k < g.n ? g.code[k] : kSum);
+  const long long total = m * n;
+  const long long step = (long long)gridDim.x * kThreads;
+  long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < total) {
+    long long r = i / n, c = i - r * n;
+    const long long step_r = step / n, step_c = step - step_r * n;
+    for (; i < total; i += step) {
+      const double x = (double)plan(a, r, c);
+#pragma unroll
+      for (int k = 0; k < kMaxAggs; ++k)
+        if (k < g.n) acc[k] = agg_combine(g.code[k], acc[k], x);
+      r += step_r;
+      c += step_c;
+      if (c >= n) {
+        c -= n;
+        ++r;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxAggs; ++k) {
+    if (k < g.n) {
+      const double b = block_reduce(s, acc[k], g.code[k]);
+      if (threadIdx.x == 0) partial[(long long)blockIdx.x * g.n + k] = b;
+    }
+  }
+}
+
+// out[k] = column k of the (blocks, n_aggs) partials combined in block
+// order under aggregate k's combiner (one block)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+combine_partials(const double* __restrict__ partial, int blocks, const Aggs g,
+                 T* __restrict__ out) {
+  __shared__ double s[kThreads];
+  for (int k = 0; k < g.n; ++k) {
+    const int code = g.code[k];
+    double acc = agg_neutral(code);
+    for (int b = threadIdx.x; b < blocks; b += kThreads)
+      acc = agg_combine(code, acc, partial[(long long)b * g.n + k]);
+    const double t = block_reduce(s, acc, code);
+    if (threadIdx.x == 0) out[k] = (T)t;
+  }
+}
+
+// ---- outer-product template --------------------------------------------------
+
+constexpr int kOuterRows = 64;
+constexpr int kOuterMaxRank = 32;
+
+template <typename T>
+__device__ __forceinline__ T fma_t(T a, T b, T c);
+template <>
+__device__ __forceinline__ float fma_t<float>(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+template <>
+__device__ __forceinline__ double fma_t<double>(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// partial[blockIdx.y * gridDim.x + blockIdx.x] = sum over the block's row
+// tiles (kOuterRows rows each, grid-stride over blockIdx.y) and its
+// kThreads columns of plan(X, uv), uv = U[i, :] . V[j, :] over the rank r
+// (RB >= r, a multiple of 4)
+template <typename T, typename P, int RB>
+__global__ void __launch_bounds__(kThreads)
+outer_sum(const __grid_constant__ Args<T> a, const Leaf u, const Leaf v,
+          long long m, long long n, int r, double* __restrict__ partial) {
+  __shared__ __align__(16) T su[kOuterRows][RB];
+  __shared__ double s[kThreads];
+  const P plan{};
+  const T* up = static_cast<const T*>(u.ptr);
+  const T* vp = static_cast<const T*>(v.ptr);
+  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = c < n;
+  T vr[RB];
+#pragma unroll
+  for (int k = 0; k < RB; ++k)
+    vr[k] = (live && k < r) ? __ldg(vp + c * v.rs + k * v.cs) : T(0);
+  const long long tiles = (m + kOuterRows - 1) / kOuterRows;
+  double acc = 0.0;
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long row0 = tile * kOuterRows;
+    const int rows = (int)(m - row0 < kOuterRows ? m - row0 : kOuterRows);
+    __syncthreads();  // the previous tile's readers are done with su
+    for (int e = threadIdx.x; e < kOuterRows * RB; e += kThreads) {
+      const int i = e / RB, k = e - i * RB;
+      su[i][k] = (i < rows && k < r)
+                     ? __ldg(up + (row0 + i) * u.rs + k * u.cs) : T(0);
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll 4
+      for (int i = 0; i < rows; ++i) {
+        T uv = T(0);
+#pragma unroll
+        for (int k = 0; k < RB; ++k) uv = fma_t(su[i][k], vr[k], uv);
+        acc += (double)plan(a, row0 + i, c, uv);
+      }
+    }
+  }
+  const double b = block_sum(s, acc);
+  if (threadIdx.x == 0)
+    partial[(long long)blockIdx.y * gridDim.x + blockIdx.x] = b;
+}
+
 // ---- host side -----------------------------------------------------------
 
 template <typename T>
@@ -326,6 +501,70 @@ int launch_row(int row_agg, const void* const* ptrs, const long long* rs,
   return (int)cudaGetLastError();
 }
 
+// aggs[0..n_aggs) in RowAgg codes; out (n_aggs,) contiguous; partial
+// holds grid * n_aggs doubles
+template <typename T, typename P>
+int launch_multiagg(const void* const* ptrs, const long long* rs,
+                    const long long* cs, const double* scal, int n_leaves,
+                    long long m, long long n, int n_aggs, const int* aggs,
+                    void* out, void* partial, int grid, cudaStream_t stream) {
+  Args<T> a;
+  const int e = fill_args(&a, ptrs, rs, cs, scal, n_leaves);
+  if (e) return e;
+  // min and max of no cells have no value
+  if (grid < 1 || m < 0 || n < 0 || n_aggs < 1 || n_aggs > kMaxAggs)
+    return (int)cudaErrorInvalidValue;
+  Aggs g;
+  g.n = n_aggs;
+  for (int k = 0; k < kMaxAggs; ++k) {
+    g.code[k] = k < n_aggs ? aggs[k] : kSum;
+    if (g.code[k] < kSum || g.code[k] > kMax ||
+        (m * n == 0 && g.code[k] != kSum))
+      return (int)cudaErrorInvalidValue;
+  }
+  multiagg<T, P><<<grid, kThreads, 0, stream>>>(a, g, m, n,
+                                                static_cast<double*>(partial));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  combine_partials<T><<<1, kThreads, 0, stream>>>(
+      static_cast<const double*>(partial), grid, g, static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
+// out (1,) = the plan summed over X's (m, n); U (m, r) and V (n, r) as
+// leaves {ptr, rs, cs} of the main dtype; partial holds grid_x * grid_y
+// doubles
+template <typename T, typename P>
+int launch_outer(const void* const* ptrs, const long long* rs,
+                 const long long* cs, const double* scal, int n_leaves,
+                 long long m, long long n, int r, const void* u, long long urs,
+                 long long ucs, const void* v, long long vrs, long long vcs,
+                 void* out, void* partial, int grid_x, int grid_y,
+                 cudaStream_t stream) {
+  Args<T> a;
+  const int e = fill_args(&a, ptrs, rs, cs, scal, n_leaves);
+  if (e) return e;
+  if (grid_x < 1 || grid_y < 1 || grid_y > 65535 || m < 0 || n < 0 ||
+      r < 0 || r > kOuterMaxRank)
+    return (int)cudaErrorInvalidValue;
+  const Leaf lu{u, urs, ucs}, lv{v, vrs, vcs};
+  const dim3 grid(grid_x, grid_y);
+  double* p = static_cast<double*>(partial);
+  if (r <= 4)
+    outer_sum<T, P, 4><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
+  else if (r <= 8)
+    outer_sum<T, P, 8><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
+  else if (r <= 16)
+    outer_sum<T, P, 16><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
+  else
+    outer_sum<T, P, 32><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials<T><<<1, kThreads, 0, stream>>>(p, grid_x * grid_y,
+                                              static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace spoof
 
 // The extern "C" launchers of one plan's source. dtype 0 = float, 1 =
@@ -360,5 +599,43 @@ int launch_row(int row_agg, const void* const* ptrs, const long long* rs,
     if (dtype == 1)                                                            \
       return spoof::launch_row<double, PLAN>(row_agg, ptrs, rs, cs, scal,      \
                                              n_leaves, m, n, out, grid, s);    \
+    return (int)cudaErrorInvalidValue;                                         \
+  }
+
+#define SPOOF_MULTIAGG_LAUNCHER(PLAN)                                          \
+  extern "C" int smtorch_spoof_multiagg(                                       \
+      int dtype, const void* const* ptrs, const long long* rs,                 \
+      const long long* cs, const double* scal, int n_leaves, long long m,      \
+      long long n, int n_aggs, const int* aggs, void* out, void* partial,      \
+      int grid, void* stream) {                                                \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                        \
+    if (dtype == 0)                                                            \
+      return spoof::launch_multiagg<float, PLAN>(ptrs, rs, cs, scal,           \
+                                                 n_leaves, m, n, n_aggs, aggs, \
+                                                 out, partial, grid, s);       \
+    if (dtype == 1)                                                            \
+      return spoof::launch_multiagg<double, PLAN>(ptrs, rs, cs, scal,          \
+                                                  n_leaves, m, n, n_aggs,      \
+                                                  aggs, out, partial, grid,    \
+                                                  s);                          \
+    return (int)cudaErrorInvalidValue;                                         \
+  }
+
+#define SPOOF_OUTER_LAUNCHER(PLAN)                                             \
+  extern "C" int smtorch_spoof_outer(                                          \
+      int dtype, const void* const* ptrs, const long long* rs,                 \
+      const long long* cs, const double* scal, int n_leaves, long long m,      \
+      long long n, int r, const void* u, long long urs, long long ucs,         \
+      const void* v, long long vrs, long long vcs, void* out, void* partial,   \
+      int grid_x, int grid_y, void* stream) {                                  \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                        \
+    if (dtype == 0)                                                            \
+      return spoof::launch_outer<float, PLAN>(                                 \
+          ptrs, rs, cs, scal, n_leaves, m, n, r, u, urs, ucs, v, vrs, vcs,     \
+          out, partial, grid_x, grid_y, s);                                    \
+    if (dtype == 1)                                                            \
+      return spoof::launch_outer<double, PLAN>(                                \
+          ptrs, rs, cs, scal, n_leaves, m, n, r, u, urs, ucs, v, vrs, vcs,     \
+          out, partial, grid_x, grid_y, s);                                    \
     return (int)cudaErrorInvalidValue;                                         \
   }

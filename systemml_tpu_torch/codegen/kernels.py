@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels of the port, with their plain versions.
 
-Port of the kernels of systemml_tpu/codegen/kernels.py that the port's
-paths run. So far: mmchain (that file's `mmchain_kernel`, line 347), the
-kernel of the LinearRegCG loop body, and the spoof cell and row templates
-(`cell_kernel`, line 124, and `row_kernel`, line 199), the fused plans of
-optlevel 3. The multi-aggregate and outer-product kernels wait (ROADMAP
-queue 2, K3 and K5).
+Port of the kernels of systemml_tpu/codegen/kernels.py: mmchain (that
+file's `mmchain_kernel`, line 347), the kernel of the LinearRegCG loop
+body, and the four spoof templates, the fused plans of optlevel 3: cell
+(`cell_kernel`, line 124), row (`row_kernel`, line 199), multi-aggregate
+(`multiagg_kernel`, line 242) and outer product (`outer_sum_kernel`, line
+419). The compressed chain, K6, is in compress/device.py.
 
 Every kernel here has:
 
@@ -326,6 +326,18 @@ def _spoof_leaves(order, env, main):
 
 
 _ARGTYPES = {
+    # dtype, ptrs, rs, cs, scal, n_leaves, m, n, n_aggs, aggs, out,
+    # partial, grid, stream
+    "multiagg": ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]),
+    # dtype, ptrs, rs, cs, scal, n_leaves, m, n, r, u, urs, ucs, v, vrs,
+    # vcs, out, partial, grid_x, grid_y, stream
+    "outer": ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+              + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+              + ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
+              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+              + [ctypes.c_void_p]),
     # dtype, agg, ptrs, rs, cs, scal, n_leaves, m, n, out, partial, grid,
     # stream
     "cell": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
@@ -461,3 +473,157 @@ def row_kernel(plan, names: Sequence[str], row_agg: str,
 
 cell_kernel.launches = 0
 row_kernel.launches = 0
+
+
+# --------------------------------------------------------------------------
+# spoof multi-aggregate template: one plan, several full aggregates
+# (csrc/spoof.cuh multiagg; reference: SpoofMultiAggregate)
+# --------------------------------------------------------------------------
+
+MULTIAGG_MAX_AGGS = 8      # spoof::kMaxAggs
+
+
+def _reduce(agg: str, val):
+    """sum, min or max of every cell; min and max propagate NaN and have
+    no value over no cells, as jnp.min/jnp.max (ValueError)."""
+    if agg == "sum":
+        return torch.sum(val)
+    if val.numel() == 0:
+        raise ValueError(f"{agg} of no cells has no value")
+    return torch.amin(val) if agg == "min" else torch.amax(val)
+
+
+def multiagg_plain(plan, names: Sequence[str], aggs: Sequence[str],
+                   env: Dict[str, object]):
+    """The plain version of the multi-aggregate template: the plan
+    evaluated by torch ops once, then reduced under each aggregate of
+    `aggs`; a tuple of 0-d tensors in the main leaf's dtype, as the JAX
+    package's jnp arm (`_magg_jnp`)."""
+    val = _plain_value(plan, names, env)
+    return tuple(_reduce(a, val) for a in aggs)
+
+
+def multiagg_kernel(plan, names: Sequence[str], aggs: Sequence[str],
+                    env: Dict[str, object]):
+    """The multi-aggregate template (systemml_tpu/codegen/kernels.py:242):
+    the plan evaluated once at every cell of the main leaf's (m, n) and
+    reduced under every aggregate of `aggs` ("sum", "min", "max", any
+    order, repeats allowed), a tuple of 0-d tensors in the main leaf's
+    dtype. Dispatch as cell_kernel's; more than MULTIAGG_MAX_AGGS
+    aggregates take the plain arm by shape, counted in
+    spoof_plain_by_layout. A min or max over no cells raises ValueError
+    on either device."""
+    aggs = [str(a) for a in aggs]
+    if not aggs or any(a not in SPOOF_AGGS for a in aggs):
+        raise ValueError(f"multi-aggregate takes sum, min and max; got {aggs}")
+    main = _kernel_main(names, env, "multiagg_kernel")
+    if main is not None and len(aggs) > MULTIAGG_MAX_AGGS:
+        _count_plain_by_layout()
+        main = None
+    if main is None:
+        return multiagg_plain(plan, names, aggs, env)
+    m, n = main.shape
+    if m * n == 0 and any(a != "sum" for a in aggs):
+        raise ValueError(f"{aggs}: min and max of no cells have no value")
+    fn, order = _launcher(plan, "multiagg")
+    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, main)
+    codes = (ctypes.c_int * len(aggs))(*[SPOOF_AGGS[a] for a in aggs])
+    with torch.cuda.device(main.device):
+        grid = _spoof_grid(main.device, m * n)
+        out = torch.empty(len(aggs), dtype=main.dtype, device=main.device)
+        partial = torch.empty((grid, len(aggs)), dtype=torch.float64,
+                              device=main.device)
+        err = fn(SPOOF_DTYPES[main.dtype], ptrs, rs, cs, scal, len(order), m,
+                 n, len(aggs), codes, out.data_ptr(), partial.data_ptr(), grid,
+                 torch.cuda.current_stream(main.device).cuda_stream)
+    _check(err, "spoof multiagg kernel launch")
+    del keep
+    multiagg_kernel.launches += 1
+    return tuple(out[k] for k in range(len(aggs)))
+
+
+multiagg_kernel.launches = 0
+
+
+# --------------------------------------------------------------------------
+# spoof outer-product template: sum(f(X, U %*% t(V))) without the (m, n)
+# product (csrc/spoof.cuh outer_sum; reference: SpoofOuterProduct)
+# --------------------------------------------------------------------------
+
+OUTER_MAX_RANK = 32        # spoof::kOuterMaxRank
+OUTER_ROWS = 64            # spoof::kOuterRows
+_MAX_GRID_Y = 65535
+
+
+def _outer_shapes(x, u, v) -> Tuple[int, int, int]:
+    if x.ndim != 2 or u.ndim != 2 or v.ndim != 2:
+        raise ValueError("outer template: X, U and V must be matrices")
+    m, n = x.shape
+    if u.shape[0] != m or v.shape[0] != n or u.shape[1] != v.shape[1]:
+        raise ValueError(f"outer template: X {tuple(x.shape)}, U "
+                         f"{tuple(u.shape)}, V {tuple(v.shape)} do not fit "
+                         f"sum(f(X, U %*% t(V)))")
+    return m, n, u.shape[1]
+
+
+def outer_plain(plan, x, u, v, extra: Dict[str, object]):
+    """The plain version of the outer template, the JAX package's jnp arm
+    (`_outer_jnp`, systemml_tpu/codegen/compiler.py:397-404): UV = U %*%
+    t(V) built whole by torch.matmul, the plan evaluated on X, UV and the
+    scalar leaves `extra`, and summed; a 0-d tensor in X's dtype."""
+    from systemml_tpu_torch.codegen.cplan import emit
+
+    _outer_shapes(x, u, v)
+    env = dict(extra)
+    env["X"] = x
+    env["UV"] = torch.matmul(u.to(x.dtype), v.to(x.dtype).T)
+    names = [nm for nm in plan.input_names() if nm in env]
+    return torch.sum(emit(plan, _plain_env(names, env, x))).to(x.dtype)
+
+
+def outer_kernel(plan, x, u, v, extra: Dict[str, object]):
+    """The outer-product template (systemml_tpu/codegen/kernels.py:419):
+    sum over X's (m, n) of the plan on X, UV = U %*% t(V) and the scalar
+    leaves `extra` (Python numbers or 0-d tensors), in X's dtype; X (m, n),
+    U (m, r), V (n, r), any strides. On a CUDA X it launches the plan's
+    kernel (csrc/spoof.cuh outer_sum, which never builds the (m, n)
+    product), or raises on what the kernel does not take; a rank above
+    OUTER_MAX_RANK takes the plain arm by shape, counted in
+    spoof_plain_by_layout; on a CPU X it runs outer_plain."""
+    m, n, r = _outer_shapes(x, u, v)
+    if x.device.type == "cpu":
+        return outer_plain(plan, x, u, v, extra)
+    if x.device.type != "cuda":
+        raise ValueError(f"outer_kernel: unsupported device {x.device}")
+    if x.dtype not in SPOOF_DTYPES:
+        raise TypeError(f"outer_kernel takes fp32 and fp64 X; got {x.dtype}")
+    if r > OUTER_MAX_RANK:
+        _count_plain_by_layout()
+        return outer_plain(plan, x, u, v, extra)
+    if u.device != x.device or v.device != x.device:
+        raise ValueError("outer_kernel: X, U and V on different devices")
+    u, v = u.to(x.dtype), v.to(x.dtype)
+    fn, order = _launcher(plan, "outer")
+    env = dict(extra)
+    env["X"] = x
+    env["UV"] = 0.0          # computed per cell; never read as a leaf
+    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, x)
+    grid_x = max(1, -(-n // SPOOF_THREADS))
+    grid_y = max(1, min(-(-m // OUTER_ROWS), _MAX_GRID_Y))
+    stride = lambda t, d: t.stride(d) if t.shape[d] > 1 else 0
+    with torch.cuda.device(x.device):
+        out = torch.empty((), dtype=x.dtype, device=x.device)
+        partial = torch.empty(grid_x * grid_y, dtype=torch.float64,
+                              device=x.device)
+        err = fn(SPOOF_DTYPES[x.dtype], ptrs, rs, cs, scal, len(order), m, n,
+                 r, u.data_ptr(), stride(u, 0), stride(u, 1), v.data_ptr(),
+                 stride(v, 0), stride(v, 1), out.data_ptr(),
+                 partial.data_ptr(), grid_x, grid_y,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _check(err, "spoof outer kernel launch")
+    del keep
+    outer_kernel.launches += 1
+    return out
+
+
+outer_kernel.launches = 0

@@ -9,11 +9,10 @@ NotImplementedError that names its ROADMAP item:
 - block and loop-region analysis for whole-block / whole-loop compilation
   (analyze_block, plan_loop_regions; fused loop regions, CUDA graphs),
 - MESH dispatch and collectives (distributed and elastic),
-- quaternary ops and sparse operands (sparse plane), attention and the
-  DNN builtins (DNN and models), the mesh branches of compressed
-  operands (distributed and elastic),
-- the multi-aggregate and outer-product spoof templates (queue 2, K3 and
-  K5; codegen/compiler.execute_spoof raises for them),
+- sparse operands and the weighted quaternary ops other than wdivmm on
+  a dense carrier (sparse plane), attention and the DNN builtins (DNN and
+  models), the mesh branches of compressed operands and of the
+  quaternary ops (distributed and elastic),
 - every builtin outside _BUILTINS (see _WAITING_BUILTINS).
 """
 
@@ -156,13 +155,23 @@ def _mm_chain_order(p: List[int]) -> Dict[Tuple[int, int], int]:
     return split
 
 
+def _chain_product(vals, split, i: int, j: int):
+    """vals[i] @ ... @ vals[j] in the order of the split table."""
+    from systemml_tpu_torch.ops import mult
+
+    if i == j:
+        return vals[i]
+    k = split[(i, j)]
+    return mult.matmult(_chain_product(vals, split, i, k),
+                        _chain_product(vals, split, k + 1, j))
+
+
 def _waits(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: it waits for "
                                f"ROADMAP queue 1, {item}")
 
 
 _WAIT_OPS = (
-    ("q(", "weighted quaternary ops wait", "sparse plane"),
     ("attention", "attention waits", "DNN and models"),
     ("cum(", "cumulative aggregates wait", "algorithm breadth"),
 )
@@ -275,6 +284,8 @@ class Evaluator:
             xs = [self._m(c) for c in h.inputs]
             return mult.mmchain(xs[0], xs[1], xs[2] if len(xs) > 2 else None,
                                 h.params.get("ctype", "XtXv"))
+        if op.startswith("q("):
+            return self._quaternary(h)
         for prefix, what, item in _WAIT_OPS:
             if op.startswith(prefix):
                 raise _waits(what, item)
@@ -358,26 +369,32 @@ class Evaluator:
             return self._builtin(h, op[5:])
         raise DMLValidationError(f"cannot evaluate hop {op!r}")
 
+    def _quaternary(self, h: Hop):
+        """Weighted quaternary hop execution, after the JAX package's
+        `_quaternary` (systemml_tpu/compiler/lower.py:1618-1647) without
+        its mesh branch: wdivmm runs its dense arm (ops/mult.py); the
+        other kinds wait by name."""
+        from systemml_tpu_torch.ops import mult
+
+        kind = h.op[2:-1]
+        if kind != "wdivmm":
+            raise _waits(f"the weighted quaternary op {kind}", "sparse plane")
+        p = h.params
+        return mult.wdivmm(self.eval(h.inputs[0]), self._m(h.inputs[1]),
+                           self._m(h.inputs[2]), bool(p.get("left")),
+                           bool(p.get("mult")), float(p.get("eps", 0.0)))
+
     def _reassoc_matmult(self, h: Hop):
         """Matrix-mult-chain reassociation with exact shapes (reference:
         RewriteMatrixMultChainOptimization's O(k^3) dynamic program, run
         here where concrete dims make it exact). Returns the chain
         product in cost-optimal order, or None when there is no chain
-        (fewer than 3 factors) to reorder."""
-        from systemml_tpu_torch.ops import mult
-
+        (fewer than 3 factors) to reorder. The recursions are methods, not
+        closures: a recursive closure is a reference cycle, and one that
+        held this evaluator kept its cache, every intermediate of the
+        block, alive until the cyclic collector ran."""
         chain: List[Hop] = []
-
-        def flatten(node: Hop, top: bool):
-            if (node.op == "ba+*"
-                    and (top or self._consumers.get(node.id, 2) <= 1)
-                    and node.id not in self.cache):
-                flatten(node.inputs[0], False)
-                flatten(node.inputs[1], False)
-            else:
-                chain.append(node)
-
-        flatten(h, True)
+        self._flatten_chain(h, True, chain)
         if len(chain) < 3:
             return None
         vals = [self._m(c) for c in chain]
@@ -387,14 +404,19 @@ class Evaluator:
         split = _mm_chain_order(dims)
         if self.stats is not None:
             self.stats.count_estim("mmchain_reassoc")
+        return _chain_product(vals, split, 0, len(vals) - 1)
 
-        def build(i: int, j: int):
-            if i == j:
-                return vals[i]
-            k = split[(i, j)]
-            return mult.matmult(build(i, k), build(k + 1, j))
-
-        return build(0, len(vals) - 1)
+    def _flatten_chain(self, node: Hop, top: bool, chain: List[Hop]):
+        """The factors of the matmult chain under `node`: a matmult that
+        only this chain consumes, and that is not evaluated yet, is split
+        into its operands."""
+        if (node.op == "ba+*"
+                and (top or self._consumers.get(node.id, 2) <= 1)
+                and node.id not in self.cache):
+            self._flatten_chain(node.inputs[0], False, chain)
+            self._flatten_chain(node.inputs[1], False, chain)
+        else:
+            chain.append(node)
 
     def _compressed_t_matmult(self, a_hop: Hop, b_hop: Hop):
         """t(X) %*% Y with X compressed: one left_mult on the compressed
@@ -633,6 +655,21 @@ def _bi_compress(ev, pos, named, h):
     return compress(_mat(pos[0]).detach().cpu().numpy())
 
 
+def _bi_rand(ev, pos, named, h):
+    """rand(rows, cols, min, max, sparsity, pdf, seed), after the JAX
+    package's `_bi_rand` (systemml_tpu/compiler/lower.py:2221-2231)."""
+    from systemml_tpu_torch.ops import datagen
+
+    return datagen.rand(
+        int(_scalar(named.get("rows", pos[0] if pos else 1))),
+        int(_scalar(named.get("cols", pos[1] if len(pos) > 1 else 1))),
+        _scalar(named.get("min", 0.0)), _scalar(named.get("max", 1.0)),
+        float(_scalar(named.get("sparsity", 1.0))),
+        named.get("pdf", "uniform"),
+        int(_scalar(named["seed"])) if "seed" in named else None,
+        float(_scalar(named.get("lambda", 1.0))))
+
+
 def _bi_decompress(ev, pos, named, h):
     return pos[0].to_dense() if is_compressed(pos[0]) else pos[0]
 
@@ -650,6 +687,7 @@ _BUILTINS: Dict[str, Callable] = {
     "time": lambda ev, pos, named, h: int(time.time_ns()),
     "nnz": _bi_nnz, "rexpand": _bi_rexpand,
     "compress": _bi_compress, "decompress": _bi_decompress,
+    "rand": _bi_rand, "Rand": _bi_rand,
     "sumSq": lambda ev, pos, named, h: __import__(
         "systemml_tpu_torch.ops.agg", fromlist=["agg"]).agg(
         "sumsq", _mat(pos[0])),
@@ -666,7 +704,7 @@ _WAITING_BUILTINS: Dict[str, str] = {
     **{n: _IO for n in ("read", "write", "checkpoint", "restore",
                         "checkpointExists")},
     **{n: _BREADTH for n in (
-        "rand", "Rand", "seq", "sample", "solve", "inv", "inverse",
+        "seq", "sample", "solve", "inv", "inverse",
         "cholesky", "det", "trace", "qr", "lu", "eigen", "svd", "map",
         "table", "removeEmpty", "replace", "outer", "order",
         "quantile", "median", "interQuartileMean", "iqm", "colMedians",

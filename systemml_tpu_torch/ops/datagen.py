@@ -1,0 +1,208 @@
+"""Data generation: seeded rand.
+
+Port of systemml_tpu/ops/datagen.py (lines 60-115 there): `rand` with
+pdf "uniform", min, max and sparsity. The JAX package draws from
+jax.random (threefry2x32, partitionable scheme); here the same generator
+is written in torch integer ops on the tensor's own device, so that a
+seeded rand() gives the JAX package's values bit for bit, in fp32 and in
+fp64, on the CPU and on the card alike:
+
+- PRNGKey(seed): the key words (seed >> 32, seed & 0xFFFFFFFF) of the
+  seed as a 64-bit integer;
+- split: threefry of the key over the counters (0, i), i = 0, 1, each
+  output pair a new key (jax/_src/prng.py `_threefry_split_foldlike`);
+- bits: threefry of the key over the flattened index as (hi, lo) words
+  (`iota_2x32_shape`); fp32 takes hi ^ lo, fp64 hi << 32 | lo
+  (`_threefry_random_bits_partitionable`);
+- uniform: the bits' top mantissa bits under the exponent of 1.0, minus
+  1, scaled to [min, max), then max(min, .) (jax/_src/random.py
+  `_uniform`);
+- sparsity p < 1: cells where bernoulli(k2, p), i.e. uniform(k2) < p,
+  is false are 0. The JAX package draws that uniform in fp64 under x64,
+  the mode its tests and this port's parity tests run in; the port
+  always does.
+
+The words are kept in int64 with 0xFFFFFFFF masks: torch's uint32 has
+partial coverage on CUDA. The normal and poisson pdfs, seq and sample
+wait for ROADMAP queue 1, algorithm breadth (item 5).
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from typing import Optional, Tuple
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_seed_counter = itertools.count(1)
+_global_seed = [None]   # makes unseeded rand() calls reproducible
+
+
+def _waits(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: it waits for "
+                               f"ROADMAP queue 1, algorithm breadth (item 5)")
+
+
+def set_global_seed(seed: Optional[int]) -> None:
+    """The seed of every unseeded (or seed -1) rand() after it; None
+    clears it (the JAX package's CLI -seed)."""
+    global _seed_counter
+    _global_seed[0] = seed
+    _seed_counter = itertools.count(1)
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _MASK
+
+
+def threefry2x32(k1: int, k2: int, x1: torch.Tensor,
+                 x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash (20 rounds) of counter words x1, x2 (int64
+    tensors holding uint32 values) under the key (k1, k2), as
+    jax/_src/prng.py `_threefry2x32_lowering`."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _MASK
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x[0], x[1]
+
+
+def _hash_pair(key: Tuple[int, int], c1: int, c2: int) -> Tuple[int, int]:
+    one = lambda v: torch.tensor([v], dtype=torch.int64)
+    b1, b2 = threefry2x32(key[0], key[1], one(c1), one(c2))
+    return int(b1), int(b2)
+
+
+def prng_key(seed: int) -> Tuple[int, int]:
+    """jax.random.PRNGKey(seed): the seed's 64-bit words, high first."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return s >> 32, s & _MASK
+
+
+def split(key: Tuple[int, int]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """jax.random.split(key) into two keys: threefry over the counters
+    (hi 0, lo 0) and (hi 0, lo 1)."""
+    return _hash_pair(key, 0, 0), _hash_pair(key, 0, 1)
+
+
+def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
+    """jax.random.fold_in(key, data): threefry of the counter (0, data)."""
+    return _hash_pair(key, 0, int(data) & _MASK)
+
+
+def _key(seed: Optional[int]) -> Tuple[int, int]:
+    """The key of a rand() call: PRNGKey(seed); for no seed or -1, a fresh
+    stream per call, or with a global seed its n-th fold (the JAX
+    package's `_key` without the parfor streams and traced seeds, which
+    wait with parfor and the fused loops)."""
+    if seed is None or int(seed) == -1:
+        n = next(_seed_counter)
+        if _global_seed[0] is not None:
+            return fold_in(prng_key(_global_seed[0]), n)
+        return prng_key((time.time_ns() + n) % (2 ** 31))
+    return prng_key(int(seed))
+
+
+def random_bits(key: Tuple[int, int], shape: Tuple[int, int], bits: int,
+                device) -> torch.Tensor:
+    """threefry random bits of width 32 (int64 in [0, 2^32)) or 64 (as
+    the two words (hi, lo) stacked in dim 0) over `shape`, counters the
+    flattened index split into (hi, lo) words."""
+    n = shape[0] * shape[1]
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & _MASK)
+    if bits == 32:
+        return (b1 ^ b2).reshape(shape)
+    return torch.stack([b1, b2]).reshape(2, *shape)
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, e) with s = RN(a + b) and s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _round_odd(s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """s + e (s = RN(s + e), e its exact error, fp64) rounded to odd: the
+    float toward zero from the exact value, its last bit forced to 1 when
+    the sum is inexact."""
+    bits = s.view(torch.int64)
+    toward_zero = (e != 0) & ((e > 0) != (s > 0))
+    trunc = torch.where(toward_zero, bits - 1, bits)
+    return torch.where(e != 0, trunc | 1, bits).view(torch.float64)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """RN(a * b + c) in a's dtype with one rounding, as XLA on the CPU
+    contracts the JAX package's `floats * (max - min) + min`. fp32: the
+    product is exact in fp64, the sum rounded to odd in fp64, then to fp32
+    (53 >= 24 + 2 bits). fp64: the emulated FMA of Boldo and Melquiond
+    (IEEE TC 2008, Algorithm 5.4): the exact product by Dekker's split,
+    a two-sum, and the low parts added with rounding to odd."""
+    if a.dtype == torch.float32:
+        s, e = _two_sum(a.double() * b.double(), c.double())
+        return _round_odd(s, e).to(torch.float32)
+    split = 134217729.0   # 2^27 + 1
+    def halves(x):
+        t = split * x
+        hi = t - (t - x)
+        return hi, x - hi
+    ah, al = halves(a)
+    bh, bl = halves(b)
+    p = a * b
+    pe = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    return th + _round_odd(*_two_sum(tl, pe))
+
+
+def uniform(key: Tuple[int, int], shape: Tuple[int, int], dtype, device,
+            min_v: float = 0.0, max_v: float = 1.0) -> torch.Tensor:
+    """jax.random.uniform(key, shape, dtype, min_v, max_v) bit for bit:
+    the mantissa bitcast, then (f - 1) * (max - min) + min with one
+    rounding (_fma) and max(min, .), in `dtype`."""
+    if dtype == torch.float32:
+        bits = random_bits(key, shape, 32, device)
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        hi, lo = random_bits(key, shape, 64, device)
+        # (hi << 32 | lo) >> 12, kept below 2^63
+        f = (((hi << 20) | (lo >> 12)) | 0x3FF0000000000000).view(
+            torch.float64)
+    else:
+        raise TypeError(f"rand: uniform draws take fp32 or fp64, not {dtype}")
+    lo_v = torch.tensor(min_v, dtype=dtype, device=device)
+    span = torch.tensor(max_v, dtype=dtype, device=device) - lo_v
+    return torch.maximum(lo_v, _fma(f - 1.0, span, lo_v))
+
+
+def rand(rows: int, cols: int, min_v=0.0, max_v=1.0, sparsity: float = 1.0,
+         pdf: str = "uniform", seed: Optional[int] = None,
+         lambda_: float = 1.0, dtype=None, device=None) -> torch.Tensor:
+    """rand(rows, cols, min, max, sparsity, pdf, seed) (reference:
+    LibMatrixDatagen.generateRandomMatrix): uniform values in [min, max),
+    cells dropped to 0 with probability 1 - sparsity, in the configured
+    dtype on the configured device, equal to the JAX package's draw from
+    the same seed. A seed of -1 or none draws a fresh stream."""
+    from systemml_tpu_torch.utils.config import default_dtype, get_config
+
+    if pdf != "uniform":
+        if pdf in ("normal", "poisson"):
+            raise _waits(f"rand(pdf={pdf!r})")
+        raise ValueError(f"unknown pdf {pdf!r}")
+    device = torch.device(get_config().device if device is None else device)
+    dtype = dtype or default_dtype(device)
+    k1, k2 = split(_key(seed))
+    shape = (int(rows), int(cols))
+    m = uniform(k1, shape, dtype, device, float(min_v), float(max_v))
+    if float(sparsity) < 1.0:
+        keep = uniform(k2, shape, torch.float64, device) < float(sparsity)
+        m = torch.where(keep, m, torch.zeros((), dtype=dtype, device=device))
+    return m

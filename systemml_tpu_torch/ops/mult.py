@@ -7,8 +7,10 @@ utils/config.py). Dense mmchain dispatches between the hand kernel
 (codegen/kernels.py) and the two-pass arm by shape and dtype, before any
 launch. A compressed operand (compress/) takes the compressed ops of
 compress/device.py: right and left mult, left tsmm, and mmchain, which
-runs kernel K6 on the card. Sparse and double-float operands, pmm and
-the weighted quaternary ops wait (ROADMAP queue 1: sparse plane).
+runs kernel K6 on the card. Of the weighted quaternary ops, `wdivmm`
+on a dense carrier is ported (ALS-CG's half-steps); sparse and
+double-float operands, pmm, the sparse carriers of wdivmm and the other
+four quaternary kinds wait (ROADMAP queue 1: sparse plane).
 """
 
 from __future__ import annotations
@@ -90,3 +92,22 @@ def mmchain(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
             x = x.contiguous()
         return kernels.mmchain_kernel(x, v, w, ctype, precise=precise)
     return kernels.mmchain_plain(x, v, w, ctype)
+
+
+def wdivmm(x, u, v, left: bool, mult: bool = False, eps: float = 0.0):
+    """Weighted divide matrix-mult (reference: WeightedDivMM), the dense
+    arm of the JAX package's q_wdivmm family (systemml_tpu/ops/mult.py:
+    487-519): with W = X * (U %*% t(V)) (mult) or X / (U %*% t(V) + eps),
+    returns t(W) %*% U (left) or W %*% V. The (m, n) product and W are
+    built, as there, by torch.matmul in true fp32 under the "highest"
+    policy. A sparse carrier (the exploit arm, sampled on X's pattern)
+    waits for the sparse plane; counts spx_wdivmm_dense."""
+    _dense(x, u, v)
+    from systemml_tpu_torch.utils import stats as stats_mod
+
+    st = stats_mod.current()
+    if st is not None:
+        st.count_estim("spx_wdivmm_dense")
+    uv = torch.matmul(u, v.T)
+    w = x * uv if mult else x / (uv + eps)
+    return torch.matmul(w.T, u) if left else torch.matmul(w, v)

@@ -1,8 +1,9 @@
 """The hand-written kernels on the card, against their plain versions:
-mmchain (systemml_tpu_torch/codegen/csrc/mmchain.cu), the spoof cell
-and row templates (csrc/spoof.cuh, one generated source per plan) and the
-compressed chain K6 (csrc/cla_chain.cu, against compress/device.py
-chain_plain; also the compressed mmchain's choice of K6 by layout).
+mmchain (systemml_tpu_torch/codegen/csrc/mmchain.cu), the spoof cell,
+row, multi-aggregate (K3) and outer-product (K5) templates
+(csrc/spoof.cuh, one generated source per plan) and the compressed chain
+K6 (csrc/cla_chain.cu, against compress/device.py chain_plain; also the
+compressed mmchain's choice of K6 by layout).
 
 Marked `gpu`: without a CUDA card every test skips, with the reason,
 from the `cuda` fixture (decided at run time, never at import, so every
@@ -406,3 +407,219 @@ def test_cla_chain_refuses_what_the_kernel_does_not_take(cuda):
                              "XtXv")
     with pytest.raises(ValueError):
         cla_dev.chain_kernel(codes, sv, None, "XtwXv")
+
+
+# ---- K5: the outer-product template ---------------------------------------
+
+OUTER_PLANS = {
+    # ALS-CG's loss plan sum((X * UV)^2)
+    "als_loss": _n("b(^)", _n("b(*)", _in("X"), _in("UV")), _lit(2.0)),
+    "wsloss": _n("b(*)", _in("X"), _n("b(^)", _n("b(-)", _in("X"),
+                                                 _in("UV")), _lit(2.0))),
+    # a host number a and a 0-d tensor b beside X and UV
+    "scalars": _n("b(*)", _n("b(-)", _in("X"), _n("b(*)", _in("a"),
+                                                  _in("UV"))),
+                  _n("u(exp)", _n("b(min)", _in("UV"), _in("b")))),
+}
+
+
+def _outer_inputs(dev, dtype, m, n, r, seed=11, nan=False):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev, dtype)
+    x = np.where(rng.random((m, n)) < 0.3,
+                 np.round(rng.uniform(0.5, 5.0, (m, n)) * 2) / 2, 0.0)
+    if nan:
+        x[m // 2, n // 3] = np.nan
+    extra = {"a": 0.5, "b": torch.tensor(0.75, device=dev,
+                                         dtype=torch.float64)}
+    return (t(x), t(rng.standard_normal((m, r)) / np.sqrt(max(r, 1))),
+            t(rng.standard_normal((n, r))), extra)
+
+
+def _outer_check(plan, x, u, v, extra, dtype):
+    before = kernels.outer_kernel.launches
+    out = kernels.outer_kernel(plan, x, u, v, extra)
+    again = kernels.outer_kernel(plan, x, u, v, extra)
+    ref = kernels.outer_plain(plan, x.double(), u.double(), v.double(),
+                              _double(extra))
+    torch.cuda.synchronize()
+    assert kernels.outer_kernel.launches == before + 2
+    assert out.shape == () and out.dtype == dtype
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert torch.equal(out.nan_to_num(0.0), again.nan_to_num(0.0))
+    if not bool(ref.isnan()):
+        err = abs(float(out) - float(ref)) / abs(float(ref))
+        assert err <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(OUTER_PLANS))
+@pytest.mark.parametrize("m,n,r", [(1037, 777, 10), (100_003, 77, 3),
+                                   (64, 256, 16), (65, 300, 1),
+                                   (130, 50, 32), (7, 1, 5)])
+def test_outer_matches_plain(cuda, dtype, case, m, n, r):
+    """Row tiles of 64 (ragged and exact), column chunks of 256, every
+    rank bucket (4, 8, 16, 32); repeats bit-identical."""
+    x, u, v, extra = _outer_inputs(cuda, dtype, m, n, r)
+    _outer_check(OUTER_PLANS[case], x, u, v, extra, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_outer_nan_in_x(cuda, dtype):
+    x, u, v, extra = _outer_inputs(cuda, dtype, 1037, 300, 10, nan=True)
+    for plan in OUTER_PLANS.values():
+        _outer_check(plan, x, u, v, extra, dtype)
+
+
+def test_outer_reads_views_in_place(cuda):
+    """X a column slice, U a column slice of a wider matrix, V a
+    transposed view: the kernel reads each by its strides."""
+    x, u, v, extra = _outer_inputs(cuda, torch.float32, 2000, 600, 12)
+    xs = x[:, 5:505]
+    uw = torch.cat([u, u[:, :3]], dim=1)[:, :12]
+    vt = v[5:505].T.contiguous().T
+    assert vt.stride() == (1, 500) and uw.stride(0) == 15
+    _outer_check(OUTER_PLANS["wsloss"], xs, uw, vt, extra, torch.float32)
+
+
+def test_outer_wide_rank_takes_plain_arm(cuda):
+    x, u, v, extra = _outer_inputs(cuda, torch.float32, 300, 40, 33)
+    st = stats.Statistics()
+    before = kernels.outer_kernel.launches
+    with stats.stats_scope(st):
+        out = kernels.outer_kernel(OUTER_PLANS["als_loss"], x, u, v, extra)
+    ref = kernels.outer_plain(OUTER_PLANS["als_loss"], x, u, v, extra)
+    assert kernels.outer_kernel.launches == before
+    assert st.estim_counts["spoof_plain_by_layout"] == 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,n", [(0, 7), (9, 0)])
+def test_outer_empty_x_launches(cuda, m, n):
+    x, u, v, extra = _outer_inputs(cuda, torch.float32, m, n, 4)
+    before = kernels.outer_kernel.launches
+    out = kernels.outer_kernel(OUTER_PLANS["wsloss"], x, u, v, extra)
+    assert kernels.outer_kernel.launches == before + 1
+    assert float(out) == 0.0
+
+
+def test_outer_refuses_what_the_kernel_does_not_take(cuda):
+    x, u, v, extra = _outer_inputs(cuda, torch.float32, 30, 20, 4)
+    with pytest.raises(TypeError):
+        kernels.outer_kernel(OUTER_PLANS["als_loss"], x.half(), u, v, extra)
+    with pytest.raises(ValueError):
+        kernels.outer_kernel(OUTER_PLANS["als_loss"], x, u, v.T, extra)
+
+
+# ---- K3: the multi-aggregate template -------------------------------------
+
+MAGG_ORDERS = [["sum", "min", "max"], ["max", "sum"], ["min"],
+               ["min", "min", "sum", "max", "sum", "max", "min", "sum"]]
+
+
+def _magg_check(plan, names, aggs, env, dtype):
+    """min and max at the bar relative to the plain version's value; a sum
+    relative to the sum of the summands' magnitudes (a sum may cancel to
+    near 0: the ratings summary's does)."""
+    before = kernels.multiagg_kernel.launches
+    out = kernels.multiagg_kernel(plan, names, aggs, env)
+    again = kernels.multiagg_kernel(plan, names, aggs, env)
+    ref = kernels.multiagg_plain(plan, names, aggs, _double(env))
+    scale = float(kernels._plain_value(plan, names, _double(env)).abs()
+                  .nansum())
+    torch.cuda.synchronize()
+    assert kernels.multiagg_kernel.launches == before + 2
+    assert len(out) == len(ref) == len(aggs)
+    for o, a, r, agg in zip(out, again, ref, aggs):
+        assert o.shape == () and o.dtype == dtype
+        assert bool(o.isnan()) == bool(r.isnan())
+        assert torch.equal(o.nan_to_num(0.0), a.nan_to_num(0.0))
+        if not bool(r.isnan()):
+            den = scale if agg == "sum" else abs(float(r))
+            err = abs(float(o) - float(r)) / max(den, 1e-300)
+            assert err <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("aggs", MAGG_ORDERS)
+@pytest.mark.parametrize("m,n", [(1037, 7), (100_003, 1), (33, 300),
+                                 (2049, 1000)])
+@pytest.mark.parametrize("nan", [False, True])
+def test_multiagg_matches_plain(cuda, dtype, aggs, m, n, nan):
+    """SPOOF_PLAN's every layout (host number, 0-d tensor, (1, n), (m, 1),
+    (1, 1)), every aggregate order with repeats, NaN in the main leaf."""
+    env = _spoof_env(cuda, dtype, m, n, nan=nan)
+    _magg_check(SPOOF_PLAN, SPOOF_NAMES, aggs, env, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_multiagg_ratings_summary_plan(cuda, dtype):
+    """The ratings summary's plan (V != 0) * (V - s / c), V read twice,
+    two 0-d sums."""
+    plan = _n("b(*)", _n("b(!=)", _in("i0"), _lit(0.0)),
+              _n("b(-)", _in("i1"), _n("b(/)", _in("i2"), _in("i3"))))
+    x, _, _, _ = _outer_inputs(cuda, dtype, 10_007, 301, 1)
+    env = {"i0": x, "i1": x, "i2": x.sum(), "i3": (x != 0).sum().to(dtype)}
+    _magg_check(plan, ["i0", "i1", "i2", "i3"], ["sum", "min", "max"], env,
+                dtype)
+
+
+def test_multiagg_many_aggregates_take_plain_arm(cuda):
+    env = _spoof_env(cuda, torch.float32, 300, 7)
+    aggs = ["sum", "min", "max"] * 3
+    st = stats.Statistics()
+    before = kernels.multiagg_kernel.launches
+    with stats.stats_scope(st):
+        out = kernels.multiagg_kernel(SPOOF_PLAN, SPOOF_NAMES, aggs, env)
+    assert kernels.multiagg_kernel.launches == before
+    assert st.estim_counts["spoof_plain_by_layout"] == 1 and len(out) == 9
+
+
+def test_multiagg_empty_main_leaf(cuda):
+    env = _spoof_env(cuda, torch.float32, 0, 7)
+    before = kernels.multiagg_kernel.launches
+    (s,) = kernels.multiagg_kernel(SPOOF_PLAN, SPOOF_NAMES, ["sum"], env)
+    assert kernels.multiagg_kernel.launches == before + 1
+    assert float(s) == 0.0
+    with pytest.raises(ValueError):
+        kernels.multiagg_kernel(SPOOF_PLAN, SPOOF_NAMES, ["sum", "max"], env)
+
+
+def test_optlevel3_als_and_summary_launch_k5_and_k3(cuda):
+    """ALS-CG at optlevel 3 on the card launches K5 once per outer
+    iteration and agrees with optlevel 2 (the dense wdivmm arm); the
+    ratings summary launches K3 once and agrees with optlevel 2."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml, dmlFromFile
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    x, _, _, _ = _outer_inputs(cuda, torch.float32, 3000, 400, 1)
+    summary = ("mu = sum(V) / sum(V != 0)\nZ = (V != 0) * (V - mu)\n"
+               "s = sum(Z)\nlo = min(Z)\nhi = max(Z)")
+    res = {}
+    for optlevel in (3, 2):
+        cfg = DMLConfig()
+        cfg.optlevel = optlevel
+        ml = MLContext(cfg)
+        lines = []
+        ml.printer = lines.append
+        k5, k3 = kernels.outer_kernel.launches, kernels.multiagg_kernel.launches
+        out = ml.execute(
+            dmlFromFile(os.path.join(root, "scripts", "algorithms",
+                                     "ALS-CG.dml"))
+            .input("V", x).arg("rank", 10).arg("maxi", 4).arg("mii", 3)
+            .output("L", "R"))
+        iters = int(lines[-1].split("iterations = ")[1].split(",")[0])
+        summ = ml.execute(dml(summary).input("V", x).output("s", "lo", "hi"))
+        torch.cuda.synchronize()
+        launched = (kernels.outer_kernel.launches - k5,
+                    kernels.multiagg_kernel.launches - k3)
+        assert launched == ((iters, 1) if optlevel == 3 else (0, 0))
+        res[optlevel] = (out.get_tensor("L").double(),
+                         [float(summ.get(k)) for k in ("s", "lo", "hi")])
+    a, b = res[3][0], res[2][0]
+    assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-3
+    zsum = float(((x != 0) * (x - x.sum() / (x != 0).sum())).abs().sum())
+    (s3, lo3, hi3), (s2, lo2, hi2) = res[3][1], res[2][1]
+    assert abs(s3 - s2) <= 1e-6 * zsum
+    assert abs(lo3 - lo2) <= 1e-5 * abs(lo2) and abs(hi3 - hi2) <= 1e-5 * abs(hi2)

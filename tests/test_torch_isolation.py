@@ -4,8 +4,9 @@ neither jax nor the JAX package (systemml_tpu).
 1. In a subprocess where a sys.meta_path finder refuses `jax`, `jax.*`,
    `systemml_tpu` and `systemml_tpu.*` (and nothing else, so
    `systemml_tpu_torch` imports), the port runs a 50 x 4 LinearRegCG on
-   the CPU, l2-svm at optlevel 3 (spoof fusion), and LinearRegCG on a
-   compressed X (cla "true"); afterwards neither package is in
+   the CPU, l2-svm at optlevel 3 (spoof fusion), LinearRegCG on a
+   compressed X (cla "true"), a seeded rand() and ALS-CG at optlevel 3
+   (the outer template) and 2 (wdivmm); afterwards neither package is in
    sys.modules.
 2. No source file of the port, and not chip_smoke.py, names them in an
    import or a dotted module path.
@@ -69,6 +70,27 @@ res = ml.execute(
     .output("beta"))
 assert ml._stats.estim_counts["cla_auto_compressed"] == 1
 assert np.allclose(res.get_matrix("beta"), beta_true, rtol=1e-6)
+# seeded rand() (threefry in torch) and ALS-CG, which draws its factors
+# with it, at optlevel 3 (the outer template) and 2 (wdivmm)
+from systemml_tpu_torch.api.mlcontext import dml
+from systemml_tpu_torch.ops import datagen
+a = datagen.rand(5, 3, seed=7, device="cpu")
+got = MLContext(device="cpu").execute(
+    dml("A = rand(rows=5, cols=3, seed=7)").output("A")).get_matrix("A")
+assert np.array_equal(a.numpy(), got)
+v = np.where(rng.random((60, 40)) < 0.5,
+             np.round(rng.uniform(0.5, 5.0, (60, 40)) * 2) / 2, 0.0)
+ls = []
+for optlevel in (3, 2):
+    cfg = DMLConfig(device="cpu")
+    cfg.optlevel = optlevel
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+    ls.append(ml.execute(
+        dmlFromFile("scripts/algorithms/ALS-CG.dml").input("V", v)
+        .arg("rank", 3).arg("maxi", 2).arg("mii", 2).output("L"))
+        .get_matrix("L"))
+assert np.allclose(ls[0], ls[1], rtol=1e-9)
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked

@@ -514,4 +514,4 @@ def test_plan_source_is_keyed_by_its_text():
     assert na.startswith("spoof_row-") and "SPOOF_ROW_LAUNCHER(Plan)" in ta
     assert "op_exp(op_sub(LEAF(0), LEAF(1)))" in ta
     with pytest.raises(ValueError):
-        build.plan_source("outer", a)
+        build.plan_source("nope", a)
