@@ -1,6 +1,11 @@
 """Chip smoke test of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bench LABEL
+
+The second form times only the spoof kernels K2, K3 and K5 and the spoof
+wrappers' host time (see `bench`); copied into a checkout of an earlier
+tree it runs there too, so two trees compare within one chip call.
 
 Drives the port's paths through systemml_tpu_torch.api.mlcontext.MLContext
 on the card, on one X of 2,000,000 x 1,000 fp32 (scripts/perftest scale
@@ -39,9 +44,12 @@ Phases:
    its fused plans (one generated source per plan, csrc/spoof.cuh) as
    compile_program does on the card, while csrc/mmchain.cu and
    csrc/cla_chain.cu build beside them; then the kernel phase's other
-   plans; one nvcc per source, a program's together; nvcc seconds and
-   ptxas report per source; ALS-CG and the ratings summary build theirs
-   (K5's outer plan, K3's multi-aggregate plan, ALS-CG's cell plans);
+   plans, one source per plan and Variant (its aggregates, scalar and
+   aliased leaves: every order of AGG_ORDERS is a source); one nvcc per
+   source, a program's together; nvcc seconds and ptxas report per source
+   and kernel (registers, spills); ALS-CG and the ratings summary build
+   theirs (K5's outer plan, K3's multi-aggregate plan, ALS-CG's cell
+   plans);
 2. each kernel against its plain version: mmchain at the main path's
    shapes and others (normwise relative error against the plain version
    in fp64 on the card, bar 1e-4: fp32 sums over up to 2e6 rows in
@@ -63,7 +71,7 @@ Phases:
    1e-5 and 1e-12), with a plan of a host-number and a 0-d scalar leaf,
    and NaN in X; K3 against multiagg_plain likewise, on the ratings
    summary's plan over V and on the ragged and NaN plans above, every
-   aggregate order; the port's rand() on the card against its rand() on
+   aggregate order of AGG_ORDERS (one of 10 aggregates); the port's rand() on the card against its rand() on
    the CPU, bit for bit, in fp32 and fp64. Every kernel runs twice: the
    two results must be bit-identical;
 3. the paths, each with every launch counter set to 0 just before it and
@@ -74,7 +82,9 @@ Phases:
    optlevel 3, l2-svm and MultiLogReg at optlevels 3 and 2: the
    templates selected, the kernel launches (at optlevel 3 the cell
    kernel, and for MultiLogReg the row kernel, must launch; no plan may
-   take the plain arm by layout and no block may fail to compile), the
+   take the plain arm by layout and no block may fail to compile; every
+   cell and multi-aggregate launch is counted on the flat or the general
+   walk, and printed), the
    seconds per outer iteration without a profiler, the difference from
    the optlevel-2 run (bar 1e-3 normwise) and the peak memory; then
    LinearRegCG-cla at optlevel 2 with cla "auto" (X compressed once, K6
@@ -93,10 +103,14 @@ Phases:
 4. times: each kernel and its plain version at the paths' shapes (CUDA
    events over back-to-back calls; for the spoof kernels, whose calls are
    shorter on the card than on the host, also the device time per call
-   from torch.profiler), the library call that computes the same
+   from torch.profiler, which K2's and K4's records give with the L2
+   cache evicted before each call), the library call that computes the same
    function where there is one, and the least time the card could take
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32, the H100
-   SXM's published peaks); and the host time of one spoof wrapper call;
+   SXM's published peaks); K2 also on the cell sum that ALS-CG-ml10m
+   launched most, at its own inputs, and on the elementwise arm of the
+   summary's plan over V, an (m, n > 1) plan; and the host time of one
+   spoof wrapper call (row, cell sum, multi-aggregate);
    K6 at the path's own compressed X, its plain version, the whole
    compressed chain around it, the gather arm, and as its yardstick the
    two-pass torch.matmul on the dense X (no single torch call computes
@@ -139,8 +153,11 @@ ALS_ARGS = {"rank": 10, "reg": 0.01, "maxi": 5, "mii": 3}
 # plan at optlevel 3
 SUMMARY = ("mu = sum(V) / sum(V != 0)\nZ = (V != 0) * (V - mu)\n"
            "s = sum(Z)\nlo = min(Z)\nhi = max(Z)\n")
+# the multi-aggregate's orders: repeats, and more than 8 aggregates (any
+# number compiles in)
 AGG_ORDERS = (("sum", "min", "max"), ("max", "sum"), ("min",),
-              ("min", "min", "sum", "max", "sum", "max", "min", "sum"))
+              ("min", "min", "sum", "max", "sum", "max", "min", "sum"),
+              ("max", "sum", "min") * 3 + ("sum",))
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ALG = os.path.join(ROOT, "scripts", "algorithms")
 
@@ -390,35 +407,62 @@ def phase_windows(timer: PhaseTimer, iters: int, label: str,
     return out
 
 
-def device_ms(fn, reps: int = 50) -> float:
+def device_ms(fn, reps: int = 50, cold: bool = False) -> float:
     """Device time per call of fn: the kernels the card ran for `reps`
     calls under torch.profiler (device activity only), summed, over
     `reps`. A call whose host time exceeds its device time leaves the card
     idle between calls; CUDA events around the calls would measure the
-    host then, this measures the card. NaN when the profiler records no
-    kernels."""
+    host then, this measures the card. With `cold`, a 128 MB write before
+    each call evicts the 50 MB L2 cache (inputs of tens of MB stay in it
+    across back-to-back calls), and only the spoof kernels count. NaN
+    when the profiler records no kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    flush = torch.empty(32 * 2**20, device="cuda") if cold else None
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if cold:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+             if e.device_type == DeviceType.CUDA
+             and (not cold or "spoof" in e.name))
     return us / 1e3 / reps if us else float("nan")
 
 
-def print_build_reports(build) -> None:
+def _kernel_name(line: str) -> str:
+    """A ptxas "Compiling entry function" line's kernel, shortened: its
+    name in spoof.cuh (or the mangled symbol's head) and its dtype."""
+    import re
+
+    sym = line.split("'")[1] if "'" in line else line
+    m = re.match(r"_ZN5spoof\d+([A-Za-z_]+?)I([fd])", sym)
+    if m:
+        return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+    return sym[:60]
+
+
+def print_build_reports(build, only: str = "") -> None:
+    """Per source (those whose name starts with `only`), nvcc's seconds
+    and ptxas's report by kernel: registers, spills, stack, shared
+    memory."""
     for src, (secs, report) in sorted(build.build_reports.items()):
-        lines = [ln.strip() for ln in report.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
-        print(f"[build] {src}: nvcc {secs:.1f} s, {len(lines)} ptxas lines")
-        for ln in lines:
-            print(f"[build]   {ln}")
+        if not src.startswith(only):
+            continue
+        rows, name = [], None
+        for ln in report.splitlines():
+            if "Compiling entry function" in ln:
+                name = _kernel_name(ln)
+            elif name and ("registers" in ln or "spill" in ln):
+                rows.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+        print(f"[build] {src}: nvcc {secs:.1f} s, {len(rows)} ptxas lines")
+        for row in rows:
+            print(f"[build]   {row}")
     sys.stdout.flush()
 
 
@@ -560,10 +604,11 @@ def run_path(name, optlevel, data, dev, kernels):
           f"{secs:.3f} s with parse and compile, {ml._stats.run_time:.3f} s "
           f"executing; {windows['iteration_ms']:.3f} ms per outer iteration "
           f"(device window; host {windows['iteration_host_ms']:.3f} ms); "
-          f"launches {launches}; spoof_plain_by_layout "
+          f"launches {launches}; {walk_line(events)}; spoof_plain_by_layout "
           f"{events.get('spoof_plain_by_layout', 0)}, spoof_compile_errors "
           f"{events.get('spoof_compile_errors', 0)}; peak allocated "
           f"{peak / 1e9:.2f} GB", flush=True)
+    check_walks(f"{name} optlevel {optlevel}", events, launches)
     if not bool(torch.isfinite(out).all()) or out.shape[0] != K:
         fail(f"{name} optlevel {optlevel}: output of shape "
              f"{tuple(out.shape)} is not finite or not {K} rows")
@@ -699,6 +744,92 @@ def kernel_env(label, hop, names, dtype, dev, gen):
     i2 = torch.randint(-1, 2, (m, 1), generator=gen, device=dev).to(dtype)
     i2[3, 0] = float("nan")
     return {"i0": i0, "i1": i1, "i2": i2}
+
+
+def kernel_phase_sources(progs, als_progs, dev, kernels) -> list:
+    """(template, plan, Variant) of the sources that the kernel and time
+    phases launch beyond the paths' own, each Variant derived from the
+    values the plan is called with, as the wrappers derive it
+    (kernels.env_variant): the kernel phase's plans through the cell and
+    row templates and, but "every op", through every aggregate order of
+    AGG_ORDERS; the summary's plan through every order and elementwise."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+
+    def add(template, plan, env, aggs=()):
+        v = kernels.env_variant(template, plan.input_names(), env, aggs)
+        out[(template, plan.key(), v)] = (template, plan, v)
+
+    for label, template, plan, names, hop in kernel_plans(progs):
+        env = kernel_env(label, hop, names, torch.float32, dev, gen)
+        for t in ((template,) if template else ("cell", "row")):
+            add(t, plan, env)
+        if template is None and label != "every op":
+            for aggs in AGG_ORDERS:
+                add("multiagg", plan, env, aggs)
+        del env
+    summ = _plan_of(als_progs["summary"], "multiagg")
+    plan, names = summ.params["plan"], list(summ.params["leaf_names"])
+    v = torch.ones(8, 8, device=dev)
+    env = {names[0]: v, names[1]: v, names[2]: v.sum(), names[3]: v.sum()}
+    for aggs in AGG_ORDERS:
+        add("multiagg", plan, env, aggs)
+    add("cell", plan, env)
+    return list(out.values())
+
+
+def walk_line(events) -> str:
+    """The launches of the cell and multi-aggregate templates by walk."""
+    return (f"walks flat {events.get('spoof_flat_walk', 0)} general "
+            f"{events.get('spoof_general_walk', 0)}")
+
+
+def check_walks(label, events, launches) -> None:
+    """Every cell and multi-aggregate launch counted on one walk."""
+    walked = (events.get("spoof_flat_walk", 0)
+              + events.get("spoof_general_walk", 0))
+    if walked != launches["spoof_cell"] + launches["spoof_multiagg"]:
+        fail(f"{label}: {walked} launches counted by walk, "
+             f"{launches['spoof_cell'] + launches['spoof_multiagg']} "
+             f"launched")
+
+
+class SpoofSpy:
+    """For the duration of a with-block, counts the cell-template sums
+    that the program runs by plan and main-leaf shape and keeps the last
+    call of each (plan, leaf names, env, Variant): the time phase times
+    the most launched at the path's own inputs."""
+
+    def __enter__(self):
+        from systemml_tpu_torch.codegen import compiler, kernels
+        self._compiler = compiler
+        self._orig = compiler.execute_spoof
+        self.counts, self.last = {}, {}
+
+        def spy(h, args):
+            if h.params["template"] == "cell" and h.params.get("agg") == "sum":
+                names = list(h.params["leaf_names"])
+                env = dict(zip(names, args))
+                mats = kernels._matrices(names, env)
+                key = (h.params["plan"].key(),
+                       tuple(env[mats[0]].shape) if mats else None)
+                self.counts[key] = self.counts.get(key, 0) + 1
+                self.last[key] = (h.params["plan"], names, env,
+                                  compiler.hop_variant(h))
+            return self._orig(h, args)
+
+        compiler.execute_spoof = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._compiler.execute_spoof = self._orig
+
+    def most_launched(self):
+        """(launches, last call) of the plan and main-leaf shape launched
+        most; of equals, the first launched."""
+        key = max(self.counts, key=self.counts.get)
+        return self.counts[key], self.last[key]
+
 
 
 def check_spoof_kernels(progs, dev, kernels) -> dict:
@@ -1309,7 +1440,7 @@ def run_als(optlevel, v, dev, kernels) -> dict:
     base = torch.cuda.memory_allocated(dev)
     reset_launches(kernels)
     t0 = time.perf_counter()
-    with PhaseTimer() as timer:
+    with PhaseTimer() as timer, SpoofSpy() as spy:
         res = ml.execute(als_script(v))
         lo, ro = res.get_tensor("L"), res.get_tensor("R")
         torch.cuda.synchronize()
@@ -1333,7 +1464,9 @@ def run_als(optlevel, v, dev, kernels) -> dict:
           f"{launches}; events { {k: c for k, c in events.items() if k.startswith(('spoof_', 'spx_', 'cla_'))} }; "
           f"peak allocated {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
           f"over the data allocated before the run, V "
-          f"{v.numel() * 4 / 1e9:.3f} GB among it)", flush=True)
+          f"{v.numel() * 4 / 1e9:.3f} GB among it); {walk_line(events)}",
+          flush=True)
+    check_walks(f"ALS-CG optlevel {optlevel}", events, launches)
     for t, nm in ((lo, "L"), (ro, "R")):
         if t.dtype != torch.float32 or t.device != v.device \
                 or not bool(torch.isfinite(t).all()) or t.shape[1] != 10:
@@ -1370,6 +1503,7 @@ def run_als(optlevel, v, dev, kernels) -> dict:
                                 loop="outer loop")
     return {"L": lo, "R": ro, "iterations": iters, "loss": loss,
             "profile": profile,
+            "cell_sums": spy.most_launched() if spy.counts else None,
             "seconds": secs, "exec_seconds": ml._stats.run_time,
             "launches": launches, "peak_bytes": peak,
             "peak_over_data_bytes": peak - base, "windows": windows,
@@ -1394,8 +1528,9 @@ def run_summary(optlevel, v, kernels) -> dict:
     events = dict(ml._stats.estim_counts.items())
     print(f"[summary] ratings summary optlevel {optlevel}: {vals}, "
           f"{secs:.3f} s with parse and compile; launches {launches}; "
-          f"spoof_plain_by_layout {events.get('spoof_plain_by_layout', 0)}",
-          flush=True)
+          f"{walk_line(events)}; spoof_plain_by_layout "
+          f"{events.get('spoof_plain_by_layout', 0)}", flush=True)
+    check_walks(f"summary optlevel {optlevel}", events, launches)
     want = 1 if optlevel >= 3 else 0
     if launches["spoof_multiagg"] != want:
         fail(f"summary optlevel {optlevel}: K3 launched "
@@ -1439,12 +1574,14 @@ def als_paths(v, progs, dev, kernels) -> dict:
     if not (errs["s"] <= 1e-6 and errs["lo"] <= 1e-5 and errs["hi"] <= 1e-5):
         fail(f"ratings summary optlevel 3 is {errs} from optlevel 2")
     out = {f"optlevel{o}": {k: val for k, val in r.items()
-                            if k not in ("L", "R")} for o, r in runs.items()}
+                            if k not in ("L", "R", "cell_sums")}
+           for o, r in runs.items()}
     out.update({"diff_from_optlevel2": diffs, "loss_rel_diff": loss_rel,
                 "templates": templates_of(progs["ALS-CG"]),
                 "summary": {f"optlevel{o}": r for o, r in summ.items()},
                 "summary_errors": errs,
-                "factors": (runs[3]["L"], runs[3]["R"])})
+                "factors": (runs[3]["L"], runs[3]["R"]),
+                "cell_sums": runs[3]["cell_sums"]})
     return out
 
 
@@ -1511,6 +1648,264 @@ def time_outer_and_multiagg(als, v, progs, smi, abs_errs, kernels) -> list:
         "plan": mplan.pretty(), "aggs": aggs}]
 
 
+def time_cell_beyond_l2svm(als, v, als_progs, smi, kernels) -> dict:
+    """K2 beyond l2-svm's plan, each against its plain version and bound:
+    the cell sum that ALS-CG-ml10m's optlevel-3 run launched most, at its
+    last call's own inputs (device time per call, torch.profiler), and the
+    elementwise arm on an (m, n > 1) plan, the summary's over V (it writes
+    3.058 GB: CUDA events). Prints each with its leaves' classes (which
+    walk it takes)."""
+    out = {}
+    if als["cell_sums"] is not None:
+        count, (plan, names, env, variant) = als["cell_sums"]
+        main = env[kernels._matrices(names, env)[0]]
+        fns = [lambda: kernels.cell_kernel(plan, names, "sum", env, variant),
+               lambda: kernels.cell_plain(plan, names, "sum", env)]
+        k_ms, p_ms = device_ms(fns[0]), device_ms(fns[1])
+        cold_ms = device_ms(fns[0], cold=True)
+        b_ms, b_by = spoof_bound(plan, env, main.element_size(),
+                                 main.numel())
+        classes = kernels.leaf_classes(plan, "cell", env, variant)
+        print(f"[times] spoof_cell sum ALS-CG's most launched cell sum "
+              f"({count} launches in its run) {plan.pretty()} over "
+              f"{tuple(main.shape)} on {smi}: device time per call kernel "
+              f"{cold_ms:.4f} ms with the L2 cache evicted before each call "
+              f"({k_ms:.4f} ms warm), plain {p_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}); leaves {classes}", flush=True)
+        out["als_cg_sum"] = {"plan": plan.pretty(), "launches": count,
+                             "shape": list(main.shape), "ms": cold_ms,
+                             "warm_l2_ms": k_ms,
+                             "plain_ms": p_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "leaf_classes": classes}
+    hop = _plan_of(als_progs["summary"], "multiagg")
+    plan, names = hop.params["plan"], list(hop.params["leaf_names"])
+    env = {names[0]: v, names[1]: v, names[2]: v.sum(),
+           names[3]: (v != 0).sum().to(torch.float32)}
+    k_ms, p_ms = time_ms([lambda: kernels.cell_kernel(plan, names, None, env),
+                          lambda: kernels.cell_plain(plan, names, None, env)],
+                         reps=5, warm=1)
+    b_ms, b_by = spoof_bound(plan, env, v.numel() * v.element_size(),
+                             v.numel())
+    classes = kernels.leaf_classes(plan, "cell", env)
+    print(f"[times] spoof_cell elementwise {plan.pretty()} over V "
+          f"{tuple(v.shape)} fp32 on {smi}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); leaves {classes}",
+          flush=True)
+    out["map"] = {"plan": plan.pretty(), "shape": list(v.shape), "ms": k_ms,
+                  "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "leaf_classes": classes}
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# --bench: the spoof kernels and wrappers of this tree, for parent/change
+# pairs in one chip call
+# --------------------------------------------------------------------------
+
+def _bench_hops(script_text=None, path=None, inputs=(), args=None):
+    """The spoof hops of a script compiled at optlevel 3 with a CPU config
+    (no build: each wrapper builds its plan at its first call)."""
+    from systemml_tpu_torch.api.mlcontext import dml, dmlFromFile
+    from systemml_tpu_torch.runtime.program import (compile_program,
+                                                    iter_spoof_hops)
+    from systemml_tpu_torch.utils.config import (DMLConfig, get_config,
+                                                 set_config)
+
+    s = dmlFromFile(path) if path else dml(script_text)
+    for k in inputs:
+        s.input(k, None)
+    for k, v in (args or {}).items():
+        s.arg(k, v)
+    cfg = DMLConfig(device="cpu")
+    cfg.optlevel = 3
+    old = get_config()
+    set_config(cfg)
+    try:
+        prog = compile_program(s.parse(), clargs=s._args,
+                               outputs=s._outputs, input_names=list(inputs))
+    finally:
+        set_config(old)
+    return list(iter_spoof_hops(prog))
+
+
+def host_us(fns: dict, reps: int = 250, rounds: int = 8):
+    """Host microseconds per call of each fn of `fns` (name -> fn): the
+    median over `rounds` rounds of `reps` calls, the fns taken in turns
+    within a round, so that a slow spell of the shared host falls on all
+    of them. Returns (medians, every round's reading) by name."""
+    import statistics
+
+    for fn in fns.values():
+        for _ in range(20):
+            fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times[k].append(1e6 * (time.perf_counter() - t0) / reps)
+            torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in times.items()}, times
+
+
+def _bench_summary_ms(v, runs: int = 7) -> float:
+    """The ratings summary at optlevel 3 through MLContext, end to end
+    (parse, compile, execution, the three values read back): the median
+    of `runs` after one run that builds its plan."""
+    import statistics
+
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    cfg = DMLConfig()
+    cfg.optlevel = 3
+    ml = MLContext(cfg)
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ml.execute(dml(SUMMARY).input("V", v).output("s", "lo", "hi"))
+        [float(res.get(k)) for k in ("s", "lo", "hi")]
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:])
+
+
+def bench(label: str) -> None:
+    """Times the spoof kernels K2, K3 and K5 at the paths' shapes and the
+    host time of the spoof wrappers, and prints the card and one JSON line:
+
+    - k3_summary_ms: the ratings summary's plan (sum, min, max) over a
+      ratings matrix of the MovieLens 10M shape, CUDA events;
+    - k2_map_ms: that plan written out elementwise over the same matrix;
+    - k5_loss_ms: ALS-CG's loss plan (the outer template) on that
+      matrix's 0/1 pattern at rank 10, CUDA events, and the ptxas report
+      of its source;
+    - summary_optlevel3_ms: the ratings summary through MLContext at
+      optlevel 3, end to end (host clock, the median of 7);
+    - k2_l2svm_device_ms: l2-svm's 10-leaf line-search plan summed over
+      (2,000,000, 1), device time per call (torch.profiler); its 24 MB
+      stay in the 50 MB L2 cache across calls, so k2_l2svm_cold_l2_ms
+      evicts the cache before each call; k2_als_device_ms and
+      k2_als_cold_l2_ms likewise for ALS-CG's CG-reduction plan (the cell
+      plan with the most leaves) over (71,567, 10);
+    - dispatch_us: host microseconds per wrapper call on tiny inputs (cell
+      sum, multi-aggregate, row), where the launch and not the work
+      counts; in a tree whose compiler fixes each spoof hop's Variant,
+      also the cell sum called with it, as the paths call it (medians of
+      host_us's rounds, each round in dispatch_us_rounds).
+
+    It uses only the wrappers' (plan, names, agg, env) signatures and
+    compile_program, so a checkout of an earlier tree runs it too, this
+    file copied in: two trees compare within one chip call."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "systemml_tpu_torch")):
+        fail("systemml_tpu_torch/ is not beside chip_smoke.py")
+    from systemml_tpu_torch.codegen import build, kernels
+    from systemml_tpu_torch.codegen.cplan import CNode
+
+    smi = nvidia_smi_line()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"label": label, "card": smi}
+    users, movies = ML10M_USERS, ML10M_MOVIES
+
+    # K3, K2's elementwise arm and K5 over a ratings matrix
+    (magg,) = [h for h in _bench_hops(SUMMARY, inputs=("V",))
+               if h.params["template"] == "multiagg"]
+    mplan, mnames = magg.params["plan"], list(magg.params["leaf_names"])
+    aggs = list(magg.params["aggs"])
+    v = torch.randint(1, 11, (users, movies), generator=gen, device=dev,
+                      dtype=torch.int8).to(torch.float32).div_(2.0)
+    v.mul_(torch.rand(users, movies, generator=gen, device=dev)
+           < ML10M_RATINGS / (users * movies))
+    env = {mnames[0]: v, mnames[1]: v, mnames[2]: v.sum(),
+           mnames[3]: (v != 0).sum().to(torch.float32)}
+    out["k3_summary_ms"] = time_ms(
+        [lambda: kernels.multiagg_kernel(mplan, mnames, aggs, env)],
+        reps=10)[0]
+    out["k2_map_ms"] = time_ms(
+        [lambda: kernels.cell_kernel(mplan, mnames, None, env)], reps=5)[0]
+    out["summary_optlevel3_ms"] = _bench_summary_ms(v)
+    del env
+    torch.cuda.empty_cache()
+    als_hops = _bench_hops(path=os.path.join(ALG, "ALS-CG.dml"),
+                           inputs=("V",), args=ALS_ARGS)
+    (loss,) = [h for h in als_hops if h.params["template"] == "outer"]
+    x = (v != 0).to(torch.float32)
+    del v
+    lf = torch.rand(users, 10, generator=gen, device=dev)
+    rf = torch.rand(movies, 10, generator=gen, device=dev)
+    out["k5_loss_ms"] = time_ms([lambda: kernels.outer_kernel(
+        loss.params["plan"], x, lf, rf, {})], reps=10)[0]
+    print_build_reports(build, only="spoof_outer")
+    del x, lf, rf
+    torch.cuda.empty_cache()
+
+    # K2: l2-svm's 10-leaf plan over (2e6, 1)
+    cells = [h for h in _bench_hops(path=os.path.join(ALG, "l2-svm.dml"),
+                                    inputs=("X", "Y"))
+             if h.params["template"] == "cell"]
+    svm = max(cells, key=lambda h: len(h.params["leaf_names"]))
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    by_var = {"Y": torch.sign(r(M, 1)), "Xw": r(M, 1), "Xd": r(M, 1),
+              "step_sz": torch.tensor(0.05, device=dev)}
+    snames = list(svm.params["leaf_names"])
+    senv = {nm: by_var[h.name] for nm, h in zip(snames, svm.inputs)}
+    splan = svm.params["plan"]
+    fn = lambda: kernels.cell_kernel(splan, snames, "sum", senv)
+    out["k2_l2svm_device_ms"] = device_ms(fn)
+    out["k2_l2svm_cold_l2_ms"] = device_ms(fn, cold=True)
+
+    # K2: ALS-CG's CG-reduction plan over (users, rank 10)
+    als = max((h for h in als_hops if h.params["template"] == "cell"),
+              key=lambda h: len(h.params["leaf_names"]))
+    anames = list(als.params["leaf_names"])
+    aenv = {}
+    for nm, h in zip(anames, als.inputs):
+        if h.op == "ua(sum,all)" or (h.op == "tread" and h.name == "rr"):
+            aenv[nm] = r(users, 10).square().sum()
+        elif h.op == "tread" and h.name == "reg":
+            aenv[nm] = 0.01
+        elif h.op == "tread" and h.name == "wrow":
+            aenv[nm] = torch.ones(users, 1, device=dev)
+        else:
+            aenv[nm] = r(users, 10) / 10
+    aplan = als.params["plan"]
+    fn = lambda: kernels.cell_kernel(aplan, anames, "sum", aenv)
+    out["k2_als_device_ms"] = device_ms(fn)
+    out["k2_als_cold_l2_ms"] = device_ms(fn, cold=True)
+    out["plans"] = {"k3": mplan.pretty(), "k5": loss.params["plan"].pretty(),
+                    "k2_l2svm": splan.pretty(), "k2_als": aplan.pretty()}
+
+    # the host time of one wrapper call; one slice per variable: a
+    # variable named twice is one object, as on the paths
+    small = {id(t): (t[:1024] if t.ndim == 2 else t) for t in senv.values()}
+    tiny_svm = {nm: small[id(t)] for nm, t in senv.items()}
+    tv = torch.rand(64, 64, device=dev)
+    tiny_magg = {mnames[0]: tv, mnames[1]: tv, mnames[2]: tv.sum(),
+                 mnames[3]: (tv != 0).sum().to(torch.float32)}
+    row = CNode("u(exp)", [CNode("b(-)", [CNode("in", name="i0"),
+                                          CNode("in", name="i1")])])
+    tiny_row = {"i0": torch.randn(1024, 5, device=dev),
+                "i1": torch.randn(1024, 1, device=dev)}
+    fns = {"cell_sum": lambda: kernels.cell_kernel(
+               splan, snames, "sum", tiny_svm),
+           "multiagg": lambda: kernels.multiagg_kernel(
+               mplan, mnames, aggs, tiny_magg),
+           "row": lambda: kernels.row_kernel(row, ["i0", "i1"], "sum",
+                                             tiny_row)}
+    if "variant" in svm.params:   # a tree whose compiler fixes Variants
+        fns["cell_sum_hop_variant"] = lambda: kernels.cell_kernel(
+            splan, snames, "sum", tiny_svm, svm.params["variant"])
+    out["dispatch_us"], out["dispatch_us_rounds"] = host_us(fns)
+    print(smi)
+    print(json.dumps(out), flush=True)
+
+
 # --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
@@ -1522,7 +1917,7 @@ def main() -> None:
         fail("systemml_tpu_torch/ is not beside chip_smoke.py")
     from systemml_tpu_torch.api.mlcontext import MLContext
     from systemml_tpu_torch.codegen import build, kernels
-    from systemml_tpu_torch.codegen.compiler import program_plans
+    from systemml_tpu_torch.codegen.compiler import hop_variant, program_plans
 
     # ---- 0. environment ---------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -1549,17 +1944,14 @@ def main() -> None:
         for pname, prog in list(progs.items()) + list(als_progs.items()):
             for t in templates_of(prog):
                 print(f"[plans] {pname} optlevel 3: {t[0]} {t[1]}: {t[2]}")
-        plans = {}
-        for label, template, plan, _, _ in kernel_plans(progs):
-            for t in ((template,) if template else ("cell", "row")):
-                plans[(t, plan.key())] = (t, plan)
-        built = build.build_plans(plans.values()) + named.result()
+        built = build.build_plans(kernel_phase_sources(
+            progs, als_progs, dev, kernels)) + named.result()
     build_s = time.perf_counter() - t0
-    n_path_plans = len({(t, p.key()) for prog in list(progs.values())
+    n_path_plans = len({(t, p.key(), v) for prog in list(progs.values())
                         + list(als_progs.values())
-                        for t, p in program_plans(prog)})
+                        for t, p, v in program_plans(prog)})
     print(f"[build] compiled the paths, building their {n_path_plans} "
-          f"fused plans, in {compile_s:.1f} s; the named sources and the "
+          f"fused plan sources, in {compile_s:.1f} s; the named sources and the "
           f"kernel phase's other plans ({len(built)} libraries) were built "
           f"by {build_s:.1f} s; one nvcc per source, "
           f"{len(build.build_reports)} in all")
@@ -1567,9 +1959,9 @@ def main() -> None:
     nvcc_by_path = {}
     for pname, prog in list(progs.items()) + list(als_progs.items()):
         # a library built by an earlier run of this checkout has no report
-        secs = [build.build_reports.get(build.plan_source(t, p)[0],
+        secs = [build.build_reports.get(build.plan_source(*tpv)[0],
                                         (0.0, ""))[0]
-                for t, p in program_plans(prog)]
+                for tpv in program_plans(prog)]
         nvcc_by_path[pname] = {"sources": len(secs), "sum_s": sum(secs),
                                "max_s": max(secs, default=0.0)}
         print(f"[build] {pname}: {len(secs)} generated sources, nvcc "
@@ -1794,11 +2186,17 @@ def main() -> None:
             out_bytes, cells = 4 * M, 5 * M
         call_ms, plain_call_ms = time_ms(fns, reps=50)
         k_ms, p_ms = device_ms(fns[0]), device_ms(fns[1])
+        cold_ms = device_ms(fns[0], cold=True)
         b_ms, b_by = spoof_bound(plan, env, out_bytes, cells)
         print(f"[times] {key} {agg} {label} fp32 on {smi}: device time "
-              f"per call (profiler) kernel {k_ms:.4f} ms, plain (the "
-              f"unfused torch sequence) {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}); back-to-back calls by CUDA events (host-bound "
+              f"per call (profiler) kernel {cold_ms:.4f} ms with the L2 "
+              f"cache evicted before each call (the record's ms: the bound "
+              f"counts bytes from device memory), {k_ms:.4f} ms with the "
+              f"inputs left in L2 by the call before, plain (the "
+              f"unfused torch sequence, L2 left as it is) {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms "
+              f"({b_by}, bytes from device memory); back-to-back calls by "
+              f"CUDA events (host-bound "
               f"where the call's host time is longer) kernel "
               f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; no single "
               f"torch call computes a fused plan", flush=True)
@@ -1807,40 +2205,62 @@ def main() -> None:
             "source": "systemml_tpu_torch/codegen/csrc/spoof.cuh",
             "replaces": replaces[key], "launches": spoof_launches[key],
             "launches_by_path": {p: c[key] for p, c in by_path.items()},
-            "max_abs_err": max_abs_err[key], "ms": k_ms, "plain_ms": p_ms,
+            "max_abs_err": max_abs_err[key], "ms": cold_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-            "plan": plan.pretty()})
+            "warm_l2_ms": k_ms, "call_ms": call_ms,
+            "plain_call_ms": plain_call_ms, "plan": plan.pretty()})
         del env
+    records[1].update(time_cell_beyond_l2svm(als, ratings, als_progs, smi,
+                                             kernels))
     records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
     records.extend(time_outer_and_multiagg(als, ratings, als_progs, smi,
                                            max_abs_err, kernels))
     # the host time of one spoof wrapper call (a tiny input: the launch,
     # not the work); hops/cost.py HwProfile.h100().dispatch_us
+    _, _, svm_plan, svm_names, svm_hop = kernel_plans(progs)[0]
+    # one slice per variable: a variable named twice is one object, as on
+    # the paths
+    svm_full = kernel_env("l2-svm cell", svm_hop, svm_names, torch.float32,
+                          dev, gen)
+    small = {id(t): (t[:1024] if t.ndim == 2 else t)
+             for t in svm_full.values()}
+    svm_env = {nm: small[id(t)] for nm, t in svm_full.items()}
+    svm_variant = hop_variant(svm_hop)
+    summ = _plan_of(als_progs["summary"], "multiagg")
+    s_names = list(summ.params["leaf_names"])
+    tv = torch.rand(64, 64, device=dev)
+    s_env = {s_names[0]: tv, s_names[1]: tv, s_names[2]: tv.sum(),
+             s_names[3]: (tv != 0).sum().to(torch.float32)}
     plan0, names0 = kernel_plans(progs)[1][2], ["i0", "i1"]
     tiny = {"i0": torch.randn(1024, 5, device=dev),
             "i1": torch.randn(1024, 1, device=dev)}
-    for _ in range(20):
-        kernels.row_kernel(plan0, names0, "sum", tiny)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(2000):
-        kernels.row_kernel(plan0, names0, "sum", tiny)
-    host_us = 1e6 * (time.perf_counter() - t0) / 2000
-    torch.cuda.synchronize()
-    print(f"[dispatch] host time of one spoof row wrapper call on "
-          f"(1024, 5): {host_us:.2f} us; chip_smoke total "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    dispatch_us, _ = host_us({
+        "row": lambda: kernels.row_kernel(plan0, names0, "sum", tiny),
+        "cell_sum": lambda: kernels.cell_kernel(svm_plan, svm_names, "sum",
+                                                svm_env),
+        "cell_sum_hop_variant": lambda: kernels.cell_kernel(
+            svm_plan, svm_names, "sum", svm_env, svm_variant),
+        "multiagg": lambda: kernels.multiagg_kernel(
+            summ.params["plan"], s_names, summ.params["aggs"], s_env)})
+    print(f"[dispatch] host time of one spoof wrapper call: row on (1024, "
+          f"5) {dispatch_us['row']:.2f} us, cell sum of l2-svm's plan on "
+          f"(1024, 1) {dispatch_us['cell_sum']:.2f} us (with the hop's "
+          f"Variant, as the path calls it, "
+          f"{dispatch_us['cell_sum_hop_variant']:.2f} us), multi-aggregate "
+          f"of the summary's plan on (64, 64) {dispatch_us['multiagg']:.2f} "
+          f"us; "
+          f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     cla_summary = {
         name: {mode: {k: v for k, v in r.items()
                       if k not in ("out", "compressed")}
                for mode, r in cla[name].items()}
         for name in ("LinearRegCG", "l2-svm")}
     print(json.dumps({"kernels": records, "card": smi,
-                      "spoof_dispatch_us": host_us, "main_path": main_path,
+                      "spoof_dispatch_us": dispatch_us, "main_path": main_path,
                       "paths": paths, "cla_paths": cla_summary,
                       "als_paths": {k: r for k, r in als.items()
-                                    if k != "factors"},
+                                    if k not in ("factors", "cell_sums")},
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path}))
     print(json.dumps({"ok": True, "device": {
@@ -1848,4 +2268,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--bench"]:
+        bench(sys.argv[2] if len(sys.argv) > 2 else os.path.basename(ROOT))
+    else:
+        main()

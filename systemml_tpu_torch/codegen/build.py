@@ -3,10 +3,11 @@
 Two kinds of source:
 
 - named: each `csrc/<name>.cu` becomes `_build/lib<name>-<hash>.so`;
-- generated: one fused plan (a spoof hop's CPlan) becomes a source that
+- generated: one fused plan (a spoof hop's CPlan) and its Variant (the
+  aggregates, the scalar and the aliased leaves) become a source that
   includes `csrc/spoof.cuh`, defines the plan's functor from
-  cplan.emit_cuda and exports the template's extern "C" launcher
-  (`plan_source`); it is written to `_build/gen/` and built to
+  cplan.hoist and cplan.emit_cuda and exports the template's extern "C"
+  launcher (`plan_source`); it is written to `_build/gen/` and built to
   `_build/libspoof_<template>-<hash>.so`.
 
 Either is built by nvcc for `sm_90a` with a plain C interface and loaded
@@ -31,7 +32,7 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, FrozenSet, Iterable, List, NamedTuple, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -123,49 +124,131 @@ def load(name: str) -> ctypes.CDLL:
 # generated sources: one per spoof plan
 # --------------------------------------------------------------------------
 
+class Variant(NamedTuple):
+    """What a plan's generated source is specialised for beyond the plan:
+    the aggregates of a multi-aggregate plan, in output order; the leaves
+    that are scalars (read once per thread, their subtrees hoisted); and
+    the leaves that alias an earlier leaf, as (leaf, earlier leaf) name
+    pairs (the flat walk reuses the earlier leaf's registers). Part of the
+    source's name and of the launcher cache's key."""
+    aggs: Tuple[str, ...] = ()
+    scalars: FrozenSet[str] = frozenset()
+    aliases: Tuple[Tuple[str, str], ...] = ()
+
+
+# csrc/spoof.cuh's leaf kinds and aggregate codes
+_KIND = {"cell": "spoof::kCellLeaf", "scalar": "spoof::kScalarLeaf",
+         "uv": "spoof::kUVLeaf"}
+_AGG_CODES = {"sum": "spoof::kSum", "min": "spoof::kMin", "max": "spoof::kMax"}
+
 _SOURCE = """\
 // Generated by systemml_tpu_torch/codegen/build.py for the {template} plan
 //   {pretty}
+// leaves: {leaf_notes}{agg_note}
 #include "spoof.cuh"
 
 namespace {{
 struct Plan {{
+  static constexpr int kLeaves = {n_leaves};
+  static constexpr int kHoisted = {n_hoisted};
+  // per leaf: read at every cell, a scalar, the outer template's uv, or
+  // the earlier leaf it aliases
+  __host__ __device__ static constexpr int kind(int i) {{
+    return {kinds};
+  }}
+  // the scalar-only subtrees, once per thread
   template <typename T>
-  __device__ __forceinline__ T operator()(const spoof::Args<T>& a, long long r,
-                                          long long c{params}) const {{
+  __device__ __forceinline__ void hoist(const spoof::Args<T>& a,
+                                        T* h) const {{
     using namespace spoof::ops;
-#define LEAF(i) {leaf}
+    (void)a;
+    (void)h;
+#define LEAF(i) spoof::scalar<T>(a, i)
+{hoisted}#undef LEAF
+  }}
+  // the plan at one cell: v[i] the value of leaf i there, h the hoisted
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* v, const T* h) const {{
+    using namespace spoof::ops;
+    (void)v;
+    (void)h;
+#define LEAF(i) v[i]
+#define HOISTED(k) h[k]
     return {expr};
+#undef HOISTED
 #undef LEAF
   }}
 }};
 }}  // namespace
 
-{launcher}(Plan)
+{launcher}
 """
 
 _header_bytes: List[bytes] = []
 
 
-def plan_source(template: str, plan) -> Tuple[str, str]:
+def _leaf_kinds(template: str, names: List[str], variant: Variant
+               ) -> List[str]:
+    """Per leaf of `names`: "cell", "scalar", "uv" (the outer template's
+    UV) or the name of the earlier leaf it aliases."""
+    alias = dict(variant.aliases)
+    kinds = []
+    for k, nm in enumerate(names):
+        if template == "outer" and nm == "UV":
+            kinds.append("uv")
+        elif nm in variant.scalars:
+            kinds.append("scalar")
+        elif nm in alias:
+            tgt = alias[nm]
+            if tgt not in names[:k] or kinds[names.index(tgt)] != "cell":
+                raise ValueError(f"leaf {nm!r} aliases {tgt!r}, which is "
+                                 f"not an earlier leaf read at every cell")
+            kinds.append(tgt)
+        else:
+            kinds.append("cell")
+    return kinds
+
+
+def plan_source(template: str, plan, variant: Variant = Variant()
+                ) -> Tuple[str, str]:
     """(name, source text) of `plan`'s library for `template` ("cell",
-    "row", "multiagg" or "outer"). An outer plan's functor takes the cell's
-    uv = U[r, :] . V[c, :] as an argument, and its leaf "UV" reads it; its
-    other leaves ("X" and the scalars) are read as any template's. The
-    name carries the hash of the text, csrc/spoof.cuh and the flags."""
-    from systemml_tpu_torch.codegen.cplan import emit_cuda
+    "row", "multiagg" or "outer") and `variant`. An outer plan's leaf "UV"
+    is the cell's uv = U[r, :] . V[c, :], which the skeleton computes; its
+    other leaves ("X" and the scalars) are read as any template's. A
+    multi-aggregate source carries its aggregates, in order; the others
+    take none. The name carries the hash of the text, csrc/spoof.cuh and
+    the flags."""
+    from systemml_tpu_torch.codegen.cplan import emit_cuda, hoist
 
     if template not in SPOOF_LAUNCHERS:
         raise ValueError(f"no CUDA skeleton for spoof template {template!r}")
-    leaf, params = "spoof::leaf<T>(a, i, r, c)", ""
+    if (template == "multiagg") != bool(variant.aggs):
+        raise ValueError(f"{template} source with aggregates "
+                         f"{list(variant.aggs)}")
+    if any(a not in _AGG_CODES for a in variant.aggs):
+        raise ValueError(f"unknown aggregates {list(variant.aggs)}")
     names = plan.input_names()
-    if template == "outer":
-        params = ", T uv"
-        if "UV" in names:
-            leaf = f"((i) == {names.index('UV')} ? uv : {leaf})"
-    text = _SOURCE.format(template=template, pretty=plan.pretty()[:2000],
-                          expr=emit_cuda(plan), leaf=leaf, params=params,
-                          launcher=SPOOF_LAUNCHERS[template])
+    kinds = _leaf_kinds(template, names, variant)
+    scalars = {nm for nm, kd in zip(names, kinds) if kd == "scalar"}
+    cell_plan, subs = hoist(plan, scalars)
+    codes = [_KIND.get(kd) or str(names.index(kd)) for kd in kinds]
+    kind_expr = "".join(f"i == {k} ? {c} : " for k, c in
+                        enumerate(codes[:-1])) + (codes[-1] if codes
+                                                  else "spoof::kCellLeaf")
+    hoisted = "".join(f"    h[{k}] = {emit_cuda(sub, names)};\n"
+                      for k, sub in enumerate(subs))
+    launcher = SPOOF_LAUNCHERS[template]
+    args = ["Plan"] + [_AGG_CODES[a] for a in variant.aggs]
+    notes = ", ".join(f"{nm} {kd if kd in _KIND else '= ' + kd}"
+                      for nm, kd in zip(names, kinds))
+    text = _SOURCE.format(
+        template=template, pretty=plan.pretty()[:2000],
+        leaf_notes=notes[:2000],
+        agg_note=(f"; aggregates {', '.join(variant.aggs)}"
+                  if variant.aggs else ""),
+        n_leaves=len(names), n_hoisted=len(subs), kinds=kind_expr,
+        hoisted=hoisted, expr=emit_cuda(cell_plan, names),
+        launcher=f"{launcher}({', '.join(args)})")
     if not _header_bytes:
         with open(SPOOF_HEADER, "rb") as f:
             _header_bytes.append(f.read())
@@ -188,10 +271,11 @@ def _write_plan(name: str, text: str) -> None:
         os.replace(tmp, src)
 
 
-def load_plan(template: str, plan) -> ctypes.CDLL:
-    """The ctypes handle of `plan`'s library for `template`, building it
-    first if build_plans has not."""
-    name, text = plan_source(template, plan)
+def load_plan(template: str, plan,
+              variant: Variant = Variant()) -> ctypes.CDLL:
+    """The ctypes handle of `plan`'s library for `template` and
+    `variant`, building it first if build_plans has not."""
+    name, text = plan_source(template, plan, variant)
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -201,18 +285,19 @@ def load_plan(template: str, plan) -> ctypes.CDLL:
         return lib
 
 
-def build_plans(plans: Iterable[Tuple[str, object]],
-                named: Iterable[str] = ()) -> List[str]:
-    """Builds and loads the libraries of (template, plan) pairs, and of
-    the named sources `named` (csrc/<name>.cu), that are not loaded yet:
-    one nvcc per source, all running together (as many at a time as the
-    host has cores). Returns the names built or loaded."""
+def build_plans(plans: Iterable[Tuple], named: Iterable[str] = ()
+                ) -> List[str]:
+    """Builds and loads the libraries of (template, plan) pairs or
+    (template, plan, Variant) triples, and of the named sources `named`
+    (csrc/<name>.cu), that are not loaded yet: one nvcc per source, all
+    running together (as many at a time as the host has cores). Returns
+    the names built or loaded."""
     todo: Dict[str, Tuple[str, str]] = {}
     for name in named:
         if name not in _loaded:
             todo[name] = _target(name)
-    for template, plan in plans:
-        name, text = plan_source(template, plan)
+    for template, plan, *variant in plans:
+        name, text = plan_source(template, plan, *variant)
         if name not in _loaded and name not in todo:
             todo[name] = _plan_paths(name)
             _write_plan(name, text)

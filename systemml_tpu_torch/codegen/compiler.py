@@ -22,7 +22,7 @@ evaluates as torch ops, the kernels' plain versions.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from systemml_tpu_torch.codegen.cplan import CELL_BINARY, CELL_UNARY, CNode
 from systemml_tpu_torch.codegen.memo import (MemoEntry, MemoTable,
@@ -294,6 +294,155 @@ def compile_spoof(blk: BlockHops) -> int:
 # and runs the plain version for a CPU tensor.
 # --------------------------------------------------------------------------
 
+def _leaf_hops(h: Hop) -> Dict[str, Hop]:
+    """A spoof hop's leaf names and the hops that give their values (the
+    outer template's X and scalar leaves; U and V are not leaves)."""
+    if h.params["template"] == "outer":
+        sca = h.params["scalar_names"]
+        return dict(zip(["X"] + list(sca), h.inputs[:1 + len(sca)]))
+    return dict(zip(h.params["leaf_names"], h.inputs))
+
+
+def _same_value(a: Hop, b: Hop) -> bool:
+    """Two leaf hops of one block that give the same value: one hop, or
+    two reads of one variable (a block's treads read its entry values)."""
+    return a is b or (a.op == "tread" and b.op == "tread"
+                      and a.name is not None and a.name == b.name)
+
+
+def hop_variant(h: Hop, is_scalar: Optional[Callable[[Hop], bool]] = None):
+    """The build.Variant of a spoof hop's source, from its inputs, kept in
+    its params (assign_variants sets it for a compiled program): the
+    leaves whose hops give scalars (`is_scalar`, Hop.is_scalar when None),
+    and for the cell and multi-aggregate templates each leaf whose hop
+    gives the same value as an earlier leaf's (the first such), in the
+    plan's input order; a multi-aggregate hop's aggregates."""
+    from systemml_tpu_torch.codegen.build import Variant
+
+    hit = h.params.get("variant")
+    if hit is not None and is_scalar is None:
+        return hit
+    is_scalar = is_scalar or (lambda x: x.is_scalar)
+    t = h.params["template"]
+    by_name = _leaf_hops(h)
+    order = [nm for nm in h.params["plan"].input_names() if nm in by_name]
+    scalars = frozenset(nm for nm in order if is_scalar(by_name[nm]))
+    aliases: List[Tuple[str, str]] = []
+    if t in ("cell", "multiagg"):
+        firsts: List[str] = []
+        for nm in order:
+            if nm in scalars:
+                continue
+            tgt = next((f for f in firsts
+                        if _same_value(by_name[f], by_name[nm])), None)
+            if tgt is None:
+                firsts.append(nm)
+            else:
+                aliases.append((nm, tgt))
+    aggs = tuple(h.params["aggs"]) if t == "multiagg" else ()
+    hit = h.params["variant"] = Variant(aggs, scalars, tuple(aliases))
+    return hit
+
+
+def _scope_blocks(blocks):
+    """Every basic block of one scope (a program's main body or one
+    function's), predicates included; its for-loop variables; and its
+    live-in variables: those that some path may read before the scope
+    writes them (the program's inputs, a function's parameters)."""
+    from systemml_tpu_torch.runtime.program import (BasicBlock, ForBlock,
+                                                    IfBlock, WhileBlock,
+                                                    _predicates)
+
+    out: List = []
+    loop_vars: Set[str] = set()
+    live_in: Set[str] = set()
+
+    def walk(bs, defined: Set[str]) -> Set[str]:
+        """Walks bs with `defined` written on every path before it;
+        returns what is written on every path after it."""
+        defined = set(defined)
+        for b in bs:
+            for p in _predicates(b):
+                out.append(p.block)
+                live_in.update(p.block.hops.reads - defined)
+            if isinstance(b, BasicBlock):
+                out.append(b)
+                live_in.update(b.hops.reads - defined)
+                defined |= set(b.hops.writes)
+            elif isinstance(b, IfBlock):
+                defined = walk(b.if_body, defined) & walk(b.else_body,
+                                                          defined)
+            elif isinstance(b, ForBlock):
+                loop_vars.add(b.var)
+                walk(b.body, defined | {b.var})
+            elif isinstance(b, WhileBlock):
+                walk(b.body, defined)
+        return defined
+
+    walk(blocks, set())
+    return out, loop_vars, live_in
+
+
+def scalar_test(blocks, params: Dict[str, bool]) -> Callable[[Hop], bool]:
+    """Whether a hop of this scope gives a scalar. A hop whose dt is
+    "scalar" does, and a literal; an elementwise op does when its inputs
+    do; a read of a variable does when the variable is a parameter
+    declared scalar (`params`: name -> declared scalar) or a for-loop
+    variable, or is not live-in, and every write of it in the scope does
+    (a fixpoint over the scope's writes, from the optimistic start). The
+    hop builder leaves every read's dt "matrix", so the reads need this."""
+    bbs, loop_vars, live_in = _scope_blocks(blocks)
+    writes: Dict[str, List[Hop]] = {}
+    for bb in bbs:
+        for name, hop in bb.hops.writes.items():
+            writes.setdefault(name, []).append(hop)
+    known = {v for v, sc in params.items() if sc} | loop_vars
+    candidates = known | (set(writes) - live_in - set(params))
+    holds: Set[str] = set(candidates)
+
+    def test(h: Hop, memo: Dict[int, bool]) -> bool:
+        hit = memo.get(id(h))
+        if hit is None:
+            if h.op == "lit":
+                hit = not isinstance(h.value, str)
+            elif h.op == "tread":
+                hit = h.name in holds
+            elif h.op.startswith(("b(", "u(")):
+                hit = all(test(c, memo) for c in h.inputs)
+            else:
+                hit = h.dt == "scalar"
+            memo[id(h)] = hit
+        return hit
+
+    while True:
+        memo: Dict[int, bool] = {}
+        new = {v for v in candidates
+               if all(test(h, memo) for h in writes.get(v, ()))}
+        if new == holds:
+            break
+        holds = new
+    return lambda h: test(h, {})
+
+
+def assign_variants(program) -> None:
+    """Sets the build.Variant of every spoof hop of a compiled program
+    (hop_variant), its scalar leaves found by scalar_test over the hop's
+    scope: the program's body, or its function's."""
+    from systemml_tpu_torch.hops.hop import postorder
+    from systemml_tpu_torch.lang import ast as A
+
+    scopes = [(program.blocks, {})]
+    for fb in program.functions.values():
+        scopes.append((fb.blocks, {p.name: p.data_type == A.DataType.SCALAR
+                                   for p in fb.fn_def.inputs}))
+    for blocks, params in scopes:
+        is_scalar = scalar_test(blocks, params)
+        for bb in _scope_blocks(blocks)[0]:
+            for h in postorder(bb.hops.roots()):
+                if h.op == "spoof":
+                    hop_variant(h, is_scalar)
+
+
 def execute_spoof(h: Hop, arg_values: List) -> object:
     from systemml_tpu_torch.codegen import kernels
 
@@ -307,26 +456,30 @@ def execute_spoof(h: Hop, arg_values: List) -> object:
         sca = h.params["scalar_names"]
         extra = dict(zip(sca, arg_values[1:1 + len(sca)]))
         return kernels.outer_kernel(plan, arg_values[0], arg_values[-2],
-                                    arg_values[-1], extra)
+                                    arg_values[-1], extra, hop_variant(h))
     names = h.params["leaf_names"]
     env = dict(zip(names, arg_values))
     if t == "cell":
-        return kernels.cell_kernel(plan, names, h.params.get("agg"), env)
+        return kernels.cell_kernel(plan, names, h.params.get("agg"), env,
+                                   hop_variant(h))
     if t == "row":
-        return kernels.row_kernel(plan, names, h.params["row_agg"], env)
+        return kernels.row_kernel(plan, names, h.params["row_agg"], env,
+                                  hop_variant(h))
     if t == "multiagg":
-        return kernels.multiagg_kernel(plan, names, h.params["aggs"], env)
+        return kernels.multiagg_kernel(plan, names, h.params["aggs"], env,
+                                       hop_variant(h))
     raise ValueError(f"unknown spoof template {t!r}")
 
 
-def program_plans(program) -> List[Tuple[str, CNode]]:
-    """(template, plan) of every spoof hop of a compiled program,
-    predicates included, each distinct plan once: the kernels that
-    build.build_plans compiles before the program runs."""
+def program_plans(program) -> List[Tuple[str, CNode, object]]:
+    """(template, plan, build.Variant) of every spoof hop of a compiled
+    program, predicates included, each distinct source once: the kernels
+    that build.build_plans compiles before the program runs."""
     from systemml_tpu_torch.runtime.program import iter_spoof_hops
 
-    seen: Dict[Tuple, Tuple[str, CNode]] = {}
+    seen: Dict[Tuple, Tuple[str, CNode, object]] = {}
     for h in iter_spoof_hops(program):
-        t = h.params["template"]
-        seen.setdefault((t, h.params["plan"].key()), (t, h.params["plan"]))
+        t, v = h.params["template"], hop_variant(h)
+        seen.setdefault((t, h.params["plan"].key(), v),
+                        (t, h.params["plan"], v))
     return list(seen.values())

@@ -1,7 +1,7 @@
 # Port of systemml_tpu/codegen/cplan.py: CNode, CELL_BINARY and CELL_UNARY
 # are copied. `emit` becomes the plain torch evaluator of a plan, and
-# `emit_cuda` (new) writes a plan as one C++ expression for the
-# hand-written spoof kernels (csrc/spoof.cuh).
+# `emit_cuda` and `hoist` (new) write a plan as the C++ of a functor for
+# the hand-written spoof kernels (csrc/spoof.cuh).
 """CPlan IR: the fused-operator expression tree.
 
 Equivalent of the reference's CNode IR (hops/codegen/cplan/CNode.java,
@@ -152,16 +152,69 @@ def _cuda_literal(v) -> str:
     return f"T({f!r})"
 
 
-def emit_cuda(plan: CNode) -> str:
+# the input names that `hoist` gives its scalar-only subtrees
+HOIST_PREFIX = "_h"
+
+
+def hoist(plan: CNode, scalars) -> Tuple[CNode, List[CNode]]:
+    """Split off every maximal subtree of `plan` whose leaves are all in
+    `scalars` (and which has one leaf at least: a subtree of literals
+    stays), for the CUDA functor to compute once per thread before its
+    walk. Returns the plan with each such subtree replaced by an input
+    named `_h<k>`, and the subtrees by k; equal subtrees share one k. The
+    operations are unchanged, so evaluating the subtrees first and the
+    plan on their values gives the plan's value bit for bit."""
+    scalars = frozenset(scalars)
+    if any(nm.startswith(HOIST_PREFIX) for nm in plan.input_names()):
+        raise ValueError(f"a plan input is named {HOIST_PREFIX}*: "
+                         f"{plan.input_names()}")
+    subs: List[CNode] = []
+    index: Dict[Tuple, int] = {}
+
+    # id(node) -> (every leaf of it is a scalar, it has a leaf)
+    info: Dict[int, Tuple[bool, bool]] = {}
+
+    def classify(n: CNode) -> Tuple[bool, bool]:
+        if n.op == "in":
+            out = (n.name in scalars, True)
+        else:
+            kids = [classify(c) for c in n.inputs]
+            out = (all(k[0] for k in kids), any(k[1] for k in kids))
+        info[id(n)] = out
+        return out
+
+    def rec(n: CNode) -> CNode:
+        if n.op == "lit":
+            return n
+        only, has_leaf = info[id(n)]
+        if only and has_leaf:
+            k = index.setdefault(n.key(), len(subs))
+            if k == len(subs):
+                subs.append(n)
+            return CNode("in", name=f"{HOIST_PREFIX}{k}")
+        if n.op == "in":
+            return n
+        return CNode(n.op, [rec(c) for c in n.inputs], value=n.value,
+                     name=n.name)
+
+    classify(plan)
+    return rec(plan), subs
+
+
+def emit_cuda(plan: CNode, names: Optional[List[str]] = None) -> str:
     """The plan as one C++ expression of type T over the leaf reads
-    `LEAF(i)`, i the leaf's position in `plan.input_names()`, for the
-    functor of csrc/spoof.cuh. Every op is a device function of that
-    header, so each operand is evaluated once; `b(^)` with a literal 2 is
-    `op_sq` (v * v, what XLA lowers it to)."""
-    names = plan.input_names()
+    `LEAF(i)`, i the leaf's position in `names` (by default
+    `plan.input_names()`), and the hoisted values `HOISTED(k)` (the
+    inputs `_h<k>` that `hoist` made), for the functor of csrc/spoof.cuh.
+    Every op is a device function of that header, so each operand is
+    evaluated once; `b(^)` with a literal 2 is `op_sq` (v * v, what XLA
+    lowers it to)."""
+    names = plan.input_names() if names is None else names
 
     def rec(n: CNode) -> str:
         if n.op == "in":
+            if n.name not in names and n.name.startswith(HOIST_PREFIX):
+                return f"HOISTED({int(n.name[len(HOIST_PREFIX):])})"
             return f"LEAF({names.index(n.name)})"
         if n.op == "lit":
             return _cuda_literal(n.value)

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from systemml_tpu_torch.codegen import build
+from systemml_tpu_torch.utils import stats as stats_mod
 
 # --------------------------------------------------------------------------
 # mmchain: t(X) %*% (w? * (X %*% v) -? y) in ONE pass over X
@@ -190,16 +191,22 @@ mmchain_kernel.launches = 0
 
 
 # --------------------------------------------------------------------------
-# spoof cell and row templates: one fused plan over row tiles
-# (csrc/spoof.cuh instantiated per plan; reference: SpoofCellwise,
-# SpoofRowwise)
+# spoof cell, row and multi-aggregate templates: one fused plan over the
+# main leaf's cells (csrc/spoof.cuh instantiated per plan and Variant;
+# reference: SpoofCellwise, SpoofRowwise, SpoofMultiAggregate)
 # --------------------------------------------------------------------------
 
 SPOOF_DTYPES = {torch.float32: 0, torch.float64: 1}
 SPOOF_AGGS = {"sum": 0, "min": 1, "max": 2}
 SPOOF_MAX_LEAVES = 64      # spoof::kMaxLeaves
 SPOOF_THREADS = 256        # spoof::kThreads
-SPOOF_BLOCKS_PER_SM = 8    # grid-stride grids hold at most this many
+# blocks of SPOOF_THREADS that an SM holds at most (2,048 threads): the
+# row template's grid-stride grids, the cell and multi-aggregate
+# templates' persistent grids at most
+SPOOF_BLOCKS_PER_SM = 8
+# the flat walk's vector: 16 bytes (float4, double2)
+SPOOF_VECTOR_BYTES = 16
+WALK_FLAT, WALK_GENERAL = 0, 1
 
 
 def _matrices(names: Sequence[str], env: Dict[str, object]):
@@ -209,13 +216,15 @@ def _matrices(names: Sequence[str], env: Dict[str, object]):
             if isinstance(env[n], torch.Tensor) and env[n].ndim == 2]
 
 
-def spoof_layout_ok(names: Sequence[str], env: Dict[str, object]) -> bool:
+def spoof_layout_ok(names: Sequence[str], env: Dict[str, object],
+                    mats: Optional[Sequence[str]] = None) -> bool:
     """Whether every matrix leaf has a layout the kernels take, as the JAX
     package's `_leaf_layout` (systemml_tpu/codegen/kernels.py:88-116)
     decides it: with the main leaf (m, n), each matrix leaf is (m, n),
     (m, 1), (1, n) or (1, 1). Another shape (Kmeans' (m, 1) main leaf
-    beside an (m, k) leaf) takes the plain arm there and here."""
-    mats = _matrices(names, env)
+    beside an (m, k) leaf) takes the plain arm there and here. `mats`:
+    _matrices(names, env), when the caller has it."""
+    mats = _matrices(names, env) if mats is None else mats
     m, n = env[mats[0]].shape
     for nm in mats:
         am, an = env[nm].shape
@@ -286,49 +295,192 @@ def _check_row_width(row_agg: str, n: int) -> None:
         raise ValueError(f"row {row_agg} of rows with no columns")
 
 
-def _count_plain_by_layout() -> None:
-    from systemml_tpu_torch.utils import stats as stats_mod
-
+def _count(event: str) -> None:
     st = stats_mod.current()
     if st is not None:
-        st.count_estim("spoof_plain_by_layout")
+        st.count_estim(event)
 
 
-def _spoof_leaves(order, env, main):
+def _count_plain_by_layout() -> None:
+    _count("spoof_plain_by_layout")
+
+
+def is_scalar_value(v) -> bool:
+    """A leaf value that the generated source takes as a scalar: a Python
+    number, or a tensor of fewer than 2 dims."""
+    return not isinstance(v, torch.Tensor) or v.ndim < 2
+
+
+def _tensor_key(v) -> Tuple:
+    """What makes two tensors the same leaf value: storage address,
+    shape, strides, dtype and device."""
+    return (v.data_ptr(), v.shape, v.stride(), v.dtype, v.device)
+
+
+def env_variant(template: str, order: Sequence[str], env: Dict[str, object],
+                aggs: Sequence[str] = ()) -> "build.Variant":
+    """The Variant of a plan built on demand, from the wrapper's values of
+    its leaves `order` (the plan's input names): the scalars are
+    is_scalar_value's; a tensor leaf that is the same tensor as an earlier
+    one (_tensor_key) aliases the first such, for the cell and
+    multi-aggregate templates (the only ones with a flat walk). The outer
+    template's X and UV are never scalars."""
+    fixed = ("X", "UV") if template == "outer" else ()
+    scalars = frozenset(nm for nm in order
+                        if nm not in fixed and is_scalar_value(env[nm]))
+    aliases = []
+    if template in ("cell", "multiagg"):
+        keys: Dict[int, Tuple] = {}
+        firsts: Dict[Tuple, str] = {}
+        for nm in order:
+            if nm in scalars:
+                continue
+            v = env[nm]
+            key = keys.get(id(v))
+            if key is None:
+                key = keys[id(v)] = _tensor_key(v)
+            tgt = firsts.setdefault(key, nm)
+            if tgt != nm:
+                aliases.append((nm, tgt))
+    return build.Variant(tuple(aggs), scalars, tuple(aliases))
+
+
+def _spoof_leaves(order, env, main, variant):
     """Per leaf, in `order` (the plan's input names: the order of the
-    generated source's LEAF(i)), the ctypes arrays of pointers (None for a
-    host number), row strides, column strides and host numbers, and the
-    tensors the pointers point into. A tensor of another dtype than the
-    main leaf's is cast on the device (a 0-d sum among them: no host
-    read)."""
+    generated source's leaves), the ctypes arrays of pointers (None for a
+    host number), row strides, column strides and host numbers; the
+    tensors the pointers point into; and the leaf's class: "uniform" (a
+    scalar of `variant`: one value, read once), "alias" (an alias of
+    `variant` that is the same tensor as its target), "flat" (the main
+    leaf's (m, n), contiguous, 16-byte aligned) or "general" (any other
+    layout, read through its descriptor). The flat walk runs when no leaf
+    is general. A tensor of another dtype than the main leaf's is cast on
+    the device (a 0-d sum among them: no host read); a tensor named twice
+    is looked at once."""
     n = len(order)
     ptrs, rs, cs, scal = ((ctypes.c_void_p * n)(), (ctypes.c_longlong * n)(),
                           (ctypes.c_longlong * n)(), (ctypes.c_double * n)())
-    keep = []
+    keep, classes = [], []
+    scalars, alias = variant.scalars, dict(variant.aliases)
+    # id(tensor) -> (pointer, row stride, column stride, elements, flat)
+    seen: Dict[int, Tuple] = {}
     for i, nm in enumerate(order):
         v = env[nm]
         if not isinstance(v, torch.Tensor):
             scal[i] = float(v)
+            classes.append("uniform" if nm in scalars else "general")
             continue
-        if v.device != main.device:
-            raise ValueError(f"spoof leaf {nm!r} is on {v.device}, the "
-                             f"main leaf on {main.device}")
-        if v.dtype != main.dtype:
-            v = v.to(main.dtype)
-        if v.ndim == 2:
-            rs[i] = v.stride(0) if v.shape[0] > 1 else 0
-            cs[i] = v.stride(1) if v.shape[1] > 1 else 0
-        elif v.numel() != 1:
-            raise ValueError(f"spoof leaf {nm!r} has shape {tuple(v.shape)}")
-        keep.append(v)
-        ptrs[i] = v.data_ptr()
-    return (ptrs, rs, cs, scal), keep
+        hit = seen.get(id(v))
+        if hit is None:
+            hit = seen[id(v)] = _describe_leaf(nm, v, main, keep)
+        ptrs[i], r, c, numel, flat = hit
+        if r:
+            rs[i] = r
+        if c:
+            cs[i] = c
+        if nm in scalars:
+            if numel != 1:
+                raise ValueError(f"spoof leaf {nm!r} is a scalar of the "
+                                 f"plan's source, but has shape "
+                                 f"{tuple(v.shape)}")
+            classes.append("uniform")
+        elif nm in alias:
+            tgt = env[alias[nm]]
+            same = tgt is v or (isinstance(tgt, torch.Tensor)
+                                and _tensor_key(tgt) == _tensor_key(v))
+            classes.append("alias" if same else "general")
+        else:
+            classes.append("flat" if flat else "general")
+    return (ptrs, rs, cs, scal), keep, classes
+
+
+def _describe_leaf(nm: str, v, main, keep: list) -> Tuple:
+    """(pointer, row stride, column stride, elements, flat) of tensor leaf
+    v, cast to the main leaf's dtype (the cast kept alive in `keep`)."""
+    if v.device != main.device:
+        raise ValueError(f"spoof leaf {nm!r} is on {v.device}, the main "
+                         f"leaf on {main.device}")
+    t = v if v.dtype == main.dtype else v.to(main.dtype)
+    if t.ndim == 2:
+        r = t.stride(0) if t.shape[0] > 1 else 0
+        c = t.stride(1) if t.shape[1] > 1 else 0
+    elif t.numel() == 1:
+        r = c = 0
+    else:
+        raise ValueError(f"spoof leaf {nm!r} has shape {tuple(t.shape)}")
+    keep.append(t)
+    ptr = t.data_ptr()
+    return (ptr, r, c, t.numel(), t.shape == main.shape and t.is_contiguous()
+            and ptr % SPOOF_VECTOR_BYTES == 0)
+
+
+def leaf_classes(plan, template: str, env: Dict[str, object], variant=None
+                 ) -> Dict[str, str]:
+    """Each leaf's class at a launch of `plan` on `env` (see
+    _spoof_leaves): the flat walk runs when none is "general". `variant`
+    as the wrappers take it."""
+    order = plan.input_names()
+    main = env[_matrices(order, env)[0]]
+    variant = _variant_of(template, plan, env, variant,
+                          variant.aggs if variant is not None else ())
+    return dict(zip(order, _spoof_leaves(order, env, main, variant)[2]))
+
+
+# the launch preparations a plan keeps (a loop launches one plan on the
+# same few tensors again and again)
+_PREP_CAP = 64
+
+
+def _prepare(plan, template: str, env: Dict[str, object], main, variant,
+             aggs: Tuple[str, ...] = ()):
+    """(Variant, (ptrs, rs, cs, scal), leaf classes, tensors to keep alive)
+    of a launch of `plan` for `template` on `env`, as _variant_of and
+    _spoof_leaves give them. Memoised per plan on the leaves' signature
+    (each tensor's pointer, shape, strides and dtype; a host number's
+    place) and the main leaf's shape and dtype, of which the Variant
+    derived from the values, the classes and the arguments are all
+    functions (device pointers are unique across devices). A launch that
+    casts a leaf to the main leaf's dtype (a new tensor each call) is not
+    memoised. Host numbers are written anew each call."""
+    d = plan.__dict__
+    order = d.get("_spoof_order")
+    if order is None:
+        order = d["_spoof_order"] = plan.input_names()
+    sig, seen = [], {}
+    for nm in order:
+        v = env[nm]
+        if isinstance(v, torch.Tensor):
+            s = seen.get(id(v))     # a tensor named twice is looked at once
+            if s is None:
+                s = seen[id(v)] = (v.data_ptr(), v.shape, v.stride(), v.dtype)
+            sig.append(s)
+        else:
+            sig.append(None)
+    sig = tuple(sig)
+    key = (template, variant, aggs, main.shape, main.dtype, sig)
+    memo = d.setdefault("_spoof_prepared", {})
+    hit = memo.get(key)
+    if hit is None:
+        variant = _variant_of(template, plan, env, variant, aggs)
+        args, keep, classes = _spoof_leaves(order, env, main, variant)
+        host = tuple(i for i, s in enumerate(sig) if s is None)
+        if all(s is None or s[3] == main.dtype for s in sig):
+            if len(memo) >= _PREP_CAP:
+                memo.clear()
+            memo[key] = (variant, args, classes, host)
+        return variant, args, classes, keep
+    variant, (ptrs, rs, cs, scal), classes, host = hit
+    if host:
+        scal = (ctypes.c_double * len(order))()
+        for i in host:
+            scal[i] = float(env[order[i]])
+    return variant, (ptrs, rs, cs, scal), classes, ()
 
 
 _ARGTYPES = {
-    # dtype, ptrs, rs, cs, scal, n_leaves, m, n, n_aggs, aggs, out,
-    # partial, grid, stream
-    "multiagg": ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    # dtype, walk, ptrs, rs, cs, scal, n_leaves, m, n, n_aggs, out,
+    # partial, ticket, grid, stream
+    "multiagg": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                  + [ctypes.c_longlong] * 2 + [ctypes.c_int]
                  + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]),
     # dtype, ptrs, rs, cs, scal, n_leaves, m, n, r, u, urs, ucs, v, vrs,
@@ -338,45 +490,125 @@ _ARGTYPES = {
               + ([ctypes.c_void_p] + [ctypes.c_longlong] * 2) * 2
               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
               + [ctypes.c_void_p]),
-    # dtype, agg, ptrs, rs, cs, scal, n_leaves, m, n, out, partial, grid,
-    # stream
-    "cell": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+    # dtype, agg, walk, ptrs, rs, cs, scal, n_leaves, m, n, out, partial,
+    # ticket, grid, stream
+    "cell": ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3
              + [ctypes.c_int, ctypes.c_void_p]),
     # dtype, row_agg, ptrs, rs, cs, scal, n_leaves, m, n, out, grid, stream
     "row": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
             + [ctypes.c_int, ctypes.c_void_p]),
 }
+# the occupancy queries: (dtype, [agg,] walk, int *blocks)
+_OCC_ARGTYPES = {"cell": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                 "multiagg": [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 _sm_count: Dict[int, int] = {}
+# (device index, stream) -> (partials, ticket) of the one-launch reductions
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _launcher(plan, template: str):
-    """(extern "C" launcher, leaf order) of `plan`'s library, built at
-    first use (codegen/build.py), kept on the plan object: a loop launches
-    the same plan many times, and generating and hashing its source again
-    would cost more host time than the kernel takes."""
+class _Launcher:
+    """A plan's library for one template and Variant: its extern "C"
+    launcher, its leaf order, and its kernels' resident blocks per SM by
+    (device, dtype, agg, walk), asked once."""
+
+    def __init__(self, plan, template: str, variant):
+        self.order = plan.input_names()
+        if len(self.order) > SPOOF_MAX_LEAVES:
+            raise ValueError(f"spoof kernel takes at most {SPOOF_MAX_LEAVES}"
+                             f" leaves; the plan has {len(self.order)}")
+        lib = build.load_plan(template, plan, variant)
+        self.fn = getattr(lib, f"smtorch_spoof_{template}")
+        self.fn.argtypes = _ARGTYPES[template]
+        self.fn.restype = ctypes.c_int
+        self.occ = None
+        if template in _OCC_ARGTYPES:
+            self.occ = getattr(lib, f"smtorch_spoof_{template}_occupancy")
+            self.occ.argtypes = _OCC_ARGTYPES[template]
+            self.occ.restype = ctypes.c_int
+        self.template = template
+        self._per_sm: Dict[Tuple[int, ...], int] = {}
+        # (device, dtype, [agg,] walk, cells) -> grid: a loop launches one
+        # plan at one shape many times
+        self.grids: Dict[Tuple[int, ...], int] = {}
+
+    def per_sm(self, dev: torch.device, *key: int) -> int:
+        hit = self._per_sm.get((dev.index,) + key)
+        if hit is None:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                _check(self.occ(*key, ctypes.byref(n)),
+                       f"spoof {self.template} occupancy query")
+            if not 1 <= n.value <= SPOOF_BLOCKS_PER_SM:
+                raise RuntimeError(f"spoof {self.template} kernel: "
+                                   f"{n.value} resident blocks per SM")
+            hit = self._per_sm[(dev.index,) + key] = n.value
+        return hit
+
+
+def _launcher(plan, template: str, variant) -> _Launcher:
+    """`plan`'s launcher for `template` and `variant`, built at first use
+    (codegen/build.py), kept on the plan object: a loop launches the same
+    plan many times, and generating and hashing its source again would
+    cost more host time than the kernel takes."""
     cache = plan.__dict__.setdefault("_spoof_launchers", {})
-    hit = cache.get(template)
+    hit = cache.get((template, variant))
     if hit is None:
-        order = plan.input_names()
-        if len(order) > SPOOF_MAX_LEAVES:
-            raise ValueError(f"spoof kernel takes at most {SPOOF_MAX_LEAVES} "
-                             f"leaves; the plan has {len(order)}")
-        fn = getattr(build.load_plan(template, plan),
-                     f"smtorch_spoof_{template}")
-        fn.argtypes = _ARGTYPES[template]
-        fn.restype = ctypes.c_int
-        hit = cache[template] = (fn, order)
+        hit = cache[(template, variant)] = _Launcher(plan, template, variant)
     return hit
 
 
-def _spoof_grid(dev: torch.device, work: int) -> int:
+def _sms(dev: torch.device) -> int:
     sms = _sm_count.get(dev.index)
     if sms is None:
         sms = _sm_count[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    return max(1, min(-(-work // SPOOF_THREADS), SPOOF_BLOCKS_PER_SM * sms))
+    return sms
+
+
+def _spoof_grid(dev: torch.device, work: int) -> int:
+    return max(1, min(-(-work // SPOOF_THREADS), SPOOF_BLOCKS_PER_SM
+                      * _sms(dev)))
+
+
+def _walk_grid(launcher: _Launcher, main, key: Tuple[int, ...], walk: int,
+               cells: int) -> int:
+    """A persistent grid: the SMs times the kernel's resident blocks, or
+    fewer when the work needs fewer threads (the flat walk gives a thread
+    two vectors a step, and the ragged tail a thread a cell)."""
+    dev = main.device
+    gkey = (dev.index, SPOOF_DTYPES[main.dtype]) + key + (walk, cells)
+    grid = launcher.grids.get(gkey)
+    if grid is None:
+        if walk == WALK_FLAT:
+            per_vec = SPOOF_VECTOR_BYTES // main.element_size()
+            nvec = cells // per_vec
+            threads = max(-(-nvec // 2), cells - nvec * per_vec)
+        else:
+            threads = cells
+        per_sm = launcher.per_sm(dev, *gkey[1:-1])
+        grid = launcher.grids[gkey] = max(1, min(
+            -(-threads // SPOOF_THREADS), per_sm * _sms(dev)))
+    return grid
+
+
+def _reduce_scratch(dev: torch.device, stream: int):
+    """The partials (3 doubles per block) and the ticket of the one-launch
+    reductions on `stream`, made once: a call allocates nothing, and the
+    last block leaves the ticket at 0. Two streams never share them."""
+    key = (dev.index, stream)
+    hit = _scratch.get(key)
+    if hit is None:
+        cap = 3 * SPOOF_BLOCKS_PER_SM * _sms(dev)
+        hit = _scratch[key] = (
+            torch.empty(cap, dtype=torch.float64, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    return hit
+
+
+def _count_walk(walk: int) -> None:
+    _count("spoof_flat_walk" if walk == WALK_FLAT else "spoof_general_walk")
 
 
 def _kernel_main(names: Sequence[str], env: Dict[str, object], what: str):
@@ -389,7 +621,7 @@ def _kernel_main(names: Sequence[str], env: Dict[str, object], what: str):
     mats = _matrices(names, env)
     if not mats:
         return None
-    if not spoof_layout_ok(names, env):
+    if not spoof_layout_ok(names, env, mats):
         _count_plain_by_layout()
         return None
     main = env[mats[0]]
@@ -403,53 +635,70 @@ def _kernel_main(names: Sequence[str], env: Dict[str, object], what: str):
     return main
 
 
+def _variant_of(template, plan, env, variant, aggs=()):
+    if variant is None:
+        return env_variant(template, plan.input_names(), env, aggs)
+    if tuple(variant.aggs) != tuple(aggs):
+        raise ValueError(f"{template} source for aggregates "
+                         f"{list(variant.aggs)}, called for {list(aggs)}")
+    return variant
+
+
 def cell_kernel(plan, names: Sequence[str], agg: Optional[str],
-                env: Dict[str, object]):
+                env: Dict[str, object], variant=None):
     """The cell template (systemml_tpu/codegen/kernels.py:124): the plan
     evaluated at every cell of the main leaf's (m, n), written out as
     (m, n) (agg None) or summed (agg "sum", a 0-d tensor), in the main
     leaf's dtype.
 
     `env` maps each name of `names` to a tensor (2-D, or a 0-d/one-element
-    scalar) or a Python number. A leaf layout that the JAX package's
-    kernel refuses takes the plain arm, on any device, and counts
-    `spoof_plain_by_layout`. Otherwise, on a CUDA main leaf it launches
-    the plan's kernel (csrc/spoof.cuh), or raises on what the kernel does
-    not take; on a CPU main leaf it runs cell_plain. A plan with no matrix
-    leaf runs on its scalars."""
+    scalar) or a Python number; `variant` is the build.Variant of the
+    plan's source (a spoof hop's, from the compiler), derived from `env`
+    when None. A leaf layout that the JAX package's kernel refuses takes
+    the plain arm, on any device, and counts `spoof_plain_by_layout`.
+    Otherwise, on a CUDA main leaf it launches the plan's kernel
+    (csrc/spoof.cuh) on the flat walk or the general one (counted in
+    spoof_flat_walk / spoof_general_walk), or raises on what the kernel
+    does not take; on a CPU main leaf it runs cell_plain. A plan with no
+    matrix leaf runs on its scalars."""
     if agg not in (None, "sum"):
         raise ValueError(f"unknown cell aggregate {agg!r}")
     main = _kernel_main(names, env, "cell_kernel")
     if main is None:
         return cell_plain(plan, names, agg, env)
-    fn, order = _launcher(plan, "cell")
-    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, main)
+    variant, (ptrs, rs, cs, scal), classes, keep = _prepare(
+        plan, "cell", env, main, variant)
+    la = _launcher(plan, "cell", variant)
     m, n = main.shape
+    code = 0 if agg is None else 1
+    walk = WALK_GENERAL if "general" in classes else WALK_FLAT
     with torch.cuda.device(main.device):
-        grid = _spoof_grid(main.device, m * n)
+        stream = torch.cuda.current_stream(main.device).cuda_stream
+        grid = _walk_grid(la, main, (code,), walk, m * n)
         if agg is None:
             out = torch.empty((m, n), dtype=main.dtype, device=main.device)
-            partial = None
+            partial = ticket = None
         else:
             out = torch.empty((), dtype=main.dtype, device=main.device)
-            partial = torch.empty(grid, dtype=torch.float64,
-                                  device=main.device)
-        err = fn(SPOOF_DTYPES[main.dtype], 0 if agg is None else 1, ptrs, rs,
-                 cs, scal, len(order), m, n, out.data_ptr(),
-                 None if partial is None else partial.data_ptr(), grid,
-                 torch.cuda.current_stream(main.device).cuda_stream)
+            partial, ticket = (t.data_ptr() for t in
+                               _reduce_scratch(main.device, stream))
+        err = la.fn(SPOOF_DTYPES[main.dtype], code, walk, ptrs, rs, cs, scal,
+                    len(la.order), m, n, out.data_ptr(), partial, ticket,
+                    grid, stream)
     _check(err, "spoof cell kernel launch")
     del keep
     cell_kernel.launches += 1
+    _count_walk(walk)
     return out
 
 
 def row_kernel(plan, names: Sequence[str], row_agg: str,
-               env: Dict[str, object]):
+               env: Dict[str, object], variant=None):
     """The row template (systemml_tpu/codegen/kernels.py:199): the plan
     evaluated over the main leaf's (m, n), then each row reduced under
     `row_agg` ("sum", "min" or "max"), giving (m, 1) in the main leaf's
-    dtype. Dispatch as cell_kernel's."""
+    dtype. Dispatch as cell_kernel's; the row kernels read every leaf
+    through its descriptor."""
     if row_agg not in SPOOF_AGGS:
         raise ValueError(f"unknown row aggregate {row_agg!r}")
     main = _kernel_main(names, env, "row_kernel")
@@ -457,14 +706,15 @@ def row_kernel(plan, names: Sequence[str], row_agg: str,
         return row_plain(plan, names, row_agg, env)
     m, n = main.shape
     _check_row_width(row_agg, n)
-    fn, order = _launcher(plan, "row")
-    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, main)
+    variant, (ptrs, rs, cs, scal), _, keep = _prepare(plan, "row", env,
+                                                      main, variant)
+    la = _launcher(plan, "row", variant)
     with torch.cuda.device(main.device):
         grid = _spoof_grid(main.device, m if n <= 32 else 32 * m)
         out = torch.empty((m, 1), dtype=main.dtype, device=main.device)
-        err = fn(SPOOF_DTYPES[main.dtype], SPOOF_AGGS[row_agg], ptrs, rs, cs,
-                 scal, len(order), m, n, out.data_ptr(), grid,
-                 torch.cuda.current_stream(main.device).cuda_stream)
+        err = la.fn(SPOOF_DTYPES[main.dtype], SPOOF_AGGS[row_agg], ptrs, rs,
+                    cs, scal, len(la.order), m, n, out.data_ptr(), grid,
+                    torch.cuda.current_stream(main.device).cuda_stream)
     _check(err, "spoof row kernel launch")
     del keep
     row_kernel.launches += 1
@@ -473,14 +723,6 @@ def row_kernel(plan, names: Sequence[str], row_agg: str,
 
 cell_kernel.launches = 0
 row_kernel.launches = 0
-
-
-# --------------------------------------------------------------------------
-# spoof multi-aggregate template: one plan, several full aggregates
-# (csrc/spoof.cuh multiagg; reference: SpoofMultiAggregate)
-# --------------------------------------------------------------------------
-
-MULTIAGG_MAX_AGGS = 8      # spoof::kMaxAggs
 
 
 def _reduce(agg: str, val):
@@ -504,41 +746,41 @@ def multiagg_plain(plan, names: Sequence[str], aggs: Sequence[str],
 
 
 def multiagg_kernel(plan, names: Sequence[str], aggs: Sequence[str],
-                    env: Dict[str, object]):
+                    env: Dict[str, object], variant=None):
     """The multi-aggregate template (systemml_tpu/codegen/kernels.py:242):
     the plan evaluated once at every cell of the main leaf's (m, n) and
     reduced under every aggregate of `aggs` ("sum", "min", "max", any
     order, repeats allowed), a tuple of 0-d tensors in the main leaf's
-    dtype. Dispatch as cell_kernel's; more than MULTIAGG_MAX_AGGS
-    aggregates take the plain arm by shape, counted in
-    spoof_plain_by_layout. A min or max over no cells raises ValueError
-    on either device."""
-    aggs = [str(a) for a in aggs]
+    dtype; the aggregates are compiled into the plan's source (`variant`,
+    whose aggs are `aggs`). Dispatch as cell_kernel's. A min or max over
+    no cells raises ValueError on either device."""
+    aggs = tuple(str(a) for a in aggs)
     if not aggs or any(a not in SPOOF_AGGS for a in aggs):
-        raise ValueError(f"multi-aggregate takes sum, min and max; got {aggs}")
+        raise ValueError(f"multi-aggregate takes sum, min and max; got "
+                         f"{list(aggs)}")
     main = _kernel_main(names, env, "multiagg_kernel")
-    if main is not None and len(aggs) > MULTIAGG_MAX_AGGS:
-        _count_plain_by_layout()
-        main = None
     if main is None:
         return multiagg_plain(plan, names, aggs, env)
     m, n = main.shape
     if m * n == 0 and any(a != "sum" for a in aggs):
-        raise ValueError(f"{aggs}: min and max of no cells have no value")
-    fn, order = _launcher(plan, "multiagg")
-    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, main)
-    codes = (ctypes.c_int * len(aggs))(*[SPOOF_AGGS[a] for a in aggs])
+        raise ValueError(f"{list(aggs)}: min and max of no cells have no "
+                         f"value")
+    variant, (ptrs, rs, cs, scal), classes, keep = _prepare(
+        plan, "multiagg", env, main, variant, aggs)
+    la = _launcher(plan, "multiagg", variant)
+    walk = WALK_GENERAL if "general" in classes else WALK_FLAT
     with torch.cuda.device(main.device):
-        grid = _spoof_grid(main.device, m * n)
+        stream = torch.cuda.current_stream(main.device).cuda_stream
+        grid = _walk_grid(la, main, (), walk, m * n)
         out = torch.empty(len(aggs), dtype=main.dtype, device=main.device)
-        partial = torch.empty((grid, len(aggs)), dtype=torch.float64,
-                              device=main.device)
-        err = fn(SPOOF_DTYPES[main.dtype], ptrs, rs, cs, scal, len(order), m,
-                 n, len(aggs), codes, out.data_ptr(), partial.data_ptr(), grid,
-                 torch.cuda.current_stream(main.device).cuda_stream)
+        partial, ticket = _reduce_scratch(main.device, stream)
+        err = la.fn(SPOOF_DTYPES[main.dtype], walk, ptrs, rs, cs, scal,
+                    len(la.order), m, n, len(aggs), out.data_ptr(),
+                    partial.data_ptr(), ticket.data_ptr(), grid, stream)
     _check(err, "spoof multiagg kernel launch")
     del keep
     multiagg_kernel.launches += 1
+    _count_walk(walk)
     return tuple(out[k] for k in range(len(aggs)))
 
 
@@ -581,7 +823,7 @@ def outer_plain(plan, x, u, v, extra: Dict[str, object]):
     return torch.sum(emit(plan, _plain_env(names, env, x))).to(x.dtype)
 
 
-def outer_kernel(plan, x, u, v, extra: Dict[str, object]):
+def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None):
     """The outer-product template (systemml_tpu/codegen/kernels.py:419):
     sum over X's (m, n) of the plan on X, UV = U %*% t(V) and the scalar
     leaves `extra` (Python numbers or 0-d tensors), in X's dtype; X (m, n),
@@ -589,7 +831,9 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object]):
     kernel (csrc/spoof.cuh outer_sum, which never builds the (m, n)
     product), or raises on what the kernel does not take; a rank above
     OUTER_MAX_RANK takes the plain arm by shape, counted in
-    spoof_plain_by_layout; on a CPU X it runs outer_plain."""
+    spoof_plain_by_layout; on a CPU X it runs outer_plain. `variant` is
+    the build.Variant of the plan's source (its scalar leaves), derived
+    from `extra` when None."""
     m, n, r = _outer_shapes(x, u, v)
     if x.device.type == "cpu":
         return outer_plain(plan, x, u, v, extra)
@@ -603,11 +847,12 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object]):
     if u.device != x.device or v.device != x.device:
         raise ValueError("outer_kernel: X, U and V on different devices")
     u, v = u.to(x.dtype), v.to(x.dtype)
-    fn, order = _launcher(plan, "outer")
     env = dict(extra)
     env["X"] = x
     env["UV"] = 0.0          # computed per cell; never read as a leaf
-    (ptrs, rs, cs, scal), keep = _spoof_leaves(order, env, x)
+    variant, (ptrs, rs, cs, scal), _, keep = _prepare(plan, "outer", env, x,
+                                                      variant)
+    la = _launcher(plan, "outer", variant)
     grid_x = max(1, -(-n // SPOOF_THREADS))
     grid_y = max(1, min(-(-m // OUTER_ROWS), _MAX_GRID_Y))
     stride = lambda t, d: t.stride(d) if t.shape[d] > 1 else 0
@@ -615,11 +860,11 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object]):
         out = torch.empty((), dtype=x.dtype, device=x.device)
         partial = torch.empty(grid_x * grid_y, dtype=torch.float64,
                               device=x.device)
-        err = fn(SPOOF_DTYPES[x.dtype], ptrs, rs, cs, scal, len(order), m, n,
-                 r, u.data_ptr(), stride(u, 0), stride(u, 1), v.data_ptr(),
-                 stride(v, 0), stride(v, 1), out.data_ptr(),
-                 partial.data_ptr(), grid_x, grid_y,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = la.fn(SPOOF_DTYPES[x.dtype], ptrs, rs, cs, scal, len(la.order),
+                    m, n, r, u.data_ptr(), stride(u, 0), stride(u, 1),
+                    v.data_ptr(), stride(v, 0), stride(v, 1), out.data_ptr(),
+                    partial.data_ptr(), grid_x, grid_y,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     _check(err, "spoof outer kernel launch")
     del keep
     outer_kernel.launches += 1

@@ -669,10 +669,13 @@ def _spoof_codegen(prog: "Program", cfg) -> None:
     SpoofCompiler.generateCode + PlanSelectionFuseCostBasedV2). Per-block
     isolation, as in the JAX package: a selection fault in one block
     leaves that block unfused and is counted in spoof_compile_errors, not
-    raised. On the card, the kernels of every selected cell and row plan
-    are then built, all nvcc runs together, before the program runs."""
+    raised. Each spoof hop's source variant (its scalar and aliased
+    leaves, its aggregates) is then fixed, and on the card the kernels of
+    every selected plan are built, all nvcc runs together, before the
+    program runs."""
     from systemml_tpu_torch.codegen import build
-    from systemml_tpu_torch.codegen.compiler import (compile_spoof,
+    from systemml_tpu_torch.codegen.compiler import (assign_variants,
+                                                     compile_spoof,
                                                      program_plans)
     from systemml_tpu_torch.obs import trace as obs
     from systemml_tpu_torch.utils import stats as stats_mod
@@ -684,6 +687,7 @@ def _spoof_codegen(prog: "Program", cfg) -> None:
                 compile_spoof(bb.hops)
             except Exception:  # except-ok: per-block spoof isolation; counted, not fatal
                 prog.stats.count_estim("spoof_compile_errors", 1)
+        assign_variants(prog)
     if cfg.device != "cpu":
         with obs.span("spoof_build", obs.CAT_COMPILE) as sp:
             sp.set(built=len(build.build_plans(program_plans(prog))))

@@ -408,9 +408,9 @@ def test_ratings_summary_matches_jax(monkeypatch, prec, ndt):
     calls = []
     magg = kernels.multiagg_kernel
     monkeypatch.setattr(kernels, "multiagg_kernel", lambda plan, names, aggs,
-                        env: calls.append((plan.pretty(), list(aggs),
-                                           len(names))) or magg(plan, names,
-                                                                aggs, env))
+                        env, *variant: calls.append((plan.pretty(), list(aggs),
+                                                     len(names))) or magg(
+                            plan, names, aggs, env, *variant))
     v = _ratings(2).astype(ndt)
     rj = JaxMLContext(_jax_cfg(3, prec)).execute(
         jax_dml(SUMMARY).input("V", v).output("s", "lo", "hi"))

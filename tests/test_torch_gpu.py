@@ -564,17 +564,6 @@ def test_multiagg_ratings_summary_plan(cuda, dtype):
                 dtype)
 
 
-def test_multiagg_many_aggregates_take_plain_arm(cuda):
-    env = _spoof_env(cuda, torch.float32, 300, 7)
-    aggs = ["sum", "min", "max"] * 3
-    st = stats.Statistics()
-    before = kernels.multiagg_kernel.launches
-    with stats.stats_scope(st):
-        out = kernels.multiagg_kernel(SPOOF_PLAN, SPOOF_NAMES, aggs, env)
-    assert kernels.multiagg_kernel.launches == before
-    assert st.estim_counts["spoof_plain_by_layout"] == 1 and len(out) == 9
-
-
 def test_multiagg_empty_main_leaf(cuda):
     env = _spoof_env(cuda, torch.float32, 0, 7)
     before = kernels.multiagg_kernel.launches
@@ -623,3 +612,198 @@ def test_optlevel3_als_and_summary_launch_k5_and_k3(cuda):
     (s3, lo3, hi3), (s2, lo2, hi2) = res[3][1], res[2][1]
     assert abs(s3 - s2) <= 1e-6 * zsum
     assert abs(lo3 - lo2) <= 1e-5 * abs(lo2) and abs(hi3 - hi2) <= 1e-5 * abs(hi2)
+
+
+# ---- K2 and K3: the flat and general walks (csrc/spoof.cuh) ---------------
+
+# leaves a, b, c read per cell, s a host number, t a 0-d tensor; NaN in a
+# reaches the value through max and the products
+WALK_PLAN = _n("b(+)",
+               _n("b(*)", _n("b(-)", _in("a"), _in("s")),
+                  _n("b(max)", _in("b"), _in("a"))),
+               _n("b(*)", _in("t"),
+                  _n("u(exp)", _n("b(*)", _lit(0.1), _in("c")))))
+WALK_NAMES = ["a", "s", "b", "c", "t"]
+
+
+def _walk_env(dev, dtype, m, n, walk, alias=False, seed=17):
+    """WALK_PLAN's leaves: contiguous (the flat walk) or each a column
+    block of a wider matrix starting one element in (the general walk:
+    neither contiguous, when m > 1, nor 16-byte aligned); b the same
+    tensor as a when `alias`."""
+    rng = np.random.default_rng(seed)
+
+    def mat():
+        t = torch.from_numpy(rng.standard_normal((m, n))).to(dev, dtype)
+        if walk == "flat":
+            return t
+        wide = torch.zeros((m, n + 2), device=dev, dtype=dtype)
+        wide[:, 1:n + 1] = t
+        return wide[:, 1:n + 1]
+
+    a = mat()
+    return {"a": a, "b": a if alias else mat(), "c": mat(), "s": 0.25,
+            "t": torch.tensor(-0.5, device=dev, dtype=torch.float64)}
+
+
+def _walks(st):
+    return {w: st.estim_counts.get(f"spoof_{w}_walk", 0)
+            for w in ("flat", "general")}
+
+
+def _walk_check(env, walk, dtype, aggs=("sum", "min", "max")):
+    """Cell map, cell sum and the multi-aggregate against the plain
+    version in fp64; each launch on `walk` (counted in the statistics)."""
+    st = stats.Statistics()
+    with stats.stats_scope(st):
+        _walk_launches(env, dtype, aggs)
+    assert _walks(st) == {"flat": 6 if walk == "flat" else 0,
+                          "general": 6 if walk == "general" else 0}
+
+
+def _walk_launches(env, dtype, aggs):
+    """Two launches each of the cell map, the cell sum and the
+    multi-aggregate, each against its plain version."""
+    out = kernels.cell_kernel(WALK_PLAN, WALK_NAMES, None, env)
+    again = kernels.cell_kernel(WALK_PLAN, WALK_NAMES, None, env)
+    _spoof_check(out, again, kernels.cell_plain(WALK_PLAN, WALK_NAMES, None,
+                                                _double(env)), dtype)
+    total = kernels.cell_kernel(WALK_PLAN, WALK_NAMES, "sum", env)
+    again = kernels.cell_kernel(WALK_PLAN, WALK_NAMES, "sum", env)
+    ref = kernels.cell_plain(WALK_PLAN, WALK_NAMES, "sum", _double(env))
+    scale = float(kernels._plain_value(WALK_PLAN, WALK_NAMES, _double(env))
+                  .abs().nansum())
+    torch.cuda.synchronize()
+    assert total.shape == () and total.dtype == dtype
+    assert torch.equal(total.nan_to_num(0.0), again.nan_to_num(0.0))
+    assert bool(total.isnan()) == bool(ref.isnan())
+    if not bool(ref.isnan()):
+        assert abs(float(total) - float(ref)) <= \
+            (1e-5 if dtype == torch.float32 else 1e-12) * max(scale, 1e-300)
+    _magg_check(WALK_PLAN, WALK_NAMES, list(aggs), env, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("walk", ["flat", "general"])
+@pytest.mark.parametrize("m,n", [(1, 3), (3, 1), (1, 1), (1037, 7),
+                                 (2049, 5), (100_003, 1), (33, 300)])
+@pytest.mark.parametrize("alias", [False, True])
+def test_walks_match_plain(cuda, dtype, walk, m, n, alias):
+    """Fewer cells than one vector, m n not a multiple of the vector
+    width (a ragged tail), whole vectors; aliased leaves."""
+    _walk_check(_walk_env(cuda, dtype, m, n, walk, alias), walk, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_leaf_at_an_offset_takes_scalar_loads(cuda, dtype):
+    """A leaf that starts one element into its buffer (4 or 8 bytes: not
+    16-byte aligned) sends the launch to the general walk."""
+    env = _walk_env(cuda, dtype, 1037, 7, "flat")
+    buf = torch.empty(1037 * 7 + 1, device=cuda, dtype=dtype)
+    buf[1:] = env["c"].reshape(-1)
+    env["c"] = buf[1:].view(1037, 7)
+    assert env["c"].is_contiguous() and env["c"].data_ptr() % 16 != 0
+    _walk_check(env, "general", dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("walk", ["flat", "general"])
+@pytest.mark.parametrize("where", ["tail", "body"])
+def test_nan_reaches_min_and_max(cuda, dtype, walk, where):
+    """NaN in the last cell (the flat walk's scalar tail: 1037 x 7 is not
+    a multiple of 4) or inside a vector, through min, max and sum."""
+    env = _walk_env(cuda, dtype, 1037, 7, walk)
+    if where == "tail":
+        env["a"][-1, -1] = float("nan")
+    else:
+        env["a"][500, 3] = float("nan")
+    _walk_check(env, walk, dtype)
+    out = kernels.multiagg_kernel(WALK_PLAN, WALK_NAMES, ["min", "max"], env)
+    assert all(bool(o.isnan()) for o in out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("walk", ["flat", "general"])
+@pytest.mark.parametrize("aggs", MAGG_ORDERS)
+def test_walks_every_aggregate_order(cuda, dtype, walk, aggs):
+    env = _walk_env(cuda, dtype, 2049, 5, walk, alias=True)
+    st = stats.Statistics()
+    with stats.stats_scope(st):
+        _magg_check(WALK_PLAN, WALK_NAMES, aggs, env, dtype)
+    assert _walks(st)[walk] == 2
+
+
+@pytest.mark.parametrize("walk", ["flat", "general"])
+def test_hundred_launches_are_bit_identical(cuda, walk):
+    """One launch per reduction: the last block resets the ticket, so 100
+    back-to-back launches on one stream give the same bits."""
+    env = _walk_env(cuda, torch.float32, 100_003, 7, walk)
+    sums = [kernels.cell_kernel(WALK_PLAN, WALK_NAMES, "sum", env)
+            for _ in range(100)]
+    aggs = [torch.stack(kernels.multiagg_kernel(
+        WALK_PLAN, WALK_NAMES, ["sum", "min", "max"], env))
+        for _ in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(s, sums[0]) for s in sums)
+    assert all(torch.equal(a, aggs[0]) for a in aggs)
+
+
+def test_two_streams_keep_their_own_tickets(cuda):
+    """Launches on two streams at once (each with its own partials and
+    ticket) give what a launch on the default stream gives."""
+    env = _walk_env(cuda, torch.float32, 1_000_003, 5, "flat")
+    want = torch.stack(kernels.multiagg_kernel(WALK_PLAN, WALK_NAMES,
+                                               ["sum", "min", "max"], env))
+    want_sum = kernels.cell_kernel(WALK_PLAN, WALK_NAMES, "sum", env)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = {0: [], 1: []}
+    for _ in range(20):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[k].append((torch.stack(kernels.multiagg_kernel(
+                    WALK_PLAN, WALK_NAMES, ["sum", "min", "max"], env)),
+                    kernels.cell_kernel(WALK_PLAN, WALK_NAMES, "sum", env)))
+    torch.cuda.synchronize()
+    for k in got:
+        for a, s in got[k]:
+            assert torch.equal(a, want) and torch.equal(s, want_sum)
+    keys = {key for key in kernels._scratch if key[0] == cuda.index or
+            key[0] == torch.cuda.current_device()}
+    assert {s.cuda_stream for s in streams} <= {key[1] for key in keys}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("walk", ["flat", "general"])
+@pytest.mark.parametrize("n_aggs", [9, 12])
+def test_multiagg_many_aggregates_launch_the_kernel(cuda, dtype, walk,
+                                                    n_aggs):
+    """The aggregates are a template pack of any length: 9 or 12 of them
+    launch the kernel on either walk, against multiagg_plain, and none
+    takes the plain arm."""
+    env = _walk_env(cuda, dtype, 1037, 7, walk)
+    if n_aggs == 12:
+        env["a"][500, 3] = float("nan")
+    aggs = (["max", "sum", "min"] * 4)[:n_aggs]
+    st = stats.Statistics()
+    with stats.stats_scope(st):
+        _magg_check(WALK_PLAN, WALK_NAMES, aggs, env, dtype)
+    assert _walks(st)[walk] == 2
+    assert st.estim_counts.get("spoof_plain_by_layout", 0) == 0
+
+
+@pytest.mark.parametrize("walk", ["flat", "general"])
+def test_memoised_launch_follows_new_values(cuda, walk):
+    """A second launch on the same tensors reuses the first's prepared
+    arguments, yet reads a new host number and the tensors' new contents."""
+    env = _walk_env(cuda, torch.float32, 1037, 7, walk)
+    env["t"] = env["t"].float()     # a cast leaf is not memoised
+    for s, scale in ((0.25, 1.0), (0.5, 1.0), (0.5, -2.0)):
+        env["s"] = s
+        env["c"].mul_(scale)
+        total = kernels.cell_kernel(WALK_PLAN, WALK_NAMES, "sum", env)
+        ref = kernels.cell_plain(WALK_PLAN, WALK_NAMES, "sum", _double(env))
+        scale_sum = float(kernels._plain_value(
+            WALK_PLAN, WALK_NAMES, _double(env)).abs().sum())
+        assert abs(float(total) - float(ref)) <= 1e-5 * scale_sum
+    assert len(WALK_PLAN.__dict__["_spoof_prepared"]) >= 1
