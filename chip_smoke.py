@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bench LABEL
+    python3 chip_smoke.py --phases
 
-The second form times only the spoof kernels K2, K3 and K5 and the spoof
-wrappers' host time (see `bench`); copied into a checkout of an earlier
-tree it runs there too, so two trees compare within one chip call.
+The second form times only the spoof kernels K2, K3 and K5, the spoof
+wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
+checkout of an earlier tree it runs there too, so two trees compare
+within one chip call. The third shows where K6's time goes (see
+`phases`).
 
 Drives the port's paths through systemml_tpu_torch.api.mlcontext.MLContext
 on the card, on one X of 2,000,000 x 1,000 fp32 (scripts/perftest scale
@@ -63,9 +66,12 @@ Phases:
    against chain_plain in fp64 on the card at the Census shape (68
    groups of up to 8 codes over 2,458,285 rows) and at a ragged
    (100,003, 7) block, every chain type, k = 1 and 4, fp32 and fp64
-   (bars 1e-5 and 1e-12 normwise), and two blocks that K6 refuses by
-   layout (a dictionary of 9, an uncompressed column) taking the gather
-   arm, counted, with no launch; K5 against outer_plain in fp64 on the
+   (bars 1e-5 and 1e-12 normwise), at the Census shape in fp32 with NaN,
+   +Inf and -Inf rows in w and y (NaN and +-Inf in the plain version's
+   slots) and with every row of each group on one code, and two blocks
+   that K6 refuses by layout (a dictionary of 9, an uncompressed column)
+   taking the gather arm, counted, with no launch; K5 against outer_plain
+   in fp64 on the
    card at ALS-CG-ml10m's shape (X its 0/1 pattern, rank 10, its loss
    plan) and at a ragged (100,003, 777, r = 3) X, fp32 and fp64 (bars
    1e-5 and 1e-12), with a plan of a host-number and a 0-d scalar leaf,
@@ -111,7 +117,10 @@ Phases:
    launched most, at its own inputs, and on the elementwise arm of the
    summary's plan over V, an (m, n > 1) plan; and the host time of one
    spoof wrapper call (row, cell sum, multi-aggregate);
-   K6 at the path's own compressed X, its plain version, the whole
+   K6 at the path's own compressed X (CUDA events over back-to-back
+   calls, as K1, K3 and K5; beside them the device time per call from
+   torch.profiler and the wrapper's host time), on the same
+   shape with every row on one code, its plain version, the whole
    compressed chain around it, the gather arm, and as its yardstick the
    two-pass torch.matmul on the dense X (no single torch call computes
    a compressed chain); K5 and K3 at ALS-CG-ml10m's shape against their
@@ -950,6 +959,72 @@ def chain_codes(dev, gen, n, groups, dmax):
          .to(torch.uint8) for d in ds]))
 
 
+def _chain_case(label, codes, sv, w, ctype) -> None:
+    """K6 twice against chain_plain in fp64 on the card: NaN and +-Inf in
+    the same slots, the finite slots within the bar, repeats bit-identical
+    (NaN compared by place)."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    before = cla_dev.chain_kernel.launches
+    out = cla_dev.chain_kernel(codes, sv, w, ctype)
+    again = cla_dev.chain_kernel(codes, sv, w, ctype)
+    ref = cla_dev.chain_plain(codes, sv.double(),
+                              None if w is None else w.double(), ctype)
+    torch.cuda.synchronize()
+    places = all(bool(torch.equal(f(out), f(ref))) for f in
+                 (torch.isnan, torch.isposinf, torch.isneginf))
+    fin = torch.isfinite(ref)
+    err = normwise(out[fin], ref[fin])
+    # per slot: the worst relative error of the slots with |value| at
+    # least 1e-3 of the largest (no slot's own rounding bound here; the
+    # card test test_cla_chain_heavy_tailed_z holds each slot to its own)
+    big = fin & (ref.abs() >= 1e-3 * ref[fin].abs().max())
+    slot = float(((out[big] - ref[big]).abs() / ref[big].abs()).max()) \
+        if bool(big.any()) else 0.0
+    same = bool(torch.equal(out.nan_to_num(), again.nan_to_num())
+                and torch.equal(out.isnan(), again.isnan()))
+    bar = CHAIN_BARS[sv.dtype]
+    print(f"[kernel] cla_chain {label}: {int(torch.isnan(ref).sum())} NaN "
+          f"and {int(torch.isinf(ref).sum())} +-Inf slots of "
+          f"{ref.numel()} in the plain version, same places {places}; "
+          f"finite slots normwise {err:.3e} (bar {bar:g}), worst per slot "
+          f"{slot:.3e} relative over the {int(big.sum())} slots of at least "
+          f"1e-3 of the largest; repeat bit-identical {same}", flush=True)
+    if cla_dev.chain_kernel.launches != before + 2:
+        fail(f"cla_chain {label}: the kernel did not launch")
+    if not (places and err <= bar and same):
+        fail(f"cla_chain {label}: NaN/Inf places {places}, normwise {err}, "
+             f"repeat identical {same}")
+
+
+def check_chain_special(codes, dev, gen) -> None:
+    """At the Census shape, fp32, k = 1: NaN, +Inf and -Inf rows in w and
+    in y (a tile with one takes the kernel's fp64 branch), and every row
+    of each group on one code (the integer atomics' worst case)."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    groups, n = codes.shape
+    sv = torch.randn(8, groups, 1, generator=gen, device=dev)
+    w = torch.randn(n, 1, generator=gen, device=dev)
+    for r, v in ((5, "nan"), (70_000, "inf"), (1_000_000, "inf"),
+                 (1_000_001, "-inf"), (n - 1, "-inf")):
+        w[r, 0] = float(v)
+    for ctype in ("XtwXv", "XtXvy"):
+        _chain_case(f"{ctype} codes ({groups}, {n}) fp32 k=1 with NaN, "
+                    f"+Inf and -Inf rows in w/y", codes, sv, w, ctype)
+    one = cla_dev.chain_codes(torch.full((groups, n), 3, dtype=torch.uint8,
+                                         device=dev))
+    _chain_case(f"XtXv codes ({groups}, {n}) fp32 k=1, every row on code 3",
+                one, sv, None, "XtXv")
+    # heavy-tailed z: w log-uniform over 12 decades, so each tile's scale
+    # drops the low bits of its small z
+    w = torch.exp(torch.empty(n, 1, device=dev).uniform_(
+        -6 * math.log(10), 6 * math.log(10), generator=gen)) * torch.where(
+        torch.rand(n, 1, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    _chain_case(f"XtwXv codes ({groups}, {n}) fp32 k=1, w log-uniform "
+                f"over 12 decades", codes, sv, w, "XtwXv")
+
+
 def check_chain_kernel(dev) -> float:
     """K6 against chain_plain in fp64 on the card, twice; then two blocks
     that K6 refuses by layout through the compressed mmchain. Returns the
@@ -996,6 +1071,8 @@ def check_chain_kernel(dev) -> float:
                     if (n, dtype, k, ctype) == (CENSUS_N, torch.float32, 1,
                                                 "XtXv"):
                         abs_err = err_abs
+        if n == CENSUS_N:
+            check_chain_special(codes, dev, gen)
         del codes
     # blocks that K6 refuses by layout take the gather arm, counted
     rng = np.random.default_rng(5)
@@ -1027,12 +1104,13 @@ def check_chain_kernel(dev) -> float:
     return abs_err
 
 
-def run_cla_path(name, cla, data, dev, kernels):
+def run_cla_path(name, cla, data, dev, kernels, profile: bool = True):
     """One unprofiled run at optlevel 2 with `cla` on the categorical X,
     after a warm-up on its first 200,000 rows (which compresses too, so
     that the compressed ops' first calls, their allocations and cuBLAS's
     choices for the table's shape, are not in the timed loop); the launch
-    counters are set to 0 just before it and read just after."""
+    counters are set to 0 just before it and read just after. With
+    `profile`, LinearRegCG-cla runs once more under torch.profiler."""
     from systemml_tpu_torch.api.mlcontext import MLContext
 
     cfg = config(2)
@@ -1090,10 +1168,11 @@ def run_cla_path(name, cla, data, dev, kernels):
               "peak_bytes": peak, "peak_over_data_bytes": peak - base,
               "windows": windows, "events": events,
               "compressed": timer.compressed}
-    if name == "LinearRegCG" and cla == "auto":
-        # the CG loop's period and busy share, from K6's launches
+    if name == "LinearRegCG" and cla == "auto" and profile:
+        # the CG loop's period and busy share, from K6's launches (one
+        # cla_chain_reduce each)
         result["profile"] = profile_main_path(
-            ml, path_script(name, data), False, kernel="cla_chain_partial")
+            ml, path_script(name, data), False, kernel="cla_chain_reduce")
     return result
 
 
@@ -1144,13 +1223,23 @@ def time_chain_kernel(cla, dev, smi, max_abs_err) -> dict:
     v = torch.randn(CENSUS_M, 1, generator=gen, device=dev)
     sv = cla_dev.chain_table(lay, v)
     xc = cla["data"]["X"]
-    kern_ms, plain_ms, call_ms, gather_ms, dense_ms = time_ms([
-        lambda: cla_dev.chain_kernel(lay.codes, sv),
+    one = cla_dev.chain_codes(torch.full_like(lay.codes, 3))
+    kern = lambda: cla_dev.chain_kernel(lay.codes, sv)
+    # 50 calls a reading, as the bench: the host launches a call in a
+    # third of the kernel's time, so only the first call's launch is idle
+    events_ms, one_events_ms = time_ms(
+        [kern, lambda: cla_dev.chain_kernel(one, sv)], reps=50)
+    plain_ms, call_ms, gather_ms, dense_ms = time_ms([
         lambda: cla_dev.chain_plain(lay.codes, sv),
         lambda: cla_dev.chain_mmchain(c, v),
         lambda: cla_dev.gather_mmchain(c, v, None, "XtXv"),
         lambda: torch.matmul(xc.T, torch.matmul(xc, v)),
     ], reps=10)
+    # beside the events, the card's time per call alone (torch.profiler)
+    kern_ms = device_ms(kern)
+    one_ms = device_ms(lambda: cla_dev.chain_kernel(one, sv))
+    call_dev_ms = device_ms(lambda: cla_dev.chain_mmchain(c, v))
+    wrapper_us = host_us({"k6": kern}, reps=100, rounds=4)[0]["k6"]
     k = 1
     nbytes = (lay.codes.numel() + sv.numel() * sv.element_size()
               + 8 * lay.dmax * lay.groups * k)   # codes, table in; out
@@ -1158,10 +1247,15 @@ def time_chain_kernel(cla, dev, smi, max_abs_err) -> dict:
     ops_ms = 1e3 * 2.0 * lay.groups * lay.n * k / FP32_OPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
     print(f"[times] cla_chain XtXv codes ({lay.groups}, {lay.n}) dmax "
-          f"{lay.dmax} k=1 fp32 on {smi}: kernel {kern_ms:.4f} ms, plain "
+          f"{lay.dmax} k=1 fp32 on {smi}: kernel {events_ms:.4f} ms by CUDA "
+          f"events over back-to-back calls, {kern_ms:.4f} ms device time "
+          f"per call (torch.profiler), the wrapper's host time "
+          f"{wrapper_us:.1f} us a call; every row on one code "
+          f"{one_events_ms:.4f} ms ({one_ms:.4f} device time); plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
           f"{bytes_ms:.4f}, operations {ops_ms:.4f}); the whole compressed "
-          f"chain (table, kernel, assembly) {call_ms:.4f} ms, the gather "
+          f"chain (table, kernel, assembly) {call_ms:.4f} ms by events, "
+          f"{call_dev_ms:.4f} ms device time, the gather "
           f"arm {gather_ms:.4f} ms; yardstick, the two-pass torch.matmul "
           f"on the dense X ({xc.numel() * 4 / 1e9:.3f} GB) {dense_ms:.4f} "
           f"ms (no single torch call computes a compressed chain)",
@@ -1171,10 +1265,13 @@ def time_chain_kernel(cla, dev, smi, max_abs_err) -> dict:
             "replaces": "systemml_tpu/compress/device.py:525 "
                         "_chain_kernel_call",
             "launches": cla["LinearRegCG"]["auto"]["launches"]["cla_chain"],
-            "max_abs_err": max_abs_err["cla_chain"], "ms": kern_ms,
+            "max_abs_err": max_abs_err["cla_chain"], "ms": events_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "chain_call_ms": call_ms,
+            "library_ms": None, "device_ms": kern_ms,
+            "one_code_ms": one_events_ms, "one_code_device_ms": one_ms,
+            "wrapper_host_us": wrapper_us, "chain_call_ms": call_ms,
+            "chain_call_device_ms": call_dev_ms,
             "gather_arm_ms": gather_ms, "dense_two_pass_ms": dense_ms}
 
 
@@ -1774,8 +1871,9 @@ def _bench_summary_ms(v, runs: int = 7) -> float:
 
 
 def bench(label: str) -> None:
-    """Times the spoof kernels K2, K3 and K5 at the paths' shapes and the
-    host time of the spoof wrappers, and prints the card and one JSON line:
+    """Times the spoof kernels K2, K3 and K5 at the paths' shapes, the host
+    time of the spoof wrappers, K6 and LinearRegCG-cla, and prints the card
+    and one JSON line:
 
     - k3_summary_ms: the ratings summary's plan (sum, min, max) over a
       ratings matrix of the MovieLens 10M shape, CUDA events;
@@ -1795,11 +1893,18 @@ def bench(label: str) -> None:
       sum, multi-aggregate, row), where the launch and not the work
       counts; in a tree whose compiler fixes each spoof hop's Variant,
       also the cell sum called with it, as the paths call it (medians of
-      host_us's rounds, each round in dispatch_us_rounds).
+      host_us's rounds, each round in dispatch_us_rounds);
+    - cla_cg_iter_ms: LinearRegCG-cla at optlevel 2, cla "auto", on the
+      Census-shaped X, ms per CG iteration (run_cla_path's device window);
+    - k6_chain_ms: K6 at that X's own compressed layout, k = 1, fp32,
+      XtXv, CUDA events over back-to-back chain_kernel calls;
+      k6_chain_device_ms the device time per call (torch.profiler) and
+      k6_host_us the wrapper's host time per call.
 
-    It uses only the wrappers' (plan, names, agg, env) signatures and
-    compile_program, so a checkout of an earlier tree runs it too, this
-    file copied in: two trees compare within one chip call."""
+    It uses only the wrappers' (plan, names, agg, env) signatures,
+    compile_program, MLContext and compress/device.py's chain_layout,
+    chain_table and chain_kernel, so a checkout of an earlier tree runs it
+    too, this file copied in: two trees compare within one chip call."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     if not os.path.isdir(os.path.join(ROOT, "systemml_tpu_torch")):
@@ -1902,8 +2007,125 @@ def bench(label: str) -> None:
         fns["cell_sum_hop_variant"] = lambda: kernels.cell_kernel(
             splan, snames, "sum", tiny_svm, svm.params["variant"])
     out["dispatch_us"], out["dispatch_us_rounds"] = host_us(fns)
+    del senv, aenv, tiny_svm, tiny_magg, tiny_row
+    torch.cuda.empty_cache()
+
+    # K6 and LinearRegCG-cla on the Census-shaped X (compressed at the
+    # loop's entry, as the path does)
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    data = make_census(dev)
+    run = run_cla_path("LinearRegCG", "auto", data, dev, kernels,
+                       profile=False)
+    out["cla_cg_iter_ms"] = run["windows"]["iteration_ms"]
+    out["cla_cg_iterations"] = run["iterations"]
+    lay = cla_dev.chain_layout(run["compressed"][0])
+    sv = cla_dev.chain_table(
+        lay, torch.randn(CENSUS_M, 1, generator=gen, device=dev))
+    fn = lambda: cla_dev.chain_kernel(lay.codes, sv)
+    out["k6_chain_ms"] = time_ms([fn], reps=50)[0]
+    out["k6_chain_device_ms"] = device_ms(fn)
+    out["k6_host_us"] = host_us({"k6": fn}, reps=100, rounds=4)[0]["k6"]
     print(smi)
     print(json.dumps(out), flush=True)
+
+
+# K6_PROBE of csrc/cla_chain.cu: the kernel, and three builds whose
+# results are wrong
+K6_PROBES = {"full": 0, "no_atomics": 1, "plain_stores": 2, "copies_only": 3}
+
+
+def phases() -> None:
+    """Where K6's time goes, at the Census shape (68 groups of 8 codes over
+    2,458,285 rows, uniform codes, k = 1, fp32, XtXv): csrc/cla_chain.cu
+    built with each K6_PROBE (full: the kernel; no_atomics: phase B's
+    atomics left out, their addresses and values still computed;
+    plain_stores: plain shared-memory stores in their place; copies_only:
+    each tile's codes copied into shared memory and nothing else), by nvcc
+    in parallel, each launched through its own library on the same inputs
+    as compress/device.chain_kernel launches K6. Prints the card, ptxas's
+    registers and spills of each k = 1 kernel, full's normwise error
+    against chain_plain, and one JSON line per probe: ms per call by CUDA
+    events over back-to-back launches (the probes in turns) and device ms
+    per call (torch.profiler); beside them the wrapper chain_kernel."""
+    import ctypes
+
+    from systemml_tpu_torch.codegen import build
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(build.CSRC, "cla_chain.cu")
+    procs = {}
+    for name, probe in K6_PROBES.items():
+        lib = os.path.join(build.BUILD_DIR, f"libcla_chain_probe{probe}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, f"-DK6_PROBE={probe}", "-I",
+             build.CSRC, "-o", lib, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    ref_lib = cla_dev._chain_library()
+    libs = {}
+    for name, (lib, p) in procs.items():
+        report, _ = p.communicate(timeout=build.NVCC_TIMEOUT_S)
+        if p.returncode:
+            fail(f"nvcc for K6_PROBE={K6_PROBES[name]}:\n{report[-3000:]}")
+        lines = report.splitlines()
+        at = [i for i, ln in enumerate(lines)
+              if "cla_chain_f32ILi1E" in ln and "Compiling" in ln]
+        regs = [ln.split(":", 1)[-1].strip() for ln in
+                lines[at[0] + 1:at[0] + 5] if "registers" in ln
+                or "spill" in ln] if at else []
+        print(f"[phases] {name} ptxas k=1: {'; '.join(regs)}", flush=True)
+        h = ctypes.CDLL(lib)
+        h.smtorch_cla_chain.argtypes = ref_lib.smtorch_cla_chain.argtypes
+        h.smtorch_cla_chain.restype = ref_lib.smtorch_cla_chain.restype
+        libs[name] = h
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    codes = cla_dev.chain_codes(torch.randint(
+        0, 8, (CENSUS_M, CENSUS_N), generator=gen, device=dev,
+        dtype=torch.uint8))
+    sv = torch.randn(8, CENSUS_M, 1, generator=gen, device=dev)
+    tile = cla_dev.chain_kernel_plan(8, CENSUS_M, 1, torch.float32)[0]
+    grid = min(-(-CENSUS_N // tile), torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    partial = torch.empty((grid, 8, CENSUS_M, 1), dtype=torch.float64,
+                          device=dev)
+    outs = {name: torch.empty((8, CENSUS_M, 1), dtype=torch.float64,
+                              device=dev) for name in libs}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launcher(name):
+        h, out = libs[name], outs[name]
+
+        def fn():
+            err = h.smtorch_cla_chain(
+                codes.data_ptr(), codes.stride(0), sv.data_ptr(), None,
+                partial.data_ptr(), out.data_ptr(),
+                CENSUS_N, CENSUS_M, 8, 1, 0, 1, 0, grid, stream)
+            if err:
+                fail(f"K6 probe {name}: CUDA error {err}")
+        return fn
+
+    fns = {name: launcher(name) for name in libs}
+    fns["wrapper"] = lambda: cla_dev.chain_kernel(codes, sv)
+    fns["full"]()
+    ref = cla_dev.chain_plain(codes, sv.double())
+    err = normwise(outs["full"], ref)
+    print(f"[phases] full: normwise {err:.3e} against chain_plain "
+          f"(bar {CHAIN_BARS[torch.float32]:g})", flush=True)
+    if not err <= CHAIN_BARS[torch.float32]:
+        fail(f"K6 probe full: normwise {err}")
+    names = list(fns)
+    events = time_ms([fns[k] for k in names], reps=50)
+    result = {k: {"ms": events[i], "device_ms": device_ms(fns[k])}
+              for i, k in enumerate(names)}
+    print(smi)
+    print(json.dumps(result), flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -2270,5 +2492,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--bench"]:
         bench(sys.argv[2] if len(sys.argv) > 2 else os.path.basename(ROOT))
+    elif sys.argv[1:2] == ["--phases"]:
+        phases()
     else:
         main()

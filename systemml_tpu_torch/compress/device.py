@@ -8,10 +8,13 @@ dictionary on the device, built once per block and cached on it. The ops:
 - left mult  Y^T @ X = segment sums of Y^T's rows by code (`bincount`
   with weights) times the dictionary;
 - tsmm  t(X) @ X from per-group code counts and joint code histograms;
-- mmchain  t(X) %*% (w? * (X %*% v) -? y): kernel K6 (csrc/cla_chain.cu)
-  when the block is all coded with at most 8 dictionary rows per group
-  and the operands lie on the card, else the right mult feeding the left
-  mult (the JAX package's gather_segment arm).
+- mmchain  t(X) %*% (w? * (X %*% v) -? y): kernel K6 (csrc/cla_chain.cu;
+  v's columns 8 a launch) when the block is all coded with at most 8
+  dictionary rows per group and the operands lie on the card, else the
+  right mult feeding the left mult (the JAX package's gather_segment arm).
+  K6 streams the codes into shared memory asynchronously, sums xv in fp32
+  and adds z into exact int32 histograms, scaled per tile, that it flushes
+  to fp64: repeats are bit-identical.
 
 The JAX package leaves the first three to XLA; here they are torch ops
 (gather, `bincount`, `torch.matmul`). On the card `bincount` adds with
@@ -30,14 +33,16 @@ choice is made once per kernel key (op, device, dtype, power-of-two
 shape bucket, group layout) and process, and counted then in the stats as
 kb_pick_<family>.<arm>, under the JAX package's names. A compressed
 mmchain that K6 cannot take by its layout or shape (an uncompressed
-group, a dictionary of more than 8 rows, more than 8 columns of v, or a
-table past the kernel's shared memory) counts cla_chain_plain_by_layout
-and takes the gather arm, decided before any launch.
+group, a dictionary of more than 8 rows, or a block's table, codes and
+histograms past the kernel's shared memory, chain_smem_bytes) counts
+cla_chain_plain_by_layout and takes the gather arm, decided before any
+launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -401,38 +406,66 @@ def mmchain(c: CompressedMatrixBlock, v, w=None, ctype: str = "XtXv"):
 CHAIN_CTYPES = {"XtXv": 0, "XtwXv": 1, "XtXvy": 2}
 CHAIN_DTYPES = {torch.float32: 0, torch.float64: 1}
 # what the kernel takes (csrc/cla_chain.cu): at most 8 dictionary rows per
-# group (the JAX package's _TPU_CHAIN_DMAX), at most 8 columns of v, and a
-# block's shared memory within the card's 227 KB
+# group (the JAX package's _TPU_CHAIN_DMAX), at most 8 columns of v a launch
+# (chain_mmchain runs a wider v in chunks of 8), and a block's shared
+# memory within the card's 227 KB
 CHAIN_MAX_DICT = 8
 CHAIN_MAX_K = 8
-CHAIN_TILE = 256            # rows per tile = threads per block
 CHAIN_MAX_SMEM = 232448
-CHAIN_BLOCKS_PER_SM = 4
+# fp32: one block per SM, at most 1024 rows a tile (the kernel picks the
+# largest of 1024, 512, ..., 64 whose block fits); fp64: 4 blocks of 256
+# threads per SM, a row a thread
+CHAIN_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 4}
+_CHAIN_MIN_TILE = 64
+_CHAIN_TILE_F64 = 256
 
 
-def chain_smem_bytes(dmax: int, groups: int, k: int) -> int:
-    """A block's shared memory (csrc/cla_chain.cu smem_bytes): the table
-    and one histogram per row slice (CHAIN_TILE // (groups * k) slices,
-    at least 1) in double, the tile's z in double, and its codes, each
-    group's row padded by 4 bytes."""
-    pairs = groups * k
-    slices = 1 if pairs >= CHAIN_TILE else CHAIN_TILE // pairs
-    return (8 * (dmax * pairs * (1 + slices) + CHAIN_TILE * k)
-            + groups * (CHAIN_TILE + 4))
+def chain_smem_bytes(dmax: int, groups: int, k: int,
+                     dtype=torch.float32) -> int:
+    """The least shared memory a block of K6 takes for k <= 8 columns of
+    v, as csrc/cla_chain.cu computes it (smem_f32_at at its smallest tile
+    / smem_f64): the kernel takes the shape if and only if this fits. The
+    launch takes its tile and bytes from the built kernel
+    (chain_kernel_plan).
+
+    fp32, at 64 rows a tile: the alignment slack, the table (256-byte
+    blocks of 8 // kp groups, kp the power of two at or above k; of 2 for
+    k = 1, a lookup adding a pair of groups), two stages of codes (a
+    group's row padded by 16 bytes), the tile's z, the int32 histogram (8
+    code slots of 128 max(kp, 2) bytes per 8 groups, and one chunk more
+    for its alignment), the fp64 accumulators and the per-warp maxima of
+    512 threads (k <= 2) or 256.
+
+    fp64: the table and one histogram per row slice (256 // (groups * k)
+    slices, at least 1) in double, the tile's z in double, and its codes,
+    each group's row padded by 4 bytes."""
+    if dtype == torch.float64:
+        pairs = groups * k
+        slices = 1 if pairs >= _CHAIN_TILE_F64 else _CHAIN_TILE_F64 // pairs
+        return (8 * (dmax * pairs * (1 + slices) + _CHAIN_TILE_F64 * k)
+                + groups * (_CHAIN_TILE_F64 + 4))
+    kp = 1 << (k - 1).bit_length()
+    tile = _CHAIN_MIN_TILE
+    table = 256 * -(-groups // (2 if k == 1 else max(1, 8 // kp)))
+    warps = (512 if k <= 2 else 256) // 32
+    return (256 + table + 2 * groups * (tile + 16) + 4 * kp * tile
+            + 1024 * max(kp, 2) * (-(-groups // 8) + 1)
+            + 8 * dmax * groups * k + 4 * kp * warps)
 
 
 def chain_supported(c: CompressedMatrixBlock, k: int, dtype) -> bool:
     """Whether K6 takes the block with k columns of v of `dtype`: the JAX
     package's predicate (every group coded, dmax <= 8), and this kernel's
-    own bounds (k <= 8, fp32 or fp64, the shared memory of a block). From
-    host metadata alone: nothing is uploaded."""
+    own bounds (fp32 or fp64, the shared memory of a block at the widest
+    chunk of v, min(k, 8) columns). From host metadata alone: nothing is
+    uploaded."""
     shape = _host_meta(c)[2]
     if shape is None:
         return False
     dmax, groups = shape
-    return (dmax <= CHAIN_MAX_DICT and 1 <= k <= CHAIN_MAX_K
-            and dtype in CHAIN_DTYPES
-            and chain_smem_bytes(dmax, groups, k) <= CHAIN_MAX_SMEM)
+    return (dmax <= CHAIN_MAX_DICT and k >= 1 and dtype in CHAIN_DTYPES
+            and chain_smem_bytes(dmax, groups, min(k, CHAIN_MAX_K), dtype)
+            <= CHAIN_MAX_SMEM)
 
 
 def chain_codes(codes):
@@ -484,12 +517,21 @@ def chain_mmchain(c: CompressedMatrixBlock, v, w=None,
     package's tpu_mmchain: the value table sv[j, g, :] = dict_g[j, :] @
     v[cols_g, :] and the output out[cols_g, :] = dict_g^T @ part[:, g, :]
     are torch ops around the kernel's pass over the rows (one product
-    each, with the layout's `a`). Returns (m, k) in v's dtype. The caller
-    checks chain_supported first."""
+    each, with the layout's `a`); the kernel takes v's columns 8 at a time,
+    a launch each. Returns (m, k) in v's dtype. The caller checks
+    chain_supported first."""
     lay = chain_layout(c)
     v = v.reshape(lay.m, -1)
     wv = None if ctype == "XtXv" else w.reshape(lay.n, -1).to(v.dtype)
-    part = chain_kernel(lay.codes, chain_table(lay, v), wv, ctype)
+    sv = chain_table(lay, v)
+    k = sv.shape[2]
+    parts = []
+    for c0 in range(0, k, CHAIN_MAX_K):   # a launch per 8 columns of v
+        c1 = min(k, c0 + CHAIN_MAX_K)
+        wc = wv if wv is None or wv.shape[1] == 1 else wv[:, c0:c1]
+        parts.append(chain_kernel(lay.codes, sv[:, :, c0:c1].contiguous(),
+                                  wc, ctype))
+    part = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
     out = torch.matmul(lay.a64.T, part.reshape(lay.dmax * lay.groups, -1))
     return out.to(v.dtype)
 
@@ -559,8 +601,33 @@ def _chain_library() -> ctypes.CDLL:
             [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4
             + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.smtorch_cla_chain.restype = ctypes.c_int
+        lib.smtorch_cla_chain_smem.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        lib.smtorch_cla_chain_smem.restype = ctypes.c_longlong
         _chain_lib = lib
     return _chain_lib
+
+
+@functools.lru_cache(maxsize=None)
+def chain_kernel_plan(dmax: int, groups: int, k: int, dtype):
+    """(rows per tile, shared bytes) of a block as the built kernel computes
+    them (smtorch_cla_chain_smem), (0, 0) for a shape it does not take.
+    Builds the kernel."""
+    tile = ctypes.c_int(0)
+    smem = _chain_library().smtorch_cla_chain_smem(
+        dmax, groups, k, CHAIN_DTYPES[dtype], ctypes.byref(tile))
+    return tile.value, int(smem)
+
+
+_chain_sm_count: Dict[Optional[int], int] = {}
+
+
+def _chain_sms(dev) -> int:
+    sms = _chain_sm_count.get(dev.index)
+    if sms is None:
+        sms = _chain_sm_count[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
 
 
 def chain_kernel(codes, sv, w=None, ctype: str = "XtXv"):
@@ -569,10 +636,11 @@ def chain_kernel(codes, sv, w=None, ctype: str = "XtXv"):
     or raises on what the kernel does not take: codes not a (G, n) uint8
     tensor whose rows start 16 bytes aligned (chain_codes lays them out
     so), a table not contiguous (dmax, G, k) fp32 or fp64 with dmax <= 8
-    and k <= 8, w/y of another dtype, or a table past a block's shared
-    memory. The codes must index rows of the table (the layout that
-    builds them guarantees it). On a CPU tensor it runs chain_plain.
-    Returns (dmax, G, k) float64."""
+    and k <= 8 (chain_mmchain takes a wider v 8 columns at a time), w/y of
+    another dtype, or a block past its shared memory (chain_kernel_plan). The
+    codes must index rows of the table (the layout that builds them
+    guarantees it). On a CPU tensor it runs chain_plain. Returns
+    (dmax, G, k) float64."""
     if codes.device.type == "cpu":
         return chain_plain(codes, sv, w, ctype)
     if codes.device.type != "cuda":
@@ -597,28 +665,27 @@ def chain_kernel(codes, sv, w=None, ctype: str = "XtXv"):
         if w.dtype != sv.dtype:
             raise TypeError("chain_kernel: w/y and the table differ in dtype")
         w = w.contiguous()
-    if not (1 <= dmax <= CHAIN_MAX_DICT and 1 <= k <= CHAIN_MAX_K
-            and chain_smem_bytes(dmax, G, k) <= CHAIN_MAX_SMEM):
+    tile = chain_kernel_plan(dmax, G, k, sv.dtype)[0]
+    if not tile:
         raise ValueError(f"chain_kernel takes dmax <= {CHAIN_MAX_DICT}, k <= "
                          f"{CHAIN_MAX_K} and {CHAIN_MAX_SMEM} B of shared "
                          f"memory; got dmax={dmax}, G={G}, k={k}")
     lib = _chain_library()
-    with torch.cuda.device(codes.device):
-        sms = torch.cuda.get_device_properties(
-            codes.device).multi_processor_count
-        tiles = -(-n // CHAIN_TILE)
-        grid = max(1, min(tiles, CHAIN_BLOCKS_PER_SM * sms))
-        partial = torch.empty((grid, dmax, G, k), dtype=torch.float64,
-                              device=codes.device)
-        out = torch.empty((dmax, G, k), dtype=torch.float64,
-                          device=codes.device)
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = lib.smtorch_cla_chain(
-            codes.data_ptr(), ldc, sv.data_ptr(),
-            None if w is None else w.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, G, dmax, k, CHAIN_CTYPES[ctype],
-            1 if w is None else w.shape[1], CHAIN_DTYPES[sv.dtype], grid,
-            stream)
+    dev = codes.device
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return chain_kernel(codes, sv, w, ctype)
+    sms = _chain_sms(dev)
+    grid = max(1, min(-(-n // tile), CHAIN_BLOCKS_PER_SM[sv.dtype] * sms))
+    partial = torch.empty((grid, dmax, G, k), dtype=torch.float64,
+                          device=dev)
+    out = torch.empty((dmax, G, k), dtype=torch.float64, device=dev)
+    err = lib.smtorch_cla_chain(
+        codes.data_ptr(), ldc, sv.data_ptr(),
+        None if w is None else w.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), n, G, dmax, k, CHAIN_CTYPES[ctype],
+        1 if w is None else w.shape[1], CHAIN_DTYPES[sv.dtype], grid,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"cla_chain kernel launch failed: CUDA error {err}")
     chain_kernel.launches += 1

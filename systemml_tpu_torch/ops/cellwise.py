@@ -82,13 +82,25 @@ def _logical(fn, a, b):
     return _bool(fn(ta, tb), a, b)
 
 
+def _floor_div(a, b):
+    """a %/% b: torch's floor division, NaN where the divisor is 0 (as
+    jnp.floor_divide and the port's scalar path; torch gives +-Inf)."""
+    q = a // b
+    if not (isinstance(q, torch.Tensor) and q.is_floating_point()):
+        return q
+    zero = b == 0 if isinstance(b, torch.Tensor) else torch.tensor(
+        b == 0, device=q.device)
+    return torch.where(zero, torch.tensor(math.nan, dtype=q.dtype,
+                                          device=q.device), q)
+
+
 _ARITH = {
     "+": lambda a, b: a + b, "-": lambda a, b: a - b,
     "*": lambda a, b: a * b, "/": lambda a, b: a / b,
     "^": lambda a, b: a ** b,
     # torch's % and // on tensors are remainder and floor division: R's
     # %% (sign of the divisor) and %/% (floor)
-    "%%": lambda a, b: a % b, "%/%": lambda a, b: a // b,
+    "%%": lambda a, b: a % b, "%/%": _floor_div,
 }
 _REL = {
     "==": lambda a, b: a == b, "!=": lambda a, b: a != b,
@@ -172,7 +184,9 @@ _UNARY = {
     "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
     "sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log,
     "floor": torch.floor, "ceiling": torch.ceil, "ceil": torch.ceil,
-    "round": _round_half_up, "sign": torch.sign,
+    "round": _round_half_up,
+    # torch.sign(NaN) is 0; jnp.sign(NaN) is NaN
+    "sign": lambda v: torch.where(torch.isnan(v), v, torch.sign(v)),
     "sigmoid": torch.sigmoid, "!": _not, "-": _neg,
     "sprop": lambda v: v * (1.0 - v),  # sample proportion x*(1-x)
     "isNA": lambda v: torch.isnan(v).to(v.dtype),

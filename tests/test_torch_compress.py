@@ -367,6 +367,42 @@ def test_chain_plain_histograms():
     assert cla_dev.chain_kernel.launches == before
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_chain_wide_v_runs_in_chunks_of_8(monkeypatch, dtype):
+    """k = 12: chain_mmchain takes v's columns 8 and then 4 through the
+    kernel's wrapper, and agrees with the JAX package's chain."""
+    rng = np.random.default_rng(12)
+    cj, cp = _chain_block(rng, 2003, 8, groups=(1, 2, 3, 1, 2))
+    if dtype == np.float32:
+        for g in cp.groups:
+            g._dict = g._dict.astype(np.float32)
+    x = cj.decompress()
+    k = 12
+    assert cla_dev.chain_supported(cp, k, torch.float32)
+    widths = []
+    wrapped = cla_dev.chain_kernel
+
+    def counting(codes, sv, w=None, ctype="XtXv"):
+        widths.append((sv.shape[2], None if w is None else w.shape[1]))
+        return wrapped(codes, sv, w, ctype)
+
+    monkeypatch.setattr(cla_dev, "chain_kernel", counting)
+    v = rng.standard_normal((x.shape[1], k)).astype(dtype)
+    for ct, wc in (("XtXv", 0), ("XtwXv", 1), ("XtXvy", k), ("XtXvy", 1)):
+        w = rng.standard_normal((2003, wc)).astype(dtype) if wc else None
+        widths.clear()
+        got = cla_dev.chain_mmchain(
+            cp, torch.from_numpy(v),
+            None if w is None else torch.from_numpy(w), ct)
+        wcols = None if w is None else (1 if wc == 1 else None)
+        assert widths == [(8, wcols or (None if w is None else 8)),
+                          (4, wcols or (None if w is None else 4))], ct
+        ref = np.asarray(jax_dev.mmchain(cj, v, w, ct))
+        assert got.shape == (x.shape[1], k)
+        assert _rel(_np(got), ref) <= (1e-9 if dtype == np.float64
+                                       else 1e-3), ct
+
+
 def test_chain_support_refuses_what_jax_refuses():
     rng = np.random.default_rng(6)
     dct9 = rng.standard_normal((9, 1))
@@ -385,8 +421,12 @@ def test_chain_support_refuses_what_jax_refuses():
         assert not cla_dev.chain_supported(cp, 1, torch.float64), label
     _, ok = _chain_block(rng, 300, 8)
     assert cla_dev.chain_supported(ok, 8, torch.float32)
-    # this kernel's own bounds: k <= 8, fp32/fp64, a block's shared memory
-    assert not cla_dev.chain_supported(ok, 9, torch.float32)
+    # this kernel's own bounds: fp32/fp64 and a block's shared memory; a v
+    # wider than 8 columns runs in chunks of 8, so k itself is no bound
+    # (the JAX package's kernel has none)
+    for k in (9, 12, 100):
+        assert cla_dev.chain_supported(ok, k, torch.float32)
+        assert cla_dev.chain_supported(ok, k, torch.float64)
     assert not cla_dev.chain_supported(ok, 1, torch.float16)
     many = CompressedMatrixBlock(
         [cg.ColGroupDDC([i], rng.standard_normal((8, 1)),

@@ -407,6 +407,244 @@ def test_cla_chain_refuses_what_the_kernel_does_not_take(cuda):
                              "XtXv")
     with pytest.raises(ValueError):
         cla_dev.chain_kernel(codes, sv, None, "XtwXv")
+    with pytest.raises(ValueError):   # 9 columns: chain_mmchain chunks them
+        cla_dev.chain_kernel(codes, torch.zeros(8, 4, 9, device=cuda), None,
+                             "XtXv")
+
+
+def _chain_masks(out, ref):
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(out), f(ref))
+
+
+def _chain_same(out, ref, bar):
+    """NaN and +-Inf in the same slots, the finite slots within `bar`
+    normwise."""
+    _chain_masks(out, ref)
+    fin = torch.isfinite(ref)
+    den = torch.linalg.norm(ref[fin])
+    err = torch.linalg.norm(out[fin] - ref[fin]) / (den if den > 0 else 1.0)
+    assert float(err) <= bar
+
+
+def _chain_tree(codes, sv, w, ctype):
+    """chain_plain's function with each histogram slot summed by a tree
+    reduction (torch.sum of the slot's rows) instead of index_add_'s
+    atomics in device memory, which add a slot's rows in an arbitrary
+    order: over 1e5 rows of one slot (dmax = 1) that order's rounding
+    reaches 1e-12 of a cancelling sum, the fp64 bar itself."""
+    G = codes.shape[0]
+    dmax = sv.shape[0]
+    svd = sv.double()
+    xv = sum(svd[:, g, :].index_select(0, codes[g].long()) for g in range(G))
+    z = xv if ctype == "XtXv" else (
+        w.double() * xv if ctype == "XtwXv" else xv - w.double())
+    return torch.stack([torch.stack([z[codes[g] == j].sum(0)
+                                     for g in range(G)])
+                        for j in range(dmax)])
+
+
+def _chain_check(codes, sv, w, ctype, dtype):
+    """K6 twice: bit-identical, NaN and +-Inf where chain_plain has them,
+    within the bar of _chain_tree."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    before = cla_dev.chain_kernel.launches
+    out = cla_dev.chain_kernel(codes, sv, w, ctype)
+    again = cla_dev.chain_kernel(codes, sv, w, ctype)
+    plain = cla_dev.chain_plain(codes, sv.double(),
+                                None if w is None else w.double(), ctype)
+    ref = _chain_tree(codes, sv, w, ctype)
+    torch.cuda.synchronize()
+    assert cla_dev.chain_kernel.launches == before + 2
+    assert out.dtype == torch.float64 and out.shape == plain.shape
+    assert torch.equal(out.nan_to_num(), again.nan_to_num())
+    _chain_masks(out, plain)
+    _chain_same(out, ref, CHAIN_BARS[dtype])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dmax", [1, 8])
+@pytest.mark.parametrize("n", [1, 15, 255, 257, 100_003, 135_169])
+def test_cla_chain_ragged_rows(cuda, dtype, dmax, n):
+    """Every chain type, k = 1 and 4, at row counts around the tiles: the
+    ragged last tile and the padding past n are never counted; at 132 *
+    1024 + 1 rows the last blocks of a 132-block grid have no rows (each
+    block takes an equal share in 64-row blocks)."""
+    for ctype, k, wc in (("XtXv", 1, 0), ("XtXv", 4, 0), ("XtwXv", 1, 1),
+                         ("XtwXv", 4, 1), ("XtXvy", 1, 1), ("XtXvy", 4, 4)):
+        _chain_check(*_chain_inputs(cuda, dmax, 68, n, k, wc, dtype, seed=n),
+                     ctype, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 4])
+def test_cla_chain_one_code_per_group(cuda, dtype, k):
+    """Every row of a group on one code (the integer atomics' worst case:
+    a warp's lanes each hit one slot for all of the tile's rows), beside
+    groups of uniform codes."""
+    codes, sv, w = _chain_inputs(cuda, 8, 68, 100_003, k, k, dtype, seed=9)
+    codes[::2] = torch.arange(34, device=cuda, dtype=torch.uint8)[:, None] % 8
+    for ctype in ("XtXv", "XtXvy"):
+        _chain_check(codes, sv, None if ctype == "XtXv" else w, ctype, dtype)
+
+
+def _chain_rounding(codes, sv, w):
+    """Per slot of XtwXv, a bound on K6's fp32 rounding (csrc/cla_chain.cu,
+    "Rounding"), summed over the slot's rows: z's own, G + 2 units of
+    2^-24 of the row's sum of |terms| times |w|, and the rounding of z
+    against its tile's largest |z|, at most 2^-22 of it. A tile starts at a
+    multiple of 64 rows and spans at most 1024, so that largest |z| is at
+    most the largest over the 31 64-row blocks around the row's."""
+    G, n = codes.shape
+    dmax = sv.shape[0]
+    svd = sv.double()
+    idx = [codes[g].long() for g in range(G)]
+    xv = sum(svd[:, g, :].index_select(0, idx[g]) for g in range(G))
+    mag = sum(svd[:, g, :].abs().index_select(0, idx[g]) for g in range(G))
+    wd = w.double()
+    z = (wd * xv).abs()
+    k = z.shape[1]
+    blocks = torch.nn.functional.pad(z.T, (0, -n % 64)).view(k, -1, 64)
+    near = torch.nn.functional.max_pool1d(
+        blocks.amax(2)[None], 31, stride=1, padding=15)[0]
+    near = near.repeat_interleave(64, dim=1)[:, :n].T
+    row = 2.0 ** -22 * near + (G + 2) * 2.0 ** -24 * wd.abs() * mag
+    return torch.stack([
+        torch.zeros((dmax, k), dtype=torch.float64, device=z.device)
+        .index_add_(0, idx[g], row) for g in range(G)], dim=1)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_cla_chain_heavy_tailed_z(cuda, k):
+    """z from 1e-6 to 1e6 within one tile (w log-uniform over 12 decades):
+    the tile's scale drops the low bits of the small z. The fp32 bar
+    normwise; every slot within its rounding bound (_chain_rounding); and
+    the slots at least 1e3 times their bound (here a fifth or more of
+    them), within the fp32 bar each."""
+    codes, sv, _ = _chain_inputs(cuda, 8, 68, 100_003, k, 0, torch.float32,
+                                 seed=10)
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.choice([-1.0, 1.0], (100_003, 1))
+                         * 10.0 ** rng.uniform(-6, 6, (100_003, 1)))
+    w = w.to(cuda, torch.float32)
+    out = _chain_check(codes, sv, w, "XtwXv", torch.float32)
+    ref = _chain_tree(codes, sv, w, "XtwXv")
+    bound = _chain_rounding(codes, sv, w)
+    err = (out - ref).abs()
+    assert bool((err <= bound).all())
+    well = ref.abs() >= 1e3 * bound
+    assert int(well.sum()) >= 0.1 * ref.numel()
+    assert float((err[well] / ref[well].abs()).max()) <= \
+        CHAIN_BARS[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ctype", ["XtwXv", "XtXvy"])
+def test_cla_chain_non_finite_rows(cuda, dtype, ctype):
+    """NaN, +Inf and -Inf rows in w or y: NaN and Inf in the slots where
+    chain_plain has them (a tile with one takes the kernel's fp64 branch);
+    the finite slots within the bar."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    for k, wc in ((1, 1), (4, 1), (4, 4)):
+        codes, sv, w = _chain_inputs(cuda, 8, 68, 100_003, k, wc, dtype,
+                                     seed=12)
+        w[5, 0] = float("nan")          # tile 0
+        w[2_000, 0] = float("inf")      # tile 1
+        w[40_000, 0] = float("inf")     # one tile: +Inf beside -Inf
+        w[40_001, 0] = float("-inf")
+        w[99_999, wc - 1] = float("-inf")  # the last tile
+        out = _chain_check(codes, sv, w, ctype, dtype)
+        assert bool(torch.isnan(out).any()) and bool(
+            torch.isfinite(out).any())
+        # a NaN in the table: every slot of its group's rows is NaN
+        sv2 = sv.clone()
+        sv2[0, 3, 0] = float("nan")
+        _chain_check(codes, sv2, w, ctype, dtype)
+    assert cla_dev.chain_kernel.launches > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cla_chain_repeats_bit_identical(cuda, dtype):
+    """100 launches, and launches on two streams at once, give the same
+    bits."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    codes, sv, w = _chain_inputs(cuda, 8, 68, 300_007, 1, 1, dtype, seed=13)
+    first = cla_dev.chain_kernel(codes, sv, w, "XtXvy")
+    outs = [cla_dev.chain_kernel(codes, sv, w, "XtXvy") for _ in range(100)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        a = [cla_dev.chain_kernel(codes, sv, w, "XtXvy") for _ in range(5)]
+    with torch.cuda.stream(s2):
+        b = [cla_dev.chain_kernel(codes, sv, w, "XtXvy") for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for o in outs + a + b)
+
+
+def test_cla_chain_plan_matches_the_kernel(cuda):
+    """The wrapper's estimate of a block's least shared memory
+    (chain_smem_bytes, which chain_supported reads without a build)
+    accepts exactly the shapes the built kernel accepts
+    (smtorch_cla_chain_smem), and equals the kernel's bytes where the
+    kernel takes its smallest tile (fp32: 64 rows; fp64: always)."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    smallest = 0
+    for dtype in (torch.float32, torch.float64):
+        for dmax in (1, 3, 8):
+            for groups in (1, 31, 32, 33, 68, 200, 330, 450, 800):
+                for k in range(1, 9):
+                    est = cla_dev.chain_smem_bytes(dmax, groups, k, dtype)
+                    tile, smem = cla_dev.chain_kernel_plan(dmax, groups, k,
+                                                           dtype)
+                    at = (dtype, dmax, groups, k)
+                    assert (est <= cla_dev.CHAIN_MAX_SMEM) == (tile > 0), at
+                    if not tile:
+                        assert smem == 0, at
+                    elif dtype == torch.float64 or tile == 64:
+                        assert smem == est, at
+                        smallest += tile == 64
+                    else:
+                        assert est < smem <= cla_dev.CHAIN_MAX_SMEM, at
+    assert smallest > 0
+    assert cla_dev.chain_kernel_plan(9, 4, 1, torch.float32) == (0, 0)
+    assert cla_dev.chain_kernel_plan(8, 4, 9, torch.float32) == (0, 0)
+    # the Census shape takes the largest tile
+    assert cla_dev.chain_kernel_plan(8, 68, 1, torch.float32)[0] == 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cla_mmchain_wide_v_through_the_kernel(cuda, dtype):
+    """k = 12 on the card: the compressed mmchain launches K6 twice (v's
+    columns 8 and 4), and agrees with the dense product."""
+    from systemml_tpu_torch.compress import compress
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    rng = np.random.default_rng(14)
+    n = 20_011
+    x = np.column_stack([rng.standard_normal(d)[rng.integers(0, d, n)]
+                         for d in (2, 5, 8, 3, 7)])
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    c = compress(x.astype(npd))
+    v = torch.from_numpy(rng.standard_normal((5, 12)).astype(npd)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((n, 12)).astype(npd)).to(cuda)
+    assert cla_dev.chain_supported(c, 12, dtype)
+    st = stats.Statistics()
+    before = cla_dev.chain_kernel.launches
+    with stats.stats_scope(st):
+        out = mult.mmchain(c, v, y, "XtXvy")
+    torch.cuda.synchronize()
+    assert cla_dev.chain_kernel.launches == before + 2
+    assert st.estim_counts.get("cla_chain_plain_by_layout", 0) == 0
+    xd = torch.from_numpy(x.astype(npd)).to(cuda).double()
+    ref = xd.T @ (xd @ v.double() - y.double())
+    err = torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref)
+    assert out.dtype == dtype and out.shape == (5, 12)
+    assert float(err) <= CHAIN_BARS[dtype]
 
 
 # ---- K5: the outer-product template ---------------------------------------
