@@ -13,7 +13,11 @@ within one chip call. The third shows where K6's time goes (see
 Drives the port's paths through systemml_tpu_torch.api.mlcontext.MLContext
 on the card, on one X of 2,000,000 x 1,000 fp32 (scripts/perftest scale
 L) made on the card from a seeded generator, and holds every kernel of
-those paths against its plain PyTorch version:
+those paths against its plain PyTorch version. Every path runs its loops
+as fused regions (runtime/loopfuse.py; codegen_enabled at its default):
+each loop nest one CUDA graph with its predicates on the card
+(conditional WHILE and IF nodes, csrc/loop_graph.cu), launched once per
+loop entry, or refused for a classified reason and run eagerly:
 
 - LinearRegCG at optlevel 2 (kernel K1, mmchain) and at optlevel 3;
 - l2-svm (maxiter 15, labels +-1 from sign(X w + 0.1 noise)) and
@@ -42,7 +46,9 @@ those paths against its plain PyTorch version:
 
 Phases:
 
-0. environment: torch and CUDA versions, the card, its power limit;
+0. environment: torch and CUDA versions (the runtime and driver that
+   conditional graph nodes need: 12.4 or later), the card, its power
+   limit;
 1. build: the paths' programs are compiled at optlevel 3, each building
    its fused plans (one generated source per plan, csrc/spoof.cuh) as
    compile_program does on the card, while csrc/mmchain.cu and
@@ -79,9 +85,29 @@ Phases:
    summary's plan over V and on the ragged and NaN plans above, every
    aggregate order of AGG_ORDERS (one of 10 aggregates); the port's rand() on the card against its rand() on
    the CPU, bit for bit, in fp32 and fp64. Every kernel runs twice: the
-   two results must be bit-identical;
+   two results must be bit-identical. set_cond, the loop-control kernel
+   of csrc/loop_graph.cu, against its plain version: IF nodes and their
+   negation on predicates of five dtypes with 0, 1, -2.5 and NaN, each
+   flag against pred != 0 on the host;
+2b. the region bridge on small scripts (BRIDGE: a zero-trip while, a
+   while nested in a while, an if/else in a while, a for in a while, an
+   inner loop that runs no iteration in some outer passes), fp64 through
+   MLContext on the card and on the CPU (the region executor's plain
+   arm), equal within 1e-12; and REENTRY compiled once and run with maxi
+   5, 9 and 5: one capture, three graph launches, bit-identical results;
 3. the paths, each with every launch counter set to 0 just before it and
-   read just after: LinearRegCG at optlevel 2 (mmchain once per CG
+   read just after, each followed by a `regions` line (the regions
+   planned, captured and refused with their reasons, the graph launches
+   and host syncs per loop entry, the trips, the kernel launches per body;
+   it fails on a refusal other than l2-svm's "print" and LinearRegCG-cla's
+   "compressed operand", and on a region that is not one launch and two
+   host syncs per entry); LinearRegCG at optlevel 2 and MultiLogReg at 3,
+   and ALS-CG-ml10m at 3, also with codegen_enabled False: the region's
+   output bit-identical to the eager run's or within 1e-5 normwise, equal
+   launch counts of every kernel, ms per iteration in the graph and the
+   eager loop's, the busy share (the eager run's kernel time per loop
+   period over the graph's ms per iteration), peak memory allocated and
+   reserved; LinearRegCG at optlevel 2 (mmchain once per CG
    iteration, beta within 1e-3 of beta_true, peak allocated below twice
    X's bytes; timed without a profiler, a second unprofiled run, two
    runs under torch.profiler and one under cProfile), then LinearRegCG at
@@ -128,7 +154,9 @@ Phases:
    computes either): torch.matmul(U, V.T), the unfused route's first
    step, for K5, and the unfused sequence (the plain version) for K3.
 
-Prints a {"kernels": [...]} line before the last, and as the last line
+The kernels line also has set_cond: its ms the control of a WHILE loop
+per iteration inside one graph, its plain_ms the same loop driven from
+the host. Prints a {"kernels": [...]} line before the last, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero; without a CUDA
 card, or without the repository around it, it exits non-zero before any
 result.
@@ -150,7 +178,7 @@ M, K = 2_000_000, 1_000        # scripts/perftest/run_perftest.py scale L
 KERNEL_BAR = 1e-4
 SPOOF_BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 # systemml_tpu_torch/codegen/csrc/<name>.cu
-KERNEL_SOURCES = ("mmchain", "cla_chain")
+KERNEL_SOURCES = ("mmchain", "cla_chain", "loop_graph")
 # the Census data of the CLA evaluation (UCI US Census 1990): rows, columns
 CENSUS_N, CENSUS_M = 2_458_285, 68
 CHAIN_BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -228,14 +256,17 @@ class PhaseTimer:
 
     def __init__(self):
         from systemml_tpu_torch.compress import device as cla_dev
-        from systemml_tpu_torch.runtime import program
+        from systemml_tpu_torch.runtime import loopfuse, program
         self._targets = {"execute": (program.Program, "execute"),
                          "loop": (program.WhileBlock, "execute"),
                          "compress": (program, "_maybe_auto_compress"),
                          "layout": (cla_dev, "chain_layout"),
-                         "mirror": (cla_dev, "device_mirror")}
+                         "mirror": (cla_dev, "device_mirror"),
+                         "capture": (loopfuse.FusedLoop, "_capture"),
+                         "launch": (loopfuse.FusedLoop, "_launch")}
         self.windows = {label: [] for label in self._targets}
         self.compressed = []
+        self.program = None
 
     def __enter__(self):
         self._orig = {label: getattr(owner, attr)
@@ -256,6 +287,12 @@ class PhaseTimer:
         from systemml_tpu_torch.compress import is_compressed
 
         def execute(blk, *args, **kwargs):
+            if label == "execute":
+                self.program = blk
+            if torch.cuda.is_current_stream_capturing():
+                # a loop nested in a region being captured: no event may
+                # enter a conditional node's body
+                return orig(blk, *args, **kwargs)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -532,12 +569,135 @@ def outer_iterations(name, lines) -> int:
     return int(hits[-1].split(marker)[1].split(",")[0])
 
 
-def config(optlevel: int):
+def config(optlevel: int, regions: bool = True):
     from systemml_tpu_torch.utils.config import DMLConfig
 
     cfg = DMLConfig()
     cfg.optlevel = optlevel
+    cfg.codegen_enabled = regions
     return cfg
+
+
+# the one reason each path's loop may be refused for: l2-svm's outer loop
+# prints (its line search runs as its own region), LinearRegCG-cla's
+# compressed left mult synchronises with the host; the rest run whole
+REFUSAL = {"l2-svm": "print", "LinearRegCG-cla": "compressed operand"}
+
+
+def region_report(timer: PhaseTimer, label: str, path: str,
+                  regions: bool) -> dict:
+    """What the region executor recorded in the run `timer` watched
+    (runtime/loopfuse.region_report of the program it executed): the
+    regions planned, captured and refused with their reasons, the graph
+    launches and host syncs per loop entry, the trips, and the kernel
+    launches per body of the last launch; the capture's host time and
+    the launches' device windows. Prints one `regions` line, and fails
+    when a region is refused for anything but REFUSAL[path], when a
+    region that runs is not one launch and two host syncs per entry, or
+    when a run without regions planned any."""
+    from systemml_tpu_torch.runtime import loopfuse
+
+    rep = loopfuse.region_report(timer.program)
+    if not regions:
+        if rep:
+            fail(f"{label}: codegen_enabled is False, yet {len(rep)} regions")
+        return {}
+    refused = {r["label"]: r.get("refused") or r["planned_refused"]
+               for r in rep if r.get("refused") or r["planned_refused"]}
+    want = REFUSAL.get(path)
+    for lab, why in refused.items():
+        if why != want:
+            fail(f"{label}: region {lab} refused ({why!r}); the only reason "
+                 f"this path may be refused for is {want!r}")
+    if want is not None and not refused:
+        fail(f"{label}: no region refused, {want!r} expected")
+    ran = [r for r in rep if r.get("entries") and r["label"] not in refused]
+    if path not in REFUSAL and not ran:
+        fail(f"{label}: no region ran")
+    for r in ran:
+        runs = [t for t in r["trips"] if t]
+        if r["launches"] != len(runs) or r["host_syncs"] - \
+                r["static_reads"] != r["entries"] + len(runs):
+            fail(f"{label}: region {r['label']}: {r['launches']} graph "
+                 f"launches and {r['host_syncs']} host syncs in "
+                 f"{r['entries']} entries")
+    cap_ms = sum(w[0] for w in timer.windows["capture"])
+    launch_ms = sum(w[1] for w in timer.windows["launch"])
+    graph_trips = sum(sum(r["trips"]) - r["captures"] for r in ran)
+    out = {"planned": sum(1 for r in rep if not r["inlined"]),
+           "captured": sum(r.get("captures", 0) for r in rep),
+           "refused": refused,
+           "entries": sum(r.get("entries", 0) for r in rep),
+           "graph_launches": sum(r.get("launches", 0) for r in rep),
+           "host_syncs": sum(r.get("host_syncs", 0) for r in rep),
+           "capture_host_ms": cap_ms, "launch_device_ms": launch_ms,
+           "graph_trips": graph_trips,
+           "graph_iteration_ms": launch_ms / graph_trips if graph_trips
+           else float("nan"),
+           "regions": [{k: r.get(k) for k in ("label", "entries", "captures",
+                                              "launches", "host_syncs",
+                                              "static_reads", "trips",
+                                              "bodies", "nodes")}
+                       for r in rep if r.get("entries")]}
+    per = "; ".join(
+        f"{r['label']}: {r['entries']} entries, "
+        f"{r['launches'] / r['entries']:.2f} graph launches and "
+        f"{r['host_syncs'] / r['entries']:.2f} host syncs per entry "
+        f"({r['static_reads']} of them reads of shape invariants), trips "
+        f"{r['trips'][:6]}{'...' if len(r['trips']) > 6 else ''}, kernel "
+        f"launches per body {r.get('bodies')}"
+        for r in out["regions"])
+    print(f"[regions] {label}: planned {out['planned']}, captured "
+          f"{out['captured']}, refused {refused or 'none'}; {per}; capture "
+          f"{cap_ms:.1f} ms host; graph launches {launch_ms:.3f} ms device "
+          f"over {graph_trips} iterations in graphs "
+          f"({out['graph_iteration_ms']:.3f} ms per iteration)", flush=True)
+    return out
+
+
+def compare_eager(label: str, reg: dict, eag: dict, key: str = "out"):
+    """A run with regions against the same run without: its output bit for
+    bit, or within 1e-5 normwise (fp32; the sums under a capture may run in
+    another order), and every kernel's launch count equal. Prints the ms
+    per iteration of both, the region's busy share (the eager run's kernel
+    time per loop period over the region's ms per iteration in its graph)
+    and the peak memory."""
+    a, b = reg[key], eag[key]
+    same = bool(torch.equal(a, b))
+    diff = float(torch.linalg.norm(a.double() - b.double())
+                 / torch.linalg.norm(b.double()))
+    la = {k: v for k, v in reg["launches"].items() if k != "set_cond"}
+    lb = {k: v for k, v in eag["launches"].items() if k != "set_cond"}
+    gi = reg["regions"].get("graph_iteration_ms", float("nan"))
+    prof = eag.get("profile") or {}
+    busy = (prof["cg_loop_busy_share"] * prof["cg_iteration_ms"] / gi
+            if "cg_iteration_ms" in prof and gi == gi else float("nan"))
+    out = {"bit_identical": same, "normwise": diff,
+           "iteration_ms_regions": gi,
+           "iteration_ms_regions_with_peel_and_capture":
+               reg["windows"]["iteration_ms"],
+           "iteration_ms_eager": eag["windows"]["iteration_ms"],
+           "busy_share_regions": busy,
+           "busy_share_eager": prof.get("cg_loop_busy_share"),
+           "peak_allocated": (reg["peak_bytes"], eag["peak_bytes"]),
+           "peak_reserved": (reg["peak_reserved"], eag["peak_reserved"])}
+    print(f"[eager] {label}: with regions / without: bit-identical {same}, "
+          f"normwise {diff:.3e} (bar 1e-5 where not bit-identical); ms per "
+          f"iteration {gi:.3f} in the graph "
+          f"({reg['windows']['iteration_ms']:.3f} with the peeled iteration "
+          f"and the capture) / {eag['windows']['iteration_ms']:.3f}; busy "
+          f"share {100 * busy:.1f}% / "
+          f"{100 * (prof.get('cg_loop_busy_share') or float('nan')):.1f}%; "
+          f"peak allocated {reg['peak_bytes'] / 1e9:.3f} / "
+          f"{eag['peak_bytes'] / 1e9:.3f} GB, reserved "
+          f"{reg['peak_reserved'] / 1e9:.3f} / "
+          f"{eag['peak_reserved'] / 1e9:.3f} GB; launches {la} / {lb}",
+          flush=True)
+    if not same and not diff <= 1e-5:
+        fail(f"{label}: with regions {diff} from without (bar 1e-5)")
+    if la != lb:
+        fail(f"{label}: kernel launches with regions {la}, without {lb}")
+    return out
 
 
 def compile_paths(data):
@@ -564,30 +724,39 @@ def compile_paths(data):
 def reset_launches(kernels) -> None:
     from systemml_tpu_torch.compress import device as cla_dev
 
+    from systemml_tpu_torch.codegen import loop_graph
+
     for k in (kernels.mmchain_kernel, kernels.cell_kernel,
               kernels.row_kernel, kernels.outer_kernel,
-              kernels.multiagg_kernel, cla_dev.chain_kernel):
+              kernels.multiagg_kernel, cla_dev.chain_kernel,
+              loop_graph.set_cond):
         k.launches = 0
 
 
 def read_launches(kernels) -> dict:
     from systemml_tpu_torch.compress import device as cla_dev
 
+    from systemml_tpu_torch.codegen import loop_graph
+
     return {"mmchain": kernels.mmchain_kernel.launches,
             "spoof_cell": kernels.cell_kernel.launches,
             "spoof_row": kernels.row_kernel.launches,
             "spoof_outer": kernels.outer_kernel.launches,
             "spoof_multiagg": kernels.multiagg_kernel.launches,
-            "cla_chain": cla_dev.chain_kernel.launches}
+            "cla_chain": cla_dev.chain_kernel.launches,
+            "set_cond": loop_graph.set_cond.launches}
 
 
-def run_path(name, optlevel, data, dev, kernels):
+def run_path(name, optlevel, data, dev, kernels, regions=True,
+             profile_kernel=None):
     """One unprofiled run of a path through MLContext, after a warm-up on
     the first 8,192 rows; the launch counters are set to 0 just before it
-    and read just after."""
+    and read just after. `regions` False runs it with codegen_enabled
+    False (every loop eager); with `profile_kernel`, once more under
+    torch.profiler (its loop period from that kernel's launches)."""
     from systemml_tpu_torch.api.mlcontext import MLContext
 
-    ml = MLContext(config(optlevel))
+    ml = MLContext(config(optlevel, regions))
     ml.printer = lambda s: None
     ml.execute(path_script(name, data, rows=8192))
     lines = []
@@ -603,10 +772,12 @@ def run_path(name, optlevel, data, dev, kernels):
     secs = time.perf_counter() - t0
     launches = read_launches(kernels)
     peak = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
     iters = outer_iterations(name, lines)
     events = dict(ml._stats.estim_counts.items())
-    windows = phase_windows(timer, iters, f"{name} optlevel {optlevel}",
-                            PATHS[name][5])
+    tag = f"{name} optlevel {optlevel}" + ("" if regions else " eager")
+    windows = phase_windows(timer, iters, tag, PATHS[name][5])
+    reg = region_report(timer, tag, name, regions)
     for s in lines[-2:]:
         print(f"[script] {s}")
     print(f"[path] {name} optlevel {optlevel}: {iters} outer iterations, "
@@ -616,7 +787,8 @@ def run_path(name, optlevel, data, dev, kernels):
           f"launches {launches}; {walk_line(events)}; spoof_plain_by_layout "
           f"{events.get('spoof_plain_by_layout', 0)}, spoof_compile_errors "
           f"{events.get('spoof_compile_errors', 0)}; peak allocated "
-          f"{peak / 1e9:.2f} GB", flush=True)
+          f"{peak / 1e9:.2f} GB, reserved {peak_reserved / 1e9:.2f} GB",
+          flush=True)
     check_walks(f"{name} optlevel {optlevel}", events, launches)
     if not bool(torch.isfinite(out).all()) or out.shape[0] != K:
         fail(f"{name} optlevel {optlevel}: output of shape "
@@ -639,11 +811,253 @@ def run_path(name, optlevel, data, dev, kernels):
         fail(f"{name} optlevel {optlevel} launched spoof kernels")
     if launches["cla_chain"] or events.get("cla_auto_compressed", 0):
         fail(f"{name} optlevel {optlevel}: the dense X was compressed")
-    return {"out": out, "iterations": iters, "seconds": secs,
-            "exec_seconds": ml._stats.run_time, "launches": launches,
-            "peak_bytes": peak, "windows": windows, "lines": lines,
-            "events": {k: v for k, v in events.items()
-                       if k.startswith("spoof_")}}
+    result = {"out": out, "iterations": iters, "seconds": secs,
+              "exec_seconds": ml._stats.run_time, "launches": launches,
+              "peak_bytes": peak, "peak_reserved": peak_reserved,
+              "windows": windows, "lines": lines, "regions": reg,
+              "events": {k: v for k, v in events.items()
+                         if k.startswith("spoof_")}}
+    if profile_kernel:
+        result["profile"] = profile_main_path(ml, path_script(name, data),
+                                              False, kernel=profile_kernel,
+                                              loop=PATHS[name][5])
+    return result
+
+
+# --------------------------------------------------------------------------
+# the region bridge (codegen/csrc/loop_graph.cu) on small scripts
+# --------------------------------------------------------------------------
+
+BRIDGE = {
+    "zero-trip while": ("""
+x = 5
+i = 0
+while (x < 0) {
+  x = x - 1
+  i = i + 1
+}
+""", ["x", "i"]),
+    "nested while in while": ("""
+outer = 0
+total = matrix(0, rows=3, cols=2)
+while (outer < 5) {
+  inner = 0
+  acc = 0.0
+  while (inner < outer + 2) {
+    acc = acc + inner + 1
+    inner = inner + 1
+  }
+  total = total + acc * X
+  outer = outer + 1
+}
+""", ["total", "outer"]),
+    "if/else in while": ("""
+i = 0
+evens = 0
+A = X
+while (i < 10) {
+  h = i - 2 * floor(i / 2)
+  if (h == 0 & sum(A) > 0) {
+    evens = evens + 1
+    A = A * 1.5
+  } else {
+    A = A - 0.25
+  }
+  i = i + 1
+}
+""", ["evens", "A", "i"]),
+    "for in while": ("""
+i = 0
+s = matrix(0, rows=3, cols=2)
+while (i < 4) {
+  for (j in 1:6) {
+    s = s + j * X
+  }
+  i = i + 1
+}
+""", ["s", "j"]),
+    "zero-trip inner loop": ("""
+i = 0
+s = 0
+while (i < 4) {
+  k = i
+  while (k < 2) {
+    s = s + 10
+    k = k + 1
+  }
+  i = i + 1
+}
+""", ["s"]),
+}
+REENTRY = """
+w = matrix(0, rows=ncol(X), cols=1)
+i = 0
+while (i < maxi) {
+  w = w + 0.001 * (t(X) %*% (X %*% w + 1))
+  i = i + 1
+}
+r = sum(w)
+"""
+
+
+def bridge_phase(dev) -> dict:
+    """Each BRIDGE script through MLContext on the card (its loops one
+    CUDA graph each, WHILE and IF nodes) and on the CPU (the region
+    executor's plain arm), fp64 on both: the outputs equal within 1e-12
+    relative; then REENTRY compiled once and run with maxi 5, 9 and 5 on
+    one X: one capture, three graph launches, the first and last results
+    bit-identical."""
+    import numpy as np
+
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.lang.parser import parse
+    from systemml_tpu_torch.runtime import loopfuse
+    from systemml_tpu_torch.runtime import program as P
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    x = np.arange(1.0, 7.0).reshape(3, 2) / 7.0
+    out = {}
+    for label, (src, outs) in BRIDGE.items():
+        vals = {}
+        for device in ("cuda", "cpu"):
+            cfg = DMLConfig(device=device)
+            cfg.floating_point_precision = "double"
+            ml = MLContext(cfg)
+            with PhaseTimer() as timer:
+                res = ml.execute(dml(src).input("X", x).output(*outs))
+            vals[device] = [np.asarray(res.get_matrix(o), dtype=np.float64)
+                            if hasattr(res.get(o), "shape") and
+                            res.get(o).ndim else
+                            np.asarray(float(res.get_scalar(o)))
+                            for o in outs]
+            if device == "cuda":
+                rep = loopfuse.region_report(timer.program)
+        errs = [float(np.max(np.abs(a - b)) / max(1.0, np.max(np.abs(b))))
+                for a, b in zip(vals["cuda"], vals["cpu"])]
+        top = [r for r in rep if r.get("entries")]
+        print(f"[bridge] {label}: card against the CPU's plain arm, max "
+              f"relative difference {max(errs):.3e} (bar 1e-12); regions "
+              f"{[(r['label'], r['trips'], r['launches'], r.get('nodes')) for r in top]}",
+              flush=True)
+        if not max(errs) <= 1e-12:
+            fail(f"bridge {label}: card {vals['cuda']} against CPU "
+                 f"{vals['cpu']}")
+        if any(r.get("refused") for r in rep):
+            fail(f"bridge {label}: a region was refused: {rep}")
+        out[label] = {"max_rel_diff": max(errs), "regions": top}
+    cfg = DMLConfig()
+    cfg.floating_point_precision = "double"
+    set_config(cfg)
+    try:
+        prog = P.compile_program(parse(REENTRY), input_names=["X", "maxi"],
+                                 outputs=["r"])
+        xt = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (4096, 16))).to(dev)
+        rs = [prog.execute({"X": xt, "maxi": m}).vars["r"]
+              for m in (5, 9, 5)]
+    finally:
+        set_config(DMLConfig())
+    fl = [b for b in prog.blocks if isinstance(b, P.WhileBlock)][0]._fused_loop
+    rec = fl.record
+    print(f"[bridge] re-entry with another maxi: trips {rec['trips']}, "
+          f"captures {rec['captures']}, graph launches {rec['launches']}; "
+          f"r {[float(r) for r in rs]}", flush=True)
+    if rec["captures"] != 1 or rec["launches"] != 3 or \
+            rec["trips"] != [5, 9, 5] or not torch.equal(rs[0], rs[2]):
+        fail(f"bridge re-entry: {rec}, r {rs}")
+    out["re-entry"] = {k: rec[k] for k in ("trips", "captures", "launches")}
+    del prog, fl
+    return out
+
+
+def check_set_cond(dev) -> dict:
+    """set_cond (csrc/loop_graph.cu) against its plain version on a
+    one-element predicate of every dtype it reads, with 0, 1, -2.5 (cast
+    to the dtype) and NaN: an IF node whose body writes 1 into a flag, and
+    one testing pred == 0, against pred != 0 on the host. Then its time,
+    as a WHILE loop's control per iteration (k.add_(1), k < n, set_cond)
+    in one graph of 20,000 iterations, against the same loop driven from
+    the host (one .item() per test)."""
+    from systemml_tpu_torch.codegen import loop_graph as lg
+    from systemml_tpu_torch.runtime import loopfuse
+
+    streams = loopfuse.capture_streams(dev)
+    s0, s1 = streams[0], streams[1]
+    flag = torch.zeros(2, dtype=torch.int32, device=dev)
+    worst = 0.0
+    cases = 0
+    for dtype in (torch.bool, torch.float32, torch.float64, torch.int64,
+                  torch.int32):
+        values = (0, 1, -2.5, float("nan")) if dtype.is_floating_point \
+            else ((0, 1) if dtype == torch.bool else (0, 1, -2))
+        for v in values:
+            pred = torch.full((), v, dtype=dtype, device=dev)
+            pool = torch.cuda.MemPool()
+            s0.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(s0), torch.cuda.use_mem_pool(pool, dev):
+                lg.capture_begin(s0.cuda_stream)
+                for slot, neg in ((0, False), (1, True)):
+                    h = lg.begin_node(s0.cuda_stream, s1.cuda_stream, lg.IF,
+                                      pred, negate=neg)
+                    with torch.cuda.stream(s1):
+                        flag[slot].fill_(1)
+                        lg.end_node(s1.cuda_stream, lg.IF, h)
+                graph = lg.capture_end(s0.cuda_stream)
+            ex = lg.instantiate(graph)
+            flag.zero_()
+            lg.launch(ex, torch.cuda.current_stream(dev).cuda_stream)
+            got = flag.tolist()
+            want = lg.set_cond_plain(pred)
+            worst = max(worst, abs(got[0] - int(want)),
+                        abs(got[1] - int(not want)))
+            cases += 1
+            lg.destroy(graph, ex)
+            del pool
+    n = 20_000
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    pool = torch.cuda.MemPool()
+    s0.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s0), torch.cuda.use_mem_pool(pool, dev):
+        lg.capture_begin(s0.cuda_stream)
+        h = lg.begin_node(s0.cuda_stream, s1.cuda_stream, lg.WHILE, k < n)
+        with torch.cuda.stream(s1):
+            k.add_(1)
+            lg.end_node(s1.cuda_stream, lg.WHILE, h, k < n)
+        graph = lg.capture_end(s0.cuda_stream)
+    ex = lg.instantiate(graph)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    times = []
+    for _ in range(3):
+        k.zero_()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        lg.launch(ex, stream)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    if int(k) != n:
+        fail(f"set_cond: the WHILE loop ran {int(k)} times, not {n}")
+    lg.destroy(graph, ex)
+    del pool
+    m = 2_000
+    k.zero_()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    while bool((k < m).item()):
+        k.add_(1)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1) / m
+    ms = sorted(times)[1]
+    print(f"[kernel] set_cond: {cases} predicates of 5 dtypes, IF and its "
+          f"negation against pred != 0 on the host: max abs error {worst} "
+          f"(bar 0); a WHILE loop's control per iteration {ms * 1e3:.2f} us "
+          f"in one graph ({[round(t * 1e3, 2) for t in times]}), driven "
+          f"from the host {plain_ms * 1e3:.2f} us", flush=True)
+    if worst != 0:
+        fail("set_cond disagrees with its plain version")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
 def templates_of(prog) -> list:
@@ -1136,6 +1550,9 @@ def run_cla_path(name, cla, data, dev, kernels, profile: bool = True):
               if k.startswith(("cla_", "kb_pick_cla_"))}
     windows = phase_windows(timer, iters, f"{name}-cla cla={cla}",
                             PATHS[name][5])
+    reg = region_report(timer, f"{name}-cla cla={cla}",
+                        "LinearRegCG-cla" if (name, cla) == (
+                            "LinearRegCG", "auto") else name, True)
     comp_s = sum(w[0] for w in timer.windows["compress"]) / 1e3
     layout_ms = windows["compress_host_ms"] - 1e3 * comp_s
     windows["compression_s"] = comp_s
@@ -1166,7 +1583,7 @@ def run_cla_path(name, cla, data, dev, kernels, profile: bool = True):
     result = {"out": out, "iterations": iters, "seconds": secs,
               "exec_seconds": ml._stats.run_time, "launches": launches,
               "peak_bytes": peak, "peak_over_data_bytes": peak - base,
-              "windows": windows, "events": events,
+              "windows": windows, "events": events, "regions": reg,
               "compressed": timer.compressed}
     if name == "LinearRegCG" and cla == "auto" and profile:
         # the CG loop's period and busy share, from K6's launches (one
@@ -1521,13 +1938,14 @@ def check_rand(dev) -> None:
 _LOSS_MARK = "ALS-CG: iterations = "
 
 
-def run_als(optlevel, v, dev, kernels) -> dict:
+def run_als(optlevel, v, dev, kernels, regions=True) -> dict:
     """One unprofiled run of ALS-CG-ml10m through MLContext, after a
     warm-up on the first 8,192 users; the launch counters are set to 0
-    just before it and read just after."""
+    just before it and read just after. `regions` False: with
+    codegen_enabled False."""
     from systemml_tpu_torch.api.mlcontext import MLContext
 
-    ml = MLContext(config(optlevel))
+    ml = MLContext(config(optlevel, regions))
     ml.printer = lambda s: None
     ml.execute(als_script(v[:8192]))
     lines = []
@@ -1544,14 +1962,16 @@ def run_als(optlevel, v, dev, kernels) -> dict:
     secs = time.perf_counter() - t0
     launches = read_launches(kernels)
     peak = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
     hits = [s for s in lines if s.startswith(_LOSS_MARK)]
     if len(hits) != 1:
         fail(f"ALS-CG optlevel {optlevel} printed {lines}")
     iters = int(hits[0][len(_LOSS_MARK):].split(",")[0])
     loss = float(hits[0].split("loss = ")[1])
     events = dict(ml._stats.estim_counts.items())
-    windows = phase_windows(timer, iters, f"ALS-CG-ml10m optlevel {optlevel}",
-                            "outer loop")
+    tag = f"ALS-CG-ml10m optlevel {optlevel}" + ("" if regions else " eager")
+    windows = phase_windows(timer, iters, tag, "outer loop")
+    reg = region_report(timer, tag, "ALS-CG", regions)
     print(f"[script] {hits[0]}")
     print(f"[als] ALS-CG-ml10m optlevel {optlevel}: {iters} outer "
           f"iterations, {secs:.3f} s with parse and compile, "
@@ -1599,10 +2019,12 @@ def run_als(optlevel, v, dev, kernels) -> dict:
     profile = profile_main_path(ml, als_script(v), False, kernel="outer_sum",
                                 loop="outer loop")
     return {"L": lo, "R": ro, "iterations": iters, "loss": loss,
+            "LR": torch.cat([lo.flatten(), ro.flatten()]),
             "profile": profile,
             "cell_sums": spy.most_launched() if spy.counts else None,
             "seconds": secs, "exec_seconds": ml._stats.run_time,
             "launches": launches, "peak_bytes": peak,
+            "peak_reserved": peak_reserved, "regions": reg,
             "peak_over_data_bytes": peak - base, "windows": windows,
             "events": {k: c for k, c in events.items()
                        if k.startswith(("spoof_", "spx_", "cla_"))}}
@@ -1645,6 +2067,10 @@ def als_paths(v, progs, dev, kernels) -> dict:
         for t in templates_of(progs[name]):
             print(f"[plans] {name} optlevel 3: {t[0]} {t[1]}: {t[2]}")
     runs = {o: run_als(o, v, dev, kernels) for o in (3, 2)}
+    eag = run_als(3, v, dev, kernels, regions=False)
+    versus_eager = compare_eager("ALS-CG-ml10m optlevel 3", runs[3], eag,
+                                 key="LR")
+    del eag
     diffs = {}
     for nm in ("L", "R"):
         a, b = runs[3][nm].double(), runs[2][nm].double()
@@ -1671,8 +2097,9 @@ def als_paths(v, progs, dev, kernels) -> dict:
     if not (errs["s"] <= 1e-6 and errs["lo"] <= 1e-5 and errs["hi"] <= 1e-5):
         fail(f"ratings summary optlevel 3 is {errs} from optlevel 2")
     out = {f"optlevel{o}": {k: val for k, val in r.items()
-                            if k not in ("L", "R", "cell_sums")}
+                            if k not in ("L", "R", "LR", "cell_sums")}
            for o, r in runs.items()}
+    out["versus_eager"] = versus_eager
     out.update({"diff_from_optlevel2": diffs, "loss_rel_diff": loss_rel,
                 "templates": templates_of(progs["ALS-CG"]),
                 "summary": {f"optlevel{o}": r for o, r in summ.items()},
@@ -2178,6 +2605,12 @@ def main() -> None:
           f"by {build_s:.1f} s; one nvcc per source, "
           f"{len(build.build_reports)} in all")
     print_build_reports(build)
+    from systemml_tpu_torch.codegen import loop_graph
+    rt, drv = loop_graph.versions()
+    print(f"[env] CUDA runtime {rt // 1000}.{rt % 1000 // 10} (loop_graph.cu's "
+          f"build), driver {drv // 1000}.{drv % 1000 // 10}: conditional graph "
+          f"nodes need 12.4", flush=True)
+    loop_graph.check_versions()
     nvcc_by_path = {}
     for pname, prog in list(progs.items()) + list(als_progs.items()):
         # a library built by an earlier run of this checkout has no report
@@ -2246,6 +2679,10 @@ def main() -> None:
     check_multiagg_kernel(_plan_of(als_progs["summary"], "multiagg"),
                           ratings, progs, dev, kernels, max_abs_err)
     check_rand(dev)
+    set_cond_rec = check_set_cond(dev)
+
+    # ---- 2b. the region bridge on small scripts, card against CPU ---------
+    bridge = bridge_phase(dev)
 
     # ---- 3. the paths -------------------------------------------------------
     # LinearRegCG at optlevel 2: the first slice's main path, K1
@@ -2271,6 +2708,7 @@ def main() -> None:
     launches = read_launches(kernels)
     exec_secs = ml._stats.run_time
     peak = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
     iters = outer_iterations("LinearRegCG", lines)
     beta_true = data["beta_true"]
     rel = float(torch.linalg.norm(beta.double() - beta_true.double())
@@ -2298,6 +2736,8 @@ def main() -> None:
         fail(f"peak device memory {peak} B >= 2 x X ({x_bytes} B): X was "
              f"copied")
     windows = {"first": phase_windows(timer, iters, "timed run")}
+    main_regions = region_report(timer, "LinearRegCG optlevel 2 (main path)",
+                                 "LinearRegCG", True)
     ml.printer = lambda s: None
     with PhaseTimer() as timer:
         ml.execute(path_script("LinearRegCG", data)).get_tensor("beta")
@@ -2306,8 +2746,9 @@ def main() -> None:
     windows["second"] = phase_windows(timer, iters, "second unprofiled run")
     main_path = {"iterations": iters, "seconds": secs,
                  "exec_seconds": exec_secs, "beta_rel_err": rel,
-                 "peak_bytes": peak, "launches": launches,
-                 "windows": windows}
+                 "peak_bytes": peak, "peak_reserved": peak_reserved,
+                 "launches": launches, "windows": windows,
+                 "regions": main_regions}
     del res
     main_path["profile"] = {
         "device_only": profile_main_path(
@@ -2316,16 +2757,31 @@ def main() -> None:
             ml, path_script("LinearRegCG", data), True),
         "python_host_ms": host_profile(ml, path_script("LinearRegCG", data))}
 
-    # this slice's paths: optlevel 3 (spoof fusion), then optlevel 2
+    # this slice's paths: optlevel 3 (spoof fusion), then optlevel 2; each
+    # runs its loops as regions (the default), and LinearRegCG at optlevel
+    # 2 and MultiLogReg at 3 also without (codegen_enabled False)
     paths = {}
+    eager_twins = {("LinearRegCG", 2): "mmchain_partial",
+                   ("MultiLogReg", 3): "row_thread"}
+    versus_eager = {}
     for pname in PATHS:
         runs = {}
         for optlevel in (3, 2):
             if pname == "LinearRegCG" and optlevel == 2:
                 runs[2] = {"out": beta, "iterations": iters,
-                           "windows": windows["second"]}
-                continue
-            runs[optlevel] = run_path(pname, optlevel, data, dev, kernels)
+                           "windows": windows["first"], "launches": launches,
+                           "regions": main_regions, "peak_bytes": peak,
+                           "peak_reserved": peak_reserved}
+            else:
+                runs[optlevel] = run_path(pname, optlevel, data, dev,
+                                          kernels)
+            if (pname, optlevel) in eager_twins:
+                eag = run_path(pname, optlevel, data, dev, kernels,
+                               regions=False,
+                               profile_kernel=eager_twins[(pname, optlevel)])
+                versus_eager[f"{pname} optlevel {optlevel}"] = compare_eager(
+                    f"{pname} optlevel {optlevel}", runs[optlevel], eag)
+                del eag
         a, b = runs[3]["out"].double(), runs[2]["out"].double()
         diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
         print(f"[path] {pname}: |optlevel 3 - optlevel 2| / |optlevel 2| = "
@@ -2349,6 +2805,8 @@ def main() -> None:
             **{f"optlevel{o}": {k: v for k, v in r.items()
                                 if k not in ("out", "lines")}
                for o, r in runs.items()}}
+        if pname == "LinearRegCG":
+            paths[pname]["optlevel2"]["windows"] = windows
         del runs, a, b
     del beta
     torch.cuda.empty_cache()
@@ -2435,6 +2893,20 @@ def main() -> None:
     records[1].update(time_cell_beyond_l2svm(als, ratings, als_progs, smi,
                                              kernels))
     records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
+    records.append({
+        "name": "set_cond", "route": "cuda",
+        "source": "systemml_tpu_torch/codegen/csrc/loop_graph.cu",
+        "replaces": "none: systemml_tpu/runtime/loopfuse.py:379 "
+                    "_trace_while (lax.while_loop's cond, no pallas_call)",
+        "launches": main_path["launches"]["set_cond"],
+        "max_abs_err": set_cond_rec["max_abs_err"], "ms": set_cond_rec["ms"],
+        "plain_ms": set_cond_rec["plain_ms"],
+        # one predicate element read, nothing written
+        "bound_ms": 1e3 * 1 / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "library_ms": None,
+        "note": "ms: a WHILE loop's control per iteration inside one graph "
+                "(counter add, compare, set_cond); plain_ms: the same loop "
+                "driven from the host"})
     records.extend(time_outer_and_multiagg(als, ratings, als_progs, smi,
                                            max_abs_err, kernels))
     # the host time of one spoof wrapper call (a tiny input: the launch,
@@ -2479,6 +2951,7 @@ def main() -> None:
                for mode, r in cla[name].items()}
         for name in ("LinearRegCG", "l2-svm")}
     print(json.dumps({"kernels": records, "card": smi,
+                      "versus_eager": versus_eager, "bridge": bridge,
                       "spoof_dispatch_us": dispatch_us, "main_path": main_path,
                       "paths": paths, "cla_paths": cla_summary,
                       "als_paths": {k: r for k, r in als.items()

@@ -446,8 +446,13 @@ def assign_variants(program) -> None:
 def execute_spoof(h: Hop, arg_values: List) -> object:
     from systemml_tpu_torch.codegen import kernels
 
+    from systemml_tpu_torch.compiler.lower import current_region
+
     t = h.params["template"]
     plan: CNode = h.params["plan"]
+    run = current_region()
+    if run is not None:
+        run.check_spoof_numbers(h, arg_values)
     if t == "outer":
         # inputs: X, the scalar leaves, U, V (SpoofCompiler._apply). A
         # sparse X, sampled on its pattern (the JAX package's

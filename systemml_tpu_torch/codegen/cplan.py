@@ -59,7 +59,7 @@ def _tensor_like(x, like):
     if isinstance(x, torch.Tensor):
         return x
     if isinstance(like, torch.Tensor):
-        return torch.tensor(x, dtype=like.dtype, device=like.device)
+        return torch.full((), x, dtype=like.dtype, device=like.device)
     return torch.tensor(x, dtype=torch.float64)
 
 

@@ -242,8 +242,8 @@ def _plain_env(names: Sequence[str], env: Dict[str, object], main):
         if isinstance(v, torch.Tensor):
             out[nm] = v.to(main.dtype)
         else:
-            out[nm] = torch.tensor(float(v), dtype=main.dtype,
-                                   device=main.device)
+            out[nm] = torch.full((), float(v), dtype=main.dtype,
+                                 device=main.device)
     return out
 
 
@@ -600,6 +600,11 @@ def _reduce_scratch(dev: torch.device, stream: int):
     key = (dev.index, stream)
     hit = _scratch.get(key)
     if hit is None:
+        if torch.cuda.is_current_stream_capturing():
+            # made inside a capture it would live in the graph's pool
+            raise RuntimeError("spoof reduce scratch of a capturing stream "
+                               "is made before its capture "
+                               "(runtime/loopfuse.capture_streams)")
         cap = 3 * SPOOF_BLOCKS_PER_SM * _sms(dev)
         hit = _scratch[key] = (
             torch.empty(cap, dtype=torch.float64, device=dev),

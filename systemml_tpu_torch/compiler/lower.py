@@ -3,11 +3,13 @@
 Port of systemml_tpu/compiler/lower.py, the subset that runs a DML
 script eagerly: the `Evaluator` on its dense single-device branches
 (lower.py:1102-2108 there), the builtins that the ported scripts reach,
-`host_eval_scalar` and `_to_display_str`. What waits, each raising
-NotImplementedError that names its ROADMAP item:
+`host_eval_scalar` and `_to_display_str`; and the loop analysis and
+region planner of lower.py:483-960 there (`plan_loop_regions`, whose
+`LoopRegion`s runtime/loopfuse.py executes as CUDA graphs). What waits,
+each raising NotImplementedError that names its ROADMAP item:
 
-- block and loop-region analysis for whole-block / whole-loop compilation
-  (analyze_block, plan_loop_regions; fused loop regions, CUDA graphs),
+- block analysis for the whole-block compile (analyze_block; the fused
+  whole-block compile and the buffer pool),
 - MESH dispatch and collectives (distributed and elastic),
 - sparse operands and the weighted quaternary ops other than wdivmm on
   a dense carrier (sparse plane), attention and the DNN builtins (DNN and
@@ -18,16 +20,615 @@ NotImplementedError that names its ROADMAP item:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from systemml_tpu_torch.compress import is_compressed
 from systemml_tpu_torch.hops.builder import BlockHops, DMLValidationError
-from systemml_tpu_torch.hops.hop import Hop
+from systemml_tpu_torch.hops.hop import Hop, postorder
+
+# --------------------------------------------------------------------------
+# loop-region planning (systemml_tpu/compiler/lower.py:460-960): whole
+# while/for nests planned as fused regions, which runtime/loopfuse.py runs
+# as CUDA graphs. Copied with its imports re-pointed; the port compiles no
+# parfor, so its parfor branches are left out.
+# --------------------------------------------------------------------------
+
+# hop input positions that must be static (shape-determining)
+_SHAPE_POSITIONS: Dict[str, Tuple[int, ...]] = {
+    "idx": (1, 2, 3, 4),
+    "lidx": (2, 3, 4, 5),
+}
+_SHAPE_CALLS = {
+    "call:matrix", "call:rand", "call:seq", "call:table", "call:rexpand",
+    "call:outer",
+}
+
+
+class NotLoopFusable(Exception):
+    """A loop body cannot run as a region (impure fcalls, side-effect
+    sinks, host-only ops). Raised by the planner, which records it as the
+    region's refusal (the loop then runs eagerly), and by the region
+    executor inside a capture, where it is an error (runtime/loopfuse.py
+    refuses before any capture)."""
+
+
+def _live_after(loop) -> Set[str]:
+    la = getattr(loop, "live_after", None)
+    return set(la) if la else set()
+
+
+def _unit_rw(b) -> Tuple[Set[str], Set[str], Set[str]]:
+    """(external reads, writes, kills) of ONE ProgramBlock, recursing into
+    nested If/While/For bodies. "External reads" = names whose value flows
+    in from before the block (read-before-write in program order)."""
+    from systemml_tpu_torch.runtime import program as P
+
+    if isinstance(b, P.BasicBlock):
+        for s in b.hops.sinks:
+            # print() plans as in the JAX package (whose trace lowers it to
+            # jax.debug.print; the port's executor refuses the region at
+            # entry); any other side effect (write/stop/assert) keeps the
+            # loop on the host
+            if s.op != "call:print":
+                raise NotLoopFusable(f"side-effect sink {s.op}")
+        for h in postorder(b.hops.roots()):
+            # only PURE function calls may execute during the loop trace
+            # (an impure one would fire its side effects once at compile
+            # time instead of once per iteration)
+            if h.op == "fcall" and not b.program.fn_is_pure(
+                    b.file_id, h.params.get("namespace"),
+                    h.params.get("name")):
+                raise NotLoopFusable(
+                    f"impure fcall {h.params.get('namespace')}::"
+                    f"{h.params.get('name')}")
+        # blk.writes holds the whole end-of-block env, including pure
+        # reads (identity treads). Those are NOT writes: counting them
+        # would carry every invariant (X, batch_size, ...) through the
+        # loop state as tracers — no invariant would ever stay static.
+        writes = {n for n, h in b.hops.writes.items()
+                  if not (h.op == "tread" and h.name == n)}
+        return set(b.hops.reads), writes, set(b.kill_after)
+    if isinstance(b, P.IfBlock):
+        pr = set(b.pred.block.hops.reads)
+        ir, iw = _collect_rw(b.if_body)
+        er, ew = _collect_rw(b.else_body)
+        return pr | ir | er, iw | ew, set()
+    if isinstance(b, P.WhileBlock):
+        pr = set(b.pred.block.hops.reads)
+        br, bw = _collect_rw(b.body,
+                             keep=pr | _live_after(b))
+        # names both read and written by the body are read from OUTSIDE on
+        # iteration 1 only if read-before-write within a pass — which is
+        # exactly what _collect_rw's sequential accumulation computes
+        return pr | br, bw, set()
+    if isinstance(b, P.ForBlock):
+        pr: Set[str] = set()
+        for p in (b.from_h, b.to_h, b.incr_h):
+            if p is not None:
+                pr |= set(p.block.hops.reads)
+        br, bw = _collect_rw(b.body, keep=_live_after(b))
+        # the loop variable is supplied by the loop itself, never an
+        # external read; after the loop it holds the last value (a write)
+        return pr | (br - {b.var}), bw | {b.var}, set()
+    raise NotLoopFusable(f"unknown block type {type(b).__name__}")
+
+
+def _collect_rw_seq(blocks) -> Tuple[Set[str], Set[str], Set[str]]:
+    """Raw (reads, writes, killed) of a body of ProgramBlocks. Kills are
+    POSITIONAL: a block's kill_after marks the death of the value read
+    there, so a LATER block re-writing the same name resurrects it — the
+    final write is live at body end (`x = 10; ...; x = 20` split across
+    blocks by nested control flow, or CG's read-then-rewrite `rr`)."""
+    reads: Set[str] = set()
+    writes: Set[str] = set()
+    killed: Set[str] = set()
+    for b in blocks:
+        r, w, k = _unit_rw(b)
+        reads |= (r - writes)  # read-before-write across blocks
+        writes |= w
+        killed -= w            # later write resurrects a killed name
+        killed |= k
+    return reads, writes, killed
+
+
+def _collect_rw(blocks, keep=frozenset()) -> Tuple[Set[str], Set[str]]:
+    """(reads, writes) of a loop/branch body. Body-local temporaries the
+    liveness pass kills (rmvar) never cross an iteration boundary — they
+    are dropped from the carried writes — EXCEPT names the kill does not
+    actually retire: a name read by block 1 may be killed there (its read
+    value dies) yet RE-WRITTEN by a later block and read again around the
+    back edge (CG's `rr0 = rr` ... inner loop ... `rr = ...` pattern).
+    Subtracting those produced a fused loop whose update was silently
+    discarded, so the exclusion is limited to names that are neither
+    externally read (back-edge consumers) nor in `keep` (predicate reads
+    + loop.live_after)."""
+    reads, writes, killed = _collect_rw_seq(blocks)
+    return reads, writes - (killed - (reads | set(keep)))
+
+
+def _dead_string_accumulators(body, pred_reads, live_after) -> Set[str]:
+    """Write-only STRING accumulators whose value nothing observes:
+    GLM-style per-iteration log builders (`log_str = log_str + "OBJ," +
+    iter + "\\n"`, reference scripts/algorithms/GLM.dml's $Log output)
+    read only by their own redefinition, with the consuming write()
+    branch pruned because $Log is unbound. Strings cannot trace, so an
+    observed accumulator keeps the loop on host — but an UNOBSERVED one
+    (not live after the loop, not read by any predicate/sink/other
+    write, transitively) can simply be dropped from the fused loop; the
+    reference analog is dead-store removal after branch pruning
+    (RewriteRemoveUnnecessaryBranches + unused-assignment cleanup)."""
+    from systemml_tpu_torch.runtime import program as P
+
+    string_writes: Set[str] = set()
+    readers: Dict[str, Set[str]] = {}   # name -> write-names reading it
+    observed: Set[str] = set(live_after) | set(pred_reads)
+
+    def scan_basic(b):
+        for n, h in b.hops.writes.items():
+            if h.op == "tread" and h.name == n:
+                continue
+            if h.dt == "string" or (h.op == "lit"
+                                    and isinstance(h.value, str)):
+                string_writes.add(n)
+            for x in postorder([h]):
+                if x.op == "tread":
+                    readers.setdefault(x.name, set()).add(n)
+        for s in b.hops.sinks:
+            for x in postorder([s]):
+                if x.op == "tread":
+                    observed.add(x.name)
+
+    def walk(bs):
+        for b in bs:
+            if isinstance(b, P.BasicBlock):
+                scan_basic(b)
+            elif isinstance(b, P.IfBlock):
+                observed.update(b.pred.block.hops.reads)
+                walk(b.if_body)
+                walk(b.else_body)
+            elif isinstance(b, (P.WhileBlock, P.ForBlock)):
+                for p in (getattr(b, "pred", None),
+                          getattr(b, "from_h", None),
+                          getattr(b, "to_h", None),
+                          getattr(b, "incr_h", None)):
+                    if p is not None:
+                        observed.update(p.block.hops.reads)
+                walk(b.body)
+
+    walk(body)
+    changed = True
+    while changed:
+        changed = False
+        for n, rd in readers.items():
+            if n not in observed and any(u in observed and u != n
+                                         for u in rd):
+                observed.add(n)
+                changed = True
+    return {n for n in string_writes if n not in observed}
+
+
+def _static_shape_names(blocks) -> Set[str]:
+    """Names whose values SIZE something in the loop body (matrix()/rand()
+    dims, rexpand max, table dims, conv2d shape lists): these must enter
+    the fused plan as host constants — XLA shapes are static — even when
+    they live on device as 0-d floats (MultiLogReg's `k = max(Y_vec)`
+    sizing `matrix(0, cols=k)`). The fused-plan analog of analyze_block's
+    static marking above and the reference's size-expression literal
+    replacement (hops/recompile/LiteralReplacement.java).
+
+    Slice bounds (idx) are deliberately NOT marked: the Evaluator lowers
+    tracer bounds to lax.dynamic_slice — the minibatch pattern."""
+    from systemml_tpu_torch.runtime import program as P
+
+    names: Set[str] = set()
+
+    def mark(h):
+        for x in postorder([h]):
+            if x.op == "tread":
+                names.add(x.name)
+
+    def scan(roots):
+        for h in postorder(roots):
+            if h.op in _SHAPE_CALLS:
+                # no dt filter: treads default to dt="matrix" even for
+                # scalars (m = ncol(X)); marking a true matrix name is
+                # harmless — _env_of consults the set only for scalars
+                for c in h.inputs:
+                    mark(c)
+            elif h.op.startswith("call:"):
+                # conv2d-family [N,C,H,W] scalar shape lists
+                for c in h.inputs:
+                    if c.op in ("call:list", "elist") and all(
+                            x.dt == "scalar" for x in c.inputs):
+                        mark(c)
+
+    def walk(bs):
+        for b in bs:
+            if isinstance(b, P.BasicBlock):
+                scan(b.hops.roots())
+            elif isinstance(b, P.IfBlock):
+                scan(b.pred.block.hops.roots())
+                walk(b.if_body)
+                walk(b.else_body)
+            elif isinstance(b, (P.WhileBlock, P.ForBlock)):
+                for pred in [getattr(b, "pred", None),
+                             getattr(b, "from_h", None),
+                             getattr(b, "to_h", None),
+                             getattr(b, "incr_h", None)]:
+                    if pred is not None:
+                        scan(pred.block.hops.roots())
+                walk(b.body)
+
+    walk(blocks)
+    return names
+
+
+def _value_safe_scalar_names(loop, kind: str) -> Set[str]:
+    """Names read by the loop nest whose EVERY use is a value position —
+    cellwise/aggregate arithmetic, comparisons, the device-lowered
+    while predicate — and therefore safe to pass as TRACED scalar
+    arguments. Int invariants in this set no longer bake their VALUES
+    into the compiled-region cache key, so a shape-compatible re-entry
+    with a different `maxiter`/`epochs` reuses the executable instead
+    of recompiling the whole nest (a cache keyed on exact invariant
+    signatures would recompile).
+
+    The inverse is what gets computed: a HAZARD set of names reaching
+    any position that must be host-concrete at trace time — shape-call
+    inputs (matrix/rand/seq/... dims and seeds), indexing bounds
+    (static-extent affine analysis needs concrete offsets), any
+    call:*/fcall argument, if-block predicates (the trace-time-constant
+    predicate optimization evaluates them host-side), and inner
+    for-loop bounds (host-known trip counts). Everything read but
+    never hazarded is value-safe."""
+    from systemml_tpu_torch.runtime import program as P
+
+    hazard: Set[str] = set()
+    reads: Set[str] = set()
+
+    def mark(h):
+        for x in postorder([h]):
+            if x.op == "tread":
+                hazard.add(x.name)
+
+    def scan(roots):
+        for h in postorder(roots):
+            if h.op == "tread":
+                reads.add(h.name)
+            if (h.op in _SHAPE_CALLS or h.op.startswith("call:")
+                    or h.op == "fcall"):
+                for c in h.inputs:
+                    mark(c)
+            elif h.op in _SHAPE_POSITIONS:
+                for i in _SHAPE_POSITIONS[h.op]:
+                    if i < len(h.inputs):
+                        mark(h.inputs[i])
+
+    def walk(bs):
+        for b in bs:
+            if isinstance(b, P.BasicBlock):
+                scan(b.hops.roots())
+            elif isinstance(b, P.IfBlock):
+                for r in b.pred.block.hops.roots():
+                    mark(r)
+                walk(b.if_body)
+                walk(b.else_body)
+            elif isinstance(b, P.WhileBlock):
+                # inner while predicates lower into the device carried
+                # state (value position)
+                scan(b.pred.block.hops.roots())
+                walk(b.body)
+            elif isinstance(b, P.ForBlock):
+                for p in (b.from_h, b.to_h, b.incr_h):
+                    if p is not None:
+                        for r in p.block.hops.roots():
+                            mark(r)
+                walk(b.body)
+
+    if kind == "while":
+        # the OUTER predicate compares against carried state on device
+        scan(loop.pred.block.hops.roots())
+    walk(loop.body)
+    return reads - hazard
+
+
+class LoopRegion:
+    """Compile-time plan for one fused-loop region (a whole while/for
+    nest). Emitted by `plan_loop_regions`, consumed by the runtime
+    executor (runtime/loopfuse.FusedLoop) and the per-region
+    observability view (obs.dispatch_stats `loop_regions`).
+
+    `donation` classifies each carried name by LIVENESS: "dead" names
+    are not read after the loop, so their buffers can always be aliased
+    into the loop output once the runtime alias check clears; "live"
+    names outlive the region and additionally key the caller-visible
+    result. Shared/caller-owned leaves are still host-copied exactly
+    once at region entry (loopfuse._donation_plan) — the plan only
+    removes the per-entry re-derivation."""
+
+    __slots__ = ("kind", "label", "carried", "reads", "pred_reads",
+                 "drop", "static_names", "traced_ints", "pred_mode",
+                 "depth", "inner_loops", "donation", "refused", "inlined",
+                 "lifetime")
+
+    def __init__(self, kind: str, label: str, carried=(), reads=frozenset(),
+                 pred_reads=frozenset(), drop=frozenset(),
+                 static_names=frozenset(), pred_mode: str = "device",
+                 depth: int = 1, inner_loops: int = 0, donation=None,
+                 refused: Optional[str] = None, inlined: bool = False,
+                 traced_ints=frozenset()):
+        self.kind = kind
+        self.label = label
+        self.carried = tuple(carried)
+        self.reads = frozenset(reads)
+        self.pred_reads = frozenset(pred_reads)
+        self.drop = frozenset(drop)
+        self.static_names = frozenset(static_names)
+        # int invariants safe to pass TRACED (value positions only):
+        # their values stay out of the executable cache key, so
+        # shape-compatible re-entries reuse the compiled region
+        self.traced_ints = frozenset(traced_ints)
+        # "device": data-dependent predicate lowered into the
+        # lax.while_loop cond — the convergence check lives in the
+        # carried state, zero host syncs per iteration. "host-trip":
+        # for-loops evaluate their (host-known) bounds once at entry;
+        # the trip count is static inside the region.
+        self.pred_mode = pred_mode
+        self.depth = depth              # nest depth (1 = no inner loops)
+        self.inner_loops = inner_loops  # count of loops lowered inside
+        self.donation = dict(donation or {})
+        self.refused = refused          # None, or the classified reason
+        self.inlined = inlined          # nested inside a parent region
+        # per-leaf LeafVerdicts attached by the buffer-lifetime pass
+        # (analysis/lifetime.analyze_program); None when the pass has
+        # not run — the runtime verdict API then refines from scratch
+        self.lifetime = None
+
+    def __repr__(self):
+        state = f"refused: {self.refused}" if self.refused else \
+            f"carried={len(self.carried)} depth={self.depth}"
+        return f"<LoopRegion {self.label} {state}>"
+
+
+def _nest_shape(blocks) -> Tuple[int, int]:
+    """(max loop-nest depth below `blocks`, total inner loop count)."""
+    from systemml_tpu_torch.runtime import program as P
+
+    depth = 0
+    count = 0
+    for b in blocks:
+        if isinstance(b, P.IfBlock):
+            d, c = _nest_shape(b.if_body)
+            d2, c2 = _nest_shape(b.else_body)
+            depth = max(depth, d, d2)
+            count += c + c2
+        elif isinstance(b, (P.WhileBlock, P.ForBlock)):
+            d, c = _nest_shape(b.body)
+            depth = max(depth, 1 + d)
+            count += 1 + c
+    return depth, count
+
+
+def _plan_one_region(loop, kind: str, idx: int = 0) -> LoopRegion:
+    """Analyze one outermost loop into a LoopRegion (refused regions keep
+    the classified reason instead of carrying analysis results). `idx`
+    is the region's stable position in the planner's walk order — part
+    of the label so two sibling loops carrying the same leading names
+    (twin CG loops) never merge in the per-region stats views."""
+    if kind == "while":
+        pred_reads = set(loop.pred.block.hops.reads)
+        keep = pred_reads
+        pred_mode = "device"
+    else:
+        pred_reads = set()
+        for p in (loop.from_h, loop.to_h, loop.incr_h):
+            if p is not None:
+                pred_reads |= set(p.block.hops.reads)
+        keep = set()   # matches FusedLoop.run_for's _loop_rw(set())
+        pred_mode = "host-trip"
+    la = _live_after(loop)
+    depth, inner = _nest_shape(loop.body)
+    try:
+        reads, writes = _collect_rw(loop.body, keep=keep | la)
+        drop = _dead_string_accumulators(loop.body, keep, la)
+        statics = _static_shape_names(loop.body)
+        traced_ints = _value_safe_scalar_names(loop, kind) - writes
+    except NotLoopFusable as e:
+        label = f"{kind}[?]@{idx}"
+        return LoopRegion(kind, label, pred_reads=pred_reads,
+                          pred_mode=pred_mode, depth=1 + depth,
+                          inner_loops=inner,
+                          refused=str(e) or "unfusable body")
+    reads -= drop
+    writes -= drop
+    carried = tuple(sorted(writes))
+    label = "{}[{}{}]@{}".format(kind, ",".join(carried[:3]),
+                                 ",..." if len(carried) > 3 else "", idx)
+    # liveness classification CONSUMED from the lifetime pass (the
+    # single home of dead-after-dispatch reasoning) — the planner does
+    # not derive it locally
+    from systemml_tpu_torch.analysis.lifetime import classify_region_carried
+
+    donation = classify_region_carried(carried, la)
+    return LoopRegion(kind, label, carried=carried, reads=reads,
+                      pred_reads=pred_reads, drop=drop,
+                      static_names=statics, pred_mode=pred_mode,
+                      depth=1 + depth, inner_loops=inner,
+                      donation=donation, traced_ints=traced_ints)
+
+
+def plan_loop_regions(program) -> List[LoopRegion]:
+    """Walk a compiled program and attach a LoopRegion plan to every
+    while/for block: OUTERMOST loops become fused regions (their nests
+    lower inside the region's single trace); loops under a refused
+    region — or under a parfor, whose tasks run host-side — are planned
+    as their own smaller regions, so the runtime still fuses whatever
+    the refusal left standing. Returns all emitted regions (inlined
+    markers included) — compile_program calls this LAST, after
+    rewrites, layout propagation and liveness, so the plans see the
+    final hop graphs."""
+    from systemml_tpu_torch.obs import trace as obs
+    from systemml_tpu_torch.runtime import program as P
+
+    regions: List[LoopRegion] = []
+
+    def mark_inlined(blocks, parent: LoopRegion):
+        for b in blocks:
+            if isinstance(b, P.IfBlock):
+                mark_inlined(b.if_body, parent)
+                mark_inlined(b.else_body, parent)
+            elif isinstance(b, (P.WhileBlock, P.ForBlock)):
+                kind = "while" if isinstance(b, P.WhileBlock) else "for"
+                b._region = LoopRegion(
+                    kind, f"{parent.label}>{kind}", inlined=True)
+                b._region_parent = parent
+                mark_inlined(b.body, parent)
+
+    def plan_loop(b):
+        kind = "while" if isinstance(b, P.WhileBlock) else "for"
+        region = _plan_one_region(b, kind, idx=len(regions))
+        b._region = region
+        regions.append(region)
+        if obs.recording():
+            obs.instant("region_plan", obs.CAT_COMPILE, label=region.label,
+                        kind=kind, carried=len(region.carried),
+                        depth=region.depth, inner_loops=region.inner_loops,
+                        pred_mode=region.pred_mode,
+                        refused=region.refused)
+        if region.refused is not None:
+            # the nest cannot fuse as a unit: inner loops still get their
+            # own (smaller) regions — per-iteration fusion beats none
+            walk(b.body)
+        else:
+            mark_inlined(b.body, region)
+
+    def walk(blocks):
+        for b in blocks:
+            if isinstance(b, P.IfBlock):
+                walk(b.if_body)
+                walk(b.else_body)
+            elif isinstance(b, (P.WhileBlock, P.ForBlock)):
+                plan_loop(b)
+
+    walk(program.blocks)
+    for fb in program.functions.values():
+        walk(fb.blocks)
+    return regions
+
+
+# --------------------------------------------------------------------------
+# inside a fused loop region (runtime/loopfuse.py): the region's run is
+# installed here while its body runs (its first iteration, the plain arm,
+# or the capture of its CUDA graph), and the Evaluator keeps scalars on
+# the device: as.scalar gives a 0-d tensor, DML's int and boolean scalar
+# semantics hold on 0-d int64 and bool tensors, and a host read of a
+# device value is reported to the run (a classified refusal before a
+# capture, an error inside one). Outside a region nothing changes.
+# --------------------------------------------------------------------------
+
+_REGION: contextvars.ContextVar = contextvars.ContextVar(
+    "smtorch_loop_region", default=None)
+
+
+def current_region():
+    """The RegionRun (runtime/loopfuse.py) whose body is running, or None."""
+    return _REGION.get()
+
+
+@contextlib.contextmanager
+def region_scope(run):
+    tok = _REGION.set(run)
+    try:
+        yield run
+    finally:
+        _REGION.reset(tok)
+
+
+def _host_read(v, what: str):
+    """v.item(): a synchronisation, which a captured region cannot make."""
+    run = _REGION.get()
+    if run is not None:
+        run.note_sync(what)
+    return v.item()
+
+
+def _is_int_scalar(v) -> bool:
+    return (isinstance(v, torch.Tensor) and v.ndim == 0
+            and not v.is_floating_point() and not v.is_complex())
+
+
+def _is_scalar_value(v) -> bool:
+    return isinstance(v, (bool, int, float, np.generic)) or (
+        isinstance(v, torch.Tensor) and v.ndim == 0)
+
+
+def _region_binary(o: str, a, b):
+    """A binary op of two scalars of which one is a 0-d int64 or bool
+    tensor (a carried DML int or boolean inside a region), with DML's
+    scalar semantics as the host path (hops/rewrite._apply_scalar_binary)
+    has them: int op int stays int for + - * ^ %% %/% min max, a
+    comparison or a logical op gives a boolean, and / or a double operand
+    gives a double (the value dtype). None when the torch path already
+    agrees (no int tensor among the operands, or a floating one)."""
+    from systemml_tpu_torch.ops import cellwise
+    from systemml_tpu_torch.utils.config import default_dtype
+
+    if not (_is_scalar_value(a) and _is_scalar_value(b)):
+        return None
+    ts = [v for v in (a, b) if isinstance(v, torch.Tensor)]
+    if not any(_is_int_scalar(v) for v in ts) or any(
+            v.is_floating_point() for v in ts):
+        return None
+    dev = ts[0].device
+    ints = all(isinstance(v, torch.Tensor) or isinstance(
+        v, (bool, int, np.integer)) for v in (a, b))
+
+    def as_t(v, dtype):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype)
+        return torch.full((), v.item() if isinstance(v, np.generic) else v,
+                          dtype=dtype, device=dev)
+
+    if o in cellwise._REL:
+        dt = torch.int64 if ints else default_dtype()
+        return cellwise._REL[o](as_t(a, dt), as_t(b, dt))
+    if o in ("&", "|", "xor"):
+        fn = {"&": torch.logical_and, "|": torch.logical_or,
+              "xor": torch.logical_xor}[o]
+        return fn(as_t(a, torch.bool), as_t(b, torch.bool))
+    if ints and o in ("+", "-", "*", "^", "min", "max"):
+        x, y = as_t(a, torch.int64), as_t(b, torch.int64)
+        if o in ("min", "max"):
+            return (torch.minimum if o == "min" else torch.maximum)(x, y)
+        return cellwise._ARITH[o](x, y)
+    if ints and o in ("%%", "%/%"):
+        x, y = as_t(a, torch.int64), as_t(b, torch.int64)
+        return torch.remainder(x, y) if o == "%%" else torch.div(
+            x, y, rounding_mode="floor")
+    dt = default_dtype()
+    return cellwise.binary_op(o, as_t(a, dt), as_t(b, dt))
+
+
+def _region_unary(o: str, x):
+    """A unary op of a 0-d int64 or bool tensor inside a region, as the
+    host path: - and abs stay int, ! gives a boolean, the rest a double."""
+    from systemml_tpu_torch.ops import cellwise
+    from systemml_tpu_torch.utils.config import default_dtype
+
+    if o == "!":
+        return x == 0
+    if o in ("-", "abs"):
+        x = x.to(torch.int64)
+        return -x if o == "-" else torch.abs(x)
+    return cellwise.unary_op(o, x.to(default_dtype()))
+
 
 # --------------------------------------------------------------------------
 # host scalar evaluation
@@ -234,7 +835,7 @@ class Evaluator:
         self._tstack.append(0.0)
         v = self._eval(h)
         if self.stats.fine_grained and isinstance(v, torch.Tensor) \
-                and v.device.type == "cuda":
+                and v.device.type == "cuda" and _REGION.get() is None:
             torch.cuda.synchronize(v.device)
         child_t = self._tstack.pop()
         elapsed = time.perf_counter() - t0
@@ -305,6 +906,10 @@ class Evaluator:
                     return _apply_scalar_binary(o, a, b)
                 except (ValueError, TypeError):
                     pass
+            elif _REGION.get() is not None:
+                r = _region_binary(o, a, b)
+                if r is not None:
+                    return r
             return cellwise.binary_op(o, a, b)
         if op.startswith("u("):
             x = self.eval(h.inputs[0])
@@ -314,6 +919,8 @@ class Evaluator:
                 return -int(x) if isinstance(x, bool) else -x
             if o == "!" and isinstance(x, (bool, int, float)):
                 return not bool(x)
+            if _is_int_scalar(x) and _REGION.get() is not None:
+                return _region_unary(o, x)
             return cellwise.unary_op(o, x)
         if op.startswith("ua("):
             return agg.agg(h.params["aop"], self._m(h.inputs[0]),
@@ -493,11 +1100,12 @@ def _to_display_str(v) -> str:
     if isinstance(v, (int, np.integer)):
         return str(int(v))
     if isinstance(v, torch.Tensor) and v.numel() == 1:
+        x = _host_read(v, "a device scalar in a string")
         if v.dtype == torch.bool:
-            return "TRUE" if bool(v.item()) else "FALSE"
+            return "TRUE" if bool(x) else "FALSE"
         if not v.is_floating_point():
-            return str(int(v.item()))
-        v = float(v.item())
+            return str(int(x))
+        v = float(x)
     if isinstance(v, (float, np.floating)):
         f = float(v)
         if f != f:
@@ -530,7 +1138,7 @@ def _scalar(v):
     if isinstance(v, torch.Tensor):
         if v.numel() != 1:
             raise DMLValidationError("as.scalar: matrix is not 1x1")
-        return v.item()
+        return _host_read(v, "a scalar argument on the host")
     if isinstance(v, np.generic):
         return v.item()
     return v
@@ -601,13 +1209,42 @@ def _bi_assert(ev, pos, named, h):
     return None
 
 
+def _device_scalar(v):
+    """Inside a region, a one-element tensor as a 0-d tensor (no host
+    read); else None."""
+    if _REGION.get() is not None and isinstance(v, torch.Tensor):
+        if v.numel() != 1:
+            raise DMLValidationError("as.scalar: matrix is not 1x1")
+        return v.reshape(())
+    return None
+
+
+def _bi_as_scalar(ev, pos, named, h):
+    d = _device_scalar(pos[0])
+    return _scalar(pos[0]) if d is None else d
+
+
 def _bi_as_double(ev, pos, named, h):
+    from systemml_tpu_torch.utils.config import default_dtype
+
+    d = _device_scalar(pos[0])
+    if d is not None:
+        return d.to(default_dtype())
     v = _scalar(pos[0])
     return float(v)
 
 
 def _bi_as_integer(ev, pos, named, h):
+    d = _device_scalar(pos[0])
+    if d is not None:
+        return d if _is_int_scalar(d) and d.dtype != torch.bool else \
+            torch.floor(d.double()).to(torch.int64)
     return int(math.floor(float(_scalar(pos[0]))))
+
+
+def _bi_as_logical(ev, pos, named, h):
+    d = _device_scalar(pos[0])
+    return bool(_scalar(pos[0])) if d is None else d != 0
 
 
 def _bi_ifelse(ev, pos, named, h):
@@ -660,6 +1297,30 @@ def _bi_rand(ev, pos, named, h):
     package's `_bi_rand` (systemml_tpu/compiler/lower.py:2221-2231)."""
     from systemml_tpu_torch.ops import datagen
 
+    run = _REGION.get()
+    if run is not None:
+        # inside a loop region a seeded rand gives the same matrix every
+        # iteration: the first iteration's value is reused, and a capture
+        # never generates (the region refuses an unseeded rand)
+        key = (h.id,) + tuple(
+            (n, v) for n, v in zip(h.params.get("argnames") or [], pos
+                                   + list(named.values()))
+            if not isinstance(v, torch.Tensor))
+        hit = run.rand.get(key)
+        if hit is not None:
+            return hit
+        if run.mode == "capture":
+            raise NotLoopFusable("a seeded rand that the first iteration "
+                                 "did not run")
+        v = _bi_rand_eager(pos, named)
+        run.rand[key] = v
+        return v
+    return _bi_rand_eager(pos, named)
+
+
+def _bi_rand_eager(pos, named):
+    from systemml_tpu_torch.ops import datagen
+
     return datagen.rand(
         int(_scalar(named.get("rows", pos[0] if pos else 1))),
         int(_scalar(named.get("cols", pos[1] if len(pos) > 1 else 1))),
@@ -677,11 +1338,10 @@ def _bi_decompress(ev, pos, named, h):
 _BUILTINS: Dict[str, Callable] = {
     "matrix": _bi_matrix, "print": _bi_print, "stop": _bi_stop,
     "assert": _bi_assert, "toString": _bi_tostring,
-    "as.scalar": lambda ev, pos, named, h: _scalar(pos[0]),
-    "castAsScalar": lambda ev, pos, named, h: _scalar(pos[0]),
+    "as.scalar": _bi_as_scalar, "castAsScalar": _bi_as_scalar,
     "as.matrix": lambda ev, pos, named, h: _mat(pos[0]),
     "as.double": _bi_as_double, "as.integer": _bi_as_integer,
-    "as.logical": lambda ev, pos, named, h: bool(_scalar(pos[0])),
+    "as.logical": _bi_as_logical,
     "ifelse": _bi_ifelse, "log": _bi_log,
     "exists": lambda ev, pos, named, h: pos[0] is not None,
     "time": lambda ev, pos, named, h: int(time.time_ns()),

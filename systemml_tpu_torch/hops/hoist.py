@@ -92,6 +92,7 @@ def hoist_program(program) -> int:
     program.blocks = walk(program.blocks)
     for fb in program.functions.values():
         fb.blocks = walk(fb.blocks)
+    walk = None  # breaks the closure's cycle through itself and `program`
     return count
 
 

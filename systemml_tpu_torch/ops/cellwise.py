@@ -29,13 +29,15 @@ def _device():
 
 def as_tensor(x, like=None):
     """A python scalar as a 0-d tensor of `like`'s dtype and device (the
-    value dtype on the configured device when `like` is not a tensor)."""
+    value dtype on the configured device when `like` is not a tensor).
+    Filled on the device (torch.full), never copied from the host: no
+    synchronisation, and a captured CUDA graph may hold it."""
     if isinstance(x, torch.Tensor):
         return x
     if isinstance(like, torch.Tensor):
         dtype = like.dtype if like.is_floating_point() else default_dtype()
-        return torch.tensor(float(x), dtype=dtype, device=like.device)
-    return torch.tensor(float(x), dtype=default_dtype(), device=_device())
+        return torch.full((), float(x), dtype=dtype, device=like.device)
+    return torch.full((), float(x), dtype=default_dtype(), device=_device())
 
 
 def _operands(a, b):
@@ -76,9 +78,9 @@ def _truthy(x):
 def _logical(fn, a, b):
     ta, tb = _truthy(a), _truthy(b)
     if not isinstance(ta, torch.Tensor):
-        ta = torch.tensor(ta, device=tb.device)
+        ta = torch.full((), ta, device=tb.device)
     if not isinstance(tb, torch.Tensor):
-        tb = torch.tensor(tb, device=ta.device)
+        tb = torch.full((), tb, device=ta.device)
     return _bool(fn(ta, tb), a, b)
 
 
@@ -88,10 +90,10 @@ def _floor_div(a, b):
     q = a // b
     if not (isinstance(q, torch.Tensor) and q.is_floating_point()):
         return q
-    zero = b == 0 if isinstance(b, torch.Tensor) else torch.tensor(
-        b == 0, device=q.device)
-    return torch.where(zero, torch.tensor(math.nan, dtype=q.dtype,
-                                          device=q.device), q)
+    zero = b == 0 if isinstance(b, torch.Tensor) else torch.full(
+        (), b == 0, device=q.device)
+    return torch.where(zero, torch.full((), math.nan, dtype=q.dtype,
+                                        device=q.device), q)
 
 
 _ARITH = {

@@ -3,9 +3,10 @@
 Port of systemml_tpu/ops/reorg.py, dense branches. `transpose` returns
 the transposed VIEW, never a copy: matmult and tsmm hand the view to
 cuBLAS as a transposed operand, so `t(X) %*% y` over an 8 GB X costs no
-second X. Indexing with traced bounds (the fused-loop minibatch path),
-sort and the triangular extractions wait (ROADMAP queue
-1: fused loop regions, algorithm breadth). A compressed operand is
+second X. Indexing with device bounds (the fused-loop minibatch path,
+which a loop region refuses for now), sort and the triangular
+extractions wait (ROADMAP queue 1: fused loop regions' follow-ups,
+algorithm breadth). A compressed operand is
 decompressed first, as in the JAX package.
 """
 

@@ -19,19 +19,28 @@ its estimated ratio clears cla_min_ratio (cla "auto"), or always (cla
 "true"); the loop then runs the compressed ops (compress/device.py). A
 failure there raises: the loop does not run dense unseen.
 
-What waits: the fused whole-block compile and the fused loop regions
-(ROADMAP queue 1, fused loop regions: CUDA graphs here), the
-buffer pool, layout propagation, the exec-type planner and MESH mode,
-the lifetime analysis, and parfor. A config that asks for one of them
+Fused loop regions run as in the JAX package: with `codegen_enabled`
+(the default) compile_program plans every while/for nest last
+(compiler/lower.plan_loop_regions), and WhileBlock and ForBlock hand each
+loop to the region executor (runtime/loopfuse.py), which on the card
+captures the nest into one CUDA graph with the predicates kept on the
+device (conditional WHILE and IF nodes) and launches it once per loop
+entry; on the CPU it runs the same state handling in Python. A region
+refused, by the plan or by a classified reason at entry, runs eagerly
+with the same kernels, counted. Without `codegen_enabled` every loop runs
+eagerly, as in the JAX package.
+
+What waits: the fused whole-block compile outside loops, the buffer
+pool, layout propagation, the exec-type planner and MESH mode, the rest
+of the lifetime analysis, and parfor. A config that asks for one of them
 outright (exec_mode MESH), or sets any other field the port does not read
 (utils/config.check_ported), raises NotImplementedError.
-`codegen_enabled` names an optimization whose absence leaves the results
-as they are: the blocks run eagerly, as they do in the JAX package when
-it does not fuse them.
 """
 
 from __future__ import annotations
 
+import copy
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
@@ -62,20 +71,35 @@ class BasicBlock(ProgramBlock):
     def __init__(self, hops: BlockHops, program: "Program",
                  file_id: int = 0):
         self.hops = hops
-        self.program = program
+        # weakly: the Program holds its blocks, and a dropped Program
+        # frees them, and its loop regions' CUDA graphs, without waiting
+        # for the cyclic collector
+        self._program = weakref.ref(program)
         self.file_id = file_id  # namespace scope for fcall resolution
         # names whose LAST use is this block (set by compiler/liveness.py);
         # deleted after execution, the rmvar analog
         self.kill_after: Set[str] = set()
 
+    @property
+    def program(self) -> "Program":
+        return self._program()
+
     def execute(self, ec: "ExecutionContext"):
-        from systemml_tpu_torch.compiler.lower import Evaluator
+        from systemml_tpu_torch.compiler.lower import (Evaluator,
+                                                       current_region)
         from systemml_tpu_torch.obs import trace as obs
 
+        hops = self.hops
+        run = current_region()
+        if run is not None and run.skip and run.skip & set(hops.writes):
+            # a loop region drops its dead string accumulators
+            hops = copy.copy(hops)
+            hops.writes = {n: h for n, h in self.hops.writes.items()
+                           if n not in run.skip}
         with obs.span("block", obs.CAT_RUNTIME, mode="eager"):
             ev = Evaluator(ec.vars, ec.call_function, ec.printer,
                            stats=ec.stats, timing=True)
-            ec.vars.update(ev.run(self.hops))
+            ec.vars.update(ev.run(hops))
         ec.stats.count_block()
         for n in self.kill_after:
             ec.vars.pop(n, None)
@@ -105,6 +129,15 @@ class CompiledPredicate:
         self.block = BasicBlock(blk, program)
 
     def eval(self, ec: "ExecutionContext"):
+        return _host_value(self.eval_device(ec))
+
+    def eval_bool(self, ec) -> bool:
+        return bool(self.eval(ec))
+
+    def eval_device(self, ec):
+        """The value without a host read (a loop region's predicate): a
+        host value when the predicate reads host values only (no device
+        data), else a 0-d tensor."""
         from systemml_tpu_torch.compiler.lower import (Evaluator,
                                                        _NotHostEvaluable,
                                                        host_eval_scalar)
@@ -116,10 +149,10 @@ class CompiledPredicate:
             pass
         ev = Evaluator(ec.vars, ec.call_function, ec.printer,
                        stats=ec.stats, timing=True)
-        return _host_value(ev.eval(hop))
-
-    def eval_bool(self, ec) -> bool:
-        return bool(self.eval(ec))
+        v = ev.eval(hop)
+        if isinstance(v, torch.Tensor) and v.numel() == 1:
+            return v.reshape(())
+        return v
 
 
 class IfBlock(ProgramBlock):
@@ -130,8 +163,21 @@ class IfBlock(ProgramBlock):
         self.else_body = else_body
 
     def execute(self, ec):
-        branch = self.if_body if self.pred.eval_bool(ec) else self.else_body
-        for b in branch:
+        from systemml_tpu_torch.compiler.lower import current_region
+
+        run = current_region()
+        if run is None:
+            taken = self.pred.eval_bool(ec)
+        else:
+            # inside a loop region: a device predicate becomes IF nodes; a
+            # host one (loop invariants only) picks its branch here
+            taken = self.pred.eval_device(ec)
+            if isinstance(taken, torch.Tensor):
+                from systemml_tpu_torch.runtime.loopfuse import exec_if
+
+                exec_if(self, ec, run, taken)
+                return
+        for b in (self.if_body if taken else self.else_body):
             b.execute(ec)
 
 
@@ -139,9 +185,28 @@ class WhileBlock(ProgramBlock):
     def __init__(self, pred: CompiledPredicate, body: List[ProgramBlock]):
         self.pred = pred
         self.body = body
+        self._fused_loop = None
 
     def execute(self, ec):
+        from systemml_tpu_torch.compiler.lower import current_region
+
+        run = current_region()
+        if run is not None:
+            # nested in a running region: a WHILE node of its graph
+            from systemml_tpu_torch.runtime.loopfuse import exec_while
+
+            exec_while(self, ec, run)
+            return
         _maybe_auto_compress(self, ec)
+        # the whole loop as one CUDA graph launch (runtime/loopfuse.py),
+        # as systemml_tpu/runtime/program.py:717-731 hands it to FusedLoop
+        if get_config().codegen_enabled:
+            if self._fused_loop is None:
+                from systemml_tpu_torch.runtime.loopfuse import FusedLoop
+
+                self._fused_loop = FusedLoop(self, "while")
+            if self._fused_loop.run_while(self, ec):
+                return
         while self.pred.eval_bool(ec):
             for b in self.body:
                 b.execute(ec)
@@ -163,6 +228,7 @@ class ForBlock(ProgramBlock):
         self.var = var
         self.from_h, self.to_h, self.incr_h = from_h, to_h, incr_h
         self.body = body
+        self._fused_loop = None
 
     def _range(self, ec):
         fv = self.from_h.eval(ec)
@@ -181,7 +247,22 @@ class ForBlock(ProgramBlock):
         return out
 
     def execute(self, ec):
+        from systemml_tpu_torch.compiler.lower import current_region
+
+        run = current_region()
+        if run is not None:
+            from systemml_tpu_torch.runtime.loopfuse import exec_for
+
+            exec_for(self, ec, run)
+            return
         _maybe_auto_compress(self, ec)
+        if get_config().codegen_enabled:
+            if self._fused_loop is None:
+                from systemml_tpu_torch.runtime.loopfuse import FusedLoop
+
+                self._fused_loop = FusedLoop(self, "for")
+            if self._fused_loop.run_for(self, ec):
+                return
         for i in self._range(ec):
             ec.vars[self.var] = i
             for b in self.body:
@@ -335,6 +416,63 @@ class Program:
         self.functions: Dict[Tuple[int, str], FunctionBlocks] = {}
         self.alias_maps: Dict[int, Dict[str, int]] = {}
         self.stats = stats or Statistics()
+        self._purity: Dict[Tuple[int, str], bool] = {}
+
+    # builtins whose execution has host side effects or host state: a
+    # function reaching any of these must not run inside a captured loop
+    # region (systemml_tpu/runtime/program.py:1100-1155)
+    _IMPURE_BUILTINS = {
+        "print", "write", "stop", "assert", "read", "checkpoint",
+        "restore", "checkpointExists", "time", "eval", "sample",
+        "transformencode", "transformapply", "transformdecode",
+        "transformcolmap", "compress", "decompress", "toString",
+    }
+
+    def fn_is_pure(self, file_id: int, namespace: Optional[str],
+                   name: Optional[str]) -> bool:
+        """Static purity of a user function (transitively): may its body
+        run inside a loop region? (reference analog:
+        IPAPassInlineFunctions' side-effect-free criteria)."""
+        if name is None:
+            return False
+        fb = self.resolve_function(file_id, namespace, name)
+        if fb is None or fb.fn_def.external:
+            return False
+        key = (fb.file_id, fb.fn_def.name)
+        cached = self._purity.get(key)
+        if cached is not None:
+            return cached
+        self._purity[key] = False  # recursion guard
+        pure = self._fn_body_pure(fb)
+        self._purity[key] = pure
+        return pure
+
+    def _fn_body_pure(self, fb: FunctionBlocks) -> bool:
+        import dataclasses as _dc
+
+        for s in A.walk_stmts(fb.fn_def.body):
+            for f in _dc.fields(s):
+                v = getattr(s, f.name)
+                exprs = []
+                if isinstance(v, A.Expr):
+                    exprs = [v]
+                elif isinstance(v, list) and v and isinstance(v[0], A.Expr):
+                    exprs = v
+                elif isinstance(v, dict):
+                    exprs = [x for x in v.values() if isinstance(x, A.Expr)]
+                for e in exprs:
+                    for sub in A.walk_expr(e):
+                        if not isinstance(sub, A.FunctionCall):
+                            continue
+                        target = self.resolve_function(
+                            fb.file_id, sub.namespace, sub.name)
+                        if target is not None:
+                            if not self.fn_is_pure(fb.file_id,
+                                                   sub.namespace, sub.name):
+                                return False
+                        elif sub.name in self._IMPURE_BUILTINS:
+                            return False
+        return True
 
     def resolve_function(self, file_id: int, namespace: Optional[str],
                          name: str) -> Optional[FunctionBlocks]:
@@ -660,6 +798,22 @@ def compile_program(ast_prog: A.DMLProgram,
         n_cla = plan_auto_compression(prog)
         if n_cla:
             prog.stats.count_estim("cla_candidates", n_cla)
+    # loop-region planning LAST, over the final hop graphs, as
+    # systemml_tpu/runtime/program.py:1655-1665: every while/for nest gets
+    # a LoopRegion plan (carried state, invariants, shape statics, the
+    # predicate's mode) or a classified refusal, which the region executor
+    # (runtime/loopfuse.py) runs from
+    if cfg.codegen_enabled:
+        from systemml_tpu_torch.compiler.lower import plan_loop_regions
+
+        with obs.span("loop_region_planning", obs.CAT_COMPILE) as rsp:
+            regions = plan_loop_regions(prog)
+            refused = sum(1 for r in regions if r.refused)
+            rsp.set(regions=len(regions), refused=refused)
+        if regions:
+            prog.stats.count_estim("loop_regions", len(regions))
+        if refused:
+            prog.stats.count_estim("loop_regions_refused", refused)
     return prog
 
 

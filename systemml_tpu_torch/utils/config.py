@@ -477,7 +477,7 @@ PORTED_FIELDS = frozenset({
 _WAITING = (
     (("stats", "explain", "scratch_dir"), "CLI and io/"),
     (("loopfuse_", "compile_timeout_s", "xla_cache_dir", "bufferpool_",
-      "mem_"), "fused loop regions (CUDA graphs) and the buffer pool"),
+      "mem_"), "the buffer pool and the whole-block compile"),
     (("pallas_mode", "codegen_"), "kernel backend and tuner"),
     (("ultra_sparsity_turn_point",), "sparse plane"),
     (("conv_",), "DNN and models"),

@@ -1,10 +1,11 @@
 """Execution statistics: timers, counters, heavy hitters.
 
 Port of systemml_tpu/utils/stats.py, trimmed to the counters that the
-port's eager runtime touches: run time, executed blocks, function calls,
-per-op heavy hitters, and the optimizer/rewrite event families that the
+port's runtime touches: run time, executed blocks, function calls,
+per-op heavy hitters, the optimizer/rewrite event families that the
 copied HOP passes (hops/rewrite.py, hoist.py, ipa.py) and the spoof
-fusion pass (codegen/) report. Every family lives in a run-scoped
+fusion pass (codegen/) report, and the fused loop regions
+(`loop_regions`, `loop_regions_refused`, `region_counts`). Every family lives in a run-scoped
 ``MetricsRegistry`` (obs/metrics.py), as in the JAX package.
 """
 
@@ -81,6 +82,12 @@ class Statistics:
             "optimizer_events_total",
             "optimizer decisions + rw_ rewrite fires",
             groups=ESTIM_GROUPS)
+        # fused-loop-region dispatches per region label (the compiler-
+        # planned while/for nests of compiler/lower.plan_loop_regions,
+        # each a CUDA graph launch on the card): `display()` shows how
+        # many one-launch region executions served each loop
+        self.region_counts = reg.labeled(
+            "region_dispatch_total", "fused-loop-region dispatches")
 
     @property
     def eager_blocks(self) -> int:
@@ -106,6 +113,9 @@ class Statistics:
 
     def count_estim(self, kind: str, n: int = 1):
         self.estim_counts.inc(kind, n)
+
+    def count_region(self, label: str, n: int = 1):
+        self.region_counts.inc(label, n)
 
     def time_op(self, op: str, seconds: float):
         with self._lock:
@@ -142,6 +152,18 @@ class Statistics:
         if opt:
             lines.append("Optimizer decisions: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(opt.items())))
+        if self.region_counts:
+            # fused-loop regions (whole while/for nests launched as one
+            # CUDA graph): region label = carried names; compare against
+            # "Executed blocks" to see how much of the run lived inside
+            # regions (systemml_tpu/utils/stats.py:382-393)
+            planned = self.estim_counts.get("loop_regions", 0)
+            refused = self.estim_counts.get("loop_regions_refused", 0)
+            lines.append(
+                f"Loop regions (planned={planned}, refused={refused}; "
+                "region=dispatches): " + ", ".join(
+                    f"{k}={v}"
+                    for k, v in sorted(self.region_counts.items())))
         if self.fcall_counts:
             top = sorted(self.fcall_counts.items(), key=lambda kv: -kv[1])[:5]
             lines.append("Function calls: " +

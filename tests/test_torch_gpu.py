@@ -1045,3 +1045,262 @@ def test_memoised_launch_follows_new_values(cuda, walk):
             WALK_PLAN, WALK_NAMES, _double(env)).abs().sum())
         assert abs(float(total) - float(ref)) <= 1e-5 * scale_sum
     assert len(WALK_PLAN.__dict__["_spoof_prepared"]) >= 1
+
+
+# --------------------------------------------------------------------------
+# fused loop regions: one CUDA graph per loop, WHILE and IF nodes
+# (runtime/loopfuse.py, codegen/csrc/loop_graph.cu), against the region
+# executor's plain arm on the CPU; `-k region` runs these alone
+# --------------------------------------------------------------------------
+
+def _region_run(src, device, inputs=None, outputs=(), codegen=True):
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    cfg = DMLConfig(device=device)
+    cfg.floating_point_precision = "double"
+    cfg.codegen_enabled = codegen
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+    s = dml(src)
+    for k, v in (inputs or {}).items():
+        s.input(k, v)
+    return ml.execute(s.output(*outputs)), ml
+
+
+def _region_values(res, outs):
+    out = []
+    for o in outs:
+        v = res.get(o)
+        out.append(np.asarray(res.get_matrix(o), dtype=np.float64)
+                   if isinstance(v, torch.Tensor) and v.ndim else
+                   np.asarray(float(res.get_scalar(o))))
+    return out
+
+
+def _region_program(src, input_names, outputs):
+    from systemml_tpu_torch.lang.parser import parse
+    from systemml_tpu_torch.runtime.program import compile_program
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    cfg = DMLConfig()
+    cfg.floating_point_precision = "double"
+    set_config(cfg)
+    try:
+        return compile_program(parse(src), input_names=input_names,
+                               outputs=outputs)
+    finally:
+        set_config(DMLConfig())
+
+
+def _region_exec(prog, inputs):
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    cfg = DMLConfig()
+    cfg.floating_point_precision = "double"
+    set_config(cfg)
+    try:
+        return prog.execute(inputs)
+    finally:
+        set_config(DMLConfig())
+
+
+def _top_loop(prog):
+    from systemml_tpu_torch.runtime import program as P
+
+    return [b for b in prog.blocks
+            if isinstance(b, (P.WhileBlock, P.ForBlock))][0]
+
+
+REGION_X = np.arange(1.0, 7.0).reshape(3, 2) / 7.0
+REGION_SCRIPTS = {
+    "zero_trips": ("x = 5\ni = 0\nwhile (x < 0) { x = x - 1\ni = i + 1 }\n",
+                   ["x", "i"]),
+    "one_trip": ("x = 5\ni = 0\nwhile (x > 4) { x = x - 1\ni = i + 1 }\n",
+                 ["x", "i"]),
+    "many_trips": ("""
+i = 0
+A = X
+while (i < 40) {
+  A = A * 1.01 + 0.5
+  i = i + 1
+}
+""", ["A", "i"]),
+    "nested": ("""
+outer = 0
+total = X
+while (outer < 4) {
+  inner = 0
+  acc = 0.0
+  while (inner < outer + 2) {
+    if (inner - 2 * floor(inner / 2) == 0) {
+      acc = acc + inner + 1
+    } else {
+      acc = acc - 0.5
+    }
+    inner = inner + 1
+  }
+  for (j in 1:3) {
+    total = total + acc * j
+  }
+  outer = outer + 1
+}
+""", ["total", "outer", "j"]),
+    "zero_trip_inner_local": ("""
+i = 0
+s = 0
+while (i < 3) {
+  k = i
+  while (k < 1) {
+    t = k + 5
+    k = k + 1
+  }
+  s = s + t
+  i = i + 1
+}
+""", ["s"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REGION_SCRIPTS))
+def test_region_graph_matches_plain_arm(cuda, case):
+    src, outs = REGION_SCRIPTS[case]
+    got, _ = _region_run(src, "cuda", {"X": REGION_X}, outs)
+    ref, _ = _region_run(src, "cpu", {"X": REGION_X}, outs)
+    eager, _ = _region_run(src, "cpu", {"X": REGION_X}, outs, codegen=False)
+    for a, b, c in zip(_region_values(got, outs), _region_values(ref, outs),
+                       _region_values(eager, outs)):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+        if case != "zero_trip_inner_local":     # eager: t is stale there
+            np.testing.assert_allclose(a, c, rtol=1e-12, atol=1e-12)
+
+
+def test_region_one_capture_across_traced_int_reentry(cuda):
+    """Another value of a traced int (maxi) reuses the graph: one capture,
+    three launches, the first and last runs bit-identical; another X at
+    the same shape is a new capture."""
+    src = """
+w = matrix(0, rows=ncol(X), cols=1)
+i = 0
+while (i < maxi) {
+  w = w + 0.001 * (t(X) %*% (X %*% w + 1))
+  i = i + 1
+}
+r = sum(w)
+"""
+    prog = _region_program(src, ["X", "maxi"], ["r"])
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((256, 8))).to(cuda)
+    rs = [_region_exec(prog, {"X": x, "maxi": m}).vars["r"]
+          for m in (5, 9, 5)]
+    fl = _top_loop(prog)._fused_loop
+    assert fl.record["captures"] == 1 and fl.record["launches"] == 3
+    assert fl.record["trips"] == [5, 9, 5]
+    assert torch.equal(rs[0], rs[2])
+    x2 = torch.from_numpy(rng.standard_normal((256, 8))).to(cuda)
+    _region_exec(prog, {"X": x2, "maxi": 5})
+    assert fl.record["captures"] == 2
+
+
+def test_region_launch_accounting_equals_eager(cuda):
+    """The kernel launches of a captured loop (each body's count scaled by
+    its executions) equal the eager run's, and so do the statistics'
+    counts of executed blocks and walks."""
+    from systemml_tpu_torch.runtime import loopfuse
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((4096, 128)).astype(np.float32)
+    y = x @ rng.standard_normal((128, 1)).astype(np.float32)
+    src = """
+w = matrix(0, rows=ncol(X), cols=1)
+r = -(t(X) %*% y)
+p = -r
+nr = sum(r^2)
+i = 0
+while (i < 12 & nr > 1e-10) {
+  q = t(X) %*% (X %*% p)
+  a = nr / sum(p * q)
+  w = w + a * p
+  r = r + a * q
+  old = nr
+  nr = sum(r^2)
+  if (nr < old) {
+    p = -r + (nr / old) * p
+  } else {
+    p = -r
+  }
+  i = i + 1
+}
+"""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    counts = {}
+    for codegen in (True, False):
+        cfg = DMLConfig()
+        cfg.optlevel = 3
+        cfg.codegen_enabled = codegen
+        for f in loopfuse.launch_counters().values():
+            f.launches = 0
+        ml = MLContext(cfg)
+        res = ml.execute(dml(src).input("X", x).input("y", y).output("w"))
+        torch.cuda.synchronize()
+        counts[codegen] = ({k: f.launches for k, f in
+                            loopfuse.launch_counters().items()
+                            if k != "set_cond"},
+                           ml._stats.eager_blocks,
+                           {k: v for k, v in ml._stats.estim_counts.items()
+                            if k.startswith("spoof_")},
+                           res.get_matrix("w"))
+    assert counts[True][0] == counts[False][0]
+    assert counts[True][0]["mmchain"] >= 2
+    assert counts[True][1] == counts[False][1]
+    assert counts[True][2] == counts[False][2]
+    np.testing.assert_allclose(counts[True][3], counts[False][3],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_region_capture_leaves_reduce_scratch_alone(cuda):
+    """A capture makes no spoof reduce scratch: the capture streams' own
+    exist before it, and the eager streams' are the same tensors after."""
+    from systemml_tpu_torch.runtime import loopfuse
+
+    loopfuse.capture_streams(cuda)
+    before = {k: (a.data_ptr(), b.data_ptr())
+              for k, (a, b) in kernels._scratch.items()}
+    src = """
+i = 0
+s = 0.0
+while (i < 6) {
+  s = s + sum(X * X + i)
+  i = i + 1
+}
+"""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    cfg = DMLConfig()
+    cfg.optlevel = 3
+    x = np.random.default_rng(3).standard_normal((1000, 30))
+    MLContext(cfg).execute(dml(src).input("X", x).output("s"))
+    after = {k: (a.data_ptr(), b.data_ptr())
+             for k, (a, b) in kernels._scratch.items()}
+    assert {k: v for k, v in after.items() if k in before} == before
+    stream_keys = {(cuda.index if cuda.index is not None
+                    else torch.cuda.current_device(), s.cuda_stream)
+                   for s in loopfuse.capture_streams(cuda)}
+    assert stream_keys <= set(before)
+
+
+def test_region_graph_dies_with_its_program(cuda):
+    import gc
+
+    from systemml_tpu_torch.runtime import loopfuse
+
+    gc.collect()
+    n0 = loopfuse.live_graphs()
+    prog = _region_program(REGION_SCRIPTS["many_trips"][0], ["X"], ["A"])
+    _region_exec(prog, {"X": torch.from_numpy(REGION_X).to(cuda)})
+    assert loopfuse.live_graphs() == n0 + 1
+    del prog
+    assert loopfuse.live_graphs() == n0     # no cycle: refcount frees it
