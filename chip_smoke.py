@@ -241,18 +241,19 @@ def time_ms(fns, reps: int = 20, warm: int = 3):
 
 class PhaseTimer:
     """Windows of the program's execution, of its while loops, and of the
-    compressed X's set-up: the loop-entry compression and the first
-    builds of its device forms (K6's layout, the mirror of the other
-    compressed ops), on the host clock and in CUDA events, taken without
+    set-up inside a loop: a compressed X's loop-entry compression and the
+    first builds of its device forms (K6's layout, the mirror of the other
+    compressed ops), and a sparse invariant's device views at a region's
+    entry, on the host clock and in CUDA events, taken without
     a profiler: for the duration of a with-block it wraps Program.execute,
-    WhileBlock.execute and _maybe_auto_compress of the port's runtime and
+    WhileBlock.execute and _maybe_auto_compress of the port's runtime,
     chain_layout and device_mirror of compress/device.py (those two are
-    cached: only a first call builds). `windows[label]` lists (host ms,
+    cached: only a first call builds) and FusedLoop._views. `windows[label]` lists (host ms,
     device ms, host start, host end, start event, end event) in the order
     the windows close; `compressed` the compressed blocks the compression
     bound."""
 
-    SETUP = ("compress", "layout", "mirror")
+    SETUP = ("compress", "layout", "mirror", "views")
 
     def __init__(self):
         from systemml_tpu_torch.compress import device as cla_dev
@@ -262,6 +263,7 @@ class PhaseTimer:
                          "compress": (program, "_maybe_auto_compress"),
                          "layout": (cla_dev, "chain_layout"),
                          "mirror": (cla_dev, "device_mirror"),
+                         "views": (loopfuse.FusedLoop, "_views"),
                          "capture": (loopfuse.FusedLoop, "_capture"),
                          "launch": (loopfuse.FusedLoop, "_launch")}
         self.windows = {label: [] for label in self._targets}
@@ -585,7 +587,7 @@ REFUSAL = {"l2-svm": "print", "LinearRegCG-cla": "compressed operand"}
 
 
 def region_report(timer: PhaseTimer, label: str, path: str,
-                  regions: bool) -> dict:
+                  regions: bool, may_refuse: str = None) -> dict:
     """What the region executor recorded in the run `timer` watched
     (runtime/loopfuse.region_report of the program it executed): the
     regions planned, captured and refused with their reasons, the graph
@@ -594,7 +596,8 @@ def region_report(timer: PhaseTimer, label: str, path: str,
     the launches' device windows. Prints one `regions` line, and fails
     when a region is refused for anything but REFUSAL[path], when a
     region that runs is not one launch and two host syncs per entry, or
-    when a run without regions planned any."""
+    when a run without regions planned any. `may_refuse`: a reason a
+    region of the path may be refused for, but need not be."""
     from systemml_tpu_torch.runtime import loopfuse
 
     rep = loopfuse.region_report(timer.program)
@@ -606,7 +609,7 @@ def region_report(timer: PhaseTimer, label: str, path: str,
                for r in rep if r.get("refused") or r["planned_refused"]}
     want = REFUSAL.get(path)
     for lab, why in refused.items():
-        if why != want:
+        if why != want and why != may_refuse:
             fail(f"{label}: region {lab} refused ({why!r}); the only reason "
                  f"this path may be refused for is {want!r}")
     if want is not None and not refused:
@@ -637,7 +640,7 @@ def region_report(timer: PhaseTimer, label: str, path: str,
            "regions": [{k: r.get(k) for k in ("label", "entries", "captures",
                                               "launches", "host_syncs",
                                               "static_reads", "trips",
-                                              "bodies", "nodes")}
+                                              "bodies", "nodes", "views")}
                        for r in rep if r.get("entries")]}
     per = "; ".join(
         f"{r['label']}: {r['entries']} entries, "
@@ -2109,6 +2112,252 @@ def als_paths(v, progs, dev, kernels) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the sparse plane's paths: ALS-CG over a CSR V (runtime/sparse.py)
+# --------------------------------------------------------------------------
+
+# the Netflix Prize ratings (Bennett and Lanning, KDD Cup 2007): users,
+# movies, ratings; a dense fp32 V of that shape takes 34.13 GB
+NETFLIX_USERS, NETFLIX_MOVIES, NETFLIX_RATINGS = 480_189, 17_770, 100_480_507
+NETFLIX_DENSE_BYTES = NETFLIX_USERS * NETFLIX_MOVIES * 4
+# the one reason a region over a sparse invariant may be refused for
+SPARSE_REFUSAL = "sparse view"
+SPARSE_EVENTS = ("spx_", "spmm_", "spgemm_", "sp_tsmm_", "sddmm",
+                 "sparse_densify")
+
+
+def make_netflix(dev):
+    """V of the Netflix Prize shape as CSR on the card, from one seeded
+    generator: cell keys drawn uniformly over users x movies, sorted, the
+    distinct ones kept and topped up to NETFLIX_RATINGS; each rating as
+    make_ratings' (a rank-10 product plus N(0, 0.5^2) noise, rounded to
+    half stars in 0.5..5.0). No dense (users, movies) tensor is made.
+    Returns the torch sparse CSR tensor and the seconds it took."""
+    import warnings
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    users, movies, n = NETFLIX_USERS, NETFLIX_MOVIES, NETFLIX_RATINGS
+    keys = torch.empty(0, dtype=torch.int64, device=dev)
+    while keys.numel() < n:
+        draw = torch.randint(users * movies, (n - keys.numel(),),
+                             generator=gen, device=dev)
+        keys = torch.unique(torch.cat([keys, draw]))   # sorted, distinct
+    rows, cols = keys // movies, keys % movies
+    del keys
+    a = torch.randn(users, 10, generator=gen, device=dev)
+    b = torch.randn(movies, 10, generator=gen, device=dev)
+    vals = torch.zeros(n, device=dev)
+    for i in range(10):
+        vals.addcmul_(a[:, i][rows], b[:, i][cols])
+    vals.mul_(0.35).add_(3.5)
+    vals.add_(torch.randn(n, generator=gen, device=dev), alpha=0.5)
+    vals.mul_(2.0).round_().div_(2.0).clamp_(0.5, 5.0)
+    indptr = torch.searchsorted(rows, torch.arange(users + 1, device=dev))
+    del rows, a, b
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        v = torch.sparse_csr_tensor(indptr, cols, vals, size=(users, movies),
+                                    check_invariants=False)
+    torch.cuda.synchronize()
+    return v, time.perf_counter() - t0
+
+
+def loss_fp64(v, lo, ro, reg):
+    """ALS-CG's loss of (L, R) in one plain fp64 pass over V's stored
+    cells: sum (v - l . r)^2 + reg (|L|^2 + |R|^2)."""
+    crow, col, val = v.crow_indices(), v.col_indices(), v.values()
+    rows = torch.repeat_interleave(
+        torch.arange(v.shape[0], device=val.device), crow.diff(),
+        output_size=val.numel())
+    lf, rf = lo.double(), ro.double()
+    pred = torch.zeros(val.numel(), dtype=torch.float64, device=val.device)
+    for k in range(lf.shape[1]):
+        pred.addcmul_(lf[:, k][rows], rf[:, k][col])
+    d = val.double() - pred
+    return float((d * d).sum() + reg * ((lf * lf).sum() + (rf * rf).sum()))
+
+
+def run_sparse_als(label, v, optlevel, dev, kernels, regions=True,
+                   profile=False) -> dict:
+    """One unprofiled run of ALS-CG over the CSR tensor v through MLContext
+    (bound as it is: its own tensors on the card), after a warm-up on its
+    first 8,192 users; the launch counters and the densify counts are set
+    to 0 just before it and read just after. With `profile`, once more
+    under torch.profiler (the device's busy share)."""
+    from systemml_tpu_torch.api.mlcontext import MLContext
+    from systemml_tpu_torch.runtime import sparse as sp
+
+    ml = MLContext(config(optlevel, regions))
+    ml.printer = lambda s: None
+    head = sp.SparseMatrix.from_csr_tensor(v).slice(0, 8192, 0, v.shape[1])
+    ml.execute(als_script(head.to_csr_tensor()))
+    del head
+    lines = []
+    ml.printer = lines.append
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    sp.DENSIFY_COUNTS.clear()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with PhaseTimer() as timer:
+        res = ml.execute(als_script(v))
+        lo, ro = res.get_tensor("L"), res.get_tensor("R")
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    densify = {f"{m}x{n}": c for (m, n), c in sp.DENSIFY_COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
+    hits = [ln for ln in lines if ln.startswith(_LOSS_MARK)]
+    if len(hits) != 1:
+        fail(f"{label} optlevel {optlevel} printed {lines}")
+    iters = int(hits[0][len(_LOSS_MARK):].split(",")[0])
+    loss = float(hits[0].split("loss = ")[1])
+    events = dict(ml._stats.estim_counts.items())
+    tag = f"{label} optlevel {optlevel}" + ("" if regions else " eager")
+    windows = phase_windows(timer, iters, tag, "outer loop")
+    reg = region_report(timer, tag, label, regions, may_refuse=SPARSE_REFUSAL)
+    views = {r["label"]: r["views"] for r in reg.get("regions", ())
+             if r.get("views")}
+    view_ms = sum(w[0] for w in timer.windows["views"])
+    counters = {k: c for k, c in events.items() if k.startswith(SPARSE_EVENTS)}
+    print(f"[script] {hits[0]}")
+    print(f"[sparse] {tag}: {iters} outer iterations, {secs:.3f} s with "
+          f"parse and compile, {ml._stats.run_time:.3f} s executing; "
+          f"{windows['iteration_ms']:.3f} ms per outer iteration (device "
+          f"window of the loop, its views' set-up left out; host "
+          f"{windows['iteration_host_ms']:.3f} ms); in the graph "
+          f"{reg.get('graph_iteration_ms', float('nan')):.3f} ms per "
+          f"iteration; views {views or 'none'} built in {view_ms:.1f} ms "
+          f"host; sparse counters {counters}; launches {launches}; spoof "
+          f"{ {k: c for k, c in events.items() if k.startswith('spoof_')} }; "
+          f"densifies by shape {densify or 'none'}; peak allocated "
+          f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB over the data "
+          f"allocated before the run), reserved {peak_reserved / 1e9:.3f} GB",
+          flush=True)
+    for t, nm, rows in ((lo, "L", v.shape[0]), (ro, "R", v.shape[1])):
+        if t.dtype != torch.float32 or t.device.type != "cuda" \
+                or tuple(t.shape) != (rows, 10) \
+                or not bool(torch.isfinite(t).all()):
+            fail(f"{tag}: {nm} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                 f"or not finite")
+    if events.get("spoof_compile_errors", 0):
+        fail(f"{tag}: spoof_compile_errors {events['spoof_compile_errors']}")
+    if launches["cla_chain"] or launches["mmchain"]:
+        fail(f"{tag}: launched K6 or K1 ({launches}); neither is on ALS-CG's "
+             f"path")
+    out = {"L": lo, "R": ro, "iterations": iters, "loss": loss,
+           "seconds": secs, "exec_seconds": ml._stats.run_time,
+           "launches": launches, "peak_bytes": peak,
+           "peak_reserved": peak_reserved, "peak_over_data_bytes": peak - base,
+           "windows": windows, "regions": reg, "views": views,
+           "views_host_ms": view_ms, "sparse_counters": counters,
+           "densify": densify}
+    if profile:
+        # the timed run's graph and its pool go first
+        del res, timer
+        torch.cuda.empty_cache()
+        out["profile"] = profile_main_path(ml, als_script(v), False,
+                                           kernel="set_cond",
+                                           loop="region (set_cond to set_cond)")
+    return out
+
+
+def _normwise_lr(a, b) -> dict:
+    return {nm: float(torch.linalg.norm(a[nm].double() - b[nm].double())
+                      / torch.linalg.norm(b[nm].double()))
+            for nm in ("L", "R")}
+
+
+def sparse_paths(ratings, als, dev, kernels) -> dict:
+    """(a) ALS-CG-ml10m-sparse: the MovieLens-10M-shaped V of the dense
+    path bound as a CSR tensor, at optlevel 3 with regions (the views the
+    reference's rule gives: dense) and eagerly (codegen_enabled False:
+    the CSR arms), each within 1e-3 of the dense-V run at optlevel 3;
+    (b) ALS-CG-netflix: a Netflix-Prize-shaped V made as CSR on the card,
+    at optlevel 3 with regions (ELL views, K2), optlevel 3 eagerly and
+    optlevel 2 with regions, the three within 1e-3 of each other and each
+    loss within 1e-3 of its recomputation in fp64; peak allocated below
+    one dense V, no densify of a (users, movies) or (movies, users)
+    matrix, K2 launched at optlevel 3."""
+    out = {}
+    torch.cuda.empty_cache()
+    v = ratings.to_sparse_csr()
+    dense = {"L": als["factors"][0], "R": als["factors"][1],
+             "loss": als["optlevel3"]["loss"]}
+    a = {"regions": run_sparse_als("ALS-CG-ml10m-sparse", v, 3, dev, kernels),
+         "eager": run_sparse_als("ALS-CG-ml10m-sparse", v, 3, dev, kernels,
+                                 regions=False)}
+    for mode, r in a.items():
+        d = _normwise_lr(r, dense)
+        d["loss"] = abs(r["loss"] - dense["loss"]) / abs(dense["loss"])
+        r["versus_dense_v"] = d
+        print(f"[sparse] ALS-CG-ml10m-sparse optlevel 3 {mode} against the "
+              f"dense-V run at optlevel 3: L {d['L']:.3e}, R {d['R']:.3e}, "
+              f"loss {d['loss']:.3e} (bars 1e-3); views {r['views'] or 'none'}",
+              flush=True)
+        if not max(d.values()) <= 1e-3:
+            fail(f"ALS-CG-ml10m-sparse {mode}: {d} from the dense-V run")
+    del v
+    out["ALS-CG-ml10m-sparse"] = a
+    torch.cuda.empty_cache()
+    v, csr_s = make_netflix(dev)
+    nnz = v.values().numel()
+    rows_k = int(v.crow_indices().diff().max())
+    print(f"[netflix] V ({NETFLIX_USERS}, {NETFLIX_MOVIES}) fp32 as CSR on "
+          f"the card: {nnz} ratings ({100 * nnz / (NETFLIX_USERS * NETFLIX_MOVIES):.4f}% "
+          f"dense), mean rating {float(v.values().double().mean()):.4f}, "
+          f"longest user row {rows_k}; made in {csr_s:.2f} s; a dense fp32 V "
+          f"would take {NETFLIX_DENSE_BYTES / 1e9:.2f} GB", flush=True)
+    if nnz != NETFLIX_RATINGS:
+        fail(f"the Netflix-shaped V has {nnz} ratings, not {NETFLIX_RATINGS}")
+    b = {"optlevel3": run_sparse_als("ALS-CG-netflix", v, 3, dev, kernels,
+                                     profile=True),
+         "optlevel3_eager": run_sparse_als("ALS-CG-netflix", v, 3, dev,
+                                           kernels, regions=False),
+         "optlevel2": run_sparse_als("ALS-CG-netflix", v, 2, dev, kernels)}
+    ref = b["optlevel3"]
+    shapes = {f"{NETFLIX_USERS}x{NETFLIX_MOVIES}",
+              f"{NETFLIX_MOVIES}x{NETFLIX_USERS}"}
+    for mode, r in b.items():
+        d = _normwise_lr(r, ref) if r is not ref else {"L": 0.0, "R": 0.0}
+        recomputed = loss_fp64(v, r["L"], r["R"], ALS_ARGS["reg"])
+        d["loss_fp64"] = abs(r["loss"] - recomputed) / abs(recomputed)
+        r["versus_optlevel3_regions"] = d
+        r["loss_fp64"] = recomputed
+        print(f"[netflix] {mode}: against optlevel 3 with regions L "
+              f"{d['L']:.3e}, R {d['R']:.3e}; loss {r['loss']:.6e} against "
+              f"{recomputed:.6e} recomputed in fp64 over the ratings, "
+              f"{d['loss_fp64']:.3e} relative (bars 1e-3); peak allocated "
+              f"{r['peak_bytes'] / 1e9:.3f} GB (one dense V "
+              f"{NETFLIX_DENSE_BYTES / 1e9:.2f} GB); densifies {r['densify'] or 'none'}",
+              flush=True)
+        if not max(d.values()) <= 1e-3:
+            fail(f"ALS-CG-netflix {mode}: {d}")
+        if r["peak_bytes"] >= NETFLIX_DENSE_BYTES:
+            fail(f"ALS-CG-netflix {mode}: peak allocated {r['peak_bytes']} B "
+                 f">= one dense V")
+        if shapes & set(r["densify"]):
+            fail(f"ALS-CG-netflix {mode}: densified {r['densify']}")
+    if b["optlevel3"]["launches"]["spoof_cell"] < 1:
+        fail("ALS-CG-netflix optlevel 3: K2 never launched")
+    if not b["optlevel3"]["views"] or any(
+            set(vs.values()) != {"ell"} for vs in b["optlevel3"]["views"].values()):
+        fail(f"ALS-CG-netflix optlevel 3: views {b['optlevel3']['views']}, "
+             f"not ELL")
+    b["csr_seconds"] = csr_s
+    b["views_host_ms"] = {m: r["views_host_ms"] for m, r in b.items()
+                          if isinstance(r, dict)}
+    del v
+    out["ALS-CG-netflix"] = b
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_outer_and_multiagg(als, v, progs, smi, abs_errs, kernels) -> list:
     """K5 and K3 at ALS-CG-ml10m's shape against their plain versions and
     bounds: K5 on the loss plan with X = V's 0/1 pattern and the optlevel-3
@@ -2815,6 +3064,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     # this slice's paths: ALS-CG-ml10m (K5, K2) and the ratings summary (K3)
     als = als_paths(ratings, als_progs, dev, kernels)
+    # the sparse plane: ALS-CG over a CSR V, MovieLens-10M- and
+    # Netflix-shaped
+    sparse = sparse_paths(ratings, als, dev, kernels)
 
     # ---- 4. times -----------------------------------------------------------
     v = torch.randn(K, 1, generator=gen, device=dev)
@@ -2845,6 +3097,9 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(3)
     by_path = {p: paths[p]["optlevel3"]["launches"] for p in paths}
     by_path["ALS-CG-ml10m"] = als["optlevel3"]["launches"]
+    by_path["ALS-CG-ml10m-sparse"] = \
+        sparse["ALS-CG-ml10m-sparse"]["regions"]["launches"]
+    by_path["ALS-CG-netflix"] = sparse["ALS-CG-netflix"]["optlevel3"]["launches"]
     spoof_launches = {k: sum(c[k] for c in by_path.values())
                       for k in ("spoof_cell", "spoof_row")}
     replaces = {"spoof_cell": "systemml_tpu/codegen/kernels.py:124 "
@@ -2909,6 +3164,8 @@ def main() -> None:
                 "driven from the host"})
     records.extend(time_outer_and_multiagg(als, ratings, als_progs, smi,
                                            max_abs_err, kernels))
+    records[-2]["launches_by_path"] = {p: c["spoof_outer"]
+                                       for p, c in by_path.items()}
     # the host time of one spoof wrapper call (a tiny input: the launch,
     # not the work); hops/cost.py HwProfile.h100().dispatch_us
     _, _, svm_plan, svm_names, svm_hop = kernel_plans(progs)[0]
@@ -2956,6 +3213,12 @@ def main() -> None:
                       "paths": paths, "cla_paths": cla_summary,
                       "als_paths": {k: r for k, r in als.items()
                                     if k not in ("factors", "cell_sums")},
+                      "sparse_paths": {
+                          p: {m: ({k: x for k, x in r.items()
+                                   if k not in ("L", "R")}
+                                  if isinstance(r, dict) else r)
+                              for m, r in runs.items()}
+                          for p, runs in sparse.items()},
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,20 @@
 Port of systemml_tpu/api/mlcontext.py (reference: api/mlcontext/
 MLContext.java:52, Script/ScriptFactory/MLResults): a session object that
 compiles DML source, binds in-memory inputs (numpy arrays, torch
-tensors, scalars), runs the compiler and runtime, and returns the
-requested outputs.
+tensors, scalars, and sparse matrices: a scipy.sparse matrix, a
+runtime.sparse.SparseMatrix or a torch sparse CSR tensor), runs the
+compiler and runtime, and returns the requested outputs.
+
+A sparse input below `sparsity_turn_point` binds as a SparseMatrix on the
+session's device (a torch CSR tensor on the card stays there: its own
+index and value tensors are used); above it, a scipy or torch sparse
+input binds dense, as in the JAX package. The bound inputs' sparsity
+seeds the compiler's estimates (compile_program's input_sparsity), so
+that the quaternary rewrites see a sparse V as sparse: read from the
+metadata of a sparse input, counted once per input object for a numpy
+array, and not read for a dense tensor (a host read on the card). Each
+input is converted once per Script and conversion policy, so that a
+re-execution finds the same SparseMatrix with its device mirrors.
 
 The session runs on the device its config names: the card by default
 (`DMLConfig.device = "cuda"`); the CPU only when the caller sets
@@ -25,6 +37,7 @@ from systemml_tpu_torch.lang.parser import parse, parse_file, resolve_imports
 from systemml_tpu_torch.runtime.data import (ListObject, MatrixObject,
                                              ScalarObject)
 from systemml_tpu_torch.runtime.program import compile_program
+from systemml_tpu_torch.runtime.sparse import SparseMatrix
 from systemml_tpu_torch.utils.config import (DMLConfig, apply_matmul_precision,
                                              get_config, resolve_device,
                                              set_config)
@@ -43,8 +56,11 @@ class MLResults:
         return self._vars[name]
 
     def get_tensor(self, name: str) -> torch.Tensor:
-        """A matrix output as the tensor it is, on its device."""
+        """A matrix output as the tensor it is, on its device (a sparse
+        output as its torch sparse CSR tensor)."""
         v = self.get(name)
+        if isinstance(v, SparseMatrix):
+            return v.to_csr_tensor()
         if not isinstance(v, torch.Tensor):
             raise TypeError(f"output {name!r} is not a matrix")
         return v
@@ -53,7 +69,8 @@ class MLResults:
         v = self.get(name)
         if isinstance(v, torch.Tensor):
             return v.detach().cpu().numpy()
-        if isinstance(v, (MatrixObject, CompressedMatrixBlock)):
+        if isinstance(v, (MatrixObject, CompressedMatrixBlock,
+                          SparseMatrix)):
             return v.to_numpy()
         return np.asarray(v)
 
@@ -81,6 +98,8 @@ class Script:
         self._inputs: Dict[str, Any] = {}
         self._args: Dict[str, Any] = {}
         self._outputs: List[str] = []
+        self._spmeta_memo: Dict[str, tuple] = {}
+        self._unwrap_memo: Dict[str, tuple] = {}
 
     def input(self, name: str, value: Any) -> "Script":
         if name.startswith("$"):
@@ -120,23 +139,69 @@ def _unwrap_input(v: Any, device: torch.device):
         return v.value
     elif isinstance(v, ListObject):
         return v
-    if type(v).__module__.startswith("scipy.sparse"):
-        raise NotImplementedError(
-            "sparse inputs wait for ROADMAP queue 1, sparse plane")
+    turn = get_config().sparsity_turn_point
+    if _is_scipy_sparse(v):
+        if v.nnz / max(1, v.shape[0] * v.shape[1]) < turn:
+            return SparseMatrix.from_scipy(v, device=device,
+                                           dtype=default_dtype())
+        v = np.asarray(v.todense())   # dense-ish input: the dense path
+    if isinstance(v, torch.Tensor) and v.layout != torch.strided:
+        csr = v if v.layout == torch.sparse_csr else v.to_sparse_csr()
+        if csr.values().numel() / max(1, v.shape[0] * v.shape[1]) < turn:
+            v = SparseMatrix.from_csr_tensor(csr)
+        else:
+            v = csr.to_dense()
+    if isinstance(v, SparseMatrix):
+        if v.device == device and v.dtype == default_dtype():
+            return v
+        return SparseMatrix(v.indptr.to(device), v.indices.to(device),
+                            v.data.to(device=device, dtype=default_dtype()),
+                            v.shape)
     if isinstance(v, np.generic):
         return v.item()
     if isinstance(v, np.ndarray):
         v = torch.from_numpy(np.ascontiguousarray(v))
     if isinstance(v, torch.Tensor):
-        if v.layout != torch.strided:
-            raise NotImplementedError(
-                "sparse tensors wait for ROADMAP queue 1, sparse plane")
         if v.is_floating_point():
             v = v.to(device=device, dtype=default_dtype())
         else:
             v = v.to(device=device)
         return v.reshape(-1, 1) if v.ndim == 1 else v
     return v
+
+
+def _is_scipy_sparse(v) -> bool:
+    return type(v).__module__.startswith("scipy.sparse") \
+        and hasattr(v, "tocsr")
+
+
+def _input_sparsity(inputs: Dict[str, Any], memo: Dict[str, tuple]
+                    ) -> Dict[str, float]:
+    """name -> observed sparsity of each bound matrix input, for the
+    compiler's estimates (the JAX package's _input_sparsity_meta): the nnz
+    of a sparse input is metadata, a numpy array is counted once per
+    object (`memo`), a dense tensor is skipped."""
+    meta = {}
+    for name, v in inputs.items():
+        if isinstance(v, MatrixObject):
+            v = v.array
+        if isinstance(v, SparseMatrix):
+            meta[name] = v.sparsity()
+        elif _is_scipy_sparse(v):
+            meta[name] = float(v.getnnz()) / max(1, v.shape[0] * v.shape[1])
+        elif isinstance(v, torch.Tensor) and v.layout != torch.strided \
+                and v.ndim == 2:
+            nnz = (v.values().numel() if v.layout == torch.sparse_csr
+                   else v._nnz())
+            meta[name] = float(nnz) / max(1, v.shape[0] * v.shape[1])
+        elif isinstance(v, np.ndarray) and v.ndim == 2 and v.size:
+            hit = memo.get(name)
+            if hit is not None and hit[0] is v:
+                meta[name] = hit[1]
+            else:
+                meta[name] = float(np.count_nonzero(v)) / v.size
+                memo[name] = (v, meta[name])
+    return meta
 
 
 def dml(source: str) -> Script:
@@ -183,9 +248,20 @@ class MLContext:
                 prog = compile_program(
                     ast_prog, clargs=script._args,
                     outputs=script._outputs or None,
-                    input_names=list(script._inputs))
-            inputs = {k: _unwrap_input(v, self.device)
-                      for k, v in script._inputs.items()}
+                    input_names=list(script._inputs),
+                    input_sparsity=_input_sparsity(script._inputs,
+                                                   script._spmeta_memo))
+            # converted once per (input object, policy): a re-execution
+            # finds the same SparseMatrix and its device mirrors
+            policy = (str(self.device), self.config.floating_point_precision,
+                      self.config.sparsity_turn_point)
+            inputs = {}
+            for k, v in script._inputs.items():
+                hit = script._unwrap_memo.get(k)
+                if hit is None or hit[0] is not v or hit[1] != policy:
+                    hit = (v, policy, _unwrap_input(v, self.device))
+                    script._unwrap_memo[k] = hit
+                inputs[k] = hit[2]
             ec = prog.execute(inputs=inputs, printer=self.printer)
             self._stats = prog.stats
             if self.statistics:

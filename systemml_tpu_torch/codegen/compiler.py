@@ -1,6 +1,8 @@
 # Port of systemml_tpu/codegen/compiler.py: SpoofCompiler, _extract_cell, _apply
 # and compile_spoof (lines 33-284) are copied with their imports pointed at
-# systemml_tpu_torch; execute_spoof is rewritten without the kernel backend.
+# systemml_tpu_torch; execute_spoof is rewritten without the kernel backend,
+# and _outer_sampled (line 510 there) so that it runs (the JAX package's
+# uses jnp without importing it, and raises NameError on a sparse X).
 """Codegen planner: template matching over HOP DAGs + plan cache.
 
 TPU-native equivalent of the reference's SpoofCompiler
@@ -29,6 +31,7 @@ from systemml_tpu_torch.codegen.memo import (MemoEntry, MemoTable,
                                              build_consumers, select_plans)
 from systemml_tpu_torch.hops.builder import BlockHops
 from systemml_tpu_torch.hops.hop import Hop, postorder
+from systemml_tpu_torch.runtime.sparse import ensure_dense, is_ell, is_sparse
 
 # minimum fused-op count for a plan to be worth a spoof operator
 MIN_FUSED_OPS = 2
@@ -454,16 +457,23 @@ def execute_spoof(h: Hop, arg_values: List) -> object:
     if run is not None:
         run.check_spoof_numbers(h, arg_values)
     if t == "outer":
-        # inputs: X, the scalar leaves, U, V (SpoofCompiler._apply). A
-        # sparse X, sampled on its pattern (the JAX package's
-        # _outer_sampled), waits for the sparse plane with every sparse
-        # value: the port's X is a dense tensor
+        # inputs: X, the scalar leaves, U, V (SpoofCompiler._apply)
         sca = h.params["scalar_names"]
         extra = dict(zip(sca, arg_values[1:1 + len(sca)]))
-        return kernels.outer_kernel(plan, arg_values[0], arg_values[-2],
-                                    arg_values[-1], extra, hop_variant(h))
+        x = arg_values[0]
+        u, v = ensure_dense(arg_values[-2]), ensure_dense(arg_values[-1])
+        if is_sparse(x) or is_ell(x):
+            # sampled on X's stored cells when the plan keeps zeros in X
+            # (f(0, uv) == 0); otherwise X densifies, the only correct way
+            r = _outer_sampled(plan, x, u, v, extra)
+            if r is not None:
+                return r
+        return kernels.outer_kernel(plan, ensure_dense(x), u, v, extra,
+                                    hop_variant(h))
     names = h.params["leaf_names"]
-    env = dict(zip(names, arg_values))
+    # a sparse leaf of a cell, row or multi-aggregate plan densifies, as
+    # in the JAX package (its _prep)
+    env = {nm: ensure_dense(v) for nm, v in zip(names, arg_values)}
     if t == "cell":
         return kernels.cell_kernel(plan, names, h.params.get("agg"), env,
                                    hop_variant(h))
@@ -474,6 +484,62 @@ def execute_spoof(h: Hop, arg_values: List) -> object:
         return kernels.multiagg_kernel(plan, names, h.params["aggs"], env,
                                        hop_variant(h))
     raise ValueError(f"unknown spoof template {t!r}")
+
+
+# (plan key, scalar leaves) -> whether the outer plan keeps zeros in X
+_ZERO_PRESERVING: Dict[tuple, bool] = {}
+
+
+def _outer_zero_preserving(plan: CNode, extra) -> bool:
+    """The JAX package's probe: the plan at X = 0 over UV = linspace(-3, 3,
+    17) is 0 everywhere. Taken on the host in fp64 and cached per plan and
+    scalar values, so that a loop region captures no host read; a scalar
+    leaf that is a device value is read once (a host read, which refuses a
+    loop region before its capture)."""
+    import torch
+
+    from systemml_tpu_torch.codegen.cplan import emit
+    from systemml_tpu_torch.compiler.lower import _host_read
+
+    host = {}
+    for nm, val in extra.items():
+        if isinstance(val, torch.Tensor):
+            val = _host_read(val, "a scalar leaf of a sampled outer plan")
+        host[nm] = float(val)
+    key = (plan.key(), tuple(sorted(host.items())))
+    ok = _ZERO_PRESERVING.get(key)
+    if ok is None:
+        env = dict(host)
+        env["X"] = torch.zeros(17, dtype=torch.float64)
+        env["UV"] = torch.linspace(-3.0, 3.0, 17, dtype=torch.float64)
+        try:
+            z = torch.as_tensor(emit(plan, env), dtype=torch.float64)
+            ok = bool(torch.all(torch.abs(z) < 1e-12))
+        except (KeyError, ValueError, RuntimeError):
+            ok = False
+        _ZERO_PRESERVING[key] = ok
+    return ok
+
+
+def _outer_sampled(plan: CNode, x, u, v, extra):
+    """The outer template over a sparse or ELL X, sampled at X's stored
+    cells (SDDMM style): sum over them of the plan on X's values and
+    UV = U %*% t(V) sampled there, one rank column at a time
+    (runtime/sparse._uv), without K5 or the (m, n) product. None when
+    the plan is not zero-preserving in X: the cells outside the pattern
+    would then contribute, and only the dense evaluation is right. ELL
+    pad slots hold X == 0, which zero-preservation sends to 0."""
+    import torch
+
+    from systemml_tpu_torch.codegen.cplan import emit
+    from systemml_tpu_torch.runtime import sparse as spm
+
+    if not _outer_zero_preserving(plan, extra):
+        return None
+    env = dict(extra)
+    env["X"] = x.val if is_ell(x) else x.data
+    env["UV"] = spm._uv(x, u, v)
+    return torch.sum(emit(plan, env))
 
 
 def program_plans(program) -> List[Tuple[str, CNode, object]]:

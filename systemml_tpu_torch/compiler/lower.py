@@ -11,10 +11,9 @@ each raising NotImplementedError that names its ROADMAP item:
 - block analysis for the whole-block compile (analyze_block; the fused
   whole-block compile and the buffer pool),
 - MESH dispatch and collectives (distributed and elastic),
-- sparse operands and the weighted quaternary ops other than wdivmm on
-  a dense carrier (sparse plane), attention and the DNN builtins (DNN and
-  models), the mesh branches of compressed operands and of the
-  quaternary ops (distributed and elastic),
+- attention and the DNN builtins (DNN and models), the mesh branches of
+  compressed and sparse operands and of the quaternary ops
+  (distributed and elastic),
 - every builtin outside _BUILTINS (see _WAITING_BUILTINS).
 """
 
@@ -551,6 +550,15 @@ def region_scope(run):
         _REGION.reset(tok)
 
 
+def region_refuse(reason: str) -> None:
+    """An op that a captured region could not run, met in a region's
+    first iteration: the region is refused with `reason` before any
+    capture (RegionRun.fault); outside a region, nothing."""
+    run = _REGION.get()
+    if run is not None:
+        run.fault(reason)
+
+
 def _host_read(v, what: str):
     """v.item(): a synchronisation, which a captured region cannot make."""
     run = _REGION.get()
@@ -801,6 +809,7 @@ class Evaluator:
         self._tstack: List[float] = []
         self.cache: Dict[int, Any] = {}
         self._consumers: Dict[int, int] = {}
+        self._parent_ops: Dict[int, Set[str]] = {}
 
     # ---- entry -----------------------------------------------------------
 
@@ -816,9 +825,11 @@ class Evaluator:
         from systemml_tpu_torch.hops.hop import postorder
 
         self._consumers = {}
+        self._parent_ops: Dict[int, Set[str]] = {}
         for h in postorder(roots):
             for c in h.inputs:
                 self._consumers[c.id] = self._consumers.get(c.id, 0) + 1
+                self._parent_ops.setdefault(c.id, set()).add(h.op)
 
     # ---- core ------------------------------------------------------------
 
@@ -882,8 +893,12 @@ class Evaluator:
         if op == "tsmm":
             return mult.tsmm(self._m(h.inputs[0]), h.params.get("left", True))
         if op == "mmchain":
+            from systemml_tpu_torch.runtime.sparse import ensure_dense
+
             xs = [self._m(c) for c in h.inputs]
-            return mult.mmchain(xs[0], xs[1], xs[2] if len(xs) > 2 else None,
+            # the chain's vectors are dense operands by contract
+            return mult.mmchain(xs[0], ensure_dense(xs[1]),
+                                ensure_dense(xs[2]) if len(xs) > 2 else None,
                                 h.params.get("ctype", "XtXv"))
         if op.startswith("q("):
             return self._quaternary(h)
@@ -891,6 +906,10 @@ class Evaluator:
             if op.startswith(prefix):
                 raise _waits(what, item)
         if op.startswith("b("):
+            if op == "b(*)":
+                r = self._try_sddmm(h)
+                if r is not None:
+                    return r
             a = self.eval(h.inputs[0])
             b = self.eval(h.inputs[1])
             o = h.params["op"]
@@ -977,19 +996,64 @@ class Evaluator:
         raise DMLValidationError(f"cannot evaluate hop {op!r}")
 
     def _quaternary(self, h: Hop):
-        """Weighted quaternary hop execution, after the JAX package's
-        `_quaternary` (systemml_tpu/compiler/lower.py:1618-1647) without
-        its mesh branch: wdivmm runs its dense arm (ops/mult.py); the
-        other kinds wait by name."""
+        """Weighted quaternary hop execution, the JAX package's
+        `_quaternary` (systemml_tpu/compiler/lower.py:1619-1647) without
+        its mesh branch (_try_dist_quaternary, which waits for ROADMAP
+        queue 1, distributed and elastic): the kernels of ops/mult.py take
+        the dense-or-sampled decision."""
         from systemml_tpu_torch.ops import mult
 
         kind = h.op[2:-1]
-        if kind != "wdivmm":
-            raise _waits(f"the weighted quaternary op {kind}", "sparse plane")
         p = h.params
-        return mult.wdivmm(self.eval(h.inputs[0]), self._m(h.inputs[1]),
-                           self._m(h.inputs[2]), bool(p.get("left")),
-                           bool(p.get("mult")), float(p.get("eps", 0.0)))
+        x = self.eval(h.inputs[0])
+        u = self._m(h.inputs[1])
+        v = self._m(h.inputs[2])
+        w = self.eval(h.inputs[3]) if len(h.inputs) > 3 else None
+        if kind == "wsloss":
+            return mult.wsloss(x, u, v, w, p.get("post", "NONE"))
+        if kind == "wsigmoid":
+            return mult.wsigmoid(x, u, v, p.get("flags", ""))
+        if kind == "wdivmm":
+            return mult.wdivmm(x, u, v, bool(p.get("left")),
+                               bool(p.get("mult")), float(p.get("eps", 0.0)))
+        if kind == "wcemm":
+            return mult.wcemm(x, u, v, float(p.get("eps", 0.0)))
+        return mult.wumm(x, u, v, op=p.get("op", "*"), uop=p.get("uop"))
+
+    def _try_sddmm(self, h: Hop):
+        """The value-aware SDDMM peephole on `b(*)`, as the JAX package's
+        (systemml_tpu/compiler/lower.py:1709): when one side evaluates to a
+        sparse or ELL matrix and the other is a matmult that only this op
+        consumes and that is not evaluated yet, the product is sampled at
+        the sparse side's stored cells (runtime/sparse.sddmm) and never
+        formed: ALS's W * (A %*% t(B)). Value-aware, not a hop rewrite, so
+        that the spoof outer template still sees the raw pattern when W is
+        dense. Where the JAX package asks for a product with one consumer,
+        the port takes one whose every consumer is a `b(*)`, and samples it
+        for each: ALS-CG.dml's loss check reads L %*% t(R) twice (D = W *
+        (L %*% t(R)) and WV * (L %*% t(R))), which would otherwise form the
+        whole (users, movies) product (34 GB at the Netflix shape)."""
+        from systemml_tpu_torch.runtime import sparse as sp
+
+        for xi, pi in ((0, 1), (1, 0)):
+            p = h.inputs[pi]
+            if (p.op != "ba+*" or p.id in self.cache
+                    or self._parent_ops.get(p.id, {"b(*)"}) != {"b(*)"}):
+                continue
+            x = self.eval(h.inputs[xi])
+            if sp.is_ell(x) or sp.is_sparse(x):
+                a = sp.ensure_dense(self.eval(p.inputs[0]))
+                b = sp.ensure_dense(self.eval(p.inputs[1]))
+                # a broadcast multiply (an (m, 1) mask times an (m, n)
+                # product) is not a sample of the product
+                if (getattr(a, "ndim", 0) != 2 or getattr(b, "ndim", 0) != 2
+                        or tuple(x.shape) != (a.shape[0], b.shape[1])):
+                    return None   # a and b are cached for the normal path
+                if self.stats is not None:
+                    self.stats.count_estim("sddmm")
+                return sp.sddmm(x, a, b)
+            # x is dense (evaluated and cached): try the other side
+        return None
 
     def _reassoc_matmult(self, h: Hop):
         """Matrix-mult-chain reassociation with exact shapes (reference:
@@ -1005,8 +1069,8 @@ class Evaluator:
         if len(chain) < 3:
             return None
         vals = [self._m(c) for c in chain]
-        if any(is_compressed(v) for v in vals):
-            return None  # compressed factors keep pairwise dispatch
+        if not all(isinstance(v, torch.Tensor) for v in vals):
+            return None  # sparse or compressed factors: pairwise dispatch
         dims = [int(vals[0].shape[0])] + [int(v.shape[1]) for v in vals]
         split = _mm_chain_order(dims)
         if self.stats is not None:
@@ -1173,8 +1237,12 @@ def _bi_matrix(ev, pos, named, h):
 
 
 def _bi_print(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.sparse import is_sparse
+
     v = pos[0] if pos else None
-    if isinstance(v, torch.Tensor) and v.numel() > 1:
+    if is_sparse(v):
+        msg = _matrix_to_string(v)
+    elif isinstance(v, torch.Tensor) and v.numel() > 1:
         msg = _matrix_to_string(v)
     else:
         msg = _to_display_str(v) if pos else ""
@@ -1183,8 +1251,14 @@ def _bi_print(ev, pos, named, h):
 
 
 def _matrix_to_string(x, rows=100, cols=100, decimal=3) -> str:
+    from systemml_tpu_torch.runtime.sparse import is_sparse
+
     # slice on the device first: only what is printed crosses to the host
-    arr = x[:int(rows), :int(cols)].detach().cpu().numpy()
+    if is_sparse(x):
+        arr = x.slice(0, min(int(rows), x.shape[0]), 0,
+                      min(int(cols), x.shape[1])).to_numpy()
+    else:
+        arr = x[:int(rows), :int(cols)].detach().cpu().numpy()
     return "\n".join(" ".join(f"{v:.{int(decimal)}f}" for v in row)
                      for row in arr)
 
@@ -1274,6 +1348,11 @@ def _bi_rexpand(ev, pos, named, h):
 
 
 def _bi_nnz(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.sparse import is_ell, is_sparse
+
+    if is_sparse(pos[0]) or is_ell(pos[0]):
+        vals = pos[0].data if is_sparse(pos[0]) else pos[0].val
+        return torch.count_nonzero(vals).to(vals.dtype)
     if is_compressed(pos[0]):
         return float(np.count_nonzero(pos[0].decompress()))
     x = _mat(pos[0])

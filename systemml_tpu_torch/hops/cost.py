@@ -4,9 +4,10 @@
 # pointed at systemml_tpu_torch. What differs: HwProfile gains h100(),
 # detect() chooses by the active config's device instead of the JAX
 # backend, and op_cost gives NaN (unknown) for the ops no caller costs
-# yet. kernel_feature_row, the other op branches, the quaternary decision
-# and the DAG and collective costs wait for their callers (ROADMAP queue 1:
-# kernel backend, sparse plane, distributed).
+# yet. quaternary_exploit (line 185 there) is the decision of ops/mult.py's
+# weighted quaternary ops. kernel_feature_row, the other op branches and
+# the DAG and collective costs wait for their callers (ROADMAP queue 1:
+# kernel backend, distributed).
 """Static time-cost estimator for HOP plans.
 
 TPU-native equivalent of the reference's hops/cost/ package
@@ -19,6 +20,7 @@ max(flops/peak, bytes/bandwidth) plus a fixed dispatch latency.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 from systemml_tpu_torch.hops.hop import Hop
 
@@ -118,3 +120,38 @@ def op_cost(h: Hop, hw: HwProfile) -> OpCost:
 # the memo table's outer-product costing reads; kept so that plan
 # selection stays the same
 QUATERNARY_GATHER_OVERHEAD = 16.0
+
+
+def quaternary_exploit(m: int, n: int, k: int, nnz: float,
+                       hw: Optional[HwProfile] = None,
+                       budget_bytes: Optional[float] = None
+                       ) -> Tuple[bool, str]:
+    """The dense-or-sampled decision of the weighted quaternary ops
+    (reference: LibMatrixMult.matrixMultW*'s sparse-or-dense split), as the
+    JAX package takes it. Returns (exploit?, reason): exploit when the
+    dense (m, n) product takes more than a quarter of the budget and the
+    sampled arm is the smaller ("infeasible"), or when the sampled arm's
+    roofline time (nnz * k gathers at QUATERNARY_GATHER_OVERHEAD) beats the
+    dense product's ("cheaper"); "dense_wins" otherwise. The budget is
+    mem_budget_bytes or the device's (HwProfile.detect(): the H100's on
+    the card)."""
+    hw = hw or HwProfile.detect()
+    bc = hw.bytes_per_cell
+    if budget_bytes is None:
+        from systemml_tpu_torch.utils.config import get_config
+
+        budget_bytes = get_config().mem_budget_bytes or hw.hbm_bytes
+    dense = OpCost(2.0 * m * float(n) * k,
+                   (m * float(k) + n * float(k) + m * float(n)) * bc)
+    exploit = OpCost(QUATERNARY_GATHER_OVERHEAD * 2.0 * float(nnz) * k,
+                     (m * float(k) + n * float(k)
+                      + float(nnz) * (bc + 4)))
+    if float(m) * n * bc > budget_bytes / 4.0:
+        # the dense product busts the budget; the sampled arm is the way
+        # out only when it is the smaller one
+        if exploit.bytes < dense.bytes:
+            return True, "infeasible"
+        return False, "dense_wins"
+    if exploit.time(hw) < dense.time(hw):
+        return True, "cheaper"
+    return False, "dense_wins"

@@ -9,7 +9,14 @@ there:
 A compressed operand with a host scalar maps its dictionaries only for
 * / + - ^ min max (and a scalar on the left for * + -), and a compressed
 operand of a unary op likewise; any other op on it decompresses, as in
-the JAX package. Double-float and sparse operands wait (ROADMAP queue 1).
+the JAX package. A sparse operand (runtime/sparse.py) stays sparse where
+the op preserves zeros, as there: a scalar * / ^ + - that keeps zeros,
+`X != 0` and `X > 0` (ALS's W = (V != 0)), sparse + - * sparse, sparse *
+dense (the pattern kept), and the zero-preserving unary ops; any other
+op densifies it. An ELL view (a loop region's) takes the same
+zero-preserving scalar ops and ELL * dense on its values, all sync-free.
+Double-float operands wait (ROADMAP queue 1, algorithm breadth and
+precision policies).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from systemml_tpu_torch.compress import is_compressed
+from systemml_tpu_torch.runtime import sparse as sp
 from systemml_tpu_torch.utils.config import default_dtype, get_config
 
 
@@ -46,8 +54,7 @@ def _operands(a, b):
         if not isinstance(v, (torch.Tensor, bool, int, float)):
             raise NotImplementedError(
                 f"cellwise op on {type(v).__name__}: only dense tensors, "
-                f"compressed matrices and scalars are ported (ROADMAP "
-                f"queue 1: sparse plane)")
+                f"sparse and compressed matrices and scalars are ported")
     if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
         a = as_tensor(a)
     if isinstance(a, bool):
@@ -133,6 +140,111 @@ def _binary_compressed(op: str, a, b):
     return None
 
 
+def _scalar(v) -> bool:
+    return isinstance(v, (int, float, bool))
+
+
+def _binary_ell(op: str, a, b):
+    """Zero-preserving binary ops on an ELL view (runtime/sparse.EllMatrix),
+    which run inside loop regions: no host read. None -> the caller
+    densifies."""
+    if sp.is_ell(a) and _scalar(b):
+        bf = float(b)
+        if op == "*":
+            return a.value_map(lambda d: d * bf)
+        if op == "/" and bf != 0:
+            return a.value_map(lambda d: d * (1.0 / bf))
+        if op == "^" and bf > 0:
+            return a.value_map(lambda d: d ** bf)
+        if op in ("+", "-") and bf == 0:
+            return a
+        return None
+    if _scalar(a) and sp.is_ell(b):
+        if op == "*":
+            af = float(a)
+            return b.value_map(lambda d: d * af)
+        return None
+    # ell * dense of the same shape: only the stored cells of the dense
+    # side are read (ALS's W * (V - A %*% t(B)) stays sparse)
+    if op == "*" and sp.is_ell(a) and isinstance(b, torch.Tensor) \
+            and tuple(b.shape) == a.shape:
+        return a.mul_dense(b)
+    if op == "*" and sp.is_ell(b) and isinstance(a, torch.Tensor) \
+            and tuple(a.shape) == b.shape:
+        return b.mul_dense(a)
+    return None
+
+
+def _same_pattern(a, b) -> bool:
+    return a.indptr is b.indptr and a.indices is b.indices
+
+
+def _binary_sparse(op: str, a, b):
+    """Sparse-preserving binary ops (reference: MatrixBlock's sparse-safe
+    scalar and binary operations). None -> the caller densifies."""
+    if sp.is_sparse(a) and _scalar(b):
+        bf = float(b)
+        if op == "*":
+            return a.scale(bf)
+        if op == "/" and bf != 0:
+            return a.scale(1.0 / bf)
+        if op == "^" and bf > 0:
+            return a.value_map(lambda d: d ** bf)
+        if op in ("+", "-") and bf == 0:
+            return a
+        if op == "!=" and bf == 0:
+            # the (V != 0) rating mask: zero-preserving, V's pattern
+            return a.value_map(lambda d: (d != 0).to(d.dtype))
+        if op == ">" and bf == 0:
+            return a.value_map(lambda d: (d > 0).to(d.dtype))
+        return None
+    if _scalar(a) and sp.is_sparse(b):
+        af = float(a)
+        if op == "*":
+            return b.scale(af)
+        if op == "+" and af == 0:
+            return b
+        return None
+    if sp.is_sparse(a) and sp.is_sparse(b) and a.shape == b.shape:
+        if op == "*" and _same_pattern(a, b):
+            # W * V with W = (V != 0): one pattern, the values multiplied
+            out = a.with_values(a.data * b.data)
+            out._from = ("mul2", a, b)
+            return out
+        if op in ("+", "-", "*"):
+            out = _sparse_sparse(op, a, b)
+            if op == "*":
+                out._from = ("mul2", a, b)
+            return out
+    # sparse * dense keeps the sparse pattern
+    if op == "*" and sp.is_sparse(a) and isinstance(b, torch.Tensor) \
+            and tuple(b.shape) == a.shape:
+        return a.with_values(a.data * b[a.rows(), a.indices])
+    if op == "*" and sp.is_sparse(b) and isinstance(a, torch.Tensor) \
+            and tuple(a.shape) == b.shape:
+        return b.with_values(a[b.rows(), b.indices] * b.data)
+    return None
+
+
+def _sparse_sparse(op: str, a, b):
+    """a + b, a - b (the union of the patterns) or a * b (the
+    intersection) of two CSR matrices of one shape, as scipy's."""
+    n = a.shape[1]
+    ka = a.rows() * n + a.indices
+    kb = b.rows() * n + b.indices
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if op == "*":
+        pos = torch.searchsorted(kb, ka).clamp(max=max(kb.numel() - 1, 0))
+        hit = kb[pos] == ka if kb.numel() else torch.zeros_like(ka, dtype=bool)
+        keys = ka[hit]
+        vals = a.data[hit].to(dt) * b.data[pos[hit]].to(dt)
+    else:
+        keys = torch.cat([ka, kb])
+        vals = torch.cat([a.data.to(dt),
+                          b.data.to(dt) if op == "+" else -b.data.to(dt)])
+    return sp.SparseMatrix.from_coo(keys // n, keys % n, vals, a.shape)
+
+
 def binary_op(op: str, a, b):
     """Dispatch a DML binary operator to torch. a/b: tensor or python
     scalar; a scalar pair is lifted to a tensor (the evaluator computes
@@ -143,6 +255,16 @@ def binary_op(op: str, a, b):
             return r
         a = a.to_dense() if is_compressed(a) else a
         b = b.to_dense() if is_compressed(b) else b
+    if sp.is_ell(a) or sp.is_ell(b):
+        r = _binary_ell(op, a, b)
+        if r is not None:
+            return r
+        a, b = sp.ensure_dense(a), sp.ensure_dense(b)
+    if sp.is_sparse(a) or sp.is_sparse(b):
+        r = _binary_sparse(op, a, b)
+        if r is not None:
+            return r
+        a, b = sp.ensure_dense(a), sp.ensure_dense(b)
     a, b = _operands(a, b)
     if op in _ARITH:
         return _ARITH[op](a, b)
@@ -197,6 +319,13 @@ _UNARY = {
 }
 
 
+# f(0) == 0: safe on a sparse matrix's stored values alone (reference: the
+# "sparse-safe" flags of the Builtin function objects)
+_ZERO_PRESERVING = {"abs", "sin", "tan", "sinh", "tanh", "sqrt", "sign",
+                    "floor", "ceil", "ceiling", "round", "-", "sprop",
+                    "asin", "atan"}
+
+
 def unary_op(op: str, x):
     """Dispatch a DML unary builtin (abs/sin/.../sigmoid) to torch."""
     if is_compressed(x):
@@ -204,13 +333,16 @@ def unary_op(op: str, x):
         # preserved: dictionaries hold explicit values)
         return x.value_map(
             lambda d: unary_op(op, torch.from_numpy(d)).numpy())
+    if sp.is_ell(x) or sp.is_sparse(x):
+        if op in _ZERO_PRESERVING:
+            return x.value_map(lambda d: unary_op(op, d))
+        x = x.to_dense()
     if isinstance(x, (bool, int, float)):
         x = as_tensor(x)
     if not isinstance(x, torch.Tensor):
         raise NotImplementedError(
-            f"unary {op} on {type(x).__name__}: only dense tensors and "
-            f"compressed matrices are ported (ROADMAP queue 1: sparse "
-            f"plane)")
+            f"unary {op} on {type(x).__name__}: only dense tensors, sparse "
+            f"and compressed matrices are ported")
     fn = _UNARY.get(op)
     if fn is None:
         raise NotImplementedError(

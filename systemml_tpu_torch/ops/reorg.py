@@ -1,13 +1,16 @@
 """Reorganization: transpose, concatenation, reshape, indexing.
 
-Port of systemml_tpu/ops/reorg.py, dense branches. `transpose` returns
-the transposed VIEW, never a copy: matmult and tsmm hand the view to
+Port of systemml_tpu/ops/reorg.py. `transpose` returns the transposed
+VIEW of a dense matrix, never a copy: matmult and tsmm hand the view to
 cuBLAS as a transposed operand, so `t(X) %*% y` over an 8 GB X costs no
-second X. Indexing with device bounds (the fused-loop minibatch path,
-which a loop region refuses for now), sort and the triangular
-extractions wait (ROADMAP queue 1: fused loop regions' follow-ups,
-algorithm breadth). A compressed operand is
-decompressed first, as in the JAX package.
+second X. A sparse matrix transposes and slices in CSR (a small slice
+densifies, as in the JAX package); an ELL view transposes through its
+dense form; every other op, and a concat with any sparse or compressed
+operand, densifies. Indexing with device bounds (the fused-loop
+minibatch path, which a loop region refuses for now), sort and the
+triangular extractions wait (ROADMAP queue 1: fused loop regions'
+follow-ups, algorithm breadth). A compressed operand is decompressed
+first, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,20 +18,22 @@ from __future__ import annotations
 import torch
 
 from systemml_tpu_torch.compress import is_compressed
+from systemml_tpu_torch.runtime import sparse as sp
 
 
 def _dense(x):
-    if is_compressed(x):
-        x = x.to_dense()
+    x = sp.ensure_dense(x)
     if not isinstance(x, torch.Tensor) or x.layout != torch.strided:
         raise NotImplementedError(
-            f"reorg on {type(x).__name__}: only dense and compressed "
-            f"matrices are ported (ROADMAP queue 1: sparse plane)")
+            f"reorg on {type(x).__name__}: only dense, sparse and "
+            f"compressed matrices are ported")
     return x
 
 
 def transpose(x):
-    return _dense(x).T
+    if sp.is_sparse(x):
+        return x.transpose()
+    return _dense(x).T   # an ELL view: no cheap transpose of its rows
 
 
 def rev(x):
@@ -71,7 +76,15 @@ def rbind(*xs):
 
 
 def right_index(x, rl, ru, cl, cu):
-    """X[rl:ru, cl:cu] with 1-based inclusive static bounds (a view)."""
+    """X[rl:ru, cl:cu] with 1-based inclusive static bounds (a view). A
+    sparse X slices in CSR; a slice of at most 4096 cells densifies
+    (scalar extraction, per-row loops: CSR bookkeeping costs more than the
+    cells), as in the JAX package."""
+    if sp.is_sparse(x):
+        out = x.slice(rl - 1, ru, cl - 1, cu)
+        if out.shape[0] * out.shape[1] <= 4096:
+            return out.to_dense()
+        return out
     return _dense(x)[rl - 1:ru, cl - 1:cu]
 
 

@@ -2,9 +2,9 @@
 
 Port of systemml_tpu/runtime/data.py over torch.Tensor. A MatrixObject
 holds a 2-D tensor on the device the config names (the card, or the CPU
-when the caller asks for it); numpy appears only at host boundaries.
-Frames wait (ROADMAP queue 1, parfor, transform and frames); sparse
-matrices wait (sparse plane).
+when the caller asks for it), or a runtime.sparse.SparseMatrix (CSR on
+its device) with its nnz; numpy appears only at host boundaries. Frames
+wait (ROADMAP queue 1, parfor, transform and frames).
 
 `from_reference` carries values from the JAX package into the port, the
 way the tests feed both packages from one seed.
@@ -48,19 +48,27 @@ class ScalarObject(Data):
 
 class MatrixObject(Data):
     """A 2-D matrix backed by a dense torch.Tensor (a 1-D tensor becomes
-    a column)."""
+    a column) or a SparseMatrix. `nnz` may be given with a dense tensor;
+    otherwise it is counted at first ask (a host read on the card)."""
 
     data_type = DataType.MATRIX
 
-    __slots__ = ("array",)
+    __slots__ = ("array", "_nnz")
 
-    def __init__(self, array: torch.Tensor):
+    def __init__(self, array, nnz: Optional[int] = None):
+        from systemml_tpu_torch.runtime.sparse import SparseMatrix
+
+        if isinstance(array, SparseMatrix):
+            self.array = array
+            self._nnz = array.nnz
+            return
         if not isinstance(array, torch.Tensor):
-            raise TypeError(f"MatrixObject holds a torch.Tensor, not "
-                            f"{type(array).__name__}")
+            raise TypeError(f"MatrixObject holds a torch.Tensor or a "
+                            f"SparseMatrix, not {type(array).__name__}")
         if array.ndim == 1:
             array = array.reshape(-1, 1)
         self.array = array
+        self._nnz = nnz
 
     @property
     def shape(self):
@@ -75,7 +83,23 @@ class MatrixObject(Data):
         return int(self.array.shape[1])
 
     def to_numpy(self) -> np.ndarray:
+        if self.is_sparse():
+            return self.array.to_numpy()
         return self.array.detach().cpu().numpy()
+
+    def is_sparse(self) -> bool:
+        from systemml_tpu_torch.runtime.sparse import SparseMatrix
+
+        return isinstance(self.array, SparseMatrix)
+
+    def nnz(self) -> int:
+        if self._nnz is None:
+            self._nnz = int(torch.count_nonzero(self.array))
+        return self._nnz
+
+    def sparsity(self) -> float:
+        n = self.num_rows * self.num_cols
+        return self.nnz() / n if n else 1.0
 
     def __repr__(self):
         return (f"Matrix({self.num_rows}x{self.num_cols}, "

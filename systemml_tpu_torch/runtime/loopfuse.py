@@ -19,7 +19,16 @@ Per entry of a region (`FusedLoop.run_while` / `run_for`):
 1. refuse before anything runs, with a classified reason (`REASONS`):
    the plan refused it, a read is compressed, a carried string the plan
    did not drop, a `print` or an unseeded `rand` in the body, a
-   loop-varying name feeding a shape or a slice bound. The refusal emits
+   loop-varying name feeding a shape or a slice bound, a carried sparse
+   matrix ("sparse carried"), or a loop-invariant sparse matrix without a
+   device view ("sparse view": runtime/sparse.loop_device_view found
+   neither form viable, or the views of the entry, counted by their
+   device storage, pass cap / 8 of the budget; the JAX package's
+   loopfuse.py:734-765). Each loop-invariant SparseMatrix is read
+   through its view (dense or ELL, cached on the matrix, so a re-entry
+   finds the same addresses), installed before the peel and taken out at
+   exit: inside the region only views, never a CSR, so no cuSPARSE call
+   and no host read of a CSR's size is captured. The refusal emits
    a `loop_fallback` event, counts in `loop_regions_refused` and latches;
    the loop then runs eagerly with the same kernels, and each inner loop
    runs as a region of its own, as the JAX package's inner FusedLoops do
@@ -69,6 +78,7 @@ that loop runs no iteration in a later pass of the outer one.
 
 from __future__ import annotations
 
+import sys
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -81,12 +91,13 @@ from systemml_tpu_torch.compiler.lower import (NotLoopFusable,
                                                _live_after, _plan_one_region,
                                                region_scope)
 from systemml_tpu_torch.hops.hop import postorder
+from systemml_tpu_torch.runtime import sparse as sp
 
 # the classified reasons a region is refused at entry or after its peel
 # (a plan's refusal keeps the plan's own text)
 REASONS = ("compressed operand", "carried string", "print", "rand",
            "static_names", "shape change", "host read", "unbound read",
-           "fractional for")
+           "fractional for", "sparse view", "sparse carried")
 # bodies with a device execution counter per region graph
 MAX_SCOPES = 1024
 # nesting of conditional nodes (loops and ifs, through function calls)
@@ -646,8 +657,6 @@ class _Entry:
         self.host: Optional[Dict[str, float]] = None
 
     def __del__(self):
-        import sys
-
         if (self.exec is not None or self.graph is not None) \
                 and not sys.is_finalizing():
             from systemml_tpu_torch.codegen import loop_graph as lg
@@ -783,6 +792,9 @@ class FusedLoop:
             return "compressed operand"
         if any(isinstance(env.get(n), str) for n in plan.carried):
             return "carried string"
+        if any(sp.is_sparse(env.get(n)) or sp.is_ell(env.get(n))
+               for n in plan.carried):
+            return "sparse carried"
         return None
 
     # ---- entry ------------------------------------------------------------
@@ -814,6 +826,9 @@ class FusedLoop:
                     for i in iters):
                 return False      # not worth a graph, as the JAX package
         reason = self._entry_refusal(loop, ec, plan)
+        views = {}
+        if reason is None:
+            views, reason = self._views(ec, plan)
         if reason is not None:
             self._refuse(ec, f"{kind}.entry", reason, label)
             return False
@@ -822,7 +837,41 @@ class FusedLoop:
             from systemml_tpu_torch.codegen import loop_graph as lg
 
             lg.check_versions()
-        return self._enter(loop, ec, plan, kind, iters, dev)
+        env = ec.vars
+        sparse = {n: env[n] for n in views}
+        env.update(views)
+        try:
+            return self._enter(loop, ec, plan, kind, iters, dev)
+        finally:
+            for n, sm in sparse.items():
+                if env.get(n) is views[n]:
+                    env[n] = sm
+
+    def _views(self, ec, plan):
+        """({name: device view} of the loop-invariant sparse reads, the
+        refusal reason or None), the views budgeted together at cap / 8
+        by their device storage (a transposed dense view shares its
+        parent's and adds none)."""
+        env = ec.vars
+        views = {}
+        storages = {}
+        for n in sorted((set(plan.reads) | set(plan.pred_reads))
+                        - set(plan.carried)):
+            v = env.get(n)
+            if not sp.is_sparse(v):
+                continue
+            dv = sp.loop_device_view(v)
+            if dv is None:
+                return {}, "sparse view"
+            for t in ((dv.idx, dv.val) if sp.is_ell(dv) else (dv,)):
+                st = t.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+            if sum(storages.values()) > sp.device_budget() / 8:
+                return {}, "sparse view"
+            views[n] = dv
+        self.record["views"] = {n: "ell" if sp.is_ell(dv) else "dense"
+                                for n, dv in views.items()}
+        return views, None
 
     def _key(self, env, plan, carried, traced, kind, iters) -> tuple:
         parts = []
@@ -844,6 +893,12 @@ class FusedLoop:
                     parts.append((n, "v", type(v), v))
             elif isinstance(v, str):
                 parts.append((n, "v", str, v))
+            elif sp.is_ell(v):
+                # an ELL view signs by its leaves: another width or
+                # another tensor is another graph
+                parts.append((n, "e", v.shape,
+                              tuple(v.idx.shape), v.idx.data_ptr(),
+                              v.val.dtype, v.val.data_ptr()))
             else:
                 parts.append((n, "o", type(v).__name__, id(v)))
         return (kind, tuple(parts))

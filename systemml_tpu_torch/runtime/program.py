@@ -30,6 +30,12 @@ refused, by the plan or by a classified reason at entry, runs eagerly
 with the same kernels, counted. Without `codegen_enabled` every loop runs
 eagerly, as in the JAX package.
 
+Sparse values (runtime/sparse.py) run eagerly in every basic block: the
+JAX package demotes them out of its whole-block compile
+(systemml_tpu/runtime/program.py:162-185), which the port does not have;
+inside a loop region a loop-invariant SparseMatrix is read through its
+device view (runtime/loopfuse.py).
+
 What waits: the fused whole-block compile outside loops, the buffer
 pool, layout propagation, the exec-type planner and MESH mode, the rest
 of the lifetime analysis, and parfor. A config that asks for one of them
@@ -723,12 +729,17 @@ def _check_config_supported(cfg) -> None:
 def compile_program(ast_prog: A.DMLProgram,
                     clargs: Optional[Dict[str, Any]] = None,
                     outputs: Optional[Sequence[str]] = None,
-                    input_names: Optional[Sequence[str]] = None) -> Program:
+                    input_names: Optional[Sequence[str]] = None,
+                    input_sparsity: Optional[Dict[str, float]] = None
+                    ) -> Program:
     """outputs = the caller's requested result variables (MLContext); they
     seed the exit-live set of the rmvar liveness pass. None keeps every
     top-level write alive to program end. input_names = in-memory
     bindings the caller will supply at execute time (they count as
-    defined for the validate pass). At optlevel 3 on the card the
+    defined for the validate pass). input_sparsity = name -> observed
+    sparsity of bound inputs: seeds Hop.est_sp, so that the estimate-
+    guarded rewrites (the quaternary tranche, hops/rewrite._q_guard) see
+    a bound sparse matrix as sparse. At optlevel 3 on the card the
     program's fused plans are built before it returns."""
     from systemml_tpu_torch.obs import trace as obs
     from systemml_tpu_torch.utils import stats as stats_mod
@@ -769,7 +780,7 @@ def compile_program(ast_prog: A.DMLProgram,
                                                  rewrite_block_dynamic)
 
     with obs.span("size_propagation", obs.CAT_COMPILE):
-        propagate_program_sizes(prog)
+        propagate_program_sizes(prog, input_sps=input_sparsity)
     if cfg.optlevel >= 2:
         with stats_mod.stats_scope(prog.stats), \
                 obs.span("dynamic_rewrites", obs.CAT_COMPILE) as dsp:
@@ -783,7 +794,7 @@ def compile_program(ast_prog: A.DMLProgram,
                     break
                 for bb in iter_basic_blocks(prog):
                     rewrite_block(bb.hops)
-                propagate_program_sizes(prog)
+                propagate_program_sizes(prog, input_sps=input_sparsity)
             dsp.set(applied=total_dyn, rounds=rounds)
         if total_dyn:
             prog.stats.count_estim("dynamic_rewrites", total_dyn)

@@ -470,6 +470,7 @@ PORTED_FIELDS = frozenset({
     "device", "optlevel", "exec_mode", "codegen_enabled", "cla",
     "cla_min_ratio", "blocksize", "floating_point_precision",
     "matmul_precision", "compensated_sum", "sparsity_turn_point",
+    "ultra_sparsity_turn_point", "mem_budget_bytes",
     "trace_max_events", "stats_max_heavy_hitters",
     "liveness_enabled", "validate_enabled"})
 
@@ -479,7 +480,6 @@ _WAITING = (
     (("loopfuse_", "compile_timeout_s", "xla_cache_dir", "bufferpool_",
       "mem_"), "the buffer pool and the whole-block compile"),
     (("pallas_mode", "codegen_"), "kernel backend and tuner"),
-    (("ultra_sparsity_turn_point",), "sparse plane"),
     (("conv_",), "DNN and models"),
     (("parfor_", "remote_deadline_s"), "parfor, transform and frames"),
     (("serving_",), "serving and export"),

@@ -4,8 +4,11 @@ Port of systemml_tpu/utils/stats.py, trimmed to the counters that the
 port's runtime touches: run time, executed blocks, function calls,
 per-op heavy hitters, the optimizer/rewrite event families that the
 copied HOP passes (hops/rewrite.py, hoist.py, ipa.py) and the spoof
-fusion pass (codegen/) report, and the fused loop regions
-(`loop_regions`, `loop_regions_refused`, `region_counts`). Every family lives in a run-scoped
+fusion pass (codegen/) report, the fused loop regions
+(`loop_regions`, `loop_regions_refused`, `region_counts`) and the sparse
+plane (the `spx_*` quaternary paths in their "Sparse exec" line; the
+`spmm_*`, `spgemm_*`, `sp_tsmm_*`, `sddmm` and `sparse_densify` decisions
+among the optimizer decisions). Every family lives in a run-scoped
 ``MetricsRegistry`` (obs/metrics.py), as in the JAX package.
 """
 
@@ -49,6 +52,10 @@ ESTIM_GROUPS = (
     # spoof_plain_by_layout, kernel wrapper calls whose leaf layout the
     # kernels refuse, which run the plain version (codegen/kernels.py)
     ("spoof_", "spoof"),
+    # sparse execution paths: spx_<op>_<path>, one per weighted
+    # quaternary op run (exploit_ell, exploit_csr, densify, dense; ops/
+    # mult.py)
+    ("spx_", "sparse_exec"),
 )
 
 
@@ -138,7 +145,8 @@ class Statistics:
             for i, (op, t) in enumerate(hh, 1):
                 lines.append(f"  {i}  {op}\t{t:.3f}\t{self.op_count[op]}")
         g = self.estim_counts.grouped()
-        rw, spoof, opt = g["rewrites"], g["spoof"], g[""]
+        rw, spoof, spx, opt = (g["rewrites"], g["spoof"], g["sparse_exec"],
+                               g[""])
         if rw:
             top = sorted(rw.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
             suffix = ", ..." if len(rw) > len(top) else ""
@@ -149,6 +157,12 @@ class Statistics:
         if spoof:
             lines.append("Spoof fusion: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(spoof.items())))
+        if spx:
+            # which arm each weighted quaternary op ran: the sampled one
+            # (exploit_ell / exploit_csr) or the (m, n) product (densify /
+            # dense), as the JAX package's "Sparse exec" line
+            lines.append("Sparse exec (op_path=count): " + ", ".join(
+                f"{k}={v}" for k, v in sorted(spx.items())))
         if opt:
             lines.append("Optimizer decisions: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(opt.items())))

@@ -1304,3 +1304,186 @@ def test_region_graph_dies_with_its_program(cuda):
     assert loopfuse.live_graphs() == n0 + 1
     del prog
     assert loopfuse.live_graphs() == n0     # no cycle: refcount frees it
+
+
+# --------------------------------------------------------------------------
+# the sparse plane on the card (runtime/sparse.py): the ELL kernels and
+# the sampled quaternary arms against the same call on the CPU, the CSR
+# arms (cuSPARSE through torch.sparse) against dense products, and a loop
+# region over a sparse invariant
+# --------------------------------------------------------------------------
+
+def _sparse_pair(cuda, m=777, n=301, density=0.03, seed=21):
+    from systemml_tpu_torch.runtime import sparse as sp
+
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.random((m, n)) < density,
+                 rng.standard_normal((m, n)), 0.0)
+    cpu = sp.SparseMatrix.from_dense(a)
+    return a, cpu, sp.SparseMatrix.from_dense(torch.from_numpy(a).to(cuda))
+
+
+def _same_value(got, ref, bar=1e-12):
+    from systemml_tpu_torch.runtime import sparse as sp
+
+    def dense(v):
+        if sp.is_ell(v):
+            v = v.to_dense()
+        elif sp.is_sparse(v):
+            return v.to_numpy()
+        return v.detach().cpu().numpy()
+
+    g, r = dense(got), dense(ref)
+    assert g.shape == r.shape
+    nr = np.linalg.norm(r)
+    assert np.linalg.norm(g - r) <= bar * (nr if nr else 1.0)
+
+
+def test_sparse_ell_kernels_match_cpu(cuda):
+    """ELL mm, tmm, spmv, mul_dense and sddmm, and every q_* sampled arm,
+    on CUDA tensors against the same call on the CPU (fp64; tmm and the
+    left wdivmm add with float atomics on the card: 1e-12)."""
+    from systemml_tpu_torch.runtime import sparse as sp
+
+    a, cpu, dev = _sparse_pair(cuda)
+    rng = np.random.default_rng(22)
+    m, n = a.shape
+    u, v = rng.standard_normal((m, 10)), rng.standard_normal((n, 10))
+    d = rng.standard_normal((m, n))
+    tu, tv, td = (torch.from_numpy(t) for t in (u, v, d))
+    cu, cv, cd = (t.to(cuda) for t in (tu, tv, td))
+    for carrier in ("ell", "csr"):
+        if carrier == "ell":
+            x_c = sp.EllMatrix(*cpu.to_ell_device(), cpu.shape)
+            x_d = sp.EllMatrix(*dev.to_ell_device(), dev.shape)
+            assert x_d.idx.is_cuda and x_d.idx.dtype == torch.int32
+            _same_value(x_d.mm(cv), x_c.mm(tv))
+            _same_value(x_d.mm(cv[:, :1]), x_c.mm(tv[:, :1]))
+            _same_value(x_d.tmm(cu), x_c.tmm(tu))
+            _same_value(sp.ell_spmv(x_d.idx, x_d.val, cv[:, 0]),
+                        sp.ell_spmv(x_c.idx, x_c.val, tv[:, 0]))
+            _same_value(x_d.mul_dense(cd), x_c.mul_dense(td))
+        else:
+            x_c, x_d = cpu, dev
+        _same_value(sp.sddmm(x_d, cu, cv.T), sp.sddmm(x_c, tu, tv.T))
+        for post in ("NONE", "POST_NZ"):
+            _same_value(sp.q_wsloss(x_d, cu, cv, None, post),
+                        sp.q_wsloss(x_c, tu, tv, None, post))
+        for post in ("POST", "PRE"):
+            _same_value(sp.q_wsloss(cd, cu, cv, x_d, post),
+                        sp.q_wsloss(td, tu, tv, x_c, post))
+        for flags in ("", "minus log"):
+            _same_value(sp.q_wsigmoid(x_d, cu, cv, flags),
+                        sp.q_wsigmoid(x_c, tu, tv, flags))
+        for left, mw, eps in ((False, True, 0.0), (True, False, 0.5)):
+            _same_value(sp.q_wdivmm(x_d, cu, cv, left, mw, eps),
+                        sp.q_wdivmm(x_c, tu, tv, left, mw, eps))
+        _same_value(sp.q_wcemm(x_d, cu.abs(), cv.abs(), 1.0),
+                    sp.q_wcemm(x_c, tu.abs(), tv.abs(), 1.0))
+        _same_value(sp.q_wumm(x_d, cu, cv, "exp", True),
+                    sp.q_wumm(x_c, tu, tv, "exp", True))
+
+
+def test_sparse_csr_arms_match_dense_products(cuda):
+    """The CSR arms on the card (cuSPARSE SpMM and SpGEMM through
+    torch.sparse) against the dense products of to_dense()."""
+    from systemml_tpu_torch.runtime import sparse as sp
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    a, _, x = _sparse_pair(cuda)
+    dx = torch.from_numpy(a).to(cuda)
+    rng = np.random.default_rng(23)
+    b = torch.from_numpy(rng.standard_normal((a.shape[1], 7))).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((5, a.shape[0]))).to(cuda)
+    cfg = DMLConfig()
+    cfg.mem_budget_bytes = 1e4       # the CSR arms of spgemm and sp_tsmm
+    set_config(cfg)
+    try:
+        st = stats.Statistics()
+        with stats.stats_scope(st):
+            _same_value(sp.spmm(x, b), dx @ b)
+            _same_value(sp.spmm_exact(x, b), dx @ b)
+            _same_value(sp.gemm_sp(c, x), c @ dx)
+            xt = x.transpose()
+            _same_value(xt, dx.T)
+            got = sp.spgemm(x, xt)
+            _same_value(got, dx @ dx.T, 1e-11)
+            _same_value(sp.sp_tsmm(x, True), dx.T @ dx, 1e-11)
+            _same_value(sp.sp_tsmm(x, False), dx @ dx.T, 1e-11)
+            _same_value(x.row_sums(), dx.sum(1))
+            _same_value(x.col_sums(), dx.sum(0))
+            _same_value(x.slice(3, 500, 10, 200), dx[3:500, 10:200])
+        assert st.estim_counts.get("spmm_bcoo") == 1
+        assert st.estim_counts.get("sp_tsmm_host") == 2
+        assert st.estim_counts.get("sparse_densify", 0) == 0
+    finally:
+        set_config(DMLConfig())
+
+
+SPARSE_REGION = """
+i = 0
+while (i < maxi) {
+  G = -(WV %*% R) + (W * (L %*% t(R))) %*% R + 0.01 * L
+  L = L - 0.01 * G
+  R = 0.99 * R
+  i = i + 1
+}
+loss = sum(WV ^ 2) - 2 * sum(WV * (L %*% t(R))) + sum((W * (L %*% t(R))) ^ 2)
+"""
+
+
+@pytest.mark.parametrize("view,kw", [("ell", {"ultra_sparsity_turn_point":
+                                              0.05}),
+                                     ("dense", {})])
+def test_region_with_sparse_invariant_captures_once(cuda, view, kw):
+    """A loop over sparse invariants (W and W * V, as ALS-CG's, bound as
+    inputs, so that both entries read the same matrices; R is carried, so
+    that no product of invariants is hoisted into a new tensor per
+    execution): on the card one
+    capture across two entries with another maxi (each view is cached on
+    its matrix: the same addresses), one launch and two host syncs per
+    entry (a host sync inside a capture raises), the views the reference's
+    rule gives, and the results of the CPU's plain arm within 1e-12."""
+    from systemml_tpu_torch.lang.parser import parse
+    from systemml_tpu_torch.runtime import sparse as sp
+    from systemml_tpu_torch.runtime.program import compile_program
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    rng = np.random.default_rng(24)
+    a = np.where(rng.random((900, 60)) < 0.02,
+                 np.round(rng.uniform(1, 10, (900, 60))) / 2, 0.0)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        cfg = DMLConfig(device=device)
+        cfg.floating_point_precision = "double"
+        cfg.optlevel = 3
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        set_config(cfg)
+        try:
+            prog = compile_program(parse(SPARSE_REGION),
+                                   input_names=["W", "WV", "L", "R", "maxi"],
+                                   outputs=["L", "loss"])
+            V = sp.SparseMatrix.from_dense(torch.from_numpy(a).to(device))
+            W = V.value_map(lambda d: (d != 0).to(d.dtype))
+            WV = W.with_values(W.data * V.data)
+            lr = {n: torch.from_numpy(0.1 * rng2.random((rows, 4))).to(device)
+                  for n, rows, rng2 in (("L", 900, np.random.default_rng(7)),
+                                        ("R", 60, np.random.default_rng(8)))}
+            runs = [prog.execute({"W": W, "WV": WV, **lr, "maxi": mx})
+                    for mx in (3, 5)]
+        finally:
+            set_config(DMLConfig())
+        fl = [b for b in prog.blocks
+              if hasattr(b, "_fused_loop")][0]._fused_loop
+        assert fl.record["refused"] is None
+        assert fl.record["views"] == {"W": view, "WV": view}
+        assert fl.record["trips"] == [3, 5]
+        if device == "cuda":
+            assert fl.record["captures"] == 1 and fl.record["launches"] == 2
+            assert fl.record["host_syncs"] == 4
+        outs[device] = [(r.vars["L"].cpu().numpy(), float(r.vars["loss"]))
+                        for r in runs]
+    for (lc, sc), (lp, spl) in zip(outs["cuda"], outs["cpu"]):
+        assert np.linalg.norm(lc - lp) <= 1e-12 * np.linalg.norm(lp)
+        assert abs(sc - spl) <= 1e-12 * abs(spl)
