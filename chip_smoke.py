@@ -3,12 +3,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --bench LABEL
     python3 chip_smoke.py --phases
+    python3 chip_smoke.py --breadth
 
 The second form times only the spoof kernels K2, K3 and K5, the spoof
 wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
 checkout of an earlier tree it runs there too, so two trees compare
 within one chip call. The third shows where K6's time goes (see
-`phases`).
+`phases`). The fourth runs only the algorithm-breadth paths and the
+datagen check (phase 3's `[breadth]` and `[datagen]` lines).
 
 Drives the port's paths through systemml_tpu_torch.api.mlcontext.MLContext
 on the card, on one X of 2,000,000 x 1,000 fp32 (scripts/perftest scale
@@ -42,7 +44,16 @@ loop entry, or refused for a classified reason and run eagerly:
   through kernel K5 and its CG reductions through K2, and at optlevel 2
   (the dense wdivmm arm); then a user's ratings summary (sum, min and max
   of the mean-centred observed ratings) on the same V, which runs the
-  multi-aggregate template through kernel K3.
+  multi-aggregate template through kernel K3;
+- the algorithm-breadth paths on the same X, with the arguments of
+  scripts/perftest/run_perftest.py: LinearRegDS (reg 1e-3, y = X
+  beta_true: tsmm and solve once, K2), GLM-poisson (y ~ Poisson(2)
+  i.i.d.; dfam 1, vpow 1, link 1, lpow 0, moi 10, tol 1e-8, reg 1e-3)
+  and GLM-probit (y ~ Bernoulli(pnorm(X w / sqrt(1000))); dfam 2, link
+  3), each IRLS while loop a region (K2), and Kmeans (k 5, maxi 10, runs
+  1, samp 50: the k-means++ init runs seq, rexpand, cumsum and seeded
+  rand, its for loop refused for the rand; the Lloyd while loop a region
+  with rowIndexMax, rowMins and rexpand, K4 and K2).
 
 Phases:
 
@@ -131,7 +142,23 @@ Phases:
    loss within 1e-3 of optlevel 2; ms per outer iteration without a
    profiler and the peak allocated memory), then the ratings summary at
    optlevels 3 (K3 once) and 2 (s, lo and hi within 1e-5 relative; s, a
-   cancellation near 0, within 1e-6 x sum|Z|);
+   cancellation near 0, within 1e-6 x sum|Z|); the algorithm-breadth
+   paths, each at optlevel 3 with regions and without, and at optlevel
+   2 (a `[breadth]` line each: ms per outer iteration in the graph,
+   eagerly and at optlevel 2, for LinearRegDS ms for the whole
+   execution; K2 and K4 launches with regions and without, which must be
+   equal; graph launches and host syncs per loop entry; refusals; peak
+   allocated over the data; with regions against without bit-identical
+   or within 1e-5 normwise, optlevel 3 within 1e-3 of optlevel 2):
+   LinearRegDS's beta within 1e-3 of beta_true, GLM's deviance over its
+   IRLS log (the eager run's) non-increasing within 1e-6 relative,
+   Kmeans's WCSS non-increasing over its Lloyd iterations (the script's
+   first, the rest replayed in fp64 from its first update, a run with
+   maxi 1) and its last WCSS within 1e-5 of the replay's (its C_out
+   beside the replay's, printed);
+   then `[datagen]`: sample(2000000, 5, 7), sample(3000000, 10, TRUE, 7),
+   a full permutation of 3,000,000 and seq(1, 2000000, 8000) on the
+   card equal to the CPU's draw bit for bit, in fp32 and fp64;
 4. times: each kernel and its plain version at the paths' shapes (CUDA
    events over back-to-back calls; for the spoof kernels, whose calls are
    shorter on the card than on the host, also the device time per call
@@ -429,7 +456,9 @@ def phase_windows(timer: PhaseTimer, iters: int, label: str,
     each on the host clock and in device time between CUDA events; and
     that set-up apart. Prints and returns them."""
     (ex_h, ex_d, ex_t0, ex_t1, ex_e0, ex_e1), = timer.windows["execute"]
-    lp_h, lp_d, lp_t0, lp_t1, lp_e0, lp_e1 = max(timer.windows["loop"])
+    # a script without a while loop: its whole execution is the "loop"
+    lp_h, lp_d, lp_t0, lp_t1, lp_e0, lp_e1 = max(
+        timer.windows["loop"] or timer.windows["execute"])
     comp = [w for label in PhaseTimer.SETUP for w in timer.windows[label]
             if lp_t0 <= w[2] and w[3] <= lp_t1]
     comp_h, comp_d = sum(w[0] for w in comp), sum(w[1] for w in comp)
@@ -531,12 +560,24 @@ def make_data(dev):
     z = x @ w_mlr + torch.randn(M, 1, generator=gen, device=dev)
     ranks = torch.argsort(torch.argsort(z[:, 0]))
     y_mlr = (1 + (ranks * 5) // M).to(torch.float32).reshape(-1, 1)
+    # GLM's targets: Poisson(2) counts, i.i.d.; and probit labels,
+    # Bernoulli(pnorm(X w / sqrt(K)))
+    y_pois = torch.poisson(torch.full((M, 1), 2.0, device=dev),
+                           generator=gen)
+    w_probit = torch.randn(K, 1, generator=gen, device=dev)
+    p = torch.special.ndtr(x @ w_probit / math.sqrt(K))
+    y_probit = (torch.rand(M, 1, generator=gen, device=dev) < p).to(
+        torch.float32)
     return {"X": x, "beta_true": beta_true, "y": x @ beta_true,
-            "Y_svm": y_svm, "Y_mlr": y_mlr}
+            "Y_svm": y_svm, "Y_mlr": y_mlr, "y_pois": y_pois,
+            "y_probit": y_probit}
 
 
 # name -> (script, inputs from make_data, args, output, what a line of its
-# output says about its outer iterations, the loop's name)
+# output says about its outer iterations, the loop's name); the last four
+# are the algorithm-breadth paths, with scripts/perftest/run_perftest.py's
+# arguments (regression1, regression2, clustering; Kmeans with verb 1, so
+# that it prints its iterations)
 PATHS = {
     "LinearRegCG": ("LinearRegCG.dml", {"X": "X", "y": "y"},
                     {"maxi": 20, "tol": 1e-9, "reg": 1e-6}, "beta",
@@ -546,28 +587,56 @@ PATHS = {
     "MultiLogReg": ("MultiLogReg.dml", {"X": "X", "Y_vec": "Y_mlr"},
                     {"moi": 10}, "B",
                     "MultiLogReg: Newton iterations = ", "Newton loop"),
+    "LinearRegDS": ("LinearRegDS.dml", {"X": "X", "y": "y"}, {"reg": 1e-3},
+                    "beta", None, "whole script"),
+    "GLM-poisson": ("GLM.dml", {"X": "X", "y": "y_pois"},
+                    {"dfam": 1, "vpow": 1.0, "link": 1, "lpow": 0.0,
+                     "moi": 10, "tol": 1e-8, "reg": 1e-3}, "beta",
+                    "GLM: IRLS iterations = ", "IRLS loop"),
+    "GLM-probit": ("GLM.dml", {"X": "X", "y": "y_probit"},
+                   {"dfam": 2, "link": 3, "moi": 10, "tol": 1e-8,
+                    "reg": 1e-3}, "beta",
+                   "GLM: IRLS iterations = ", "IRLS loop"),
+    "Kmeans": ("Kmeans.dml", {"X": "X"},
+               {"k": 5, "maxi": 10, "runs": 1, "verb": 1}, "C_out",
+               "Kmeans run 1: WCSS = ", "Lloyd loop"),
 }
+# the paths of PR 1-2, and the algorithm-breadth paths
+DENSE_PATHS = ("LinearRegCG", "l2-svm", "MultiLogReg")
+BREADTH_PATHS = ("LinearRegDS", "GLM-poisson", "GLM-probit", "Kmeans")
+# each path's output shape, where it is not K rows
+OUT_SHAPES = {"Kmeans": (5, K)}
+# paths whose fused plans may take the plain arm by layout, and why: the
+# JAX package's kernel refuses the same leaf layouts (its jnp arm)
+PLAIN_BY_LAYOUT = {
+    "Kmeans": "D = row_norms - 2 * (X %*% t(C)) + t(rowSums(C ^ 2)) is a "
+              "row plan whose (m, 1) main leaf stands beside the (m, k) "
+              "distances"}
 
 
-def path_script(name, data, rows=None):
+def path_script(name, data, rows=None, args=None, extra=()):
     from systemml_tpu_torch.api.mlcontext import dmlFromFile
 
-    script, inputs, args, out, _, _ = PATHS[name]
+    script, inputs, path_args, out, _, _ = PATHS[name]
     s = dmlFromFile(os.path.join(ALG, script))
     for k, v in inputs.items():
         s.input(k, data[v] if rows is None else data[v][:rows])
-    for k, v in args.items():
+    for k, v in dict(path_args, **(args or {})).items():
         s.arg(k, v)
-    return s.output(out)
+    return s.output(out, *extra)
 
 
 def outer_iterations(name, lines) -> int:
     marker = PATHS[name][4]
+    if marker is None:
+        return 1          # no loop: the whole execution is one unit
     hits = [s for s in lines if s.startswith(marker)]
     if name == "l2-svm":
         return len(hits)
     if not hits:
         fail(f"{name} printed no iteration count")
+    if name == "Kmeans":  # "Kmeans run 1: WCSS = w (n iters)"
+        return int(hits[-1].rsplit("(", 1)[1].split()[0])
     return int(hits[-1].split(marker)[1].split(",")[0])
 
 
@@ -582,8 +651,13 @@ def config(optlevel: int, regions: bool = True):
 
 # the one reason each path's loop may be refused for: l2-svm's outer loop
 # prints (its line search runs as its own region), LinearRegCG-cla's
-# compressed left mult synchronises with the host; the rest run whole
-REFUSAL = {"l2-svm": "print", "LinearRegCG-cla": "compressed operand"}
+# compressed left mult synchronises with the host, Kmeans's k-means++
+# init loop draws rand(seed=seed + 1000 * run + j) (its Lloyd while loop
+# is a region); the rest run whole
+REFUSAL = {"l2-svm": "print", "LinearRegCG-cla": "compressed operand",
+           "Kmeans": "rand"}
+# paths without a loop: no region to run
+NO_LOOP = ("LinearRegDS",)
 
 
 def region_report(timer: PhaseTimer, label: str, path: str,
@@ -615,8 +689,12 @@ def region_report(timer: PhaseTimer, label: str, path: str,
     if want is not None and not refused:
         fail(f"{label}: no region refused, {want!r} expected")
     ran = [r for r in rep if r.get("entries") and r["label"] not in refused]
-    if path not in REFUSAL and not ran:
+    if path in NO_LOOP and rep:
+        fail(f"{label}: {len(rep)} regions planned in a script without loops")
+    if path not in REFUSAL and path not in NO_LOOP and not ran:
         fail(f"{label}: no region ran")
+    if path == "Kmeans" and not ran:
+        fail(f"{label}: the Lloyd while loop did not run as a region")
     for r in ran:
         runs = [t for t in r["trips"] if t]
         if r["launches"] != len(runs) or r["host_syncs"] - \
@@ -751,25 +829,28 @@ def read_launches(kernels) -> dict:
 
 
 def run_path(name, optlevel, data, dev, kernels, regions=True,
-             profile_kernel=None):
+             profile_kernel=None, args=None, extra=()):
     """One unprofiled run of a path through MLContext, after a warm-up on
     the first 8,192 rows; the launch counters are set to 0 just before it
     and read just after. `regions` False runs it with codegen_enabled
     False (every loop eager); with `profile_kernel`, once more under
-    torch.profiler (its loop period from that kernel's launches)."""
+    torch.profiler (its loop period from that kernel's launches). `args`
+    override the path's arguments; `extra` names more outputs, returned
+    under "extra"."""
     from systemml_tpu_torch.api.mlcontext import MLContext
 
     ml = MLContext(config(optlevel, regions))
     ml.printer = lambda s: None
-    ml.execute(path_script(name, data, rows=8192))
+    ml.execute(path_script(name, data, rows=8192, args=args, extra=extra))
     lines = []
     ml.printer = lines.append
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(kernels)
     t0 = time.perf_counter()
     with PhaseTimer() as timer:
-        res = ml.execute(path_script(name, data))
+        res = ml.execute(path_script(name, data, args=args, extra=extra))
         out = res.get_tensor(PATHS[name][3])
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -790,26 +871,30 @@ def run_path(name, optlevel, data, dev, kernels, regions=True,
           f"launches {launches}; {walk_line(events)}; spoof_plain_by_layout "
           f"{events.get('spoof_plain_by_layout', 0)}, spoof_compile_errors "
           f"{events.get('spoof_compile_errors', 0)}; peak allocated "
-          f"{peak / 1e9:.2f} GB, reserved {peak_reserved / 1e9:.2f} GB",
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB over the data "
+          f"already on the card), reserved {peak_reserved / 1e9:.2f} GB",
           flush=True)
     check_walks(f"{name} optlevel {optlevel}", events, launches)
-    if not bool(torch.isfinite(out).all()) or out.shape[0] != K:
+    shape = OUT_SHAPES.get(name)
+    if not bool(torch.isfinite(out).all()) or (
+            tuple(out.shape) != shape if shape else out.shape[0] != K):
         fail(f"{name} optlevel {optlevel}: output of shape "
-             f"{tuple(out.shape)} is not finite or not {K} rows")
+             f"{tuple(out.shape)} is not finite or not "
+             f"{shape or f'{K} rows'}")
     if out.dtype != torch.float32 or out.device.type != "cuda":
         fail(f"{name}: output is {out.dtype} on {out.device}")
     if events.get("spoof_compile_errors", 0):
         fail(f"{name} optlevel {optlevel}: spoof_compile_errors "
              f"{events['spoof_compile_errors']}")
     if optlevel >= 3:
-        if events.get("spoof_plain_by_layout", 0):
+        if events.get("spoof_plain_by_layout", 0) and \
+                name not in PLAIN_BY_LAYOUT:
             fail(f"{name}: {events['spoof_plain_by_layout']} fused plans "
                  f"took the plain arm by layout")
         if launches["spoof_cell"] < 1:
             fail(f"{name} optlevel 3: the spoof cell kernel never launched")
-        if name == "MultiLogReg" and launches["spoof_row"] < 1:
-            fail("MultiLogReg optlevel 3: the spoof row kernel never "
-                 "launched")
+        if name in ("MultiLogReg", "Kmeans") and launches["spoof_row"] < 1:
+            fail(f"{name} optlevel 3: the spoof row kernel never launched")
     elif launches["spoof_cell"] or launches["spoof_row"]:
         fail(f"{name} optlevel {optlevel} launched spoof kernels")
     if launches["cla_chain"] or events.get("cla_auto_compressed", 0):
@@ -817,6 +902,8 @@ def run_path(name, optlevel, data, dev, kernels, regions=True,
     result = {"out": out, "iterations": iters, "seconds": secs,
               "exec_seconds": ml._stats.run_time, "launches": launches,
               "peak_bytes": peak, "peak_reserved": peak_reserved,
+              "peak_over_data": peak - base,
+              "extra": {e: res.get(e) for e in extra},
               "windows": windows, "lines": lines, "regions": reg,
               "events": {k: v for k, v in events.items()
                          if k.startswith("spoof_")}}
@@ -825,6 +912,192 @@ def run_path(name, optlevel, data, dev, kernels, regions=True,
                                               False, kernel=profile_kernel,
                                               loop=PATHS[name][5])
     return result
+
+
+# --------------------------------------------------------------------------
+# the algorithm-breadth paths: LinearRegDS, GLM (poisson, probit), Kmeans
+# --------------------------------------------------------------------------
+
+def glm_deviances(log: str) -> list:
+    """The deviances of GLM.dml's IRLS log, "OBJECTIVE,iter,deviance"."""
+    return [float(ln.split(",")[2]) for ln in log.split("\n")
+            if ln.startswith("OBJECTIVE,")]
+
+
+def kmeans_replay(x, c1, iters: int):
+    """Kmeans.dml's Lloyd iterations in plain torch in fp64, from the
+    centroids c1: the distances by the gram trick, the first nearest
+    centroid, the per-cluster means (an empty cluster keeps its centroid).
+    Returns the centroids after `iters` updates and the WCSS (the sum of
+    each row's least distance) before each update."""
+    xd = x.double()
+    row_norms = (xd * xd).sum(1, keepdim=True)
+    c = c1.double()
+    wcss = []
+    for _ in range(iters):
+        d = row_norms - 2 * (xd @ c.T) + (c * c).sum(1)[None, :]
+        assign = torch.argmax(-d, dim=1)
+        wcss.append(float(d.min(dim=1).values.sum()))
+        a = torch.nn.functional.one_hot(assign, c.shape[0]).double()
+        counts = a.sum(0)[:, None]
+        c_new = (a.T @ xd) / counts.clamp(min=1)
+        empty = (counts == 0).double()
+        c = c_new * (1 - empty) + c * empty
+        del d, a
+    del xd
+    return c, wcss
+
+
+def _kmeans_wcss(lines) -> float:
+    hit = [s for s in lines if s.startswith("Kmeans run 1: WCSS = ")][-1]
+    return float(hit.split("= ")[1].split()[0])
+
+
+def check_breadth_datagen(dev) -> dict:
+    """seq and sample on the card against the CPU's draw, bit for bit, at
+    the shapes Kmeans gives them (its k-means++ sample of 2,000,000 rows
+    in steps of 8,000; its plain init's sample of 5 rows) and with
+    replacement over 3,000,000 (three rounds of the sort shuffle)."""
+    from systemml_tpu_torch.ops import datagen
+
+    out = {}
+    for label, fn, args in (
+            ("sample(2000000, 5, 7)", datagen.sample, (2_000_000, 5, False, 7)),
+            ("sample(3000000, 10, TRUE, 7)", datagen.sample,
+             (3_000_000, 10, True, 7)),
+            ("sample(3000000, 3000000, 7)", datagen.sample,
+             (3_000_000, 3_000_000, False, 7)),
+            ("seq(1, 2000000, 8000)", datagen.seq, (1, 2_000_000, 8000))):
+        for dtype in (torch.float32, torch.float64):
+            t0 = time.perf_counter()
+            got = fn(*args, dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            card_ms = 1e3 * (time.perf_counter() - t0)
+            ref = fn(*args, dtype=dtype, device="cpu")
+            same = bool(torch.equal(got.cpu(), ref))
+            out[f"{label} {str(dtype)[6:]}"] = {"bit_identical": same,
+                                                "card_host_ms": card_ms}
+            if not same:
+                fail(f"{label} {dtype} on the card differs from the CPU's")
+    print(f"[datagen] seq and sample on the card against the CPU, bit for "
+          f"bit: {out}", flush=True)
+    return out
+
+
+def breadth_paths(data, dev, kernels) -> dict:
+    """LinearRegDS, GLM-poisson, GLM-probit and Kmeans through MLContext on
+    the card: each at optlevel 3 with regions, at optlevel 3 without
+    (codegen_enabled False) and at optlevel 2; the with/without pair held
+    to bit-identity or 1e-5 normwise with equal kernel launches, optlevel
+    3 to optlevel 2 at 1e-3, and each path's own check (section 3 of the
+    module docstring). Prints one `[breadth]` line per path."""
+    beta_true = data["beta_true"].double()
+    x = data["X"]
+    out = {}
+    for name in BREADTH_PATHS:
+        extra = ("log_str",) if name.startswith("GLM") else ()
+        r3 = run_path(name, 3, data, dev, kernels)
+        eag = run_path(name, 3, data, dev, kernels, regions=False,
+                       extra=extra)
+        versus = compare_eager(f"{name} optlevel 3", r3, eag)
+        r2 = run_path(name, 2, data, dev, kernels)
+        a, b = r3["out"].double(), r2["out"].double()
+        diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        if not diff <= 1e-3:
+            fail(f"{name}: optlevel 3 is {diff} from optlevel 2 (bar 1e-3)")
+        rec = {"diff_from_optlevel2": diff, "versus_eager": versus,
+               **{k: {f: v for f, v in r.items()
+                      if f not in ("out", "lines", "extra")}
+                  for k, r in (("optlevel3", r3), ("eager", eag),
+                               ("optlevel2", r2))}}
+        check = ""
+        if name == "LinearRegDS":
+            rel = float(torch.linalg.norm(a - beta_true)
+                        / torch.linalg.norm(beta_true))
+            rec["beta_rel_err"] = rel
+            check = f"|beta - beta_true| / |beta_true| = {rel:.3e} (bar 1e-3)"
+            if not rel <= 1e-3:
+                fail(f"LinearRegDS: beta is {rel} from beta_true")
+        elif name.startswith("GLM"):
+            dev_log = glm_deviances(eag["extra"]["log_str"])
+            rec["deviances"] = dev_log
+            rises = [(i, d0, d1) for i, (d0, d1) in
+                     enumerate(zip(dev_log, dev_log[1:]), 2)
+                     if d1 > d0 * (1 + 1e-6)]
+            check = (f"deviance over the IRLS log {dev_log} (eager run): "
+                     f"non-increasing within 1e-6 relative: {not rises}")
+            if len(dev_log) != eag["iterations"] or rises:
+                fail(f"{name}: deviance rises at iterations {rises}, or the "
+                     f"log has {len(dev_log)} entries for "
+                     f"{eag['iterations']} iterations")
+        else:
+            # the Lloyd iterations from the script's own first update (a
+            # run with maxi 1), replayed in fp64: WCSS non-increasing, and
+            # the script's last WCSS against the replay's. C_out is printed
+            # beside the replay's, not held to it: on this X (Gaussian, no
+            # clusters) many rows are near ties between centroids, and
+            # fp32 and fp64 distances assign some of them differently
+            one = run_path(name, 3, data, dev, kernels, args={"maxi": 1})
+            iters = r3["iterations"]
+            c_ref, wcss = kmeans_replay(x, one["out"], iters - 1)
+            wcss = [_kmeans_wcss(one["lines"])] + wcss
+            rises = [(i, w0, w1) for i, (w0, w1) in
+                     enumerate(zip(wcss, wcss[1:]), 2) if w1 > w0 * (1 + 1e-9)]
+            c_err = float(torch.linalg.norm(a - c_ref)
+                          / torch.linalg.norm(c_ref))
+            w_err = abs(_kmeans_wcss(r3["lines"]) - wcss[-1]) / wcss[-1]
+            rec.update({"wcss": wcss, "c_out_vs_replay": c_err,
+                        "last_wcss_vs_replay": w_err})
+            check = (f"WCSS before each update {wcss} (the first the "
+                     f"script's, the rest replayed in fp64 from its first "
+                     f"update): non-increasing {not rises}; the script's "
+                     f"last WCSS {w_err:.3e} from the replay's (bar 1e-5); "
+                     f"C_out {c_err:.3e} from the replay's (near-tie "
+                     f"assignments)")
+            if rises or not w_err <= 1e-5:
+                fail(f"Kmeans: WCSS rises at {rises}, or the last WCSS is "
+                     f"{w_err} from the replayed iterations")
+            del c_ref
+        reg = r3["regions"]
+        per_entry = ", ".join(
+            f"{g['label']}: {g['launches'] / g['entries']:.2f} graph "
+            f"launches, {g['host_syncs'] / g['entries']:.2f} host syncs per "
+            f"entry" for g in reg.get("regions", []))
+        unit = ("ms for the whole execution" if name in NO_LOOP
+                else "ms per outer iteration")
+        graph_ms = (r3["windows"]["iteration_ms"] if name in NO_LOOP
+                    else versus["iteration_ms_regions"])
+        print(f"[breadth] {name} ({M} x {K} fp32) optlevel 3, "
+              f"{r3['iterations']} outer iterations: {unit} "
+              f"{graph_ms:.3f} in the graph (with the peel and capture "
+              f"{r3['windows']['iteration_ms']:.3f}) / "
+              f"{eag['windows']['iteration_ms']:.3f} eager / "
+              f"{r2['windows']['iteration_ms']:.3f} at optlevel 2; K2 "
+              f"launches {r3['launches']['spoof_cell']} with regions, "
+              f"{eag['launches']['spoof_cell']} without; K4 "
+              f"{r3['launches']['spoof_row']} / {eag['launches']['spoof_row']}"
+              f"; {per_entry or 'no region'}; refused "
+              f"{reg.get('refused') or 'none'}; peak allocated over the data "
+              f"{r3['peak_over_data'] / 1e9:.3f} GB with regions, "
+              f"{eag['peak_over_data'] / 1e9:.3f} eager, "
+              f"{r2['peak_over_data'] / 1e9:.3f} at optlevel 2 (X "
+              f"{x.numel() * 4 / 1e9:.1f} GB); optlevel 3 vs 2 {diff:.3e}; "
+              f"{check}", flush=True)
+        rec["graph_ms"] = graph_ms
+        out[name] = rec
+        del r3, eag, r2, a, b
+        torch.cuda.empty_cache()
+    # where LinearRegDS's and GLM's time goes: the whole t(X) %*% X
+    # (the JAX package forms it with one jnp matmul too; no hand kernel)
+    tsmm_ms, = time_ms([lambda: torch.matmul(x.T, x)], reps=5, warm=1)
+    flop = 2.0 * M * K * K
+    out["tsmm_ms"] = tsmm_ms
+    print(f"[times] t(X) %*% X ({M} x {K} fp32, TF32 off) by torch.matmul "
+          f"on {nvidia_smi_line()}: {tsmm_ms:.3f} ms, "
+          f"{flop / tsmm_ms / 1e9:.1f} TFLOP/s ({flop:.2e} FLOP; bound "
+          f"{1e3 * flop / FP32_OPS_PER_S:.3f} ms at 67 TFLOP/s; a syrk would "
+          f"compute one triangle, half the FLOP)", flush=True)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3013,7 +3286,7 @@ def main() -> None:
     eager_twins = {("LinearRegCG", 2): "mmchain_partial",
                    ("MultiLogReg", 3): "row_thread"}
     versus_eager = {}
-    for pname in PATHS:
+    for pname in DENSE_PATHS:
         runs = {}
         for optlevel in (3, 2):
             if pname == "LinearRegCG" and optlevel == 2:
@@ -3059,6 +3332,11 @@ def main() -> None:
         del runs, a, b
     del beta
     torch.cuda.empty_cache()
+    # the algorithm-breadth paths on the same X, and seq / sample on the
+    # card against the CPU
+    breadth = breadth_paths(data, dev, kernels)
+    breadth_datagen = check_breadth_datagen(dev)
+    torch.cuda.empty_cache()
     # this slice's path: LinearRegCG-cla (K6), and l2-svm on the same X
     cla = cla_paths(dev, kernels)
     torch.cuda.empty_cache()
@@ -3096,6 +3374,8 @@ def main() -> None:
         "library_ms": lib_ms}]
     gen = torch.Generator(device=dev).manual_seed(3)
     by_path = {p: paths[p]["optlevel3"]["launches"] for p in paths}
+    by_path.update({p: breadth[p]["optlevel3"]["launches"]
+                    for p in BREADTH_PATHS})
     by_path["ALS-CG-ml10m"] = als["optlevel3"]["launches"]
     by_path["ALS-CG-ml10m-sparse"] = \
         sparse["ALS-CG-ml10m-sparse"]["regions"]["launches"]
@@ -3219,14 +3499,36 @@ def main() -> None:
                                   if isinstance(r, dict) else r)
                               for m, r in runs.items()}
                           for p, runs in sparse.items()},
+                      "breadth_paths": breadth,
+                      "breadth_datagen": breadth_datagen,
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
+def breadth_only() -> None:
+    """The algorithm-breadth paths and the datagen check alone (no kernel
+    phase): what `--breadth` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    from systemml_tpu_torch.codegen import kernels
+
+    print(nvidia_smi_line(), flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    data = make_data(dev)
+    res = breadth_paths(data, dev, kernels)
+    dg = check_breadth_datagen(dev)
+    print(json.dumps({"breadth_paths": res, "breadth_datagen": dg,
+                      "seconds": time.perf_counter() - t0}))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--bench"]:
+    if sys.argv[1:2] == ["--breadth"]:
+        breadth_only()
+    elif sys.argv[1:2] == ["--bench"]:
         bench(sys.argv[2] if len(sys.argv) > 2 else os.path.basename(ROOT))
     elif sys.argv[1:2] == ["--phases"]:
         phases()

@@ -213,7 +213,40 @@ def _dead_string_accumulators(body, pred_reads, live_after) -> Set[str]:
     return {n for n in string_writes if n not in observed}
 
 
-def _static_shape_names(blocks) -> Set[str]:
+# the inputs of a shape call that size its output, by argument name and
+# position, where not all of them do: rexpand's target, table's vectors
+# and weights, a matrix()'s data and outer()'s vectors are values
+_SIZING_ARGS: Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]] = {
+    "call:rexpand": (("max",), ()),
+    "call:matrix": (("rows", "cols"), (1, 2)),
+    "call:outer": ((), ()),
+}
+
+
+def _sizing_inputs(h: Hop) -> List[Hop]:
+    """The inputs of shape call `h` whose values size its output."""
+    if h.op == "call:table":
+        argn = h.params.get("argnames") or [None] * len(h.inputs)
+        pos = [c for n, c in zip(argn, h.inputs) if n is None]
+        named = [c for n, c in zip(argn, h.inputs)
+                 if n in ("odim1", "odim2")]
+        return named + (pos[2:] if len(pos) == 4 else pos[3:])
+    if h.op not in _SIZING_ARGS:
+        return list(h.inputs)
+    names, positions = _SIZING_ARGS[h.op]
+    argn = h.params.get("argnames") or [None] * len(h.inputs)
+    out, i = [], 0
+    for n, c in zip(argn, h.inputs):
+        if n is None:
+            if i in positions:
+                out.append(c)
+            i += 1
+        elif n in names:
+            out.append(c)
+    return out
+
+
+def _static_shape_names(blocks, sizing_only: bool = False) -> Set[str]:
     """Names whose values SIZE something in the loop body (matrix()/rand()
     dims, rexpand max, table dims, conv2d shape lists): these must enter
     the fused plan as host constants — XLA shapes are static — even when
@@ -223,7 +256,12 @@ def _static_shape_names(blocks) -> Set[str]:
     replacement (hops/recompile/LiteralReplacement.java).
 
     Slice bounds (idx) are deliberately NOT marked: the Evaluator lowers
-    tracer bounds to lax.dynamic_slice — the minibatch pattern."""
+    tracer bounds to lax.dynamic_slice — the minibatch pattern.
+
+    `sizing_only` marks only the inputs that size a shape call's output
+    (_sizing_inputs): the names a loop region must not write, where the
+    planner's set (the JAX package's) also holds value inputs, such as
+    the cluster ids Kmeans expands with rexpand(target=assign, max=k)."""
     from systemml_tpu_torch.runtime import program as P
 
     names: Set[str] = set()
@@ -239,7 +277,7 @@ def _static_shape_names(blocks) -> Set[str]:
                 # no dt filter: treads default to dt="matrix" even for
                 # scalars (m = ncol(X)); marking a true matrix name is
                 # harmless — _env_of consults the set only for scalars
-                for c in h.inputs:
+                for c in (_sizing_inputs(h) if sizing_only else h.inputs):
                     mark(c)
             elif h.op.startswith("call:"):
                 # conv2d-family [N,C,H,W] scalar shape lists
@@ -782,7 +820,6 @@ def _waits(what: str, item: str) -> NotImplementedError:
 
 _WAIT_OPS = (
     ("attention", "attention waits", "DNN and models"),
-    ("cum(", "cumulative aggregates wait", "algorithm breadth"),
 )
 
 
@@ -944,6 +981,8 @@ class Evaluator:
         if op.startswith("ua("):
             return agg.agg(h.params["aop"], self._m(h.inputs[0]),
                            h.params["dir"])
+        if op.startswith("cum("):
+            return agg.cumagg(h.params["op"], self._m(h.inputs[0]))
         if op == "reorg(t)":
             return reorg.transpose(self._m(h.inputs[0]))
         if op == "reorg(rev)":
@@ -1414,6 +1453,273 @@ def _bi_decompress(ev, pos, named, h):
     return pos[0].to_dense() if is_compressed(pos[0]) else pos[0]
 
 
+# ---- algorithm breadth: the JAX package's lower.py:2234-2960 ------------
+
+def _host_bound(v, what: str):
+    """A size argument (of seq, sample) as a host number: inside a loop
+    region a device value refuses the region ("device bound") before
+    its capture, as its read would synchronise."""
+    if isinstance(v, torch.Tensor):
+        region_refuse(f"device bound: {what}")
+    return _scalar(v)
+
+
+def _bi_seq(ev, pos, named, h):
+    from systemml_tpu_torch.ops import datagen
+
+    incr = pos[2] if len(pos) > 2 else named.get("incr")
+    return datagen.seq(_host_bound(pos[0], "seq"), _host_bound(pos[1], "seq"),
+                       _host_bound(incr, "seq") if incr is not None else None)
+
+
+def _bi_sample(ev, pos, named, h):
+    """sample(range, size [, replace] [, seed]): a third argument that is
+    not 0/1 (or a boolean) is a SEED (the reference's overload
+    sample(range, size, seed)); the dispatch keys on its value, never its
+    Python type, as in the JAX package."""
+    from systemml_tpu_torch.ops import datagen
+
+    replace, seed = False, None
+    if len(pos) > 2:
+        sv = _host_bound(pos[2], "sample")
+        if isinstance(sv, (bool, np.bool_)) or len(pos) > 3 or sv in (0, 1):
+            replace = bool(sv)
+        else:
+            seed = int(sv)
+    if len(pos) > 3:
+        seed = int(_host_bound(pos[3], "sample"))
+    return datagen.sample(int(_host_bound(pos[0], "sample")),
+                          int(_host_bound(pos[1], "sample")), replace, seed)
+
+
+def _linalg(fname: str):
+    def fn(ev, pos, named, h):
+        from systemml_tpu_torch.ops import linalg
+
+        return getattr(linalg, fname)(*[_mat(v) for v in pos])
+
+    return fn
+
+
+def _bi_table(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    w = pos[2] if len(pos) > 2 else 1.0
+    dims = list(pos[3:5])
+    if len(pos) == 4:  # table(A, B, dim1, dim2)
+        w, dims = 1.0, [pos[2], pos[3]]
+    d1 = int(_scalar(named.get("odim1", dims[0]))) \
+        if (dims or "odim1" in named) else None
+    d2 = int(_scalar(named.get("odim2", dims[1]))) \
+        if (len(dims) > 1 or "odim2" in named) else None
+    return param.table(pos[0], pos[1], w, d1, d2)
+
+
+def _bi_remove_empty(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    target = named.get("target", pos[0] if pos else None)
+    return param.remove_empty(
+        target, named.get("margin", "rows"), named.get("select"),
+        bool(_scalar(named.get("empty.return", True))))
+
+
+def _bi_replace(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    return param.replace(named.get("target", pos[0] if pos else None),
+                         float(_scalar(named["pattern"])),
+                         float(_scalar(named["replacement"])))
+
+
+def _bi_outer(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    return param.outer(_mat(pos[0]), _mat(pos[1]), pos[2])
+
+
+def _bi_order(ev, pos, named, h):
+    from systemml_tpu_torch.ops import reorg
+
+    target = named.get("target", pos[0] if pos else None)
+    return reorg.sort_matrix(
+        _mat(target), int(_scalar(named.get("by", 1))),
+        bool(_scalar(named.get("decreasing", False))),
+        bool(_scalar(named.get("index.return", False))))
+
+
+def _bi_quantile(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    if len(pos) == 3:
+        return param.quantile(pos[0], pos[2], weights=pos[1])
+    return param.quantile(pos[0], pos[1])
+
+
+def _bi_median(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    return param.median(pos[0], pos[1] if len(pos) > 1 else None)
+
+
+def _bi_iqm(ev, pos, named, h):
+    from systemml_tpu_torch.ops import param
+
+    return param.iqm(pos[0], pos[1] if len(pos) > 1 else None)
+
+
+def _bi_col_stat(fname: str):
+    def fn(ev, pos, named, h):
+        from systemml_tpu_torch.ops import param
+
+        return getattr(param, fname)(_mat(pos[0]))
+
+    return fn
+
+
+def _bi_moment(ev, pos, named, h):
+    from systemml_tpu_torch.ops import agg
+
+    if len(pos) == 3:
+        return agg.moment(pos[0], int(_scalar(pos[2])), weights=pos[1])
+    return agg.moment(pos[0], int(_scalar(pos[1])))
+
+
+def _bi_cov(ev, pos, named, h):
+    from systemml_tpu_torch.ops import agg
+
+    return agg.cov(pos[0], pos[1], pos[2] if len(pos) > 2 else None)
+
+
+# the inverse distributions that go through scipy on the host
+_HOST_DISTS = ("t", "chisq", "f")
+
+
+def _dist_call(dist: str, inv: bool, target, kw: Dict[str, Any],
+               lower_tail):
+    from systemml_tpu_torch.ops import param
+
+    args = [float(kw.get(k, d)) for k, d in (
+        ("mean", 0.0), ("sd", 1.0), ("df", 1.0), ("df1", 1.0),
+        ("df2", 1.0), ("rate", 1.0))]
+    if inv:
+        if dist in _HOST_DISTS:
+            region_refuse(f"host distribution: inverse {dist}")
+        return param.invcdf(target, dist, *args)
+    return param.cdf(target, dist, *args, bool(lower_tail))
+
+
+def _bi_cdf(inv: bool):
+    """cdf / invcdf(target=, dist=, ...): the target is cellwise, a matrix
+    or a scalar (reference: the CDF parameterized builtin)."""
+    def fn(ev, pos, named, h):
+        target = named.get("target", pos[0] if pos else None)
+        kw = {k: _scalar(v) for k, v in named.items()
+              if k in ("mean", "sd", "df", "df1", "df2", "rate")}
+        return _dist_call(str(named.get("dist", "normal")), inv, target, kw,
+                          _scalar(named.get("lower.tail", True)))
+
+    return fn
+
+
+# the R-style positional parameters after the target of each shortcut:
+# pnorm(q, mean, sd), pt/pchisq(q, df), pf(q, df1, df2), pexp(q, rate)
+_DIST_EXTRAS = {"normal": ("mean", "sd"), "t": ("df",), "chisq": ("df",),
+                "f": ("df1", "df2"), "exp": ("rate",)}
+
+
+def _dist_shortcut(dist: str, inv: bool = False):
+    def fn(ev, pos, named, h):
+        target = named.get("target", pos[0] if pos else None)
+        kw = {k.replace(".", "_") if k != "lower.tail" else k: _scalar(v)
+              for k, v in named.items() if k != "target"}
+        for name, v in zip(_DIST_EXTRAS[dist], pos[1:]):
+            kw.setdefault(name, _scalar(v))
+        return _dist_call(dist, inv, target, kw,
+                          _scalar(named.get("lower.tail", True)))
+
+    return fn
+
+
+def _bi_grouped_agg(ev, pos, named, h):
+    from systemml_tpu_torch.ops import agg
+
+    target = named.get("target", pos[0] if pos else None)
+    groups = named.get("groups", pos[1] if len(pos) > 1 else None)
+    ngroups = named.get("ngroups")
+    if ngroups is None:
+        ngroups = _host_read(torch.max(groups), "groupedAggregate's groups")
+    return agg.aggregate_grouped(_mat(target), _mat(groups),
+                                 str(named.get("fn", "sum")),
+                                 int(_scalar(ngroups)), named.get("weights"))
+
+
+def _bi_binary(opname: Optional[str] = None):
+    """ppred(X, y, "op") (opname None), xor and the bitw ops."""
+    def fn(ev, pos, named, h):
+        from systemml_tpu_torch.ops import cellwise
+
+        if opname is None:
+            return cellwise.binary_op(pos[2], _mat(pos[0]), pos[1])
+        return cellwise.binary_op(opname, pos[0], pos[1])
+
+    return fn
+
+
+def _bi_tri(upper: bool):
+    def fn(ev, pos, named, h):
+        from systemml_tpu_torch.ops import reorg
+
+        target = _mat(named.get("target", pos[0] if pos else None))
+        d = bool(_scalar(named.get("diag", False)))
+        v = bool(_scalar(named.get("values", False)))
+        return (reorg.upper_tri if upper else reorg.lower_tri)(target, d, v)
+
+    return fn
+
+
+def _bi_interquantile(ev, pos, named, h):
+    """interQuantile(X, [W], p): the values of X strictly between the p
+    and 1-p quantiles, as a column (reference: TernaryOp INTERQUANTILE).
+    Its length is the data's: the weighted form reads the kept count on
+    the host."""
+    x = _mat(pos[0]).reshape(-1)
+    if len(pos) == 3:
+        w, p = _mat(pos[1]).reshape(-1), float(_scalar(pos[2]))
+        order = torch.argsort(x, stable=True)
+        cw = torch.cumsum(w[order], dim=0)
+        total = cw[-1]
+        keep = (cw > p * total) & (cw <= (1.0 - p) * total)
+        return x[order][keep].reshape(-1, 1)
+    p = float(_scalar(pos[1]))
+    v = torch.sort(x).values
+    n = int(v.shape[0])
+    i1, i2 = int(np.floor(n * p)), int(np.ceil(n * (1.0 - p)))
+    return v[i1:i2].reshape(-1, 1)
+
+
+def _bi_list(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.data import ListObject, to_data
+
+    names = h.params.get("argnames")
+    if names and any(n is not None for n in names):
+        return ListObject([to_data(v) for v in pos + list(named.values())],
+                          list(names))
+    return ListObject([to_data(v) for v in pos])
+
+
+def _bi_listidx(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.data import MatrixObject, ScalarObject
+
+    lst, i = pos[0], pos[1]
+    d = lst.get(i if isinstance(i, str) else int(_scalar(i)))
+    if isinstance(d, MatrixObject):
+        return d.array
+    if isinstance(d, ScalarObject):
+        return d.value
+    return d
+
+
 _BUILTINS: Dict[str, Callable] = {
     "matrix": _bi_matrix, "print": _bi_print, "stop": _bi_stop,
     "assert": _bi_assert, "toString": _bi_tostring,
@@ -1430,10 +1736,36 @@ _BUILTINS: Dict[str, Callable] = {
     "sumSq": lambda ev, pos, named, h: __import__(
         "systemml_tpu_torch.ops.agg", fromlist=["agg"]).agg(
         "sumsq", _mat(pos[0])),
+    "seq": _bi_seq, "sample": _bi_sample,
+    "solve": _linalg("solve"), "inv": _linalg("inverse"),
+    "inverse": _linalg("inverse"), "cholesky": _linalg("cholesky"),
+    "det": _linalg("det"), "trace": _linalg("trace"), "qr": _linalg("qr"),
+    "lu": _linalg("lu"), "eigen": _linalg("eigen"), "svd": _linalg("svd"),
+    "table": _bi_table, "removeEmpty": _bi_remove_empty,
+    "replace": _bi_replace, "outer": _bi_outer, "order": _bi_order,
+    "quantile": _bi_quantile, "median": _bi_median,
+    "interQuartileMean": _bi_iqm, "iqm": _bi_iqm,
+    "colMedians": _bi_col_stat("col_medians"),
+    "colIQMs": _bi_col_stat("col_iqms"),
+    "moment": _bi_moment, "centralMoment": _bi_moment, "cov": _bi_cov,
+    "cdf": _bi_cdf(False), "icdf": _bi_cdf(True), "invcdf": _bi_cdf(True),
+    **{f"{pre}{short}": _dist_shortcut(dist, pre == "q")
+       for short, dist in (("norm", "normal"), ("t", "t"), ("f", "f"),
+                           ("chisq", "chisq"), ("exp", "exp"))
+       for pre in ("p", "q")},
+    "aggregate": _bi_grouped_agg, "groupedAggregate": _bi_grouped_agg,
+    "ppred": _bi_binary(), "xor": _bi_binary("xor"),
+    **{n: _bi_binary(n) for n in ("bitwAnd", "bitwOr", "bitwXor",
+                                  "bitwShiftL", "bitwShiftR")},
+    "lower.tri": _bi_tri(False), "upper.tri": _bi_tri(True),
+    "interQuantile": _bi_interquantile,
+    "list": _bi_list, "listidx": _bi_listidx,
+    "cumsumprod": lambda ev, pos, named, h: __import__(
+        "systemml_tpu_torch.ops.agg", fromlist=["agg"]).cumsumprod(
+        _mat(pos[0])),
 }
 
 _IO = "the CLI and io/"
-_BREADTH = "algorithm breadth"
 _NN = "DNN and models"
 _FRAMES = "parfor, transform and frames"
 # the JAX package's builtins that the port does not run yet, with the
@@ -1442,23 +1774,12 @@ _FRAMES = "parfor, transform and frames"
 _WAITING_BUILTINS: Dict[str, str] = {
     **{n: _IO for n in ("read", "write", "checkpoint", "restore",
                         "checkpointExists")},
-    **{n: _BREADTH for n in (
-        "seq", "sample", "solve", "inv", "inverse",
-        "cholesky", "det", "trace", "qr", "lu", "eigen", "svd", "map",
-        "table", "removeEmpty", "replace", "outer", "order",
-        "quantile", "median", "interQuartileMean", "iqm", "colMedians",
-        "colIQMs", "moment", "centralMoment", "cov", "cdf", "icdf",
-        "invcdf", "pnorm", "qnorm", "pt", "qt", "pf", "qf", "pchisq",
-        "qchisq", "pexp", "qexp", "aggregate", "groupedAggregate",
-        "ppred", "xor", "bitwAnd", "bitwOr", "bitwXor", "bitwShiftL",
-        "bitwShiftR", "lower.tri", "upper.tri", "interQuantile",
-        "list", "listidx", "cumsumprod")},
     **{n: _NN for n in (
         "__from_nhwc", "conv2d", "conv2d_backward_filter",
         "conv2d_backward_data", "max_pool", "avg_pool",
         "max_pool_backward", "avg_pool_backward", "bias_add",
         "bias_multiply", "lstm", "batch_norm2d")},
     **{n: _FRAMES for n in (
-        "as.frame", "transformmeta", "transform", "transformencode",
+        "as.frame", "map", "transformmeta", "transform", "transformencode",
         "transformapply", "transformdecode", "transformcolmap")},
 }

@@ -15,8 +15,9 @@ the op preserves zeros, as there: a scalar * / ^ + - that keeps zeros,
 dense (the pattern kept), and the zero-preserving unary ops; any other
 op densifies it. An ELL view (a loop region's) takes the same
 zero-preserving scalar ops and ELL * dense on its values, all sync-free.
-Double-float operands wait (ROADMAP queue 1, algorithm breadth and
-precision policies).
+The bitw ops take the values truncated to int64, as the JAX package's
+under x64. Double-float operands wait (ROADMAP queue 1, precision
+policies).
 """
 
 from __future__ import annotations
@@ -279,10 +280,20 @@ def binary_op(op: str, a, b):
     if op in ("min", "max"):
         fn = torch.minimum if op == "min" else torch.maximum
         return fn(as_tensor(a, b), as_tensor(b, a))
-    if op.startswith("bitw"):
-        raise NotImplementedError(
-            f"{op} waits for ROADMAP queue 1, algorithm breadth")
+    if op in _BITW:
+        ai = as_tensor(a, b).to(torch.int64)
+        bi = as_tensor(b, a).to(torch.int64)
+        return _BITW[op](ai, bi).to(_result_dtype(a, b))
     raise ValueError(f"unknown binary op {op!r}")
+
+
+# bitwAnd and its kin on the values truncated to int64, as the JAX
+# package's _bitw under x64
+_BITW = {
+    "bitwAnd": torch.bitwise_and, "bitwOr": torch.bitwise_or,
+    "bitwXor": torch.bitwise_xor, "bitwShiftL": torch.bitwise_left_shift,
+    "bitwShiftR": torch.bitwise_right_shift,
+}
 
 
 def _round_half_up(x):

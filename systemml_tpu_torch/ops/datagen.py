@@ -1,11 +1,11 @@
-"""Data generation: seeded rand.
+"""Data generation: seeded rand, seq, sample.
 
-Port of systemml_tpu/ops/datagen.py (lines 60-115 there): `rand` with
-pdf "uniform", min, max and sparsity. The JAX package draws from
-jax.random (threefry2x32, partitionable scheme); here the same generator
-is written in torch integer ops on the tensor's own device, so that a
-seeded rand() gives the JAX package's values bit for bit, in fp32 and in
-fp64, on the CPU and on the card alike:
+Port of systemml_tpu/ops/datagen.py (lines 60-141 there): `rand` with
+pdf "uniform", min, max and sparsity; `seq`; `sample`. The JAX package
+draws from jax.random (threefry2x32, partitionable scheme); here the same
+generator is written in torch integer ops on the tensor's own device, so
+that a seeded rand() gives the JAX package's values bit for bit, in fp32
+and in fp64, on the CPU and on the card alike:
 
 - PRNGKey(seed): the key words (seed >> 32, seed & 0xFFFFFFFF) of the
   seed as a 64-bit integer;
@@ -22,17 +22,29 @@ fp64, on the CPU and on the card alike:
   the mode its tests and this port's parity tests run in; the port
   always does.
 
+- sample without replacement: jax.random.permutation's sort shuffle
+  (jax/_src/random.py `_shuffle`): ceil(3 ln n / ln(2^32 - 1)) rounds,
+  each splitting the key and sorting the values stably by fresh 32-bit
+  keys (1 round up to n = 1,626, 2 up to about 2.6 million, then 3);
+- sample with replacement: jax.random.randint under x64 (`_randint`):
+  64-bit higher and lower words from the two halves of a split, folded
+  into the span by the 2^32 multiplier trick;
+- seq: from + incr * i, rounded after the product and after the sum
+  (XLA on the CPU does not contract this one).
+
 The words are kept in int64 with 0xFFFFFFFF masks: torch's uint32 has
-partial coverage on CUDA. The normal and poisson pdfs, seq and sample
-wait for ROADMAP queue 1, algorithm breadth (item 5).
+partial coverage on CUDA. The normal and poisson pdfs wait for ROADMAP
+queue 1, DNN and models (item 8).
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -43,7 +55,7 @@ _global_seed = [None]   # makes unseeded rand() calls reproducible
 
 def _waits(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: it waits for "
-                               f"ROADMAP queue 1, algorithm breadth (item 5)")
+                               f"ROADMAP queue 1, DNN and models (item 8)")
 
 
 def set_global_seed(seed: Optional[int]) -> None:
@@ -206,3 +218,77 @@ def rand(rows: int, cols: int, min_v=0.0, max_v=1.0, sparsity: float = 1.0,
         keep = uniform(k2, shape, torch.float64, device) < float(sparsity)
         m = torch.where(keep, m, torch.zeros((), dtype=dtype, device=device))
     return m
+
+
+def _device_dtype(device, dtype):
+    from systemml_tpu_torch.utils.config import default_dtype, get_config
+
+    device = torch.device(get_config().device if device is None else device)
+    return device, dtype or default_dtype(device)
+
+
+def seq(from_v, to_v, incr=None, dtype=None, device=None) -> torch.Tensor:
+    """seq(from, to, incr) as a column, bounds inclusive (reference:
+    DataGenOp SEQ); the default increment is 1 or -1 by direction. Equal
+    to the JAX package's `f + i * arange(n)` bit for bit: the arange in
+    `dtype`, the product and the sum each rounded in it."""
+    device, dtype = _device_dtype(device, dtype)
+    f, t = float(from_v), float(to_v)
+    i = (1.0 if t >= f else -1.0) if incr is None else float(incr)
+    q = (t - f) / i
+    n = max(int(math.floor(q)) + 1, 0) if q >= 0 else 0
+    r = torch.arange(n, dtype=dtype, device=device)
+    full = lambda v: torch.full((), v, dtype=dtype, device=device)
+    return (full(f) + full(i) * r).reshape(-1, 1)
+
+
+def _shuffle(key: Tuple[int, int], x: torch.Tensor) -> torch.Tensor:
+    """jax.random.permutation(key, x) of a 1-D x: rounds of a stable sort
+    by fresh 32-bit keys (held in int64, which torch sorts)."""
+    n = x.shape[0]
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_MASK)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        bits = random_bits(sub, (1, n), 32, x.device).reshape(-1)
+        x = x[torch.sort(bits, stable=True).indices]
+    return x
+
+
+def _randint(key: Tuple[int, int], size: int, lo: int, hi: int,
+             device) -> torch.Tensor:
+    """jax.random.randint(key, (size,), lo, hi) under x64: higher and
+    lower 64-bit words from the two halves of a split, offset =
+    (higher % span * (2^32 % span)^2 % span + lower % span) % span. Each
+    word w = hi * 2^32 + lo is reduced as (hi % s * 2^32 % s + lo % s),
+    exact in int64 for a span below 2^31."""
+    span = max(int(hi) - int(lo), 1)
+    if span >= 1 << 31:
+        raise ValueError(f"sample: a range of {span} values is past the "
+                         f"exact int64 reduction (2^31)")
+    k1, k2 = split(key)
+    m32 = (1 << 32) % span
+
+    def word_mod(k):
+        w = random_bits(k, (1, size), 64, device).reshape(2, -1)
+        return ((w[0] % span) * m32 + w[1] % span) % span
+
+    mult = (m32 * m32) % span
+    off = (word_mod(k1) * mult + word_mod(k2)) % span
+    return int(lo) + off
+
+
+def sample(range_max: int, size: int, replace: bool = False,
+           seed: Optional[int] = None, dtype=None,
+           device=None) -> torch.Tensor:
+    """sample(range, size, replace, seed): `size` values from 1..range as
+    a column (reference: DataGenOp SAMPLE), equal to the JAX package's
+    draw bit for bit, on the CPU and on the card."""
+    device, dtype = _device_dtype(device, dtype)
+    k = _key(seed)
+    n, s = int(range_max), int(size)
+    if replace:
+        vals = _randint(k, s, 1, n + 1, device)
+    else:
+        vals = _shuffle(k, torch.arange(n, dtype=torch.int64,
+                                        device=device))[:s] + 1
+    return vals.to(dtype).reshape(-1, 1)

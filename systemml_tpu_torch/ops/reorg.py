@@ -7,10 +7,9 @@ second X. A sparse matrix transposes and slices in CSR (a small slice
 densifies, as in the JAX package); an ELL view transposes through its
 dense form; every other op, and a concat with any sparse or compressed
 operand, densifies. Indexing with device bounds (the fused-loop
-minibatch path, which a loop region refuses for now), sort and the
-triangular extractions wait (ROADMAP queue 1: fused loop regions'
-follow-ups, algorithm breadth). A compressed operand is decompressed
-first, as in the JAX package.
+minibatch path, which a loop region refuses for now) waits (ROADMAP
+queue 1: fused loop regions' follow-ups). A compressed operand is
+decompressed first, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -97,3 +96,41 @@ def left_index(x, y, rl, ru, cl, cu):
         y = y.reshape(ru - rl + 1, cu - cl + 1)
     out[rl - 1:ru, cl - 1:cu] = y
     return out
+
+
+def sort_matrix(x, by: int = 1, decreasing: bool = False,
+                index_return: bool = False):
+    """order(target=X, by=col, decreasing, index.return) (reference:
+    ReorgOp SORT): a stable sort of the rows on one column; NaN goes
+    last. Decreasing is the stable ascending sort of -key, which keeps
+    ties in their order (not the reverse of the ascending one).
+    index.return gives the 1-based row indices as a column."""
+    x = _dense(x)
+    key = x[:, by - 1]
+    idx = torch.sort(-key if decreasing else key, stable=True).indices
+    if index_return:
+        return (idx + 1).to(x.dtype).reshape(-1, 1)
+    return x[idx, :]
+
+
+def _tri(x, upper: bool, diag_val: bool, values: bool):
+    x = _dense(x)
+    r = torch.arange(x.shape[0], device=x.device).reshape(-1, 1)
+    c = torch.arange(x.shape[1], device=x.device).reshape(1, -1)
+    if upper:
+        mask = (c >= r) if diag_val else (c > r)
+    else:
+        mask = (c <= r) if diag_val else (c < r)
+    src = x if values else torch.ones_like(x)
+    return torch.where(mask, src, torch.zeros_like(src))
+
+
+def lower_tri(x, diag_val: bool = True, values: bool = True):
+    """lower.tri(target=X, diag=, values=) (reference: ParameterizedBuiltin
+    LOWER_TRI): the cells below (and on, with diag) the diagonal, their
+    values or 1."""
+    return _tri(x, False, diag_val, values)
+
+
+def upper_tri(x, diag_val: bool = True, values: bool = True):
+    return _tri(x, True, diag_val, values)

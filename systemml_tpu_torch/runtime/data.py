@@ -132,6 +132,26 @@ class ListObject(Data):
         return f"List(n={len(self.items)})"
 
 
+def to_data(v: Any) -> Data:
+    """A runtime value (host scalar, tensor, SparseMatrix, list) as a Data
+    object, as list() stores its items."""
+    from systemml_tpu_torch.runtime.sparse import SparseMatrix
+
+    if isinstance(v, Data):
+        return v
+    if isinstance(v, np.generic):
+        v = v.item()
+    if isinstance(v, (bool, int, float, str)):
+        return ScalarObject(v)
+    if isinstance(v, torch.Tensor) and v.ndim == 0:
+        return ScalarObject(v)
+    if isinstance(v, (torch.Tensor, SparseMatrix)):
+        return MatrixObject(v)
+    if isinstance(v, (list, tuple)):
+        return ListObject([to_data(x) for x in v])
+    raise TypeError(f"cannot wrap {type(v).__name__} as Data")
+
+
 def from_reference(values: Dict[str, Any], device,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, Data]:
     """The JAX package's values, given as numpy arrays or Python scalars

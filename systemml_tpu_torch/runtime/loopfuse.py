@@ -18,7 +18,10 @@ Per entry of a region (`FusedLoop.run_while` / `run_for`):
 
 1. refuse before anything runs, with a classified reason (`REASONS`):
    the plan refused it, a read is compressed, a carried string the plan
-   did not drop, a `print` or an unseeded `rand` in the body, a
+   did not drop, a `print` or an unseeded `rand` in the body, a builtin
+   that reads the host (removeEmpty, table without dims, an inverse t,
+   chisq or F distribution; a seq or sample whose bound is a device
+   value refuses in the peel, "device bound"), a
    loop-varying name feeding a shape or a slice bound, a carried sparse
    matrix ("sparse carried"), or a loop-invariant sparse matrix without a
    device view ("sparse view": runtime/sparse.loop_device_view found
@@ -97,7 +100,9 @@ from systemml_tpu_torch.runtime import sparse as sp
 # (a plan's refusal keeps the plan's own text)
 REASONS = ("compressed operand", "carried string", "print", "rand",
            "static_names", "shape change", "host read", "unbound read",
-           "fractional for", "sparse view", "sparse carried")
+           "fractional for", "sparse view", "sparse carried",
+           "removeEmpty", "table without dims", "host distribution",
+           "device bound")
 # bodies with a device execution counter per region graph
 MAX_SCOPES = 1024
 # nesting of conditional nodes (loops and ifs, through function calls)
@@ -677,6 +682,9 @@ class _Scan:
         from systemml_tpu_torch.compiler.lower import _static_shape_names
 
         self.print = self.rand = False
+        # builtins whose output shape or value needs a host read
+        # (_host_op), by their classified reason
+        self.host_ops: Set[str] = set()
         self.bounds: Set[str] = set()
         self.writes: Set[str] = set()
         self._seen: Set[int] = set()
@@ -684,7 +692,7 @@ class _Scan:
         if kind == "for":
             self.writes |= {loop.var}
         self._walk(loop.body, top=True)
-        self.shape_names = _static_shape_names(loop.body)
+        self.shape_names = _static_shape_names(loop.body, sizing_only=True)
 
     def _mark(self, h) -> None:
         for x in postorder([h]):
@@ -698,6 +706,10 @@ class _Scan:
                 seed = [c for n, c in zip(argn, h.inputs) if n == "seed"]
                 if not seed or seed[0].op != "lit":
                     self.rand = True
+            elif h.op.startswith("call:"):
+                reason = _host_op(h)
+                if reason is not None:
+                    self.host_ops.add(reason)
             elif top and h.op in _SHAPE_POSITIONS:
                 for i in _SHAPE_POSITIONS[h.op]:
                     if i < len(h.inputs):
@@ -725,6 +737,33 @@ class _Scan:
                 self._walk(b.else_body, top)
             elif isinstance(b, (P.WhileBlock, P.ForBlock)):
                 self._walk(b.body, top)
+
+
+_HOST_INV = {"qt", "qf", "qchisq"}
+
+
+def _host_op(h) -> Optional[str]:
+    """The refusal reason of a builtin call that reads the host: removeEmpty
+    (its shape is the data's), table without both dims (it reads the ids'
+    maxima), an inverse t, chisq or F distribution (scipy on the host),
+    and invcdf whose dist is not a literal that stays on the device."""
+    name = h.op[5:]
+    argn = h.params.get("argnames") or [None] * len(h.inputs)
+    named = {n: c for n, c in zip(argn, h.inputs) if n is not None}
+    npos = sum(1 for n in argn if n is None)
+    if name == "removeEmpty":
+        return "removeEmpty"
+    if name == "table" and npos < 4 and not (
+            "odim1" in named and "odim2" in named):
+        return "table without dims"
+    if name in _HOST_INV:
+        return "host distribution"
+    if name in ("invcdf", "icdf"):
+        d = named.get("dist")
+        if d is not None and not (d.op == "lit"
+                                  and d.value in ("normal", "exp")):
+            return "host distribution"
+    return None
 
 
 class FusedLoop:
@@ -784,7 +823,10 @@ class FusedLoop:
             return "print"
         if sc.rand:
             return "rand"
-        if sc.writes & (set(plan.static_names) | sc.shape_names | sc.bounds):
+        for r in REASONS:
+            if r in sc.host_ops:
+                return r
+        if sc.writes & (sc.shape_names | sc.bounds):
             return "static_names"
         env = ec.vars
         names = set(plan.reads) | set(plan.pred_reads) | set(plan.carried)

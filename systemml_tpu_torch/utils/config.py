@@ -498,7 +498,7 @@ def check_ported(cfg: DMLConfig) -> None:
     if cfg.floating_point_precision == "bfloat16":
         raise NotImplementedError(
             "floating_point_precision bfloat16 waits for ROADMAP queue 1, "
-            "algorithm breadth and precision policies")
+            "DNN and models (item 8), with the precision policies")
     for f in dataclasses.fields(cfg):
         if f.name in PORTED_FIELDS:
             continue

@@ -102,11 +102,19 @@ def test_rand_builtin_through_mlcontext():
 
 @pytest.mark.parametrize("pdf", ["normal", "poisson"])
 def test_other_pdfs_wait_by_name(pdf):
-    with pytest.raises(NotImplementedError, match="algorithm breadth"):
+    with pytest.raises(NotImplementedError, match="DNN and models"):
         datagen.rand(3, 3, pdf=pdf, seed=1, device="cpu")
 
 
-@pytest.mark.parametrize("src", ["x = seq(1, 5)", "x = sample(10, 3)"])
+@pytest.mark.parametrize("src", ["x = seq(1, 5)", "x = sample(10, 3, 7)"])
 def test_seq_and_sample_wait_by_name(src):
-    with pytest.raises(NotImplementedError, match="algorithm breadth"):
-        MLContext(DMLConfig(device="cpu")).execute(dml(src).output("x"))
+    """seq() and sample() through the port's MLContext give the JAX
+    package's column bit for bit (tests/test_torch_breadth_ops.py holds
+    them at 1, 2 and 3 shuffle rounds)."""
+    from systemml_tpu.api.mlcontext import MLContext as JaxMLContext
+    from systemml_tpu.api.mlcontext import dml as jax_dml
+
+    got = MLContext(DMLConfig(device="cpu")).execute(
+        dml(src).output("x")).get_matrix("x")
+    ref = JaxMLContext().execute(jax_dml(src).output("x")).get_matrix("x")
+    _same_bits(got, np.asarray(ref))

@@ -3,7 +3,10 @@ mmchain (systemml_tpu_torch/codegen/csrc/mmchain.cu), the spoof cell,
 row, multi-aggregate (K3) and outer-product (K5) templates
 (csrc/spoof.cuh, one generated source per plan) and the compressed chain
 K6 (csrc/cla_chain.cu, against compress/device.py chain_plain; also the
-compressed mmchain's choice of K6 by layout).
+compressed mmchain's choice of K6 by layout); the loop regions' graphs,
+the sparse arms, and the algorithm-breadth ops on the card (solvers in a
+captured region, seq and sample equal to the CPU's draw, the index
+aggregates, repeatable weighted tables, betainc).
 
 Marked `gpu`: without a CUDA card every test skips, with the reason,
 from the `cuda` fixture (decided at run time, never at import, so every
@@ -1487,3 +1490,121 @@ def test_region_with_sparse_invariant_captures_once(cuda, view, kw):
     for (lc, sc), (lp, spl) in zip(outs["cuda"], outs["cpu"]):
         assert np.linalg.norm(lc - lp) <= 1e-12 * np.linalg.norm(lp)
         assert abs(sc - spl) <= 1e-12 * abs(spl)
+
+
+# --------------------------------------------------------------------------
+# algorithm breadth on the card: solvers inside a captured region, seq and
+# sample equal to the CPU's draw, the index aggregates, deterministic
+# weighted tables, betainc; `-k breadth` runs these alone
+# --------------------------------------------------------------------------
+
+BREADTH_SOLVE = """
+A = t(X) %*% X + diag(matrix(0.5, rows=ncol(X), cols=1))
+b = matrix(1, rows=ncol(X), cols=1)
+i = 0
+w = b
+while (i < 6) {
+  w = solve(A, w + b)
+  L = cholesky(A + diag(abs(w)))
+  w = w + 0.01 * rowSums(L)
+  i = i + 1
+}
+"""
+
+
+def test_breadth_solvers_inside_a_captured_region(cuda):
+    """solve (solve_ex) and cholesky (cholesky_ex) in a while body: the
+    region is captured, with no refusal, in one graph launch, and agrees
+    with the plain arm on the CPU at 1e-12 (fp64)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((64, 6))
+    got, ml = _region_run(BREADTH_SOLVE, "cuda", {"X": x}, ["w"])
+    ref, _ = _region_run(BREADTH_SOLVE, "cpu", {"X": x}, ["w"])
+    np.testing.assert_allclose(_region_values(got, ["w"])[0],
+                               _region_values(ref, ["w"])[0],
+                               rtol=1e-12, atol=1e-12)
+    assert ml._stats.estim_counts.get("loop_regions_refused", 0) == 0
+    assert any("refused=0" in ln for ln in ml._stats.display().split("\n")
+               if ln.startswith("Loop regions"))
+
+
+@pytest.mark.parametrize("args", [(2_000_000, 5, False, 7),
+                                  (3_000_000, 10, True, 7),
+                                  (1_000, 1_000, False, 3),
+                                  (5_000, 60, True, 11)])
+def test_breadth_sample_on_the_card_equals_cpu(cuda, args):
+    from systemml_tpu_torch.ops import datagen
+
+    for dtype in (torch.float32, torch.float64):
+        got = datagen.sample(*args, dtype=dtype, device=cuda)
+        ref = datagen.sample(*args, dtype=dtype, device="cpu")
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("args", [(1, 2_000_000, 8_000), (3.5, -7.25, -0.3),
+                                  (0.1, 1e6, 0.7)])
+def test_breadth_seq_on_the_card_equals_cpu(cuda, args):
+    from systemml_tpu_torch.ops import datagen
+
+    for dtype in (torch.float32, torch.float64):
+        got = datagen.seq(*args, dtype=dtype, device=cuda)
+        ref = datagen.seq(*args, dtype=dtype, device="cpu")
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("op", ["indexmax", "indexmin"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_breadth_index_aggregates_ties_and_nan(cuda, op, dtype):
+    """rowIndexMax / rowIndexMin on the card as on the CPU: the first
+    index wins a tie, a NaN counts as the extreme; wide rows too."""
+    from systemml_tpu_torch.ops import agg
+
+    rng = np.random.default_rng(8)
+    x = np.round(rng.standard_normal((3001, 1000)), 1)
+    x[::7, 13] = np.nan
+    x[5, :] = 2.0
+    t = torch.from_numpy(x).to(dtype)
+    for direction in ("row", "col"):
+        got = agg.agg(op, t.to(cuda), direction).cpu()
+        assert torch.equal(got, agg.agg(op, t, direction))
+
+
+def test_breadth_weighted_table_repeats_bit_for_bit(cuda):
+    """table(A, B, W) adds without float atomics: repeats on the card give
+    the same bits, and agree with the CPU at 1e-5 (fp32) and 1e-12
+    (fp64)."""
+    from systemml_tpu_torch.ops import param
+
+    rng = np.random.default_rng(9)
+    n = 2_000_000
+    i = torch.from_numpy(rng.integers(1, 6, n).astype(np.float64))
+    j = torch.from_numpy(rng.integers(1, 4, n).astype(np.float64))
+    w = torch.from_numpy(rng.standard_normal(n))
+    for dtype, bar in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        args = [v.to(dtype).to(cuda) for v in (i, j, w)]
+        a = param.table(*args, 5, 3)
+        b = param.table(*args, 5, 3)
+        assert torch.equal(a, b)
+        ref = param.table(*[v.to(dtype) for v in (i, j, w)], 5, 3)
+        assert float((a.cpu() - ref).abs().max()) <= bar * float(
+            ref.abs().max())
+        counts = param.table(args[0], args[1], 1.0, 5, 3)
+        assert torch.equal(counts.cpu(),
+                           param.table(i.to(dtype), j.to(dtype), 1.0, 5, 3))
+
+
+def test_breadth_betainc_on_the_card_equals_cpu(cuda):
+    from systemml_tpu_torch.ops import param
+
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy(rng.uniform(0.05, 50, 4000))
+    b = torch.from_numpy(rng.uniform(0.05, 50, 4000))
+    x = torch.from_numpy(rng.uniform(0, 1, 4000))
+    got = param.betainc(a.to(cuda), b.to(cuda), x.to(cuda)).cpu()
+    ref = param.betainc(a, b, x)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12,
+                               atol=1e-300)
+    t = torch.from_numpy(rng.standard_normal(4000) * 3)
+    np.testing.assert_allclose(
+        param.cdf(t.to(cuda), "t", df=5.0).cpu().numpy(),
+        param.cdf(t, "t", df=5.0).numpy(), rtol=1e-12)

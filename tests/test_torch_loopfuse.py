@@ -547,6 +547,45 @@ for (i in 1:4) {
 }
 nc = ncol(A)
 """, None, ["nc", "A"], "shape change"),
+    # the breadth builtins that read the host: refused before the peel
+    "removeEmpty": ("""
+s = 0.0
+i = 0
+while (i < 4) {
+  Z = removeEmpty(target=X * (X > i / 4), margin="rows")
+  s = s + sum(Z) + nrow(Z)
+  i = i + 1
+}
+""", {"X": np.random.default_rng(17).random((12, 3))}, ["s"],
+                    "removeEmpty"),
+    "table_without_dims": ("""
+s = 0.0
+i = 0
+while (i < 4) {
+  T = table(ceil(X[, 1] * 3) + i, ceil(X[, 2] * 2))
+  s = s + sum(T * T) + ncol(T)
+  i = i + 1
+}
+""", {"X": np.random.default_rng(17).random((20, 2))}, ["s"],
+                           "table without dims"),
+    "host_distribution": ("""
+s = 0.0
+i = 0
+while (i < 4) {
+  s = s + qt(0.9 - i / 10, 5) + pnorm(s / 10)
+  i = i + 1
+}
+""", None, ["s"], "host distribution"),
+    "device_bound": ("""
+s = 0.0
+i = 0
+while (i < 4) {
+  v = seq(1, as.scalar(colSums(X > 0.5)))
+  s = s + sum(v) * i
+  i = i + 1
+}
+""", {"X": np.random.default_rng(17).random((20, 1))}, ["s"],
+                     "device bound: seq"),
 }
 
 
@@ -566,19 +605,56 @@ def test_refused_with_reason_result_matches(case):
 
 
 def test_glm_plans_match_and_its_builtins_wait():
-    """GLM: the two planners agree; the port cannot run the script yet
-    (its builtins wait for ROADMAP queue 1, algorithm breadth)."""
+    """GLM: the two planners agree, and the port runs the script (its
+    builtins, solve and the distributions, are ported): the IRLS loop is
+    one region, its result within 1e-9 of the JAX package's and of the
+    port's eager run."""
+    clargs = {"moi": 6, "tol": 0.0, "dfam": 1, "vpow": 0.0, "link": 1,
+              "lpow": 0.0}
     _assert_same_plans("GLM.dml", from_file=True,
                        input_names=["X", "y"], outputs=["beta"],
-                       clargs={"moi": 6, "tol": 0.0, "dfam": 1, "vpow": 0.0,
-                               "link": 1, "lpow": 0.0})
+                       clargs=clargs)
     rng = np.random.default_rng(17)
     x = rng.standard_normal((64, 4))
     yv = np.abs(x @ rng.standard_normal((4, 1))) + 0.1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port("GLM.dml", {"X": x, "y": yv}, ["beta"],
-              {"moi": 6, "tol": 0.0, "dfam": 1, "vpow": 0.0, "link": 1,
-               "lpow": 0.0}, from_file=True)
+    pres, pst, plines, fallbacks = _port("GLM.dml", {"X": x, "y": yv},
+                                         ["beta"], clargs, from_file=True)
+    eres, _, elines, _ = _port("GLM.dml", {"X": x, "y": yv}, ["beta"],
+                               clargs, codegen=False, from_file=True)
+    jres, _ = _jax("GLM.dml", {"X": x, "y": yv}, ["beta"], clargs,
+                   from_file=True)
+    _close(_value(pres, "beta"), _value(jres, "beta"))
+    _close(_value(pres, "beta"), _value(eres, "beta"))
+    assert fallbacks == [] and len(plines) == len(elines)
+    assert _regions_line(pst) == [
+        "Loop regions (planned=1, refused=0; region=dispatches): "
+        "while[beta,converged,deviance_old,...]@0=1"]
+
+
+def test_kmeans_plans_match_and_its_loop_is_a_region():
+    """Kmeans: the two planners agree, and the port runs its while loop
+    (rowIndexMax, rowMins, rexpand of the cluster ids) as a region; the
+    centroids within 1e-9 of the JAX package's and of the port's eager
+    run. The outer for over the runs is refused in its peel: sample()'s
+    seed, seed + run, is a device value there ("device bound"); each run
+    after the peeled first one enters the while's own region."""
+    rng = np.random.default_rng(17)
+    x = np.concatenate([rng.standard_normal((20, 3)) + c
+                        for c in (0.0, 5.0, -5.0)])
+    args = {"k": 3, "runs": 3, "maxi": 8, "samp": 0}
+    _assert_same_plans("Kmeans.dml", from_file=True, input_names=["X"],
+                       outputs=["C_out"], clargs=args)
+    pres, pst, _, fallbacks = _port("Kmeans.dml", {"X": x}, ["C_out"], args,
+                                    from_file=True)
+    eres, _, _, _ = _port("Kmeans.dml", {"X": x}, ["C_out"], args,
+                          codegen=False, from_file=True)
+    jres, _ = _jax("Kmeans.dml", {"X": x}, ["C_out"], args, from_file=True)
+    _close(_value(pres, "C_out"), _value(jres, "C_out"))
+    _close(_value(pres, "C_out"), _value(eres, "C_out"))
+    assert [f["reason"] for f in fallbacks] == ["device bound: sample"]
+    assert _regions_line(pst) == [
+        "Loop regions (planned=1, refused=1; region=dispatches): "
+        "while[C,delta,iter,...]=2"]
 
 
 def test_line_search_outer_refused_inner_regions():
