@@ -52,8 +52,14 @@ loop entry, or refused for a classified reason and run eagerly:
   and GLM-probit (y ~ Bernoulli(pnorm(X w / sqrt(1000))); dfam 2, link
   3), each IRLS while loop a region (K2), and Kmeans (k 5, maxi 10, runs
   1, samp 50: the k-means++ init runs seq, rexpand, cumsum and seeded
-  rand, its for loop refused for the rand; the Lloyd while loop a region
-  with rowIndexMax, rowMins and rexpand, K4 and K2).
+  rand, its for loop refused for C's growing shape; the Lloyd while loop
+  a region with rowIndexMax, rowMins and rexpand, K4 and K2);
+- minibatch-sgd: the training body of scripts/nn/examples/
+  mnist_softmax.dml inlined (MINIBATCH_SGD: batches X[beg:end,] with end
+  = beg + bs - 1, a dropout mask drawn with seed 7 + i, 5 one-hot
+  classes, bs 1,000, one epoch of 2,000 iterations), its for loop one
+  graph whose slices start at a device offset and whose seed is a
+  device value; its one fused plan at optlevel 3 a row plan (K4).
 
 Phases:
 
@@ -110,10 +116,17 @@ Phases:
    read just after, each followed by a `regions` line (the regions
    planned, captured and refused with their reasons, the graph launches
    and host syncs per loop entry, the trips, the kernel launches per body;
-   it fails on a refusal other than l2-svm's "print" and LinearRegCG-cla's
-   "compressed operand", and on a region that is not one launch and two
-   host syncs per entry); LinearRegCG at optlevel 2 and MultiLogReg at 3,
-   and ALS-CG-ml10m at 3, also with codegen_enabled False: the region's
+   it fails on a refusal other than Kmeans's init's "shape change", and
+   on a region that is not one launch per entry and per print-ring drain,
+   a sync per launch and one per while entry; those syncs are also
+   counted by torch under sync debug mode "warn", in each region's
+   launches, drains and exit and in each entry that met its cache, and
+   a `[syncs]` line fails on any difference from the record); LinearRegCG
+   at optlevel 2,
+   MultiLogReg at 3, l2-svm at 3 and 2 (its 15 printed lines equal the
+   eager run's, in order, one per outer iteration of its one region),
+   minibatch-sgd at 3, LinearRegCG-cla, and ALS-CG-ml10m at 3, also with
+   codegen_enabled False: the region's
    output bit-identical to the eager run's or within 1e-5 normwise, equal
    launch counts of every kernel, ms per iteration in the graph and the
    eager loop's, the busy share (the eager run's kernel time per loop
@@ -132,7 +145,8 @@ Phases:
    the optlevel-2 run (bar 1e-3 normwise) and the peak memory; then
    LinearRegCG-cla at optlevel 2 with cla "auto" (X compressed once, K6
    once per CG iteration, cla_chain_plain_by_layout 0, beta within 1e-3
-   of the cla "false" run's and of beta_true) and "false", and l2-svm on
+   of the cla "false" run's and of beta_true; its CG loop one graph, run
+   again bit for bit and without regions) and "false", and l2-svm on
    the same X with both (w within 1e-3); the loop-entry compression
    (sample, host copy, compress()) is timed apart from the loops;
    ALS-CG-ml10m at optlevels 3 and 2 (at 3: the templates selected, K5
@@ -158,7 +172,12 @@ Phases:
    beside the replay's, printed);
    then `[datagen]`: sample(2000000, 5, 7), sample(3000000, 10, TRUE, 7),
    a full permutation of 3,000,000 and seq(1, 2000000, 8000) on the
-   card equal to the CPU's draw bit for bit, in fp32 and fp64;
+   card equal to the CPU's draw bit for bit, in fp32 and fp64; then
+   `[minibatch]`: minibatch-sgd at optlevel 3 with regions and without
+   and at 2 (ms per iteration, launches, host syncs; W with regions
+   within 1e-5 of the eager run's or equal; every batch's mask equal to
+   the CPU's draw bit for bit), the loop without its dropout
+   draw, and one draw alone replayed as a graph;
 4. times: each kernel and its plain version at the paths' shapes (CUDA
    events over back-to-back calls; for the spoof kernels, whose calls are
    shorter on the card than on the host, also the device time per call
@@ -170,6 +189,10 @@ Phases:
    launched most, at its own inputs, and on the elementwise arm of the
    summary's plan over V, an (m, n > 1) plan; and the host time of one
    spoof wrapper call (row, cell sum, multi-aggregate);
+   the compressed left mult t(X) %*% y at the Census-shaped block, its
+   fixed-order segment sums against the bincount they replaced, and one
+   group of 65,536 codes, 60% of the rows on one code (`[cla-left]`:
+   times, layout bytes, build ms, agreement, repeats bit-identical);
    K6 at the path's own compressed X (CUDA events over back-to-back
    calls, as K1, K3 and K5; beside them the device time per call from
    torch.profiler and the wrapper's host time), on the same
@@ -287,6 +310,7 @@ class PhaseTimer:
         from systemml_tpu_torch.runtime import loopfuse, program
         self._targets = {"execute": (program.Program, "execute"),
                          "loop": (program.WhileBlock, "execute"),
+                         "for": (program.ForBlock, "execute"),
                          "compress": (program, "_maybe_auto_compress"),
                          "layout": (cla_dev, "chain_layout"),
                          "mirror": (cla_dev, "device_mirror"),
@@ -456,9 +480,11 @@ def phase_windows(timer: PhaseTimer, iters: int, label: str,
     each on the host clock and in device time between CUDA events; and
     that set-up apart. Prints and returns them."""
     (ex_h, ex_d, ex_t0, ex_t1, ex_e0, ex_e1), = timer.windows["execute"]
-    # a script without a while loop: its whole execution is the "loop"
+    # a script without a while loop: its longest for loop, or its whole
+    # execution, is the "loop"
     lp_h, lp_d, lp_t0, lp_t1, lp_e0, lp_e1 = max(
-        timer.windows["loop"] or timer.windows["execute"])
+        timer.windows["loop"] or timer.windows["for"]
+        or timer.windows["execute"])
     comp = [w for label in PhaseTimer.SETUP for w in timer.windows[label]
             if lp_t0 <= w[2] and w[3] <= lp_t1]
     comp_h, comp_d = sum(w[0] for w in comp), sum(w[1] for w in comp)
@@ -570,7 +596,9 @@ def make_data(dev):
         torch.float32)
     return {"X": x, "beta_true": beta_true, "y": x @ beta_true,
             "Y_svm": y_svm, "Y_mlr": y_mlr, "y_pois": y_pois,
-            "y_probit": y_probit}
+            "y_probit": y_probit,
+            "Y_onehot": torch.nn.functional.one_hot(
+                y_mlr[:, 0].long() - 1, 5).to(torch.float32)}
 
 
 # name -> (script, inputs from make_data, args, output, what a line of its
@@ -600,7 +628,53 @@ PATHS = {
     "Kmeans": ("Kmeans.dml", {"X": "X"},
                {"k": 5, "maxi": 10, "runs": 1, "verb": 1}, "C_out",
                "Kmeans run 1: WCSS = ", "Lloyd loop"),
+    "minibatch-sgd": (None, {"X": "X", "Y": "Y_onehot"},
+                      {"bs": 1000, "lr": 0.2}, "W",
+                      "minibatch-sgd: iterations = ", "SGD loop"),
 }
+# the training body of scripts/nn/examples/mnist_softmax.dml (affine,
+# softmax, cross-entropy and SGD of scripts/nn/layers/, inlined) with
+# end = beg + bs - 1, and inverted dropout on each batch's rows
+# (scripts/nn/layers/dropout.dml) from a seed that changes with i: the
+# slices at a device offset, the loop-varying seed, one epoch; W starts
+# at 0 (rand(pdf="normal") waits for queue 1 item 8)
+# its one fused plan at optlevel 3, a row template (K4): dscores' row sum
+MINIBATCH_ROW_PLAN = (
+    "b(*)(b(/)(u(-)(b(/)(i0, b(+)(b(/)(u(exp)(b(-)(b(+)(i1, i2), i3)), "
+    "i4), 1e-10))), 1000.0), b(/)(u(exp)(b(-)(b(+)(i5, i6), i7)), i8))")
+MINIBATCH_SGD = """
+bs = $bs
+lr = $lr
+N = nrow(X)
+D = ncol(X)
+K = ncol(Y)
+W = matrix(0, rows=D, cols=K)
+b = matrix(0, rows=1, cols=K)
+iters = N %/% bs
+masks = matrix(0, rows=iters, cols=bs)
+for (i in 1:iters) {
+  beg = (i-1)*bs + 1
+  end = beg + bs - 1
+  X_batch = X[beg:end,]
+  Y_batch = Y[beg:end,]
+  mask = rand(rows=bs, cols=1, min=1, max=1, sparsity=0.9, seed=7 + i)
+  Xd = X_batch * mask / 0.9
+  scores = Xd %*% W + b
+  e = exp(scores - rowMaxs(scores))
+  probs = e / rowSums(e)
+  dprobs = -(Y_batch / (probs + 1e-10)) / bs
+  dscores = probs * (dprobs - rowSums(dprobs * probs))
+  dW = t(Xd) %*% dscores
+  db = colSums(dscores)
+  W = W - lr * dW
+  b = b - lr * db
+  masks[i, ] = t(mask)
+}
+print("minibatch-sgd: iterations = " + iters)
+"""
+# its dropout draw (a variant without it shows the draw's share)
+MINIBATCH_MASK = ("mask = rand(rows=bs, cols=1, min=1, max=1, sparsity=0.9, "
+                  "seed=7 + i)")
 # the paths of PR 1-2, and the algorithm-breadth paths
 DENSE_PATHS = ("LinearRegCG", "l2-svm", "MultiLogReg")
 BREADTH_PATHS = ("LinearRegDS", "GLM-poisson", "GLM-probit", "Kmeans")
@@ -614,11 +688,14 @@ PLAIN_BY_LAYOUT = {
               "distances"}
 
 
-def path_script(name, data, rows=None, args=None, extra=()):
-    from systemml_tpu_torch.api.mlcontext import dmlFromFile
+def path_script(name, data, rows=None, args=None, extra=(), src=None):
+    """The path's script with its inputs; `src` replaces an inline
+    script's text (minibatch-sgd's)."""
+    from systemml_tpu_torch.api.mlcontext import dml, dmlFromFile
 
     script, inputs, path_args, out, _, _ = PATHS[name]
-    s = dmlFromFile(os.path.join(ALG, script))
+    s = (dml(src or MINIBATCH_SGD) if script is None
+         else dmlFromFile(os.path.join(ALG, script)))
     for k, v in inputs.items():
         s.input(k, data[v] if rows is None else data[v][:rows])
     for k, v in dict(path_args, **(args or {})).items():
@@ -649,15 +726,19 @@ def config(optlevel: int, regions: bool = True):
     return cfg
 
 
-# the one reason each path's loop may be refused for: l2-svm's outer loop
-# prints (its line search runs as its own region), LinearRegCG-cla's
-# compressed left mult synchronises with the host, Kmeans's k-means++
-# init loop draws rand(seed=seed + 1000 * run + j) (its Lloyd while loop
-# is a region); the rest run whole
-REFUSAL = {"l2-svm": "print", "LinearRegCG-cla": "compressed operand",
-           "Kmeans": "rand"}
+# the one reason each path's loop may be refused for, by its class (the
+# text before any colon): Kmeans's k-means++ init loop grows C by a row
+# each iteration (C = rbind(C, S[pick, ])), which is what makes the JAX
+# package's own fused loop fall back; its Lloyd while loop is a region.
+# The rest run whole: l2-svm's outer loop with its print (the device
+# ring), LinearRegCG-cla's CG loop over the compressed X
+REFUSAL = {"Kmeans": "shape change"}
 # paths without a loop: no region to run
 NO_LOOP = ("LinearRegDS",)
+# paths whose fused plans at optlevel 3 are row plans only (K4, no K2)
+ROW_ONLY = ("minibatch-sgd",)
+# paths whose printed lines with regions must equal the eager run's
+PRINTS = ("l2-svm",)
 
 
 def region_report(timer: PhaseTimer, label: str, path: str,
@@ -683,7 +764,7 @@ def region_report(timer: PhaseTimer, label: str, path: str,
                for r in rep if r.get("refused") or r["planned_refused"]}
     want = REFUSAL.get(path)
     for lab, why in refused.items():
-        if why != want and why != may_refuse:
+        if why.split(":")[0] != want and why != may_refuse:
             fail(f"{label}: region {lab} refused ({why!r}); the only reason "
                  f"this path may be refused for is {want!r}")
     if want is not None and not refused:
@@ -696,12 +777,15 @@ def region_report(timer: PhaseTimer, label: str, path: str,
     if path == "Kmeans" and not ran:
         fail(f"{label}: the Lloyd while loop did not run as a region")
     for r in ran:
+        # a launch per entry that ran an iteration, and one per drain of
+        # the print ring; a sync per launch, and per while entry its test
         runs = [t for t in r["trips"] if t]
-        if r["launches"] != len(runs) or r["host_syncs"] - \
-                r["static_reads"] != r["entries"] + len(runs):
+        tests = r["entries"] if r["label"].startswith("while") else 0
+        if r["launches"] != len(runs) + r["drains"] or r["host_syncs"] - \
+                r["static_reads"] != tests + r["launches"]:
             fail(f"{label}: region {r['label']}: {r['launches']} graph "
-                 f"launches and {r['host_syncs']} host syncs in "
-                 f"{r['entries']} entries")
+                 f"launches, {r['drains']} drains and {r['host_syncs']} "
+                 f"host syncs in {r['entries']} entries")
     cap_ms = sum(w[0] for w in timer.windows["capture"])
     launch_ms = sum(w[1] for w in timer.windows["launch"])
     graph_trips = sum(sum(r["trips"]) - r["captures"] for r in ran)
@@ -710,19 +794,22 @@ def region_report(timer: PhaseTimer, label: str, path: str,
            "refused": refused,
            "entries": sum(r.get("entries", 0) for r in rep),
            "graph_launches": sum(r.get("launches", 0) for r in rep),
+           "drains": sum(r.get("drains", 0) for r in rep),
            "host_syncs": sum(r.get("host_syncs", 0) for r in rep),
            "capture_host_ms": cap_ms, "launch_device_ms": launch_ms,
            "graph_trips": graph_trips,
            "graph_iteration_ms": launch_ms / graph_trips if graph_trips
            else float("nan"),
            "regions": [{k: r.get(k) for k in ("label", "entries", "captures",
-                                              "launches", "host_syncs",
-                                              "static_reads", "trips",
-                                              "bodies", "nodes", "views")}
+                                              "launches", "drains",
+                                              "host_syncs", "static_reads",
+                                              "trips", "bodies", "nodes",
+                                              "views")}
                        for r in rep if r.get("entries")]}
     per = "; ".join(
         f"{r['label']}: {r['entries']} entries, "
-        f"{r['launches'] / r['entries']:.2f} graph launches and "
+        f"{r['launches'] / r['entries']:.2f} graph launches, "
+        f"{r['drains'] / r['entries']:.2f} print-ring drains and "
         f"{r['host_syncs'] / r['entries']:.2f} host syncs per entry "
         f"({r['static_reads']} of them reads of shape invariants), trips "
         f"{r['trips'][:6]}{'...' if len(r['trips']) > 6 else ''}, kernel "
@@ -734,6 +821,88 @@ def region_report(timer: PhaseTimer, label: str, path: str,
           f"over {graph_trips} iterations in graphs "
           f"({out['graph_iteration_ms']:.3f} ms per iteration)", flush=True)
     return out
+
+
+class SyncAudit:
+    """Holds the region executor's record["host_syncs"] to the
+    synchronizing CUDA calls that torch reports under
+    torch.cuda.set_sync_debug_mode("warn"), in two scopes of each region
+    that runs: FusedLoop._loop (the launches, the print ring's drains,
+    the exit), and a whole FusedLoop._enter that met its cache (no peel
+    or capture, whose uploads of set-up data are synchronous copies).
+    In each, the calls torch saw must equal the calls the record counted;
+    a nested region's calls are its own. `finish` prints one `[syncs]`
+    line and fails on any difference."""
+
+    SYNC = "called a synchronizing CUDA operation"
+
+    def __init__(self):
+        from systemml_tpu_torch.runtime import loopfuse
+
+        self.cls = loopfuse.FusedLoop
+        self.orig = {m: getattr(self.cls, m) for m in ("_enter", "_loop")}
+        self.stack = []
+        self.calls = {m: 0 for m in self.orig}
+        self.seen = {m: 0 for m in self.orig}
+        self.bad = []
+        for m, fn in self.orig.items():
+            setattr(self.cls, m, self._wrap(m, fn))
+
+    def _wrap(self, m, fn):
+        import warnings
+
+        audit = self
+
+        def wrapped(fl, *args, **kwargs):
+            rec = fl.record
+            h0, c0 = rec["host_syncs"], rec["captures"]
+            frame = {"fl": fl, "seen": 0}
+            audit.stack.append(frame)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = fn(fl, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+                audit.stack.pop()
+            for w in caught:
+                if audit.SYNC in str(w.message):
+                    frame["seen"] += 1
+                else:
+                    warnings.showwarning(w.message, w.category, w.filename,
+                                         w.lineno)
+            if audit.stack and audit.stack[-1]["fl"] is fl:
+                audit.stack[-1]["seen"] += frame["seen"]
+            counted = rec["host_syncs"] - h0
+            if rec.get("refused") is None and (
+                    m == "_loop" or rec["captures"] == c0):
+                audit.calls[m] += 1
+                audit.seen[m] += frame["seen"]
+                if frame["seen"] != counted:
+                    lab = getattr(getattr(fl, "region", None), "label", "?")
+                    audit.bad.append(f"{m} of {lab}: torch saw "
+                                     f"{frame['seen']} synchronizing calls, "
+                                     f"the record counted {counted}")
+            return out
+
+        return wrapped
+
+    def finish(self) -> dict:
+        for m, fn in self.orig.items():
+            setattr(self.cls, m, fn)
+        print(f"[syncs] synchronizing CUDA calls (sync debug mode warn) in "
+              f"{self.calls['_loop']} region loops (launches, drains, exit): "
+              f"{self.seen['_loop']}; in {self.calls['_enter']} whole entries "
+              f"that met their cache: {self.seen['_enter']}; differences "
+              f"from the records' host_syncs: {self.bad or 'none'}",
+              flush=True)
+        if self.bad:
+            fail(f"host_syncs miscounted: {self.bad[:3]}")
+        return {"loops": self.calls["_loop"], "loop_syncs": self.seen["_loop"],
+                "cached_entries": self.calls["_enter"],
+                "cached_entry_syncs": self.seen["_enter"]}
 
 
 def compare_eager(label: str, reg: dict, eag: dict, key: str = "out"):
@@ -778,6 +947,103 @@ def compare_eager(label: str, reg: dict, eag: dict, key: str = "out"):
         fail(f"{label}: with regions {diff} from without (bar 1e-5)")
     if la != lb:
         fail(f"{label}: kernel launches with regions {la}, without {lb}")
+    if label.split()[0] in PRINTS:
+        same_lines = reg["lines"] == eag["lines"]
+        print(f"[eager] {label}: {len(reg['lines'])} lines printed with "
+              f"regions (the print ring), {len(eag['lines'])} without, equal "
+              f"in order {same_lines}", flush=True)
+        if not same_lines:
+            fail(f"{label}: the lines printed with regions differ from the "
+                 f"eager run's")
+        out["lines_equal"] = same_lines
+    return out
+
+
+def check_print_lines(label, run) -> None:
+    """A region run of a path that prints once per outer iteration: one
+    line per iteration of its outer region (the lines come through the
+    print ring after each launch)."""
+    top = [r for r in run["regions"]["regions"] if r["label"].endswith("@0")]
+    trips = sum(sum(r["trips"]) for r in top)
+    drains = sum(r["drains"] for r in top)
+    print(f"[regions] {label}: {len(run['lines'])} lines printed over "
+          f"{trips} iterations of the outer region, {drains} drains of "
+          f"its print ring", flush=True)
+    if len(top) != 1 or len(run["lines"]) != trips:
+        fail(f"{label}: {len(run['lines'])} lines over {trips} iterations "
+             f"of {len(top)} outer regions")
+
+
+def minibatch_paths(data, dev, kernels) -> dict:
+    """minibatch-sgd on the dense X: optlevel 3 with regions and without,
+    optlevel 2 with regions. W with regions within 1e-5 normwise of the
+    eager run (or equal), the launches equal; each run's per-iteration
+    masks, all 2,000 as the script's `masks` rows, equal to the CPU's
+    draw for the same seeds, bit for bit."""
+    from systemml_tpu_torch.ops import datagen
+
+    name = "minibatch-sgd"
+    extra = ("masks",)
+    runs = {"optlevel3": run_path(name, 3, data, dev, kernels, extra=extra),
+            "optlevel3_eager": run_path(name, 3, data, dev, kernels,
+                                        regions=False, extra=extra),
+            "optlevel2": run_path(name, 2, data, dev, kernels, extra=extra)}
+    out = {"versus_eager": compare_eager(f"{name} optlevel 3",
+                                         runs["optlevel3"],
+                                         runs["optlevel3_eager"])}
+    bs = PATHS[name][2]["bs"]
+    iters = M // bs
+    masks = [datagen.rand(bs, 1, 1.0, 1.0, 0.9, seed=7 + i,
+                          dtype=torch.float32, device="cpu")
+             for i in range(1, iters + 1)]
+    want = torch.cat(masks, 1).T
+    for label, r in runs.items():
+        got = r["extra"]["masks"].cpu()
+        same = bool(torch.equal(got, want))
+        a = r["out"].double()
+        diff = float(torch.linalg.norm(a - runs["optlevel3_eager"]["out"]
+                                       .double()) / torch.linalg.norm(a))
+        print(f"[minibatch] {label}: {r['iterations']} iterations, "
+              f"{r['windows']['iteration_ms']:.4f} ms per iteration; masks "
+              f"(all {iters}, bit for bit) equal to the CPU's "
+              f"draw {same}; |W - W eager optlevel 3| / |W| {diff:.3e}; "
+              f"launches {r['launches']}; regions "
+              f"{r['regions'].get('graph_launches')} graph launches, "
+              f"{r['regions'].get('host_syncs')} host syncs", flush=True)
+        if not same:
+            fail(f"{name} {label}: the dropout masks differ from the CPU's")
+        if r["iterations"] != iters:
+            fail(f"{name} {label}: {r['iterations']} iterations, not {iters}")
+        if not diff <= 1e-3:
+            fail(f"{name} {label}: W is {diff} from the eager run's")
+        out[label] = {k: v for k, v in r.items()
+                      if k not in ("out", "lines", "extra")}
+    # where the graph's time goes: the loop without its dropout draw, and
+    # one draw (threefry as torch integer ops) replayed as a graph alone
+    plain = run_path(name, 3, data, dev, kernels, src=MINIBATCH_SGD.replace(
+        MINIBATCH_MASK, "mask = matrix(1, rows=bs, cols=1)"))
+    seed = torch.full((), 7 + iters, dtype=torch.int64, device=dev)
+    draw = lambda: datagen.rand(bs, 1, 1.0, 1.0, 0.9, seed=seed,
+                                dtype=torch.float32, device=dev)
+    draw()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mask = draw()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(mask.cpu(), masks[-1]):
+        fail(f"{name}: a draw replayed as a graph differs from the CPU's")
+    draw_graph_ms, draw_eager_ms = time_ms([graph.replay, draw])
+    it = runs["optlevel3"]["regions"]["graph_iteration_ms"]
+    it_plain = plain["regions"]["graph_iteration_ms"]
+    print(f"[minibatch] where the graph's time goes: {it:.4f} ms per "
+          f"iteration, {it_plain:.4f} without the dropout draw; one draw "
+          f"of a ({bs}, 1) mask from a device seed {draw_graph_ms:.4f} ms "
+          f"replayed as a graph alone, {draw_eager_ms:.4f} ms eagerly "
+          f"(CUDA events over back-to-back calls)", flush=True)
+    out["iteration_ms_without_draw"] = it_plain
+    out["draw_graph_ms"], out["draw_eager_ms"] = draw_graph_ms, draw_eager_ms
     return out
 
 
@@ -829,19 +1095,20 @@ def read_launches(kernels) -> dict:
 
 
 def run_path(name, optlevel, data, dev, kernels, regions=True,
-             profile_kernel=None, args=None, extra=()):
+             profile_kernel=None, args=None, extra=(), src=None):
     """One unprofiled run of a path through MLContext, after a warm-up on
     the first 8,192 rows; the launch counters are set to 0 just before it
     and read just after. `regions` False runs it with codegen_enabled
     False (every loop eager); with `profile_kernel`, once more under
     torch.profiler (its loop period from that kernel's launches). `args`
     override the path's arguments; `extra` names more outputs, returned
-    under "extra"."""
+    under "extra"; `src` the text of an inline script's variant."""
     from systemml_tpu_torch.api.mlcontext import MLContext
 
     ml = MLContext(config(optlevel, regions))
     ml.printer = lambda s: None
-    ml.execute(path_script(name, data, rows=8192, args=args, extra=extra))
+    ml.execute(path_script(name, data, rows=8192, args=args, extra=extra,
+                           src=src))
     lines = []
     ml.printer = lines.append
     torch.cuda.synchronize()
@@ -850,7 +1117,8 @@ def run_path(name, optlevel, data, dev, kernels, regions=True,
     reset_launches(kernels)
     t0 = time.perf_counter()
     with PhaseTimer() as timer:
-        res = ml.execute(path_script(name, data, args=args, extra=extra))
+        res = ml.execute(path_script(name, data, args=args, extra=extra,
+                                     src=src))
         out = res.get_tensor(PATHS[name][3])
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -891,9 +1159,10 @@ def run_path(name, optlevel, data, dev, kernels, regions=True,
                 name not in PLAIN_BY_LAYOUT:
             fail(f"{name}: {events['spoof_plain_by_layout']} fused plans "
                  f"took the plain arm by layout")
-        if launches["spoof_cell"] < 1:
+        if launches["spoof_cell"] < 1 and name not in ROW_ONLY:
             fail(f"{name} optlevel 3: the spoof cell kernel never launched")
-        if name in ("MultiLogReg", "Kmeans") and launches["spoof_row"] < 1:
+        if name in ("MultiLogReg", "Kmeans") + ROW_ONLY and \
+                launches["spoof_row"] < 1:
             fail(f"{name} optlevel 3: the spoof row kernel never launched")
     elif launches["spoof_cell"] or launches["spoof_row"]:
         fail(f"{name} optlevel {optlevel} launched spoof kernels")
@@ -1354,8 +1623,8 @@ def _n(CNode, op, *kids):
 
 def kernel_plans(progs):
     """(label, template, plan, leaf names) of the kernel phase: the
-    paths' own plans (l2-svm's 10-leaf cell plan, MultiLogReg's row plan)
-    and two made here."""
+    paths' own plans (l2-svm's 10-leaf cell plan, MultiLogReg's row plan,
+    last minibatch-sgd's row plan) and three made here."""
     from systemml_tpu_torch.codegen.cplan import CELL_BINARY, CELL_UNARY, CNode
     from systemml_tpu_torch.runtime.program import iter_spoof_hops
 
@@ -1371,6 +1640,11 @@ def kernel_plans(progs):
     row = rows[0]
     if row.params["plan"].pretty() != "u(exp)(b(-)(i0, i1))":
         fail(f"MultiLogReg's row plan is {row.params['plan'].pretty()}")
+    sgd = list(iter_spoof_hops(progs["minibatch-sgd"]))
+    if [h.params["plan"].pretty() for h in sgd] != [MINIBATCH_ROW_PLAN]:
+        fail(f"minibatch-sgd's plans are "
+             f"{templates_of(progs['minibatch-sgd'])}, not the one row "
+             f"plan {MINIBATCH_ROW_PLAN}")
     i = lambda nm: CNode("in", name=nm)
     lit = lambda v: CNode("lit", value=v)
     n = lambda op, *kids: _n(CNode, op, *kids)
@@ -1403,7 +1677,9 @@ def kernel_plans(progs):
              list(row.params["leaf_names"]), row),
             ("ragged", None, ragged, ["i0", "i1", "s", "i2", "t", "i3"], None),
             ("every op", None, every, ["i0", "i1", "i2", "i3"], None),
-            ("specials", None, special, ["i0", "i1", "i2"], None)]
+            ("specials", None, special, ["i0", "i1", "i2"], None),
+            ("minibatch-sgd row", "row", sgd[0].params["plan"],
+             list(sgd[0].params["leaf_names"]), sgd[0])]
 
 
 def kernel_env(label, hop, names, dtype, dev, gen):
@@ -1423,6 +1699,17 @@ def kernel_env(label, hop, names, dtype, dev, gen):
     if label == "MultiLogReg row":
         z = r(M, 5)
         return {"i0": z, "i1": z.amax(dim=1, keepdim=True)}
+    if label == "minibatch-sgd row":
+        # dscores' row sum at a batch of 1,000: Y_batch, the scores'
+        # product and bias, their row max, the exponentials' row sum
+        bs = PATHS["minibatch-sgd"][2]["bs"]
+        y = torch.nn.functional.one_hot(torch.randint(
+            0, 5, (bs,), generator=gen, device=dev), 5).to(dtype)
+        xw, bias = r(bs, 5), r(1, 5)
+        mx = (xw + bias).amax(dim=1, keepdim=True)
+        se = torch.exp(xw + bias - mx).sum(dim=1, keepdim=True)
+        return {"i0": y, "i1": xw, "i2": bias, "i3": mx, "i4": se,
+                "i5": xw, "i6": bias, "i7": mx, "i8": se}
     if label == "ragged":
         m, n = 100_003, 7
         return {"i0": r(m, n), "i1": r(1, n), "i2": r(m, 1), "i3": r(1, 1),
@@ -1794,16 +2081,17 @@ def check_chain_kernel(dev) -> float:
     return abs_err
 
 
-def run_cla_path(name, cla, data, dev, kernels, profile: bool = True):
+def run_cla_path(name, cla, data, dev, kernels, regions: bool = True):
     """One unprofiled run at optlevel 2 with `cla` on the categorical X,
     after a warm-up on its first 200,000 rows (which compresses too, so
     that the compressed ops' first calls, their allocations and cuBLAS's
     choices for the table's shape, are not in the timed loop); the launch
-    counters are set to 0 just before it and read just after. With
-    `profile`, LinearRegCG-cla runs once more under torch.profiler."""
+    counters are set to 0 just before it and read just after. `regions`
+    False runs it with codegen_enabled False; then LinearRegCG-cla runs
+    once more under torch.profiler (its loop's busy share)."""
     from systemml_tpu_torch.api.mlcontext import MLContext
 
-    cfg = config(2)
+    cfg = config(2, regions)
     cfg.cla = cla
     ml = MLContext(cfg)
     ml.printer = lambda s: None
@@ -1821,20 +2109,20 @@ def run_cla_path(name, cla, data, dev, kernels, profile: bool = True):
     secs = time.perf_counter() - t0
     launches = read_launches(kernels)
     peak = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
     iters = outer_iterations(name, lines)
     events = {k: v for k, v in ml._stats.estim_counts.items()
               if k.startswith(("cla_", "kb_pick_cla_"))}
-    windows = phase_windows(timer, iters, f"{name}-cla cla={cla}",
-                            PATHS[name][5])
-    reg = region_report(timer, f"{name}-cla cla={cla}",
-                        "LinearRegCG-cla" if (name, cla) == (
-                            "LinearRegCG", "auto") else name, True)
+    tag = f"{name}-cla cla={cla}" + ("" if regions else " eager")
+    windows = phase_windows(timer, iters, tag, PATHS[name][5])
+    reg = region_report(timer, tag, "LinearRegCG-cla" if (name, cla) == (
+        "LinearRegCG", "auto") else name, regions)
     comp_s = sum(w[0] for w in timer.windows["compress"]) / 1e3
     layout_ms = windows["compress_host_ms"] - 1e3 * comp_s
     windows["compression_s"] = comp_s
     for s in lines[-1:]:
         print(f"[script] {s}")
-    print(f"[cla] {name} cla={cla} on ({CENSUS_N}, {CENSUS_M}) fp32: {iters} "
+    print(f"[cla] {tag} on ({CENSUS_N}, {CENSUS_M}) fp32: {iters} "
           f"outer iterations, {windows['iteration_ms']:.3f} ms per outer "
           f"iteration (device window; host "
           f"{windows['iteration_host_ms']:.3f} ms), loop-entry compression "
@@ -1858,10 +2146,11 @@ def run_cla_path(name, cla, data, dev, kernels, profile: bool = True):
              f"in {iters} outer iterations")
     result = {"out": out, "iterations": iters, "seconds": secs,
               "exec_seconds": ml._stats.run_time, "launches": launches,
-              "peak_bytes": peak, "peak_over_data_bytes": peak - base,
+              "peak_bytes": peak, "peak_reserved": peak_reserved,
+              "peak_over_data_bytes": peak - base, "lines": lines,
               "windows": windows, "events": events, "regions": reg,
               "compressed": timer.compressed}
-    if name == "LinearRegCG" and cla == "auto" and profile:
+    if name == "LinearRegCG" and cla == "auto" and not regions:
         # the CG loop's period and busy share, from K6's launches (one
         # cla_chain_reduce each)
         result["profile"] = profile_main_path(
@@ -1881,6 +2170,22 @@ def cla_paths(dev, kernels) -> dict:
     for name in ("LinearRegCG", "l2-svm"):
         runs = {cla: run_cla_path(name, cla, data, dev, kernels)
                 for cla in ("auto", "false")}
+        if name == "LinearRegCG":
+            # the CG loop as one graph against its eager run (K6's
+            # launches equal, the busy share), and a repeat, bit for bit
+            runs["auto-eager"] = run_cla_path(name, "auto", data, dev,
+                                              kernels, regions=False)
+            runs["auto-repeat"] = run_cla_path(name, "auto", data, dev,
+                                               kernels)
+            runs["auto"]["versus_eager"] = compare_eager(
+                "LinearRegCG-cla", runs["auto"], runs["auto-eager"])
+            same = bool(torch.equal(runs["auto"]["out"],
+                                    runs["auto-repeat"]["out"]))
+            print(f"[cla] LinearRegCG-cla: a repeat of the region run "
+                  f"bit-identical {same}", flush=True)
+            if not same:
+                fail("LinearRegCG-cla: two runs of the region differ")
+            runs["auto"]["repeat_bit_identical"] = same
         a, b = runs["auto"]["out"].double(), runs["false"]["out"].double()
         diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
         print(f"[cla] {name}: |cla auto - cla false| / |cla false| = "
@@ -1966,6 +2271,94 @@ def time_chain_kernel(cla, dev, smi, max_abs_err) -> dict:
             "wrapper_host_us": wrapper_us, "chain_call_ms": call_ms,
             "chain_call_device_ms": call_dev_ms,
             "gather_arm_ms": gather_ms, "dense_two_pass_ms": dense_ms}
+
+
+def _left_by_bincount(dc, yt):
+    """The compressed left mult as it was summed before its fixed-order
+    layout: torch.bincount of each group's codes weighted by yt's one row
+    (float atomics; the call reads the largest code on the host)."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    out = torch.zeros((1, dc.shape[1]), dtype=yt.dtype, device=yt.device)
+    for g in dc.groups:
+        if g.coded:
+            sums = torch.bincount(g.index(), weights=yt[0],
+                                  minlength=g.dict.shape[0]).reshape(1, -1)
+            part = cla_dev._mm(sums.to(yt.dtype), g.dict)
+        else:
+            part = cla_dev._mm(yt, g.vals)
+        out.index_copy_(1, g.cols_dev, part.to(out.dtype))
+    return out
+
+
+def time_left_mult(cla, dev, smi) -> dict:
+    """The compressed left mult t(X) %*% y (k = 1, fp32) on the block
+    LinearRegCG-cla bound: its fixed-order segment sums (compress/device
+    Segments) against bincount, by CUDA events, the two within 1e-5
+    normwise and a repeat bit-identical; and one group of 65,536 codes
+    over as many rows as the block, 60% of them on one code: the layout's
+    bytes and build time, its sums against bincount (fp64 within 1e-12 of
+    the largest sum), and the peak memory a call adds."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    c = cla["LinearRegCG"]["auto"]["compressed"][0]
+    dc = cla_dev.device_mirror(c)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    yt = torch.randn(1, CENSUS_N, generator=gen, device=dev)
+    left = lambda: cla_dev._left(dc, yt)
+    a, b = left(), _left_by_bincount(dc, yt)
+    same = bool(torch.equal(a, left()))
+    err = normwise(a, b)
+    left_ms, bincount_ms = time_ms([left, lambda: _left_by_bincount(dc, yt)])
+    coded = [g for g in dc.groups if g.coded]
+    layout = sum(seg.nbytes() for seg, _ in dc.streams)
+    code_bytes = sum(g.codes.numel() * g.codes.element_size() for g in coded)
+    print(f"[cla-left] t(X) %*% y on the Census-shaped block ({CENSUS_N}, "
+          f"{CENSUS_M}), {len(coded)} coded groups in {len(dc.streams)} "
+          f"segment streams, fp32, on {smi}: "
+          f"fixed-order segment sums {left_ms:.4f} ms, bincount "
+          f"{bincount_ms:.4f} ms (CUDA events over back-to-back calls); "
+          f"normwise {err:.3e} (bar 1e-5), a repeat bit-identical {same}; "
+          f"layouts {layout / 1e6:.1f} MB beside {code_bytes / 1e6:.1f} MB "
+          f"of codes", flush=True)
+    if not err <= 1e-5 or not same:
+        fail(f"compressed left mult: {err} from bincount, repeat same {same}")
+    n, d = CENSUS_N, 65_536
+    codes = torch.randint(0, d, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    codes[torch.rand(n, generator=gen, device=dev) < 0.6] = 123
+    y = torch.randn(1, n, generator=gen, device=dev, dtype=torch.float64)
+    ext = torch.cat([y, torch.zeros(1, 1, dtype=y.dtype, device=dev)], 1)
+    seg = cla_dev.Segments([codes], [d])
+    build_ms, sums_ms, count_ms = time_ms([
+        lambda: cla_dev.Segments([codes], [d]), lambda: seg.sums(ext),
+        lambda: torch.bincount(codes, weights=y[0], minlength=d)], reps=5)
+    got = seg.sums(ext)
+    ref = torch.bincount(codes, weights=y[0], minlength=d)
+    diff = float((got[0] - ref).abs().max() / ref.abs().max())
+    same_many = bool(torch.equal(got, seg.sums(ext)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    seg.sums(ext)
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"[cla-left] one group of {d} codes over {n} rows, 60% on one "
+          f"code, fp64: layout {seg.nbytes() / 1e6:.2f} MB built in "
+          f"{build_ms:.3f} ms; sums {sums_ms:.4f} ms against bincount "
+          f"{count_ms:.4f} ms; max difference {diff:.3e} of the largest "
+          f"sum (bar 1e-12); a repeat bit-identical {same_many}; a call's "
+          f"peak {call_peak / 1e6:.1f} MB over its inputs", flush=True)
+    if not diff <= 1e-12 or not same_many:
+        fail(f"segment sums of {d} codes: {diff} from bincount, repeat "
+             f"same {same_many}")
+    return {"census_left_ms": left_ms, "census_bincount_ms": bincount_ms,
+            "census_normwise": err, "census_layout_bytes": layout,
+            "census_code_bytes": code_bytes, "many_codes_build_ms": build_ms,
+            "many_codes_sums_ms": sums_ms, "many_codes_bincount_ms": count_ms,
+            "many_codes_layout_bytes": seg.nbytes(),
+            "many_codes_call_peak_bytes": call_peak,
+            "many_codes_max_rel_diff": diff}
 
 
 # --------------------------------------------------------------------------
@@ -2146,8 +2539,8 @@ def check_multiagg_kernel(summary_hop, v32, progs, dev, kernels,
                    names[3]: (vd != 0).sum().to(dtype)}
             yield (f"summary V ({ML10M_USERS}, {ML10M_MOVIES})", plan,
                    names, env, dtype, vd)
-        for label, _, rplan, rnames, hop in kernel_plans(progs)[2:]:
-            if label == "every op":
+        for label, tmpl, rplan, rnames, hop in kernel_plans(progs)[2:]:
+            if label == "every op" or tmpl is not None:
                 continue
             for dtype in (torch.float32, torch.float64):
                 yield (f"{label} (100003, 7)", rplan, rnames,
@@ -3207,6 +3600,7 @@ def main() -> None:
     bridge = bridge_phase(dev)
 
     # ---- 3. the paths -------------------------------------------------------
+    audit = SyncAudit()
     # LinearRegCG at optlevel 2: the first slice's main path, K1
     lines = []
 
@@ -3284,7 +3678,8 @@ def main() -> None:
     # 2 and MultiLogReg at 3 also without (codegen_enabled False)
     paths = {}
     eager_twins = {("LinearRegCG", 2): "mmchain_partial",
-                   ("MultiLogReg", 3): "row_thread"}
+                   ("MultiLogReg", 3): "row_thread",
+                   ("l2-svm", 3): None, ("l2-svm", 2): None}
     versus_eager = {}
     for pname in DENSE_PATHS:
         runs = {}
@@ -3304,6 +3699,9 @@ def main() -> None:
                 versus_eager[f"{pname} optlevel {optlevel}"] = compare_eager(
                     f"{pname} optlevel {optlevel}", runs[optlevel], eag)
                 del eag
+            if pname in PRINTS:
+                check_print_lines(f"{pname} optlevel {optlevel}",
+                                  runs[optlevel])
         a, b = runs[3]["out"].double(), runs[2]["out"].double()
         diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
         print(f"[path] {pname}: |optlevel 3 - optlevel 2| / |optlevel 2| = "
@@ -3337,6 +3735,10 @@ def main() -> None:
     breadth = breadth_paths(data, dev, kernels)
     breadth_datagen = check_breadth_datagen(dev)
     torch.cuda.empty_cache()
+    # this slice's path: minibatch SGD, slices at a device offset and a
+    # loop-varying seed inside one graph
+    minibatch = minibatch_paths(data, dev, kernels)
+    torch.cuda.empty_cache()
     # this slice's path: LinearRegCG-cla (K6), and l2-svm on the same X
     cla = cla_paths(dev, kernels)
     torch.cuda.empty_cache()
@@ -3345,6 +3747,7 @@ def main() -> None:
     # the sparse plane: ALS-CG over a CSR V, MovieLens-10M- and
     # Netflix-shaped
     sparse = sparse_paths(ratings, als, dev, kernels)
+    syncs = audit.finish()
 
     # ---- 4. times -----------------------------------------------------------
     v = torch.randn(K, 1, generator=gen, device=dev)
@@ -3376,6 +3779,7 @@ def main() -> None:
     by_path = {p: paths[p]["optlevel3"]["launches"] for p in paths}
     by_path.update({p: breadth[p]["optlevel3"]["launches"]
                     for p in BREADTH_PATHS})
+    by_path["minibatch-sgd"] = minibatch["optlevel3"]["launches"]
     by_path["ALS-CG-ml10m"] = als["optlevel3"]["launches"]
     by_path["ALS-CG-ml10m-sparse"] = \
         sparse["ALS-CG-ml10m-sparse"]["regions"]["launches"]
@@ -3428,6 +3832,7 @@ def main() -> None:
     records[1].update(time_cell_beyond_l2svm(als, ratings, als_progs, smi,
                                              kernels))
     records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
+    left_mult = time_left_mult(cla, dev, smi)
     records.append({
         "name": "set_cond", "route": "cuda",
         "source": "systemml_tpu_torch/codegen/csrc/loop_graph.cu",
@@ -3484,7 +3889,7 @@ def main() -> None:
           flush=True)
     cla_summary = {
         name: {mode: {k: v for k, v in r.items()
-                      if k not in ("out", "compressed")}
+                      if k not in ("out", "compressed", "lines")}
                for mode, r in cla[name].items()}
         for name in ("LinearRegCG", "l2-svm")}
     print(json.dumps({"kernels": records, "card": smi,
@@ -3500,6 +3905,8 @@ def main() -> None:
                               for m, r in runs.items()}
                           for p, runs in sparse.items()},
                       "breadth_paths": breadth,
+                      "minibatch_sgd": minibatch,
+                      "cla_left_mult": left_mult, "region_syncs": syncs,
                       "breadth_datagen": breadth_datagen,
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path}))

@@ -72,9 +72,9 @@ def _unit_rw(b) -> Tuple[Set[str], Set[str], Set[str]]:
     if isinstance(b, P.BasicBlock):
         for s in b.hops.sinks:
             # print() plans as in the JAX package (whose trace lowers it to
-            # jax.debug.print; the port's executor refuses the region at
-            # entry); any other side effect (write/stop/assert) keeps the
-            # loop on the host
+            # jax.debug.print; the port's region writes it to a print ring
+            # on the device); any other side effect (write/stop/assert)
+            # keeps the loop on the host
             if s.op != "call:print":
                 raise NotLoopFusable(f"side-effect sink {s.op}")
         for h in postorder(b.hops.roots()):
@@ -215,11 +215,13 @@ def _dead_string_accumulators(body, pred_reads, live_after) -> Set[str]:
 
 # the inputs of a shape call that size its output, by argument name and
 # position, where not all of them do: rexpand's target, table's vectors
-# and weights, a matrix()'s data and outer()'s vectors are values
+# and weights, a matrix()'s data, outer()'s vectors and rand()'s bounds,
+# sparsity and seed are values
 _SIZING_ARGS: Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]] = {
     "call:rexpand": (("max",), ()),
     "call:matrix": (("rows", "cols"), (1, 2)),
     "call:outer": ((), ()),
+    "call:rand": (("rows", "cols"), (0, 1)),
 }
 
 
@@ -1150,12 +1152,73 @@ class Evaluator:
     def _int(self, h: Hop) -> int:
         return int(_scalar(self.eval(h)))
 
+    def _host_int(self, h: Hop) -> Optional[int]:
+        """The integer value of a scalar hop when it is a host number, None
+        when it is a device value (a loop-carried index inside a region),
+        a boolean or not an integer (the JAX package's _host_int, with a
+        tensor in the place of its tracer)."""
+        v = self.eval(h)
+        if isinstance(v, (bool, np.bool_)):
+            return None
+        if isinstance(v, (int, np.integer)):
+            return int(v)
+        if isinstance(v, (float, np.floating)):
+            return int(v) if float(v).is_integer() else None
+        return None
+
+    def _affine(self, h: Hop) -> Tuple[Optional[int], int]:
+        """A scalar hop as (base hop id | None, const) with value ==
+        value(base) + const, peeling b(+)/b(-) whose other side is a host
+        integer; base None means fully host (systemml_tpu/compiler/
+        lower.py:1944 _affine)."""
+        c = self._host_int(h)
+        if c is not None:
+            return None, c
+        if h.op in ("b(+)", "b(-)"):
+            x, y = h.inputs[0], h.inputs[1]
+            cy = self._host_int(y)
+            if cy is not None:
+                bx, cx = self._affine(x)
+                return bx, cx + (cy if h.op == "b(+)" else -cy)
+            if h.op == "b(+)":
+                cx = self._host_int(x)
+                if cx is not None:
+                    by, cyy = self._affine(y)
+                    return by, cyy + cx
+        return h.id, 0
+
+    def _static_offset(self, a: Hop, b: Hop) -> Optional[int]:
+        """The constant c with value(a) == value(b) + c, or None: what
+        makes X[beg:beg+k-1,] a slice with a device start and a static
+        extent (systemml_tpu/compiler/lower.py:1966 _static_offset)."""
+        if a.id == b.id:
+            return 0
+        ba, ca = self._affine(a)
+        bb, cb = self._affine(b)
+        if ba == bb:
+            return ca - cb
+        return None
+
     def _bounds_1d(self, lo: Hop, hi: Hop):
-        """-> (lo_value, extent) for one index dimension, int()-truncated
-        as in the JAX package. Traced bounds (the fused-loop minibatch
-        pattern) wait with the fused loops."""
-        lo_v, hi_v = _scalar(self.eval(lo)), _scalar(self.eval(hi))
-        return int(lo_v), int(hi_v) - int(lo_v) + 1
+        """-> (start, extent, dynamic?) for one index dimension. Host
+        bounds (and any bound outside a loop region, read on the host)
+        keep the int() truncation of the JAX package; inside a region a
+        device bound takes the dynamic arm when the extent is static by
+        the affine analysis (start the device value), and otherwise
+        refuses the region ("slice bound"), where the JAX package raises
+        NotTraceableError and runs the loop on the host
+        (systemml_tpu/compiler/lower.py:1994 _bounds_1d)."""
+        lo_v, hi_v = self.eval(lo), self.eval(hi)
+        if _REGION.get() is not None and (isinstance(lo_v, torch.Tensor)
+                                          or isinstance(hi_v, torch.Tensor)):
+            off = self._static_offset(hi, lo)
+            if off is not None:
+                return (lo_v if isinstance(lo_v, torch.Tensor)
+                        else int(_scalar(lo_v))), off + 1, True
+            region_refuse("slice bound: a device bound without a static "
+                          "extent")
+        lo_v, hi_v = _scalar(lo_v), _scalar(hi_v)
+        return int(lo_v), int(hi_v) - int(lo_v) + 1, False
 
     def _right_index(self, h: Hop):
         from systemml_tpu_torch.ops import reorg
@@ -1164,8 +1227,10 @@ class Evaluator:
         x = self.eval(h.inputs[0])
         if isinstance(x, ListObject):
             return x.get(self._int(h.inputs[1]))
-        rl, rn = self._bounds_1d(h.inputs[1], h.inputs[2])
-        cl, cn = self._bounds_1d(h.inputs[3], h.inputs[4])
+        rl, rn, rdyn = self._bounds_1d(h.inputs[1], h.inputs[2])
+        cl, cn, cdyn = self._bounds_1d(h.inputs[3], h.inputs[4])
+        if rdyn or cdyn:
+            return reorg.right_index_dynamic(_mat(x), rl, cl, rn, cn)
         return reorg.right_index(_mat(x), rl, rl + rn - 1, cl, cl + cn - 1)
 
     def _left_index(self, h: Hop):
@@ -1173,15 +1238,19 @@ class Evaluator:
 
         x = self._m(h.inputs[0])
         y = self.eval(h.inputs[1])
-        rl, rn = self._bounds_1d(h.inputs[2], h.inputs[3])
-        cl, cn = self._bounds_1d(h.inputs[4], h.inputs[5])
+        rl, rn, rdyn = self._bounds_1d(h.inputs[2], h.inputs[3])
+        cl, cn, cdyn = self._bounds_1d(h.inputs[4], h.inputs[5])
         if isinstance(y, (int, float, bool)):
             y = float(y)
+        if rdyn or cdyn:
+            return reorg.left_index_dynamic(x, y, rl, cl, rn, cn)
         return reorg.left_index(x, y, rl, rl + rn - 1, cl, cl + cn - 1)
 
     # ---- builtin table ---------------------------------------------------
 
     def _builtin(self, h: Hop, name: str):
+        if name == "print" and _REGION.get() is not None:
+            return _region_print(self, h, _REGION.get())
         fn = _BUILTINS.get(name)
         if fn is None:
             if name in _WAITING_BUILTINS:
@@ -1287,6 +1356,54 @@ def _bi_print(ev, pos, named, h):
         msg = _to_display_str(v) if pos else ""
     ev.printer(msg)
     return None
+
+
+def _region_print(ev, h, run):
+    """print() inside a loop region: the string concatenation flattened
+    into static text and scalar leaves, as the JAX package's _trace_print
+    (systemml_tpu/runtime/loopfuse.py:283-327), and one record of the
+    leaves' device values written to the region's print ring
+    (runtime/loopfuse.PrintRing), which the host formats after the
+    launch with _to_display_str, in order. A matrix leaf refuses the
+    region ("print matrix"); once the region's first iteration is refused
+    the line prints as it would eagerly, after what the ring holds."""
+    parts: List[Hop] = []
+
+    def flat(x):
+        if x.op == "b(+)" and x.dt == "string":
+            flat(x.inputs[0])
+            flat(x.inputs[1])
+        else:
+            parts.append(x)
+
+    if h.inputs:
+        flat(h.inputs[0])
+    segs: List[Tuple[str, str]] = []
+    vals: List[torch.Tensor] = []
+    for p in parts:
+        if p.op == "lit" and isinstance(p.value, str):
+            segs.append(("t", p.value))
+            continue
+        v = ev.eval(p)
+        if isinstance(v, (str, bool, int, float, np.generic)):
+            segs.append(("t", _to_display_str(v)))
+        elif isinstance(v, torch.Tensor) and v.numel() == 1:
+            segs.append(("v", "b" if v.dtype == torch.bool else
+                         "f" if v.is_floating_point() else "i"))
+            vals.append(v.reshape(()))
+        else:
+            run.fault("print matrix: a print of a matrix")
+            break
+    if run.ring is None:
+        run.fault("print in inner loop: a print the region has no ring for")
+    if run.refusal is None:
+        run.ring.write(tuple(segs), vals)
+        return None
+    # the first iteration is refused: what the ring holds goes out first,
+    # this line as it prints eagerly
+    if run.ring is not None:
+        run.ring.drain_to(ev.printer)
+    return _bi_print(ev, [ev.eval(h.inputs[0])] if h.inputs else [], {}, h)
 
 
 def _matrix_to_string(x, rows=100, cols=100, decimal=3) -> str:
@@ -1412,41 +1529,33 @@ def _bi_compress(ev, pos, named, h):
 
 def _bi_rand(ev, pos, named, h):
     """rand(rows, cols, min, max, sparsity, pdf, seed), after the JAX
-    package's `_bi_rand` (systemml_tpu/compiler/lower.py:2221-2231)."""
-    from systemml_tpu_torch.ops import datagen
-
+    package's `_bi_rand` (systemml_tpu/compiler/lower.py:2221-2231).
+    Inside a loop region every iteration draws: a device seed derives its
+    key on the device (ops/datagen.prng_key); no seed or -1 takes the
+    next key of the region's device stream (RegionRun.stream_key), the
+    same keys an eager loop takes from the host counter."""
+    key = None
     run = _REGION.get()
-    if run is not None:
-        # inside a loop region a seeded rand gives the same matrix every
-        # iteration: the first iteration's value is reused, and a capture
-        # never generates (the region refuses an unseeded rand)
-        key = (h.id,) + tuple(
-            (n, v) for n, v in zip(h.params.get("argnames") or [], pos
-                                   + list(named.values()))
-            if not isinstance(v, torch.Tensor))
-        hit = run.rand.get(key)
-        if hit is not None:
-            return hit
-        if run.mode == "capture":
-            raise NotLoopFusable("a seeded rand that the first iteration "
-                                 "did not run")
-        v = _bi_rand_eager(pos, named)
-        run.rand[key] = v
-        return v
-    return _bi_rand_eager(pos, named)
+    seed = named.get("seed")
+    if run is not None and not isinstance(seed, torch.Tensor) and (
+            seed is None or int(_scalar(seed)) == -1):
+        key = run.stream_key()
+    return _bi_rand_eager(pos, named, key)
 
 
-def _bi_rand_eager(pos, named):
+def _bi_rand_eager(pos, named, key=None):
     from systemml_tpu_torch.ops import datagen
 
+    seed = named.get("seed")
     return datagen.rand(
         int(_scalar(named.get("rows", pos[0] if pos else 1))),
         int(_scalar(named.get("cols", pos[1] if len(pos) > 1 else 1))),
         _scalar(named.get("min", 0.0)), _scalar(named.get("max", 1.0)),
         float(_scalar(named.get("sparsity", 1.0))),
         named.get("pdf", "uniform"),
-        int(_scalar(named["seed"])) if "seed" in named else None,
-        float(_scalar(named.get("lambda", 1.0))))
+        None if seed is None else (seed if isinstance(seed, torch.Tensor)
+                                   else int(_scalar(seed))),
+        float(_scalar(named.get("lambda", 1.0))), key=key)
 
 
 def _bi_decompress(ev, pos, named, h):

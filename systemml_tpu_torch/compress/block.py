@@ -1,7 +1,9 @@
 # Copy of systemml_tpu/compress/block.py for the PyTorch port: the same
 # code, with its imports pointed at systemml_tpu_torch. What differs:
 # `to_dense` returns a torch tensor in the block's dtype on the configured
-# device; `decompress` keeps its float64 numpy result.
+# device; `decompress` keeps its float64 numpy result; the ops computed on
+# the host (decompress, the column aggregates, value_map) refuse a loop
+# region in its first iteration (`_host_op`), as a capture cannot run them.
 """Compressed matrix block + compression planner.
 
 TPU-native equivalent of the reference's CompressedMatrixBlock
@@ -33,6 +35,15 @@ MIN_RATIO = 0.8
 # max distinct fraction for a column to be considered compressible
 MAX_DISTINCT_FRAC = 0.4
 SAMPLE_ROWS = 4096
+
+
+def _host_op(what: str) -> None:
+    """A compressed op computed on the host: inside a loop region's first
+    iteration it refuses the region ("compressed host op: <what>"),
+    before any capture; elsewhere nothing."""
+    from systemml_tpu_torch.compiler.lower import region_refuse
+
+    region_refuse(f"compressed host op: {what}")
 
 
 class CompressedMatrixBlock:
@@ -69,6 +80,7 @@ class CompressedMatrixBlock:
     # ---- decompress ------------------------------------------------------
 
     def decompress(self) -> np.ndarray:
+        _host_op("decompress")
         out = np.zeros(self.shape)
         for g in self.groups:
             g.decompress_into(out)
@@ -140,6 +152,7 @@ class CompressedMatrixBlock:
         return vi.T @ vj
 
     def col_sums(self) -> np.ndarray:
+        _host_op("column sums")
         out = np.zeros(self.shape[1])
         for g in self.groups:
             out[g.cols] = g.col_sums()
@@ -149,6 +162,7 @@ class CompressedMatrixBlock:
         return float(self.col_sums().sum())
 
     def col_minmax(self, which: str) -> np.ndarray:
+        _host_op("column min/max")
         out = np.zeros(self.shape[1])
         for g in self.groups:
             out[g.cols] = g.col_minmax(which)
@@ -160,6 +174,7 @@ class CompressedMatrixBlock:
 
     def value_map(self, fn) -> "CompressedMatrixBlock":
         """Scalar/unary op on dictionaries only — O(total distinct)."""
+        _host_op("dictionary map")
         return CompressedMatrixBlock([g.value_map(fn) for g in self.groups],
                                      self.shape)
 

@@ -5,8 +5,11 @@ mirror keeps each group's codes as a narrow (uint8/uint16) tensor and its
 dictionary on the device, built once per block and cached on it. The ops:
 
 - right mult  X @ W  = gather(dict @ W[cols], codes), summed over groups;
-- left mult  Y^T @ X = segment sums of Y^T's rows by code (`bincount`
-  with weights) times the dictionary;
+- left mult  Y^T @ X = segment sums of Y^T's rows by code times the
+  dictionary, the sums in a fixed order over the rows sorted by code
+  (sorted once with the mirror, the coded groups sharing streams:
+  `Segments`), with no float atomic, no host read, and O(n + d) bytes a
+  group;
 - tsmm  t(X) @ X from per-group code counts and joint code histograms;
 - mmchain  t(X) %*% (w? * (X %*% v) -? y): kernel K6 (csrc/cla_chain.cu;
   v's columns 8 a launch) when the block is all coded with at most 8
@@ -16,13 +19,11 @@ dictionary on the device, built once per block and cached on it. The ops:
   and adds z into exact int32 histograms, scaled per tile, that it flushes
   to fp64: repeats are bit-identical.
 
-The JAX package leaves the first three to XLA; here they are torch ops
-(gather, `bincount`, `torch.matmul`). On the card `bincount` adds with
-float atomics, so a left mult and the gather arm are not bit-identical run
-to run (last-bit differences); K6 is. (`index_add_` onto a few bins
-contends on its atomics in device memory; `bincount` sums a small
-histogram in shared memory first, at the price of a host synchronisation
-per call, where it reads the largest code.)
+The JAX package leaves the first three to XLA (its left mult is
+`jax.ops.segment_sum`); here they are torch ops (gather, `index_select`,
+`sum`, `torch.matmul`). The left mult and the gather arm are bit-identical
+run to run and read nothing on the host, so a loop region captures them;
+tsmm counts codes with `bincount` (a host read: a region refuses it).
 
 Each op family chooses between its coded arm and its decompress_dense arm
 (and mmchain between K6 and the gather arm) with the JAX package's
@@ -55,17 +56,131 @@ from systemml_tpu_torch.utils import stats as stats_mod
 from systemml_tpu_torch.utils.config import get_config
 
 
+# positions a chunk of a code-sorted stream holds, and the most rows a
+# stream takes from its groups (Segments; a group alone may pass it)
+SEGMENT_CHUNK = 1024
+SEGMENT_STREAM = 1 << 25
+
+
+def _row_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along dimension 1 of a 2-D x, in fp64 and a
+    fixed order: torch scans two rows or more a row per block; a single
+    row would take CUB's device-wide scan, whose float sums depend on
+    timing, so it is scanned beside a row of zeros."""
+    if x.shape[0] > 1:
+        return torch.cumsum(x, 1, dtype=torch.float64)
+    return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), 1,
+                        dtype=torch.float64)[:1]
+
+
+class Segments:
+    """Coded groups' rows sorted by code once, for segment sums in a fixed
+    order, with no float atomic and no host read, in O(n + d) bytes a
+    group. The groups share one stream (their codes told apart by offsets
+    in the order of `ds`), so that a call is a dozen launches whatever
+    their number.
+
+    The stream: chunk 0 all padding, each group's rows in code order from
+    position B = SEGMENT_CHUNK, padding to C chunks; `order` (C * B,)
+    holds each position's row, padding as n (the caller's zero column).
+    A call prefixes each chunk in fp64 (P; a chunk may cross codes and
+    groups), then the chunk totals T (Q). Code j at positions [s, e) sums
+    to P[e-1] - P[s-1] when one chunk holds it, and otherwise adds T[cs]
+    + Q[ce-1] - Q[cs], its first chunk's total and those of the chunks
+    between, s in chunk cs and e-1 in ce. `pos` holds e-1 and s-1 (or 0,
+    a zero of chunk 0, where s starts a chunk), `tq` cs and the two Q
+    positions (past C), all pointing at zeros for a code one chunk holds,
+    so that its fix-up is exactly 0; an empty code reads zeros only.
+    Where the 2d windows of B positions that end at `pos` take at most a
+    quarter of the stream (few codes), P is read at `pos` only: T sums
+    each chunk (in yt's dtype) and each window sums its rows in fp64
+    (`win`, padding past pos), and no prefix of the whole stream is
+    written. 4 (rows + 2B) + 20 d
+    bytes, and the windows' 8 d B when they are taken, built with a sort
+    a group and two searches on the codes' device."""
+
+    def __init__(self, codes: List[torch.Tensor], ds: List[int]):
+        n, dev = codes[0].shape[0], codes[0].device
+        b = SEGMENT_CHUNK
+        self.ds = [int(d) for d in ds]
+        d = sum(self.ds)
+        rows = n * len(codes)
+        self.chunks = max(2, 1 + -(-rows // b))
+        self.order = torch.full((self.chunks * b,), n, dtype=torch.int32,
+                                device=dev)
+        keys, at, off = [], b, 0
+        for c, dg in zip(codes, self.ds):
+            k, o = torch.sort(c.to(torch.int64), stable=True)
+            keys.append(k + off)
+            self.order[at:at + n] = o.to(torch.int32)
+            at += n
+            off += dg
+        keys = torch.cat(keys)
+        j = torch.arange(d, device=dev)
+        s = torch.searchsorted(keys, j) + b
+        e = torch.searchsorted(keys, j, right=True) + b
+        del keys
+        cs, ce = s // b, (e - 1) // b
+        zero = torch.zeros_like(j)
+        present = e > s
+        multi = present & (ce != cs)
+        q0 = zero + self.chunks
+        self.pos = torch.cat([
+            torch.where(present, e - 1, zero),
+            torch.where(present & (s % b != 0), s - 1, zero)]).to(torch.int32)
+        self.tq = torch.cat([
+            torch.where(multi, cs, zero),
+            torch.where(multi, ce - 1 + self.chunks, q0),
+            torch.where(multi, cs + self.chunks, q0)]).to(torch.int32)
+        self.win = None
+        if 8 * d * b <= rows:
+            at = torch.arange(b, device=dev)
+            pos = self.pos.to(torch.int64)[:, None]
+            self.win = torch.where(
+                at <= pos % b, self.order[pos - pos % b + at],
+                torch.full_like(self.order[:1], n)).reshape(-1)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.order, self.pos, self.tq, self.win)
+                   if t is not None)
+
+    def sums(self, yt_ext: torch.Tensor) -> torch.Tensor:
+        """(k, sum of ds) in float64: each row of yt summed by code, the
+        groups' codes one after another; yt_ext is yt (k, n) with a zero
+        column appended."""
+        k, c, b = yt_ext.shape[0], self.chunks, SEGMENT_CHUNK
+        d = self.pos.shape[0] // 2
+        v = yt_ext.index_select(1, self.order).reshape(k * c, b)
+        if self.win is None:
+            p = torch.cumsum(v, 1, dtype=torch.float64).reshape(k, c * b)
+            t = p[:, b - 1::b]
+            pe = p.index_select(1, self.pos)
+        else:
+            # a chunk sums in yt's dtype: a cast first would write the
+            # stream again in fp64
+            t = v.sum(1).to(torch.float64).reshape(k, c)
+            pe = yt_ext.index_select(1, self.win).reshape(k, 2 * d, b).sum(
+                2, dtype=torch.float64)
+        tq = torch.cat([t, _row_scan(t)], 1).index_select(1, self.tq)
+        return (pe[:, :d] - pe[:, d:]) + (tq[:, :d] + (tq[:, d:2 * d]
+                                                        - tq[:, 2 * d:]))
+
+
 class DeviceGroup:
     """One column group on the device: coded (dict + codes) or dense
     values."""
 
     def __init__(self, cols: np.ndarray, device, dict_dev=None,
-                 codes_dev=None, vals_dev=None):
+                 codes=None, vals_dev=None):
         self.cols = np.asarray(cols, dtype=np.int64)
         self.cols_dev = torch.from_numpy(self.cols).to(device)
         self.dict = dict_dev      # (d, g) or None
-        self.codes = codes_dev    # (n,) narrow uint or None
         self.vals = vals_dev      # (n, g) dense fallback or None
+        self.codes = None
+        if codes is not None:     # the narrow uint width is kept
+            self.codes = torch.from_numpy(np.ascontiguousarray(codes)).to(
+                device)           # (n,)
 
     @property
     def coded(self) -> bool:
@@ -78,11 +193,24 @@ class DeviceGroup:
 
 
 class DeviceCompressed:
-    """Device mirror of a CompressedMatrixBlock."""
+    """Device mirror of a CompressedMatrixBlock: its groups, and the coded
+    ones' segment streams (Segments, each with its groups in order),
+    consecutive coded groups sharing one up to SEGMENT_STREAM rows."""
 
     def __init__(self, groups: List[DeviceGroup], shape: Tuple[int, int]):
         self.groups = groups
         self.shape = shape
+        self.streams: List[Tuple[Segments, List[DeviceGroup]]] = []
+        batch: List[DeviceGroup] = []
+        for g in [g for g in groups if g.coded] + [None]:
+            if batch and (g is None or (len(batch) + 1) * shape[0]
+                          > SEGMENT_STREAM):
+                self.streams.append((Segments(
+                    [x.codes for x in batch],
+                    [x.dict.shape[0] for x in batch]), batch))
+                batch = []
+            if g is not None:
+                batch.append(g)
 
 
 def device_mirror(c: CompressedMatrixBlock) -> DeviceCompressed:
@@ -104,9 +232,7 @@ def device_mirror(c: CompressedMatrixBlock) -> DeviceCompressed:
                 g.cols, dev,
                 dict_dev=torch.from_numpy(np.ascontiguousarray(
                     g.dictionary())).to(dev),
-                # the narrow uint width is kept
-                codes_dev=torch.from_numpy(np.ascontiguousarray(
-                    g.codes())).to(dev)))
+                codes=g.codes()))
     dc = DeviceCompressed(groups, c.shape)
     c._device_mirror = dc
     return dc
@@ -131,27 +257,25 @@ def _right(dc: DeviceCompressed, w):
 
 
 def _left(dc: DeviceCompressed, yt):
-    """Y^T @ X -> (k, m); yt is (k, n)."""
+    """Y^T @ X -> (k, m); yt is (k, n). Each coded group's part is its
+    segment sums (its stream's Segments, a fixed order) times its
+    dictionary."""
     out = torch.zeros((yt.shape[0], dc.shape[1]), dtype=yt.dtype,
                       device=yt.device)
     for g in dc.groups:
-        if g.coded:
-            part = _mm(_segment_sums(g, yt), g.dict)
-        else:
-            part = _mm(yt, g.vals)
-        out[:, g.cols_dev] = part.to(out.dtype)
+        if not g.coded:
+            out.index_copy_(1, g.cols_dev, _mm(yt, g.vals).to(out.dtype))
+    if dc.streams:
+        ext = torch.cat([yt, torch.zeros((yt.shape[0], 1), dtype=yt.dtype,
+                                         device=yt.device)], 1)
+    for seg, batch in dc.streams:
+        sums = seg.sums(ext).to(yt.dtype)
+        at = 0
+        for g, d in zip(batch, seg.ds):
+            part = _mm(sums[:, at:at + d], g.dict)
+            out.index_copy_(1, g.cols_dev, part.to(out.dtype))
+            at += d
     return out
-
-
-def _segment_sums(g: DeviceGroup, yt):
-    """(k, d): each row of yt (k, n) summed by code, one bincount for all
-    k rows (bin code + d * row)."""
-    d, k = g.dict.shape[0], yt.shape[0]
-    idx = g.codes.long()
-    if k > 1:
-        idx = (idx[None, :] + d * torch.arange(k, device=idx.device)[:, None])
-    return torch.bincount(idx.reshape(-1), weights=yt.reshape(-1),
-                          minlength=d * k).reshape(k, d).to(yt.dtype)
 
 
 def _tsmm_pair(gi: DeviceGroup, gj: DeviceGroup, dtype):
@@ -355,6 +479,9 @@ def left_mult(c: CompressedMatrixBlock, yt):
 
 def tsmm(c: CompressedMatrixBlock):
     """t(X) @ X via code counts and joint code histograms."""
+    from systemml_tpu_torch.compress.block import _host_op
+
+    _host_op("tsmm")      # bincount reads the largest code
     ctx = _cla_ctx(c, c.shape[1])
     arm = _select("cla_tsmm", ctx, ["coded", "decompress_dense"], "f32")
     if arm == "coded":

@@ -33,8 +33,13 @@ and in fp64, on the CPU and on the card alike:
   (XLA on the CPU does not contract this one).
 
 The words are kept in int64 with 0xFFFFFFFF masks: torch's uint32 has
-partial coverage on CUDA. The normal and poisson pdfs wait for ROADMAP
-queue 1, DNN and models (item 8).
+partial coverage on CUDA. A key is a pair of words: host ints, or (inside
+a loop region, where a seed is a device value) a pair of 0-d int64
+tensors, which `prng_key`, `split` and `fold_in` derive on the device
+with no host read, as the JAX package derives a traced seed's key
+(systemml_tpu/ops/datagen.py:60-66); both give the same bits. The
+normal and poisson pdfs wait for ROADMAP queue 1, DNN and models (item
+8).
 """
 
 from __future__ import annotations
@@ -70,11 +75,12 @@ def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
     return ((x << d) | (x >> (32 - d))) & _MASK
 
 
-def threefry2x32(k1: int, k2: int, x1: torch.Tensor,
+def threefry2x32(k1, k2, x1: torch.Tensor,
                  x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of counter words x1, x2 (int64
-    tensors holding uint32 values) under the key (k1, k2), as
-    jax/_src/prng.py `_threefry2x32_lowering`."""
+    tensors holding uint32 values) under the key (k1, k2) (host ints or
+    0-d int64 tensors on x1's device), as jax/_src/prng.py
+    `_threefry2x32_lowering`."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
     for i in range(5):
@@ -86,34 +92,75 @@ def threefry2x32(k1: int, k2: int, x1: torch.Tensor,
     return x[0], x[1]
 
 
-def _hash_pair(key: Tuple[int, int], c1: int, c2: int) -> Tuple[int, int]:
-    one = lambda v: torch.tensor([v], dtype=torch.int64)
-    b1, b2 = threefry2x32(key[0], key[1], one(c1), one(c2))
-    return int(b1), int(b2)
+def _hash_pair(key, c1, c2):
+    """threefry of the counter (c1, c2) under `key`: host ints for a host
+    key and host counters, else 0-d int64 tensors on the key's (or the
+    counter's) device."""
+    dev = next((v.device for v in (*key, c1, c2)
+                if isinstance(v, torch.Tensor)), None)
+    if dev is None:
+        one = lambda v: torch.tensor([v], dtype=torch.int64)
+        b1, b2 = threefry2x32(key[0], key[1], one(c1), one(c2))
+        return int(b1), int(b2)
+    word = lambda v: v if isinstance(v, torch.Tensor) else torch.full(
+        (), v, dtype=torch.int64, device=dev)
+    return threefry2x32(key[0], key[1], word(c1), word(c2))
 
 
-def prng_key(seed: int) -> Tuple[int, int]:
-    """jax.random.PRNGKey(seed): the seed's 64-bit words, high first."""
+def prng_key(seed):
+    """jax.random.PRNGKey(seed): the seed's 64-bit words, high first; a
+    0-d tensor seed (truncated to an integer) gives them as 0-d int64
+    tensors on its device."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.reshape(()).to(torch.int64)
+        return (s >> 32) & _MASK, s & _MASK
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     return s >> 32, s & _MASK
 
 
-def split(key: Tuple[int, int]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+def split(key):
     """jax.random.split(key) into two keys: threefry over the counters
-    (hi 0, lo 0) and (hi 0, lo 1)."""
-    return _hash_pair(key, 0, 0), _hash_pair(key, 0, 1)
+    (hi 0, lo 0) and (hi 0, lo 1), in one pass of the hash."""
+    dev = next((v.device for v in key if isinstance(v, torch.Tensor)), None)
+    lo = torch.arange(2, dtype=torch.int64, device=dev)
+    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    if dev is None:
+        return (int(b1[0]), int(b2[0])), (int(b1[1]), int(b2[1]))
+    return (b1[0], b2[0]), (b1[1], b2[1])
 
 
-def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
-    """jax.random.fold_in(key, data): threefry of the counter (0, data)."""
-    return _hash_pair(key, 0, int(data) & _MASK)
+def fold_in(key, data):
+    """jax.random.fold_in(key, data): threefry of the counter (0, data);
+    data a host int or a 0-d int64 tensor."""
+    return _hash_pair(key, 0, data & _MASK if isinstance(data, torch.Tensor)
+                      else int(data) & _MASK)
 
 
-def _key(seed: Optional[int]) -> Tuple[int, int]:
+def stream_key():
+    """(base key, n) of the next unseeded rand() call: with a global seed
+    the call's key is fold_in(base, n); without one, a fresh base from the
+    clock. Takes n off the counter; set_stream_next gives back what a
+    loop region did not draw."""
+    n = next(_seed_counter)
+    if _global_seed[0] is not None:
+        return prng_key(_global_seed[0]), n
+    return prng_key((time.time_ns() + n) % (2 ** 31)), n
+
+
+def set_stream_next(n: int) -> None:
+    """The counter of unseeded draws goes on at n (a loop region's exit,
+    after its draws on the device)."""
+    global _seed_counter
+    _seed_counter = itertools.count(int(n))
+
+
+def _key(seed: Optional[int]):
     """The key of a rand() call: PRNGKey(seed); for no seed or -1, a fresh
     stream per call, or with a global seed its n-th fold (the JAX
-    package's `_key` without the parfor streams and traced seeds, which
-    wait with parfor and the fused loops)."""
+    package's `_key` without the parfor streams, which wait with parfor).
+    A device seed gives a device key."""
+    if isinstance(seed, torch.Tensor):
+        return prng_key(seed)
     if seed is None or int(seed) == -1:
         n = next(_seed_counter)
         if _global_seed[0] is not None:
@@ -190,19 +237,22 @@ def uniform(key: Tuple[int, int], shape: Tuple[int, int], dtype, device,
             torch.float64)
     else:
         raise TypeError(f"rand: uniform draws take fp32 or fp64, not {dtype}")
-    lo_v = torch.tensor(min_v, dtype=dtype, device=device)
-    span = torch.tensor(max_v, dtype=dtype, device=device) - lo_v
+    # fills, not host copies: a loop region's graph captures the draw
+    lo_v = torch.full((), min_v, dtype=dtype, device=device)
+    span = torch.full((), max_v, dtype=dtype, device=device) - lo_v
     return torch.maximum(lo_v, _fma(f - 1.0, span, lo_v))
 
 
 def rand(rows: int, cols: int, min_v=0.0, max_v=1.0, sparsity: float = 1.0,
-         pdf: str = "uniform", seed: Optional[int] = None,
-         lambda_: float = 1.0, dtype=None, device=None) -> torch.Tensor:
+         pdf: str = "uniform", seed=None, lambda_: float = 1.0, dtype=None,
+         device=None, key=None) -> torch.Tensor:
     """rand(rows, cols, min, max, sparsity, pdf, seed) (reference:
     LibMatrixDatagen.generateRandomMatrix): uniform values in [min, max),
     cells dropped to 0 with probability 1 - sparsity, in the configured
     dtype on the configured device, equal to the JAX package's draw from
-    the same seed. A seed of -1 or none draws a fresh stream."""
+    the same seed. A seed of -1 or none draws a fresh stream; a 0-d
+    tensor seed derives its key on its device; `key` (a loop region's
+    stream) takes the place of the seed's."""
     from systemml_tpu_torch.utils.config import default_dtype, get_config
 
     if pdf != "uniform":
@@ -211,9 +261,14 @@ def rand(rows: int, cols: int, min_v=0.0, max_v=1.0, sparsity: float = 1.0,
         raise ValueError(f"unknown pdf {pdf!r}")
     device = torch.device(get_config().device if device is None else device)
     dtype = dtype or default_dtype(device)
-    k1, k2 = split(_key(seed))
+    k1, k2 = split(_key(seed) if key is None else key)
     shape = (int(rows), int(cols))
-    m = uniform(k1, shape, dtype, device, float(min_v), float(max_v))
+    if float(min_v) == float(max_v) != 0.0:
+        # (f - 1) * 0 + min rounds to min whatever the bits: a dropout
+        # mask's constant, with no hash of k1
+        m = torch.full(shape, float(min_v), dtype=dtype, device=device)
+    else:
+        m = uniform(k1, shape, dtype, device, float(min_v), float(max_v))
     if float(sparsity) < 1.0:
         keep = uniform(k2, shape, torch.float64, device) < float(sparsity)
         m = torch.where(keep, m, torch.zeros((), dtype=dtype, device=device))

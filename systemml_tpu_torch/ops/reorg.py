@@ -6,10 +6,13 @@ cuBLAS as a transposed operand, so `t(X) %*% y` over an 8 GB X costs no
 second X. A sparse matrix transposes and slices in CSR (a small slice
 densifies, as in the JAX package); an ELL view transposes through its
 dense form; every other op, and a concat with any sparse or compressed
-operand, densifies. Indexing with device bounds (the fused-loop
-minibatch path, which a loop region refuses for now) waits (ROADMAP
-queue 1: fused loop regions' follow-ups). A compressed operand is
-decompressed first, as in the JAX package.
+operand, densifies. Indexing whose start is a device value and whose
+extent is static (the minibatch pattern `X[beg:beg+bs-1,]` inside a loop
+region) gathers by `start + arange(extent)` and writes by `index_copy_`,
+with no host read: `right_index_dynamic` and `left_index_dynamic`, the
+JAX package's lax.dynamic_slice and dynamic_update_slice, whose clamp of
+the start they copy. A compressed operand is decompressed first, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -95,6 +98,76 @@ def left_index(x, y, rl, ru, cl, cu):
     if isinstance(y, torch.Tensor) and y.ndim > 0:
         y = y.reshape(ru - rl + 1, cu - cl + 1)
     out[rl - 1:ru, cl - 1:cu] = y
+    return out
+
+
+def _dynamic_start(start, extent: int, size: int):
+    """The 0-based first index of a slice of `extent` along a dimension of
+    `size`, from the 1-based `start` (a host int or a 0-d device tensor,
+    truncated toward zero), clamped into [0, size - extent] as
+    lax.dynamic_slice clamps it: a host int for a host start, else a 0-d
+    int64 tensor on the start's device."""
+    if extent > size or extent < 0:
+        raise ValueError(f"a slice of {extent} rows or columns out of "
+                         f"{size}")
+    if isinstance(start, torch.Tensor):
+        s = start.reshape(()).to(torch.int64) - 1
+        return torch.clamp(s, 0, size - extent)
+    return min(max(int(start) - 1, 0), size - extent)
+
+
+def _dynamic_index(s0, extent: int, device):
+    """s0 + arange(extent) as int64 on `device` (s0 from _dynamic_start)."""
+    return torch.arange(extent, dtype=torch.int64, device=device) + s0
+
+
+def right_index_dynamic(x, rl, cl, rows: int, cols: int):
+    """X[rl:rl+rows-1, cl:cl+cols-1] with a start that may be a device
+    value (1-based, a 0-d tensor) and a static extent (the JAX package's
+    right_index_dynamic, systemml_tpu/ops/reorg.py:119-128): a gather by
+    start + arange(extent) along each dimension whose start lies on the
+    device, a slice along one whose start is a host int; each start is
+    clamped as lax.dynamic_slice clamps it. Reads no device value on the
+    host."""
+    x = _dense(x)
+    r0 = _dynamic_start(rl, rows, x.shape[0])
+    c0 = _dynamic_start(cl, cols, x.shape[1])
+    out = x[r0:r0 + rows] if isinstance(r0, int) else x.index_select(
+        0, _dynamic_index(r0, rows, x.device))
+    if isinstance(c0, int):
+        return out[:, c0:c0 + cols]
+    return out.index_select(1, _dynamic_index(c0, cols, x.device))
+
+
+def left_index_dynamic(x, y, rl, cl, rows: int, cols: int):
+    """X[rl:rl+rows-1, cl:cl+cols-1] = Y with a start that may be a device
+    value and a static (rows, cols) patch (the JAX package's
+    left_index_dynamic, systemml_tpu/ops/reorg.py:150-162): copy-on-write
+    as left_index, the patch written by index_copy_ at start +
+    arange(extent) along each dimension whose start lies on the device;
+    the starts clamped as lax.dynamic_update_slice clamps them. A scalar y
+    fills the patch."""
+    out = _dense(x).clone()
+    r0 = _dynamic_start(rl, rows, out.shape[0])
+    c0 = _dynamic_start(cl, cols, out.shape[1])
+    if not isinstance(y, torch.Tensor):
+        y = torch.full((rows, cols), float(y), dtype=out.dtype,
+                       device=out.device)
+    else:
+        y = (y.reshape(rows, cols) if y.ndim > 0
+             else y.expand(rows, cols)).to(out.dtype)
+    if isinstance(r0, int):
+        band = out[r0:r0 + rows]
+    else:
+        ridx = _dynamic_index(r0, rows, out.device)
+        band = out.index_select(0, ridx)
+    if isinstance(c0, int):
+        band[:, c0:c0 + cols] = y
+    else:
+        band.index_copy_(1, _dynamic_index(c0, cols, out.device),
+                         y.contiguous())
+    if not isinstance(r0, int):
+        out.index_copy_(0, ridx, band)
     return out
 
 

@@ -17,12 +17,15 @@ counters and the host-kind scalars the loop carries.
 Per entry of a region (`FusedLoop.run_while` / `run_for`):
 
 1. refuse before anything runs, with a classified reason (`REASONS`):
-   the plan refused it, a read is compressed, a carried string the plan
-   did not drop, a `print` or an unseeded `rand` in the body, a builtin
+   the plan refused it, a carried string the plan did not drop, a
+   `print` inside an inner loop, also in a function called there (or
+   more prints an iteration than the print ring holds, or a print beside
+   a recursive call), a builtin
    that reads the host (removeEmpty, table without dims, an inverse t,
    chisq or F distribution; a seq or sample whose bound is a device
-   value refuses in the peel, "device bound"), a
-   loop-varying name feeding a shape or a slice bound, a carried sparse
+   value refuses in the peel, "device bound"), a loop-varying name
+   feeding a shape or a slice bound whose extent is not static, a
+   carried sparse
    matrix ("sparse carried"), or a loop-invariant sparse matrix without a
    device view ("sparse view": runtime/sparse.loop_device_view found
    neither form viable, or the views of the entry, counted by their
@@ -45,10 +48,12 @@ Per entry of a region (`FusedLoop.run_while` / `run_for`):
 4. peel the first iteration eagerly, with those value kinds: it builds
    and loads every kernel the body launches, the reduce scratch, cuBLAS's
    workspace, and shows what a capture could not do (a host read of a
-   device value, a nested loop reading a name before binding it): either
+   device value, a nested loop reading a name before binding it, a print
+   of a matrix, a compressed op computed on the host): either
    refuses the region, as does a carried value whose shape, dtype (of a
    matrix) or kind changed in the peel ("shape change"; a 0-d scalar takes
-   the body's dtype, as the JAX package's _promote_init widens it);
+   the body's dtype, as the JAX package's _promote_init widens it, in an
+   inner loop too);
 5. copy each carried value into a static buffer and capture the rest of
    the loop: the body runs through the ordinary block machinery with the
    run installed (compiler/lower.region_scope), each iteration ends by
@@ -56,6 +61,16 @@ Per entry of a region (`FusedLoop.run_while` / `run_for`):
    condition from the predicate;
 6. launch once and sync once at exit; each carried value leaves as a
    copy of its buffer, a host-kind scalar as the Python type it had.
+
+Prints and unseeded draws stay in the graph. A `print` writes a record
+(its format's id and its scalar leaves) into the region's `PrintRing` on
+the card; the loop's predicate is ANDed with the ring's room, and the
+exit's read brings the records back, which the host prints in order with
+the eager path's formatting; a loop that stopped for room is launched
+again from its static buffers (a drain, `record["drains"]`). An unseeded
+`rand` takes fold_in(base, n) from the region's `RandStream`, n a device
+counter loaded from the host's stream at entry and handed back at exit:
+a loop draws the same keys as a region and eagerly.
 
 The instantiated graph is cached per region on the shapes, dtypes and
 kinds of its reads, the values of its host invariants, and the address
@@ -98,11 +113,11 @@ from systemml_tpu_torch.runtime import sparse as sp
 
 # the classified reasons a region is refused at entry or after its peel
 # (a plan's refusal keeps the plan's own text)
-REASONS = ("compressed operand", "carried string", "print", "rand",
-           "static_names", "shape change", "host read", "unbound read",
-           "fractional for", "sparse view", "sparse carried",
-           "removeEmpty", "table without dims", "host distribution",
-           "device bound")
+REASONS = ("carried string", "print in inner loop", "print matrix",
+           "print ring", "static_names", "shape change", "host read",
+           "unbound read", "fractional for", "slice bound", "sparse view",
+           "sparse carried", "removeEmpty", "table without dims",
+           "host distribution", "device bound", "compressed host op")
 # bodies with a device execution counter per region graph
 MAX_SCOPES = 1024
 # nesting of conditional nodes (loops and ifs, through function calls)
@@ -116,6 +131,10 @@ RELEASE_BYTES = 1 << 30
 # re-entered with new invariant tensors each time (l2-svm's line search
 # reads the outer pass's Xd) makes a new one per entry
 CACHE_CAP = 4
+# print records a region's ring holds: a loop whose next top-level
+# iteration might not fit stops, the host formats the records, and the
+# same graph goes on from its static buffers
+RING_RECORDS = 1024
 
 _ABSENT = object()
 
@@ -202,8 +221,10 @@ class RegionRun:
         self.refusal: Optional[str] = None
         # id(loop block) -> {carried name: (shape, dtype)} at its exit
         self.observed: Dict[int, Dict[str, Tuple]] = {}
-        # seeded rand values by (hop id, arguments)
-        self.rand: Dict[tuple, torch.Tensor] = {}
+        # the region's print ring and unseeded-rand stream, where its body
+        # prints or draws
+        self.ring: Optional["PrintRing"] = None
+        self.stream: Optional["RandStream"] = None
         # capture only
         self.streams: List[torch.cuda.Stream] = []
         self.depth = 0
@@ -225,6 +246,12 @@ class RegionRun:
             raise NotLoopFusable(reason)
         if self.refusal is None:
             self.refusal = reason
+
+    def stream_key(self):
+        """The key of an unseeded rand() in the body: the next of the
+        region's device stream (the scan gives a region a stream where
+        any rand's seed is not a literal other than -1)."""
+        return self.stream.next_key()
 
     def check_spoof_numbers(self, hop, args) -> None:
         """Inside a capture, a host number a fused plan's launch passes is
@@ -293,6 +320,8 @@ def _store(buf: torch.Tensor, v, name: str) -> None:
     """Writes a new value of `name` into its buffer. A 0-d scalar may
     change dtype within its kind's widening (int into int or double,
     anything numeric into a double); a matrix must keep shape and dtype."""
+    if not isinstance(buf, torch.Tensor):     # a refused peel's raw value
+        raise NotLoopFusable(f"shape change: {name!r}")
     if isinstance(v, torch.Tensor):
         if v.shape != buf.shape:
             if v.numel() == 1 and buf.numel() == 1:
@@ -327,10 +356,13 @@ def _storage(t: torch.Tensor) -> int:
 
 
 def _writeback(buffers: Dict[str, torch.Tensor], env: Dict[str, Any],
-               names: Sequence[str], dev) -> None:
+               names: Sequence[str], dev, run: "RegionRun" = None) -> None:
     """Copies each name's new value into its buffer and binds the name to
     it. A new value that shares memory with a buffer being overwritten
-    (`a = b` beside `b = ...`) is copied first."""
+    (`a = b` beside `b = ...`) is copied first. In a first iteration
+    (`run` in plain mode) a value no buffer can hold refuses the region
+    and is bound as it is, so that the iteration ends as it would
+    eagerly."""
     new = {n: env[n] for n in names if n in env}
     over = [n for n in new if n in buffers and new[n] is not buffers[n]]
     hit = {_storage(buffers[n]) for n in over}
@@ -339,11 +371,31 @@ def _writeback(buffers: Dict[str, torch.Tensor], env: Dict[str, Any],
         if isinstance(v, torch.Tensor) and _storage(v) in hit:
             new[n] = v.clone()
     for n in new:
-        if n not in buffers:
-            buffers[n] = _fresh(new[n], n, dev)   # plain arm: first binding
-        elif n in over:
-            _store(buffers[n], new[n], n)
+        try:
+            if n not in buffers:
+                buffers[n] = _fresh(new[n], n, dev)  # plain: first binding
+            elif n in over:
+                _store(buffers[n], new[n], n)
+        except NotLoopFusable as e:
+            if run is None or run.mode != "plain":
+                raise
+            if _widens(buffers[n], new[n]):
+                buffers[n] = _fresh(new[n], n, dev)
+            else:
+                run.fault(str(e))
+                buffers[n] = new[n]
         env[n] = buffers[n]
+
+
+def _widens(buf, v) -> bool:
+    """Whether a 0-d int or bool buffer meets a double (an inner loop's
+    `step = 0` that its body makes a double): the buffer widens, as the
+    JAX package's _promote_init widens a loop's init."""
+    return (isinstance(buf, torch.Tensor) and buf.ndim == 0
+            and not buf.is_floating_point()
+            and (isinstance(v, float) or (isinstance(v, torch.Tensor)
+                                          and v.numel() == 1
+                                          and v.is_floating_point())))
 
 
 def _truth(v) -> bool:
@@ -370,6 +422,136 @@ def _region_device(ec):
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# --------------------------------------------------------------------------
+# prints and unseeded rand streams on the device
+# --------------------------------------------------------------------------
+
+class PrintRing:
+    """The print records of a region, on the device. A print in the body
+    (compiler/lower._region_print) writes one row: its format's id, then
+    each scalar leaf as int64 (a double's bits, an int, a boolean), at
+    the device counter `n`, which it advances. The loop's predicate is
+    ANDed with the ring's room (`room`: n + bound <= capacity, `bound`
+    the prints one top-level iteration may write), so the ring never
+    overflows: a loop that stops for room leaves `more` (its own
+    predicate) true, and the host formats the records (`drain`, with
+    _to_display_str, in order) and launches the same graph again."""
+
+    def __init__(self, dev, width: int, bound: int):
+        self.cap = RING_RECORDS
+        self.bound = bound
+        self.width = width
+        self.rows = torch.zeros((self.cap, 1 + width), dtype=torch.int64,
+                                device=dev)
+        self.n = torch.zeros((), dtype=torch.int64, device=dev)
+        self.more = torch.zeros((), dtype=torch.bool, device=dev)
+        self.formats: List[tuple] = []
+        self._ids: Dict[tuple, int] = {}
+        self.reads = 0
+
+    def write(self, segs: tuple, vals: Sequence[torch.Tensor]) -> None:
+        """One record: segs the print's parts, ("t", text) or ("v", kind)
+        for each of `vals` (0-d tensors; kind b, i or f)."""
+        pid = self._ids.get(segs)
+        if pid is None:
+            pid = self._ids[segs] = len(self.formats)
+            self.formats.append(segs)
+        dev = self.rows.device
+        cols = [torch.full((1,), pid, dtype=torch.int64, device=dev)]
+        for (_, kind), v in zip([x for x in segs if x[0] == "v"], vals):
+            cols.append(v.to(torch.float64).reshape(1).view(torch.int64)
+                        if kind == "f" else v.to(torch.int64).reshape(1))
+        if len(vals) < self.width:
+            cols.append(torch.zeros(self.width - len(vals),
+                                    dtype=torch.int64, device=dev))
+        # room is checked before each iteration: the clamp only keeps an
+        # index in bounds, and drain() raises on n past the capacity
+        at = torch.clamp(self.n, max=self.cap - 1).reshape(1)
+        self.rows.index_copy_(0, at, torch.cat(cols).reshape(1, -1))
+        self.n.add_(1)
+
+    def room(self, pred, dev) -> torch.Tensor:
+        """The loop's predicate ANDed with the room for one more
+        iteration's prints; the predicate itself is kept in `more`."""
+        p = _device_pred(pred, dev)
+        if p.dtype != torch.bool:
+            p = p != 0
+        self.more.copy_(p)
+        return torch.logical_and(p, self.n + self.bound <= self.cap)
+
+    def stopped_for_room(self, n: int, more: bool) -> bool:
+        return more and n + self.bound > self.cap
+
+    def drain(self, n: int, rows: Optional[np.ndarray], printer) -> None:
+        """Prints the n records (rows read with them, or read here) and
+        empties the ring."""
+        if n > self.cap:
+            raise RuntimeError(f"print ring: {n} records in a ring of "
+                               f"{self.cap}")
+        if n:
+            if rows is None:
+                rows = self.rows[:n].cpu().numpy()
+            for r in rows[:n]:
+                printer(self._line(r))
+            self.n.zero_()
+
+    def drain_to(self, printer) -> None:
+        """The records so far, now, in one read counted in `reads` (a
+        refused first iteration)."""
+        vals = torch.cat([self.n.reshape(1),
+                          self.rows.reshape(-1)]).cpu().numpy()
+        self.reads += 1
+        self.drain(int(vals[0]), vals[1:].reshape(self.rows.shape), printer)
+
+    def _line(self, row) -> str:
+        from systemml_tpu_torch.compiler.lower import _to_display_str
+
+        out, j = [], 1
+        for kind, x in self.formats[int(row[0])]:
+            if kind == "t":
+                out.append(x)
+                continue
+            w = int(row[j])
+            j += 1
+            out.append(_to_display_str(
+                float(np.array(w, dtype=np.int64).view(np.float64))
+                if x == "f" else bool(w) if x == "b" else w))
+        return "".join(out)
+
+
+class RandStream:
+    """The keys of a region's unseeded rand() calls: fold_in(base, n) for
+    a device counter n, loaded at each entry from the host's stream
+    (ops/datagen.stream_key) and handed back at exit, so that a loop draws
+    as a region the same keys it draws eagerly."""
+
+    def __init__(self, dev):
+        self.key = tuple(torch.zeros((), dtype=torch.int64, device=dev)
+                         for _ in range(2))
+        self.n = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def load(self) -> None:
+        from systemml_tpu_torch.ops import datagen
+
+        base, n = datagen.stream_key()
+        for b, v in zip(self.key, base):
+            b.fill_(v)
+        self.n.fill_(n)
+
+    def next_key(self):
+        from systemml_tpu_torch.ops import datagen
+
+        k = datagen.fold_in(self.key, self.n)
+        self.n.add_(1)
+        return k
+
+    @staticmethod
+    def close(n: int) -> None:
+        from systemml_tpu_torch.ops import datagen
+
+        datagen.set_stream_next(n)
 
 
 # --------------------------------------------------------------------------
@@ -447,6 +629,12 @@ def _inner_buffers(run: RegionRun, loop, ec, carried, reads, dev):
     la = _live_after(loop)
     seen = run.observed.get(id(loop), {})
     buffers = {n: _fresh(env[n], n, dev) for n in carried if n in env}
+    for n, b in buffers.items():
+        # a 0-d int the first iteration widened to a double
+        if n in seen and seen[n][0] == () and b.ndim == 0 \
+                and seen[n][1].is_floating_point \
+                and not b.is_floating_point():
+            buffers[n] = b.to(seen[n][1])
     for n in missing:
         if n in la and n in seen:
             shape, dtype = seen[n]
@@ -485,7 +673,7 @@ def exec_while(loop, ec, run: RegionRun) -> None:
 
     def body():
         _run_blocks(loop.body, ec)
-        _writeback(buffers, env, carried, dev)
+        _writeback(buffers, env, carried, dev, run)
 
     before = set(buffers)
     _drive_while(run, lambda: loop.pred.eval_device(ec), body, dev)
@@ -555,7 +743,7 @@ def exec_for(loop, ec, run: RegionRun) -> None:
         env[loop.var] = var
         _run_blocks(loop.body, ec)
         k.add_(1)
-        _writeback(buffers, env, carried, dev)
+        _writeback(buffers, env, carried, dev, run)
 
     before = set(buffers)
     _drive_while(run, lambda: k < count, body, dev)
@@ -588,7 +776,7 @@ def exec_if(blk, ec, run: RegionRun, pred) -> None:
             env.clear()
             env.update(saved)
             _run_blocks(body, ec)
-            _writeback(buffers, env, carried, dev)
+            _writeback(buffers, env, carried, dev, run)
         return fn
 
     _drive_if(run, pred, (branch(blk.if_body), branch(blk.else_body)), dev)
@@ -681,17 +869,25 @@ class _Scan:
     def __init__(self, loop, kind: str):
         from systemml_tpu_torch.compiler.lower import _static_shape_names
 
-        self.print = self.rand = False
+        # the print records one top-level iteration may write (both
+        # branches of an if counted), the value leaves of the widest
+        # print, whether a print sits inside an inner loop, and whether a
+        # rand may take the region's stream (no seed, or one not a
+        # literal)
+        self.prints = self.width = 0
+        self.print_inner = self.rand = self.recursive = False
         # builtins whose output shape or value needs a host read
         # (_host_op), by their classified reason
         self.host_ops: Set[str] = set()
         self.bounds: Set[str] = set()
         self.writes: Set[str] = set()
+        # the functions the walk is inside (a recursion guard)
         self._seen: Set[int] = set()
+        self._vary: Dict[int, bool] = {}
         _, self.writes, _ = _collect_rw_seq(loop.body)
         if kind == "for":
             self.writes |= {loop.var}
-        self._walk(loop.body, top=True)
+        self._walk(loop.body, top=True, inner=False)
         self.shape_names = _static_shape_names(loop.body, sizing_only=True)
 
     def _mark(self, h) -> None:
@@ -699,44 +895,105 @@ class _Scan:
             if x.op == "tread":
                 self.bounds.add(x.name)
 
-    def _hops(self, roots, b, top: bool) -> None:
+    def _varies(self, h) -> bool:
+        """Whether a bound's value changes in the loop: it reads a name
+        the nest writes, other than through its shape (a region keeps
+        every carried shape)."""
+        hit = self._vary.get(h.id)
+        if hit is None:
+            hit = self._vary[h.id] = (
+                False if h.op in ("nrow", "ncol", "length")
+                else h.name in self.writes if h.op == "tread"
+                else any(self._varies(c) for c in h.inputs))
+        return hit
+
+    def _base(self, h):
+        """The loop-varying term of an affine bound, b(+)/b(-) with a
+        loop-invariant side peeled (the hop form of compiler/lower.
+        Evaluator._affine); None for a loop-invariant bound."""
+        if not self._varies(h):
+            return None
+        if h.op in ("b(+)", "b(-)"):
+            x, y = h.inputs
+            if not self._varies(y):
+                return self._base(x)
+            if h.op == "b(+)" and not self._varies(x):
+                return self._base(y)
+        return ("tread", h.name) if h.op == "tread" else h.id
+
+    def _slice(self, h) -> None:
+        """Marks the names of a slice's bounds unless each dimension's
+        extent is static: lo and hi one varying term apart by an
+        invariant (the minibatch X[beg:beg+bs-1,]), which the evaluator
+        slices at a device offset."""
+        first = 1 if h.op == "idx" else 2
+        for d in range(2):
+            pair = h.inputs[first + 2 * d:first + 2 * d + 2]
+            if len(pair) == 2 and self._base(pair[0]) != self._base(pair[1]):
+                for c in pair:
+                    self._mark(c)
+
+    def _print(self, sink, inner: bool) -> None:
+        if inner:
+            self.print_inner = True
+            return
+        self.prints += 1
+        leaves = []
+        stack = list(sink.inputs[:1])
+        while stack:
+            x = stack.pop()
+            if x.op == "b(+)" and x.dt == "string":
+                stack.extend(x.inputs)
+            elif not (x.op == "lit" and isinstance(x.value, str)):
+                leaves.append(x)
+        self.width = max(self.width, len(leaves))
+
+    def _hops(self, roots, b, top: bool, inner: bool) -> None:
         for h in postorder(roots):
             if h.op in ("call:rand", "call:Rand"):
                 argn = h.params.get("argnames") or []
                 seed = [c for n, c in zip(argn, h.inputs) if n == "seed"]
-                if not seed or seed[0].op != "lit":
+                if not seed or seed[0].op != "lit" or seed[0].value == -1:
                     self.rand = True
             elif h.op.startswith("call:"):
                 reason = _host_op(h)
                 if reason is not None:
                     self.host_ops.add(reason)
             elif top and h.op in _SHAPE_POSITIONS:
-                for i in _SHAPE_POSITIONS[h.op]:
-                    if i < len(h.inputs):
-                        self._mark(h.inputs[i])
+                self._slice(h)
             elif h.op == "fcall" and b is not None:
                 fb = b.program.resolve_function(
                     b.file_id, h.params.get("namespace"), h.params.get("name"))
-                if fb is not None and id(fb) not in self._seen:
-                    self._seen.add(id(fb))
-                    self._walk(fb.blocks, top=False)
+                if fb is None:
+                    continue
+                # each call walks its function, a print there counting
+                # as one of the caller's (inside an inner loop only if
+                # the call is); a recursive call repeats a body as often
+                # as the data says, so no print of the region is bounded
+                if id(fb) in self._seen:
+                    self.recursive = True
+                    continue
+                self._seen.add(id(fb))
+                self._walk(fb.blocks, top=False, inner=inner)
+                self._seen.discard(id(fb))
 
-    def _walk(self, blocks, top: bool) -> None:
+    def _walk(self, blocks, top: bool, inner: bool) -> None:
         from systemml_tpu_torch.runtime import program as P
 
         for b in blocks:
             if isinstance(b, P.BasicBlock):
-                if any(s.op == "call:print" for s in b.hops.sinks):
-                    self.print = True
-                self._hops(b.hops.roots(), b, top)
+                for sink in b.hops.sinks:
+                    if sink.op == "call:print":
+                        self._print(sink, inner)
+                self._hops(b.hops.roots(), b, top, inner)
                 continue
             for p in P._predicates(b):
-                self._hops(p.block.hops.roots(), None, top)
+                self._hops(p.block.hops.roots(), None, top, inner)
             if isinstance(b, P.IfBlock):
-                self._walk(b.if_body, top)
-                self._walk(b.else_body, top)
+                self._walk(b.if_body, top, inner)
+                self._walk(b.else_body, top, inner)
             elif isinstance(b, (P.WhileBlock, P.ForBlock)):
-                self._walk(b.body, top)
+                self._walk(b.body, top, True)
 
 
 _HOST_INV = {"qt", "qf", "qchisq"}
@@ -782,10 +1039,17 @@ class FusedLoop:
         self.refused: Optional[str] = None
         self._scan: Optional[_Scan] = None
         self._cache: Dict[tuple, _Entry] = {}
-        # what chip_smoke.py and the tests read
+        # the print ring and the rand stream, per device (a graph bakes
+        # their addresses in); those of the running entry
+        self._rings: Dict[str, PrintRing] = {}
+        self._streams: Dict[str, RandStream] = {}
+        self._ring: Optional[PrintRing] = None
+        self._stream: Optional[RandStream] = None
+        # what chip_smoke.py and the tests read; drains: the launches
+        # after one that stopped for the print ring's room
         self.record = {"entries": 0, "captures": 0, "launches": 0,
                        "host_syncs": 0, "static_reads": 0, "trips": [],
-                       "refused": None}
+                       "drains": 0, "refused": None}
 
     # ---- plan and refusal -------------------------------------------------
 
@@ -812,26 +1076,26 @@ class FusedLoop:
 
     def _entry_refusal(self, loop, ec, plan) -> Optional[str]:
         """The first classified reason this entry cannot be captured: the
-        body's own (print, rand, static_names) before the data's
-        (compressed operand, carried string)."""
-        from systemml_tpu_torch.compress import is_compressed
-
+        body's own (a print the ring cannot bound, a builtin that reads
+        the host, static_names) before the data's (carried string, sparse
+        carried). A compressed op that reads the host refuses in the
+        peel, by its name."""
         if self._scan is None:
             self._scan = _Scan(loop, self.kind)
         sc = self._scan
-        if sc.print:
-            return "print"
-        if sc.rand:
-            return "rand"
+        if sc.print_inner:
+            return "print in inner loop"
+        if sc.prints and sc.recursive:
+            return "print ring: a print beside a recursive call"
+        if sc.prints > RING_RECORDS:
+            return (f"print ring: {sc.prints} prints an iteration, "
+                    f"{RING_RECORDS} records a ring")
         for r in REASONS:
             if r in sc.host_ops:
                 return r
         if sc.writes & (sc.shape_names | sc.bounds):
             return "static_names"
         env = ec.vars
-        names = set(plan.reads) | set(plan.pred_reads) | set(plan.carried)
-        if any(is_compressed(env.get(n)) for n in names):
-            return "compressed operand"
         if any(isinstance(env.get(n), str) for n in plan.carried):
             return "carried string"
         if any(sp.is_sparse(env.get(n)) or sp.is_ell(env.get(n))
@@ -994,11 +1258,12 @@ class FusedLoop:
                 stats.count_region(plan.label)
                 return True
             self.record["host_syncs"] += 1
+        self._io(dev)
         entry = self._cache.get(key)
         peeled = 0
         if entry is None:
             # step 4: the first iteration, eagerly, with the region's kinds
-            run = RegionRun("plain", plan.drop, self._scan.writes, stats)
+            run = self._run_state("plain", plan, stats)
             pre = {n: _sig(env[n]) for n in carried if n in env}
             if kind == "for":
                 env[loop.var] = device_scalar(iters[0], dev)
@@ -1008,6 +1273,7 @@ class FusedLoop:
             reason = run.refusal or _shape_change(pre, env, carried)
             if reason is not None:
                 self._refuse(ec, f"{kind}.peel", reason, plan.label)
+                self._io_refused(ec)
                 _host_kinds_back(env, carried, originals)
                 if kind == "for":
                     for i in iters[1:]:
@@ -1039,6 +1305,7 @@ class FusedLoop:
             self._cache[key] = entry
         else:
             _load(entry, env, carried, traced | inv_small, kind, iters)
+        launches0 = self.record["launches"]
         trips = peeled + self._loop(loop, ec, plan, kind, entry, dev)
         self.record["trips"].append(trips)
         _exit(entry, env, pre_kinds, originals,
@@ -1052,27 +1319,87 @@ class FusedLoop:
             obs.instant("region_dispatch", obs.CAT_RUNTIME, region=plan.label,
                         kind=kind, pred="device", carried=len(carried),
                         outer_iters=trips, captured=dev.type == "cuda",
-                        graph_launches=1 if dev.type == "cuda" else 0)
+                        graph_launches=self.record["launches"] - launches0)
         return True
+
+    def _io(self, dev) -> None:
+        """The entry's print ring (emptied) and rand stream (loaded from
+        the host's), where the body prints or draws."""
+        sc, d = self._scan, str(dev)
+        self._ring = self._stream = None
+        if sc.prints:
+            ring = self._rings.get(d)
+            if ring is None:
+                ring = self._rings[d] = PrintRing(dev, sc.width, sc.prints)
+            ring.n.zero_()
+            self._ring = ring
+        if sc.rand:
+            st = self._streams.get(d)
+            if st is None:
+                st = self._streams[d] = RandStream(dev)
+            st.load()
+            self._stream = st
+
+    def _io_refused(self, ec) -> None:
+        """After a refused first iteration: what the ring holds is printed
+        and the host's rand stream goes on after the iteration's draws, a
+        host read each (the ring's also where the peel drained it)."""
+        ring, stream = self._ring, self._stream
+        if ring is not None:
+            ring.drain_to(ec.printer)
+            self.record["host_syncs"] += ring.reads
+            ring.reads = 0
+        if stream is not None:
+            RandStream.close(int(stream.n))
+            self.record["host_syncs"] += 1
+
+    def _run_state(self, mode: str, plan, stats) -> RegionRun:
+        run = RegionRun(mode, plan.drop, self._scan.writes, stats)
+        run.ring, run.stream = self._ring, self._stream
+        return run
 
     # ---- the loop after the entry: plain arm or one graph launch ---------
 
     def _loop(self, loop, ec, plan, kind, entry, dev) -> int:
         """Runs the loop's remaining iterations over the entry's buffers
-        and returns how many ran."""
+        and returns how many ran: one graph launch (or the plain arm),
+        and again after each stop for the print ring's room, once the
+        host has printed its records."""
         env = ec.vars
         saved = {n: env[n] for n in env}
-        if dev.type == "cuda":
-            trips = self._launch(entry, ec, dev)
-        else:
-            run = RegionRun("plain", plan.drop, self._scan.writes, ec.stats)
-            pred_fn, body_fn, count = self._closures(loop, ec, kind, entry,
-                                                     dev)
-            with region_scope(run):
-                _drive_while(run, pred_fn, body_fn, dev)
-            trips = count()
+        ring = self._ring
+        stream = self._stream
+        trips = 0
+        first = True
+        while True:
+            if dev.type == "cuda":
+                t, n_stream, rows = self._launch(entry, ec, dev, first)
+            else:
+                run = self._run_state("plain", plan, ec.stats)
+                pred_fn, body_fn, count = self._closures(loop, ec, kind,
+                                                         entry, dev)
+                with region_scope(run):
+                    _drive_while(run, pred_fn, body_fn, dev)
+                # the CPU's tensors: read without a device sync
+                t = count()
+                n_stream = None if stream is None else int(stream.n)
+                rows = None if ring is None else (int(ring.n),
+                                                  bool(ring.more), None)
+            trips += t
+            first = False
+            if ring is None:
+                break
+            n, more, recs = rows
+            ring.drain(n, recs, ec.printer)
+            if not ring.stopped_for_room(n, more):
+                break
+            self.record["drains"] += 1
         env.clear()
         env.update(saved)
+        # the ring is drained: the launch's one read brought its records;
+        # the host's rand stream goes on after the region's draws
+        if stream is not None:
+            RandStream.close(n_stream)
         return trips
 
     def _closures(self, loop, ec, kind, entry, dev):
@@ -1097,6 +1424,13 @@ class FusedLoop:
 
             def pred_fn():
                 return k < n
+
+        ring = self._ring
+        if ring is not None:
+            loop_pred = pred_fn
+
+            def pred_fn():
+                return ring.room(loop_pred(), dev)
 
         def body_fn():
             if kind == "for":
@@ -1124,9 +1458,9 @@ class FusedLoop:
         entry.pool = torch.cuda.MemPool()
         entry.counters = torch.zeros(MAX_SCOPES, dtype=torch.int64,
                                      device=dev)
-        run = RegionRun("capture", plan.drop, self._scan.writes, stats)
+        run = self._run_state("capture", plan, stats)
         run.streams, run.counters = streams, entry.counters
-        run.observed, run.rand = peel_run.observed, peel_run.rand
+        run.observed = peel_run.observed
         saved = {n: env[n] for n in env}
         root0 = _snapshot(stats)
         s0 = streams[0]
@@ -1156,26 +1490,46 @@ class FusedLoop:
         entry.root = _delta(_delta(_snapshot(stats), root0), run._top_incl)
         _live_graphs.add(entry)
 
-    def _launch(self, entry: _Entry, ec, dev) -> int:
-        """One graph launch and the exit's one sync: reads the body
-        counters and the host-kind scalars, and scales each body's counts
-        by its executions. Returns the trips the graph ran."""
+    def _launch(self, entry: _Entry, ec, dev, first_of_entry: bool):
+        """One graph launch and its one sync: reads the body counters, the
+        host-kind scalars, the rand stream's counter and the print ring,
+        and scales each body's counts by its executions. Returns (trips
+        the graph ran, the stream's counter or None, (records, the loop's
+        own predicate, the records' rows) or None)."""
         from systemml_tpu_torch.codegen import loop_graph as lg
 
         n = len(entry.scopes)
         entry.counters[:n].zero_()
-        for b in entry.zero_init:
-            b.zero_()
+        if first_of_entry:
+            # a relaunch after a drain goes on from the buffers
+            for b in entry.zero_init:
+                b.zero_()
         lg.launch(entry.exec, torch.cuda.current_stream(dev).cuda_stream)
         self.record["launches"] += 1
-        host = [b for nm, b in entry.buffers.items() if b.ndim == 0]
-        vals = torch.cat([entry.counters[:n].to(torch.float64)]
-                         + [b.reshape(1).to(torch.float64) for b in host]
-                         ).cpu()
+        host = [(nm, b) for nm, b in entry.buffers.items() if b.ndim == 0]
+        ring, stream = self._ring, self._stream
+        # one int64 read: the doubles as their bits
+        parts = [entry.counters[:n]] + [
+            b.reshape(1).to(torch.float64).view(torch.int64)
+            for _, b in host]
+        if stream is not None:
+            parts.append(stream.n.reshape(1))
+        if ring is not None:
+            parts += [ring.n.reshape(1), ring.more.reshape(1).to(torch.int64),
+                      ring.rows.reshape(-1)]
+        vals = torch.cat(parts).cpu().numpy()
         self.record["host_syncs"] += 1
-        execs = [int(v) for v in vals[:n].tolist()]
-        entry.host = dict(zip([nm for nm, b in entry.buffers.items()
-                               if b.ndim == 0], vals[n:].tolist()))
+        execs = [int(v) for v in vals[:n]]
+        at = n + len(host)
+        entry.host = dict(zip([nm for nm, _ in host],
+                              vals[n:at].view(np.float64).tolist()))
+        n_stream = rows = None
+        if stream is not None:
+            n_stream = int(vals[at])
+            at += 1
+        if ring is not None:
+            rows = (int(vals[at]), bool(vals[at + 1]),
+                    vals[at + 2:].reshape(ring.rows.shape))
         # the capture counted the root once and each body once
         first = not entry.launched
         entry.launched = True
@@ -1188,7 +1542,7 @@ class FusedLoop:
             {"executions": execs[idx], "launches": kernel_launches(delta)}
             for idx, delta in sorted(entry.scopes)]
         top = [idx for idx, _ in entry.scopes if idx == 0]
-        return execs[0] if top else 0
+        return (execs[0] if top else 0), n_stream, rows
 
 
 def _sig(v) -> tuple:

@@ -460,3 +460,63 @@ def test_refused_layout_takes_gather_arm_counted():
     with port_stats.stats_scope(st):
         mult.mmchain(cp2, torch.from_numpy(v[1:]))
     assert "cla_chain_plain_by_layout" not in dict(st.estim_counts.items())
+
+
+def _many_codes(n, d, dominant, seed):
+    """n codes over d values, a `dominant` share of the rows on one code."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, d, n)
+    codes[rng.random(n) < dominant] = d // 3
+    return codes
+
+
+@pytest.mark.parametrize("n,d,dominant,k", [
+    (200_003, 50_000, 0.6, 1), (200_003, 50_000, 0.6, 3),
+    (70_001, 65_536, 0.0, 2), (3_000, 8, 0.9, 1), (200_003, 6, 0.7, 2),
+    (1, 1, 0.0, 1)])
+def test_left_mult_segments_many_codes_one_dominant(n, d, dominant, k):
+    """The left mult's fixed-order segment sums (Segments) on a group of
+    tens of thousands of codes, one of them holding most rows: equal to
+    the float64 bincount within 1e-12 of the largest sum, the same bits
+    on a repeat, and a layout of O(n + d) bytes (no code padded to a
+    chunk); with few codes (the last two but one) the sums read the
+    prefix at the codes' ends only, through windows of at most n bytes."""
+    codes = _many_codes(n, d, dominant, seed=n + d)
+    y = np.random.default_rng(5).standard_normal((k, n))
+    seg = cla_dev.Segments([torch.from_numpy(codes.astype(np.int32))], [d])
+    ext = torch.from_numpy(np.concatenate([y, np.zeros((k, 1))], 1))
+    got = seg.sums(ext)
+    ref = np.stack([np.bincount(codes, weights=y[i], minlength=d)
+                    for i in range(k)])
+    assert np.max(np.abs(got.numpy() - ref)) <= 1e-12 * max(
+        1.0, np.max(np.abs(ref)))
+    assert torch.equal(got, seg.sums(ext))
+    b = cla_dev.SEGMENT_CHUNK
+    assert (seg.win is not None) == (8 * d * b <= n)
+    assert seg.nbytes() <= 4 * (n + 2 * b) + 20 * d + (
+        n if seg.win is not None else 0)
+
+
+@pytest.mark.parametrize("stream", [1 << 25, 700, 1])
+def test_left_mult_groups_share_segment_streams(monkeypatch, stream):
+    """A block's coded groups share segment streams of at most
+    SEGMENT_STREAM rows (one, several, one a group), beside an
+    uncompressed group: the left mult equals the dense product within
+    1e-12 whatever the split, and the JAX package's left mult within
+    1e-9."""
+    monkeypatch.setattr(cla_dev, "SEGMENT_STREAM", stream)
+    rng = np.random.default_rng(21)
+    n = 300
+    x = np.column_stack([rng.integers(0, d, n).astype(np.float64) * 0.5
+                         for d in (2, 5, 9, 300, 3)]
+                        + [rng.standard_normal(n)])
+    cp, cj = compress(x), jax_compress(x)
+    dc = cla_dev.device_mirror(cp)
+    coded = [g for g in dc.groups if g.coded]
+    assert sum(len(b) for _, b in dc.streams) == len(coded) >= 4
+    assert len(dc.streams) == (1 if stream > 6 * n else
+                               -(-len(coded) // max(1, stream // n)))
+    y = rng.standard_normal((2, n))
+    got = cla_dev._left(dc, torch.from_numpy(y)).numpy()
+    assert np.max(np.abs(got - y @ x)) <= 1e-12 * np.max(np.abs(y @ x))
+    assert _rel(got, np.asarray(jax_dev.left_mult(cj, y))) <= 1e-9

@@ -41,10 +41,23 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("seed", [0, 1234, 2 ** 31 - 1])
 @pytest.mark.parametrize("shape", [(1, 1), (7, 3), (1000, 10)])
 @pytest.mark.parametrize("lo,hi,sp", [(0.0, 1.0, 1.0), (-2.5, 3.7, 1.0),
-                                      (0.1, 0.9, 0.3)])
+                                      (0.1, 0.9, 0.3), (1.0, 1.0, 0.9),
+                                      (-0.3, -0.3, 0.5)])
 def test_rand_bit_identical_to_jax(ndt, tdt, seed, shape, lo, hi, sp):
     _same_bits(_port(*shape, lo, hi, sp, seed, tdt),
                _jax(*shape, lo, hi, sp, seed, ndt))
+
+
+@pytest.mark.parametrize("ndt,tdt", DTYPES)
+@pytest.mark.parametrize("seed", [0, 1234, 2 ** 31 - 1])
+@pytest.mark.parametrize("lo,hi,sp", [(-2.5, 3.7, 1.0), (0.1, 0.9, 0.3),
+                                      (1.0, 1.0, 0.9)])
+def test_rand_device_seed_bit_identical_to_jax(ndt, tdt, seed, lo, hi, sp):
+    """A seed held as a 0-d int64 tensor (a loop region's) derives the key
+    with tensor ops, and draws the host seed's bits."""
+    got = datagen.rand(7, 3, lo, hi, sp, seed=torch.tensor(seed), dtype=tdt,
+                       device="cpu").numpy()
+    _same_bits(got, _jax(7, 3, lo, hi, sp, seed, ndt))
 
 
 @pytest.mark.parametrize("ndt,tdt", DTYPES)

@@ -1309,6 +1309,220 @@ def test_region_graph_dies_with_its_program(cuda):
     assert loopfuse.live_graphs() == n0     # no cycle: refcount frees it
 
 
+def _region_lines(src, device, inputs=None, outputs=(), codegen=True):
+    """(results, the lines printed, MLContext) of a run in fp64."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    cfg = DMLConfig(device=device)
+    cfg.floating_point_precision = "double"
+    cfg.codegen_enabled = codegen
+    ml = MLContext(cfg)
+    lines = []
+    ml.printer = lines.append
+    s = dml(src)
+    for k, v in (inputs or {}).items():
+        s.input(k, v)
+    return ml.execute(s.output(*outputs)), lines, ml
+
+
+def test_region_compressed_left_mult_captures_without_sync(cuda):
+    """The compressed left mult (segment sums in a fixed order, no float
+    atomic, no host read) captured into a CUDA graph with sync debug mode
+    "error" around capture and replays; two replays bit-identical, and
+    within 1e-12 of the product on the dense X (fp64)."""
+    from systemml_tpu_torch.compress import compress
+    from systemml_tpu_torch.compress import device as cla_dev
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    rng = np.random.default_rng(12)
+    x = rng.integers(0, 6, (200_003, 9)).astype(np.float64)
+    x[:, 4] = (rng.random(200_003) < 0.97) * 2.0        # one dominant code
+    set_config(DMLConfig())
+    try:
+        c = compress(x)
+        yt = torch.from_numpy(rng.standard_normal((3, 200_003))).to(cuda)
+        cla_dev._left(cla_dev.device_mirror(c), yt)       # mirror, warm-up
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.graph(g):
+                out = cla_dev._left(cla_dev.device_mirror(c), yt)
+            g.replay()
+            first = out.clone()
+            g.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    finally:
+        set_config(DMLConfig())
+    assert torch.equal(out, first)
+    ref = yt.cpu().numpy() @ x
+    np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=1e-12,
+                               atol=1e-9)
+
+
+def test_region_left_mult_segments_many_codes_one_dominant(cuda):
+    """The left mult's segment sums on a group of 65,536 codes over
+    2,458,285 rows, 60% of them on one code, captured into a CUDA graph
+    with sync debug mode "error" around the build, the capture and the
+    replays: two replays bit-identical, within 1e-12 of the largest sum
+    of the CPU's float64 bincount, and a layout of O(n + d) bytes."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    n, d = 2_458_285, 65_536
+    rng = np.random.default_rng(31)
+    codes = rng.integers(0, d, n)
+    codes[rng.random(n) < 0.6] = 123
+    y = rng.standard_normal((1, n))
+    ext = torch.from_numpy(np.concatenate([y, np.zeros((1, 1))], 1)).to(cuda)
+    codes_dev = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seg = cla_dev.Segments([codes_dev], [d])
+        seg.sums(ext)                                     # warm-up
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = seg.sums(ext)
+        g.replay()
+        first = out.clone()
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    ref = np.bincount(codes, weights=y[0], minlength=d)
+    assert np.max(np.abs(out.cpu().numpy()[0] - ref)) <= 1e-12 * np.max(
+        np.abs(ref))
+    assert seg.nbytes() <= 4 * (n + 2 * cla_dev.SEGMENT_CHUNK) + 20 * d
+
+
+@pytest.mark.parametrize("case", ["slice", "left_index"])
+def test_region_dynamic_slice_inside_a_graph(cuda, case):
+    """X[beg:beg+bs-1,] and R[beg:endb,] = ... at a device offset inside
+    one captured graph, equal to the plain arm on the CPU."""
+    src = {"slice": """
+acc = matrix(0, rows=1, cols=ncol(X))
+bs = 8
+for (i in 1:4) {
+  beg = (i-1)*bs + 1
+  Xb = X[beg:(beg+bs-1),]
+  acc = acc + colSums(Xb) * i
+}
+""", "left_index": """
+R = matrix(0, rows=nrow(X), cols=ncol(X))
+bs = 8
+for (i in 1:4) {
+  beg = (i-1)*bs + 1
+  endb = beg + bs - 1
+  R[beg:endb,] = X[beg:endb,] * i
+}
+"""}[case]
+    out = "acc" if case == "slice" else "R"
+    x = np.random.default_rng(17).normal(size=(32, 6))
+    got, _, ml = _region_lines(src, "cuda", {"X": x}, [out])
+    ref, _, _ = _region_lines(src, "cpu", {"X": x}, [out])
+    assert ml._stats.estim_counts.get("loop_regions_refused", 0) == 0
+    np.testing.assert_allclose(_region_values(got, [out])[0],
+                               _region_values(ref, [out])[0],
+                               rtol=1e-12, atol=1e-12)
+    assert sum(ml._stats.region_counts.values()) == 1
+
+
+def test_region_loop_varying_seed_equals_cpu_bits(cuda):
+    """rand(seed=42 + i) in a captured for loop: each iteration's key from
+    the device loop variable; the draws equal the CPU's bit for bit, in
+    fp32 and fp64."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    src = """
+D = matrix(0, rows=20, cols=3)
+for (i in 1:5) {
+  beg = (i-1)*4 + 1
+  D[beg:(beg+3),] = rand(rows=4, cols=3, min=-1, max=2, sparsity=0.7,
+                         seed=42 + i)
+}
+"""
+    for prec in ("single", "double"):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            cfg = DMLConfig(device=device)
+            cfg.floating_point_precision = prec
+            ml = MLContext(cfg)
+            outs[device] = ml.execute(dml(src).output("D")).get_tensor(
+                "D").cpu()
+            assert ml._stats.estim_counts.get("loop_regions_refused", 0) == 0
+        assert torch.equal(outs["cuda"], outs["cpu"])
+
+
+def test_region_print_ring_drains_and_relaunches(cuda, monkeypatch):
+    """A ring of 3 records under 11 iterations printing one or two lines
+    each: the graph stops whenever the next iteration might not fit,
+    the host prints, the same graph is launched again; the lines equal
+    the eager run's in order, one capture, launches = drains + 1; on a
+    second run, the synchronizing calls torch reports equal the record's
+    host syncs."""
+    import warnings
+
+    from systemml_tpu_torch.lang.parser import parse
+    from systemml_tpu_torch.runtime import loopfuse
+    from systemml_tpu_torch.runtime.program import compile_program
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    monkeypatch.setattr(loopfuse, "RING_RECORDS", 3)
+    src = """
+i = 0
+x = 0.5
+b = TRUE
+while (i < 11) {
+  x = x * 1.5
+  print("i=" + i + " x=" + x + " b=" + b)
+  if (i - 2 * floor(i / 2) == 0) {
+    print("even " + i)
+  }
+  b = !b
+  i = i + 1
+}
+"""
+    cfg = DMLConfig()
+    cfg.floating_point_precision = "double"
+    set_config(cfg)
+    try:
+        prog = compile_program(parse(src), outputs=["x"])
+        lines = []
+        prog.execute(printer=lines.append)
+    finally:
+        set_config(DMLConfig())
+    _, eager, _ = _region_lines(src, "cpu", outputs=["x"], codegen=False)
+    assert lines == eager and len(lines) == 17
+    fl = _top_loop(prog)._fused_loop
+    rec = fl.record
+    assert fl.refused is None and rec["captures"] == 1
+    assert rec["drains"] >= 4 and rec["launches"] == rec["drains"] + 1
+    assert rec["trips"] == [11]
+    # a second run meets the cache: the synchronizing calls torch sees are
+    # the record's host syncs, the entry test and one read per launch
+    h0, l0 = rec["host_syncs"], rec["launches"]
+    set_config(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            again = []
+            prog.execute(printer=again.append)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        set_config(DMLConfig())
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    assert again == eager
+    assert syncs == rec["host_syncs"] - h0 == 1 + rec["launches"] - l0
+
+
+
 # --------------------------------------------------------------------------
 # the sparse plane on the card (runtime/sparse.py): the ELL kernels and
 # the sampled quaternary arms against the same call on the CPU, the CSR

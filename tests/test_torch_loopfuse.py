@@ -11,9 +11,10 @@ at its default (loop regions on). Compared:
   off (codegen_enabled False) likewise;
 - the "Loop regions (planned=..., refused=...; ...)" line of each run's
   statistics, exactly, where both fuse; where the port refuses a region
-  at runtime that the JAX package fuses (a print in the body, an
-  unseeded rand, a minibatch slice, a shape change), a test of its own
-  asserts the port's reason.
+  at runtime (a shape change, a builtin that reads the host), a test of
+  its own asserts the port's reason;
+- the lines a region prints (through its device print ring, drained
+  after each launch) against the port's eager run's, line for line.
 
 The cases are those of tests/test_loopfuse.py, tests/test_loopfuse_
 nested.py and tests/test_loop_regions.py (TestRegionPlanner,
@@ -409,6 +410,67 @@ while (i < 4) {
   i = i + 1
 }
 """, None, ["total"]),
+    # prints, unseeded rand and minibatch slices (refused by the port's
+    # regions before they had a print ring, a device rand stream and
+    # slices at a device offset)
+    "print": ("""
+x = 1.0
+while (x < 10) {
+  x = x + 1
+  print("step " + x)
+}
+""", None, ["x"]),
+    "print_nested": ("""
+i = 0
+x = 1.0
+while (i < 5) {
+  x = x * 2
+  print("step " + i + " x=" + x)
+  i = i + 1
+}
+""", None, ["x"]),
+    # a print in a function the body calls twice: two records an
+    # iteration, the loop at top level
+    "print_in_function": ("""
+report = function(Double x, Integer i) return (Double y) {
+  print("i=" + i + " x=" + x)
+  y = x + 1
+}
+i = 0
+x = 1.0
+while (i < 4) {
+  x = report(x, i)
+  x = report(x * 2, i)
+  i = i + 1
+}
+""", None, ["x"]),
+    "unseeded_rand": ("""
+i = 0
+s = 0.0
+while (i < 4) {
+  R = rand(rows=3, cols=3)
+  s = s + sum(R >= 0)
+  i = i + 1
+}
+""", None, ["s"]),
+    "minibatch_slice": ("""
+acc = matrix(0, rows=1, cols=ncol(X))
+bs = 8
+for (i in 1:4) {
+  beg = (i-1)*bs + 1
+  Xb = X[beg:(beg+bs-1),]
+  acc = acc + colSums(Xb) * i
+}
+""", {"X": np.random.default_rng(17).normal(size=(32, 6))}, ["acc"]),
+    "minibatch_left_index": ("""
+R = matrix(0, rows=nrow(X), cols=ncol(X))
+bs = 8
+for (i in 1:4) {
+  beg = (i-1)*bs + 1
+  endb = beg + bs - 1
+  R[beg:endb,] = X[beg:endb,] * i
+}
+""", {"X": np.random.default_rng(17).normal(size=(32, 5))}, ["R"]),
 }
 
 
@@ -422,13 +484,14 @@ JAX_FALLS_BACK = {"double_write": "while[acc,i,j,...]@0=1"}
 def test_region_matches_jax_package(case):
     src, inputs, outs = CASES[case]
     _assert_same_plans(src, input_names=list(inputs or ()), outputs=outs)
-    pres, pst, _, fallbacks = _port(src, inputs, outs)
+    pres, pst, plines, fallbacks = _port(src, inputs, outs)
     jres, jst = _jax(src, inputs, outs)
-    eres, _, _, _ = _port(src, inputs, outs, codegen=False)
+    eres, _, elines, _ = _port(src, inputs, outs, codegen=False)
     for o in outs:
         _close(_value(pres, o), _value(jres, o))
         _close(_value(pres, o), _value(eres, o))
     assert not fallbacks
+    assert plines == elines
     if case in JAX_FALLS_BACK:
         assert _regions_line(pst)[0].endswith(JAX_FALLS_BACK[case])
         assert _regions_line(pst)[0] != _regions_line(jst)[0]
@@ -489,56 +552,11 @@ while (i < 3) {
 
 
 # --------------------------------------------------------------------------
-# what the port refuses in this slice and the JAX package fuses
+# what the port's regions refuse, each by its reason
 # --------------------------------------------------------------------------
 
 REFUSED = {
     # name -> (source, inputs, outputs, reason)
-    "print": ("""
-x = 1.0
-while (x < 10) {
-  x = x + 1
-  print("step " + x)
-}
-""", None, ["x"], "print"),
-    "print_nested": ("""
-i = 0
-x = 1.0
-while (i < 5) {
-  x = x * 2
-  print("step " + i + " x=" + x)
-  i = i + 1
-}
-""", None, ["x"], "print"),
-    "unseeded_rand": ("""
-i = 0
-s = 0.0
-while (i < 4) {
-  R = rand(rows=3, cols=3)
-  s = s + sum(R >= 0)
-  i = i + 1
-}
-""", None, ["s"], "rand"),
-    "minibatch_slice": ("""
-acc = matrix(0, rows=1, cols=ncol(X))
-bs = 8
-for (i in 1:4) {
-  beg = (i-1)*bs + 1
-  Xb = X[beg:(beg+bs-1),]
-  acc = acc + colSums(Xb) * i
-}
-""", {"X": np.random.default_rng(17).normal(size=(32, 6))}, ["acc"],
-                        "static_names"),
-    "minibatch_left_index": ("""
-R = matrix(0, rows=nrow(X), cols=ncol(X))
-bs = 8
-for (i in 1:4) {
-  beg = (i-1)*bs + 1
-  endb = beg + bs - 1
-  R[beg:endb,] = X[beg:endb,] * i
-}
-""", {"X": np.random.default_rng(17).normal(size=(32, 5))}, ["R"],
-                             "static_names"),
     "shape_change": ("""
 A = matrix(1, rows=3, cols=1)
 B = matrix(2, rows=3, cols=1)
@@ -547,6 +565,46 @@ for (i in 1:4) {
 }
 nc = ncol(A)
 """, None, ["nc", "A"], "shape change"),
+    # prints the ring cannot take: a matrix, a print inside an inner loop
+    "print_matrix": ("""
+A = matrix(1, rows=2, cols=2)
+i = 0
+while (i < 3) {
+  A = A * 2
+  print(A)
+  i = i + 1
+}
+""", None, ["A"], "print matrix: a print of a matrix"),
+    "print_in_inner_loop": ("""
+i = 0
+s = 0
+while (i < 3) {
+  j = 0
+  while (j < 2) {
+    print("i " + i + " j " + j)
+    j = j + 1
+  }
+  s = s + i
+  i = i + 1
+}
+""", None, ["s"], "print in inner loop"),
+    "print_in_function_in_inner_loop": ("""
+report = function(Integer i, Integer j) return (Integer k) {
+  print("i " + i + " j " + j)
+  k = i + j
+}
+i = 0
+s = 0
+while (i < 3) {
+  j = 0
+  while (j < 2) {
+    k = report(i, j)
+    j = j + 1
+  }
+  s = s + i + k
+  i = i + 1
+}
+""", None, ["s"], "print in inner loop"),
     # the breadth builtins that read the host: refused before the peel
     "removeEmpty": ("""
 s = 0.0
@@ -658,8 +716,9 @@ def test_kmeans_plans_match_and_its_loop_is_a_region():
 
 
 def test_line_search_outer_refused_inner_regions():
-    """l2-svm: the outer loop prints, so the runtime refuses it; the line
-    search inside runs as a region of its own on every outer pass."""
+    """l2-svm: the outer loop prints, which refused it before the print
+    ring; now the whole nest, the line search inside, is one region
+    entered once, its lines those of the eager run in order."""
     rng = np.random.default_rng(17)
     x = rng.random((30, 4))
     y = np.sign(x @ rng.random((4, 1)) - 1.0)
@@ -669,15 +728,16 @@ def test_line_search_outer_refused_inner_regions():
                                          ["w"], args, from_file=True)
     eres, _, elines, _ = _port("l2-svm.dml", {"X": x, "Y": y}, ["w"], args,
                                codegen=False, from_file=True)
-    jres, _ = _jax("l2-svm.dml", {"X": x, "Y": y}, ["w"], args,
-                   from_file=True)
+    jres, jst = _jax("l2-svm.dml", {"X": x, "Y": y}, ["w"], args,
+                     from_file=True)
     _close(_value(pres, "w"), _value(eres, "w"))
     _close(_value(pres, "w"), _value(jres, "w"))
-    assert plines == elines
-    assert [f["reason"] for f in fallbacks] == ["print"]
-    inner = [k for k in pst.region_counts if k.startswith("while[")]
-    assert len(inner) == 1
-    assert pst.region_counts[inner[0]] == len(elines)
+    assert plines == elines and len(elines) >= 3
+    assert all(ln.startswith("l2-svm: iter ") for ln in elines)
+    assert fallbacks == []
+    assert [k[-2:] for k in pst.region_counts] == ["@0"]
+    assert sum(pst.region_counts.values()) == 1
+    assert _regions_line(pst) == _regions_line(jst)
 
 
 # --------------------------------------------------------------------------
@@ -851,9 +911,11 @@ while (i < maxiter) {
 
 
 def test_slice_bound_ints_refused_as_static_names():
-    """The minibatch pattern plans as a region in both packages; the
-    port's runtime refuses it (a loop-varying slice bound needs a device
-    offset, ROADMAP queue 1) and the result holds."""
+    """The minibatch pattern plans as a region in both packages and, with
+    its slice at a device offset (static extent), runs as one in the
+    port; a loop-varying name that sizes a matrix is still refused as
+    static_names, and a slice bound without a static extent (mnist_
+    softmax's `end = min(N, beg + bs - 1)`) as "slice bound"."""
     src = """
 acc = matrix(0, rows=1, cols=ncol(X))
 i = 0
@@ -868,10 +930,31 @@ r = sum(acc)
     prog = _assert_same_plans(src, input_names=["X", "maxiter", "bs"])
     assert _plans(prog, P)[0].refused is None
     x = np.random.default_rng(17).standard_normal((12, 4))
-    res, _, _, fallbacks = _port(src, {"X": x, "maxiter": 3, "bs": 4},
+    res, st, _, fallbacks = _port(src, {"X": x, "maxiter": 3, "bs": 4},
+                                  ["r"])
+    assert abs(float(res.get_scalar("r")) - x.sum()) < 1e-9
+    assert fallbacks == [] and sum(st.region_counts.values()) == 1
+    sized = src.replace("B = X[beg:beg+bs-1,]",
+                        "B = matrix(1, rows=i + 1, cols=ncol(X))")
+    res, _, _, fallbacks = _port(sized, {"X": x, "maxiter": 3, "bs": 4},
+                                 ["r"])
+    assert float(res.get_scalar("r")) == 6 * 4
+    assert [f["reason"] for f in fallbacks] == ["static_names"]
+    clipped = src.replace("B = X[beg:beg+bs-1,]",
+                          "B = X[beg:min(nrow(X), beg+bs-1),]")
+    res, _, _, fallbacks = _port(clipped, {"X": x, "maxiter": 3, "bs": 4},
                                  ["r"])
     assert abs(float(res.get_scalar("r")) - x.sum()) < 1e-9
     assert [f["reason"] for f in fallbacks] == ["static_names"]
+    # a device bound the scan cannot see (a loop invariant held on the
+    # device): refused in the first iteration
+    dev_bound = src.replace("acc = matrix", "top = sum(X[, 1] > -1000)\n"
+                            "acc = matrix").replace(
+        "B = X[beg:beg+bs-1,]", "B = X[1:top,] * (i == 0)")
+    res, _, _, fallbacks = _port(dev_bound, {"X": x, "maxiter": 3, "bs": 4},
+                                 ["r"])
+    assert abs(float(res.get_scalar("r")) - x.sum()) < 1e-9
+    assert [f["reason"].split(":")[0] for f in fallbacks] == ["slice bound"]
 
 
 # --------------------------------------------------------------------------
@@ -946,31 +1029,57 @@ def test_algorithm_plans_match(name):
                        clargs=args)
 
 
+def _cla_run(src, inputs, outputs, args=None, codegen=True,
+             from_file=True):
+    cfg = DMLConfig(device="cpu")
+    cfg.cla = "true"
+    cfg.codegen_enabled = codegen
+    ml = MLContext(cfg)
+    lines = []
+    ml.printer = lines.append
+    with obs.session() as rec:
+        r = ml.execute(_script(dmlFromFile if from_file else dml, src,
+                               inputs, outputs, args, from_file))
+    fall = [e.args for e in rec._events if e.name == "loop_fallback"]
+    return r, ml._stats, lines, fall
+
+
 def test_compressed_operand_refused():
-    """LinearRegCG with cla "true": X is compressed at loop entry, and the
-    compressed left mult synchronises with the host, so the region is
-    refused with reason "compressed operand"; the result is the eager
-    run's."""
+    """A compressed X read in a region: its left mult, right mult and
+    mmchain read nothing on the host, so LinearRegCG with cla "true" runs
+    its CG loop as one region, equal to its eager run; an op on X that
+    the host computes (its decompression, for a product by a device
+    scalar) refuses the region
+    in its first iteration, by that op's name."""
     rng = np.random.default_rng(17)
     x = rng.integers(0, 3, (300, 4)).astype(float)
     y = x @ rng.standard_normal((4, 1))
     args = {"maxi": 20, "tol": 1e-9, "reg": 1e-6}
-
-    def run(codegen):
-        cfg = DMLConfig(device="cpu")
-        cfg.cla = "true"
-        cfg.codegen_enabled = codegen
-        ml = MLContext(cfg)
-        ml.printer = lambda s: None
-        with obs.session() as rec:
-            r = ml.execute(_script(dmlFromFile, "LinearRegCG.dml",
-                                   {"X": x, "y": y}, ["beta"], args, True))
-        return r, [e.args for e in rec._events if e.name == "loop_fallback"]
-
-    pres, fallbacks = run(True)
-    eres, _ = run(False)
+    pres, pst, _, fallbacks = _cla_run("LinearRegCG.dml", {"X": x, "y": y},
+                                       ["beta"], args)
+    eres, _, _, _ = _cla_run("LinearRegCG.dml", {"X": x, "y": y}, ["beta"],
+                             args, codegen=False)
     _close(_value(pres, "beta"), _value(eres, "beta"))
-    assert [f["reason"] for f in fallbacks] == ["compressed operand"]
+    assert fallbacks == [] and pst.estim_counts["cla_auto_compressed"] == 1
+    assert sum(pst.region_counts.values()) == 1
+    src = """
+Xc = compress(X)
+v = matrix(1, rows=ncol(X), cols=1)
+s = 0.0
+i = 0
+while (i < 4) {
+  q = Xc %*% v
+  s = s + sum(q * q) + sum(colSums(Xc * i))
+  v = v * 0.5
+  i = i + 1
+}
+"""
+    pres, _, _, fallbacks = _cla_run(src, {"X": x}, ["s"], from_file=False)
+    eres, _, _, _ = _cla_run(src, {"X": x}, ["s"], codegen=False,
+                             from_file=False)
+    _close(_value(pres, "s"), _value(eres, "s"))
+    assert [f["reason"] for f in fallbacks] == [
+        "compressed host op: decompress"]
 
 
 # --------------------------------------------------------------------------
@@ -1051,3 +1160,382 @@ def test_launch_accounting_scales_each_body():
     loopfuse._apply(st, delta, 4)
     assert st.estim_counts["spoof_flat_walk"] == 2 + 3 * 5
     assert st.eager_blocks == 5
+
+
+# --------------------------------------------------------------------------
+# prints through the ring, rand streams on the device, slices at a device
+# offset: tests/test_loopfuse.py:182-292 (TestMinibatchLoopFusion) and
+# tests/test_loopfuse_nested.py:145,259, ported, and the port's own
+# --------------------------------------------------------------------------
+
+def _one_region(st, fallbacks):
+    assert fallbacks == []
+    assert sum(st.region_counts.values()) == 1
+
+
+def test_dynamic_slice_loop_fuses_and_matches():
+    src, inputs, outs = CASES["minibatch_slice"]
+    res, st, _, fallbacks = _port(src, inputs, outs)
+    _one_region(st, fallbacks)
+    x = inputs["X"]
+    expect = sum(x[i * 8:(i + 1) * 8].sum(0) * (i + 1) for i in range(4))
+    _close(_value(res, "acc").ravel(), expect)
+
+
+def test_dynamic_left_index_loop():
+    src, inputs, outs = CASES["minibatch_left_index"]
+    res, st, _, fallbacks = _port(src, inputs, outs)
+    _one_region(st, fallbacks)
+    x = inputs["X"]
+    expect = np.concatenate([x[i * 8:(i + 1) * 8] * (i + 1)
+                             for i in range(4)])
+    _close(_value(res, "R"), expect)
+
+
+def test_training_loop_fuses_with_pure_fns():
+    """A minibatch SGD loop calling a pure function is one region, equal to
+    the JAX package's fused loop and to the port's eager run."""
+    rng = np.random.default_rng(17)
+    inputs = {"X": rng.normal(size=(32, 4)), "Y": rng.normal(size=(32, 1))}
+    src = """
+f = function(matrix[double] A, matrix[double] W)
+    return (matrix[double] o) { o = A %*% W }
+W = matrix(0.1, rows=ncol(X), cols=1)
+bs = 8
+iters = floor(nrow(X) / bs)
+for (i in 1:iters) {
+  beg = (i-1)*bs + 1
+  Xb = X[beg:(beg+bs-1),]
+  Yb = Y[beg:(beg+bs-1),]
+  pred = f(Xb, W)
+  g = t(Xb) %*% (pred - Yb) / bs
+  W = W - 0.1 * g
+}
+"""
+    pres, st, _, fallbacks = _port(src, inputs, ["W"])
+    _one_region(st, fallbacks)
+    jres, jst = _jax(src, inputs, ["W"])
+    eres, _, _, _ = _port(src, inputs, ["W"], codegen=False)
+    _close(_value(pres, "W"), _value(jres, "W"))
+    _close(_value(pres, "W"), _value(eres, "W"))
+    assert _regions_line(st) == _regions_line(jst)
+
+
+def _seeded(seed, fn):
+    from systemml_tpu.ops import datagen as jax_datagen
+    from systemml_tpu_torch.ops import datagen
+
+    datagen.set_global_seed(seed)
+    jax_datagen.set_global_seed(seed)
+    try:
+        return fn()
+    finally:
+        datagen.set_global_seed(None)
+        jax_datagen.set_global_seed(None)
+
+
+RAND_ORDER = """
+S = matrix(0, rows=2, cols=2)
+for (i in 1:4) {
+  A = rand(rows=2, cols=2)
+  C = rand(rows=2, cols=2)
+  B = rand(rows=2, cols=2)
+  S = S + A * i + 10 * B - C
+}
+"""
+
+
+def test_rand_order_reproducible_across_paths():
+    """The same global seed gives the same draws whether the loop runs as a
+    region or eagerly (the JAX package's test draws pdf "normal", which
+    waits for queue 1 item 8; here uniform), iteration after iteration,
+    and the JAX package's eager draws."""
+    pres, st, _, fallbacks = _seeded(11, lambda: _port(RAND_ORDER,
+                                                       outputs=["S", "B"]))
+    _one_region(st, fallbacks)
+    eres, _, _, _ = _seeded(11, lambda: _port(RAND_ORDER, outputs=["S", "B"],
+                                              codegen=False))
+    jcfg = JaxConfig()
+    jcfg.exec_mode = "SINGLE_NODE"
+    jcfg.codegen_enabled = False
+    jres = _seeded(11, lambda: JaxMLContext(jcfg).execute(
+        jax_dml(RAND_ORDER).output("S", "B")))
+    for o in ("S", "B"):
+        assert np.array_equal(_value(pres, o), _value(eres, o))
+        assert np.array_equal(_value(pres, o), _value(jres, o))
+
+
+def test_unseeded_rand_draws_per_iteration_unlike_jax_fused_loop():
+    """Under a global seed an unseeded rand in a region draws a new key per
+    iteration from the device stream, the keys the eager loop (and the
+    JAX package's eager loop) draws. The JAX package's fused loop takes
+    its key once, at trace time, and repeats one matrix: A = 10 R there
+    (ROADMAP queue 3, a reference defect the port does not copy)."""
+    src = """
+A = matrix(0, rows=3, cols=3)
+i = 0
+while (i < 4) {
+  R = rand(rows=3, cols=3)
+  A = A + R * (i + 1)
+  i = i + 1
+}
+"""
+    pres, st, _, fallbacks = _seeded(11, lambda: _port(src, outputs=["A",
+                                                                     "R"]))
+    _one_region(st, fallbacks)
+    eres, _, _, _ = _seeded(11, lambda: _port(src, outputs=["A", "R"],
+                                              codegen=False))
+    jcfg = JaxConfig()
+    jcfg.exec_mode = "SINGLE_NODE"
+    jcfg.codegen_enabled = False
+    jres = _seeded(11, lambda: JaxMLContext(jcfg).execute(
+        jax_dml(src).output("A", "R")))
+    jfused, _ = _seeded(11, lambda: _jax(src, outputs=["A", "R"]))
+    for o in ("A", "R"):
+        assert np.array_equal(_value(pres, o), _value(eres, o))
+        assert np.array_equal(_value(pres, o), _value(jres, o))
+    _close(_value(jfused, "A"), 10 * _value(jfused, "R"))
+    assert not np.allclose(_value(pres, "A"), 10 * _value(pres, "R"))
+
+
+def test_loop_varying_seed_bit_identical_to_jax_eager():
+    """rand(seed=42 + i) in a for region: each iteration's key derived on
+    the device from the loop variable; the draws, written at a device
+    offset, equal the JAX package's eager draws bit for bit."""
+    src = """
+D = matrix(0, rows=20, cols=3)
+for (i in 1:5) {
+  beg = (i-1)*4 + 1
+  D[beg:(beg+3),] = rand(rows=4, cols=3, min=-1, max=2, sparsity=0.7,
+                         seed=42 + i)
+}
+"""
+    pres, st, _, fallbacks = _port(src, outputs=["D"])
+    _one_region(st, fallbacks)
+    eres, _, _, _ = _port(src, outputs=["D"], codegen=False)
+    jcfg = JaxConfig()
+    jcfg.exec_mode = "SINGLE_NODE"
+    jcfg.codegen_enabled = False
+    jres = JaxMLContext(jcfg).execute(jax_dml(src).output("D"))
+    d = _value(pres, "D")
+    assert np.array_equal(d, _value(eres, "D"))
+    assert np.array_equal(d, _value(jres, "D"))
+    assert len({d[r].tobytes() for r in range(0, 20, 4)}) == 5
+
+
+def test_dynamic_slice_start_clamps():
+    """A slice at a device offset whose start would pass the end clamps as
+    lax.dynamic_slice does (ROADMAP queue 3, mirrored on purpose): the
+    region equals the JAX package's fused loop. Eagerly both packages cut
+    the slice short at the end instead, and agree."""
+    x = np.random.default_rng(17).normal(size=(32, 3))
+    src = """
+acc = matrix(0, rows=1, cols=ncol(X))
+for (i in 1:4) {
+  beg = i * 10
+  Xb = X[beg:(beg+7),]
+  acc = acc + colSums(Xb) * i
+}
+"""
+    pres, st, _, fallbacks = _port(src, {"X": x}, ["acc"])
+    _one_region(st, fallbacks)
+    jres, _ = _jax(src, {"X": x}, ["acc"])
+    _close(_value(pres, "acc"), _value(jres, "acc"))
+    expect = sum(x[min(b - 1, 24):min(b - 1, 24) + 8].sum(0) * i
+                 for i, b in ((i, i * 10) for i in range(1, 5)))
+    _close(_value(pres, "acc").ravel(), expect)
+    eres, _, _, _ = _port(src, {"X": x}, ["acc"], codegen=False)
+    jcfg = JaxConfig()
+    jcfg.exec_mode = "SINGLE_NODE"
+    jcfg.codegen_enabled = False
+    jeager = JaxMLContext(jcfg).execute(
+        jax_dml(src).input("X", x).output("acc"))
+    _close(_value(eres, "acc"), _value(jeager, "acc"))
+    assert not np.allclose(_value(eres, "acc"), _value(pres, "acc"))
+
+
+LINE_SEARCH = """
+n = nrow(X)
+m = ncol(X)
+reg = 1.0
+w = matrix(0, rows=m, cols=1)
+Xw = matrix(0, rows=n, cols=1)
+g_old = t(X) %*% Y
+s = g_old
+iter = 0
+continue = 1
+while (continue == 1 & iter < 10) {
+  step_sz = 0
+  Xd = X %*% s
+  wd = reg * sum(w * s)
+  dd = reg * sum(s * s)
+  cont_ls = 1
+  inner = 0
+  while (cont_ls == 1 & inner < 100) {
+    tmp_Xw = Xw + step_sz * Xd
+    out = 1 - Y * tmp_Xw
+    sv = (out > 0)
+    out = out * sv
+    g = wd + step_sz * dd - sum(out * Y * Xd)
+    h = dd + sum(Xd * sv * Xd)
+    step_sz = step_sz - g / h
+    if (g * g / h < 0.0000000001) {
+      cont_ls = 0
+    }
+    inner = inner + 1
+  }
+  w = w + step_sz * s
+  Xw = Xw + step_sz * Xd
+  out = 1 - Y * Xw
+  sv = (out > 0)
+  out = sv * out
+  obj = 0.5 * sum(out * out) + reg / 2 * sum(w * w)
+  g_new = t(X) %*% (out * Y) - reg * w
+  print("iter " + iter + ", obj = " + obj)
+  tmp = sum(s * g_old)
+  if (step_sz * tmp < 0.000000001 * obj) {
+    continue = 0
+  }
+  be = sum(g_new * g_new) / sum(g_old * g_old)
+  s = be * s + g_new
+  g_old = g_new
+  iter = iter + 1
+}
+"""
+
+
+def test_line_search_pattern():
+    """l2-svm's shape (outer CG, inner line search, a print): one region,
+    w and obj equal to the JAX package's fused loop, the lines equal to
+    the eager run's."""
+    rng = np.random.default_rng(17)
+    x = np.asarray(rng.random((30, 4)))
+    y = np.sign(x @ rng.random((4, 1)) - 1.0)
+    y[y == 0] = 1.0
+    pres, st, plines, fallbacks = _port(LINE_SEARCH, {"X": x, "Y": y},
+                                        ["w", "obj"])
+    _one_region(st, fallbacks)
+    jres, jst = _jax(LINE_SEARCH, {"X": x, "Y": y}, ["w", "obj"])
+    eres, _, elines, _ = _port(LINE_SEARCH, {"X": x, "Y": y}, ["w", "obj"],
+                               codegen=False)
+    for o in ("w", "obj"):
+        _close(_value(pres, o), _value(jres, o))
+        _close(_value(pres, o), _value(eres, o))
+    assert plines == elines and len(plines) >= 2
+    assert _regions_line(st) == _regions_line(jst)
+
+
+def test_print_inside_fused_loop_result_correct():
+    src, _, outs = CASES["print_nested"]
+    res, st, lines, fallbacks = _port(src, outputs=outs)
+    _one_region(st, fallbacks)
+    assert float(res.get_scalar("x")) == 32.0
+    assert lines == [f"step {i} x={2.0 ** (i + 1)}" for i in range(5)]
+
+
+def test_print_ring_drains_and_keeps_order(monkeypatch):
+    """A ring of 3 records under a loop of 11 iterations that prints one
+    or two lines each: the loop stops whenever the next iteration might
+    not fit, the host prints the records, and the loop goes on; every
+    line comes out once, in the eager run's order."""
+    monkeypatch.setattr(loopfuse, "RING_RECORDS", 3)
+    src = """
+i = 0
+x = 0.5
+b = TRUE
+while (i < 11) {
+  x = x * 1.5
+  print("i=" + i + " x=" + x + " b=" + b)
+  if (i - 2 * floor(i / 2) == 0) {
+    print("even " + i)
+  }
+  b = !b
+  i = i + 1
+}
+"""
+    set_config(DMLConfig(device="cpu"))
+    try:
+        prog = compile_program(parse(src), outputs=["x"])
+        lines = []
+        prog.execute(printer=lines.append)
+    finally:
+        set_config(DMLConfig())
+    _, _, elines, _ = _port(src, outputs=["x"], codegen=False)
+    assert lines == elines and len(lines) == 17
+    fl = [b for b in prog.blocks if isinstance(b, P.WhileBlock)][0]._fused_loop
+    assert fl.refused is None and fl.record["trips"] == [11]
+    assert fl.record["drains"] >= 4
+
+
+def test_refused_print_counts_its_ring_reads():
+    """A print of a matrix refuses the region in its first iteration: the
+    ring's records so far are read and printed before that line, and
+    read again when the refusal closes the entry; the record counts both
+    reads beside the entry test, and the lines equal the eager run's."""
+    src, _, outs, reason = REFUSED["print_matrix"]
+    set_config(DMLConfig(device="cpu"))
+    try:
+        prog = compile_program(parse(src), outputs=outs)
+        lines = []
+        prog.execute(printer=lines.append)
+    finally:
+        set_config(DMLConfig())
+    _, _, elines, _ = _port(src, outputs=outs, codegen=False)
+    assert lines == elines
+    fl = [b for b in prog.blocks if isinstance(b, P.WhileBlock)][0]._fused_loop
+    assert fl.refused == reason
+    assert fl.record["host_syncs"] == 3
+
+
+@pytest.mark.parametrize("script,args,out", [
+    ("LinearRegCG.dml", {"maxi": 20, "tol": 1e-9, "reg": 1e-6}, "beta"),
+    ("l2-svm.dml", {"maxiter": 10}, "w")])
+def test_cla_script_runs_as_a_region(script, args, out):
+    """LinearRegCG and l2-svm on a compressed categorical X of 400 rows:
+    the loop is one region (its left mult, right mult and mmchain on the
+    compressed X read nothing on the host), equal to the JAX package's
+    run with cla "true" and to the port's eager run, l2-svm's lines
+    included."""
+    rng = np.random.default_rng(17)
+    x = rng.integers(0, 4, (400, 5)).astype(float)
+    beta = rng.standard_normal((5, 1))
+    y = x @ beta if out == "beta" else np.where(x @ beta > np.median(
+        x @ beta), 1.0, -1.0)
+    inputs = {"X": x, "y" if out == "beta" else "Y": y}
+    pres, pst, plines, fallbacks = _cla_run(script, inputs, [out], args)
+    eres, _, elines, _ = _cla_run(script, inputs, [out], args,
+                                  codegen=False)
+    jcfg = JaxConfig()
+    jcfg.exec_mode = "SINGLE_NODE"
+    jcfg.cla = "true"
+    with contextlib.redirect_stdout(io.StringIO()):
+        jres = JaxMLContext(jcfg).execute(_script(
+            jax_dml_file, script, inputs, [out], args, True))
+    _one_region(pst, fallbacks)
+    assert pst.estim_counts["cla_auto_compressed"] == 1
+    _close(_value(pres, out), _value(eres, out))
+    _close(_value(pres, out), _value(jres, out))
+    assert plines == elines
+
+
+def test_kmeans_init_refused_for_the_jax_package_reason():
+    """Kmeans's k-means++ init (samp > 0): rand(seed=seed + 1000 * run +
+    j) takes its key on the device now, and the loop is refused in its
+    first iteration for C = rbind(C, S[pick, ]), a shape change, which
+    is what makes the JAX package's fused loop fall back (a TypeError,
+    its cond's branches of unequal shapes); the centroids equal."""
+    from systemml_tpu.obs import trace as jax_obs
+
+    rng = np.random.default_rng(17)
+    x = np.concatenate([rng.standard_normal((20, 3)) + c
+                        for c in (0.0, 5.0, -5.0)])
+    args = {"k": 5, "runs": 1, "maxi": 8, "samp": 5}
+    pres, _, _, fallbacks = _port("Kmeans.dml", {"X": x}, ["C_out"], args,
+                                  from_file=True)
+    with jax_obs.session() as rec:
+        jres, _ = _jax("Kmeans.dml", {"X": x}, ["C_out"], args,
+                       from_file=True)
+    _close(_value(pres, "C_out"), _value(jres, "C_out"))
+    assert [f["reason"].split(":")[0] for f in fallbacks] == ["shape change"]
+    assert {e.args["error"] for e in rec._events
+            if e.name == "loop_fallback"} == {"TypeError"}
