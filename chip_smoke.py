@@ -204,6 +204,38 @@ Phases:
    computes either): torch.matmul(U, V.T), the unfused route's first
    step, for K5, and the unfused sequence (the plain version) for K3.
 
+Beside phase 3, the slice of the CLI, io/, the buffer pool and the
+whole-block compile (each a line of its own, each failing the run on a
+failed check):
+
+- `[cli]`, right after the main path: X written by the port's writer as
+  a binary block (8.0 GB) and y as csv, each with its .mtd, into a fresh
+  temporary directory (the free disk bytes printed first), X read back
+  (native arm, pinned memory, one copy to the card) and held to what was
+  written; then LinearRegCG.dml run by `python -m systemml_tpu_torch
+  -stats` over those files as a subprocess, B read back within 1e-3 of
+  beta_true and 1e-5 of the MLContext run, K1 as many launches as that
+  run, both reads on the native arm; write and read GB/s, parse and
+  compile seconds, ms per CG iteration, the heavy hitters;
+- `[pool]`, after the sparse paths: POOL_SCRIPT (three derived copies of
+  X in blocks of their own, each reduced later in a block of its own,
+  and a loop reading one of them after its eviction) under an 11 GB
+  pool budget, against the pool off: results bit-identical, evictions
+  and restores above 0, the peak without the pool (A, B and C live) at
+  least twice the budget, the peak with it within the budget plus the
+  largest block's working set (measured: one block's peak without the
+  pool), which the run without the pool must exceed;
+- `[block]`: Kmeans's optlevel-3 run of the breadth phase through the
+  whole-block compile: its peak over the data below 2.5 GB (`rowSums(X ^
+  2)` a K4 row plan, `X ^ 2` not formed), the blocks planned, the eager
+  blocks by reason, K2 and K4, and their totals over the paths;
+- `[jmlc]`: `yhat = X %*% B` and a softmax scorer, each prepared once
+  with graphs on and once off and called 200 times on 1,000-row batches
+  of X: the scorer's calls through the plan until one is free of
+  synchronizing calls, the next captured as a CUDA graph, the rest
+  launches; the product refused a graph as one op; each result against
+  the same call without graphs; ms per call of both.
+
 The kernels line also has set_cond: its ms the control of a WHILE loop
 per iteration inside one graph, its plain_ms the same loop driven from
 the host. Prints a {"kernels": [...]} line before the last, and as the last line
@@ -220,6 +252,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -642,6 +675,9 @@ PATHS = {
 MINIBATCH_ROW_PLAN = (
     "b(*)(b(/)(u(-)(b(/)(i0, b(+)(b(/)(u(exp)(b(-)(b(+)(i1, i2), i3)), "
     "i4), 1e-10))), 1000.0), b(/)(u(exp)(b(-)(b(+)(i5, i6), i7)), i8))")
+# the block compile's one plan for Kmeans at optlevel 3, a row template
+# (K4): row_norms = rowSums(X ^ 2)
+KMEANS_ROW_PLAN = "b(^)(i0, 2.0)"
 MINIBATCH_SGD = """
 bs = $bs
 lr = $lr
@@ -1047,7 +1083,7 @@ def minibatch_paths(data, dev, kernels) -> dict:
     return out
 
 
-def compile_paths(data):
+def compile_paths(data, names=tuple(PATHS)):
     """The paths' programs at optlevel 3 on the card; compile_program
     builds each program's fused plans, one nvcc per source, all of a
     program's together."""
@@ -1058,7 +1094,7 @@ def compile_paths(data):
     set_config(config(3))
     try:
         progs = {}
-        for name in PATHS:
+        for name in names:
             s = path_script(name, data)
             progs[name] = compile_program(
                 s.parse(), clargs=s._args, outputs=s._outputs,
@@ -1168,8 +1204,18 @@ def run_path(name, optlevel, data, dev, kernels, regions=True,
         fail(f"{name} optlevel {optlevel} launched spoof kernels")
     if launches["cla_chain"] or events.get("cla_auto_compressed", 0):
         fail(f"{name} optlevel {optlevel}: the dense X was compressed")
+    st = ml._stats
+    # getattr: --bench runs this file in an earlier tree too, whose
+    # Statistics have no block compile
+    blocks = {"fused": getattr(st, "fused_blocks", 0),
+              "eager": st.eager_blocks,
+              "plans": getattr(st, "compile_count", 0),
+              "eager_by_reason": dict(getattr(st, "eager_reasons", {})),
+              "graphs": dict(getattr(st, "block_graph_counts", {})),
+              "block_spoof_plans": events.get("block_spoof_plans", 0)}
     result = {"out": out, "iterations": iters, "seconds": secs,
               "exec_seconds": ml._stats.run_time, "launches": launches,
+              "blocks": blocks,
               "peak_bytes": peak, "peak_reserved": peak_reserved,
               "peak_over_data": peak - base,
               "extra": {e: res.get(e) for e in extra},
@@ -1215,6 +1261,99 @@ def kmeans_replay(x, c1, iters: int):
         del d, a
     del xd
     return c, wcss
+
+
+def _lloyd_update(x, assign, c):
+    """Kmeans.dml's centroid update: per-cluster means, an empty cluster
+    keeping its centroid."""
+    a = torch.nn.functional.one_hot(assign, c.shape[0]).to(x.dtype)
+    counts = a.sum(0)[:, None]
+    empty = (counts == 0).to(x.dtype)
+    return (a.T @ x) / counts.clamp(min=1) * (1 - empty) + c * empty
+
+
+def kmeans_ties(x, c, c2, iters, kernels) -> dict:
+    """Why Kmeans's C_out at optlevel 3 differs from optlevel 2's: its
+    row_norms = rowSums(X ^ 2) by each optlevel's arm (3: the block
+    compile's K4 row plan; 2: X ^ 2 formed, then torch's row sum), each
+    against fp64; the first update's centroids of the two optlevels (c,
+    c2) against each other; from c, the rows whose nearest centroid under
+    the script's fp32 distances (D = row_norms - 2 X t(C) + t(rowSums(C ^
+    2))) differs between the two arms, or from fp64, and the rows whose
+    two nearest centroids lie closer in fp64 than the arms' row norms
+    differ; and `iters` Lloyd iterations in fp32 from c with each arm's
+    row norms, the rows assigned otherwise at each, and how far apart
+    their centroids end. Prints a `[kmeans-ties]` line; fails if an
+    arm's row norms are further than SPOOF_BARS[fp32] from fp64."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+
+    rn = {}
+    for opt in (3, 2):
+        ml = MLContext(config(opt))
+        reset_launches(kernels)
+        rn[opt] = ml.execute(dml("R = rowSums(X ^ 2)").input("X", x)
+                             .output("R")).get_tensor("R")
+        launched = read_launches(kernels)["spoof_row"]
+        if launched != (1 if opt == 3 else 0):
+            fail(f"[kmeans-ties] rowSums(X ^ 2) at optlevel {opt} launched "
+                 f"K4 {launched} times")
+    chunk = 250_000
+    ref = torch.cat([x[i:i + chunk].double().pow(2).sum(1, keepdim=True)
+                     for i in range(0, M, chunk)])
+    errs = {o: float(torch.linalg.norm(rn[o].double() - ref)
+                     / torch.linalg.norm(ref)) for o in rn}
+    max_rel = {o: float(((rn[o].double() - ref).abs() / ref).max())
+               for o in rn}
+    delta = float((rn[3].double() - rn[2].double()).abs().max())
+    cc = (c * c).sum(1)[None, :]
+    xc = x @ c.T
+    assign = {o: torch.argmin(rn[o] - 2 * xc + cc, dim=1) for o in rn}
+    del cc
+    a64, close = [], 0
+    cd = c.double()
+    ccd = (cd * cd).sum(1)[None, :]
+    for i in range(0, M, chunk):
+        d = ref[i:i + chunk] - 2 * (x[i:i + chunk].double() @ cd.T) + ccd
+        a64.append(torch.argmin(d, dim=1))
+        two = torch.topk(d, 2, dim=1, largest=False).values
+        close += int(((two[:, 1] - two[:, 0]) <= delta).sum())
+    a64 = torch.cat(a64)
+    flips = int((assign[3] != assign[2]).sum())
+    flips64 = {o: int((assign[o] != a64).sum()) for o in rn}
+    del xc, assign, a64
+    cs = {3: c, 2: c}
+    by_iter = []
+    for _ in range(iters):
+        a = {o: torch.argmin(rn[o] - 2 * (x @ cs[o].T)
+                             + (cs[o] * cs[o]).sum(1)[None, :], dim=1)
+             for o in rn}
+        by_iter.append(int((a[3] != a[2]).sum()))
+        cs = {o: _lloyd_update(x, a[o], cs[o]) for o in rn}
+    c_gap = normwise(cs[3], cs[2])
+    c1_gap = normwise(c2, c)
+    rec = {"row_norms_vs_fp64": errs, "row_norms_max_rel": max_rel,
+           "max_abs_row_norm_gap": delta, "first_update_gap": c1_gap,
+           "flips_3_vs_2": flips, "flips_vs_fp64": flips64,
+           "rows_within_gap": close, "replay_flips_by_iteration": by_iter,
+           "replay_c_gap": c_gap}
+    print(f"[kmeans-ties] row_norms at ({M}, {K}) fp32 against fp64: K4 "
+          f"(optlevel 3) normwise {errs[3]:.3e}, max relative "
+          f"{max_rel[3]:.3e}; X ^ 2 then the row sum (optlevel 2) "
+          f"{errs[2]:.3e}, {max_rel[2]:.3e} (bar {SPOOF_BARS[torch.float32]:g}"
+          f"); the arms differ by {delta:.3e} at most; from the centroids of "
+          f"the first update, {flips} rows take another nearest centroid "
+          f"with K4's row norms than with optlevel 2's ({flips64[3]} and "
+          f"{flips64[2]} against fp64), {close} rows have their two nearest "
+          f"centroids within that {delta:.3e} in fp64; the first update's "
+          f"centroids of the optlevels {c1_gap:.3e} apart; {iters} Lloyd "
+          f"iterations in fp32 from them with each arm's row norms assign "
+          f"{by_iter} rows otherwise at each, and end {c_gap:.3e} apart; "
+          f"on {nvidia_smi_line()}", flush=True)
+    if not max(errs.values()) <= SPOOF_BARS[torch.float32]:
+        fail(f"[kmeans-ties] row norms {errs} from fp64")
+    del ref, rn, cs
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _kmeans_wcss(lines) -> float:
@@ -1272,7 +1411,10 @@ def breadth_paths(data, dev, kernels) -> dict:
         r2 = run_path(name, 2, data, dev, kernels)
         a, b = r3["out"].double(), r2["out"].double()
         diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
-        if not diff <= 1e-3:
+        # Kmeans's C_out is held by its WCSS below: its optlevels compute
+        # row_norms in different orders (K4, torch's sum), and near-tie
+        # rows take other centroids (kmeans_ties)
+        if not diff <= 1e-3 and name != "Kmeans":
             fail(f"{name}: optlevel 3 is {diff} from optlevel 2 (bar 1e-3)")
         rec = {"diff_from_optlevel2": diff, "versus_eager": versus,
                **{k: {f: v for f, v in r.items()
@@ -1315,17 +1457,27 @@ def breadth_paths(data, dev, kernels) -> dict:
             c_err = float(torch.linalg.norm(a - c_ref)
                           / torch.linalg.norm(c_ref))
             w_err = abs(_kmeans_wcss(r3["lines"]) - wcss[-1]) / wcss[-1]
+            w2_err = abs(_kmeans_wcss(r2["lines"]) - _kmeans_wcss(
+                r3["lines"])) / _kmeans_wcss(r3["lines"])
+            one2 = run_path(name, 2, data, dev, kernels, args={"maxi": 1})
+            ties = kmeans_ties(x, one["out"], one2["out"], iters - 1,
+                               kernels)
+            del one2
             rec.update({"wcss": wcss, "c_out_vs_replay": c_err,
-                        "last_wcss_vs_replay": w_err})
+                        "last_wcss_vs_replay": w_err,
+                        "last_wcss_optlevel2_vs_3": w2_err, "ties": ties})
             check = (f"WCSS before each update {wcss} (the first the "
                      f"script's, the rest replayed in fp64 from its first "
                      f"update): non-increasing {not rises}; the script's "
-                     f"last WCSS {w_err:.3e} from the replay's (bar 1e-5); "
-                     f"C_out {c_err:.3e} from the replay's (near-tie "
-                     f"assignments)")
-            if rises or not w_err <= 1e-5:
+                     f"last WCSS {w_err:.3e} from the replay's (bar 1e-5), "
+                     f"optlevel 2's {w2_err:.3e} from optlevel 3's (bar "
+                     f"1e-5); C_out {c_err:.3e} from the replay's, "
+                     f"optlevel 2's {diff:.3e} from optlevel 3's (near-tie "
+                     f"assignments, not held)")
+            if rises or not w_err <= 1e-5 or not w2_err <= 1e-5:
                 fail(f"Kmeans: WCSS rises at {rises}, or the last WCSS is "
-                     f"{w_err} from the replayed iterations")
+                     f"{w_err} from the replayed iterations, or optlevel "
+                     f"2's {w2_err} from optlevel 3's")
             del c_ref
         reg = r3["regions"]
         per_entry = ", ".join(
@@ -1621,10 +1773,38 @@ def _n(CNode, op, *kids):
     return CNode(op, list(kids))
 
 
+def kmeans_row_hop(prog):
+    """The row plan that the block compile selects for Kmeans.dml's
+    `row_norms = rowSums(X ^ 2)` at X's run-time dims (M, K), as its
+    optlevel-3 run selects it (runtime/blockcompile.select)."""
+    import copy
+
+    from systemml_tpu_torch.runtime import blockcompile
+    from systemml_tpu_torch.runtime.program import iter_basic_blocks
+    from systemml_tpu_torch.utils.config import get_config, set_config
+
+    blocks = [b for b in iter_basic_blocks(prog)
+              if b.top_level and "row_norms" in b.hops.writes]
+    old = get_config()
+    set_config(config(3))
+    try:
+        new = blockcompile.select(copy.deepcopy(blocks[0].hops),
+                                  {"X": (M, K)}) if len(blocks) == 1 else []
+    finally:
+        set_config(old)
+    if [(h.params["template"], h.params["plan"].pretty()) for h in new] \
+            != [("row", KMEANS_ROW_PLAN)]:
+        fail(f"Kmeans's row_norms block: {len(blocks)} blocks, block "
+             f"compile plans {[h.params['plan'].pretty() for h in new]}, "
+             f"not the one row plan {KMEANS_ROW_PLAN}")
+    return new[0]
+
+
 def kernel_plans(progs):
     """(label, template, plan, leaf names) of the kernel phase: the
     paths' own plans (l2-svm's 10-leaf cell plan, MultiLogReg's row plan,
-    last minibatch-sgd's row plan) and three made here."""
+    last minibatch-sgd's row plan, Kmeans's row plan of the block
+    compile) and three made here."""
     from systemml_tpu_torch.codegen.cplan import CELL_BINARY, CELL_UNARY, CNode
     from systemml_tpu_torch.runtime.program import iter_spoof_hops
 
@@ -1645,6 +1825,7 @@ def kernel_plans(progs):
         fail(f"minibatch-sgd's plans are "
              f"{templates_of(progs['minibatch-sgd'])}, not the one row "
              f"plan {MINIBATCH_ROW_PLAN}")
+    km = kmeans_row_hop(progs["Kmeans"])
     i = lambda nm: CNode("in", name=nm)
     lit = lambda v: CNode("lit", value=v)
     n = lambda op, *kids: _n(CNode, op, *kids)
@@ -1679,7 +1860,9 @@ def kernel_plans(progs):
             ("every op", None, every, ["i0", "i1", "i2", "i3"], None),
             ("specials", None, special, ["i0", "i1", "i2"], None),
             ("minibatch-sgd row", "row", sgd[0].params["plan"],
-             list(sgd[0].params["leaf_names"]), sgd[0])]
+             list(sgd[0].params["leaf_names"]), sgd[0]),
+            ("Kmeans row", "row", km.params["plan"],
+             list(km.params["leaf_names"]), km)]
 
 
 def kernel_env(label, hop, names, dtype, dev, gen):
@@ -1710,6 +1893,9 @@ def kernel_env(label, hop, names, dtype, dev, gen):
         se = torch.exp(xw + bias - mx).sum(dim=1, keepdim=True)
         return {"i0": y, "i1": xw, "i2": bias, "i3": mx, "i4": se,
                 "i5": xw, "i6": bias, "i7": mx, "i8": se}
+    if label == "Kmeans row":
+        # row_norms = rowSums(X ^ 2) over the path's X shape
+        return {names[0]: r(M, K)}
     if label == "ragged":
         m, n = 100_003, 7
         return {"i0": r(m, n), "i1": r(1, n), "i2": r(m, 1), "i3": r(1, 1),
@@ -2144,8 +2330,18 @@ def run_cla_path(name, cla, data, dev, kernels, regions: bool = True):
     if launches["cla_chain"] != chain or iters < 1:
         fail(f"{name} cla={cla}: K6 launched {launches['cla_chain']} times "
              f"in {iters} outer iterations")
+    st = ml._stats
+    # getattr: --bench runs this file in an earlier tree too, whose
+    # Statistics have no block compile
+    blocks = {"fused": getattr(st, "fused_blocks", 0),
+              "eager": st.eager_blocks,
+              "plans": getattr(st, "compile_count", 0),
+              "eager_by_reason": dict(getattr(st, "eager_reasons", {})),
+              "graphs": dict(getattr(st, "block_graph_counts", {})),
+              "block_spoof_plans": events.get("block_spoof_plans", 0)}
     result = {"out": out, "iterations": iters, "seconds": secs,
               "exec_seconds": ml._stats.run_time, "launches": launches,
+              "blocks": blocks,
               "peak_bytes": peak, "peak_reserved": peak_reserved,
               "peak_over_data_bytes": peak - base, "lines": lines,
               "windows": windows, "events": events, "regions": reg,
@@ -3138,6 +3334,349 @@ def time_cell_beyond_l2svm(als, v, als_progs, smi, kernels) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the CLI and io/, the buffer pool, the whole-block compile, JMLC
+# --------------------------------------------------------------------------
+
+# the pool phase: three derived copies of the 8 GB X in blocks of their
+# own (an if on a runtime value splits them), each reduced later, and a
+# loop whose invariant input (A) the pool evicted before its entry
+POOL_SCRIPT = """
+gate = as.scalar(rand(rows=1, cols=1, min=1, max=1, seed=9))
+A = X * 2
+if (gate > 0) { s1 = sum(A) }
+B = X + 1
+if (gate > 0) { s2 = sum(B) }
+C = X * X
+if (gate > 0) { s3 = sum(C) }
+if (gate > 0) { ta = sum(A) / 2 }
+if (gate > 0) { tb = sum(B) - 1 }
+if (gate > 0) { tc = sum(C) }
+t = ta + tb + tc
+i = 0
+acc = 0.0
+while (i < 3) {
+  acc = acc + sum(A) / (i + 1)
+  i = i + 1
+}
+"""
+# the working set of POOL_SCRIPT's largest block: each block reads or
+# writes one derived copy of X beside X
+POOL_WORKING_SCRIPT = "A = X * 2\ns1 = sum(A)"
+POOL_OUTPUTS = ("s1", "s2", "s3", "t", "acc")
+# below half the 24 GB that A, B and C hold live together
+POOL_BUDGET = 11e9
+JMLC_BATCH, JMLC_CALLS = 1_000, 200
+# the prepared scripts of `[jmlc]`, their inputs beside X, and whether
+# the block runs as a graph: one product (one op, no graph), and a
+# softmax scorer (scripts/nn/layers/affine.dml and softmax.dml's
+# forward, inlined)
+JMLC_SCRIPTS = {
+    "product": ("yhat = X %*% B", ["B"], False),
+    "softmax": ("Z = X %*% W + b\nE = exp(Z - rowMaxs(Z))\n"
+                "yhat = E / rowSums(E)", ["W", "b"], True),
+}
+
+
+def _stats_line(text: str, head: str) -> str:
+    return next((ln for ln in text.splitlines() if ln.startswith(head)), "")
+
+
+def _stats_counts(line: str) -> dict:
+    body = line.split(":", 1)[1] if ":" in line else ""
+    out = {}
+    for part in body.split(","):
+        if "=" in part:
+            k, v = part.strip().rsplit("=", 1)
+            try:
+                out[k.split("(")[-1].strip()] = int(v)
+            except ValueError:
+                pass
+    return out
+
+
+def cli_phase(data, beta_mlc, mlc_mmchain, dev) -> dict:
+    """`[cli]`: X written by the port's writer as a binary block and y as
+    csv, each with its .mtd, into a fresh temporary directory; LinearRegCG.dml
+    run by `python -m systemml_tpu_torch -stats` over them as a subprocess;
+    B read back and held to beta_true and to the MLContext run; K1 as many
+    times as the MLContext run, and the read's native arm."""
+    import shutil
+    import tempfile
+
+    from systemml_tpu_torch.io import binaryblock, matrixio
+    from systemml_tpu_torch.runtime.data import MatrixObject
+
+    x, y = data["X"], data["y"]
+    x_bytes = x.numel() * x.element_size()
+    d = tempfile.mkdtemp(prefix="smtorch-cli-")
+    try:
+        free = shutil.disk_usage(d).free
+        print(f"[cli] free disk bytes in {d}: {free} (X {x_bytes})",
+              flush=True)
+        if free < 1.2 * x_bytes:
+            fail(f"[cli] {free} free bytes cannot hold X's {x_bytes}")
+        px, py, pb = (os.path.join(d, n) for n in ("X.bb", "y.csv", "B"))
+        binaryblock.ARM_COUNTS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        matrixio.write_matrix(MatrixObject(x, nnz=x.numel()), px,
+                              "binary_block")
+        write_s = time.perf_counter() - t0
+        matrixio.write_matrix(MatrixObject(y, nnz=y.numel()), py, "csv")
+        # the read alone, in this process: pinned host memory, one copy
+        t0 = time.perf_counter()
+        back = binaryblock.read_tensor(px, dev, torch.float32)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        same = bool(torch.equal(back, x))
+        del back
+        torch.cuda.empty_cache()
+        arms = dict(binaryblock.ARM_COUNTS)
+        if not same or arms.get(("read", "native")) != 1 \
+                or arms.get(("write", "native")) != 1:
+            fail(f"[cli] the binary block read back differs ({same}) or "
+                 f"an arm was not native: {arms}")
+        cmd = [sys.executable, "-m", "systemml_tpu_torch", "-f",
+               os.path.join(ALG, "LinearRegCG.dml"), "-stats", "-nvargs",
+               f"X={px}", f"Y={py}", f"B={pb}", "fmt=binary", "maxi=20",
+               "tol=1e-9", "reg=1e-6"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        wall_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"[cli] the CLI exited {r.returncode}: {r.stderr[-3000:]}")
+        out = r.stdout
+        b = torch.from_numpy(np.load(pb)).to(dev)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bt = data["beta_true"].double()
+    rel_true = float(torch.linalg.norm(b.double() - bt) / torch.linalg.norm(bt))
+    rel_mlc = float(torch.linalg.norm(b.double() - beta_mlc.double())
+                    / torch.linalg.norm(beta_mlc.double()))
+    launches = _stats_counts(_stats_line(out, "Kernel launches"))
+    decisions = _stats_counts(_stats_line(out, "Optimizer decisions"))
+    iters = int(_stats_line(out, "LinearRegCG: iterations = ").split(
+        "= ")[1].split(",")[0])
+    exec_s = float(_stats_line(out, "Total execution time").split()[-2])
+    compile_s = float(_stats_line(out, "Parse and compile time").split()[-2])
+    hh = [ln.strip() for ln in out.splitlines()
+          if ln.startswith("  ") and "\t" in ln and "Time(s)" not in ln]
+    hh_time = {}
+    for ln in hh:
+        parts = ln.split("\t")
+        hh_time[parts[0].split(None, 1)[-1]] = float(parts[1])
+    io_s = hh_time.get("call:read", 0.0) + hh_time.get("call:write", 0.0)
+    iter_ms = 1e3 * (exec_s - io_s) / max(iters, 1)
+    rec = {"write_gb_s": x_bytes / write_s / 1e9,
+           "read_gb_s": x_bytes / read_s / 1e9,
+           "cli_read_s": hh_time.get("call:read"), "wall_s": wall_s,
+           "parse_compile_s": compile_s, "exec_s": exec_s,
+           "iterations": iters, "iteration_ms": iter_ms,
+           "beta_vs_true": rel_true, "beta_vs_mlcontext": rel_mlc,
+           "mmchain": launches.get("mmchain", 0),
+           "mmchain_mlcontext": mlc_mmchain,
+           "io_read_native": decisions.get("io_read_native", 0),
+           "heavy_hitters": hh}
+    print(f"[cli] LinearRegCG.dml by python -m systemml_tpu_torch over a "
+          f"{x_bytes / 1e9:.1f} GB binary-block X on {nvidia_smi_line()}: "
+          f"write {rec['write_gb_s']:.2f} GB/s, read {rec['read_gb_s']:.2f} "
+          f"GB/s (native, pinned, one copy to the card); the CLI's "
+          f"call:read {rec['cli_read_s']} s; parse and compile "
+          f"{compile_s:.3f} s of host time; {iters} CG iterations, "
+          f"{iter_ms:.3f} ms per iteration (execution less read and write); "
+          f"|B - beta_true| / |beta_true| = {rel_true:.3e} (bar 1e-3), "
+          f"|B - B(MLContext)| / |B(MLContext)| = {rel_mlc:.3e} (bar 1e-5); "
+          f"mmchain {rec['mmchain']} launches against {mlc_mmchain} in the "
+          f"MLContext run; native reads {rec['io_read_native']}; "
+          f"{wall_s:.1f} s for the subprocess", flush=True)
+    for ln in hh:
+        print(f"[cli] heavy hitter {ln}")
+    if not rel_true <= 1e-3 or not rel_mlc <= 1e-5:
+        fail(f"[cli] B is {rel_true} from beta_true or {rel_mlc} from the "
+             f"MLContext run")
+    if rec["mmchain"] != mlc_mmchain or mlc_mmchain < 1:
+        fail(f"[cli] mmchain launched {rec['mmchain']} times, the MLContext "
+             f"run {mlc_mmchain}")
+    if rec["io_read_native"] < 2:
+        fail(f"[cli] the reads did not take the native arm: {decisions}")
+    return rec
+
+
+def pool_phase(data, dev) -> dict:
+    """`[pool]`: POOL_SCRIPT with the pool off, whose peak over the data
+    is what A, B and C hold live together (at least twice POOL_BUDGET),
+    and under POOL_BUDGET: results bit for bit, evictions and restores
+    above 0, and the pool's peak within the budget plus the working set
+    of the largest block (POOL_WORKING_SCRIPT's peak with the pool off),
+    a bound the run without the pool must exceed."""
+    import gc
+
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+
+    x = data["X"]
+
+    def run(src, outs, enabled):
+        cfg = config(2)
+        cfg.bufferpool_enabled = enabled
+        cfg.bufferpool_budget_bytes = POOL_BUDGET
+        ml = MLContext(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = ml.execute(dml(src).input("X", x).output(*outs))
+        vals = {k: float(res.get_scalar(k)) for k in outs}
+        torch.cuda.synchronize()
+        rec = {"values": vals, "seconds": time.perf_counter() - t0,
+               "peak_over_data": torch.cuda.max_memory_allocated(dev) - base,
+               "pool": dict(ml._stats.pool_counts.items())}
+        del res, ml
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    working = run(POOL_WORKING_SCRIPT, ("s1",), False)["peak_over_data"]
+    runs = {"off": run(POOL_SCRIPT, POOL_OUTPUTS, False),
+            "pool": run(POOL_SCRIPT, POOL_OUTPUTS, True)}
+    p, o = runs["pool"], runs["off"]
+    bound = POOL_BUDGET + working
+    print(f"[pool] {len(p['values'])} results with the pool (budget "
+          f"{POOL_BUDGET / 1e9:.0f} GB) equal to the pool off bit for bit: "
+          f"{p['values'] == o['values']}; pool events {p['pool']}; peak "
+          f"over the data without the pool (A, B and C live) "
+          f"{o['peak_over_data'] / 1e9:.3f} GB, with it "
+          f"{p['peak_over_data'] / 1e9:.3f} GB (bound: budget + the largest "
+          f"block's working set, measured {working / 1e9:.3f} GB, = "
+          f"{bound / 1e9:.3f} GB); {p['seconds']:.2f} s / "
+          f"{o['seconds']:.2f} s on {nvidia_smi_line()}", flush=True)
+    if p["values"] != o["values"]:
+        fail(f"[pool] results differ: {p['values']} against {o['values']}")
+    if not (p["pool"].get("evict", 0) > 0 and p["pool"].get("restore", 0) > 0):
+        fail(f"[pool] no eviction or no restore: {p['pool']}")
+    if o["peak_over_data"] < 2 * POOL_BUDGET:
+        fail(f"[pool] the live matrices peak at {o['peak_over_data']}, "
+             f"below twice the budget {POOL_BUDGET}")
+    if p["peak_over_data"] > bound or o["peak_over_data"] <= bound:
+        fail(f"[pool] peak {p['peak_over_data']} with the pool, "
+             f"{o['peak_over_data']} without, against budget + working "
+             f"set {bound}")
+    runs["working_set"] = working
+    return runs
+
+
+def block_phase(breadth, paths_launches) -> dict:
+    """`[block]`: Kmeans's run at optlevel 3 from the breadth phase through
+    the block compile: its peak over the data (below 2.5 GB: `X ^ 2` is
+    not formed), blocks planned, eager blocks by reason, K2 and K4; and
+    the K2 and K4 totals over the earlier paths."""
+    km = breadth["Kmeans"]["optlevel3"]
+    blocks = km["blocks"]
+    k2 = sum(c["spoof_cell"] for c in paths_launches.values())
+    k4 = sum(c["spoof_row"] for c in paths_launches.values())
+    reasons = blocks["eager_by_reason"] or "none outside a region"
+    print(f"[block] Kmeans ({M} x {K} fp32) optlevel 3: peak allocated over "
+          f"the data {km['peak_over_data'] / 1e9:.3f} GB (bar 2.5; PR 10 "
+          f"8.0 with X ^ 2 formed); blocks {blocks['fused']} through their "
+          f"plans, {blocks['eager']} eager (by reason: {reasons}), "
+          f"{blocks['plans']} plans, "
+          f"{blocks['block_spoof_plans']} fused plans the block compile "
+          f"selected, graphs {blocks['graphs'] or 'none'}; K2 "
+          f"{km['launches']['spoof_cell']}, K4 {km['launches']['spoof_row']};"
+          f" over the paths K2 {k2}, K4 {k4} (PR 10: 338, 2,009)",
+          flush=True)
+    if km["peak_over_data"] >= 2.5e9:
+        fail(f"[block] Kmeans's peak over the data {km['peak_over_data']} "
+             f">= 2.5 GB")
+    if blocks["block_spoof_plans"] < 1:
+        fail("[block] the block compile selected no plan for Kmeans")
+    return {"kmeans_peak_over_data": km["peak_over_data"], "blocks": blocks,
+            "k2_paths": k2, "k4_paths": k4}
+
+
+def jmlc_phase(data, dev) -> dict:
+    """`[jmlc]`: each of JMLC_SCRIPTS prepared once with graphs and once
+    with codegen off (no graphs), and the two called in turn JMLC_CALLS
+    times on 1,000-row batches of X: for the softmax scorer, calls
+    through the plan watched for synchronizing calls until one is free
+    of them, one capture, the rest graph launches; the product refused
+    a graph as one op; each result against the run without graphs, and
+    the host wall time a call of each (with a sync)."""
+    from systemml_tpu_torch.api.jmlc import Connection
+
+    x = data["X"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    consts = {"B": data["beta_true"],
+              "W": torch.randn(K, 10, generator=gen, device=dev),
+              "b": torch.randn(1, 10, generator=gen, device=dev)}
+    cfg_off = config(2)
+    cfg_off.codegen_enabled = False
+    out = {}
+    for label, (src, names, graphed) in JMLC_SCRIPTS.items():
+        ps = Connection(config(2)).prepare_script(
+            src, input_names=["X"] + names, output_names=["yhat"])
+        ref_ps = Connection(cfg_off).prepare_script(
+            src, input_names=["X"] + names, output_names=["yhat"])
+        times, ref_times, worst, bitwise = [], [], 0.0, True
+        for i in range(JMLC_CALLS):
+            bind = {"X": x[i * JMLC_BATCH:(i + 1) * JMLC_BATCH],
+                    **{n: consts[n] for n in names}}
+            got = {}
+            for arm, p, ts in (("graph", ps, times),
+                               ("plain", ref_ps, ref_times)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[arm] = p.execute(bind).get_tensor("yhat")
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            y, ref = got["graph"], got["plain"]
+            bitwise = bitwise and bool(torch.equal(y, ref))
+            worst = max(worst, float(
+                torch.linalg.norm(y.double() - ref.double())
+                / torch.linalg.norm(ref.double())))
+        g = dict(ps.stats.block_graph_counts.items())
+        watched = g.get("watched", 0)
+        # the calls after the capture (after the first without a graph)
+        first = watched + 1 if graphed else 1
+        rest = sorted(times[first:])
+        ref_rest = sorted(ref_times[first:])
+        rec = {"watched_ms": times[:watched],
+               "capture_ms": times[watched] if graphed else None,
+               "first_ms": times[0],
+               "rest_median_ms": rest[len(rest) // 2], "rest_min_ms": rest[0],
+               "plain_first_ms": ref_times[0],
+               "plain_rest_median_ms": ref_rest[len(ref_rest) // 2],
+               "plain_rest_min_ms": ref_rest[0],
+               "graphs": g, "bit_identical": bitwise, "max_normwise": worst}
+        out[label] = rec
+        head = (f"{watched} watched calls through the plan "
+                f"{[round(t, 3) for t in times[:watched]]} ms, the capture "
+                f"call {times[watched]:.3f} ms" if graphed else
+                f"no graph (one op), first call {times[0]:.3f} ms")
+        print(f"[jmlc] {label} ({src!r}) on {JMLC_BATCH}-row batches, "
+              f"{JMLC_CALLS} calls on {nvidia_smi_line()}: with graphs on, "
+              f"{head}, the rest {rec['rest_median_ms']:.4f} ms median "
+              f"({rest[0]:.4f} min) per call; without graphs first "
+              f"{ref_times[0]:.3f} ms, the "
+              f"same calls {rec['plain_rest_median_ms']:.4f} ms median "
+              f"({ref_rest[0]:.4f} min); host wall with a sync; graphs {g}; "
+              f"against the run without graphs bit-identical {bitwise}, "
+              f"worst {worst:.3e}", flush=True)
+        if graphed and (g.get("capture") != 1 or not 1 <= watched <= 2
+                        or watched + g.get("replay", 0) != JMLC_CALLS):
+            fail(f"[jmlc] {label}: graphs {g}: one or two watched calls, "
+                 f"one capture, and a launch on every other call expected")
+        if not graphed and g != {"nograph:one op": 1}:
+            fail(f"[jmlc] {label}: graphs {g}, not one refusal (one op)")
+        if worst > 1e-6:
+            fail(f"[jmlc] {label}: results differ from the run without "
+                 f"graphs: {worst}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # --bench: the spoof kernels and wrappers of this tree, for parent/change
 # pairs in one chip call
 # --------------------------------------------------------------------------
@@ -3357,8 +3896,7 @@ def bench(label: str) -> None:
     from systemml_tpu_torch.compress import device as cla_dev
 
     data = make_census(dev)
-    run = run_cla_path("LinearRegCG", "auto", data, dev, kernels,
-                       profile=False)
+    run = run_cla_path("LinearRegCG", "auto", data, dev, kernels)
     out["cla_cg_iter_ms"] = run["windows"]["iteration_ms"]
     out["cla_cg_iterations"] = run["iterations"]
     lay = cla_dev.chain_layout(run["compressed"][0])
@@ -3666,6 +4204,9 @@ def main() -> None:
                  "launches": launches, "windows": windows,
                  "regions": main_regions}
     del res
+    # the CLI and io/: the same script from files, by python -m
+    cli = cli_phase(data, beta, launches["mmchain"], dev)
+    torch.cuda.empty_cache()
     main_path["profile"] = {
         "device_only": profile_main_path(
             ml, path_script("LinearRegCG", data), False),
@@ -3748,6 +4289,20 @@ def main() -> None:
     # Netflix-shaped
     sparse = sparse_paths(ratings, als, dev, kernels)
     syncs = audit.finish()
+    # the buffer pool under pressure, the block compile's Kmeans, JMLC
+    pool = pool_phase(data, dev)
+    block_launches = {p: paths[p]["optlevel3"]["launches"] for p in paths}
+    block_launches.update({p: breadth[p]["optlevel3"]["launches"]
+                           for p in BREADTH_PATHS})
+    block_launches["minibatch-sgd"] = minibatch["optlevel3"]["launches"]
+    block_launches["ALS-CG-ml10m"] = als["optlevel3"]["launches"]
+    block_launches["ALS-CG-ml10m-sparse"] = \
+        sparse["ALS-CG-ml10m-sparse"]["regions"]["launches"]
+    block_launches["ALS-CG-netflix"] = \
+        sparse["ALS-CG-netflix"]["optlevel3"]["launches"]
+    block = block_phase(breadth, block_launches)
+    jmlc = jmlc_phase(data, dev)
+    torch.cuda.empty_cache()
 
     # ---- 4. times -----------------------------------------------------------
     v = torch.randn(K, 1, generator=gen, device=dev)
@@ -3831,6 +4386,22 @@ def main() -> None:
         del env
     records[1].update(time_cell_beyond_l2svm(als, ratings, als_progs, smi,
                                              kernels))
+    # K4 at minibatch-sgd's own shape: 2,000 of its launches are that
+    # row plan at a 1,000-row batch
+    label, _, plan, names, hop = kernel_plans(progs)[5]
+    env = kernel_env(label, hop, names, torch.float32, dev, gen)
+    bs = PATHS["minibatch-sgd"][2]["bs"]
+    mb_ms = device_ms(lambda: kernels.row_kernel(plan, names, "sum", env),
+                      cold=True)
+    mb_plain = device_ms(lambda: kernels.row_plain(plan, names, "sum", env))
+    mb_bound, mb_by = spoof_bound(plan, env, 4 * bs, 5 * bs)
+    print(f"[times] spoof_row sum {label} ({bs}, 5) fp32 on {smi}: device "
+          f"time per call {mb_ms:.4f} ms with the L2 cache evicted, plain "
+          f"{mb_plain:.4f} ms, bound {mb_bound:.5f} ms ({mb_by})", flush=True)
+    records[2].update({"minibatch_ms": mb_ms, "minibatch_plain_ms": mb_plain,
+                       "minibatch_bound_ms": mb_bound,
+                       "minibatch_bound_by": mb_by})
+    del env
     records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
     left_mult = time_left_mult(cla, dev, smi)
     records.append({
@@ -3908,6 +4479,8 @@ def main() -> None:
                       "minibatch_sgd": minibatch,
                       "cla_left_mult": left_mult, "region_syncs": syncs,
                       "breadth_datagen": breadth_datagen,
+                      "cli": cli, "pool": pool, "block": block,
+                      "jmlc": jmlc,
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path}))
     print(json.dumps({"ok": True, "device": {

@@ -225,7 +225,10 @@ class MLContext:
         if device is not None:
             self.config.device = device
         self.device = resolve_device(self.config)
+        # print the statistics / the compiled plan of each execute (also
+        # when the config's `stats` / `explain` ask for them)
         self.statistics = False
+        self.explain = False
         # where print() output of the script goes
         self.printer = print
         self._stats = None  # Statistics of the last execute()
@@ -251,6 +254,12 @@ class MLContext:
                     input_names=list(script._inputs),
                     input_sparsity=_input_sparsity(script._inputs,
                                                    script._spmeta_memo))
+            explain = self.config.explain if self.config.explain != "none" \
+                else ("hops" if self.explain else None)
+            if explain:
+                from systemml_tpu_torch.utils.explain import explain_program
+
+                print(explain_program(prog, mode=explain))
             # converted once per (input object, policy): a re-execution
             # finds the same SparseMatrix and its device mirrors
             policy = (str(self.device), self.config.floating_point_precision,
@@ -264,7 +273,7 @@ class MLContext:
                 inputs[k] = hit[2]
             ec = prog.execute(inputs=inputs, printer=self.printer)
             self._stats = prog.stats
-            if self.statistics:
+            if self.statistics or self.config.stats:
                 print(prog.stats.display(self.config.stats_max_heavy_hitters))
             return MLResults(ec.vars, script._outputs)
         finally:

@@ -32,7 +32,8 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, FrozenSet, Iterable, List, NamedTuple, Tuple
+from typing import (Dict, FrozenSet, Iterable, List, NamedTuple, Optional,
+                    Tuple)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -43,6 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the H100's host (PERF.md), and emit_cuda's text grows linearly with
 # the plan's nodes
 NVCC_TIMEOUT_S = 300.0
+_DEFAULT = object()
 SPOOF_HEADER = os.path.join(CSRC, "spoof.cuh")
 # template -> the launcher macro of csrc/spoof.cuh that a source exports
 SPOOF_LAUNCHERS = {"cell": "SPOOF_CELL_LAUNCHER", "row": "SPOOF_ROW_LAUNCHER",
@@ -80,11 +82,15 @@ def _target(name: str) -> Tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def _compile(name: str, src: str, lib: str) -> str:
+def _compile(name: str, src: str, lib: str,
+             limit: Optional[float] = _DEFAULT) -> str:
     """Runs nvcc on `src` into `lib` unless it is built; raises with the
     compiler's output on a failed build, and on one that runs past
-    NVCC_TIMEOUT_S, after killing nvcc's process group (nvcc runs cicc
-    and ptxas as children)."""
+    `limit` seconds (NVCC_TIMEOUT_S unless given; None: no limit), after
+    killing nvcc's process group (nvcc runs cicc and ptxas as
+    children)."""
+    if limit is _DEFAULT:
+        limit = NVCC_TIMEOUT_S
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -94,14 +100,14 @@ def _compile(name: str, src: str, lib: str) -> str:
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True, start_new_session=True)
     try:
-        out, _ = p.communicate(timeout=NVCC_TIMEOUT_S)
+        out, _ = p.communicate(timeout=limit)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
         p.communicate()
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(f"nvcc for {os.path.relpath(src, BUILD_DIR)} ran "
-                           f"past its limit of {NVCC_TIMEOUT_S:g} s") from None
+                           f"past its limit of {limit:g} s") from None
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed for {os.path.relpath(src, BUILD_DIR)}"
                            f":\n{out}")
@@ -285,13 +291,15 @@ def load_plan(template: str, plan,
         return lib
 
 
-def build_plans(plans: Iterable[Tuple], named: Iterable[str] = ()
-                ) -> List[str]:
+def build_plans(plans: Iterable[Tuple], named: Iterable[str] = (),
+                limit: Optional[float] = _DEFAULT) -> List[str]:
     """Builds and loads the libraries of (template, plan) pairs or
     (template, plan, Variant) triples, and of the named sources `named`
     (csrc/<name>.cu), that are not loaded yet: one nvcc per source, all
-    running together (as many at a time as the host has cores). Returns
-    the names built or loaded."""
+    running together (as many at a time as the host has cores), each
+    under `limit` seconds (NVCC_TIMEOUT_S unless given; a program's and a
+    block's plans take `compile_timeout_s`, 0 meaning none). Returns the
+    names built or loaded."""
     todo: Dict[str, Tuple[str, str]] = {}
     for name in named:
         if name not in _loaded:
@@ -305,8 +313,8 @@ def build_plans(plans: Iterable[Tuple], named: Iterable[str] = ()
         return []
     workers = max(1, min(len(todo), os.cpu_count() or 1))
     with ThreadPoolExecutor(max_workers=workers) as pool:
-        libs = dict(zip(todo, pool.map(lambda kv: _compile(kv[0], *kv[1]),
-                                       todo.items())))
+        libs = dict(zip(todo, pool.map(
+            lambda kv: _compile(kv[0], *kv[1], limit), todo.items())))
     with _lock:
         for name, path in libs.items():
             if name not in _loaded:

@@ -43,15 +43,20 @@ class SpoofCompiler:
         # SpoofCompiler.PLAN_CACHE, hops/codegen/SpoofCompiler.java:162)
         self.plan_cache: Dict[Tuple, object] = {}
 
-    def compile_block(self, blk: BlockHops) -> int:
+    def compile_block(self, blk: BlockHops,
+                      wide_single_op: bool = False) -> int:
         """Enumerate template matches, select by cost, apply winners;
-        returns #spoof operators created."""
+        returns #spoof operators created. With `wide_single_op` (the block
+        compile, runtime/blockcompile.py) an aggregate of one cellwise op
+        over a matrix of more than one column is a candidate too: the
+        fusion XLA makes in the JAX package's whole-block jit, which
+        keeps the op's (m, n) temporary from being formed."""
         roots = blk.roots()
         materialized = {h.id for h in blk.writes.values()}
         materialized |= {h.id for h in blk.sinks}
         hop_by_id = {h.id: h for h in postorder(roots)}
         memo = MemoTable([], build_consumers(roots), materialized)
-        memo.entries.extend(self._enumerate(blk, memo))
+        memo.entries.extend(self._enumerate(blk, memo, wide_single_op))
         if not memo.entries:
             return 0
         chosen = select_plans(memo, None, hop_by_id)
@@ -61,7 +66,8 @@ class SpoofCompiler:
 
     # ---- candidate enumeration ------------------------------------------
 
-    def _enumerate(self, blk: BlockHops, memo: MemoTable) -> List[MemoEntry]:
+    def _enumerate(self, blk: BlockHops, memo: MemoTable,
+                   wide: bool) -> List[MemoEntry]:
         roots = blk.roots()
         ext = memo.ext_consumed
         entries: List[MemoEntry] = []
@@ -84,13 +90,13 @@ class SpoofCompiler:
         for h in postorder(roots):
             if h.op.startswith("ua(") and h.params.get("dir") == "all" \
                     and h.params.get("aop") == "sum":
-                entries.extend(self._cands_agg_cell(h, ext))
+                entries.extend(self._cands_agg_cell(h, ext, wide))
             elif h.op.startswith("ua(") and h.params.get("dir") == "row" \
                     and h.params.get("aop") in ("sum", "min", "max"):
-                entries.extend(self._cands_row(h, ext))
+                entries.extend(self._cands_row(h, ext, wide))
         return entries
 
-    def _cands_agg_cell(self, agg: Hop, ext) -> List[MemoEntry]:
+    def _cands_agg_cell(self, agg: Hop, ext, wide: bool) -> List[MemoEntry]:
         src = agg.inputs[0]
         out: List[MemoEntry] = []
         plan, leaves, nops, mm, cover = _extract_cell(src, allow_one_mm=True)
@@ -111,7 +117,7 @@ class SpoofCompiler:
                     [mat[0]] + sca, nops,
                     {"mm": mm, "u": u, "v": v,
                      "scalar_names": [_name_of(l) for l in sca]}))
-        if plan is not None and nops >= MIN_FUSED_OPS and mm is None:
+        if plan is not None and mm is None and _enough(nops, leaves, wide):
             out.append(MemoEntry("cell", [agg], cover, plan, leaves, nops,
                                  {"agg": "sum"}))
         if mm is not None:
@@ -127,11 +133,11 @@ class SpoofCompiler:
                                  base_cover))
         return out
 
-    def _cands_row(self, agg: Hop, ext) -> List[MemoEntry]:
+    def _cands_row(self, agg: Hop, ext, wide: bool) -> List[MemoEntry]:
         src = agg.inputs[0]
         out: List[MemoEntry] = []
         plan, leaves, nops, mm, cover = _extract_cell(src, allow_one_mm=False)
-        if plan is not None and nops >= MIN_FUSED_OPS and mm is None:
+        if plan is not None and mm is None and _enough(nops, leaves, wide):
             out.append(MemoEntry("row", [agg], cover, plan, leaves, nops,
                                  {"row_agg": agg.params["aop"]}))
         out.extend(self._trimmed("row", agg, src, ext,
@@ -276,16 +282,27 @@ def _replace(blk: BlockHops, old: Hop, new: Hop):
     blk.sinks = [new if s is old else s for s in blk.sinks]
 
 
+def _enough(nops: int, leaves, wide: bool) -> bool:
+    """A plan of `nops` ops is worth a spoof operator: MIN_FUSED_OPS, or
+    with `wide` one op over a matrix of more than one column."""
+    if nops >= MIN_FUSED_OPS:
+        return True
+    return (nops == 1 and wide
+            and any(h.is_matrix and h.rows > 1 and h.cols > 1
+                    for _, h in leaves))
+
+
 _GLOBAL = SpoofCompiler()
 
 
-def compile_spoof(blk: BlockHops) -> int:
+def compile_spoof(blk: BlockHops, wide_single_op: bool = False) -> int:
     """Entry point called from the compile pipeline at optlevel >= 3, after
     program-wide size propagation so plan selection sees concrete dims
     (reference: DMLTranslator.rewriteHopsDAG codegen step,
     parser/DMLTranslator.java:287-295; selection during recompile has dims
-    the same way)."""
-    return _GLOBAL.compile_block(blk)
+    the same way), and from the block compile with run-time dims
+    (runtime/blockcompile.py, `wide_single_op`)."""
+    return _GLOBAL.compile_block(blk, wide_single_op)
 
 
 # --------------------------------------------------------------------------

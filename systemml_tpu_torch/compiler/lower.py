@@ -3,13 +3,13 @@
 Port of systemml_tpu/compiler/lower.py, the subset that runs a DML
 script eagerly: the `Evaluator` on its dense single-device branches
 (lower.py:1102-2108 there), the builtins that the ported scripts reach,
-`host_eval_scalar` and `_to_display_str`; and the loop analysis and
-region planner of lower.py:483-960 there (`plan_loop_regions`, whose
-`LoopRegion`s runtime/loopfuse.py executes as CUDA graphs). What waits,
-each raising NotImplementedError that names its ROADMAP item:
+`host_eval_scalar` and `_to_display_str`; the block analysis of
+lower.py:41-200 there (`analyze_block`, which the whole-block compile of
+runtime/blockcompile.py reads); and the loop analysis and region planner
+of lower.py:483-960 there (`plan_loop_regions`, whose `LoopRegion`s
+runtime/loopfuse.py executes as CUDA graphs). What waits, each raising
+NotImplementedError that names its ROADMAP item:
 
-- block analysis for the whole-block compile (analyze_block; the fused
-  whole-block compile and the buffer pool),
 - MESH dispatch and collectives (distributed and elastic),
 - attention and the DNN builtins (DNN and models), the mesh branches of
   compressed and sparse operands and of the quaternary ops
@@ -31,6 +31,7 @@ import torch
 from systemml_tpu_torch.compress import is_compressed
 from systemml_tpu_torch.hops.builder import BlockHops, DMLValidationError
 from systemml_tpu_torch.hops.hop import Hop, postorder
+from systemml_tpu_torch.runtime.bufferpool import CacheableMatrix
 
 # --------------------------------------------------------------------------
 # loop-region planning (systemml_tpu/compiler/lower.py:460-960): whole
@@ -48,6 +49,146 @@ _SHAPE_CALLS = {
     "call:matrix", "call:rand", "call:seq", "call:table", "call:rexpand",
     "call:outer",
 }
+
+# --------------------------------------------------------------------------
+# whole-block analysis (systemml_tpu/compiler/lower.py:41-200), copied as
+# it is: which of a block's writes the block compile
+# (runtime/blockcompile.py) plans, which names are static (they size
+# something), and what replays on the host. In the port nothing traces:
+# the whole block runs through its keyed plan, sinks and host writes
+# included, and the analysis decides the eager blocks (`jittable`) and
+# the blocks a CUDA graph cannot hold (a host op, a host write).
+# --------------------------------------------------------------------------
+
+# ops that can never be traced (host IO, data-dependent shapes, side effects)
+EAGER_ONLY_OPS = {
+    "call:read", "call:write", "call:print", "call:stop", "call:assert",
+    "call:removeEmpty", "call:toString", "call:order", "call:sample",
+    "call:list", "call:listidx", "fcall", "call:exists", "exists_var",
+    "call:time",
+    "call:transformencode", "call:transformapply", "call:transformdecode",
+    "call:transformcolmap", "call:eval",
+    "call:compress", "call:decompress",
+    "call:checkpoint", "call:restore", "call:checkpointExists",
+    "call:interQuantile", "call:transformmeta",
+}
+
+
+def analyze_block(blk: BlockHops, fcall_ok=None,
+                  host_names=frozenset()) -> "BlockAnalysis":
+    """Partition a block into its planned writes and what replays on the
+    host (strings, host IO, removeEmpty, ...). `prefetch` holds the
+    maximal planned subtrees under the host part."""
+    static: Set[str] = set()
+
+    traceable_memo: Dict[int, bool] = {}
+
+    def traceable(h: Hop) -> bool:
+        if h.id in traceable_memo:
+            return traceable_memo[h.id]
+        if h.op == "tread" and h.name in host_names:
+            traceable_memo[h.id] = False
+            return False
+        op_ok = h.op not in EAGER_ONLY_OPS
+        if h.op == "fcall" and fcall_ok is not None:
+            op_ok = fcall_ok(h)
+        # scalar-only list literals (the conv2d-family shape lists)
+        scalar_list = (h.op in ("call:list", "elist")
+                       and all(c.dt == "scalar" for c in h.inputs))
+        if scalar_list:
+            op_ok = True
+        is_str_lit = h.op == "lit" and isinstance(h.value, str)
+        ok = (op_ok and (h.dt != "string" or is_str_lit)
+              and h.dt != "frame" and (h.dt != "list" or scalar_list)
+              and all(traceable(c) for c in h.inputs))
+        traceable_memo[h.id] = ok
+        return ok
+
+    # restore(path) rebinds symbol-table names as a side effect: the
+    # whole block runs eagerly (sinks execute before writes there)
+    all_roots = list(blk.writes.values()) + list(blk.sinks)
+    if any(h.op == "call:restore" for h in postorder(all_roots)):
+        return BlockAnalysis(False, static, [], set(blk.reads), [],
+                             sorted(blk.writes))
+
+    # program order: the order rand() draws consume the seed stream
+    fused_writes = [n for n, h in blk.writes.items()
+                    if traceable(h) and h.dt != "string"
+                    and not (h.op == "lit" and isinstance(h.value, str))]
+    host_writes = [n for n in blk.writes if n not in set(fused_writes)]
+
+    prefetch: List[Hop] = []
+    seen_pf: Set[int] = set()
+
+    def collect(h: Hop):
+        if traceable(h):
+            if h.op not in ("lit", "tread") and h.id not in seen_pf:
+                seen_pf.add(h.id)
+                prefetch.append(h)
+            return
+        if h.op == "b(*)" and len(h.inputs) == 2:
+            # sampled-product candidate: W * (A %*% B) with an untraceable
+            # W (a sparse mask): the factors, not the product
+            for i, c in enumerate(h.inputs):
+                o = h.inputs[1 - i]
+                if c.op == "ba+*" and traceable(c) and not traceable(o):
+                    for cc in c.inputs:
+                        collect(cc)
+                    collect(o)
+                    return
+        for c in h.inputs:
+            collect(c)
+
+    for s in blk.sinks:
+        collect(s)
+    for n in host_writes:
+        collect(blk.writes[n])
+
+    fused_roots = [blk.writes[n] for n in fused_writes] + prefetch
+    order = postorder(fused_roots)
+    jittable = bool(fused_roots)
+
+    def mark_static(h: Hop):
+        for x in postorder([h]):
+            if x.op == "tread":
+                static.add(x.name)
+
+    for h in order:
+        pos = _SHAPE_POSITIONS.get(h.op)
+        if pos:
+            for i in pos:
+                mark_static(h.inputs[i])
+        elif h.op in _SHAPE_CALLS:
+            for c in h.inputs:
+                mark_static(c)
+        elif h.op.startswith("call:"):
+            # every scalar arg of a generic builtin may size something
+            for c in h.inputs:
+                if c.dt != "matrix":
+                    mark_static(c)
+    fused_reads = {h.name for h in order if h.op == "tread"}
+    host_read_names: Set[str] = set()
+    for s in list(blk.sinks) + [blk.writes[n] for n in host_writes]:
+        for x in postorder([s]):
+            if x.op == "tread":
+                host_read_names.add(x.name)
+    return BlockAnalysis(jittable, static, prefetch, fused_reads,
+                         fused_writes, host_writes, host_read_names)
+
+
+class BlockAnalysis:
+    __slots__ = ("jittable", "static_scalars", "prefetch", "fused_reads",
+                 "fused_writes", "host_writes", "host_read_names")
+
+    def __init__(self, jittable, static_scalars, prefetch, fused_reads,
+                 fused_writes, host_writes, host_read_names=frozenset()):
+        self.jittable = jittable
+        self.static_scalars = static_scalars
+        self.prefetch = prefetch
+        self.fused_reads = fused_reads
+        self.fused_writes = fused_writes
+        self.host_writes = host_writes
+        self.host_read_names = host_read_names
 
 
 class NotLoopFusable(Exception):
@@ -839,8 +980,11 @@ class Evaluator:
     def __init__(self, env: Dict[str, Any],
                  call_function: Optional[Callable] = None,
                  printer: Optional[Callable[[str], None]] = None,
-                 stats=None, timing: bool = False):
+                 stats=None, timing: bool = False,
+                 skip_writes: bool = False):
         self.env = env
+        # JMLC in-memory mode: write() does nothing (api/jmlc.py)
+        self.skip_writes = skip_writes
         self.call_function = call_function
         self.printer = printer or (lambda s: print(s))
         self.stats = stats
@@ -912,6 +1056,9 @@ class Evaluator:
             if h.name not in self.env:
                 raise DMLValidationError(f"undefined variable {h.name!r}")
             v = self.env[h.name]
+            if isinstance(v, CacheableMatrix):
+                # a plain copy of a VarMap holds the raw pool handles
+                v = v.resolve()
             from systemml_tpu_torch.hops.hoist import FailedHoist
 
             if isinstance(v, FailedHoist):
@@ -1255,7 +1402,18 @@ class Evaluator:
         if fn is None:
             if name in _WAITING_BUILTINS:
                 raise _waits(f"builtin {name}()", _WAITING_BUILTINS[name])
-            raise DMLValidationError(f"unsupported builtin function {name!r}")
+            # not a builtin: a registered Python UDF? (reference: the
+            # external-function framework, udf/PackageFunction.java)
+            from systemml_tpu_torch.api.udf import call_udf, lookup_udf
+
+            entry = lookup_udf(name)
+            if entry is None:
+                raise DMLValidationError(
+                    f"unsupported builtin function {name!r} (and no "
+                    f"Python UDF registered under that name)")
+
+            def fn(ev, pos, named, h):
+                return call_udf(name, pos, named, entry)
         args = [self.eval(c) for c in h.inputs]
         argnames = h.params.get("argnames") or [None] * len(args)
         named = {n: v for n, v in zip(argnames, args) if n is not None}
@@ -1469,7 +1627,10 @@ def _bi_as_integer(ev, pos, named, h):
     if d is not None:
         return d if _is_int_scalar(d) and d.dtype != torch.bool else \
             torch.floor(d.double()).to(torch.int64)
-    return int(math.floor(float(_scalar(pos[0]))))
+    # the host arm truncates, the device arm floors, as the JAX package
+    # (systemml_tpu/compiler/lower.py:2393-2399) and this file's constant
+    # folder do
+    return int(float(_scalar(pos[0])))
 
 
 def _bi_as_logical(ev, pos, named, h):
@@ -1481,7 +1642,30 @@ def _bi_ifelse(ev, pos, named, h):
     from systemml_tpu_torch.ops.cellwise import as_tensor
 
     c, a, b = pos
+    a, b, c = (v.item() if isinstance(v, np.generic) else v
+               for v in (a, b, c))
+    host = (bool, int, float)
+    if all(isinstance(v, host) for v in (a, b, c)):
+        # host scalars keep their kind, as jnp.where promotes: two ints
+        # give an int, two booleans a boolean, a double a double
+        v = a if c else b
+        if any(isinstance(x, float) for x in (a, b)):
+            return float(v)
+        if all(isinstance(x, bool) for x in (a, b)):
+            return bool(v)
+        return int(v)
     like = next((t for t in (a, b, c) if isinstance(t, torch.Tensor)), None)
+    ints = all(isinstance(x, (bool, int)) or (
+        _is_int_scalar(x) and x.dtype != torch.bool) for x in (a, b))
+    if ints and all(isinstance(x, host) or x.ndim == 0 for x in (a, b, c)):
+        # a region's 0-d int64 with an int: an int64, not the value dtype
+        dev = like.device
+
+        def as_int(x):
+            return x.to(torch.int64) if isinstance(x, torch.Tensor) else \
+                torch.full((), int(x), dtype=torch.int64, device=dev)
+
+        return torch.where(as_tensor(c, like) != 0, as_int(a), as_int(b))
     return torch.where(as_tensor(c, like) != 0, as_tensor(a, like),
                        as_tensor(b, like))
 
@@ -1829,7 +2013,93 @@ def _bi_listidx(ev, pos, named, h):
     return d
 
 
+def _bi_read(ev, pos, named, h):
+    """read(path, ...): io/matrixio.py, a matrix on the configured device
+    (a scalar with data_type="scalar"); frames wait for ROADMAP queue 1,
+    parfor, transform and frames."""
+    from systemml_tpu_torch.io import matrixio
+
+    path = str(pos[0])
+    dt = named.get("data_type", "matrix")
+    if dt == "scalar":
+        vt = named.get("value_type")
+        if vt is None:
+            vt = matrixio.read_metadata(path).get("value_type", "double")
+        with open(path) as f:
+            s = f.read().strip()
+        if vt == "string":
+            return s
+        if vt in ("int", "integer"):
+            return int(float(s))
+        if vt == "boolean":
+            return s.upper() == "TRUE"
+        return float(s)
+    if dt == "frame":
+        return matrixio.read_frame(path)
+    m = matrixio.read_matrix(
+        path, named.get("format"),
+        int(_scalar(named["rows"])) if "rows" in named else None,
+        int(_scalar(named["cols"])) if "cols" in named else None,
+        bool(named.get("header", False)), named.get("sep", ","))
+    return m.array
+
+
+def _bi_write(ev, pos, named, h):
+    from systemml_tpu_torch.io import matrixio
+    from systemml_tpu_torch.runtime.data import MatrixObject
+
+    if ev.skip_writes:
+        return None  # JMLC in-memory mode
+    target, path = pos[0], str(pos[1])
+    fmt = named.get("format", "csv")
+    if isinstance(target, (int, float, bool, str, np.generic)) or (
+            isinstance(target, torch.Tensor) and target.ndim == 0):
+        # scalars, also 0-d device values (write(mean(...), f))
+        with open(path, "w") as f:
+            f.write(_to_display_str(target) + "\n")
+    else:
+        if is_compressed(target):
+            target = target.decompress()
+        matrixio.write_matrix(MatrixObject(target), path, fmt,
+                              named.get("sep", ","),
+                              bool(named.get("header", False)))
+    return None
+
+
+def _bi_checkpoint(ev, pos, named, h):
+    from systemml_tpu_torch.runtime import checkpoint as ckpt
+    from systemml_tpu_torch.utils import stats as stats_mod
+
+    env = dict(ev.env)
+    for n, v in zip(h.params.get("var_names", []), pos[1:]):
+        env[n] = v  # in-block updates override the pre-block snapshot
+    ckpt.save_snapshot(env, str(pos[0]))
+    st = stats_mod.current()
+    if st is not None:
+        st.count_pool("checkpoint_save")
+    return None
+
+
+def _bi_restore(ev, pos, named, h):
+    from systemml_tpu_torch.runtime import checkpoint as ckpt
+    from systemml_tpu_torch.utils import stats as stats_mod
+
+    ev.env.update(ckpt.load_snapshot(str(pos[0])))
+    st = stats_mod.current()
+    if st is not None:
+        st.count_pool("checkpoint_restore")
+    return None
+
+
+def _bi_checkpoint_exists(ev, pos, named, h):
+    from systemml_tpu_torch.runtime import checkpoint as ckpt
+
+    return ckpt.snapshot_exists(str(pos[0]))
+
+
 _BUILTINS: Dict[str, Callable] = {
+    "read": _bi_read, "write": _bi_write, "checkpoint": _bi_checkpoint,
+    "restore": _bi_restore, "checkpointExists": _bi_checkpoint_exists,
     "matrix": _bi_matrix, "print": _bi_print, "stop": _bi_stop,
     "assert": _bi_assert, "toString": _bi_tostring,
     "as.scalar": _bi_as_scalar, "castAsScalar": _bi_as_scalar,
@@ -1874,15 +2144,12 @@ _BUILTINS: Dict[str, Callable] = {
         _mat(pos[0])),
 }
 
-_IO = "the CLI and io/"
 _NN = "DNN and models"
 _FRAMES = "parfor, transform and frames"
 # the JAX package's builtins that the port does not run yet, with the
 # ROADMAP item that brings each (validate.py accepts their names, so a
 # script that calls one fails here, by name, and not as a typo)
 _WAITING_BUILTINS: Dict[str, str] = {
-    **{n: _IO for n in ("read", "write", "checkpoint", "restore",
-                        "checkpointExists")},
     **{n: _NN for n in (
         "__from_nhwc", "conv2d", "conv2d_backward_filter",
         "conv2d_backward_data", "max_pool", "avg_pool",

@@ -219,10 +219,11 @@ class _Validator:
             self._check_arity(e, fd)
             return
         if e.name not in self.builtins and e.name not in self.fn_names:
-            # registered Python UDFs (api/udf) are not ported yet
-            # (ROADMAP queue 1, "CLI and io/"): a bare name that is no
-            # builtin and no DML function is unknown
-            self.err(e.pos, f"unknown function {e.name!r}")
+            # registered Python UDFs are callable by bare name
+            from systemml_tpu_torch.api.udf import lookup_udf
+
+            if lookup_udf(e.name) is None:
+                self.err(e.pos, f"unknown function {e.name!r}")
 
     def _check_arity(self, e: A.FunctionCall, fd: A.FunctionDef):
         if fd.external:

@@ -313,6 +313,10 @@ def _neg(x):
     return torch.neg(x)
 
 
+def _pole(v):
+    return (v <= 0) & (v == torch.floor(v))
+
+
 _UNARY = {
     "abs": torch.abs, "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
     "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
@@ -324,6 +328,15 @@ _UNARY = {
     "sign": lambda v: torch.where(torch.isnan(v), v, torch.sign(v)),
     "sigmoid": torch.sigmoid, "!": _not, "-": _neg,
     "sprop": lambda v: v * (1.0 - v),  # sample proportion x*(1-x)
+    # reference: Builtin GAMMA/LGAMMA/DIGAMMA/TRIGAMMA
+    "gamma": lambda v: torch.exp(torch.lgamma(v)),
+    "lgamma": torch.lgamma,
+    # at 0 and the negative integers (the poles) jax.scipy gives NaN for
+    # digamma and +Inf for trigamma; torch gives -Inf and a finite value
+    "digamma": lambda v: torch.where(_pole(v), torch.nan,
+                                     torch.special.digamma(v)),
+    "trigamma": lambda v: torch.where(_pole(v), torch.inf,
+                                      torch.special.polygamma(1, v)),
     "isNA": lambda v: torch.isnan(v).to(v.dtype),
     "isNaN": lambda v: torch.isnan(v).to(v.dtype),
     "isInf": lambda v: torch.isinf(v).to(v.dtype),
@@ -363,4 +376,8 @@ def unary_op(op: str, x):
 
 
 def log_base(x, base):
+    if isinstance(x, torch.Tensor) and not x.is_floating_point():
+        # torch.log of an int tensor is float32: a DML int (a region's
+        # 0-d int64) takes the value dtype, as the host path does
+        x = x.to(default_dtype(x.device))
     return torch.log(x) / math.log(base)

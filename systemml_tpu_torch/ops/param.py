@@ -108,9 +108,13 @@ def rexpand(target, max_v: int, direction: str = "cols", cast: bool = True,
     v = target.reshape(-1)
     idx = (torch.round(v) if cast else v).to(torch.int64) - 1
     m = int(max_v)
-    cols = torch.arange(m, device=v.device)
-    # an id outside 0..m-1 matches no column: its row stays zero
-    eye = (idx[:, None] == cols[None, :]).to(v.dtype)
+    # one scatter into the output, no (n, m) comparison mask beside it (a
+    # 250 x 2,000,000 selector is 2 GB in fp32 and its mask another 0.5);
+    # an id outside 0..m-1 writes a 0 into column 0: its row stays zero
+    valid = (idx >= 0) & (idx < m)
+    eye = torch.zeros(v.shape[0], m, dtype=v.dtype, device=v.device)
+    eye.scatter_(1, torch.where(valid, idx, 0).reshape(-1, 1),
+                 valid.to(v.dtype).reshape(-1, 1))
     return eye if direction == "cols" else eye.T
 
 

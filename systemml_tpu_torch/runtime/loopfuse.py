@@ -110,6 +110,7 @@ from systemml_tpu_torch.compiler.lower import (NotLoopFusable,
                                                region_scope)
 from systemml_tpu_torch.hops.hop import postorder
 from systemml_tpu_torch.runtime import sparse as sp
+from systemml_tpu_torch.runtime.bufferpool import pin_reads
 
 # the classified reasons a region is refused at entry or after its peel
 # (a plan's refusal keeps the plan's own text)
@@ -824,9 +825,43 @@ def capture_streams(dev) -> List[torch.cuda.Stream]:
     return hit
 
 
+def _check_donate() -> None:
+    """`loopfuse_donate` (auto | always | never): the JAX package donates a
+    region's carried buffers so that its updates alias in place. A port
+    region always updates its carried state in place, in its static
+    buffers, and binds copies at exit, so the three values run alike;
+    any other value raises."""
+    from systemml_tpu_torch.utils.config import get_config
+
+    v = get_config().loopfuse_donate
+    if v not in ("auto", "always", "never"):
+        raise ValueError(f"loopfuse_donate={v!r}: auto | always | never")
+
+
 def live_graphs() -> int:
     """Region graphs alive in this process (each dies with its Program)."""
     return len(_live_graphs)
+
+
+# every FusedLoop alive in this process: a buffer-pool eviction drops the
+# cached entries that read the evicted storage
+_live_loops: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def invalidate_storage(ptr: int, nbytes: int) -> int:
+    """Drops each cached region entry whose key holds an invariant tensor
+    inside the device storage [ptr, ptr + nbytes): its graph read that
+    storage's address, which the buffer pool is giving up (an eviction,
+    runtime/bufferpool.py). Returns how many entries were dropped; the
+    loop's next entry captures again."""
+    dropped = 0
+    for fl in list(_live_loops):
+        for key in list(fl._cache):
+            if any(len(p) == 6 and p[1] == "t" and ptr <= p[5] < ptr + nbytes
+                   for p in key[1]):
+                del fl._cache[key]
+                dropped += 1
+    return dropped
 
 
 class _Entry:
@@ -1050,6 +1085,7 @@ class FusedLoop:
         self.record = {"entries": 0, "captures": 0, "launches": 0,
                        "host_syncs": 0, "static_reads": 0, "trips": [],
                        "drains": 0, "refused": None}
+        _live_loops.add(self)
 
     # ---- plan and refusal -------------------------------------------------
 
@@ -1116,6 +1152,7 @@ class FusedLoop:
         before), and the caller runs it eagerly."""
         if self.refused is not None:
             return False
+        _check_donate()
         plan = self.plan(loop)
         label = plan.label
         if plan.refused is not None:
@@ -1147,7 +1184,10 @@ class FusedLoop:
         sparse = {n: env[n] for n in views}
         env.update(views)
         try:
-            return self._enter(loop, ec, plan, kind, iters, dev)
+            # the loop's reads stay on the device while it runs: the buffer
+            # pool evicts none of them (runtime/bufferpool.py)
+            with pin_reads(env, set(plan.reads) | set(plan.pred_reads)):
+                return self._enter(loop, ec, plan, kind, iters, dev)
         finally:
             for n, sm in sparse.items():
                 if env.get(n) is views[n]:
@@ -1366,7 +1406,9 @@ class FusedLoop:
         and again after each stop for the print ring's room, once the
         host has printed its records."""
         env = ec.vars
-        saved = {n: env[n] for n in env}
+        # raw: a buffer-pool handle stays a handle (runtime/bufferpool.py),
+        # and nothing evicted is restored for the copy
+        saved = dict(env)
         ring = self._ring
         stream = self._stream
         trips = 0
@@ -1461,7 +1503,7 @@ class FusedLoop:
         run = self._run_state("capture", plan, stats)
         run.streams, run.counters = streams, entry.counters
         run.observed = peel_run.observed
-        saved = {n: env[n] for n in env}
+        saved = dict(env)
         root0 = _snapshot(stats)
         s0 = streams[0]
         s0.wait_stream(torch.cuda.current_stream(dev))
@@ -1582,17 +1624,21 @@ def _shape_change(pre: Dict[str, tuple], env, carried) -> Optional[str]:
 def _host_kinds_back(env, carried, originals) -> None:
     """After a refusal in the peel: each carried 0-d tensor that was a
     host number before the loop, and each 0-d int or bool tensor the
-    region made, is a host number again for the eager loop."""
+    region made, is a host number again for the eager loop, of the
+    tensor's kind (bool, int or double)."""
     for n in carried:
         v = env.get(n)
         if not (isinstance(v, torch.Tensor) and v.ndim == 0):
             continue
-        if n in originals and _is_number(originals[n]):
-            env[n] = type(originals[n])(v.item())
-        elif v.dtype == torch.bool:
+        # by the tensor's kind, not the kind the name had before the
+        # loop: `s = 0` that the first iteration made a double stays a
+        # double (its fraction is the eager loop's)
+        if v.dtype == torch.bool:
             env[n] = bool(v.item())
         elif not v.is_floating_point():
             env[n] = int(v.item())
+        elif n in originals and _is_number(originals[n]):
+            env[n] = float(v.item())
     for n, v in originals.items():
         if n not in carried:
             env[n] = v

@@ -30,15 +30,20 @@ refused, by the plan or by a classified reason at entry, runs eagerly
 with the same kernels, counted. Without `codegen_enabled` every loop runs
 eagerly, as in the JAX package.
 
-Sparse values (runtime/sparse.py) run eagerly in every basic block: the
-JAX package demotes them out of its whole-block compile
-(systemml_tpu/runtime/program.py:162-185), which the port does not have;
-inside a loop region a loop-invariant SparseMatrix is read through its
-device view (runtime/loopfuse.py).
+A basic block that reads a sparse value (runtime/sparse.py) runs
+eagerly, counted: the JAX package demotes such values out of its
+whole-block compile (systemml_tpu/runtime/program.py:162-185); inside a
+loop region a loop-invariant SparseMatrix is read through its device
+view (runtime/loopfuse.py).
 
-What waits: the fused whole-block compile outside loops, the buffer
-pool, layout propagation, the exec-type planner and MESH mode, the rest
-of the lifetime analysis, and parfor. A config that asks for one of them
+Every basic block outside a loop region runs through the whole-block
+compile (runtime/blockcompile.py): a plan per key of the values it reads,
+its spoof plans selected with the run-time dims, and on the card one
+CUDA graph per key that runs again. The symbol table is a VarMap over the
+program's buffer pool (runtime/bufferpool.py).
+
+What waits: layout propagation, the exec-type planner and MESH mode, the
+rest of the lifetime analysis, and parfor. A config that asks for one of them
 outright (exec_mode MESH), or sets any other field the port does not read
 (utils/config.check_ported), raises NotImplementedError.
 """
@@ -85,15 +90,36 @@ class BasicBlock(ProgramBlock):
         # names whose LAST use is this block (set by compiler/liveness.py);
         # deleted after execution, the rmvar analog
         self.kill_after: Set[str] = set()
+        # the whole-block compile (runtime/blockcompile.py): the block's
+        # analysis and its plans by key
+        self._analysis = None
+        self._plans: Dict[tuple, Any] = {}
+        # at the top level of the main program (in no loop, no function):
+        # the block compile re-selects its fused plans with run-time dims
+        self.top_level = False
 
     @property
     def program(self) -> "Program":
         return self._program()
 
+    def analysis(self):
+        if self._analysis is None:
+            from systemml_tpu_torch.compiler.lower import analyze_block
+
+            def fcall_ok(h) -> bool:
+                return self.program.fn_is_pure(self.file_id,
+                                               h.params.get("namespace"),
+                                               h.params.get("name"))
+
+            self._analysis = analyze_block(self.hops, fcall_ok=fcall_ok)
+        return self._analysis
+
     def execute(self, ec: "ExecutionContext"):
         from systemml_tpu_torch.compiler.lower import (Evaluator,
                                                        current_region)
         from systemml_tpu_torch.obs import trace as obs
+        from systemml_tpu_torch.runtime import blockcompile
+        from systemml_tpu_torch.runtime.bufferpool import pin_reads
 
         hops = self.hops
         run = current_region()
@@ -102,11 +128,22 @@ class BasicBlock(ProgramBlock):
             hops = copy.copy(hops)
             hops.writes = {n: h for n, h in self.hops.writes.items()
                            if n not in run.skip}
-        with obs.span("block", obs.CAT_RUNTIME, mode="eager"):
-            ev = Evaluator(ec.vars, ec.call_function, ec.printer,
-                           stats=ec.stats, timing=True)
-            ec.vars.update(ev.run(hops))
-        ec.stats.count_block()
+        with pin_reads(ec.vars, hops.reads):
+            reason = None
+            if run is None:
+                # outside a loop region: the whole-block compile, as the
+                # JAX package's fused block path
+                reason = blockcompile.eager_reason(self, ec)
+                if reason is None:
+                    blockcompile.execute(self, ec)
+                    ec.stats.count_block(fused=True)
+            if reason is not None or run is not None:
+                with obs.span("block", obs.CAT_RUNTIME, mode="eager"):
+                    ev = Evaluator(ec.vars, ec.call_function, ec.printer,
+                                   stats=ec.stats, timing=True,
+                                   skip_writes=ec.skip_writes)
+                    ec.vars.update(ev.run(hops))
+                ec.stats.count_block(reason=reason)
         for n in self.kill_after:
             ec.vars.pop(n, None)
 
@@ -294,15 +331,28 @@ class ExecutionContext:
     def __init__(self, program: "Program", stats=None,
                  printer: Optional[Callable[[str], None]] = None,
                  file_id: int = 0):
+        from systemml_tpu_torch.runtime.bufferpool import VarMap
+
         self.program = program
-        self.vars: Dict[str, Any] = {}
+        # the symbol table, backed by the program's buffer pool
+        # (runtime/bufferpool.py) when bufferpool_enabled
+        self.vars: Dict[str, Any] = VarMap(
+            program.pool if get_config().bufferpool_enabled else None)
         self.stats = stats if stats is not None else program.stats
         self.printer = printer or (lambda s: print(s))
         self.file_id = file_id  # namespace scope for unqualified fcalls
+        # JMLC in-memory mode: write() is a no-op (api/jmlc.py)
+        self.skip_writes = False
+        # JMLC re-execution: blocks seen before run as CUDA graphs
+        # (runtime/blockcompile.py)
+        self.block_graphs = False
 
     def child(self, file_id: Optional[int] = None) -> "ExecutionContext":
-        return ExecutionContext(self.program, self.stats, self.printer,
-                                self.file_id if file_id is None else file_id)
+        c = ExecutionContext(self.program, self.stats, self.printer,
+                             self.file_id if file_id is None else file_id)
+        c.skip_writes = self.skip_writes
+        c.block_graphs = self.block_graphs
+        return c
 
     # ---- function calls --------------------------------------------------
 
@@ -344,9 +394,12 @@ class ExecutionContext:
             raise DMLValidationError(f"undefined function {where!r}")
         fd = fb.fn_def
         if fd.external:
-            raise NotImplementedError(
-                f"external function {name!r}: Python UDFs wait for ROADMAP "
-                f"queue 1, the CLI and io/")
+            # a Python UDF (api/udf.py)
+            from systemml_tpu_torch.api.udf import call_external
+
+            self.stats.count_fcall(name)
+            return call_external(fd, self._bind_args(fd, name, args,
+                                                     argnames), n_outputs)
         self.stats.count_fcall(name)
         fec = self.child(file_id=fb.file_id)
         fec.vars.update(self._bind_args(fd, name, args, argnames))
@@ -358,6 +411,11 @@ class ExecutionContext:
                 raise DMLRuntimeError(
                     f"function {name!r} did not assign output {o.name!r}")
             outs.append(fec.vars[o.name])
+        # the frame's pool references go with it (the rmvar cleanup of
+        # FunctionCallCPInstruction); the outputs are live tensors
+        release = getattr(fec.vars, "release", None)
+        if release is not None:
+            release()
         if len(outs) == 1 and n_outputs == 1:
             return outs[0]
         return tuple(outs)
@@ -423,6 +481,17 @@ class Program:
         self.alias_maps: Dict[int, Dict[str, int]] = {}
         self.stats = stats or Statistics()
         self._purity: Dict[Tuple[int, str], bool] = {}
+        self._pool = None
+
+    @property
+    def pool(self):
+        """The buffer pool every ExecutionContext of this program shares,
+        made at first use."""
+        if self._pool is None:
+            from systemml_tpu_torch.runtime.bufferpool import BufferPool
+
+            self._pool = BufferPool(stats=self.stats)
+        return self._pool
 
     # builtins whose execution has host side effects or host state: a
     # function reaching any of these must not run inside a captured loop
@@ -493,13 +562,18 @@ class Program:
         return fb
 
     def execute(self, inputs: Optional[Dict[str, Any]] = None,
-                printer=None) -> ExecutionContext:
+                printer=None, skip_writes: bool = False,
+                block_graphs: bool = False) -> ExecutionContext:
         from systemml_tpu_torch.obs import trace as obs
         from systemml_tpu_torch.utils import stats as stats_mod
 
         ec = ExecutionContext(self, printer=printer)
+        ec.skip_writes = skip_writes
+        ec.block_graphs = block_graphs
         if inputs:
-            ec.vars.update(inputs)
+            # the caller holds its inputs: the pool never admits them
+            for k, v in inputs.items():
+                ec.vars.bind_external(k, v)
         stats = self.stats
         stats.start_run()
         try:
@@ -655,19 +729,10 @@ class ProgramCompiler:
                 blocks.append(ForBlock(
                     s.var, from_p, to_p, incr_p,
                     self._compile_body(s.body, builder)))
-            elif _is_restore_stmt(s):
-                raise NotImplementedError(
-                    "restore() waits for ROADMAP queue 1, the CLI and io/")
             else:
                 run.append(s)
         flush()
         return blocks
-
-
-def _is_restore_stmt(s: A.Stmt) -> bool:
-    return (isinstance(s, A.ExprStatement)
-            and isinstance(s.expr, A.FunctionCall)
-            and getattr(s.expr, "name", None) == "restore")
 
 
 def _merge_adjacent_blocks(blocks: List[ProgramBlock]) -> List[ProgramBlock]:
@@ -809,6 +874,7 @@ def compile_program(ast_prog: A.DMLProgram,
         n_cla = plan_auto_compression(prog)
         if n_cla:
             prog.stats.count_estim("cla_candidates", n_cla)
+    _mark_top_level(prog.blocks)
     # loop-region planning LAST, over the final hop graphs, as
     # systemml_tpu/runtime/program.py:1655-1665: every while/for nest gets
     # a LoopRegion plan (carried state, invariants, shape statics, the
@@ -826,6 +892,17 @@ def compile_program(ast_prog: A.DMLProgram,
         if refused:
             prog.stats.count_estim("loop_regions_refused", refused)
     return prog
+
+
+def _mark_top_level(blocks) -> None:
+    """Marks the basic blocks outside every loop of the main program (an
+    if's branches included) for the block compile's re-selection."""
+    for b in blocks:
+        if isinstance(b, BasicBlock):
+            b.top_level = True
+        elif isinstance(b, IfBlock):
+            _mark_top_level(b.if_body)
+            _mark_top_level(b.else_body)
 
 
 def _spoof_codegen(prog: "Program", cfg) -> None:
@@ -855,7 +932,8 @@ def _spoof_codegen(prog: "Program", cfg) -> None:
         assign_variants(prog)
     if cfg.device != "cpu":
         with obs.span("spoof_build", obs.CAT_COMPILE) as sp:
-            sp.set(built=len(build.build_plans(program_plans(prog))))
+            sp.set(built=len(build.build_plans(
+                program_plans(prog), limit=cfg.compile_timeout_s or None)))
 
 
 def iter_basic_blocks(program: "Program"):

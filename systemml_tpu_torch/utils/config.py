@@ -472,13 +472,24 @@ PORTED_FIELDS = frozenset({
     "matmul_precision", "compensated_sum", "sparsity_turn_point",
     "ultra_sparsity_turn_point", "mem_budget_bytes",
     "trace_max_events", "stats_max_heavy_hitters",
-    "liveness_enabled", "validate_enabled"})
+    "liveness_enabled", "validate_enabled",
+    # the buffer pool and the whole-block compile
+    # (runtime/bufferpool.py, runtime/blockcompile.py)
+    "bufferpool_enabled", "bufferpool_budget_bytes",
+    "bufferpool_host_budget_bytes", "bufferpool_min_bytes",
+    "mem_util_factor", "loopfuse_donate", "compile_timeout_s",
+    # the CLI (api/cli.py)
+    "stats", "explain", "scratch_dir"})
+
+# fields that have no meaning in the port: set to anything but their
+# default they raise with the reason
+_MEANINGLESS = {
+    "xla_cache_dir": "the port compiles no XLA: its kernels are built by "
+                     "nvcc into systemml_tpu_torch/_build/",
+}
 
 # field-name prefix -> the ROADMAP queue-1 item that brings it
 _WAITING = (
-    (("stats", "explain", "scratch_dir"), "CLI and io/"),
-    (("loopfuse_", "compile_timeout_s", "xla_cache_dir", "bufferpool_",
-      "mem_"), "the buffer pool and the whole-block compile"),
     (("pallas_mode", "codegen_"), "kernel backend and tuner"),
     (("conv_",), "DNN and models"),
     (("parfor_", "remote_deadline_s"), "parfor, transform and frames"),
@@ -506,6 +517,10 @@ def check_ported(cfg: DMLConfig) -> None:
                    else f.default_factory())
         if getattr(cfg, f.name) == default:
             continue
+        if f.name in _MEANINGLESS:
+            raise NotImplementedError(
+                f"config {f.name}={getattr(cfg, f.name)!r}: "
+                f"{_MEANINGLESS[f.name]}")
         item = next((item for prefixes, item in _WAITING
                      if f.name.startswith(prefixes)), None)
         raise NotImplementedError(

@@ -73,11 +73,30 @@ class Statistics:
         reg = self.registry = MetricsRegistry()
         self.run_start = 0.0
         self.run_time = 0.0
+        # host seconds of parse and compile, where an entry point
+        # records them (api/cli.py)
+        self.compile_time = 0.0
         self._active_runs = 0
         reg.gauge("run_seconds", "total execution wall time (union of "
                   "overlapping runs)", unit="s", fn=lambda: self.run_time)
         self._eager_total = reg.counter(
             "eager_blocks_total", "program blocks executed eagerly")
+        # the whole-block compile (runtime/blockcompile.py): blocks run
+        # through a keyed plan, the plans built, the CUDA graphs captured
+        # and replayed, and the eager blocks by reason
+        self._fused_total = reg.counter(
+            "fused_blocks_total", "program blocks run through a block plan")
+        self._compile_total = reg.counter(
+            "compiles_total", "block plans built (one per new key)")
+        self.eager_reasons = reg.labeled(
+            "eager_block_reasons_total", "eager blocks by reason")
+        self.block_graph_counts = reg.labeled(
+            "block_graph_total", "block CUDA graphs: captures, replays, "
+            "and the keys that ran without one by reason")
+        # buffer pool (runtime/bufferpool.py): evict, restore, disk_spill,
+        # disk_restore, stale_recopy, graph_invalidate
+        self.pool_counts = reg.labeled(
+            "bufferpool_events_total", "buffer-pool residency events")
         self.fcall_counts = reg.labeled(
             "fcall_total", "DML function invocations")
         self.op_time = reg.labeled(
@@ -112,8 +131,30 @@ class Statistics:
             if self._active_runs == 0:
                 self.run_time += time.perf_counter() - self.run_start
 
-    def count_block(self):
+    @property
+    def fused_blocks(self) -> int:
+        return self._fused_total.value
+
+    @property
+    def compile_count(self) -> int:
+        return self._compile_total.value
+
+    def count_block(self, fused: bool = False, reason: str = None):
+        if fused:
+            self._fused_total.inc()
+            return
         self._eager_total.inc()
+        if reason is not None:
+            self.eager_reasons.inc(reason)
+
+    def count_compile(self):
+        self._compile_total.inc()
+
+    def count_pool(self, kind: str):
+        self.pool_counts.inc(kind)
+
+    def count_block_graph(self, kind: str):
+        self.block_graph_counts.inc(kind)
 
     def count_fcall(self, name: str):
         self.fcall_counts.inc(name)
@@ -136,8 +177,22 @@ class Statistics:
         lines = [
             "SystemML-TPU (PyTorch port) Statistics:",
             f"Total execution time:\t\t{self.run_time:.3f} sec.",
-            f"Executed blocks (eager):\t{self.eager_blocks}.",
+            f"Parse and compile time:\t\t{self.compile_time:.3f} sec.",
+            f"Executed blocks (fused/eager):\t{self.fused_blocks}/"
+            f"{self.eager_blocks}.",
         ]
+        if self.compile_count or self.eager_reasons:
+            lines.append(
+                f"Block compile: plans={self.compile_count}"
+                + "".join(f", {k}={v}" for k, v in
+                          sorted(self.block_graph_counts.items()))
+                + ("; eager by reason: " + ", ".join(
+                    f"{k}={v}" for k, v in
+                    sorted(self.eager_reasons.items()))
+                   if self.eager_reasons else ""))
+        if self.pool_counts:
+            lines.append("Buffer pool: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(self.pool_counts.items())))
         hh = self.heavy_hitters(max_heavy_hitters)
         if hh:
             lines.append(f"Heavy hitter instructions (top {len(hh)}):")
@@ -178,8 +233,21 @@ class Statistics:
                 "region=dispatches): " + ", ".join(
                     f"{k}={v}"
                     for k, v in sorted(self.region_counts.items())))
+        launches = _kernel_launches()
+        if launches:
+            # the hand-written kernels' launch counters (codegen/,
+            # compress/device.py): process-wide, as the wrappers count
+            lines.append("Kernel launches (this process): " + ", ".join(
+                f"{k}={v}" for k, v in sorted(launches.items())))
         if self.fcall_counts:
             top = sorted(self.fcall_counts.items(), key=lambda kv: -kv[1])[:5]
             lines.append("Function calls: " +
                          ", ".join(f"{k}={v}" for k, v in top))
         return "\n".join(lines)
+
+
+def _kernel_launches() -> dict:
+    from systemml_tpu_torch.runtime.loopfuse import launch_counters
+
+    return {k: f.launches for k, f in launch_counters().items()
+            if f.launches}

@@ -1251,7 +1251,10 @@ while (i < 12 & nr > 1e-10) {
         counts[codegen] = ({k: f.launches for k, f in
                             loopfuse.launch_counters().items()
                             if k != "set_cond"},
-                           ml._stats.eager_blocks,
+                           # the blocks outside the loop run through the
+                           # block compile either way, the body's inside
+                           # the region or through it
+                           ml._stats.eager_blocks + ml._stats.fused_blocks,
                            {k: v for k, v in ml._stats.estim_counts.items()
                             if k.startswith("spoof_")},
                            res.get_matrix("w"))
@@ -1822,3 +1825,134 @@ def test_breadth_betainc_on_the_card_equals_cpu(cuda):
     np.testing.assert_allclose(
         param.cdf(t.to(cuda), "t", df=5.0).cpu().numpy(),
         param.cdf(t, "t", df=5.0).numpy(), rtol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# the buffer pool, the block compile, the IO library and fault 1 on the card
+# --------------------------------------------------------------------------
+
+POOL_LOOP = """
+A = rand(rows=2000, cols=100, seed=1)
+B = A * 2
+s = 0.0
+for (j in 1:2) {
+  C = rand(rows=2000, cols=100, seed=10 + j)
+  D = C + 1
+  i = 0
+  while (i < 3) {
+    s = s + sum(B * D) / (i + 1)
+    i = i + 1
+  }
+}
+"""
+
+
+def test_pool_eviction_drops_the_region_graph_reading_it(cuda):
+    """A loop-invariant input of a captured region evicted between the
+    loop's entries: the eviction drops the cached graph that read its
+    address, the next entry captures on the restored tensor, and the
+    result equals the run without pressure."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    got = {}
+    for budget in (None, 1.5e6):
+        cfg = DMLConfig()
+        cfg.floating_point_precision = "double"
+        cfg.bufferpool_min_bytes = 1024
+        cfg.bufferpool_budget_bytes = budget
+        ml = MLContext(cfg)
+        got[budget] = (float(ml.execute(dml(POOL_LOOP).output("s"))
+                             .get_scalar("s")), dict(ml._stats.pool_counts))
+    assert got[1.5e6][0] == got[None][0]
+    counts = got[1.5e6][1]
+    assert counts["evict"] > 0 and counts["restore"] > 0
+    assert counts["graph_invalidate"] >= 1
+    assert not got[None][1].get("evict")
+
+
+def test_block_graph_replays_under_a_new_binding(cuda):
+    """A prepared script's block runs through its plan, watched for
+    synchronizing calls, until a run is free of them (the first, or the
+    second after a one-time set-up), is captured at the next and replayed
+    after: each call's result equals torch's on that call's binding."""
+    from systemml_tpu_torch.api.jmlc import Connection
+
+    ps = Connection().prepare_script("yhat = (X %*% B) * 2 + 1",
+                                     input_names=["X", "B"],
+                                     output_names=["yhat"])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b = torch.randn(100, 1, generator=gen, device=cuda)
+    outs = []
+    for _ in range(5):
+        x = torch.randn(1000, 100, generator=gen, device=cuda)
+        y = ps.execute({"X": x, "B": b}).get_tensor("yhat")
+        outs.append((y.clone(), torch.matmul(x, b) * 2 + 1))
+    torch.cuda.synchronize()
+    for y, ref in outs:
+        assert torch.allclose(y, ref, rtol=1e-5, atol=1e-5)
+    g = dict(ps.stats.block_graph_counts.items())
+    assert g["capture"] == 1 and g["watched"] in (1, 2)
+    assert g["watched"] + g["replay"] == 5
+
+
+def test_block_graph_draws_unseeded_rand_anew(cuda):
+    """A prepared unseeded rand() keeps its block out of a graph
+    ("nograph:rand"): four calls give four draws, bit-identical to four
+    calls with graphs off under the same global seed."""
+    from systemml_tpu_torch.api.jmlc import Connection
+    from systemml_tpu_torch.ops import datagen
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    draws, counts = {}, {}
+    for graphs in (True, False):
+        cfg = DMLConfig()
+        cfg.codegen_enabled = graphs
+        ps = Connection(cfg).prepare_script(
+            "R = rand(rows=100, cols=1)", input_names=[],
+            output_names=["R"])
+        datagen.set_global_seed(11)
+        try:
+            draws[graphs] = [ps.execute({}).get_tensor("R").clone()
+                             for _ in range(4)]
+        finally:
+            datagen.set_global_seed(None)
+        counts[graphs] = dict(ps.stats.block_graph_counts.items())
+    got = draws[True]
+    assert all(not torch.equal(a, b) for i, a in enumerate(got)
+               for b in got[i + 1:])
+    assert all(torch.equal(a, b) for a, b in zip(got, draws[False]))
+    assert counts[True] == {"nograph:rand": 1}
+
+
+def test_fault1_loop_on_the_card_matches_the_cpu(cuda):
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    src = ("s = 0; for (i in 1:4) { c = pnorm(target=0.5, mean=0, sd=i); "
+           "s = s + c }")
+    vals = []
+    for device in ("cuda", "cpu"):
+        cfg = DMLConfig(device=device)
+        cfg.floating_point_precision = "double"
+        vals.append(float(MLContext(cfg).execute(dml(src).output("s"))
+                          .get_scalar("s")))
+    assert vals[0] == pytest.approx(vals[1], rel=1e-12)
+    assert vals[1] == pytest.approx(2.4060908443979536, rel=1e-12)
+
+
+def test_binary_block_read_of_1gb_equals_the_write(cuda, tmp_path):
+    """1 GB of fp32 written from the card (one copy into pinned memory,
+    the native tiled write) and read back (the native read into pinned
+    memory, one copy to the card): equal bit for bit, both arms native."""
+    from systemml_tpu_torch.io import binaryblock
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(262_144, 1_024, generator=gen, device=cuda)
+    p = str(tmp_path / "x.bb")
+    binaryblock.ARM_COUNTS.clear()
+    binaryblock.write_tensor(p, x)
+    back = binaryblock.read_tensor(p, cuda, torch.float32)
+    assert back.device.type == "cuda" and torch.equal(back, x)
+    assert binaryblock.ARM_COUNTS == {("write", "native"): 1,
+                                      ("read", "native"): 1}

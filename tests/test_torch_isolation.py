@@ -8,8 +8,12 @@ neither jax nor the JAX package (systemml_tpu).
    compressed X (cla "true"), a seeded rand() and ALS-CG at optlevel 3
    (the outer template) and 2 (wdivmm); afterwards neither package is in
    sys.modules.
-2. No source file of the port, and not chip_smoke.py, names them in an
-   import or a dotted module path.
+   The CLI, JMLC, the lazy matrix DSL, PyDML, the native IO library, the
+   buffer pool and the block compile run the same way: LinearRegCG.dml
+   from `cli.main` over a binary-block X read by the native arm, under a
+   pool budget that evicts.
+2. No source file of the port (Python, CUDA, the host C++), and not
+   chip_smoke.py, names them in an import or a dotted module path.
 """
 
 import os
@@ -98,6 +102,73 @@ print("ISOLATED_OK")
 '''
 
 
+# the entry points of the CLI and io/ slice, and the buffer pool and the
+# block compile under them
+_CHILD_ENTRY = _CHILD.split("import numpy as np")[0] + r'''
+import contextlib
+import io
+import json
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from systemml_tpu_torch import native
+from systemml_tpu_torch.api import cli, defmatrix, jmlc, udf
+from systemml_tpu_torch.io import binaryblock, matrixio
+from systemml_tpu_torch.lang import pydml
+from systemml_tpu_torch.runtime import (blockcompile, bufferpool,
+                                        checkpoint)
+from systemml_tpu_torch.runtime.data import MatrixObject
+from systemml_tpu_torch.utils import config, debugger, explain
+
+d = tempfile.mkdtemp()
+cfg_path = os.path.join(d, "cpu.json")
+with open(cfg_path, "w") as f:
+    json.dump({"device": "cpu", "optlevel": 3,
+               "bufferpool_budget_bytes": 8000,
+               "bufferpool_min_bytes": 1024}, f)
+config.set_config(config.DMLConfig(device="cpu"))
+rng = np.random.default_rng(0)
+x = rng.standard_normal((300, 6))
+beta_true = rng.standard_normal((6, 1))
+matrixio.write_matrix(MatrixObject(torch.from_numpy(x)),
+                      os.path.join(d, "X.bb"), "binary_block")
+matrixio.write_matrix(MatrixObject(torch.from_numpy(x @ beta_true)),
+                      os.path.join(d, "y.csv"), "csv")
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert cli.main(["-f", "scripts/algorithms/LinearRegCG.dml", "-stats",
+                     "-config", cfg_path, "-nvargs",
+                     "X=" + os.path.join(d, "X.bb"),
+                     "Y=" + os.path.join(d, "y.csv"),
+                     "B=" + os.path.join(d, "B"), "fmt=binary",
+                     "tol=1e-12", "reg=0"]) == 0
+assert "io_read_native=2" in buf.getvalue(), buf.getvalue()
+assert "Buffer pool:" in buf.getvalue()
+assert np.allclose(np.load(os.path.join(d, "B")), beta_true, rtol=1e-8)
+ps = jmlc.Connection(device="cpu").prepare_script(
+    "s = sum(X %*% W)", input_names=["X", "W"], output_names=["s"])
+for _ in range(2):
+    assert np.isclose(float(ps.execute({"X": x, "W": beta_true})
+                            .get_scalar("s")), (x @ beta_true).sum())
+assert np.allclose(defmatrix.matrix(x).sum(axis=0).toNumPy(),
+                   x.sum(axis=0).reshape(1, -1))
+assert pydml.parse_pydml("y = 2 ** 3\n").statements
+print("ISOLATED_OK")
+'''
+
+
+def test_entry_points_run_with_jax_and_jax_package_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _CHILD_ENTRY], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
+
+
 def test_port_runs_with_jax_and_jax_package_blocked():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
@@ -115,7 +186,7 @@ def test_sources_name_neither_package():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "systemml_tpu_torch")):
         files += [os.path.join(d, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))]
     hits = []
     for path in files:
         with open(path) as f:

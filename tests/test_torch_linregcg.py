@@ -137,7 +137,8 @@ def test_carry_beta_from_jax_into_port():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("bufferpool_enabled", False, "buffer pool"),
+    ("parfor_par", 4, "parfor, transform and frames"),
+    ("xla_cache_dir", "/tmp/x", "compiles no XLA"),
     ("pallas_mode", "always", "kernel backend and tuner"),
     ("mesh_shape", {"dp": 4}, "distributed and elastic"),
     ("floating_point_precision", "bfloat16", "precision policies"),
