@@ -4,13 +4,16 @@
     python3 chip_smoke.py --bench LABEL
     python3 chip_smoke.py --phases
     python3 chip_smoke.py --breadth
+    python3 chip_smoke.py --parfor
 
 The second form times only the spoof kernels K2, K3 and K5, the spoof
 wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
 checkout of an earlier tree it runs there too, so two trees compare
 within one chip call. The third shows where K6's time goes (see
 `phases`). The fourth runs only the algorithm-breadth paths and the
-datagen check (phase 3's `[breadth]` and `[datagen]` lines).
+datagen check (phase 3's `[breadth]` and `[datagen]` lines), the fifth
+only the parfor and transform phases (`[parfor-stepglm]`,
+`[parfor-univar]`, `[transform]`) under the sync audit (`[syncs]`).
 
 Drives the port's paths through systemml_tpu_torch.api.mlcontext.MLContext
 on the card, on one X of 2,000,000 x 1,000 fp32 (scripts/perftest scale
@@ -236,6 +239,38 @@ failed check):
   launches; the product refused a graph as one op; each result against
   the same call without graphs; ms per call of both.
 
+After the sparse paths, on LinearRegCG-cla's Census-shaped X and still
+under the `[syncs]` audit (per thread, so each parfor lane's region
+entries are held to its own calls), the slice of parfor, frames and
+transform (each failing the run on a failed check):
+
+- `[parfor-stepglm]`: scripts/algorithms/StepGLM.dml with its defaults
+  (logit, tol 1e-8, moi 25, thr 0.01), y ~ Bernoulli(sigmoid(X[:, P] w))
+  from a seeded generator on the card, P four planted columns
+  (STEPGLM_PLANTED), |w| = 1.97; at optlevel 3 with regions and at
+  optlevel 2, each with its parfor at the default par (on one card, one
+  worker), with par=8 (eight lanes), with par=1 and replaced by a for
+  loop; the default and par=8 runs at optlevel 3 run their second
+  pass's parfor under torch.profiler. The selected set equal across the runs of an
+  optlevel, the planted columns its first four, B within 1e-5 normwise
+  of the for run's; seconds per stepwise pass (each parfor's window),
+  the plan, region captures and graph launches per worker lane, kernel
+  launches, peak memory over the data, and the device's busy share over
+  the parfors (the union of the kernels' intervals inside them);
+- `[parfor-univar]`: Univar-Stats.dml with K all 2 over the Census codes
+  (1..d_j as fp32), a parfor over the 68 columns, each a table(col, 1):
+  rows 15-17 equal numpy's bincount of the host copy, row 15 the drawn
+  dims, the 17 x 68 matrix, at the default par and at par=8,
+  bit-identical to the script with a for loop; ms of the three;
+- `[transform]`: transform.dml, then apply-transform.dml, by the CLI
+  (api/cli.main, in this process, on the card) over a csv frame with a
+  header: the Census codes' first 200,000 rows as tokens (a frame is
+  host strings), all 68 columns recoded and 4 dummycoded; the same two
+  scripts on the CPU by `python -m systemml_tpu_torch` beside them.
+  Apply's X equals encode's bit for bit, both equal the CPU's, encode's
+  X was on the card; host seconds of the frame read, the encode and the
+  apply.
+
 The kernels line also has set_cond: its ms the control of a WHILE loop
 per iteration inside one graph, its plain_ms the same loop driven from
 the host. Prints a {"kernels": [...]} line before the last, and as the last line
@@ -251,6 +286,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -543,6 +579,11 @@ def phase_windows(timer: PhaseTimer, iters: int, label: str,
     return out
 
 
+# device_ms calls whose profiled runs kept dropping kernel records and
+# that fell back to CUDA events (printed in the kernels line)
+DEVICE_MS_FALLBACKS = []
+
+
 def device_ms(fn, reps: int = 50, cold: bool = False) -> float:
     """Device time per call of fn: the kernels the card ran for `reps`
     calls under torch.profiler (device activity only), summed, over
@@ -550,8 +591,11 @@ def device_ms(fn, reps: int = 50, cold: bool = False) -> float:
     idle between calls; CUDA events around the calls would measure the
     host then, this measures the card. With `cold`, a 128 MB write before
     each call evicts the 50 MB L2 cache (inputs of tens of MB stay in it
-    across back-to-back calls), and only the spoof kernels count. NaN
-    when the profiler records no kernels."""
+    across back-to-back calls), and only the spoof kernels count. The
+    profiler at times records only some of the kernels (fewer than one a
+    call): such a run is taken again, up to three times, and then the
+    time is CUDA events around each call (the L2 write outside them),
+    counted in DEVICE_MS_FALLBACKS."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -559,16 +603,31 @@ def device_ms(fn, reps: int = 50, cold: bool = False) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if cold:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and (not cold or "spoof" in e.name))
-    return us / 1e3 / reps if us else float("nan")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ks = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and (not cold or "spoof" in e.name)]
+        if len(ks) >= reps:
+            return sum(ks) / 1e3 / reps
+    pairs = []
+    for _ in range(reps):
+        if cold:
+            flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    DEVICE_MS_FALLBACKS.append(getattr(fn, "__qualname__", "?"))
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def _kernel_name(line: str) -> str:
@@ -867,78 +926,126 @@ class SyncAudit:
     the exit), and a whole FusedLoop._enter that met its cache (no peel
     or capture, whose uploads of set-up data are synchronous copies).
     In each, the calls torch saw must equal the calls the record counted;
-    a nested region's calls are its own. `finish` prints one `[syncs]`
-    line and fails on any difference."""
+    a nested region's calls are its own. Per thread: each parfor lane
+    keeps its own stack of open scopes, torch's warning reaches the scope
+    of the thread that made the call (a call outside any scope is not
+    counted), and the mode is "warn" while a scope is open in any thread;
+    a lane holds a region from its entry to its exit
+    (runtime/loopfuse.py), so the record's count in a scope is the
+    lane's. `finish` prints one `[syncs]` line, with the scopes and calls
+    per parfor lane, and fails on any difference."""
 
     SYNC = "called a synchronizing CUDA operation"
 
     def __init__(self):
+        import threading
+        import warnings
+
         from systemml_tpu_torch.runtime import loopfuse
 
+        self.loopfuse = loopfuse
         self.cls = loopfuse.FusedLoop
         self.orig = {m: getattr(self.cls, m) for m in ("_enter", "_loop")}
-        self.stack = []
+        self.local = threading.local()
+        self.lock = threading.Lock()
+        self.open = 0
         self.calls = {m: 0 for m in self.orig}
         self.seen = {m: 0 for m in self.orig}
+        self.lanes = {}
         self.bad = []
+        self.filters = warnings.filters[:]
+        self.show = warnings.showwarning
+        warnings.filterwarnings("always", message=".*" + self.SYNC)
+        warnings.showwarning = self._show
         for m, fn in self.orig.items():
             setattr(self.cls, m, self._wrap(m, fn))
 
-    def _wrap(self, m, fn):
-        import warnings
+    def _stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
 
+    def _show(self, message, category, filename, lineno, *args, **kwargs):
+        if self.SYNC in str(message):
+            st = self._stack()
+            if st:
+                st[-1]["seen"] += 1
+            return
+        self.show(message, category, filename, lineno, *args, **kwargs)
+
+    def _mode(self, d: int) -> None:
+        """Opens (d=1) or closes (d=-1) a scope: the mode is "warn" while
+        any thread has one open."""
+        with self.lock:
+            self.open += d
+            if d > 0 and self.open == 1:
+                torch.cuda.set_sync_debug_mode("warn")
+            elif d < 0 and self.open == 0:
+                torch.cuda.set_sync_debug_mode(0)
+
+    def _wrap(self, m, fn):
         audit = self
 
         def wrapped(fl, *args, **kwargs):
             rec = fl.record
             h0, c0 = rec["host_syncs"], rec["captures"]
             frame = {"fl": fl, "seen": 0}
-            audit.stack.append(frame)
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("warn")
+            stack = audit._stack()
+            stack.append(frame)
+            audit._mode(1)
             try:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    out = fn(fl, *args, **kwargs)
+                out = fn(fl, *args, **kwargs)
             finally:
-                torch.cuda.set_sync_debug_mode(prev)
-                audit.stack.pop()
-            for w in caught:
-                if audit.SYNC in str(w.message):
-                    frame["seen"] += 1
-                else:
-                    warnings.showwarning(w.message, w.category, w.filename,
-                                         w.lineno)
-            if audit.stack and audit.stack[-1]["fl"] is fl:
-                audit.stack[-1]["seen"] += frame["seen"]
+                audit._mode(-1)
+                stack.pop()
+            if stack and stack[-1]["fl"] is fl:
+                stack[-1]["seen"] += frame["seen"]
             counted = rec["host_syncs"] - h0
             if rec.get("refused") is None and (
                     m == "_loop" or rec["captures"] == c0):
-                audit.calls[m] += 1
-                audit.seen[m] += frame["seen"]
-                if frame["seen"] != counted:
-                    lab = getattr(getattr(fl, "region", None), "label", "?")
-                    audit.bad.append(f"{m} of {lab}: torch saw "
-                                     f"{frame['seen']} synchronizing calls, "
-                                     f"the record counted {counted}")
+                lane = audit.loopfuse.current_lane()
+                with audit.lock:
+                    audit.calls[m] += 1
+                    audit.seen[m] += frame["seen"]
+                    per = audit.lanes.setdefault(
+                        "caller" if lane is None else lane,
+                        {"scopes": 0, "seen": 0, "counted": 0})
+                    per["scopes"] += 1
+                    per["seen"] += frame["seen"]
+                    per["counted"] += counted
+                    if frame["seen"] != counted:
+                        lab = getattr(getattr(fl, "region", None), "label",
+                                      "?")
+                        audit.bad.append(
+                            f"{m} of {lab} (lane {lane}): torch saw "
+                            f"{frame['seen']} synchronizing calls, the "
+                            f"record counted {counted}")
             return out
 
         return wrapped
 
     def finish(self) -> dict:
+        import warnings
+
         for m, fn in self.orig.items():
             setattr(self.cls, m, fn)
+        warnings.showwarning = self.show
+        warnings.filters[:] = self.filters
+        lanes = {str(k): v for k, v in sorted(
+            self.lanes.items(), key=lambda kv: str(kv[0]))}
         print(f"[syncs] synchronizing CUDA calls (sync debug mode warn) in "
               f"{self.calls['_loop']} region loops (launches, drains, exit): "
               f"{self.seen['_loop']}; in {self.calls['_enter']} whole entries "
-              f"that met their cache: {self.seen['_enter']}; differences "
-              f"from the records' host_syncs: {self.bad or 'none'}",
-              flush=True)
+              f"that met their cache: {self.seen['_enter']}; per parfor lane "
+              f"(scopes, calls torch saw, calls the records counted): "
+              f"{lanes}; differences from the records' host_syncs: "
+              f"{self.bad or 'none'}", flush=True)
         if self.bad:
             fail(f"host_syncs miscounted: {self.bad[:3]}")
         return {"loops": self.calls["_loop"], "loop_syncs": self.seen["_loop"],
                 "cached_entries": self.calls["_enter"],
-                "cached_entry_syncs": self.seen["_enter"]}
+                "cached_entry_syncs": self.seen["_enter"], "lanes": lanes}
 
 
 def compare_eager(label: str, reg: dict, eag: dict, key: str = "out"):
@@ -2097,17 +2204,22 @@ def make_census(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     n, m = CENSUS_N, CENSUS_M
     x = torch.empty(n, m, device=dev)
+    # the codes themselves, 0-based (the parfor and transform phases)
+    codes = torch.empty(n, m, dtype=torch.uint8, device=dev)
     dims = torch.randint(2, 9, (m,), generator=gen, device=dev).tolist()
     for j, d in enumerate(dims):
         dct = torch.randn(d, generator=gen, device=dev)
         dct = (dct - dct.mean()) / dct.std(correction=0)
-        x[:, j] = dct[torch.randint(0, d, (n,), generator=gen, device=dev)]
+        idx = torch.randint(0, d, (n,), generator=gen, device=dev)
+        codes[:, j] = idx.to(torch.uint8)
+        x[:, j] = dct[idx]
     beta_true = torch.randn(m, 1, generator=gen, device=dev)
     y = x @ beta_true + 0.01 * torch.randn(n, 1, generator=gen, device=dev)
     w_svm = torch.randn(m, 1, generator=gen, device=dev)
     z = x @ w_svm + 0.1 * torch.randn(n, 1, generator=gen, device=dev)
     return {"X": x, "y": y, "beta_true": beta_true,
-            "Y_svm": torch.where(z >= 0, 1.0, -1.0), "dims": dims}
+            "Y_svm": torch.where(z >= 0, 1.0, -1.0), "dims": dims,
+            "codes": codes}
 
 
 def chain_codes(dev, gen, n, groups, dmax):
@@ -3377,6 +3489,462 @@ JMLC_SCRIPTS = {
 }
 
 
+# --------------------------------------------------------------------------
+# parfor on worker lanes, frames and transform
+# --------------------------------------------------------------------------
+
+# StepGLM's planted model on the Census X: four columns (0-based) and
+# their weights (norm 1.97)
+STEPGLM_PLANTED = (3, 17, 41, 60)
+STEPGLM_W = (1.2, -1.0, 0.8, -0.9)
+STEPGLM_PARFOR = "parfor (j in 1:m, check=0)"
+UNIVAR_PARFOR = "parfor (j in 1:m, check=0)"
+# transform's frame: the Census codes' first rows, as host strings
+TRANSFORM_ROWS = 200_000
+TRANSFORM_DUMMY = 4
+
+
+class ParforSpy:
+    """For the duration of a with-block, wraps ParForBlock.execute (each
+    parfor's host window, synchronized on both ends, and its plan; the
+    parfor numbered `profile` (from 0) runs under torch.profiler, which
+    gives the device's busy share over it, and its window is left out of
+    `calls`) and Program.execute (the program run)."""
+
+    def __init__(self, profile: Optional[int] = None):
+        self.profile = profile
+        self.busy = None
+
+    def __enter__(self):
+        from systemml_tpu_torch.runtime import parfor, program
+
+        self.calls = []
+        self.seen = 0
+        self.merge_ms = []
+        self.program = None
+        self._merge = parfor.merge_results
+
+        def merge(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._merge(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.merge_ms.append(1e3 * (time.perf_counter() - t0))
+
+        parfor.merge_results = merge
+        self._pf = program.ParForBlock.execute
+        self._px = program.Program.execute
+        spy = self
+
+        def pf_execute(pb, ec):
+            torch.cuda.synchronize()
+            spy.seen += 1
+            if spy.seen - 1 == spy.profile:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    with torch.profiler.record_function("parfor"):
+                        spy._pf(pb, ec)
+                    torch.cuda.synchronize()
+                spy.busy = _busy_share(prof)
+                return
+            t0 = time.perf_counter()
+            spy._pf(pb, ec)
+            torch.cuda.synchronize()
+            spy.calls.append((t0, time.perf_counter(), pb.last_plan))
+
+        def px_execute(prog, *args, **kwargs):
+            spy.program = prog
+            return spy._px(prog, *args, **kwargs)
+
+        program.ParForBlock.execute = pf_execute
+        program.Program.execute = px_execute
+        return self
+
+    def __exit__(self, *exc):
+        from systemml_tpu_torch.runtime import parfor, program
+
+        parfor.merge_results = self._merge
+        program.ParForBlock.execute = self._pf
+        program.Program.execute = self._px
+
+
+def _loop_variant(path: str, head: str, loop: str) -> str:
+    """The script's text with its parfor head replaced: `for` a plain for
+    loop, `par=K` the parfor with that degree, "" as it is."""
+    with open(os.path.join(ALG, path)) as f:
+        src = f.read()
+    if head not in src:
+        fail(f"{path} has no '{head}'")
+    if loop == "for":
+        return src.replace(head, "for (j in 1:m)")
+    if loop:
+        return src.replace(head, head[:-1] + f", {loop})")
+    return src
+
+
+def _lanes(program) -> dict:
+    """Region captures and graph launches per parfor lane, summed over the
+    program's regions (runtime/loopfuse.py record["lanes"])."""
+    from systemml_tpu_torch.runtime import loopfuse
+
+    out = {}
+    for r in loopfuse.region_report(program):
+        for lane, c in (r.get("lanes") or {}).items():
+            acc = out.setdefault(int(lane), {"captures": 0, "launches": 0})
+            acc["captures"] += c["captures"]
+            acc["launches"] += c["launches"]
+    return dict(sorted(out.items()))
+
+
+def _busy_share(prof) -> dict:
+    """The device's busy share over a parfor: the union of the kernel
+    intervals that start inside its "parfor" profiler range, over the
+    range's length (lanes overlap: a plain sum would count a moment
+    twice). "not measured" when the profiler recorded no kernels."""
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in evs
+                    if e.name == "parfor"
+                    and e.device_type == DeviceType.CPU)
+    ks = sorted((e.time_range.start, e.time_range.end) for e in evs
+                if e.device_type == DeviceType.CUDA)
+    if not ranges or not ks:
+        return {"busy_share": "not measured"}
+    busy = span = 0.0
+    for r0, r1 in ranges:
+        mine = [(max(a, r0), min(b, r1)) for a, b in ks if r0 <= a < r1]
+        span += r1 - r0
+        end = r0
+        for a, b in mine:
+            if b <= end:
+                continue
+            busy += b - max(a, end)
+            end = b
+    return {"busy_share": busy / span, "parfor_ms": span / 1e3,
+            "kernel_union_ms": busy / 1e3, "kernels": len(ks)}
+
+
+def run_stepglm(data, optlevel, loop, dev, kernels, profile=None) -> dict:
+    """One run of StepGLM.dml (its defaults: logit, tol 1e-8, moi 25, thr
+    0.01) on the Census X and the planted y, through MLContext();
+    `profile`: the stepwise pass whose parfor runs under torch.profiler
+    (left out of the seconds per pass)."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+
+    ml = MLContext(config(optlevel))
+    lines = []
+    ml.printer = lines.append
+    src = _loop_variant("StepGLM.dml", STEPGLM_PARFOR, loop)
+    script = (dml(src)
+              .input("X", data["X"]).input("y", data["y_glm"])
+              .output("B", "sel_order", "n_sel", "aic_best"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    with ParforSpy(profile) as spy:
+        t0 = time.perf_counter()
+        res = ml.execute(script)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    n_sel = int(res.get_scalar("n_sel"))
+    sel = [int(v) for v in res.get_tensor("sel_order")[:n_sel, 0].tolist()]
+    windows = [t1 - t0 for t0, t1, _ in spy.calls]
+    plan = spy.calls[0][2] if spy.calls and spy.calls[0][2] else None
+    out = {"out": res.get_tensor("B"), "selected": sel, "n_sel": n_sel,
+           "aic": float(res.get_scalar("aic_best")), "seconds": secs,
+           "passes": spy.seen if loop != "for" else None,
+           "pass_s": (sum(windows) / len(windows)) if windows else None,
+           "pass_windows_s": windows,
+           "plan": plan.describe() if plan is not None else None,
+           "merge_ms": (sum(spy.merge_ms) / len(spy.merge_ms)
+                        if spy.merge_ms else None),
+           "lanes": _lanes(spy.program), "launches": launches,
+           "peak_bytes_over_data": peak,
+           "stats": dict(ml._stats.estim_counts)}
+    if spy.busy is not None:
+        out.update(spy.busy)
+    return out
+
+
+def stepglm_data(data, dev) -> set:
+    """y ~ Bernoulli(sigmoid(X[:, P] w)) on the card into data["y_glm"];
+    returns P's 1-based columns."""
+    x = data["X"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    w = torch.tensor(STEPGLM_W, device=dev).reshape(-1, 1)
+    eta = x[:, list(STEPGLM_PLANTED)] @ w
+    data["y_glm"] = (torch.rand(eta.shape, generator=gen, device=dev)
+                     < torch.sigmoid(eta)).to(torch.float32)
+    data["w_norm"] = float(w.norm())
+    return {c + 1 for c in STEPGLM_PLANTED}
+
+
+def stepglm_phase(data, dev, kernels, smi) -> dict:
+    """`[parfor-stepglm]`: StepGLM at the Census shape with a planted
+    logit model; at optlevel 3 with regions and at optlevel 2, each with
+    the parfor at its default par, with par=8, with par=1 and as a for
+    loop; the default and par=8 runs at optlevel 3 run their second
+    pass's parfor under torch.profiler (the busy share). The selected set is the same in the runs of an
+    optlevel, the planted columns lead it, B is within 1e-5 of the for
+    run's. Each run prints its line when it ends."""
+    planted = stepglm_data(data, dev)
+    print(f"[parfor-stepglm] X ({CENSUS_N}, {CENSUS_M}) fp32 (the Census "
+          f"shape), y ~ Bernoulli(sigmoid(X[:, {sorted(planted)}] w)), |w| "
+          f"= {data['w_norm']:.3f}, mean(y) "
+          f"{float(data['y_glm'].mean()):.4f}; on {smi}", flush=True)
+    out = {}
+    for optlevel in (3, 2):
+        runs = {}
+        prof = 1 if optlevel == 3 else None
+        variants = [("for", "for", None), ("parfor", "", prof),
+                    ("par=8", "par=8", prof), ("par=1", "par=1", None)]
+        for label, loop, prof in variants:
+            r = runs[label] = run_stepglm(data, optlevel, loop, dev,
+                                          kernels, profile=prof)
+            ref = runs["for"]
+            diff = float(torch.linalg.norm(r["out"].double()
+                                           - ref["out"].double())
+                         / torch.linalg.norm(ref["out"].double()))
+            r["B_vs_for"] = diff
+            print(f"[parfor-stepglm] optlevel {optlevel} {label}: selected "
+                  f"{r['selected']} (AIC {r['aic']:.3f}); {r['seconds']:.3f} "
+                  f"s in all, {r['passes']} passes of "
+                  f"{r['pass_s'] if r['pass_s'] is None else round(r['pass_s'], 4)}"
+                  f" s each (parfor windows); plan {r['plan']}; merge "
+                  f"{r['merge_ms']} ms a pass (synchronized); |B - B(for)| "
+                  f"/ |B(for)| = {diff:.3e} (bar 1e-5); peak allocated over "
+                  f"the data {r['peak_bytes_over_data'] / 1e9:.3f} GB; "
+                  f"kernel launches {r['launches']}; region captures and "
+                  f"graph launches per lane {r['lanes']}"
+                  + (f"; device busy {100 * r['busy_share']:.1f}% over the "
+                     f"second pass's parfor, under torch.profiler "
+                     f"({r['kernel_union_ms']:.1f} of "
+                     f"{r['parfor_ms']:.1f} ms)"
+                     if isinstance(r.get("busy_share"), float) else
+                     f"; busy share {r['busy_share']}"
+                     if "busy_share" in r else "")
+                  + f"; on {smi}", flush=True)
+            if r["selected"] != ref["selected"]:
+                fail(f"[parfor-stepglm] optlevel {optlevel} {label} selected "
+                     f"{r['selected']}, the for run {ref['selected']}")
+            if set(r["selected"][:4]) != planted:
+                fail(f"[parfor-stepglm] optlevel {optlevel} {label}: the "
+                     f"planted columns {sorted(planted)} do not lead "
+                     f"{r['selected']}")
+            if not diff <= 1e-5:
+                fail(f"[parfor-stepglm] optlevel {optlevel} {label}: B is "
+                     f"{diff} from the for run's")
+            if loop != "for" and not r["lanes"]:
+                fail(f"[parfor-stepglm] optlevel {optlevel} {label}: no "
+                     f"region ran on a worker lane")
+        out[f"optlevel{optlevel}"] = {
+            k: {kk: vv for kk, vv in r.items() if kk != "out"}
+            for k, r in runs.items()}
+        del runs
+    o3 = out["optlevel3"]
+    print(f"[parfor-stepglm] optlevel 3, s per stepwise pass: default par "
+          f"{o3['parfor']['pass_s']:.4f}, par=8 {o3['par=8']['pass_s']:.4f}, "
+          f"par=1 {o3['par=1']['pass_s']:.4f}, "
+          f"for {o3['for']['seconds'] / max(1, o3['parfor']['passes']):.4f}"
+          f" (its run over the parfor run's passes); on {smi}", flush=True)
+    return out
+
+
+def univar_phase(data, dev, kernels, smi) -> dict:
+    """`[parfor-univar]`: Univar-Stats.dml with K all 2 over the Census
+    codes (1..d_j, fp32): the parfor over the 68 columns, each a
+    table(col, 1); rows 15-17 against numpy's bincount of the host copy,
+    row 15 against the drawn dims, and the 17 x 68 matrix bit-identical
+    to the same script with a for loop."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+
+    codes = data["codes"]
+    xc = codes.to(torch.float32) + 1
+    k = torch.full((1, CENSUS_M), 2.0, device=dev)
+    host = codes.cpu().numpy()
+    runs = {}
+    for loop in ("", "par=8", "for"):
+        ml = MLContext()
+        ml.printer = lambda s: None
+        script = (dml(_loop_variant("Univar-Stats.dml", UNIVAR_PARFOR, loop))
+                  .input("X", xc).input("K", k).output("stats"))
+        reset_launches(kernels)
+        torch.cuda.synchronize()
+        with ParforSpy() as spy:
+            t0 = time.perf_counter()
+            st = ml.execute(script).get_tensor("stats")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        runs[loop or "parfor"] = {
+            "out": st, "ms": 1e3 * secs,
+            "parfor_ms": (1e3 * sum(t1 - t0 for t0, t1, _ in spy.calls)
+                          if spy.calls else None),
+            "plan": (spy.calls[0][2].describe() if spy.calls else None),
+            "merge_ms": spy.merge_ms[0] if spy.merge_ms else None,
+            "launches": read_launches(kernels)}
+    st = runs["parfor"]["out"].double().cpu().numpy()
+    cats = np.array([np.bincount(host[:, j]).size for j in range(CENSUS_M)])
+    modes = np.array([np.argmax(np.bincount(host[:, j])) + 1
+                      for j in range(CENSUS_M)])
+    nmodes = np.array([int((np.bincount(host[:, j])
+                            == np.bincount(host[:, j]).max()).sum())
+                       for j in range(CENSUS_M)])
+    same = bool(torch.equal(runs["parfor"]["out"], runs["for"]["out"])
+                and torch.equal(runs["par=8"]["out"], runs["for"]["out"]))
+    ok = (np.array_equal(st[14], cats) and np.array_equal(st[15], modes)
+          and np.array_equal(st[16], nmodes)
+          and np.array_equal(st[14], np.array(data["dims"])))
+    print(f"[parfor-univar] Univar-Stats over the Census codes ({CENSUS_N}, "
+          f"{CENSUS_M}) fp32, K all 2: parfor {runs['parfor']['ms']:.1f} ms "
+          f"(its window {runs['parfor']['parfor_ms']:.1f} ms, its merge "
+          f"{runs['parfor']['merge_ms']:.2f} ms, plan "
+          f"{runs['parfor']['plan']}), par=8 {runs['par=8']['ms']:.1f} ms "
+          f"(its window {runs['par=8']['parfor_ms']:.1f} ms, plan "
+          f"{runs['par=8']['plan']}), for {runs['for']['ms']:.1f} ms; rows "
+          f"15-17 equal bincount's {ok}; 17 x {CENSUS_M} (default par and "
+          f"par=8) bit-identical to the for run {same}; launches {runs['parfor']['launches']}; on "
+          f"{smi}", flush=True)
+    if not ok:
+        fail("[parfor-univar] rows 15-17 differ from numpy's bincount or "
+             "row 15 from the drawn dims")
+    if not same:
+        fail("[parfor-univar] the parfor's stats differ from the for run's")
+    return {k: {kk: vv for kk, vv in r.items() if kk != "out"}
+            for k, r in runs.items()}
+
+
+def _write_census_csv(codes, path: str) -> None:
+    """The codes' rows as a csv frame with a header: column j's tokens
+    are "c1".."c8" (two bytes each), built as one byte array."""
+    n, m = codes.shape
+    buf = np.full((n, 3 * m), ord(","), dtype=np.uint8)
+    buf[:, 0::3] = ord("c")
+    buf[:, 1::3] = ord("1") + codes
+    buf[:, -1] = ord("\n")
+    with open(path, "wb") as f:
+        f.write((",".join(f"C{j + 1}" for j in range(m)) + "\n").encode())
+        f.write(buf.tobytes())
+
+
+def transform_phase(data, dev, smi) -> dict:
+    """`[transform]`: transform.dml, then apply-transform.dml, by the CLI
+    (api/cli.main, what `python -m systemml_tpu_torch` runs) on the card
+    in this process, over a csv frame with a header of the Census codes'
+    first TRANSFORM_ROWS rows; the spec recodes all 68 columns and
+    dummycodes TRANSFORM_DUMMY. The same two runs on the CPU by `python -m
+    systemml_tpu_torch` subprocesses beside them. Apply's X equals
+    encode's bit for bit and both equal the CPU's; encode's X was on the
+    card when written."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from systemml_tpu_torch.api import cli
+    from systemml_tpu_torch.io import matrixio
+    from systemml_tpu_torch.utils.config import get_config, set_config
+
+    codes = data["codes"][:TRANSFORM_ROWS].cpu().numpy()
+    d = tempfile.mkdtemp(prefix="smtorch-tf-")
+    written = []
+    orig_write = matrixio.write_matrix
+
+    def spy_write(m, path, *args, **kwargs):
+        written.append((path, m.array.device.type))
+        return orig_write(m, path, *args, **kwargs)
+
+    try:
+        csv, spec = os.path.join(d, "data.csv"), os.path.join(d, "spec.json")
+        t0 = time.perf_counter()
+        _write_census_csv(codes, csv)
+        names = [f"C{j + 1}" for j in range(CENSUS_M)]
+        with open(spec, "w") as f:
+            json.dump({"recode": names,
+                       "dummycode": names[:TRANSFORM_DUMMY]}, f)
+        write_s = time.perf_counter() - t0
+        cpu_cfg = os.path.join(d, "cpu.json")
+        with open(cpu_cfg, "w") as f:
+            json.dump({"device": "cpu"}, f)
+
+        def argv(script, tag, extra=()):
+            return ["-f", os.path.join(ALG, script), "-stats", *extra,
+                    "-nvargs", f"DATA={csv}", f"TFSPEC={spec}",
+                    f"TFMTD={os.path.join(d, tag, 'meta')}",
+                    f"OUTPUT={os.path.join(d, tag, script + '.csv')}"]
+
+        outs, hh = {}, {}
+        for script in ("transform.dml", "apply-transform.dml"):
+            sub = subprocess.Popen(
+                [sys.executable, "-m", "systemml_tpu_torch",
+                 *argv(script, "cpu", ("-config", cpu_cfg))], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            buf = io.StringIO()
+            matrixio.write_matrix = spy_write
+            old_cfg = get_config()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(argv(script, "card"))
+            finally:
+                matrixio.write_matrix = orig_write
+                set_config(old_cfg)
+            card_s = time.perf_counter() - t0
+            sout, serr = sub.communicate(timeout=600)
+            if rc != 0 or sub.returncode != 0:
+                fail(f"[transform] {script}: card rc {rc}, CPU rc "
+                     f"{sub.returncode}: {serr[-2000:]}")
+            times = {}
+            for ln in buf.getvalue().splitlines():
+                if ln.startswith("  ") and "\t" in ln and "Time(s)" not in ln:
+                    parts = ln.strip().split("\t")
+                    times[parts[0].split(None, 1)[-1]] = float(parts[1])
+            hh[script] = {"wall_s": card_s, "read_s": times.get("call:read"),
+                          "encode_s": times.get("call:transformencode"),
+                          "apply_s": times.get("call:transformapply")}
+            for tag in ("card", "cpu"):
+                outs[(script, tag)] = torch.from_numpy(matrixio.read_matrix(
+                    os.path.join(d, tag, script + ".csv"), "csv").to_numpy())
+        enc, app = outs[("transform.dml", "card")], \
+            outs[("apply-transform.dml", "card")]
+        same = bool(torch.equal(enc, app))
+        cpu_same = bool(torch.equal(enc, outs[("transform.dml", "cpu")])
+                        and torch.equal(app,
+                                        outs[("apply-transform.dml", "cpu")]))
+        on_card = [dt for p, dt in written
+                   if os.path.basename(p) == "transform.dml.csv"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    width = CENSUS_M - TRANSFORM_DUMMY + sum(data["dims"][:TRANSFORM_DUMMY])
+    print(f"[transform] transform.dml then apply-transform.dml by the CLI "
+          f"over a ({TRANSFORM_ROWS}, {CENSUS_M}) csv frame of category "
+          f"tokens (the Census codes' first rows), {CENSUS_M} recoded, "
+          f"{TRANSFORM_DUMMY} dummycoded: X {tuple(enc.shape)} (expected "
+          f"width {width}); host s: csv written {write_s:.2f}, encode run "
+          f"{hh['transform.dml']['wall_s']:.2f} (frame read "
+          f"{hh['transform.dml']['read_s']}, transformencode "
+          f"{hh['transform.dml']['encode_s']}), apply run "
+          f"{hh['apply-transform.dml']['wall_s']:.2f} (frame read "
+          f"{hh['apply-transform.dml']['read_s']}, transformapply "
+          f"{hh['apply-transform.dml']['apply_s']}); apply's X equals "
+          f"encode's {same}; both equal the CPU's {cpu_same}; encode's X "
+          f"written from {on_card}; on {smi}", flush=True)
+    if not same or not cpu_same or on_card != ["cuda"] \
+            or tuple(enc.shape) != (TRANSFORM_ROWS, width):
+        fail("[transform] apply's X differs from encode's, or from the "
+             "CPU's, or the encoded X was not on the card, or its shape is "
+             "wrong")
+    return {"rows": TRANSFORM_ROWS, "cols": CENSUS_M,
+            "x_shape": list(enc.shape), "csv_write_s": write_s,
+            "host_s": hh, "apply_equals_encode": same,
+            "equals_cpu": cpu_same}
+
+
 def _stats_line(text: str, head: str) -> str:
     return next((ln for ln in text.splitlines() if ln.startswith(head)), "")
 
@@ -4288,7 +4856,16 @@ def main() -> None:
     # the sparse plane: ALS-CG over a CSR V, MovieLens-10M- and
     # Netflix-shaped
     sparse = sparse_paths(ratings, als, dev, kernels)
+    # this slice's paths on the Census shape: parfor on worker lanes
+    # (StepGLM, categorical Univar-Stats), then frames and transform,
+    # under the sync audit (per thread: each lane's entries against its
+    # own calls)
+    census = cla["data"]
+    stepglm = stepglm_phase(census, dev, kernels, smi)
+    univar = univar_phase(census, dev, kernels, smi)
+    transform = transform_phase(census, dev, smi)
     syncs = audit.finish()
+    torch.cuda.empty_cache()
     # the buffer pool under pressure, the block compile's Kmeans, JMLC
     pool = pool_phase(data, dev)
     block_launches = {p: paths[p]["optlevel3"]["launches"] for p in paths}
@@ -4339,6 +4916,8 @@ def main() -> None:
     by_path["ALS-CG-ml10m-sparse"] = \
         sparse["ALS-CG-ml10m-sparse"]["regions"]["launches"]
     by_path["ALS-CG-netflix"] = sparse["ALS-CG-netflix"]["optlevel3"]["launches"]
+    by_path["parfor-stepglm"] = stepglm["optlevel3"]["parfor"]["launches"]
+    by_path["parfor-univar"] = univar["parfor"]["launches"]
     spoof_launches = {k: sum(c[k] for c in by_path.values())
                       for k in ("spoof_cell", "spoof_row")}
     replaces = {"spoof_cell": "systemml_tpu/codegen/kernels.py:124 "
@@ -4480,9 +5059,11 @@ def main() -> None:
                       "cla_left_mult": left_mult, "region_syncs": syncs,
                       "breadth_datagen": breadth_datagen,
                       "cli": cli, "pool": pool, "block": block,
-                      "jmlc": jmlc,
+                      "jmlc": jmlc, "parfor_stepglm": stepglm,
+                      "parfor_univar": univar, "transform": transform,
                       "build_seconds": build_s,
-                      "nvcc_by_path": nvcc_by_path}))
+                      "nvcc_by_path": nvcc_by_path,
+                      "device_ms_fallbacks": DEVICE_MS_FALLBACKS}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
@@ -4505,9 +5086,33 @@ def breadth_only() -> None:
                       "seconds": time.perf_counter() - t0}))
 
 
+def parfor_only() -> None:
+    """The parfor, Univar and transform phases alone, on the Census X, under
+    the sync audit (no kernel phase): what `--parfor` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    from systemml_tpu_torch.codegen import kernels
+
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    census = make_census(dev)
+    audit = SyncAudit()
+    res = {"parfor_stepglm": stepglm_phase(census, dev, kernels, smi),
+           "parfor_univar": univar_phase(census, dev, kernels, smi),
+           "transform": transform_phase(census, dev, smi)}
+    res["region_syncs"] = audit.finish()
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps(res))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--breadth"]:
         breadth_only()
+    elif sys.argv[1:2] == ["--parfor"]:
+        parfor_only()
     elif sys.argv[1:2] == ["--bench"]:
         bench(sys.argv[2] if len(sys.argv) > 2 else os.path.basename(ROOT))
     elif sys.argv[1:2] == ["--phases"]:

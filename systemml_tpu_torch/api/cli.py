@@ -13,8 +13,9 @@ JSON sets `"device": "cpu"`). A script's results leave only through its
 write() and print() statements (`outputs=()`), so every top-level write
 may die at its last use. `-trace FILE` writes the run's flight-recorder
 events (obs/trace.py) as JSON lines. `-profile` waits for ROADMAP queue 1,
-observability and static analysis; `-fault` for distributed and elastic;
-`-exec mesh` raises at compile (runtime/program.py), also waiting for
+observability and static analysis; `-fault` arms the parfor.task site
+(resil/inject.py), and any other site raises, waiting for distributed and
+elastic; `-exec mesh` raises at compile (runtime/program.py), also waiting for
 distributed and elastic.
 """
 
@@ -62,7 +63,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="device-time profiling (waits for ROADMAP queue "
                         "1, observability and static analysis)")
     p.add_argument("-fault", dest="fault", metavar="SPEC",
-                   help="fault injection (waits for ROADMAP queue 1, "
+                   help="fault injection at the parfor.task site "
+                        "(other sites wait for ROADMAP queue 1, "
                         "distributed and elastic)")
     p.add_argument("-exec", dest="exec_mode", default=None,
                    choices=["auto", "single_node", "mesh"],
@@ -128,13 +130,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError(
             "-profile waits for ROADMAP queue 1, observability and static "
             "analysis (item 11)")
-    if ns.fault:
-        raise NotImplementedError(
-            "-fault waits for ROADMAP queue 1, distributed and elastic "
-            "(item 12)")
     from systemml_tpu_torch.utils.config import (DMLConfig,
                                                  apply_matmul_precision,
+                                                 check_fault_sites,
                                                  resolve_device, set_config)
+
+    # only the parfor.task site runs in the port: any other raises here
+    check_fault_sites(ns.fault)
 
     cfg = DMLConfig.from_file(ns.config) if ns.config else DMLConfig()
     if ns.exec_mode:
@@ -144,6 +146,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg.stats_max_heavy_hitters = ns.stats
     if ns.explain:
         cfg.explain = ns.explain
+    if ns.fault:
+        cfg.fault_injection = ns.fault
     resolve_device(cfg)
     set_config(cfg)
     apply_matmul_precision()
@@ -190,9 +194,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if ns.stats is not None:
             # heavy-hitter times are the ops', not their launches'
             prog.stats.fine_grained = True
-        if ns.explain:
-            from systemml_tpu_torch.utils.explain import explain_program
+        from systemml_tpu_torch.utils.explain import explain_program
 
+        if ns.explain == "hops":
             print(explain_program(prog, mode=ns.explain))
         if ns.debug:
             from systemml_tpu_torch.utils.debugger import DMLDebugger
@@ -200,6 +204,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             DMLDebugger(prog).run()
         else:
             prog.execute()
+        if ns.explain == "runtime":
+            # after the run: a parfor shows the plan it ran with
+            print(explain_program(prog, mode=ns.explain))
     finally:
         if rec is not None:
             obs.end_exclusive(rec)

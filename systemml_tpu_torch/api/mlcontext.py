@@ -3,9 +3,11 @@
 Port of systemml_tpu/api/mlcontext.py (reference: api/mlcontext/
 MLContext.java:52, Script/ScriptFactory/MLResults): a session object that
 compiles DML source, binds in-memory inputs (numpy arrays, torch
-tensors, scalars, and sparse matrices: a scipy.sparse matrix, a
+tensors, scalars, frames (runtime.data.FrameObject, host columns, bound
+as they are), and sparse matrices: a scipy.sparse matrix, a
 runtime.sparse.SparseMatrix or a torch sparse CSR tensor), runs the
-compiler and runtime, and returns the requested outputs.
+compiler and runtime, and returns the requested outputs (a frame as its
+FrameObject).
 
 A sparse input below `sparsity_turn_point` binds as a SparseMatrix on the
 session's device (a torch CSR tensor on the card stays there: its own

@@ -51,8 +51,12 @@ SPOOF_LAUNCHERS = {"cell": "SPOOF_CELL_LAUNCHER", "row": "SPOOF_ROW_LAUNCHER",
                    "multiagg": "SPOOF_MULTIAGG_LAUNCHER",
                    "outer": "SPOOF_OUTER_LAUNCHER"}
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# library path -> the lock its one nvcc runs under: callers that reach a
+# source at once (parfor workers, build_plans beside a wrapper's first
+# launch) build it once, the others wait and load the result
+_lib_locks: Dict[str, threading.Lock] = {}
 # name -> (seconds, the compiler's -Xptxas -v report) of builds this
 # process ran; chip_smoke.py prints them
 build_reports: Dict[str, Tuple[float, str]] = {}
@@ -91,6 +95,16 @@ def _compile(name: str, src: str, lib: str,
     children)."""
     if limit is _DEFAULT:
         limit = NVCC_TIMEOUT_S
+    if os.path.exists(lib):
+        return lib
+    with _lock:
+        one = _lib_locks.setdefault(lib, threading.Lock())
+    with one:
+        return _compile_once(name, src, lib, limit)
+
+
+def _compile_once(name: str, src: str, lib: str,
+                  limit: Optional[float]) -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)

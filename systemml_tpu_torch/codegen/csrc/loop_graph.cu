@@ -34,6 +34,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <cstdio>
 
 #if CUDART_VERSION < 12040
 #error "conditional graph nodes need CUDA 12.4 or later"
@@ -184,10 +185,40 @@ int smtorch_lg_end_node(void* body_stream, int type, unsigned long long handle,
   return (int)cudaStreamEndCapture(b, &g);
 }
 
-int smtorch_lg_instantiate(void* graph, void** exec) {
+// Instantiates `graph`. On a failure *result receives the
+// cudaGraphInstantiateResult, *node_type the cudaGraphNodeType of the
+// node at fault (-1: none named) and `name` (of `cap` bytes) the kernel's
+// name where that node is a kernel, its bytes where it is an allocation.
+int smtorch_lg_instantiate(void* graph, void** exec, int* result,
+                           int* node_type, char* name, int cap) {
   cudaGraphExec_t x = nullptr;
-  cudaError_t e = cudaGraphInstantiate(&x, (cudaGraph_t)graph, 0);
+  cudaGraphInstantiateParams p = {};
+  cudaError_t e = cudaGraphInstantiateWithParams(&x, (cudaGraph_t)graph,
+                                                 &p);
   *exec = (void*)x;
+  *result = (int)p.result_out;
+  *node_type = -1;
+  name[0] = 0;
+  if (e != cudaSuccess && p.errNode_out != nullptr) {
+    cudaGraphNodeType t;
+    if (cudaGraphNodeGetType(p.errNode_out, &t) == cudaSuccess) {
+      *node_type = (int)t;
+      cudaKernelNodeParams kp = {};
+      const char* fn = nullptr;
+      if (t == cudaGraphNodeTypeKernel &&
+          cudaGraphKernelNodeGetParams(p.errNode_out, &kp) == cudaSuccess &&
+          cudaFuncGetName(&fn, kp.func) == cudaSuccess && fn != nullptr) {
+        snprintf(name, cap, "%s", fn);
+      } else if (t == cudaGraphNodeTypeMemAlloc) {
+        cudaMemAllocNodeParams ap = {};
+        if (cudaGraphMemAllocNodeGetParams(p.errNode_out, &ap) ==
+            cudaSuccess) {
+          snprintf(name, cap, "%zu bytes", ap.bytesize);
+        }
+      }
+    }
+  }
+  cudaGetLastError();
   return (int)e;
 }
 
@@ -217,6 +248,17 @@ int smtorch_lg_abort(void* stream, int destroy) {
   if (destroy && g) cudaGraphDestroy(g);
   cudaGetLastError();
   return 0;
+}
+
+// A new non-blocking stream on the current device, of its own: torch's
+// streams come from a pool of 32 per device, which parfor's worker lanes
+// and their capture streams would share (a capture on one then takes in
+// another lane's work).
+int smtorch_lg_stream_create(void** stream) {
+  cudaStream_t s = nullptr;
+  cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  *stream = (void*)s;
+  return (int)e;
 }
 
 int smtorch_lg_destroy(void* graph, void* exec) {

@@ -19,17 +19,19 @@ Every kernel here has:
 - a plain PyTorch version of the same function (`*_plain`), which the
   CPU tests use and chip_smoke.py compares the kernel with;
 - a launch counter, `<wrapper>.launches`, a plain integer that grows by
-  one per kernel launch and nowhere else.
+  one per kernel launch and nowhere else (codegen/counts.count, which also
+  keeps the launching thread's tally).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from systemml_tpu_torch.codegen import build
+from systemml_tpu_torch.codegen import build, counts
 from systemml_tpu_torch.utils import stats as stats_mod
 
 # --------------------------------------------------------------------------
@@ -183,7 +185,7 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
             MMCHAIN_CTYPES[ctype], 1 if w is None else w.shape[1], grid,
             stream)
     _check(err, "mmchain kernel launch")
-    mmchain_kernel.launches += 1
+    counts.count(mmchain_kernel)
     return out
 
 
@@ -504,8 +506,10 @@ _ARGTYPES = {
 _OCC_ARGTYPES = {"cell": [ctypes.c_int] * 3 + [ctypes.c_void_p],
                  "multiagg": [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 _sm_count: Dict[int, int] = {}
-# (device index, stream) -> (partials, ticket) of the one-launch reductions
+# (device index, stream) -> (partials, ticket) of the one-launch reductions,
+# made under _scratch_lock (parfor workers make theirs at once)
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_scratch_lock = threading.Lock()
 
 
 class _Launcher:
@@ -605,10 +609,13 @@ def _reduce_scratch(dev: torch.device, stream: int):
             raise RuntimeError("spoof reduce scratch of a capturing stream "
                                "is made before its capture "
                                "(runtime/loopfuse.capture_streams)")
-        cap = 3 * SPOOF_BLOCKS_PER_SM * _sms(dev)
-        hit = _scratch[key] = (
-            torch.empty(cap, dtype=torch.float64, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev))
+        with _scratch_lock:
+            hit = _scratch.get(key)
+            if hit is None:
+                cap = 3 * SPOOF_BLOCKS_PER_SM * _sms(dev)
+                hit = _scratch[key] = (
+                    torch.empty(cap, dtype=torch.float64, device=dev),
+                    torch.zeros(1, dtype=torch.int32, device=dev))
     return hit
 
 
@@ -692,7 +699,7 @@ def cell_kernel(plan, names: Sequence[str], agg: Optional[str],
                     grid, stream)
     _check(err, "spoof cell kernel launch")
     del keep
-    cell_kernel.launches += 1
+    counts.count(cell_kernel)
     _count_walk(walk)
     return out
 
@@ -722,7 +729,7 @@ def row_kernel(plan, names: Sequence[str], row_agg: str,
                     torch.cuda.current_stream(main.device).cuda_stream)
     _check(err, "spoof row kernel launch")
     del keep
-    row_kernel.launches += 1
+    counts.count(row_kernel)
     return out
 
 
@@ -784,7 +791,7 @@ def multiagg_kernel(plan, names: Sequence[str], aggs: Sequence[str],
                     partial.data_ptr(), ticket.data_ptr(), grid, stream)
     _check(err, "spoof multiagg kernel launch")
     del keep
-    multiagg_kernel.launches += 1
+    counts.count(multiagg_kernel)
     _count_walk(walk)
     return tuple(out[k] for k in range(len(aggs)))
 
@@ -872,7 +879,7 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None):
                     torch.cuda.current_stream(x.device).cuda_stream)
     _check(err, "spoof outer kernel launch")
     del keep
-    outer_kernel.launches += 1
+    counts.count(outer_kernel)
     return out
 
 

@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from systemml_tpu_torch.codegen import build
+from systemml_tpu_torch.codegen import build, counts
 
 IF, WHILE = 0, 1
 # cudaStreamCaptureMode: the region's stream captures thread-locally;
@@ -50,11 +50,14 @@ def library() -> ctypes.CDLL:
             "smtorch_lg_capture_end": [vp, ctypes.POINTER(vp)],
             "smtorch_lg_begin_node": [vp, vp, ip, vp, ip, ip, u64p],
             "smtorch_lg_end_node": [vp, ip, ctypes.c_ulonglong, vp, ip],
-            "smtorch_lg_instantiate": [vp, ctypes.POINTER(vp)],
+            "smtorch_lg_instantiate": [vp, ctypes.POINTER(vp),
+                                       ctypes.POINTER(ip), ctypes.POINTER(ip),
+                                       ctypes.c_char_p, ip],
             "smtorch_lg_launch": [vp, vp],
             "smtorch_lg_num_nodes": [vp, u64p],
             "smtorch_lg_abort": [vp, ip],
             "smtorch_lg_destroy": [vp, vp],
+            "smtorch_lg_stream_create": [ctypes.POINTER(vp)],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -96,6 +99,17 @@ def _pred_args(pred: torch.Tensor):
     return pred.data_ptr(), code
 
 
+def new_stream(dev: torch.device) -> "torch.cuda.ExternalStream":
+    """A non-blocking CUDA stream of `dev` that no other caller holds
+    (torch.cuda.Stream hands out a pool of 32 streams per device, round
+    robin); it lives as long as the process."""
+    ptr = ctypes.c_void_p()
+    with torch.cuda.device(dev):
+        _check(library().smtorch_lg_stream_create(ctypes.byref(ptr)),
+               "stream create")
+    return torch.cuda.ExternalStream(ptr.value, device=dev)
+
+
 def capture_begin(stream: int) -> None:
     _check(library().smtorch_lg_capture_begin(stream, CAPTURE_THREAD_LOCAL),
            "graph capture begin")
@@ -118,7 +132,7 @@ def begin_node(stream: int, body_stream: int, kind: int, pred: torch.Tensor,
     _check(library().smtorch_lg_begin_node(stream, body_stream, kind, ptr,
                                            code, int(negate), ctypes.byref(h)),
            "conditional node")
-    set_cond.launches += 1
+    counts.count(set_cond)
     return h.value
 
 
@@ -130,13 +144,23 @@ def end_node(body_stream: int, kind: int, handle: int,
     _check(library().smtorch_lg_end_node(body_stream, kind, handle, ptr,
                                          code), "conditional node body")
     if kind == WHILE:
-        set_cond.launches += 1
+        counts.count(set_cond)
 
 
 def instantiate(graph: int) -> int:
+    """The executable of `graph`; a failure raises with CUDA's reason
+    (cudaGraphInstantiateResult) and the node at fault."""
     x = ctypes.c_void_p()
-    _check(library().smtorch_lg_instantiate(graph, ctypes.byref(x)),
-           "graph instantiate")
+    res, typ = ctypes.c_int(0), ctypes.c_int(-1)
+    name = ctypes.create_string_buffer(256)
+    err = library().smtorch_lg_instantiate(graph, ctypes.byref(x),
+                                           ctypes.byref(res),
+                                           ctypes.byref(typ), name, 256)
+    if err != 0:
+        raise RuntimeError(
+            f"graph instantiate failed: CUDA error {err}, instantiate "
+            f"result {res.value}, node type {typ.value} "
+            f"{name.value.decode(errors='replace')!r}")
     return x.value
 
 

@@ -36,8 +36,8 @@ from systemml_tpu_torch.runtime.bufferpool import CacheableMatrix
 # --------------------------------------------------------------------------
 # loop-region planning (systemml_tpu/compiler/lower.py:460-960): whole
 # while/for nests planned as fused regions, which runtime/loopfuse.py runs
-# as CUDA graphs. Copied with its imports re-pointed; the port compiles no
-# parfor, so its parfor branches are left out.
+# as CUDA graphs. Copied with its imports re-pointed: a parfor inside a
+# region refuses it, and loops in a parfor body are planned per task.
 # --------------------------------------------------------------------------
 
 # hop input positions that must be static (shape-determining)
@@ -235,6 +235,8 @@ def _unit_rw(b) -> Tuple[Set[str], Set[str], Set[str]]:
         writes = {n for n, h in b.hops.writes.items()
                   if not (h.op == "tread" and h.name == n)}
         return set(b.hops.reads), writes, set(b.kill_after)
+    if isinstance(b, P.ParForBlock):
+        raise NotLoopFusable("parfor body: host task orchestration")
     if isinstance(b, P.IfBlock):
         pr = set(b.pred.block.hops.reads)
         ir, iw = _collect_rw(b.if_body)
@@ -664,6 +666,8 @@ def plan_loop_regions(program) -> List[LoopRegion]:
             if isinstance(b, P.IfBlock):
                 mark_inlined(b.if_body, parent)
                 mark_inlined(b.else_body, parent)
+            elif isinstance(b, P.ParForBlock):
+                mark_inlined(b.body, parent)
             elif isinstance(b, (P.WhileBlock, P.ForBlock)):
                 kind = "while" if isinstance(b, P.WhileBlock) else "for"
                 b._region = LoopRegion(
@@ -694,6 +698,10 @@ def plan_loop_regions(program) -> List[LoopRegion]:
             if isinstance(b, P.IfBlock):
                 walk(b.if_body)
                 walk(b.else_body)
+            elif isinstance(b, P.ParForBlock):
+                # task bodies execute through the normal block machinery
+                # in worker contexts: nested loops there fuse per task
+                walk(b.body)
             elif isinstance(b, (P.WhileBlock, P.ForBlock)):
                 plan_loop(b)
 
@@ -1140,18 +1148,33 @@ class Evaluator:
             return reorg.diag(self._m(h.inputs[0]))
         if op in ("nrow", "ncol", "length"):
             x = self.eval(h.inputs[0])
-            from systemml_tpu_torch.runtime.data import ListObject
+            from systemml_tpu_torch.runtime.data import (FrameObject,
+                                                         ListObject)
 
             if isinstance(x, ListObject):
                 return len(x)
-            x = self._m(h.inputs[0])
-            dims = (int(x.shape[0]), int(x.shape[1]))
+            if isinstance(x, FrameObject):
+                dims = (x.num_rows, x.num_cols)
+            else:
+                x = self._m(h.inputs[0])
+                dims = (int(x.shape[0]), int(x.shape[1]))
             if op == "nrow":
                 return dims[0]
             if op == "ncol":
                 return dims[1]
             return dims[0] * dims[1]
         if op in ("cbind", "rbind"):
+            from systemml_tpu_torch.runtime.data import FrameObject
+
+            vals = [self.eval(c) for c in h.inputs]
+            if any(isinstance(v, FrameObject) for v in vals):
+                if not all(isinstance(v, FrameObject) for v in vals):
+                    raise DMLValidationError(
+                        f"{op}: cannot mix frame and matrix operands")
+                out = vals[0]
+                for v in vals[1:]:
+                    out = (out.cbind(v) if op == "cbind" else out.rbind(v))
+                return out
             vals = [self._m(c) for c in h.inputs]
             return (reorg.cbind(*vals) if op == "cbind"
                     else reorg.rbind(*vals))
@@ -1369,11 +1392,16 @@ class Evaluator:
 
     def _right_index(self, h: Hop):
         from systemml_tpu_torch.ops import reorg
-        from systemml_tpu_torch.runtime.data import ListObject
+        from systemml_tpu_torch.runtime.data import FrameObject, ListObject
 
         x = self.eval(h.inputs[0])
         if isinstance(x, ListObject):
             return x.get(self._int(h.inputs[1]))
+        if isinstance(x, FrameObject):
+            rl, rn, _ = self._bounds_1d(h.inputs[1], h.inputs[2])
+            cl, cn, _ = self._bounds_1d(h.inputs[3], h.inputs[4])
+            return x.slice(int(rl), int(rl) + rn - 1,
+                           int(cl), int(cl) + cn - 1)
         rl, rn, rdyn = self._bounds_1d(h.inputs[1], h.inputs[2])
         cl, cn, cdyn = self._bounds_1d(h.inputs[3], h.inputs[4])
         if rdyn or cdyn:
@@ -1382,9 +1410,19 @@ class Evaluator:
 
     def _left_index(self, h: Hop):
         from systemml_tpu_torch.ops import reorg
+        from systemml_tpu_torch.runtime.data import FrameObject
 
-        x = self._m(h.inputs[0])
+        x = self.eval(h.inputs[0])
         y = self.eval(h.inputs[1])
+        if isinstance(x, FrameObject):
+            rl, rn, _ = self._bounds_1d(h.inputs[2], h.inputs[3])
+            cl, cn, _ = self._bounds_1d(h.inputs[4], h.inputs[5])
+            if not isinstance(y, FrameObject):
+                raise DMLValidationError(
+                    "frame left-indexing requires a frame source")
+            return x.left_index(y, int(rl), int(rl) + rn - 1,
+                                int(cl), int(cl) + cn - 1)
+        x = _mat(x)
         rl, rn, rdyn = self._bounds_1d(h.inputs[2], h.inputs[3])
         cl, cn, cdyn = self._bounds_1d(h.inputs[4], h.inputs[5])
         if isinstance(y, (int, float, bool)):
@@ -2015,8 +2053,8 @@ def _bi_listidx(ev, pos, named, h):
 
 def _bi_read(ev, pos, named, h):
     """read(path, ...): io/matrixio.py, a matrix on the configured device
-    (a scalar with data_type="scalar"); frames wait for ROADMAP queue 1,
-    parfor, transform and frames."""
+    (a scalar with data_type="scalar", a host frame with
+    data_type="frame")."""
     from systemml_tpu_torch.io import matrixio
 
     path = str(pos[0])
@@ -2035,7 +2073,9 @@ def _bi_read(ev, pos, named, h):
             return s.upper() == "TRUE"
         return float(s)
     if dt == "frame":
-        return matrixio.read_frame(path)
+        return matrixio.read_frame(path, named.get("format"),
+                                   bool(named.get("header", False)),
+                                   named.get("sep", ","))
     m = matrixio.read_matrix(
         path, named.get("format"),
         int(_scalar(named["rows"])) if "rows" in named else None,
@@ -2046,13 +2086,16 @@ def _bi_read(ev, pos, named, h):
 
 def _bi_write(ev, pos, named, h):
     from systemml_tpu_torch.io import matrixio
-    from systemml_tpu_torch.runtime.data import MatrixObject
+    from systemml_tpu_torch.runtime.data import FrameObject, MatrixObject
 
     if ev.skip_writes:
         return None  # JMLC in-memory mode
     target, path = pos[0], str(pos[1])
     fmt = named.get("format", "csv")
-    if isinstance(target, (int, float, bool, str, np.generic)) or (
+    if isinstance(target, FrameObject):
+        matrixio.write_frame(target, path, named.get("sep", ","),
+                             bool(named.get("header", True)), fmt)
+    elif isinstance(target, (int, float, bool, str, np.generic)) or (
             isinstance(target, torch.Tensor) and target.ndim == 0):
         # scalars, also 0-d device values (write(mean(...), f))
         with open(path, "w") as f:
@@ -2097,13 +2140,162 @@ def _bi_checkpoint_exists(ev, pos, named, h):
     return ckpt.snapshot_exists(str(pos[0]))
 
 
+def _bi_map(ev, pos, named, h):
+    """map(F, "x -> expr") — per-cell map over a frame's (string)
+    columns (reference capability: FrameBlock map-style ops). The spec
+    is either a registered Python UDF name (api/udf) or a lambda-arrow
+    expression evaluated per cell with a restricted namespace."""
+    from systemml_tpu_torch.runtime.data import FrameObject
+
+    f, spec = pos[0], pos[1]
+    if not isinstance(f, FrameObject):
+        raise DMLValidationError("map() expects a frame input")
+    return f.map_cells(_compile_map_fn(str(spec)))
+
+
+def _compile_map_fn(spec: str):
+    from systemml_tpu_torch.api.udf import lookup_udf
+
+    entry = lookup_udf(spec)
+    if entry is not None:
+        from systemml_tpu_torch.api.udf import call_udf
+
+        return lambda v: call_udf(spec, [v], {}, entry)
+    if "->" not in spec:
+        raise DMLValidationError(
+            f"map(): {spec!r} is neither a registered UDF nor an "
+            f"'x -> expression' lambda")
+    arg, expr = spec.split("->", 1)
+    arg = arg.strip()
+    code = compile(expr.strip(), "<frame-map>", "eval")
+    # the spec is TRUSTED SCRIPT CODE (a DML script already runs
+    # arbitrary compute, and UDFs are arbitrary Python) — the trimmed
+    # namespace is a convenience surface, not a security boundary
+    allowed = {"len": len, "str": str, "int": int, "float": float,
+               "abs": abs, "round": round, "min": min, "max": max}
+
+    def fn(v):
+        return eval(code, {"__builtins__": {}}, {arg: v, **allowed})
+
+    return fn
+
+
+# ---- transform builtins (reference: parameterized builtins TRANSFORMENCODE/
+# APPLY/DECODE/COLMAP, runtime/transform/; EncoderFactory.java:39): the
+# encoders run on the host over the frame's columns (runtime/transform.py),
+# and the matrix they make goes to the configured device once ---------
+
+def _transform_args(pos, named):
+    target = named.get("target", pos[0] if pos else None)
+    return target, _scalar(named.get("spec", "")), named.get("meta")
+
+
+def _to_device(x: np.ndarray) -> torch.Tensor:
+    from systemml_tpu_torch.utils.config import default_dtype, get_config
+
+    dt = default_dtype()
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64)).to(
+        device=get_config().device, dtype=dt)
+
+
+def _bi_transformencode(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.transform import TransformEncoder
+
+    fr, spec, _ = _transform_args(pos, named)
+    enc = TransformEncoder(spec, fr.colnames)
+    x, meta = enc.encode(fr)
+    return _to_device(x), meta
+
+
+def _bi_transformmeta(ev, pos, named, h):
+    """transformmeta(spec=..., path=...): load a stored transform
+    metadata frame (reference: ParameterizedBuiltinFunctionOp
+    TRANSFORMMETA reading the HDFS meta directory; here the meta frame
+    written by write() after transformencode)."""
+    from systemml_tpu_torch.io import matrixio
+
+    path = _scalar(named.get("path", pos[0] if pos else ""))
+    return matrixio.read_frame(str(path))
+
+
+def _bi_transform_legacy(ev, pos, named, h):
+    """Old-style transform() builtin (reference: the pre-encode API used
+    by scripts/algorithms/transform.dml — parameterized builtin TRANSFORM,
+    parser/Expression.java:157): target frame + transformSpec (inline
+    JSON or a path to a spec file) -> encoded matrix."""
+    import os
+
+    from systemml_tpu_torch.runtime.transform import TransformEncoder
+
+    target = named.get("target", pos[0] if pos else None)
+    spec = named.get("transformSpec", named.get("spec", ""))
+    spec = _scalar(spec)
+    if isinstance(spec, str) and os.path.isfile(spec):
+        with open(spec) as f:
+            spec = f.read()
+    enc = TransformEncoder(spec, target.colnames)
+    x, _meta = enc.encode(target)
+    return _to_device(x)
+
+
+def _bi_transformapply(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.transform import TransformEncoder
+
+    fr, spec, meta = _transform_args(pos, named)
+    enc = TransformEncoder(spec, fr.colnames)
+    enc.load_meta(meta)
+    return _to_device(enc.apply(fr))
+
+
+def _bi_transformdecode(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.transform import TransformDecoder
+
+    x, spec, meta = _transform_args(pos, named)
+    dec = TransformDecoder(spec, meta.colnames, meta)
+    return dec.decode(_mat(x).detach().cpu().numpy())
+
+
+def _bi_transformcolmap(ev, pos, named, h):
+    from systemml_tpu_torch.runtime.transform import TransformEncoder
+
+    meta, spec, _ = _transform_args(pos, named)
+    enc = TransformEncoder(spec, meta.colnames)
+    enc.load_meta(meta)
+    return _to_device(enc.colmap())
+
+
+def _bi_as_matrix(ev, pos, named, h):
+    """as.matrix: a scalar as a 1x1 matrix; a frame of numeric columns as
+    a matrix on the configured device (its string cells parse as
+    numbers, as FrameBlock's cast does)."""
+    from systemml_tpu_torch.runtime.data import FrameObject
+
+    x = pos[0]
+    if isinstance(x, FrameObject):
+        try:
+            cols = [np.asarray(c, dtype=np.float64) for c in x.columns]
+        except ValueError as e:
+            raise DMLValidationError(
+                f"as.matrix: frame has non-numeric cells ({e})") from None
+        return _to_device(np.column_stack(cols) if cols
+                          else np.zeros((0, 0)))
+    return _mat(x)
+
+
 _BUILTINS: Dict[str, Callable] = {
     "read": _bi_read, "write": _bi_write, "checkpoint": _bi_checkpoint,
     "restore": _bi_restore, "checkpointExists": _bi_checkpoint_exists,
     "matrix": _bi_matrix, "print": _bi_print, "stop": _bi_stop,
     "assert": _bi_assert, "toString": _bi_tostring,
     "as.scalar": _bi_as_scalar, "castAsScalar": _bi_as_scalar,
-    "as.matrix": lambda ev, pos, named, h: _mat(pos[0]),
+    "as.matrix": _bi_as_matrix,
+    "as.frame": lambda ev, pos, named, h: pos[0],
+    "map": _bi_map, "transformmeta": _bi_transformmeta,
+    "transform": _bi_transform_legacy,
+    "transformencode": _bi_transformencode,
+    "transformapply": _bi_transformapply,
+    "transformdecode": _bi_transformdecode,
+    "transformcolmap": _bi_transformcolmap,
     "as.double": _bi_as_double, "as.integer": _bi_as_integer,
     "as.logical": _bi_as_logical,
     "ifelse": _bi_ifelse, "log": _bi_log,
@@ -2145,7 +2337,6 @@ _BUILTINS: Dict[str, Callable] = {
 }
 
 _NN = "DNN and models"
-_FRAMES = "parfor, transform and frames"
 # the JAX package's builtins that the port does not run yet, with the
 # ROADMAP item that brings each (validate.py accepts their names, so a
 # script that calls one fails here, by name, and not as a typo)
@@ -2155,7 +2346,4 @@ _WAITING_BUILTINS: Dict[str, str] = {
         "conv2d_backward_data", "max_pool", "avg_pool",
         "max_pool_backward", "avg_pool_backward", "bias_add",
         "bias_multiply", "lstm", "batch_norm2d")},
-    **{n: _FRAMES for n in (
-        "as.frame", "map", "transformmeta", "transform", "transformencode",
-        "transformapply", "transformdecode", "transformcolmap")},
 }

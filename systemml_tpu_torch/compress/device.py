@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from systemml_tpu_torch.codegen import counts
 from systemml_tpu_torch.compress.block import CompressedMatrixBlock
 from systemml_tpu_torch.compress.colgroup import ColGroupUncompressed
 from systemml_tpu_torch.utils import stats as stats_mod
@@ -815,7 +816,7 @@ def chain_kernel(codes, sv, w=None, ctype: str = "XtXv"):
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"cla_chain kernel launch failed: CUDA error {err}")
-    chain_kernel.launches += 1
+    counts.count(chain_kernel)
     return out
 
 

@@ -48,7 +48,7 @@ def plan_auto_compression(program) -> int:
     """Mark loop blocks with their compression candidates; returns the
     number of (loop, var) candidates marked."""
     from systemml_tpu_torch.runtime.program import (ForBlock, IfBlock,
-                                                    WhileBlock)
+                                                    ParForBlock, WhileBlock)
 
     marked = 0
 
@@ -58,6 +58,8 @@ def plan_auto_compression(program) -> int:
             if isinstance(b, IfBlock):
                 walk(b.if_body)
                 walk(b.else_body)
+            elif isinstance(b, ParForBlock):
+                walk(b.body)  # parfor bodies re-plan per worker
             elif isinstance(b, (WhileBlock, ForBlock)):
                 cands = _loop_candidates(b)
                 if cands:

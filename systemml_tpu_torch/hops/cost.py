@@ -1,13 +1,12 @@
 # Port of systemml_tpu/hops/cost.py: HwProfile and OpCost (lines 23-63),
-# and of op_cost (line 104) the matmult branches that spoof plan selection
-# reads (codegen/memo.py costs matmult leaves with it), with the imports
-# pointed at systemml_tpu_torch. What differs: HwProfile gains h100(),
-# detect() chooses by the active config's device instead of the JAX
-# backend, and op_cost gives NaN (unknown) for the ops no caller costs
-# yet. quaternary_exploit (line 185 there) is the decision of ops/mult.py's
-# weighted quaternary ops. kernel_feature_row, the other op branches and
-# the DAG and collective costs wait for their callers (ROADMAP queue 1:
-# kernel backend, distributed).
+# op_cost (line 104; codegen/memo.py costs matmult leaves with it),
+# quaternary_exploit (line 179, the decision of ops/mult.py's weighted
+# quaternary ops) and estimate_dag_cost (line 231, the parfor optimizer's
+# body cost, runtime/parfor_opt.py), with the imports pointed at
+# systemml_tpu_torch. What differs: HwProfile gains h100(), and detect()
+# chooses by the active config's device instead of the JAX backend.
+# kernel_feature_row and the collective costs wait for their callers
+# (ROADMAP queue 1: kernel backend, distributed).
 """Static time-cost estimator for HOP plans.
 
 TPU-native equivalent of the reference's hops/cost/ package
@@ -20,9 +19,9 @@ max(flops/peak, bytes/bandwidth) plus a fixed dispatch latency.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
-from systemml_tpu_torch.hops.hop import Hop
+from systemml_tpu_torch.hops.hop import Hop, postorder
 
 
 @dataclass
@@ -79,6 +78,11 @@ class OpCost:
         return max(self.flops / rate, self.bytes / hw.hbm_bw)
 
 
+def _cells(h: Hop) -> float:
+    c = h.cells()
+    return float(c) if c >= 0 else float("nan")
+
+
 def _mm_dtype() -> str:
     from systemml_tpu_torch.utils.config import get_config
 
@@ -87,13 +91,15 @@ def _mm_dtype() -> str:
 
 
 def op_cost(h: Hop, hw: HwProfile) -> OpCost:
-    """FLOPs + HBM bytes of one matmult hop (ba+*, tsmm, mmchain), given
-    propagated dims (hops/ipa.py propagate_sizes). Unknown dims, and any
-    other op, yield NaN costs that poison the total: callers fall back to
-    structural decisions then."""
+    """FLOPs + HBM bytes of one hop, given propagated dims (hops/ipa.py
+    propagate_sizes). Unknown dims yield NaN costs that poison the total —
+    callers fall back to dynamic decisions then (the reference returns
+    DEFAULT estimates instead; NaN is more honest for planning)."""
     bc = hw.bytes_per_cell
     op = h.op
     ins = h.inputs
+    out = _cells(h)
+    in_cells = sum(_cells(c) for c in ins if c.is_matrix)
     if op == "ba+*":
         m, k, n = ins[0].rows, ins[0].cols, ins[1].cols
         if min(m, k, n) < 0:
@@ -112,6 +118,41 @@ def op_cost(h: Hop, hw: HwProfile) -> OpCost:
         if min(m, k) < 0:
             return OpCost(float("nan"), float("nan"))
         return OpCost(4.0 * m * k, (m * k) * bc)  # X read once when fused
+    if op.startswith("q("):
+        # weighted quaternary over X (m x n), U (m x k), V (n x k): the
+        # exploiting kernel samples U@t(V) at the PATTERN CARRIER's
+        # nonzeros — nnz*k MACs — while the dense referent pays the full
+        # m*n*k product. The carrier is W for wsloss POST/PRE (the
+        # runtime keys its dispatch on the same operand, ops/mult.py),
+        # X otherwise. Cost the EXPECTED path: est_sp scales the
+        # sampled work; unknown sparsity costs dense (honest worst case).
+        m, n = ins[0].rows, ins[0].cols
+        k = ins[1].cols if len(ins) > 1 else -1
+        if min(m, n, k) < 0:
+            return OpCost(float("nan"), float("nan"))
+        carrier = ins[3] if (op == "q(wsloss)"
+                             and h.params.get("post") in ("POST", "PRE")
+                             and len(ins) > 3) else ins[0]
+        sp = carrier.est_sp if carrier.est_sp >= 0 else 1.0
+        nnz = sp * m * n
+        if quaternary_exploit(m, n, k, nnz, hw)[0]:
+            return OpCost(QUATERNARY_GATHER_OVERHEAD * 2.0 * nnz * k,
+                          (m * k + n * k) * bc + nnz * (bc + 4))
+        return OpCost(2.0 * m * k * n, (m * k + n * k + m * n) * bc,
+                      _mm_dtype())
+    if op.startswith("ua(") or op.startswith("cum("):
+        return OpCost(in_cells, (in_cells + out) * bc)
+    if op.startswith("b(") or op.startswith("u("):
+        return OpCost(max(in_cells, out), (in_cells + out) * bc)
+    if op in ("reorg(t)", "reorg(rev)", "cbind", "rbind", "idx", "lidx"):
+        return OpCost(0.0, (in_cells + out) * bc)
+    if op == "call:rand":
+        return OpCost(10.0 * out, out * bc)
+    if op in ("lit", "tread", "twrite", "nrow", "ncol", "length"):
+        return OpCost(0.0, 0.0)
+    # generic builtin: assume bandwidth-bound single pass
+    if out == out:  # not NaN
+        return OpCost(in_cells, (in_cells + out) * bc)
     return OpCost(float("nan"), float("nan"))
 
 
@@ -155,3 +196,43 @@ def quaternary_exploit(m: int, n: int, k: int, nnz: float,
     if exploit.time(hw) < dense.time(hw):
         return True, "cheaper"
     return False, "dense_wins"
+
+
+@dataclass
+class PlanCost:
+    time_s: float
+    flops: float
+    bytes: float
+    per_op: List[Tuple[str, float]]
+
+    @property
+    def known(self) -> bool:
+        return self.time_s == self.time_s  # not NaN
+
+
+def estimate_dag_cost(roots: List[Hop], hw: Optional[HwProfile] = None,
+                      fused: bool = True) -> PlanCost:
+    """Cost of one HOP DAG execution (reference:
+    CostEstimationWrapper.getTimeEstimate). `fused=True` models whole-block
+    XLA compilation: one dispatch total and intermediate elementwise
+    results staying in registers/VMEM — elementwise bytes between producer
+    and consumer in the same block are not charged."""
+    hw = hw or HwProfile.detect()
+    total_f, total_b, t = 0.0, 0.0, 0.0
+    per_op: List[Tuple[str, float]] = []
+    order = postorder(roots)
+    n_dispatch = 1 if fused else sum(
+        1 for h in order if h.op not in ("lit", "tread", "twrite"))
+    for h in order:
+        c = op_cost(h, hw)
+        if fused and (h.op.startswith("b(") or h.op.startswith("u(")):
+            # fused elementwise: compute stays, traffic melts into neighbors
+            c = OpCost(c.flops, 0.0)
+        total_f += c.flops
+        total_b += c.bytes
+        ot = c.time(hw)
+        t += ot
+        if ot > 0 or ot != ot:
+            per_op.append((h.op, ot))
+    t += n_dispatch * hw.dispatch_us * 1e-6
+    return PlanCost(t, total_f, total_b, per_op)

@@ -10,8 +10,9 @@ a write from the card comes back in one copy. The csv and ijv parsers
 are the native library's (native/__init__.py), the Python ones their
 plain versions under SMTPU_NATIVE=0; every read counts its arm.
 
-Frames (`read_frame`, `write_frame`) wait for ROADMAP queue 1, parfor,
-transform and frames: the port has no FrameObject yet.
+Frames (`read_frame`, `write_frame`: csv with and without a header, text
+cell, and an npz container) are host columns, read and written as in the
+JAX package (systemml_tpu/io/matrixio.py:203-299).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from systemml_tpu_torch.runtime.data import MatrixObject
+from systemml_tpu_torch.lang.ast import ValueType
+from systemml_tpu_torch.runtime.data import FrameObject, MatrixObject
 from systemml_tpu_torch.utils.config import default_dtype, get_config
 
 
@@ -202,15 +204,100 @@ def write_matrix(m: MatrixObject, path: str, fmt: Optional[str] = None,
                           "nnz": int(np.count_nonzero(arr))})
 
 
-def _frames_wait():
-    return NotImplementedError(
-        "frame IO is not ported yet: it waits for ROADMAP queue 1, parfor, "
-        "transform and frames")
+_VT = {"double": ValueType.DOUBLE, "int": ValueType.INT,
+       "string": ValueType.STRING, "boolean": ValueType.BOOLEAN}
 
 
-def read_frame(path: str, *args, **kwargs):
-    raise _frames_wait()
+def read_frame(path: str, fmt: Optional[str] = None, header: bool = False,
+               sep: str = ",") -> FrameObject:
+    meta = read_metadata(path)
+    fmt = fmt or _infer_format(path, meta)
+    header = meta.get("header", header)
+    sep = meta.get("sep", sep)
+    if fmt == "binary":
+        # npz container (reference: FrameReaderBinaryBlock)
+        with np.load(path, allow_pickle=True) as z:
+            cols = [z[f"c{j}"] for j in range(int(z["ncol"]))]
+            schema = [ValueType(s) for s in z["schema"].tolist()]
+            names = [str(n) for n in z["names"].tolist()]
+        return FrameObject(list(cols), schema, names)
+    if fmt in ("text", "textcell", "ijv"):
+        # "row col value" cells, strings unquoted (FrameReaderTextCell);
+        # declared dims in the .mtd take precedence over observed cells
+        nrow = int(meta.get("rows", 0))
+        ncol = int(meta.get("cols", 0))
+        cells = []
+        with open(path) as f:
+            for line in f:
+                parts = line.rstrip("\n").split(" ", 2)
+                if len(parts) == 3:
+                    i, j, v = int(parts[0]), int(parts[1]), parts[2]
+                    cells.append((i, j, v))
+                    nrow = max(nrow, i)
+                    ncol = max(ncol, j)
+        body = [["" for _ in range(ncol)] for _ in range(nrow)]
+        for i, j, v in cells:
+            body[i - 1][j - 1] = v
+        names = None
+    elif fmt == "csv":
+        import csv as _csv
+
+        with open(path) as f:
+            rows = list(_csv.reader(f, delimiter=sep))
+        names = rows[0] if header else None
+        body = rows[1:] if header else rows
+    else:
+        raise ValueError(f"frame format {fmt!r} not supported")
+    ncol = len(body[0]) if body else 0
+    cols, schema = [], []
+    schema_spec = meta.get("schema")
+    for j in range(ncol):
+        vals = [r[j] for r in body]
+        vt = _VT.get(schema_spec[j], ValueType.STRING) if schema_spec else None
+        if vt is None:
+            try:
+                fv = [float(v) for v in vals]
+                vt = ValueType.DOUBLE
+                cols.append(np.array(fv))
+            except ValueError:
+                vt = ValueType.STRING
+                cols.append(np.array(vals, dtype=object))
+        else:
+            cols.append(np.array([float(v) for v in vals]) if vt in
+                        (ValueType.DOUBLE, ValueType.INT)
+                        else np.array(vals, dtype=object))
+        schema.append(vt)
+    return FrameObject(cols, schema, names)
 
 
-def write_frame(fr, path: str, *args, **kwargs):
-    raise _frames_wait()
+def write_frame(fr: FrameObject, path: str, sep: str = ",", header: bool = True,
+                fmt: str = "csv"):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if fmt == "binary":
+        arrays = {f"c{j}": np.asarray(c) for j, c in enumerate(fr.columns)}
+        arrays["ncol"] = np.array(fr.num_cols)
+        arrays["schema"] = np.array([vt.value for vt in fr.schema])
+        arrays["names"] = np.array(fr.colnames)
+        with open(path, "wb") as f:
+            np.savez(f, **arrays)
+    elif fmt in ("text", "textcell", "ijv"):
+        with open(path, "w") as f:
+            for j, c in enumerate(fr.columns):
+                for i in range(fr.num_rows):
+                    v = str(c[i]).replace("\n", " ")  # cells must stay one line
+                    f.write(f"{i+1} {j+1} {v}\n")
+    elif fmt == "csv":
+        import csv as _csv
+
+        with open(path, "w", newline="") as f:
+            w = _csv.writer(f, delimiter=sep)
+            if header:
+                w.writerow(fr.colnames)
+            for i in range(fr.num_rows):
+                w.writerow([c[i] for c in fr.columns])
+    else:
+        raise ValueError(f"unknown frame format {fmt!r}")
+    write_metadata(path, {"data_type": "frame", "format": fmt,
+                          "rows": fr.num_rows, "cols": fr.num_cols,
+                          "header": header,
+                          "schema": [vt.value for vt in fr.schema]})

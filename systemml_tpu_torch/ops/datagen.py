@@ -40,10 +40,18 @@ with no host read, as the JAX package derives a traced seed's key
 (systemml_tpu/ops/datagen.py:60-66); both give the same bits. The
 normal and poisson pdfs wait for ROADMAP queue 1, DNN and models (item
 8).
+
+A parfor iteration draws its unseeded rand() calls from a sub-stream of
+its own (`stream_scope`, systemml_tpu/ops/datagen.py:30-46): with a
+global seed the key of its n-th draw is fold_in(fold_in(PRNGKey(seed),
+iteration id), n), whichever worker, stream or mode runs the iteration.
+The sub-stream is a contextvars.ContextVar, so each worker thread sees
+its own iteration's.
 """
 
 from __future__ import annotations
 
+import contextvars
 import itertools
 import math
 import time
@@ -56,6 +64,8 @@ _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _seed_counter = itertools.count(1)
 _global_seed = [None]   # makes unseeded rand() calls reproducible
+# the parfor iteration's sub-stream: {"id": iteration id, "n": counter}
+_stream = contextvars.ContextVar("rand_stream", default=None)
 
 
 def _waits(what: str) -> NotImplementedError:
@@ -69,6 +79,22 @@ def set_global_seed(seed: Optional[int]) -> None:
     global _seed_counter
     _global_seed[0] = seed
     _seed_counter = itertools.count(1)
+
+
+def stream_scope(stream_id: int):
+    """Enters the deterministic sub-stream of parfor iteration
+    `stream_id`; returns the token for reset_stream."""
+    return _stream.set({"id": int(stream_id), "n": itertools.count(1)})
+
+
+def reset_stream(token) -> None:
+    _stream.reset(token)
+
+
+def _next_draw():
+    """(n, sub-stream or None) of the next unseeded draw."""
+    st = _stream.get()
+    return (next(st["n"]) if st is not None else next(_seed_counter)), st
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -141,31 +167,39 @@ def stream_key():
     the call's key is fold_in(base, n); without one, a fresh base from the
     clock. Takes n off the counter; set_stream_next gives back what a
     loop region did not draw."""
-    n = next(_seed_counter)
+    n, st = _next_draw()
     if _global_seed[0] is not None:
-        return prng_key(_global_seed[0]), n
-    return prng_key((time.time_ns() + n) % (2 ** 31)), n
+        base = prng_key(_global_seed[0])
+        if st is not None:
+            base = fold_in(base, st["id"])
+        return base, n
+    return prng_key((time.time_ns() + n + (st["id"] << 20 if st else 0))
+                    % (2 ** 31)), n
 
 
 def set_stream_next(n: int) -> None:
     """The counter of unseeded draws goes on at n (a loop region's exit,
-    after its draws on the device)."""
+    after its draws on the device); inside a parfor iteration, its
+    sub-stream's."""
     global _seed_counter
+    st = _stream.get()
+    if st is not None:
+        st["n"] = itertools.count(int(n))
+        return
     _seed_counter = itertools.count(int(n))
 
 
 def _key(seed: Optional[int]):
     """The key of a rand() call: PRNGKey(seed); for no seed or -1, a fresh
-    stream per call, or with a global seed its n-th fold (the JAX
-    package's `_key` without the parfor streams, which wait with parfor).
+    stream per call, or with a global seed its n-th fold, in a parfor
+    iteration from the iteration's sub-stream (the JAX package's `_key`).
     A device seed gives a device key."""
     if isinstance(seed, torch.Tensor):
         return prng_key(seed)
     if seed is None or int(seed) == -1:
-        n = next(_seed_counter)
-        if _global_seed[0] is not None:
-            return fold_in(prng_key(_global_seed[0]), n)
-        return prng_key((time.time_ns() + n) % (2 ** 31))
+        base, n = stream_key()
+        # without a global seed the base is already fresh per call
+        return fold_in(base, n) if _global_seed[0] is not None else base
     return prng_key(int(seed))
 
 

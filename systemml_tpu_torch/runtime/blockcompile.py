@@ -70,6 +70,7 @@ from __future__ import annotations
 import copy
 import math
 import sys
+import threading
 import warnings
 from typing import Any, Dict, Optional
 
@@ -82,6 +83,8 @@ from systemml_tpu_torch.hops.hop import postorder
 GRAPH_INPUT_BYTES = 256 << 20
 # host-number variants a key's graphs are captured for
 GRAPHS_PER_PLAN = 4
+# held while a new key's plan is made (and its kernels built)
+_plan_lock = threading.RLock()
 
 
 class BlockPlan:
@@ -316,9 +319,13 @@ def execute(block, ec) -> None:
     key = block_key(block, env)
     plan = block._plans.get(key)
     if plan is None:
-        plan = compile_plan(block, env, cfg, ec.stats)
-        block._plans[key] = plan
-        ec.stats.count_compile()
+        # parfor workers that reach a new key at once compile it once
+        with _plan_lock:
+            plan = block._plans.get(key)
+            if plan is None:
+                plan = compile_plan(block, env, cfg, ec.stats)
+                block._plans[key] = plan
+                ec.stats.count_compile()
     plan.runs += 1
     dev = _region_device(ec)
     graphs = dev.type == "cuda" and ec.block_graphs and cfg.codegen_enabled

@@ -3,8 +3,8 @@
 Port of systemml_tpu/runtime/data.py over torch.Tensor. A MatrixObject
 holds a 2-D tensor on the device the config names (the card, or the CPU
 when the caller asks for it), or a runtime.sparse.SparseMatrix (CSR on
-its device) with its nnz; numpy appears only at host boundaries. Frames
-wait (ROADMAP queue 1, parfor, transform and frames).
+its device) with its nnz; numpy appears only at host boundaries. A
+FrameObject holds typed numpy columns on the host.
 
 `from_reference` carries values from the JAX package into the port, the
 way the tests feed both packages from one seed.
@@ -104,6 +104,98 @@ class MatrixObject(Data):
     def __repr__(self):
         return (f"Matrix({self.num_rows}x{self.num_cols}, "
                 f"dtype={self.array.dtype}, device={self.array.device})")
+
+
+class FrameObject(Data):
+    """Column-typed table (reference: FrameBlock,
+    runtime/matrix/data/FrameBlock.java:48 — typed _schema/_coldata).
+    Columns are numpy arrays (object dtype for strings), on the host:
+    a frame is strings and typed cells, and what goes to the device is
+    the matrix that transformencode or as.matrix makes of it (port of
+    systemml_tpu/runtime/data.py:113-218)."""
+
+    data_type = DataType.FRAME
+
+    __slots__ = ("columns", "schema", "colnames")
+
+    def __init__(self, columns: List[np.ndarray], schema: List[ValueType],
+                 colnames: Optional[List[str]] = None):
+        self.columns = columns
+        self.schema = schema
+        self.colnames = colnames or [f"C{i+1}" for i in range(len(columns))]
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.columns[0]) if self.columns else 0
+
+    @property
+    def num_cols(self) -> int:
+        return len(self.columns)
+
+    def to_numpy(self) -> np.ndarray:
+        return np.column_stack(self.columns) if self.columns else np.zeros((0, 0))
+
+    def __repr__(self):
+        return f"Frame({self.num_rows}x{self.num_cols})"
+
+    # ---- op surface (reference: FrameBlock.java:48 slice/append/
+    # leftIndexingOperations/map + the frame instruction family) -------
+
+    def slice(self, rl: int, ru: int, cl: int, cu: int) -> "FrameObject":
+        """F[rl:ru, cl:cu] (1-based inclusive): typed columns preserved."""
+        cols = [self.columns[j][rl - 1:ru].copy()
+                for j in range(cl - 1, cu)]
+        return FrameObject(cols, self.schema[cl - 1:cu],
+                           self.colnames[cl - 1:cu])
+
+    def left_index(self, other: "FrameObject", rl: int, ru: int,
+                   cl: int, cu: int) -> "FrameObject":
+        """Copy-on-write F[rl:ru, cl:cu] = G (reference:
+        FrameBlock.leftIndexingOperations — which also enforces schema
+        compatibility of the written region)."""
+        if (other.num_rows, other.num_cols) != (ru - rl + 1, cu - cl + 1):
+            raise ValueError(
+                f"frame left-index shape mismatch: source "
+                f"{other.num_rows}x{other.num_cols} vs range "
+                f"{ru - rl + 1}x{cu - cl + 1}")
+        tgt_schema = self.schema[cl - 1:cu]
+        if other.schema != tgt_schema:
+            raise ValueError(
+                f"frame left-index schema mismatch: source "
+                f"{[s.value for s in other.schema]} vs target "
+                f"{[s.value for s in tgt_schema]}")
+        cols = [c.copy() for c in self.columns]
+        for j in range(cl - 1, cu):
+            cols[j][rl - 1:ru] = other.columns[j - (cl - 1)]
+        return FrameObject(cols, list(self.schema), list(self.colnames))
+
+    def cbind(self, other: "FrameObject") -> "FrameObject":
+        if self.num_rows != other.num_rows:
+            raise ValueError("frame cbind: row counts differ")
+        return FrameObject(self.columns + other.columns,
+                           self.schema + other.schema,
+                           self.colnames + other.colnames)
+
+    def rbind(self, other: "FrameObject") -> "FrameObject":
+        if self.num_cols != other.num_cols:
+            raise ValueError("frame rbind: column counts differ")
+        if self.schema != other.schema:
+            raise ValueError(
+                f"frame rbind schema mismatch: "
+                f"{[s.value for s in self.schema]} vs "
+                f"{[s.value for s in other.schema]}")
+        cols = [np.concatenate([a, b])
+                for a, b in zip(self.columns, other.columns)]
+        return FrameObject(cols, list(self.schema), list(self.colnames))
+
+    def map_cells(self, fn) -> "FrameObject":
+        """Apply a per-cell callable over every column (reference: the
+        frame map operation); results stringify — String.valueOf
+        semantics — so the STRING schema matches the data."""
+        cols = [np.array([str(fn(v)) for v in c], dtype=object)
+                for c in self.columns]
+        return FrameObject(cols, [ValueType.STRING] * len(cols),
+                           list(self.colnames))
 
 
 class ListObject(Data):

@@ -97,6 +97,9 @@ that loop runs no iteration in a later pass of the outer one.
 from __future__ import annotations
 
 import sys
+import contextlib
+import contextvars
+import threading
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -108,7 +111,9 @@ from systemml_tpu_torch.compiler.lower import (NotLoopFusable,
                                                _collect_rw, _collect_rw_seq,
                                                _live_after, _plan_one_region,
                                                region_scope)
+from systemml_tpu_torch.codegen import counts
 from systemml_tpu_torch.hops.hop import postorder
+from systemml_tpu_torch.ops import linalg
 from systemml_tpu_torch.runtime import sparse as sp
 from systemml_tpu_torch.runtime.bufferpool import pin_reads
 
@@ -132,12 +137,32 @@ RELEASE_BYTES = 1 << 30
 # re-entered with new invariant tensors each time (l2-svm's line search
 # reads the outer pass's Xd) makes a new one per entry
 CACHE_CAP = 4
+# bytes up to which a parfor lane's region entry copies an invariant
+# matrix into a buffer of its own (_lane_copies)
+LANE_COPY_BYTES = 256 << 20
 # print records a region's ring holds: a loop whose next top-level
 # iteration might not fit stops, the host formats the records, and the
 # same graph goes on from its static buffers
 RING_RECORDS = 1024
 
 _ABSENT = object()
+_LANE: contextvars.ContextVar = contextvars.ContextVar("parfor_lane",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def lane_scope(lane: Optional[int]):
+    """Runs the block as parfor worker lane `lane` (runtime/parfor.py)."""
+    tok = _LANE.set(lane)
+    try:
+        yield
+    finally:
+        _LANE.reset(tok)
+
+
+def current_lane() -> Optional[int]:
+    """The parfor worker lane of the calling thread, or None."""
+    return _LANE.get()
 
 
 # --------------------------------------------------------------------------
@@ -160,7 +185,8 @@ def launch_counters() -> Dict[str, Any]:
 
 
 def _snapshot(stats) -> Dict[tuple, int]:
-    d: Dict[tuple, int] = {("k", n): f.launches
+    # this thread's launches: a parfor worker's capture counts its own
+    d: Dict[tuple, int] = {("k", n): counts.mine(f)
                            for n, f in launch_counters().items()}
     for fam, lab in (("e", stats.estim_counts), ("f", stats.fcall_counts),
                      ("o", stats.op_count)):
@@ -188,7 +214,7 @@ def _apply(stats, delta: Dict[tuple, int], times: int) -> None:
     for key, v in delta.items():
         n = v * times
         if key[0] == "k":
-            ks[key[1]].launches += n
+            counts.count(ks[key[1]], n)
         elif key[0] == "e":
             stats.estim_counts.inc(key[1], n)
         elif key[0] == "f":
@@ -791,38 +817,94 @@ def exec_if(blk, ec, run: RegionRun, pred) -> None:
 # capture streams and graph entries
 # --------------------------------------------------------------------------
 
-_streams: Dict[int, List[torch.cuda.Stream]] = {}
+_streams: Dict[tuple, List[torch.cuda.Stream]] = {}
+_streams_lock = threading.Lock()
+# the capture streams a thread has warmed (its cuBLAS handle's workspace
+# on each, made outside any capture)
+_warm = threading.local()
 _live_graphs: "weakref.WeakSet" = weakref.WeakSet()
+# captures running now, in any thread: a capture frees the peel's cached
+# blocks (empty_cache, a device-wide sync) only when no other runs
+_capture_gate = threading.Lock()
+_capturing = [0]
+# entries dropped while a capture ran in some thread: their pools are
+# freed once none runs (freeing a MemPool while another thread allocates
+# into its own trips the caching allocator)
+_graveyard: List[Any] = []
 
 
-def capture_streams(dev) -> List[torch.cuda.Stream]:
-    """MAX_DEPTH side streams of `dev`, one per nesting level of a
-    capture, made once: each has run a cuBLAS product (its handle and
-    workspace exist outside any graph's pool) and has its spoof reduce
-    scratch (codegen/kernels._reduce_scratch), so that a capture
-    allocates neither."""
+def _release(dropped: list) -> None:
+    """Frees the dropped entries (their graphs and pools) now, or after
+    the last capture running in any thread ends; empties `dropped`."""
+    with _capture_gate:
+        _graveyard.extend(dropped)
+        dropped.clear()
+        if _capturing[0] == 0:
+            _graveyard.clear()
+
+
+def capture_streams(dev, lane: Optional[int] = None
+                    ) -> List[torch.cuda.Stream]:
+    """MAX_DEPTH side streams of `dev` for worker lane `lane` (None: the
+    caller outside a parfor), one per nesting level of a capture, made
+    once; each thread that captures on them has first run a cuBLAS
+    product on each (its handle's workspace exists outside any graph's
+    pool) and made their spoof reduce scratch
+    (codegen/kernels._reduce_scratch), so that a capture allocates
+    neither."""
     from systemml_tpu_torch.codegen import kernels
+    from systemml_tpu_torch.codegen import loop_graph as lg
 
     dev = torch.device(dev)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    hit = _streams.get(dev.index)
-    if hit is None:
-        hit = []
+    with _streams_lock:
+        hit = _streams.get((dev.index, lane))
+        if hit is None:
+            # streams of their own: torch's pool would give two lanes
+            # the same stream
+            hit = _streams[(dev.index, lane)] = [
+                lg.new_stream(dev) for _ in range(MAX_DEPTH)]
+    done = getattr(_warm, "streams", None)
+    if done is None:
+        done = _warm.streams = set()
+    cold = [s for s in hit if s.cuda_stream not in done]
+    if cold:
         with torch.cuda.device(dev):
+            cur = torch.cuda.current_stream(dev)
             a = torch.ones(16, 16, device=dev)
-            for _ in range(MAX_DEPTH):
-                s = torch.cuda.Stream(dev)
-                s.wait_stream(torch.cuda.current_stream(dev))
+            for s in cold:
+                s.wait_stream(cur)
                 with torch.cuda.stream(s):
-                    torch.mm(a, a)
-                    torch.matmul(a.T, a[:, :1])
-                    torch.mm(a.double(), a.double())
+                    _warm_libraries(a)
                     kernels._reduce_scratch(dev, s.cuda_stream)
-                hit.append(s)
-            torch.cuda.synchronize(dev)
-        _streams[dev.index] = hit
+                done.add(s.cuda_stream)
+            # these streams only: a device-wide sync would touch another
+            # worker's capture
+            for s in cold:
+                s.synchronize()
     return hit
+
+
+# orders of the linear systems warmed on each capture stream: a library
+# path that an order selects makes its per-stream state at its first call
+WARM_ORDERS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+def _warm_libraries(a: torch.Tensor) -> None:
+    """Runs, on the current stream, the library calls a region may
+    capture, in fp32 and fp64 (cuBLAS products, and the inverse and
+    Cholesky factor at each order of WARM_ORDERS), so that their handles'
+    per-stream state exists before a capture: made inside one, it could
+    be an allocation (ops/linalg._solve_graph_safe says why a region on
+    the card solves through the inverse)."""
+    for x in (a, a.double()):
+        torch.mm(x, x)
+        torch.matmul(x.T, x[:, :1])
+        for n in WARM_ORDERS:
+            m = torch.eye(n, dtype=x.dtype, device=x.device) * (n + 1) + 1
+            torch.linalg.inv_ex(m)
+            torch.linalg.cholesky_ex(m)
 
 
 def _check_donate() -> None:
@@ -854,14 +936,16 @@ def invalidate_storage(ptr: int, nbytes: int) -> int:
     storage's address, which the buffer pool is giving up (an eviction,
     runtime/bufferpool.py). Returns how many entries were dropped; the
     loop's next entry captures again."""
-    dropped = 0
+    dropped = []
     for fl in list(_live_loops):
-        for key in list(fl._cache):
-            if any(len(p) == 6 and p[1] == "t" and ptr <= p[5] < ptr + nbytes
-                   for p in key[1]):
-                del fl._cache[key]
-                dropped += 1
-    return dropped
+        with fl._lock:
+            for key in list(fl._cache):
+                if any(len(p) == 6 and p[1] == "t"
+                       and ptr <= p[5] < ptr + nbytes for p in key[1]):
+                    dropped.append(fl._cache.pop(key))
+    n = len(dropped)
+    _release(dropped)
+    return n
 
 
 class _Entry:
@@ -1074,6 +1158,10 @@ class FusedLoop:
         self.refused: Optional[str] = None
         self._scan: Optional[_Scan] = None
         self._cache: Dict[tuple, _Entry] = {}
+        # the record and the cache are shared by parfor's worker lanes:
+        # changed under _lock; a lane holds _entry_lock through an entry
+        self._lock = threading.RLock()
+        self._entry_lock = threading.RLock()
         # the print ring and the rand stream, per device (a graph bakes
         # their addresses in); those of the running entry
         self._rings: Dict[str, PrintRing] = {}
@@ -1086,6 +1174,17 @@ class FusedLoop:
                        "host_syncs": 0, "static_reads": 0, "trips": [],
                        "drains": 0, "refused": None}
         _live_loops.add(self)
+
+    def _bump(self, field: str, n: int = 1) -> None:
+        """Adds n to a record counter; captures and graph launches also
+        per parfor lane (record["lanes"])."""
+        with self._lock:
+            self.record[field] += n
+            lane = current_lane()
+            if lane is not None and field in ("captures", "launches"):
+                per = self.record.setdefault("lanes", {}).setdefault(
+                    lane, {"captures": 0, "launches": 0})
+                per[field] += n
 
     # ---- plan and refusal -------------------------------------------------
 
@@ -1187,7 +1286,15 @@ class FusedLoop:
             # the loop's reads stay on the device while it runs: the buffer
             # pool evicts none of them (runtime/bufferpool.py)
             with pin_reads(env, set(plan.reads) | set(plan.pred_reads)):
-                return self._enter(loop, ec, plan, kind, iters, dev)
+                # parfor's lanes share one entry per key: a lane holds the
+                # loop from its entry to its copy-out (one entry per key
+                # and lane, each captured apart, was 2.4x slower at
+                # StepGLM's shape, PERF.md section 6); on the card every
+                # iteration solves by the route a graph captures
+                with self._entry_lock, (linalg.graph_safe()
+                                        if dev.type == "cuda"
+                                        else contextlib.nullcontext()):
+                    return self._enter(loop, ec, plan, kind, iters, dev)
         finally:
             for n, sm in sparse.items():
                 if env.get(n) is views[n]:
@@ -1219,7 +1326,8 @@ class FusedLoop:
                                 for n, dv in views.items()}
         return views, None
 
-    def _key(self, env, plan, carried, traced, kind, iters) -> tuple:
+    def _key(self, env, plan, carried, traced, kind, iters,
+             copied=frozenset()) -> tuple:
         parts = []
         for n in sorted(set(plan.reads) | set(plan.pred_reads)
                         | set(carried)):
@@ -1227,7 +1335,7 @@ class FusedLoop:
             if v is _ABSENT:
                 parts.append((n, "absent"))
             elif isinstance(v, torch.Tensor):
-                if n in carried or v.numel() == 1:
+                if n in carried or v.numel() == 1 or n in copied:
                     parts.append((n, "s", tuple(v.shape), v.dtype))
                 else:
                     parts.append((n, "t", tuple(v.shape), v.stride(), v.dtype,
@@ -1267,15 +1375,21 @@ class FusedLoop:
                 env[n] = x if v.is_floating_point() or v.dtype == torch.bool \
                     else int(x)
         if statics:
-            self.record["host_syncs"] += 1
-            self.record["static_reads"] += 1
+            self._bump("host_syncs", 1)
+            self._bump("static_reads", 1)
         traced = {n for n in plan.traced_ints
                   if isinstance(env.get(n), int)
                   and not isinstance(env.get(n), bool)}
         inv_small = {n for n in set(plan.reads) | set(plan.pred_reads)
                      if n not in carried and isinstance(env.get(n), torch.Tensor)
                      and env[n].numel() == 1}
-        key = self._key(env, plan, set(carried), traced, kind, iters)
+        # in a parfor lane, an invariant matrix a task made (StepGLM's A)
+        # lies where the lane's allocator put it, seldom twice at one
+        # address: the entry holds a copy, keyed by shape, not address
+        copied = _lane_copies(env, plan, carried)
+        inv_small |= copied
+        key = self._key(env, plan, set(carried), traced, kind, iters,
+                        copied)
         pre_kinds = {n: type(env[n]) for n in carried
                      if n in env and _is_number(env[n])}
         originals = {n: env[n] for n in set(carried) | traced | inv_small
@@ -1284,11 +1398,11 @@ class FusedLoop:
         for n in set(carried) | traced:
             if n in env and _is_number(env[n]):
                 env[n] = device_scalar(env[n], dev)
-        self.record["entries"] += 1
+        self._bump("entries", 1)
         # step 3: the entry test, one sync
         if kind == "while":
             if not _truth(loop.pred.eval_device(ec)):
-                self.record["host_syncs"] += 1
+                self._bump("host_syncs", 1)
                 self.record["trips"].append(0)
                 env.update({n: v for n, v in originals.items()
                             if n in pre_kinds or n in traced
@@ -1297,9 +1411,10 @@ class FusedLoop:
                 # package's region dispatch does
                 stats.count_region(plan.label)
                 return True
-            self.record["host_syncs"] += 1
+            self._bump("host_syncs", 1)
         self._io(dev)
-        entry = self._cache.get(key)
+        with self._lock:
+            entry = self._cache.get(key)
         peeled = 0
         if entry is None:
             # step 4: the first iteration, eagerly, with the region's kinds
@@ -1339,10 +1454,11 @@ class FusedLoop:
                     iters[1] - iters[0] if len(iters) > 1 else 1)
             if dev.type == "cuda":
                 self._capture(loop, ec, plan, kind, entry, run, dev)
-                self.record["captures"] += 1
-            if len(self._cache) >= CACHE_CAP:
-                self._cache.pop(next(iter(self._cache)))
-            self._cache[key] = entry
+                self._bump("captures")
+            with self._lock:
+                if len(self._cache) >= CACHE_CAP:
+                    _release([self._cache.pop(next(iter(self._cache)))])
+                self._cache[key] = entry
         else:
             _load(entry, env, carried, traced | inv_small, kind, iters)
         launches0 = self.record["launches"]
@@ -1387,11 +1503,11 @@ class FusedLoop:
         ring, stream = self._ring, self._stream
         if ring is not None:
             ring.drain_to(ec.printer)
-            self.record["host_syncs"] += ring.reads
+            self._bump("host_syncs", ring.reads)
             ring.reads = 0
         if stream is not None:
             RandStream.close(int(stream.n))
-            self.record["host_syncs"] += 1
+            self._bump("host_syncs", 1)
 
     def _run_state(self, mode: str, plan, stats) -> RegionRun:
         run = RegionRun(mode, plan.drop, self._scan.writes, stats)
@@ -1435,7 +1551,7 @@ class FusedLoop:
             ring.drain(n, recs, ec.printer)
             if not ring.stopped_for_room(n, more):
                 break
-            self.record["drains"] += 1
+            self._bump("drains", 1)
         env.clear()
         env.update(saved)
         # the ring is drained: the launch's one read brought its records;
@@ -1489,14 +1605,32 @@ class FusedLoop:
     def _capture(self, loop, ec, plan, kind, entry, peel_run, dev) -> None:
         """Captures the rest of the loop over the entry's buffers into one
         graph (step 5) and instantiates it."""
+        streams = capture_streams(dev, current_lane())
+        with _capture_gate:
+            if _capturing[0] == 0 and torch.cuda.memory_reserved(dev) \
+                    - torch.cuda.memory_allocated(dev) > RELEASE_BYTES:
+                torch.cuda.empty_cache()      # the peel's cached blocks
+            _capturing[0] += 1
+        try:
+            self._capture_on(loop, ec, plan, kind, entry, peel_run, dev,
+                             streams)
+        except BaseException:
+            # the failed capture's pool goes as dropped entries go
+            _release([entry.pool])
+            entry.pool = None
+            raise
+        finally:
+            with _capture_gate:
+                _capturing[0] -= 1
+                if _capturing[0] == 0:
+                    _graveyard.clear()
+
+    def _capture_on(self, loop, ec, plan, kind, entry, peel_run, dev,
+                    streams) -> None:
         from systemml_tpu_torch.codegen import loop_graph as lg
 
         env = ec.vars
         stats = ec.stats
-        streams = capture_streams(dev)
-        if torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(
-                dev) > RELEASE_BYTES:
-            torch.cuda.empty_cache()      # the peel's cached blocks
         entry.pool = torch.cuda.MemPool()
         entry.counters = torch.zeros(MAX_SCOPES, dtype=torch.int64,
                                      device=dev)
@@ -1547,7 +1681,7 @@ class FusedLoop:
             for b in entry.zero_init:
                 b.zero_()
         lg.launch(entry.exec, torch.cuda.current_stream(dev).cuda_stream)
-        self.record["launches"] += 1
+        self._bump("launches", 1)
         host = [(nm, b) for nm, b in entry.buffers.items() if b.ndim == 0]
         ring, stream = self._ring, self._stream
         # one int64 read: the doubles as their bits
@@ -1560,7 +1694,7 @@ class FusedLoop:
             parts += [ring.n.reshape(1), ring.more.reshape(1).to(torch.int64),
                       ring.rows.reshape(-1)]
         vals = torch.cat(parts).cpu().numpy()
-        self.record["host_syncs"] += 1
+        self._bump("host_syncs", 1)
         execs = [int(v) for v in vals[:n]]
         at = n + len(host)
         entry.host = dict(zip([nm for nm, _ in host],
@@ -1585,6 +1719,22 @@ class FusedLoop:
             for idx, delta in sorted(entry.scopes)]
         top = [idx for idx, _ in entry.scopes if idx == 0]
         return (execs[0] if top else 0), n_stream, rows
+
+
+def _lane_copies(env, plan, carried) -> Set[str]:
+    """In a parfor worker lane, the loop's invariant dense matrices of at
+    most LANE_COPY_BYTES each: an entry copies them into buffers of its
+    own at each entry, and its key holds their shapes, not addresses."""
+    if current_lane() is None:
+        return set()
+    out = set()
+    for n in (set(plan.reads) | set(plan.pred_reads)) - set(carried):
+        v = env.get(n)
+        if isinstance(v, torch.Tensor) and v.layout == torch.strided \
+                and v.numel() > 1 \
+                and v.numel() * v.element_size() <= LANE_COPY_BYTES:
+            out.add(n)
+    return out
 
 
 def _sig(v) -> tuple:

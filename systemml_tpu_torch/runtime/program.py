@@ -42,10 +42,16 @@ its spoof plans selected with the run-time dims, and on the card one
 CUDA graph per key that runs again. The symbol table is a VarMap over the
 program's buffer pool (runtime/bufferpool.py).
 
+A parfor runs through runtime/parfor.py: its dependency check, its
+cost-based plan, worker threads each on a CUDA stream of its own, and the
+result merge on the device. Its body compiles with no constant
+substitution, and liveness, hoisting and the block compile treat a
+ParForBlock as the ForBlock it subclasses.
+
 What waits: layout propagation, the exec-type planner and MESH mode, the
-rest of the lifetime analysis, and parfor. A config that asks for one of them
-outright (exec_mode MESH), or sets any other field the port does not read
-(utils/config.check_ported), raises NotImplementedError.
+rest of the lifetime analysis, and remote parfor. A config that asks for
+one of them outright (exec_mode MESH), or sets any other field the port
+does not read (utils/config.check_ported), raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -312,6 +318,25 @@ class ForBlock(ProgramBlock):
                 b.execute(ec)
 
 
+class ParForBlock(ForBlock):
+    """Task-parallel loop. Execution strategy lives in runtime/parfor.py
+    (reference: ParForProgramBlock.java:572 + parfor/ package)."""
+
+    def __init__(self, var, from_h, to_h, incr_h, body,
+                 params: Dict[str, Hop],
+                 dep_check_result: Optional[str] = None):
+        super().__init__(var, from_h, to_h, incr_h, body)
+        self.params = params
+        self.dep_check_result = dep_check_result
+        self.body_stmts: Optional[List[A.Stmt]] = None  # set by compiler
+        self.last_plan = None   # the last run's plan (-explain runtime)
+
+    def execute(self, ec):
+        from systemml_tpu_torch.runtime.parfor import execute_parfor
+
+        execute_parfor(self, ec)
+
+
 class FunctionBlocks:
     def __init__(self, fn_def: A.FunctionDef, blocks: List[ProgramBlock],
                  file_id: int):
@@ -348,11 +373,24 @@ class ExecutionContext:
         self.block_graphs = False
 
     def child(self, file_id: Optional[int] = None) -> "ExecutionContext":
+        from systemml_tpu_torch.runtime.bufferpool import VarMap
+
         c = ExecutionContext(self.program, self.stats, self.printer,
                              self.file_id if file_id is None else file_id)
         c.skip_writes = self.skip_writes
         c.block_graphs = self.block_graphs
+        if not isinstance(self.vars, VarMap):
+            # a parfor worker's frames stay plain dicts, as its own
+            # environment: the pool is the caller's (runtime/parfor.py)
+            c.vars = {}
         return c
+
+    def eval_scalar(self, h: Hop):
+        """A hop (a parfor parameter) evaluated to a host value."""
+        from systemml_tpu_torch.compiler.lower import Evaluator, _scalar
+
+        v = Evaluator(self.vars, self.call_function, self.printer).eval(h)
+        return _scalar(v) if isinstance(v, torch.Tensor) else v
 
     # ---- function calls --------------------------------------------------
 
@@ -567,6 +605,12 @@ class Program:
         from systemml_tpu_torch.obs import trace as obs
         from systemml_tpu_torch.utils import stats as stats_mod
 
+        from systemml_tpu_torch.resil import inject
+
+        # (re)arm the config channel of the fault-injection registry at
+        # run entry: counters reset per execution, so a prepared script
+        # re-run under injection sees the same deterministic schedule
+        inject.arm(get_config().fault_injection)
         ec = ExecutionContext(self, printer=printer)
         ec.skip_writes = skip_writes
         ec.block_graphs = block_graphs
@@ -715,9 +759,27 @@ class ProgramCompiler:
                 blocks.append(WhileBlock(self._pred(s.predicate, builder),
                                          self._compile_body(s.body, builder)))
             elif isinstance(s, A.ParForStatement):
-                raise NotImplementedError(
-                    "parfor waits for ROADMAP queue 1, parfor, transform "
-                    "and frames")
+                flush()
+                params = {k: builder.build_predicate(v)[0]
+                          for k, v in s.params.items()}
+                # bounds evaluate ONCE at entry (pre-loop constants ok);
+                # the body runs post-assignment state
+                from_p = self._pred(s.from_expr, builder)
+                to_p = self._pred(s.to_expr, builder)
+                incr_p = (self._pred(s.incr_expr, builder)
+                          if s.incr_expr else None)
+                for n in _assigned_names(s.body) | {s.var}:
+                    builder.consts.pop(n, None)
+                # no constant substitution inside the body, as the JAX
+                # package compiles it (its remote workers re-parse the
+                # body's source; the port keeps the same hops)
+                saved_consts = builder.consts
+                builder.consts = {}
+                pf_body = self._compile_body(s.body, builder)
+                builder.consts = saved_consts
+                pb = ParForBlock(s.var, from_p, to_p, incr_p, pf_body, params)
+                pb.body_stmts = s.body
+                blocks.append(pb)
             elif isinstance(s, A.ForStatement):
                 flush()
                 from_p = self._pred(s.from_expr, builder)
@@ -784,7 +846,13 @@ def _merge_two_blocks(a: "BasicBlock", b: "BasicBlock") -> "BasicBlock":
 
 
 def _check_config_supported(cfg) -> None:
+    import os
+
+    from systemml_tpu_torch.utils.config import check_fault_sites
+
     check_ported(cfg)
+    check_fault_sites(cfg.fault_injection)
+    check_fault_sites(os.environ.get("SMTPU_FAULT", ""))
     if cfg.exec_mode == "MESH":
         raise NotImplementedError(
             "exec_mode MESH waits for ROADMAP queue 1, distributed and "

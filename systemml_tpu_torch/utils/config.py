@@ -479,7 +479,11 @@ PORTED_FIELDS = frozenset({
     "bufferpool_host_budget_bytes", "bufferpool_min_bytes",
     "mem_util_factor", "loopfuse_donate", "compile_timeout_s",
     # the CLI (api/cli.py)
-    "stats", "explain", "scratch_dir"})
+    "stats", "explain", "scratch_dir",
+    # parfor (runtime/parfor.py) and its task retries (resil/)
+    "parfor_par", "resil_enabled", "resil_max_attempts",
+    "resil_backoff_base_s", "resil_backoff_max_s", "resil_backoff_jitter",
+    "fault_injection"})
 
 # fields that have no meaning in the port: set to anything but their
 # default they raise with the reason
@@ -492,12 +496,12 @@ _MEANINGLESS = {
 _WAITING = (
     (("pallas_mode", "codegen_"), "kernel backend and tuner"),
     (("conv_",), "DNN and models"),
-    (("parfor_", "remote_deadline_s"), "parfor, transform and frames"),
+    (("remote_deadline_s",), "remote parfor (item 9b)"),
     (("serving_",), "serving and export"),
     (("profile_", "obs_", "donation_sanitizer"),
      "observability and static analysis"),
-    (("resil_", "fault_injection", "elastic_", "mesh_", "distributed_",
-      "comm_"), "distributed and elastic"),
+    (("elastic_", "mesh_", "distributed_", "comm_"),
+     "distributed and elastic"),
     (("fleet_",), "fleet"),
 )
 
@@ -527,6 +531,24 @@ def check_ported(cfg: DMLConfig) -> None:
             f"config {f.name}={getattr(cfg, f.name)!r}: the port does not "
             f"read it yet" + (f"; it waits for ROADMAP queue 1, {item}"
                               if item else ""))
+
+
+# the fault-injection sites the port runs (resil/inject.py); the others
+# belong to the mesh, the remote workers and the fleet
+PORTED_FAULT_SITES = frozenset({"parfor.task"})
+
+
+def check_fault_sites(spec: str) -> None:
+    """Raise NotImplementedError for a fault-injection spec
+    ("site:kind[:nth[:count]],...") that arms a site the port does not
+    run, so that no armed fault is silently ignored."""
+    for part in (spec or "").split(","):
+        site = part.strip().split(":")[0]
+        if site and site not in PORTED_FAULT_SITES:
+            raise NotImplementedError(
+                f"fault injection at site {site!r} waits for ROADMAP "
+                f"queue 1, distributed and elastic (item 12); the port "
+                f"injects at {', '.join(sorted(PORTED_FAULT_SITES))}")
 
 
 _local = threading.local()

@@ -3,13 +3,14 @@
 
 Port of systemml_tpu/utils/explain.py. A basic block shows whether the
 whole-block compile plans it ("fused") or the analysis leaves it eager;
-a loop shows its region plan or its refusal. Parfor waits for ROADMAP
-queue 1, parfor, transform and frames."""
+a loop shows its region plan or its refusal; a parfor its last run's
+plan (mode, k, partitioner; runtime/parfor_opt.py)."""
 
 from __future__ import annotations
 
 from systemml_tpu_torch.runtime.program import (BasicBlock, ForBlock,
-                                                IfBlock, Program, WhileBlock)
+                                                IfBlock, ParForBlock, Program,
+                                                WhileBlock)
 
 
 def explain_program(prog: Program, mode: str = "hops") -> str:
@@ -40,6 +41,12 @@ def _explain_block(b, depth: int, mode: str) -> str:
         if b.else_body:
             out.append(f"{pad}ELSE")
             out += [_explain_block(c, depth + 1, mode) for c in b.else_body]
+        return "\n".join(out)
+    if isinstance(b, ParForBlock):
+        plan = getattr(b, "last_plan", None)
+        extra = f" [{plan.describe()}]" if plan is not None else ""
+        out = [f"{pad}PARFOR ({b.var}){extra}"]
+        out += [_explain_block(c, depth + 1, mode) for c in b.body]
         return "\n".join(out)
     if isinstance(b, ForBlock):
         out = [f"{pad}FOR ({b.var}){_cla_tag(b)}{_region_tag(b)}"]

@@ -114,6 +114,29 @@ class Statistics:
         # many one-launch region executions served each loop
         self.region_counts = reg.labeled(
             "region_dispatch_total", "fused-loop-region dispatches")
+        # parfor (runtime/parfor.py): the dependency test's verdicts
+        # (lang/parfor_deps.py), the device-mode runs, and the task
+        # retries and faults (resil/)
+        self.dep_check_counts = reg.labeled(
+            "dep_check_result", "parfor dependency-test verdicts")
+        self.mesh_op_count = reg.labeled(
+            "mesh_op_total", "parfor device-mode runs")
+        self.resil_counts = reg.labeled(
+            "resil_events_total", "fault/retry decisions")
+
+    def merge(self, other: "Statistics") -> None:
+        """Adds `other`'s counters to this one's (a parfor worker's
+        Statistics into its caller's)."""
+        from systemml_tpu_torch.obs.metrics import Counter, LabeledCounter
+
+        with self._lock:
+            for name, m in other.registry.metrics().items():
+                mine = self.registry.get(name)
+                if isinstance(m, LabeledCounter):
+                    for k, v in m.items():
+                        mine.inc(k, v)
+                elif isinstance(m, Counter) and m.value:
+                    mine.inc(m.value)
 
     @property
     def eager_blocks(self) -> int:
@@ -164,6 +187,12 @@ class Statistics:
 
     def count_region(self, label: str, n: int = 1):
         self.region_counts.inc(label, n)
+
+    def count_mesh_op(self, method: str):
+        self.mesh_op_count.inc(method)
+
+    def count_resil(self, kind: str, n: int = 1):
+        self.resil_counts.inc(kind, n)
 
     def time_op(self, op: str, seconds: float):
         with self._lock:
@@ -239,6 +268,13 @@ class Statistics:
             # compress/device.py): process-wide, as the wrappers count
             lines.append("Kernel launches (this process): " + ", ".join(
                 f"{k}={v}" for k, v in sorted(launches.items())))
+        if self.dep_check_counts:
+            lines.append("Parfor dep checks (verdict=count): " + ", ".join(
+                f"{k}={v}"
+                for k, v in sorted(self.dep_check_counts.items())))
+        if self.resil_counts:
+            lines.append("Resilience events: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(self.resil_counts.items())))
         if self.fcall_counts:
             top = sorted(self.fcall_counts.items(), key=lambda kv: -kv[1])[:5]
             lines.append("Function calls: " +

@@ -1956,3 +1956,218 @@ def test_binary_block_read_of_1gb_equals_the_write(cuda, tmp_path):
     assert back.device.type == "cuda" and torch.equal(back, x)
     assert binaryblock.ARM_COUNTS == {("write", "native"): 1,
                                       ("read", "native"): 1}
+
+
+# --------------------------------------------------------------------------
+# parfor on worker lanes (runtime/parfor.py): region entries, captures and
+# the merge under eight workers, each on a CUDA stream of its own
+# --------------------------------------------------------------------------
+
+PARFOR_REGION = """
+fit = function(matrix[double] A, matrix[double] y) return (matrix[double] w) {
+  w = matrix(0, rows=ncol(A), cols=1)
+  it = 0
+  while (it < 20) {
+    w = w - 0.001 * (t(A) %*% (A %*% w - y))
+    it = it + 1
+  }
+}
+R = matrix(0, rows=ncol(X), cols=16)
+parfor (j in 1:16, par=P) {
+  w = fit(X, y + j)
+  R[, j] = w
+}
+"""
+
+
+def _parfor_run(src, device, inputs, outs, par, optlevel=2):
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    cfg = DMLConfig(device=device)
+    cfg.floating_point_precision = "double"
+    cfg.optlevel = optlevel
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+    s = dml(src.replace("par=P", f"par={par}"))
+    for k, v in inputs.items():
+        s.input(k, v)
+    res = ml.execute(s.output(*outs))
+    return [res.get_matrix(o) for o in outs], ml
+
+
+def test_parfor_eight_workers_enter_one_region_key(cuda):
+    """Eight workers call one function whose while loop is a region, on
+    the same X and y at once (one key): the results equal par=1's bit for
+    bit and the CPU's at 1e-12, the entry shared under the loop's lock."""
+    rng = np.random.default_rng(3)
+    ins = {"X": rng.standard_normal((2000, 12)),
+           "y": rng.standard_normal((2000, 1))}
+    (r8,), ml8 = _parfor_run(PARFOR_REGION, "cuda", ins, ["R"], 8)
+    (r1,), _ = _parfor_run(PARFOR_REGION, "cuda", ins, ["R"], 1)
+    (rc,), _ = _parfor_run(PARFOR_REGION, "cpu", ins, ["R"], 4)
+    np.testing.assert_array_equal(r8, r1)
+    np.testing.assert_allclose(r8, rc, rtol=1e-12, atol=1e-12)
+    assert ml8._stats.estim_counts["parfor_lanes"] == 8
+    assert sum(ml8._stats.region_counts.values()) == 16
+
+
+def test_parfor_capture_beside_launches_and_host_reads(cuda):
+    """Even iterations capture a loop region on their lanes while odd ones
+    launch kernels and read the device from the host (a loop refused for
+    its removeEmpty, whose row count and as.scalar read the card): every
+    capture stays valid, the results equal par=1's and the CPU's."""
+    src = """
+R = matrix(0, rows=16, cols=1)
+parfor (j in 1:16, par=P) {
+  if (j %% 2 == 0) {
+    v = matrix(j, rows=nrow(X), cols=1)
+    it = 0
+    while (it < 30) {
+      v = 0.5 * v + 0.1 * (X %*% (t(X) %*% v)) / nrow(X)
+      it = it + 1
+    }
+    R[j, 1] = sum(v)
+  } else {
+    s = 0
+    for (k in 1:25) {
+      t = removeEmpty(target=X[1:4, ], margin="rows")
+      s = s + as.scalar(sum(t * j)) / 1000
+    }
+    R[j, 1] = s
+  }
+}
+"""
+    x = np.random.default_rng(8).standard_normal((3000, 16))
+    (r8,), ml = _parfor_run(src, "cuda", {"X": x}, ["R"], 8)
+    (r1,), _ = _parfor_run(src, "cuda", {"X": x}, ["R"], 1)
+    (rc,), _ = _parfor_run(src, "cpu", {"X": x}, ["R"], 8)
+    np.testing.assert_array_equal(r8, r1)
+    np.testing.assert_allclose(r8, rc, rtol=1e-12, atol=1e-12)
+
+
+def test_parfor_merge_after_the_lane_stream_reuses_memory(cuda):
+    """A worker's result, made on its lane stream and read by the merge on
+    the caller's (held back here by a sleep kernel), stays intact while
+    the lane stream allocates and overwrites memory after the worker has
+    dropped it: the merge recorded it on the caller's stream."""
+    from types import SimpleNamespace
+
+    from systemml_tpu_torch.runtime import parfor
+
+    lane = parfor.lane_stream(cuda, 7)
+    shape = (2048, 1024)
+    orig = torch.zeros(shape, dtype=torch.float64, device=cuda)
+    lane.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(lane):
+        v = torch.full(shape, 7.0, dtype=torch.float64, device=cuda)
+    done = torch.cuda.Event()
+    done.record(lane)
+    caller = torch.cuda.current_stream(cuda)
+    caller.wait_event(done)
+    torch.cuda._sleep(200_000_000)          # the merge runs late
+    ec = SimpleNamespace(vars={})
+    results = [{"R": v}]
+    parfor.merge_results(ec, {"R": orig}, results, home=cuda)
+    del v, results
+    with torch.cuda.stream(lane):
+        for _ in range(4):
+            w = torch.full(shape, -1.0, dtype=torch.float64, device=cuda)
+            del w
+    torch.cuda.synchronize()
+    assert torch.equal(ec.vars["R"], torch.full_like(orig, 7.0))
+
+
+def test_parfor_rand_draws_equal_the_cpu_bits(cuda):
+    """Unseeded rand() in a parfor body under a global seed: each
+    iteration's sub-stream gives the card the CPU's bits, for par 1 and 8."""
+    from systemml_tpu_torch.ops import datagen
+
+    src = """
+R = matrix(0, rows=16, cols=40)
+parfor (i in 1:16, par=P) {
+  R[i,] = rand(rows=1, cols=40, min=-1, max=1)
+}
+"""
+    got = []
+    for device, par in (("cuda", 8), ("cuda", 1), ("cpu", 8)):
+        datagen.set_global_seed(21)
+        try:
+            (r,), _ = _parfor_run(src, device, {}, ["R"], par)
+        finally:
+            datagen.set_global_seed(None)
+        got.append(r)
+    np.testing.assert_array_equal(got[0], got[2])
+    np.testing.assert_array_equal(got[1], got[2])
+
+
+_SOLVE_LOOP = """
+s = matrix(0, rows=ncol(A), cols=1)
+i = 0
+while (i < 3) {
+  s = s + solve(A, b * (i + 1))
+  i = i + 1
+}
+"""
+
+
+def _solve_runs(a, b, precision):
+    """The solve loop's s with regions (codegen on) and eagerly: the sum
+    of solve(A, b * k) for k = 1, 2, 3 (b scaled, so that a b in A's
+    range stays there)."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    outs = []
+    for codegen in (True, False):
+        cfg = DMLConfig()
+        cfg.floating_point_precision = precision
+        cfg.codegen_enabled = codegen
+        ml = MLContext(cfg)
+        outs.append(ml.execute(
+            dml(_SOLVE_LOOP).input("A", a).input("b", b).output("s"))
+            .get_matrix("s"))
+        if codegen:
+            assert sum(ml._stats.region_counts.values()) == 1
+    return outs
+
+
+@pytest.mark.parametrize("precision", ["single", "double"])
+def test_solve_in_a_region_at_every_order(cuda, precision):
+    """solve() inside a while region at orders 1 to 1,000 (square; LU's
+    solve of orders 12 to 128 left a graph memory node that the region's
+    conditional body refused, so a region solves through the fp64
+    inverse, ops/linalg._solve_graph_safe) and on tall systems (least
+    squares): the region's and the eager run's within the fp32 or fp64
+    bar of the CPU's fp64 solve."""
+    bar = 1e-4 if precision == "single" else 1e-10
+    rng = np.random.default_rng(2)
+    for n, m in [(k, k) for k in (1, 2, 8, 9, 12, 16, 33, 64, 128, 256,
+                                  512, 1000)] + [(200, 3), (300, 12),
+                                                 (500, 40)]:
+        a = rng.standard_normal((n, m)) + (n * np.eye(n, m) if n == m
+                                           else 0)
+        b = rng.standard_normal((n, 1))
+        ref = 6 * np.linalg.lstsq(a, b, rcond=None)[0]
+        for out in _solve_runs(a, b, precision):
+            assert np.linalg.norm(out - ref) <= bar * np.linalg.norm(ref), \
+                (n, m)
+
+
+@pytest.mark.parametrize("shape", [(2000, 50), (50, 50)])
+def test_solve_of_an_ill_conditioned_fp64_system_matches_lstsq(cuda, shape):
+    """An fp64 A of condition number 1e6 (tall and square): eagerly (cuSOLVER's QR or LU) and inside a region
+    (the fp64 inverse with refinement), within 1e-10 of numpy's lstsq;
+    the normal equations alone are about 1e-4 off."""
+    n, m = shape
+    rng = np.random.default_rng(6)
+    u, _ = np.linalg.qr(rng.standard_normal((n, m)))
+    v, _ = np.linalg.qr(rng.standard_normal((m, m)))
+    a = (u * np.logspace(0, -6, m)) @ v.T
+    # consistent (b in A's range): with a residual, the answer's own
+    # sensitivity at this condition number is about 1e-10 (numpy's lstsq
+    # is that far from the exact one), which no method could meet
+    b = a @ rng.standard_normal((m, 1))
+    ref = 6 * np.linalg.lstsq(a, b, rcond=None)[0]
+    for out in _solve_runs(a, b, "double"):
+        assert np.linalg.norm(out - ref) <= 1e-10 * np.linalg.norm(ref)

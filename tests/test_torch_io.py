@@ -321,5 +321,24 @@ def test_linregcg_file_io_roundtrip(tmp_path, fmt):
 
 
 def test_frames_wait(tmp_path, port_cpu):
-    with pytest.raises(NotImplementedError, match="frames"):
-        matrixio.read_frame(str(tmp_path / "f.csv"))
+    """Frame IO came with the parfor, transform and frames slice: a frame
+    the port writes as csv with a header reads back in the JAX package,
+    and the other way round, with the same columns, schema and names."""
+    from systemml_tpu.lang.ast import ValueType as JaxVT
+    from systemml_tpu.runtime.data import FrameObject as JaxFrame
+    from systemml_tpu_torch.lang.ast import ValueType
+    from systemml_tpu_torch.runtime.data import FrameObject
+
+    cols = [np.array(["a", "b,c", "d"], dtype=object),
+            np.array([1.5, -2.0, 3.0])]
+    fr = FrameObject([c.copy() for c in cols],
+                     [ValueType.STRING, ValueType.DOUBLE], ["s", "v"])
+    jf = JaxFrame([c.copy() for c in cols], [JaxVT.STRING, JaxVT.DOUBLE],
+                  ["s", "v"])
+    matrixio.write_frame(fr, str(tmp_path / "p.csv"), ",", True, "csv")
+    jax_io.write_frame(jf, str(tmp_path / "j.csv"), ",", True, "csv")
+    for got in (jax_io.read_frame(str(tmp_path / "p.csv")),
+                matrixio.read_frame(str(tmp_path / "j.csv"))):
+        assert [list(c) for c in got.columns] == [list(c) for c in cols]
+        assert [t.name for t in got.schema] == ["STRING", "DOUBLE"]
+        assert list(got.colnames) == ["s", "v"]

@@ -11,7 +11,9 @@ neither jax nor the JAX package (systemml_tpu).
    The CLI, JMLC, the lazy matrix DSL, PyDML, the native IO library, the
    buffer pool and the block compile run the same way: LinearRegCG.dml
    from `cli.main` over a binary-block X read by the native arm, under a
-   pool budget that evicts.
+   pool budget that evicts. Parfor (StepGLM.dml with a task retried after
+   an injected OOM, seeded rand() in a parfor body), frames and frame IO,
+   and transformencode run the same way.
 2. No source file of the port (Python, CUDA, the host C++), and not
    chip_smoke.py, names them in an import or a dotted module path.
 """
@@ -158,6 +160,70 @@ assert np.allclose(defmatrix.matrix(x).sum(axis=0).toNumPy(),
 assert pydml.parse_pydml("y = 2 ** 3\n").statements
 print("ISOLATED_OK")
 '''
+
+
+# parfor (its plan, workers, merge, retries and rand sub-streams), frames
+# and frame IO, and the transform builtins
+_CHILD_PARFOR = _CHILD.split("import numpy as np")[0] + r'''
+import json
+import os
+import tempfile
+
+import numpy as np
+
+from systemml_tpu_torch.api.mlcontext import MLContext, dml, dmlFromFile
+from systemml_tpu_torch.io import matrixio
+from systemml_tpu_torch.lang.ast import ValueType
+from systemml_tpu_torch.ops import datagen
+from systemml_tpu_torch.runtime import parfor, parfor_opt, transform
+from systemml_tpu_torch.runtime.data import FrameObject
+from systemml_tpu_torch.utils.config import DMLConfig
+
+rng = np.random.default_rng(0)
+x = rng.standard_normal((60, 4))
+y = (x[:, :1] > 0).astype(float)
+cfg = DMLConfig(device="cpu")
+cfg.fault_injection = "parfor.task:oom:1"
+cfg.resil_backoff_base_s = 1e-4
+ml = MLContext(cfg)
+ml.printer = lambda s: None
+res = ml.execute(dmlFromFile("scripts/algorithms/StepGLM.dml")
+                 .input("X", x).input("y", y).output("B"))
+assert np.isfinite(res.get_matrix("B")).all()
+assert ml._stats.resil_counts["retry"] == 1
+datagen.set_global_seed(3)
+r = MLContext(device="cpu").execute(dml(
+    "R = matrix(0, rows=6, cols=2)\n"
+    "parfor (i in 1:6, par=3) {\n  R[i,] = rand(rows=1, cols=2)\n}")
+    .output("R")).get_matrix("R")
+datagen.set_global_seed(None)
+assert len({tuple(row) for row in r}) == 6
+d = tempfile.mkdtemp()
+fr = FrameObject([np.array(["a", "b", "a"], dtype=object),
+                  np.array([1.0, 2.0, 3.0])],
+                 [ValueType.STRING, ValueType.DOUBLE], ["c", "v"])
+matrixio.write_frame(fr, os.path.join(d, "f.csv"), ",", True, "csv")
+src = ('F = read("' + os.path.join(d, "f.csv") + '", data_type="frame", '
+       'format="csv", header=TRUE)\n'
+       '[X, M] = transformencode(target=F, spec="{\\"recode\\": [\\"c\\"]}")\n'
+       'G = rbind(F, F[1:1, ])\n')
+res = MLContext(device="cpu").execute(dml(src).output("X", "M", "G"))
+assert res.get_matrix("X").tolist() == [[1, 1], [2, 2], [1, 3]]
+assert res.get("G").num_rows == 4
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("ISOLATED_OK")
+'''
+
+
+def test_parfor_frames_transform_run_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _CHILD_PARFOR], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
 
 
 def test_entry_points_run_with_jax_and_jax_package_blocked():

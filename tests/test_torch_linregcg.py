@@ -137,7 +137,7 @@ def test_carry_beta_from_jax_into_port():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("parfor_par", 4, "parfor, transform and frames"),
+    ("remote_deadline_s", 60.0, "remote parfor"),
     ("xla_cache_dir", "/tmp/x", "compiles no XLA"),
     ("pallas_mode", "always", "kernel backend and tuner"),
     ("mesh_shape", {"dp": 4}, "distributed and elastic"),
