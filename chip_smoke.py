@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases
     python3 chip_smoke.py --breadth
     python3 chip_smoke.py --parfor
+    python3 chip_smoke.py --dnn
 
 The second form times only the spoof kernels K2, K3 and K5, the spoof
 wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
@@ -743,7 +744,7 @@ lr = $lr
 N = nrow(X)
 D = ncol(X)
 K = ncol(Y)
-W = matrix(0, rows=D, cols=K)
+W = rand(rows=D, cols=K, pdf="normal", seed=42) * sqrt(1.0 / D)
 b = matrix(0, rows=1, cols=K)
 iters = N %/% bs
 masks = matrix(0, rows=iters, cols=bs)
@@ -3602,7 +3603,8 @@ def _busy_share(prof) -> dict:
     """The device's busy share over a parfor: the union of the kernel
     intervals that start inside its "parfor" profiler range, over the
     range's length (lanes overlap: a plain sum would count a moment
-    twice). "not measured" when the profiler recorded no kernels."""
+    twice). The range's own device-side mirror, which spans it whole, is
+    no kernel. "not measured" when the profiler recorded no kernels."""
     from torch.autograd import DeviceType
 
     evs = prof.events()
@@ -3610,7 +3612,7 @@ def _busy_share(prof) -> dict:
                     if e.name == "parfor"
                     and e.device_type == DeviceType.CPU)
     ks = sorted((e.time_range.start, e.time_range.end) for e in evs
-                if e.device_type == DeviceType.CUDA)
+                if e.device_type == DeviceType.CUDA and e.name != "parfor")
     if not ranges or not ks:
         return {"busy_share": "not measured"}
     busy = span = 0.0
@@ -4580,6 +4582,606 @@ def phases() -> None:
 # main
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# the DNN slice: the normal draw, Caffe2DML ResNet-18, mnist_lenet's train()
+# --------------------------------------------------------------------------
+
+# Caffe2DML ResNet-18 (models/zoo.resnet18, BASELINE.md's north star) at
+# its published widths: 3x224x224, 1,000 classes; 1,024 synthetic images,
+# batch 64, one epoch: 16 steps of one flat loop
+RESNET_N, RESNET_BS, RESNET_K = 1024, 64, 1000
+# mnist_lenet.dml's train() at its widths (1x28x28, F1 32, F2 64, N3 512,
+# 5x5, batch 64, dropout 0.5, sgd_nesterov): 6,400 synthetic rows (100
+# iterations, one epoch), 640 for validation
+LENET_N, LENET_VAL = 6400, 640
+LENET_SRC = """
+source("nn/examples/mnist_lenet.dml") as mnist_lenet
+[W1, b1, W2, b2, W3, b3, W4, b4] = mnist_lenet::train(X, Y, X_val, Y_val,
+                                                      1, 28, 28, 1)
+probs = mnist_lenet::predict(X_val, 1, 28, 28, W1, b1, W2, b2, W3, b3, W4,
+                             b4)
+[loss, accuracy] = mnist_lenet::eval(probs, Y_val)
+"""
+# the loss of the same network at its initial weights: train()'s first
+# draws, in its order, from the same global seed
+LENET_INIT_SRC = """
+source("nn/examples/mnist_lenet.dml") as mnist_lenet
+source("nn/layers/affine.dml") as affine
+source("nn/layers/conv2d_builtin.dml") as conv2d
+[W1, b1] = conv2d::init(32, 1, 5, 5)
+[W2, b2] = conv2d::init(64, 32, 5, 5)
+[W3, b3] = affine::init(64 * 7 * 7, 512)
+[W4, b4] = affine::init(512, ncol(Y_val))
+W4 = W4 / sqrt(2)
+probs = mnist_lenet::predict(X_val, 1, 28, 28, W1, b1, W2, b2, W3, b3, W4,
+                             b4)
+[loss, accuracy] = mnist_lenet::eval(probs, Y_val)
+"""
+LENET_PREDICT = """
+source("nn/examples/mnist_lenet.dml") as mnist_lenet
+probs = mnist_lenet::predict(X, 1, 28, 28, W1, b1, W2, b2, W3, b3, W4, b4)
+"""
+
+
+def check_normal(dev) -> dict:
+    """rand(pdf="normal") on the card against the CPU's, bit for bit, in
+    fp32 and fp64 (ops/datagen.normal: the JAX package's erf_inv in
+    torch's basic ops), from a host seed and from a 0-d device seed (a
+    loop region's)."""
+    from systemml_tpu_torch.ops import datagen
+
+    out = {}
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.float64, torch.int64)):
+        for rows, cols, seed in ((2000, 1000, 7), (64, 3 * 7 * 7, 42)):
+            b = datagen.rand(rows, cols, pdf="normal", seed=seed,
+                             dtype=dtype, device="cpu")
+            for dev_seed in (False, True):
+                sd = (torch.tensor(seed, device=dev) if dev_seed else seed)
+                a = datagen.rand(rows, cols, pdf="normal", seed=sd,
+                                 dtype=dtype, device=dev)
+                same = bool(torch.equal(a.cpu().view(bits), b.view(bits)))
+                key = (f"{rows}x{cols} seed {seed}"
+                       f"{' (device seed)' if dev_seed else ''} "
+                       f"{str(dtype)[6:]}")
+                out[key] = same
+                print(f"[normal] rand ({rows}, {cols}) pdf normal {key}: "
+                      f"card equals CPU bit for bit {same}", flush=True)
+                if not same:
+                    fail(f"normal draw {key}: the card's differs from the "
+                         f"CPU's")
+    return out
+
+
+def _resnet_inputs(dev):
+    """X (N, 3*224*224) fp32 on the card from a seeded generator, and the
+    labels: every class 1 to 3 times, shuffled, with a planted class
+    shift of 0.25 x (label mod 10) on every pixel (the manner of
+    mnist_lenet.dml's generate_dummy_data)."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    y = np.arange(RESNET_N) % RESNET_K
+    np.random.default_rng(18).shuffle(y)
+    x = torch.randn(RESNET_N, 3 * 224 * 224, generator=gen, device=dev)
+    x += 0.25 * torch.from_numpy(y % 10).to(dev, torch.float32)[:, None]
+    return x, y
+
+
+def _cross_entropy(probs: torch.Tensor, y: np.ndarray) -> float:
+    idx = torch.from_numpy(np.asarray(y)).to(probs.device).long()
+    p = probs.double().gather(1, idx[:, None])
+    return float(-torch.log(p).mean())
+
+
+def _run_script(clf, x, y, cfg, n, outputs, params=None):
+    """The estimator's generated training script through MLContext on the
+    first n rows (n / 64 steps), the one-hot labels over all of its
+    classes: from its own initial weights, or from `params` (the init
+    lines dropped, the weights bound as inputs)."""
+    import re
+
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.models import estimators
+    from systemml_tpu_torch.ops import datagen
+
+    src = clf.get_training_script()
+    if params is not None:
+        src = "\n".join(l for l in src.splitlines()
+                        if not re.match(r"\[(W|G)\d+, .*::init\(", l))
+    s = dml(src)
+    s.base_dir = estimators._nn_base_dir()
+    s.input("X", x[:n]).input("Y", estimators._one_hot(y[:n], clf.classes_))
+    for k, v in clf.hyper.items():
+        s.arg(k, v)
+    for k, v in (params or {}).items():
+        s.input(k, v)
+    datagen.set_global_seed(int(clf.hyper["seed"]))
+    try:
+        return MLContext(cfg).execute(s.output(*outputs))
+    finally:
+        datagen.set_global_seed(None)
+
+
+def _first_step_loss(clf, x, y, cfg, params=None) -> float:
+    """The training loss of one step on the first batch: the cross entropy
+    of that step's train-mode softmax (the script's probs_final)."""
+    probs = _run_script(clf, x, y, cfg, RESNET_BS, ("probs_final",),
+                        params).get_tensor("probs_final")
+    return _cross_entropy(probs, np.searchsorted(clf.classes_,
+                                                 y[:RESNET_BS]))
+
+
+def _param_diff(a: dict, b: dict) -> tuple:
+    """(every parameter bit-identical, the normwise difference of all
+    parameters as one vector). One vector: a conv bias before a batch
+    norm has an exactly-zero gradient, so its values are rounding noise
+    that only the model's scale measures."""
+    same, num, den = True, 0.0, 0.0
+    for k in a:
+        x, z = a[k].double(), b[k].double()
+        same &= bool(torch.equal(a[k], b[k]))
+        num += float(torch.sum((x - z) ** 2))
+        den += float(torch.sum(z ** 2))
+    return same, math.sqrt(num / max(den, 1e-300))
+
+
+def _busy_over(prof, wall_ms: float) -> dict:
+    """The union of the device intervals a CUDA-only profile recorded,
+    over the run's wall time taken on the host around it (the two clocks
+    differ, so only lengths are compared): the busy share of a run
+    without a profiler range, with the number of intervals listed."""
+    from torch.autograd import DeviceType
+
+    ks = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    if not ks:
+        return {"busy_share": "not measured", "kernels": 0}
+    busy, end = 0.0, ks[0][0]
+    for a, b in ks:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"busy_share": busy / 1e3 / wall_ms, "kernel_union_ms": busy / 1e3,
+            "wall_ms": wall_ms, "kernels": len(ks)}
+
+
+class Laps:
+    """Host seconds between named points of a phase, for its last line."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = round(now - self.t, 2)
+        self.t = now
+
+
+def _update_diff(a: dict, b: dict, start: dict) -> float:
+    """The normwise difference of two runs' updates from the same start,
+    ||(a - start) - (b - start)|| / ||b - start||, all parameters as one
+    vector: a gradient's fault shows against the update's own size, not
+    against the parameters'."""
+    num = den = 0.0
+    for k in a:
+        x, z, s0 = a[k].double(), b[k].double(), start[k].double()
+        num += float(torch.sum((x - z) ** 2))
+        den += float(torch.sum((z - s0) ** 2))
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _kernels_by_time(prof) -> list:
+    """A profile's kernels, (name, calls, ms), the most device time
+    first."""
+    from torch.autograd import DeviceType
+
+    acc = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = _kernel_name(e.name)
+            ms, k = acc.get(name, (0.0, 0))
+            acc[name] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+    return sorted(((nm, k, ms) for nm, (ms, k) in acc.items()),
+                  key=lambda r: -r[2])
+
+
+# the conv geometries the card's "auto" rules rest on (ops/dnn.py:
+# CUDA_AUTO_LAYOUT, CUDA_AUTO_ALGO): (name, n, c, h, w, f, k, stride, pad)
+CONV_RULE_GEOMS = (
+    ("resnet stem", 64, 3, 224, 224, 64, 7, 2, 3),
+    ("resnet s0 3x3", 64, 64, 56, 56, 64, 3, 1, 1),
+    ("resnet s1 3x3/2", 64, 64, 56, 56, 128, 3, 2, 1),
+    ("resnet s1 3x3", 64, 128, 28, 28, 128, 3, 1, 1),
+    ("resnet s1 1x1/2", 64, 64, 56, 56, 128, 1, 2, 0),
+    ("resnet s2 3x3", 64, 256, 14, 14, 256, 3, 1, 1),
+    ("resnet s3 3x3", 64, 512, 7, 7, 512, 3, 1, 1),
+    ("lenet conv1", 64, 1, 28, 28, 32, 5, 1, 2),
+    ("lenet conv2", 64, 32, 14, 14, 64, 5, 1, 2))
+
+
+def conv_rule_phase(dev, smi) -> dict:
+    """Both conv arms ("conv": cuDNN; "im2col": unfold and one matmul) in
+    both layouts (NCHW; NHWC as channels-last) at fp32 with TF32 off, at
+    ResNet-18's and LeNet's geometries: CUDA events over back-to-back
+    calls of the forward, the filter gradient and the data gradient
+    (ms each, boundary-form inputs, so an NHWC run pays its transposes;
+    5 calls a turn, two turns, after 2 warm calls).
+    The times the card's "auto" rules in ops/dnn.py rest on; `--dnn`
+    runs it, the full run does not (the rules are constants)."""
+    from systemml_tpu_torch.ops import dnn
+    from systemml_tpu_torch.utils.config import (apply_matmul_precision,
+                                                 get_config, set_config)
+
+    prev = get_config()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    try:
+        for name, n, c, h, w, f, k, s, p in CONV_RULE_GEOMS:
+            x = torch.randn(n, c * h * w, generator=gen, device=dev)
+            wt = torch.randn(f, c * k * k, generator=gen, device=dev)
+            ho = dnn.out_dim(h, k, s, p)
+            d = torch.randn(n, f * ho * ho, generator=gen, device=dev)
+            args = ([n, c, h, w], [f, c, k, k], [s, s], [p, p])
+            row = {}
+            for algo in ("conv", "im2col"):
+                for layout in ("nchw", "nhwc"):
+                    cfg = config(2)
+                    cfg.conv_algorithm, cfg.conv_layout = algo, layout
+                    set_config(cfg)
+                    apply_matmul_precision()
+                    row[f"{algo},{layout}"] = time_ms([
+                        lambda: dnn.conv2d(x, wt, *args),
+                        lambda: dnn.conv2d_backward_filter(x, d, *args),
+                        lambda: dnn.conv2d_backward_data(wt, d, *args)],
+                        reps=5, warm=2)
+            best = min(row, key=lambda r: sum(row[r]))
+            out[name] = {"ms": row, "fastest": best}
+            print(f"[conv-rule] {name} ({n}, {c}, {h}, {w}) x ({f}, {k}x{k}) "
+                  f"s{s} p{p} fp32 on {smi}: ms forward / filter grad / "
+                  f"data grad " + "; ".join(
+                      f"{r} " + " / ".join(f"{v:.4f}" for v in t)
+                      for r, t in row.items())
+                  + f"; fastest in all three {best}", flush=True)
+            del x, wt, d
+    finally:
+        set_config(prev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet18_phase(dev, kernels, smi, control: bool = False) -> dict:
+    """Caffe2DML(zoo.resnet18()).fit(X, y) on the card at optlevel 3, its
+    training loop as a loop region: the first fit's seconds (parse,
+    compile and nvcc, the init draw, the peel and the capture), a warm
+    re-fit's ms per step and images/s and its busy share (torch.profiler),
+    peak memory, region captures, launches and refusals, the conv
+    algorithm and layout picks and transposes, K2/K4 launches, and
+    predict_proba's ms per image over 256 images. Checks: the loss of
+    the first batch falls from the initial weights to the trained ones;
+    the fit with regions equals the fit without (bit for bit, or 1e-5
+    normwise); two steps forced to conv_algorithm "im2col" update the
+    learned parameters within 0.1 of cuDNN's update from the same start,
+    normwise; under "bfloat16" the first step's loss is within 4e-2 of
+    fp32's. With `control` (`--dnn`) the im2col check's own control
+    runs too: the same two steps with im2col's filter gradient halved
+    must fail the bar. The bar lies between the sound reading, about
+    2e-2 of fp32 rounding, and the halved gradient's 0.5; in fp64 the two
+    arms' updates agree to 1e-12, and the control runs at a small size on
+    the CPU (tests/test_torch_models.py::test_conv_arms_update_alike).
+    The busy share over the warm fit is printed as measured only when
+    the profiler listed at least 90% as many kernels as the eager fit
+    ran (it may not list a graph's). The last line gives the phase's
+    host seconds by part."""
+    from systemml_tpu_torch.models import Caffe2DML, zoo
+    from systemml_tpu_torch.runtime import loopfuse
+    from systemml_tpu_torch.utils.config import get_config, set_config
+
+    x, y = _resnet_inputs(dev)
+    steps = RESNET_N // RESNET_BS
+    prev = get_config()
+    out = {"n": RESNET_N, "batch": RESNET_BS, "steps": steps,
+           "classes": RESNET_K, "input": [3, 224, 224], "card": smi}
+
+    def fitted(cfg, precision="auto", clf=None):
+        set_config(cfg)
+        try:
+            clf = clf or Caffe2DML(zoo.resnet18(), epochs=1,
+                                   batch_size=RESNET_BS, seed=1,
+                                   precision=precision)
+            t0 = time.perf_counter()
+            clf.fit(x, y)
+            torch.cuda.synchronize()
+            return clf, time.perf_counter() - t0
+        finally:
+            set_config(prev)
+
+    cfg = config(3)
+    laps = Laps()
+    clf, first_s = fitted(cfg)
+    laps("first fit")
+    print(f"[resnet18] first fit (parse, compile, nvcc, init draw, peel, "
+          f"capture, {steps} steps): {first_s:.2f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    with PhaseTimer() as timer:
+        clf, warm_s = fitted(cfg, clf=clf)
+    launches = read_launches(kernels)
+    # the loop's graph launch alone (device time; the init draw and the
+    # loop's entry and exit outside it)
+    graph_ms = sum(w[1] for w in timer.windows["launch"])
+    graph_step_ms = graph_ms / steps
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = clf.fit_stats_
+    regions = loopfuse.region_report(clf._fit_prog)
+    ms_step = 1e3 * warm_s / steps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fitted(cfg, clf=clf)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy = _busy_over(prof, prof_wall_ms)
+    laps("warm and profiled fits")
+    del prof
+    dnn_counts = {k: v for k, v in stats.estim_counts.items()
+                  if k.startswith("dnn_")}
+    refusals = {r["label"]: r.get("refused") for r in regions
+                if r.get("refused")}
+    print(f"[resnet18] warm fit on {smi}: {warm_s:.3f} s, {ms_step:.2f} ms "
+          f"per step (the init draw and the loop's entry and exit "
+          f"included), {1e3 * RESNET_BS / ms_step:.1f} images/s; the "
+          f"loop's graph {graph_ms:.2f} ms, {graph_step_ms:.3f} ms per "
+          f"step, {1e3 * RESNET_BS / graph_step_ms:.1f} images/s, "
+          f"{graph_ms / (1e3 * warm_s):.4f} of the warm fit (CUDA events); "
+          f"peak allocated {peak / 1e9:.2f} GB; launches {launches}",
+          flush=True)
+    print(f"[resnet18] regions {regions}; refused {refusals}", flush=True)
+    for line in stats.display().splitlines():
+        if line.startswith(("DNN hot path", "  conv algorithms",
+                            "Loop regions", "Spoof")):
+            print(f"[resnet18] {line.strip()}", flush=True)
+    trained = dict(clf.params)
+    if not all(bool(torch.isfinite(v).all()) for v in trained.values()):
+        fail("resnet18: the trained parameters are not finite")
+    main = next((r for r in regions if r.get("entries")), None)
+    if main is None or not main.get("captures") or refusals:
+        fail(f"resnet18: the training loop did not run as a captured "
+             f"region: {regions}")
+    # predict_proba over 256 images (the second call timed)
+    clf_p = clf
+    set_config(cfg)
+    try:
+        clf_p.predict_proba(x[:256])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = clf_p.predict_proba(x[:256])
+        pred_s = time.perf_counter() - t0
+    finally:
+        set_config(prev)
+    if probs.shape != (256, RESNET_K) or not np.isfinite(probs).all() \
+            or not np.allclose(probs.sum(1), 1.0, atol=1e-3):
+        fail(f"resnet18: predict_proba gave {probs.shape}, not rows of "
+             f"probabilities")
+    # the first batch's training loss: initial weights against trained
+    laps("predict")
+    loss0 = _first_step_loss(clf, x, y, cfg)
+    loss16 = _first_step_loss(clf, x, y, cfg, trained)
+    print(f"[resnet18] predict_proba {1e3 * pred_s / 256:.4f} ms per image "
+          f"over 256 images; first batch's training loss {loss0:.5f} at "
+          f"the initial weights, {loss16:.5f} after {steps} steps",
+          flush=True)
+    if not (math.isfinite(loss0) and math.isfinite(loss16)
+            and loss16 < loss0):
+        fail(f"resnet18: the loss did not fall ({loss0} -> {loss16})")
+    laps("first-step losses")
+    # the same fit without regions (codegen_enabled False), profiled:
+    # where the device time of a step goes, kernel by kernel
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eager, eager_s = fitted(config(3, regions=False))
+    every = _kernels_by_time(prof)
+    top = every[:15]
+    kernel_ms = sum(r[2] for r in every)
+    eager_kernels = sum(r[1] for r in every)
+    del prof
+    listed = busy.get("kernels", 0)
+    if listed < 0.9 * eager_kernels:
+        busy = {"busy_share": "not measured", "listed": listed,
+                "eager_kernels": eager_kernels}
+    print(f"[resnet18] busy share over the warm fit (torch.profiler): "
+          f"{busy['busy_share']}; the profiler listed {listed} kernels "
+          f"there, the eager fit ran {eager_kernels}", flush=True)
+    print(f"[resnet18] where a step's device time goes (the eager fit's "
+          f"kernels, profiler, init draw included: {kernel_ms:.1f} ms in "
+          f"all, {kernel_ms / steps:.2f} a step): "
+          + "; ".join(f"{nm} x{k} {ms:.2f} ms" for nm, k, ms in top),
+          flush=True)
+    same, diff = _param_diff(trained, eager.params)
+    print(f"[resnet18] with regions / without: bit-identical {same}, "
+          f"normwise {diff:.3e} (bar 1e-5); {ms_step:.2f} / "
+          f"{1e3 * eager_s / steps:.2f} ms per step (the eager fit's "
+          f"compile included)", flush=True)
+    if not same and not diff <= 1e-5:
+        fail(f"resnet18: the fit with regions is {diff} from the eager one")
+    del eager
+    laps("eager fit")
+    # two steps forced to im2col against cuDNN, both from the trained
+    # parameters: the updates of the learned parameters compared (the
+    # batch norms' running statistics follow the forward, not a gradient,
+    # and are printed apart)
+    from systemml_tpu_torch.models import dmlgen
+    from systemml_tpu_torch.ops import dnn
+
+    names = dmlgen.param_names(clf.spec)
+    learned = [n for n in names if not n.startswith("EMA")]
+
+    def two_steps(c):
+        r = _run_script(clf, x, y, c, 2 * RESNET_BS, names, trained)
+        out = {n: r.get_tensor(n) for n in names}
+        return ({n: out[n] for n in learned},
+                {n: out[n] for n in names if n not in learned})
+
+    c2, c2_ema = two_steps(cfg)
+    cfg_i = config(3)
+    cfg_i.conv_algorithm = "im2col"
+    t0 = time.perf_counter()
+    i2, i2_ema = two_steps(cfg_i)
+    i2_s = time.perf_counter() - t0
+    idiff = _update_diff(i2, c2, trained)
+    ema_diff = _update_diff(i2_ema, c2_ema, trained)
+    planted = "not run"
+    if control:
+        sound = dnn.conv2d_backward_filter
+        dnn.conv2d_backward_filter = lambda *a, **k: 0.5 * sound(*a, **k)
+        try:
+            planted = _update_diff(two_steps(cfg_i)[0], c2, trained)
+        finally:
+            dnn.conv2d_backward_filter = sound
+    print(f"[resnet18] 2 steps with conv_algorithm im2col against cuDNN, "
+          f"from the same parameters: the learned parameters' updates "
+          f"differ by {idiff:.3e} normwise (bar 0.1), with im2col's "
+          f"filter gradient halved {planted}; the running statistics' "
+          f"updates by {ema_diff:.3e}; {i2_s:.2f} s for the run, its "
+          f"compile included", flush=True)
+    if not idiff <= 0.1:
+        fail(f"resnet18: im2col's update is {idiff} from cuDNN's")
+    if control and not planted > 0.1:
+        fail(f"resnet18: a halved filter gradient passes the im2col check "
+             f"({planted})")
+    del c2, i2
+    laps("im2col against cuDNN")
+    # the bfloat16 mixed policy
+    bf, bf_first_s = fitted(cfg, precision="bfloat16")
+    with PhaseTimer() as timer:
+        bf, bf_s = fitted(cfg, precision="bfloat16", clf=bf)
+    bf_graph_step = sum(w[1] for w in timer.windows["launch"]) / steps
+    cfg_b = config(3)
+    cfg_b.floating_point_precision = "bfloat16"
+    loss_bf = _first_step_loss(bf, x, y, cfg_b)
+    rel = abs(loss_bf - loss0) / abs(loss0)
+    print(f"[resnet18] bfloat16 policy on {smi}: {1e3 * bf_s / steps:.2f} ms "
+          f"per step warm, {RESNET_BS * steps / bf_s:.1f} images/s; the "
+          f"loop's graph {bf_graph_step:.3f} ms per step "
+          f"({1e3 * RESNET_BS / bf_graph_step:.1f} images/s); first "
+          f"step's loss {loss_bf:.5f} against fp32's {loss0:.5f} "
+          f"(relative {rel:.3e}, bar 4e-2)", flush=True)
+    if not rel <= 4e-2:
+        fail(f"resnet18: the bfloat16 first-step loss is {rel} from fp32's")
+    del bf
+    laps("bfloat16 fits")
+    print(f"[resnet18] host seconds by part: {laps.s}", flush=True)
+    out.update({"first_fit_s": first_s, "warm_fit_s": warm_s,
+                "ms_per_step": ms_step, "graph_ms_per_step": graph_step_ms,
+                "images_per_s": 1e3 * RESNET_BS / ms_step,
+                "busy": busy, "eager_top_kernels": top,
+                "eager_kernel_ms": kernel_ms, "peak_bytes": peak,
+                "launches": launches,
+                "regions": regions, "dnn_counts": dnn_counts,
+                "predict_ms_per_image": 1e3 * pred_s / 256,
+                "loss_first_batch": [loss0, loss16],
+                "versus_eager": {"bit_identical": same, "normwise": diff},
+                "im2col_update_normwise": idiff,
+                "im2col_planted_fault": planted, "seconds": laps.s,
+                "im2col_running_stats_normwise": ema_diff,
+                "bf16": {"ms_per_step": 1e3 * bf_s / steps,
+                         "graph_ms_per_step": bf_graph_step,
+                         "first_fit_s": bf_first_s,
+                         "first_step_loss": loss_bf, "fp32_loss": loss0}})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lenet_data(dev, n, gen):
+    """mnist_lenet.dml's generate_dummy_data at n rows: classes in 1..10,
+    X = N(0, 1) + 0.25 x class on every pixel, Y one-hot."""
+    cls = torch.randint(1, 11, (n,), generator=gen, device=dev)
+    x = torch.randn(n, 784, generator=gen, device=dev) \
+        + 0.25 * cls[:, None].float()
+    yy = torch.nn.functional.one_hot(cls - 1, 10).float()
+    return x, yy
+
+
+def lenet_phase(dev, kernels, smi) -> dict:
+    """scripts/nn/examples/mnist_lenet.dml's train() through MLContext at
+    its widths: 6,400 rows, one epoch (100 iterations). Its inner loop is
+    refused as "static_names" (end = min(N, beg + batch_size - 1)), as in
+    the JAX package. The validation loss after the epoch must be below
+    the loss at the initial weights, and the JMLC predict path scores."""
+    from systemml_tpu_torch.api import jmlc
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.models import estimators
+    from systemml_tpu_torch.ops import datagen
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x, yy = _lenet_data(dev, LENET_N, gen)
+    xv, yv = _lenet_data(dev, LENET_VAL, gen)
+    base = estimators._nn_base_dir()
+
+    def run(src, outs):
+        from systemml_tpu_torch.obs import trace as obs
+
+        s = dml(src)
+        s.base_dir = base
+        s.input("X", x).input("Y", yy).input("X_val", xv).input("Y_val", yv)
+        ml = MLContext(config(2))
+        lines = []
+        ml.printer = lines.append
+        datagen.set_global_seed(5)
+        try:
+            with obs.session() as rec:
+                t0 = time.perf_counter()
+                res = ml.execute(s.output(*outs))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            refused = sorted({e.args.get("reason") for e in rec.events()
+                              if e.name == "loop_fallback"})
+            return res, secs, lines, refused
+        finally:
+            datagen.set_global_seed(None)
+
+    init, _, _, _ = run(LENET_INIT_SRC, ("loss",))
+    loss0 = float(init.get_scalar("loss"))
+    reset_launches(kernels)
+    names = ("W1", "b1", "W2", "b2", "W3", "b3", "W4", "b4")
+    res, secs, lines, refused = run(LENET_SRC,
+                                    names + ("loss", "accuracy"))
+    launches = read_launches(kernels)
+    loss, acc = float(res.get_scalar("loss")), float(res.get_scalar(
+        "accuracy"))
+    iters = LENET_N // 64
+    print(f"[lenet] train() one epoch of {iters} iterations at batch 64 on "
+          f"{smi}: {secs:.3f} s, {1e3 * secs / iters:.3f} ms per iteration "
+          f"(the epoch's validation predict of {LENET_VAL} rows, parse and "
+          f"compile included); validation loss {loss0:.5f} at the initial "
+          f"weights, {loss:.5f} after the epoch; accuracy {acc:.4f}; "
+          f"printed {lines}; loops refused as regions: {refused} (the "
+          f"JAX package's fused loop refuses the same); launches "
+          f"{launches}", flush=True)
+    if not (math.isfinite(loss) and loss < loss0):
+        fail(f"lenet: the validation loss did not fall ({loss0} -> {loss})")
+    if "static_names" not in refused:
+        fail(f"lenet: train()'s inner loop was not refused as "
+             f"static_names: {refused}")
+    # JMLC: the predict function over the trained weights
+    conn = jmlc.Connection()
+    ps = conn.prepare_script(LENET_PREDICT, input_names=["X", *names],
+                             output_names=["probs"], base_dir=base)
+    params = {n: res.get_tensor(n) for n in names}
+    t0 = time.perf_counter()
+    probs = ps.execute({"X": xv, **params}).get_tensor("probs")
+    torch.cuda.synchronize()
+    jmlc_s = time.perf_counter() - t0
+    jacc = float((probs.argmax(1) == yv.argmax(1)).double().mean())
+    print(f"[lenet] JMLC predict of {LENET_VAL} rows: {1e3 * jmlc_s:.2f} ms, "
+          f"accuracy {jacc:.4f} (chance 0.1)", flush=True)
+    if not jacc > 0.1 or abs(jacc - acc) > 1e-6:
+        fail(f"lenet: JMLC predict accuracy {jacc} (the script's {acc})")
+    return {"iterations": iters, "seconds": secs,
+            "ms_per_iteration": 1e3 * secs / iters, "loss": [loss0, loss],
+            "accuracy": acc, "jmlc_accuracy": jacc, "launches": launches,
+            "refused": refused, "card": smi}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -4700,6 +5302,7 @@ def main() -> None:
     check_multiagg_kernel(_plan_of(als_progs["summary"], "multiagg"),
                           ratings, progs, dev, kernels, max_abs_err)
     check_rand(dev)
+    normal = check_normal(dev)
     set_cond_rec = check_set_cond(dev)
 
     # ---- 2b. the region bridge on small scripts, card against CPU ---------
@@ -4880,6 +5483,11 @@ def main() -> None:
     block = block_phase(breadth, block_launches)
     jmlc = jmlc_phase(data, dev)
     torch.cuda.empty_cache()
+    # this slice's paths: Caffe2DML ResNet-18 at 3x224x224 with 1,000
+    # classes, and mnist_lenet's train() through MLContext
+    resnet = resnet18_phase(dev, kernels, smi)
+    lenet = lenet_phase(dev, kernels, smi)
+    torch.cuda.empty_cache()
 
     # ---- 4. times -----------------------------------------------------------
     v = torch.randn(K, 1, generator=gen, device=dev)
@@ -4918,6 +5526,8 @@ def main() -> None:
     by_path["ALS-CG-netflix"] = sparse["ALS-CG-netflix"]["optlevel3"]["launches"]
     by_path["parfor-stepglm"] = stepglm["optlevel3"]["parfor"]["launches"]
     by_path["parfor-univar"] = univar["parfor"]["launches"]
+    by_path["resnet18"] = resnet["launches"]
+    by_path["lenet"] = lenet["launches"]
     spoof_launches = {k: sum(c[k] for c in by_path.values())
                       for k in ("spoof_cell", "spoof_row")}
     replaces = {"spoof_cell": "systemml_tpu/codegen/kernels.py:124 "
@@ -5061,6 +5671,8 @@ def main() -> None:
                       "cli": cli, "pool": pool, "block": block,
                       "jmlc": jmlc, "parfor_stepglm": stepglm,
                       "parfor_univar": univar, "transform": transform,
+                      "resnet18": resnet, "lenet": lenet,
+                      "normal_draw": normal,
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path,
                       "device_ms_fallbacks": DEVICE_MS_FALLBACKS}))
@@ -5108,8 +5720,30 @@ def parfor_only() -> None:
     print(json.dumps(res))
 
 
+def dnn_only() -> None:
+    """The normal draw and the DNN phases alone (no kernel phase): what
+    `--dnn` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    from systemml_tpu_torch.codegen import kernels
+
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = {"normal_draw": check_normal(dev),
+           "conv_rule": conv_rule_phase(dev, smi),
+           "resnet18": resnet18_phase(dev, kernels, smi, control=True),
+           "lenet": lenet_phase(dev, kernels, smi)}
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps(res, default=str))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--breadth"]:
+    if sys.argv[1:2] == ["--dnn"]:
+        dnn_only()
+    elif sys.argv[1:2] == ["--breadth"]:
         breadth_only()
     elif sys.argv[1:2] == ["--parfor"]:
         parfor_only()

@@ -10,11 +10,15 @@ of lower.py:483-960 there (`plan_loop_regions`, whose `LoopRegion`s
 runtime/loopfuse.py executes as CUDA graphs). What waits, each raising
 NotImplementedError that names its ROADMAP item:
 
-- MESH dispatch and collectives (distributed and elastic),
-- attention and the DNN builtins (DNN and models), the mesh branches of
-  compressed and sparse operands and of the quaternary ops
-  (distributed and elastic),
-- every builtin outside _BUILTINS (see _WAITING_BUILTINS).
+- MESH dispatch and collectives (distributed and elastic), among them
+  sequence-parallel attention and the mesh branches of compressed and
+  sparse operands and of the quaternary ops.
+
+The DNN builtins (conv2d and its backwards, the pools and theirs,
+bias_add, bias_multiply, lstm, batch_norm2d, and the layout pass's
+internal __from_nhwc) lower to ops/dnn.py as lower.py:2730-2935 there
+lower them, the nhwc flags of hops/layout.py included; `attention` to
+parallel/ring.attention on one device.
 """
 
 from __future__ import annotations
@@ -311,6 +315,16 @@ def _dead_string_accumulators(body, pred_reads, live_after) -> Set[str]:
     string_writes: Set[str] = set()
     readers: Dict[str, Set[str]] = {}   # name -> write-names reading it
     observed: Set[str] = set(live_after) | set(pred_reads)
+    memo: Dict[int, frozenset] = {}     # hop id -> the names it reads
+
+    def tread_names(h) -> frozenset:
+        got = memo.get(h.id)
+        if got is None:
+            acc = {h.name} if h.op == "tread" else set()
+            for c in h.inputs:
+                acc |= tread_names(c)
+            got = memo[h.id] = frozenset(acc)
+        return got
 
     def scan_basic(b):
         for n, h in b.hops.writes.items():
@@ -319,13 +333,10 @@ def _dead_string_accumulators(body, pred_reads, live_after) -> Set[str]:
             if h.dt == "string" or (h.op == "lit"
                                     and isinstance(h.value, str)):
                 string_writes.add(n)
-            for x in postorder([h]):
-                if x.op == "tread":
-                    readers.setdefault(x.name, set()).add(n)
+            for name in tread_names(h):
+                readers.setdefault(name, set()).add(n)
         for s in b.hops.sinks:
-            for x in postorder([s]):
-                if x.op == "tread":
-                    observed.add(x.name)
+            observed.update(tread_names(s))
 
     def walk(bs):
         for b in bs:
@@ -412,6 +423,22 @@ def _static_shape_names(blocks, sizing_only: bool = False) -> Set[str]:
     names: Set[str] = set()
 
     def mark(h):
+        if sizing_only:
+            # a name read only through nrow/ncol/length sizes nothing a
+            # region could change: the region keeps every carried shape
+            # (the conv layers' N = nrow(X), F = nrow(W) in their
+            # [N, C, H, W] lists)
+            stack, seen = [h], set()
+            while stack:
+                x = stack.pop()
+                if x.id in seen:
+                    continue
+                seen.add(x.id)
+                if x.op == "tread":
+                    names.add(x.name)
+                elif x.op not in ("nrow", "ncol", "length"):
+                    stack.extend(x.inputs)
+            return
         for x in postorder([h]):
             if x.op == "tread":
                 names.add(x.name)
@@ -964,16 +991,6 @@ def _chain_product(vals, split, i: int, j: int):
                         _chain_product(vals, split, k + 1, j))
 
 
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it waits for "
-                               f"ROADMAP queue 1, {item}")
-
-
-_WAIT_OPS = (
-    ("attention", "attention waits", "DNN and models"),
-)
-
-
 class Evaluator:
     """Evaluates a HOP DAG bottom-up with memoization.
 
@@ -1096,9 +1113,14 @@ class Evaluator:
                                 h.params.get("ctype", "XtXv"))
         if op.startswith("q("):
             return self._quaternary(h)
-        for prefix, what, item in _WAIT_OPS:
-            if op.startswith(prefix):
-                raise _waits(what, item)
+        if op == "attention":
+            from systemml_tpu_torch.parallel import ring
+
+            q, k, v = (self._m(c) for c in h.inputs)
+            # one device: the JAX package's sequence-parallel branch
+            # (lower.py:1290-1315 there) needs a mesh
+            return ring.attention(q, k, v,
+                                  causal=bool(h.params.get("causal", False)))
         if op.startswith("b("):
             if op == "b(*)":
                 r = self._try_sddmm(h)
@@ -1438,8 +1460,6 @@ class Evaluator:
             return _region_print(self, h, _REGION.get())
         fn = _BUILTINS.get(name)
         if fn is None:
-            if name in _WAITING_BUILTINS:
-                raise _waits(f"builtin {name}()", _WAITING_BUILTINS[name])
             # not a builtin: a registered Python UDF? (reference: the
             # external-function framework, udf/PackageFunction.java)
             from systemml_tpu_torch.api.udf import call_udf, lookup_udf
@@ -2336,14 +2356,127 @@ _BUILTINS: Dict[str, Callable] = {
         _mat(pos[0])),
 }
 
-_NN = "DNN and models"
-# the JAX package's builtins that the port does not run yet, with the
-# ROADMAP item that brings each (validate.py accepts their names, so a
-# script that calls one fails here, by name, and not as a typo)
-_WAITING_BUILTINS: Dict[str, str] = {
-    **{n: _NN for n in (
-        "__from_nhwc", "conv2d", "conv2d_backward_filter",
-        "conv2d_backward_data", "max_pool", "avg_pool",
-        "max_pool_backward", "avg_pool_backward", "bias_add",
-        "bias_multiply", "lstm", "batch_norm2d")},
-}
+# ---- the DNN builtins (systemml_tpu/compiler/lower.py:2713-2935) ------
+
+def _shape4(named, key):
+    v = named.get(key)
+    if v is None:
+        raise DMLValidationError(f"conv builtin requires {key}")
+    return [int(_scalar(x)) for x in (v if isinstance(v, list) else [v])]
+
+
+def _int_list(named, key, default):
+    return [int(_scalar(x)) for x in named.get(key, default)]
+
+
+def _conv_params(named):
+    fsh = named.get("filter_shape")
+    return (_int_list(named, "stride", [1, 1]),
+            _int_list(named, "padding", [0, 0]),
+            _shape4(named, "input_shape"),
+            [int(_scalar(x)) for x in fsh] if fsh is not None else None,
+            int(_scalar(named.get("groups", 1))))
+
+
+def _nhwc_flags(h):
+    """The layout pass's annotations (hops/layout.py): take / give the
+    raw 4-D NHWC tensor in place of the flattened boundary form."""
+    return (bool(h.params.get("nhwc_in")), bool(h.params.get("nhwc_out")))
+
+
+def _bi_from_nhwc(ev, pos, named, h):
+    """The write-boundary conversion hops/layout.py inserts: a raw
+    (N, H, W, C) tensor to the flattened (N, C*H*W) form."""
+    from systemml_tpu_torch.ops import dnn
+
+    return dnn.from_nhwc(pos[0], "write_boundary")
+
+
+def _bi_conv(fn_name: str):
+    def fn(ev, pos, named, h):
+        from systemml_tpu_torch.ops import dnn
+
+        stride, padding, ish, fsh, groups = _conv_params(named)
+        if fn_name == "conv2d":
+            nin, nout = _nhwc_flags(h)
+            return dnn.conv2d(pos[0], pos[1], ish, fsh, stride, padding,
+                              groups, nhwc_in=nin, nhwc_out=nout)
+        return getattr(dnn, fn_name)(pos[0], pos[1], ish, fsh, stride,
+                                     padding, groups)
+
+    return fn
+
+
+def _bi_pool(kind: str, backward: bool = False):
+    def fn(ev, pos, named, h):
+        from systemml_tpu_torch.ops import dnn
+
+        args = (_shape4(named, "input_shape"),
+                _int_list(named, "pool_size", [1, 1]),
+                _int_list(named, "stride", [1, 1]),
+                _int_list(named, "padding", [0, 0]))
+        if backward:
+            f = (dnn.max_pool_backward if kind == "max"
+                 else dnn.avg_pool_backward)
+            return f(pos[0], pos[1], *args)
+        f = dnn.max_pool if kind == "max" else dnn.avg_pool
+        nin, nout = _nhwc_flags(h)
+        return f(pos[0], *args, nhwc_in=nin, nhwc_out=nout)
+
+    return fn
+
+
+def _bi_bias(name: str):
+    def fn(ev, pos, named, h):
+        from systemml_tpu_torch.ops import dnn
+
+        nin, nout = _nhwc_flags(h)
+        b = _mat(pos[1])
+        return getattr(dnn, name)(pos[0], b, int(b.shape[0]),
+                                  nhwc_in=nin, nhwc_out=nout)
+
+    return fn
+
+
+def _truthy(v) -> bool:
+    v = _scalar(v)
+    return v.upper() == "TRUE" if isinstance(v, str) else bool(v)
+
+
+def _bi_lstm(ev, pos, named, h):
+    from systemml_tpu_torch.ops import dnn
+
+    x, w, b, out0, c0 = pos[:5]
+    rs = _truthy(pos[5] if len(pos) > 5
+                 else named.get("return_sequences", True))
+    return dnn.lstm(x, w, b, out0, c0, rs)
+
+
+def _bi_batch_norm2d(ev, pos, named, h):
+    from systemml_tpu_torch.ops import dnn
+
+    x, gamma, beta, ema_mean, ema_var = pos[:5]
+    mode = _scalar(named.get("mode", pos[5] if len(pos) > 5 else "train"))
+    eps = float(_scalar(named.get("epsilon",
+                                  pos[6] if len(pos) > 6 else 1e-5)))
+    mom = float(_scalar(named.get("momentum",
+                                  pos[7] if len(pos) > 7 else 0.9)))
+    return dnn.batch_norm2d(x, gamma, beta, ema_mean, ema_var,
+                            _shape4(named, "input_shape"), mode, eps, mom)
+
+
+_BUILTINS.update({
+    # internal, not parseable from DML: hops/layout.py's write-boundary
+    # conversion of a chain intermediate that is also a symbol write
+    "__from_nhwc": _bi_from_nhwc,
+    "conv2d": _bi_conv("conv2d"),
+    "conv2d_backward_filter": _bi_conv("conv2d_backward_filter"),
+    "conv2d_backward_data": _bi_conv("conv2d_backward_data"),
+    "max_pool": _bi_pool("max"), "avg_pool": _bi_pool("avg"),
+    "max_pool_backward": _bi_pool("max", True),
+    "avg_pool_backward": _bi_pool("avg", True),
+    "bias_add": _bi_bias("bias_add"),
+    "bias_multiply": _bi_bias("bias_multiply"),
+    "lstm": _bi_lstm, "batch_norm2d": _bi_batch_norm2d,
+})
+

@@ -42,7 +42,7 @@ def _builtin_names() -> Set[str]:
     from systemml_tpu_torch.compiler import lower
     from systemml_tpu_torch.hops import builder
 
-    names = set(lower._BUILTINS) | set(lower._WAITING_BUILTINS)
+    names = set(lower._BUILTINS)
     names |= set(builder._AGG1) | set(builder._UNARY) | set(builder._CUM)
     names |= {"t", "rev", "diag", "nrow", "ncol", "length", "cbind",
               "rbind", "append", "exists", "min", "max", "log", "ifdef",

@@ -2,9 +2,12 @@
 
 Port of systemml_tpu/ops/mult.py. Dense `matmult` and `tsmm` are
 torch.matmul (the JAX package leaves them to XLA; here cuBLAS runs them,
-in true fp32 under the "highest" policy, utils/config.py). Dense mmchain
-dispatches between the hand kernel (codegen/kernels.py) and the two-pass
-arm by shape and dtype, before any launch. A compressed operand
+in true fp32 under the "highest" policy, utils/config.py). Under the
+"bfloat16" mixed policy the dense products take their operands rounded
+to bf16 and compute in fp32 (`_mm`, utils/config.bf16_operands), and
+so does mmchain. Dense mmchain dispatches between the hand kernel
+(codegen/kernels.py) and the two-pass arm by shape and dtype, before any
+launch, under every policy. A compressed operand
 (compress/) takes the compressed ops of compress/device.py: right and
 left mult, left tsmm, and mmchain, which runs kernel K6 on the card. A
 sparse operand (runtime/sparse.py) takes the sparse products: CSR through
@@ -31,6 +34,12 @@ from systemml_tpu_torch.codegen import kernels
 from systemml_tpu_torch.compress import device as cla_dev
 from systemml_tpu_torch.compress import is_compressed
 from systemml_tpu_torch.runtime import sparse as sp
+from systemml_tpu_torch.utils.config import bf16_operands, mixed_bf16_enabled
+
+
+def _mm(a, b):
+    """A dense product under the active precision policy."""
+    return torch.matmul(*bf16_operands(a, b))
 
 
 def matmult(a, b):
@@ -49,7 +58,7 @@ def matmult(a, b):
         return sp.spmm(a, b)
     if sp.is_sparse(b):
         return sp.gemm_sp(a, b)
-    return torch.matmul(a, b)
+    return _mm(a, b)
 
 
 def tsmm(x, left: bool = True):
@@ -76,7 +85,7 @@ def tsmm(x, left: bool = True):
         x = x.to_dense()
     if sp.is_sparse(x):
         return sp.sp_tsmm(x, left)
-    return torch.matmul(x.T, x) if left else torch.matmul(x, x.T)
+    return _mm(x.T, x) if left else _mm(x, x.T)
 
 
 def mmchain(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
@@ -89,7 +98,10 @@ def mmchain(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
     dtype alone: a CUDA tensor that meets it takes the single-pass hand
     kernel; everything else takes the two-pass arm, two torch.matmul
     calls (the JAX package's jnp_two_pass). On the CPU the two are the
-    same arithmetic. The kernel reads a row or column slice of a wider X
+    same arithmetic. Under the "bfloat16" policy X and v are rounded to
+    bf16 first and the same choice follows: the kernel reads the rounded
+    X in fp32; the two-pass arm rounds X v again for its second product,
+    as the JAX package's does. The kernel reads a row or column slice of a wider X
     in place; an X of another layout (a transposed view from t()) is
     laid out row-major first, as the JAX package's transpose
     materialises it. `precise` is accepted and changes nothing: the
@@ -113,11 +125,17 @@ def mmchain(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
         return x.tmm(xv) if sp.is_ell(x) else matmult(x.transpose(), xv)
     m, k = x.shape
     c = v.shape[1] if v.ndim == 2 else 1
+    x, v = bf16_operands(x, v)
     if x.device.type == "cuda" and kernels.mmchain_supported(m, k, c,
                                                              x.dtype):
         if kernels.mmchain_row_stride(x) is None:
             x = x.contiguous()
         return kernels.mmchain_kernel(x, v, w, ctype, precise=precise)
+    if mixed_bf16_enabled():
+        xv = _mm(x, v)
+        xv = w * xv if ctype == "XtwXv" else (xv - w if ctype == "XtXvy"
+                                              else xv)
+        return _mm(x.T, xv)
     return kernels.mmchain_plain(x, v, w, ctype)
 
 

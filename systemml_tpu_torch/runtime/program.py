@@ -48,7 +48,7 @@ result merge on the device. Its body compiles with no constant
 substitution, and liveness, hoisting and the block compile treat a
 ParForBlock as the ForBlock it subclasses.
 
-What waits: layout propagation, the exec-type planner and MESH mode, the
+What waits: the exec-type planner and MESH mode, the
 rest of the lifetime analysis, and remote parfor. A config that asks for
 one of them outright (exec_mode MESH), or sets any other field the port
 does not read (utils/config.check_ported), raises NotImplementedError.
@@ -933,6 +933,7 @@ def compile_program(ast_prog: A.DMLProgram,
             prog.stats.count_estim("dynamic_rewrites", total_dyn)
     if cfg.optlevel >= 3:
         _spoof_codegen(prog, cfg)
+    _propagate_layout(prog)
     if cfg.cla != "false":
         # compressed-reblock injection: mark loop-invariant matmult inputs
         # for sample-estimated compression at loop entry (reference:
@@ -960,6 +961,28 @@ def compile_program(ast_prog: A.DMLProgram,
         if refused:
             prog.stats.count_estim("loop_regions_refused", refused)
     return prog
+
+
+def _propagate_layout(prog: "Program") -> None:
+    """DNN layout propagation (hops/layout.py) after every rewrite pass,
+    where systemml_tpu/runtime/program.py:1602-1615 runs it: chained
+    conv/bias/relu/pool hops pass raw NHWC tensors when the device layout
+    is NHWC. The annotations are an optimization only, so a failure
+    leaves the program unannotated; unlike the JAX package, which drops
+    it silently, it is counted in `dnn_layout_errors` and emitted as a
+    `layout_error` event."""
+    from systemml_tpu_torch.hops.layout import propagate_program_layout
+    from systemml_tpu_torch.obs import trace as obs
+    from systemml_tpu_torch.utils import stats as stats_mod
+
+    with stats_mod.stats_scope(prog.stats), \
+            obs.span("layout_propagation", obs.CAT_COMPILE) as sp:
+        try:
+            sp.set(edges=propagate_program_layout(prog))
+        except Exception as e:  # except-ok: layout annotations are an optimization only; counted
+            prog.stats.count_estim("dnn_layout_errors", 1)
+            obs.instant("layout_error", obs.CAT_COMPILE,
+                        error=f"{type(e).__name__}: {e}")
 
 
 def _mark_top_level(blocks) -> None:

@@ -473,6 +473,8 @@ PORTED_FIELDS = frozenset({
     "ultra_sparsity_turn_point", "mem_budget_bytes",
     "trace_max_events", "stats_max_heavy_hitters",
     "liveness_enabled", "validate_enabled",
+    # the DNN ops (ops/dnn.py)
+    "conv_layout", "conv_algorithm",
     # the buffer pool and the whole-block compile
     # (runtime/bufferpool.py, runtime/blockcompile.py)
     "bufferpool_enabled", "bufferpool_budget_bytes",
@@ -495,7 +497,6 @@ _MEANINGLESS = {
 # field-name prefix -> the ROADMAP queue-1 item that brings it
 _WAITING = (
     (("pallas_mode", "codegen_"), "kernel backend and tuner"),
-    (("conv_",), "DNN and models"),
     (("remote_deadline_s",), "remote parfor (item 9b)"),
     (("serving_",), "serving and export"),
     (("profile_", "obs_", "donation_sanitizer"),
@@ -509,11 +510,7 @@ _WAITING = (
 def check_ported(cfg: DMLConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that brings it,
     for a setting the port would ignore: a field outside PORTED_FIELDS
-    that differs from its default, and the bfloat16 precision policy."""
-    if cfg.floating_point_precision == "bfloat16":
-        raise NotImplementedError(
-            "floating_point_precision bfloat16 waits for ROADMAP queue 1, "
-            "DNN and models (item 8), with the precision policies")
+    that differs from its default."""
     for f in dataclasses.fields(cfg):
         if f.name in PORTED_FIELDS:
             continue
@@ -587,15 +584,17 @@ def default_dtype(device=None):
     - "double": native torch.float64 (no double-float pairs),
     - "single": torch.float32,
     - "auto": fp64 on the CPU (as the JAX package under x64) and fp32 on
-      the card (as on the TPU).
-    The "bfloat16" mixed policy waits (check_ported raises on it)."""
+      the card (as on the TPU),
+    - "bfloat16": fp32, the master weights' dtype of the mixed policy
+      (mixed_bf16_enabled: only the matmult and conv families compute
+      from bf16 operands)."""
     import torch
 
     cfg = get_config()
     prec = cfg.floating_point_precision
     if prec == "double":
         return torch.float64
-    if prec == "single":
+    if prec in ("single", "bfloat16"):
         return torch.float32
     if prec != "auto":
         check_ported(cfg)
@@ -617,3 +616,33 @@ def apply_matmul_precision() -> None:
     tf32 = get_config().matmul_precision in ("high", "default")
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
+    # cuDNN may otherwise pick a backward-filter algorithm that sums with
+    # atomics, and a loop region's run would not repeat its eager run bit
+    # for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def mixed_bf16_enabled() -> bool:
+    """True under the "bfloat16" policy (systemml_tpu/utils/config.py
+    :495-500): the matmult and conv families compute from bf16 operands
+    with fp32 accumulation and an fp32 result; storage stays fp32."""
+    return get_config().floating_point_precision == "bfloat16"
+
+
+def bf16_operands(*xs):
+    """The operands of a matmult- or conv-family op under the active
+    policy. Under "bfloat16" each floating operand is rounded to bf16
+    and carried back in its own dtype: the product of two bf16 values is
+    exact in fp32, so an fp32 product of the rounded operands is the
+    JAX package's bf16 x bf16 -> fp32 (preferred_element_type) result up
+    to the order of the fp32 sums, and it keeps fp32 (TF32 is exact on
+    bf16-rounded operands). Otherwise the operands are returned as
+    they are."""
+    import torch
+
+    if not mixed_bf16_enabled():
+        return xs
+    return tuple(x.to(torch.bfloat16).to(x.dtype)
+                 if isinstance(x, torch.Tensor) and x.is_floating_point()
+                 and x.dtype != torch.bfloat16 else x for x in xs)

@@ -56,6 +56,11 @@ ESTIM_GROUPS = (
     # quaternary op run (exploit_ell, exploit_csr, densify, dense; ops/
     # mult.py)
     ("spx_", "sparse_exec"),
+    # the DNN ops (ops/dnn.py): conv algorithm picks (dnn_algo_*), layers
+    # by kind (dnn_conv[...], dnn_pool[...]), materialized layout
+    # transposes and their bytes, the layout pass's NHWC edges and its
+    # failures (dnn_layout_errors, hops/layout.py)
+    ("dnn_", "dnn"),
 )
 
 
@@ -229,8 +234,8 @@ class Statistics:
             for i, (op, t) in enumerate(hh, 1):
                 lines.append(f"  {i}  {op}\t{t:.3f}\t{self.op_count[op]}")
         g = self.estim_counts.grouped()
-        rw, spoof, spx, opt = (g["rewrites"], g["spoof"], g["sparse_exec"],
-                               g[""])
+        rw, spoof, spx, dnn, opt = (g["rewrites"], g["spoof"],
+                                    g["sparse_exec"], g["dnn"], g[""])
         if rw:
             top = sorted(rw.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
             suffix = ", ..." if len(rw) > len(top) else ""
@@ -247,6 +252,27 @@ class Statistics:
             # dense), as the JAX package's "Sparse exec" line
             lines.append("Sparse exec (op_path=count): " + ", ".join(
                 f"{k}={v}" for k, v in sorted(spx.items())))
+        if dnn:
+            # the DNN profile (systemml_tpu/utils/stats.py:344-365),
+            # counted per op run: algorithm and layout picks per layer
+            # geometry, transposes with their bytes, NHWC chain edges
+            tb = dnn.pop("transpose_bytes", 0)
+            tn = dnn.pop("transposes", 0)
+            edges = dnn.pop("nhwc_edges", 0)
+            errs = dnn.pop("layout_errors", 0)
+            layers = {k: v for k, v in dnn.items()
+                      if k.startswith(("conv[", "pool["))}
+            algos = {k: v for k, v in dnn.items() if k.startswith("algo_")}
+            lines.append(
+                f"DNN hot path:\t\ttransposes={tn} ({tb / 1e6:.2f} MB), "
+                f"nhwc_edges={edges}, layout_errors={errs}")
+            if algos:
+                lines.append("  conv algorithms: " + ", ".join(
+                    f"{k[5:]}={v}" for k, v in sorted(algos.items())))
+            if layers:
+                lines.append("  layers (op[algo,layout,kernel,geom]=count):")
+                for k, v in sorted(layers.items()):
+                    lines.append(f"    {k}={v}")
         if opt:
             lines.append("Optimizer decisions: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(opt.items())))

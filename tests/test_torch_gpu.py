@@ -6,7 +6,9 @@ K6 (csrc/cla_chain.cu, against compress/device.py chain_plain; also the
 compressed mmchain's choice of K6 by layout); the loop regions' graphs,
 the sparse arms, and the algorithm-breadth ops on the card (solvers in a
 captured region, seq and sample equal to the CPU's draw, the index
-aggregates, repeatable weighted tables, betainc).
+aggregates, repeatable weighted tables, betainc); the DNN ops (both conv
+arms, max-pool ties, the normal draw equal to the CPU's, a loop of
+conv2d, batch norm and pooling captured as one region).
 
 Marked `gpu`: without a CUDA card every test skips, with the reason,
 from the `cuda` fixture (decided at run time, never at import, so every
@@ -2171,3 +2173,181 @@ def test_solve_of_an_ill_conditioned_fp64_system_matches_lstsq(cuda, shape):
     ref = 6 * np.linalg.lstsq(a, b, rcond=None)[0]
     for out in _solve_runs(a, b, "double"):
         assert np.linalg.norm(out - ref) <= 1e-10 * np.linalg.norm(ref)
+
+
+# ---- the DNN slice (ops/dnn.py, the normal draw, DNN ops in a region) ---
+
+def _dnn_conv_case(dev, seed=5):
+    from systemml_tpu_torch.ops import dnn
+
+    rng = np.random.default_rng(seed)
+    n, c, h, w, f, k, s, p = 8, 16, 28, 28, 32, 3, 2, 1
+    ho = dnn.out_dim(h, k, s, p)
+    t = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return (t(n, c * h * w), t(f, c * k * k), t(n, f * ho * ho),
+            ([n, c, h, w], [f, c, k, k], [s, s], [p, p]))
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_dnn_conv_arms_agree_on_the_card(cuda, layout):
+    """cuDNN and im2col, forward and both gradients, fp32 with TF32 off,
+    within 1e-5 normwise of each other and of the CPU in fp64."""
+    from systemml_tpu_torch.ops import dnn
+    from systemml_tpu_torch.utils.config import (DMLConfig,
+                                                 apply_matmul_precision,
+                                                 set_config)
+
+    x, w, d, args = _dnn_conv_case(cuda)
+    outs = {}
+    try:
+        for algo in ("conv", "im2col"):
+            cfg = DMLConfig()
+            cfg.conv_algorithm, cfg.conv_layout = algo, layout
+            set_config(cfg)
+            apply_matmul_precision()
+            outs[algo] = (dnn.conv2d(x, w, *args),
+                          dnn.conv2d_backward_filter(x, d, *args),
+                          dnn.conv2d_backward_data(w, d, *args))
+        set_config(DMLConfig(device="cpu"))
+        ref = (dnn.conv2d(x.cpu().double(), w.cpu().double(), *args),
+               dnn.conv2d_backward_filter(x.cpu().double(), d.cpu().double(),
+                                          *args),
+               dnn.conv2d_backward_data(w.cpu().double(), d.cpu().double(),
+                                        *args))
+    finally:
+        set_config(DMLConfig())
+    for a, b, r in zip(outs["conv"], outs["im2col"], ref):
+        for got in (a, b):
+            assert got.device.type == "cuda"
+            err = float(torch.linalg.norm(got.cpu().double() - r)
+                        / torch.linalg.norm(r))
+            assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("ctype,c,wc", [("XtXv", 1, 0), ("XtwXv", 4, 1),
+                                        ("XtXvy", 4, 4)])
+def test_mmchain_bf16_policy_takes_the_kernel(cuda, ctype, c, wc):
+    """Under "bfloat16" mmchain still launches K1, over X and v rounded
+    to bf16: within 1e-5 normwise of the plain chain in fp64 over the
+    same rounded operands, and not equal to the fp32 chain."""
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    x, v, w = _inputs(cuda, c, wc)
+    xr, vr = x.bfloat16().float(), v.bfloat16().float()
+    cfg = DMLConfig()
+    cfg.floating_point_precision = "bfloat16"
+    before = kernels.mmchain_kernel.launches
+    set_config(cfg)
+    try:
+        out = mult.mmchain(x, v, w, ctype)
+    finally:
+        set_config(DMLConfig())
+    torch.cuda.synchronize()
+    assert kernels.mmchain_kernel.launches == before + 1
+    ref = kernels.mmchain_plain(xr.double(), vr.double(),
+                                None if w is None else w.double(), ctype)
+    err = torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref)
+    assert out.dtype == torch.float32 and float(err) <= 1e-5
+    fp32 = kernels.mmchain_plain(x.double(), v.double(),
+                                 None if w is None else w.double(), ctype)
+    assert float(torch.linalg.norm(out.double() - fp32)
+                 / torch.linalg.norm(fp32)) > 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dnn_normal_draw_equals_cpu_bits(cuda, dtype):
+    from systemml_tpu_torch.ops import datagen
+
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    for seed in (7, torch.tensor(7)):
+        a = datagen.rand(513, 129, pdf="normal", sparsity=0.7,
+                         seed=seed.to(cuda) if isinstance(seed, torch.Tensor)
+                         else seed, dtype=dtype, device=cuda)
+        b = datagen.rand(513, 129, pdf="normal", sparsity=0.7, seed=7,
+                         dtype=dtype, device="cpu")
+        assert torch.equal(a.cpu().view(bits), b.view(bits))
+
+
+@pytest.mark.parametrize("geom", [(2, 2, 2, 0), (3, 2, 1, 0)])
+def test_dnn_max_pool_ties_on_the_card(cuda, geom):
+    """Tied windows: the non-overlapping rule splits the gradient, the
+    overlapping and padded one gives it to the first maximum, as on the
+    CPU (tests/test_torch_dnn.py holds the CPU to the JAX package)."""
+    from systemml_tpu_torch.ops import dnn
+
+    ps, s, p, _ = geom
+    rng = np.random.default_rng(2)
+    x = np.round(rng.standard_normal((4, 3 * 8 * 8)) * 2) / 2
+    ho = dnn.out_dim(8, ps, s, p)
+    d = rng.standard_normal((4, 3 * ho * ho))
+    args = ([4, 3, 8, 8], [ps, ps], [s, s], [p, p])
+    got = dnn.max_pool_backward(torch.from_numpy(x).to(cuda),
+                                torch.from_numpy(d).to(cuda), *args)
+    ref = dnn.max_pool_backward(torch.from_numpy(x), torch.from_numpy(d),
+                                *args)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(dnn.max_pool(torch.from_numpy(x).to(cuda), *args).cpu(),
+                       dnn.max_pool(torch.from_numpy(x), *args))
+
+
+_DNN_LOOP = """
+s = 0
+for (i in 1:6) {
+  Y = conv2d(X, W, input_shape=[8,3,12,12], filter_shape=[4,3,3,3],
+             stride=[1,1], padding=[1,1])
+  Y = bias_add(Y, b)
+  [Z, m1, v1, cm, cv] = batch_norm2d(Y, g, bb, em, ev,
+                                     input_shape=[8,4,12,12], mode="train",
+                                     epsilon=1e-5, momentum=0.9)
+  P = max_pool(Z, input_shape=[8,4,12,12], pool_size=[3,3], stride=[2,2],
+               padding=[1,1])
+  dP = max_pool_backward(Z, P, input_shape=[8,4,12,12], pool_size=[3,3],
+                         stride=[2,2], padding=[1,1])
+  dW = conv2d_backward_filter(X, dP, input_shape=[8,3,12,12],
+                              filter_shape=[4,3,3,3], stride=[1,1],
+                              padding=[1,1])
+  W = W - 0.01 * dW
+  em = m1
+  ev = v1
+  s = s + sum(P)
+}
+"""
+
+
+def test_dnn_loop_is_one_region_equal_to_its_eager_run(cuda):
+    """A for loop over fixed batches calling conv2d, batch norm, pooling
+    and a conv gradient: captured as one region (one capture, one graph
+    launch) and equal to the same loop run eagerly."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    rng = np.random.default_rng(4)
+    ins = {"X": rng.standard_normal((8, 3 * 144)),
+           "W": rng.standard_normal((4, 27)) * 0.3,
+           "b": rng.standard_normal((4, 1)), "g": np.ones((4, 1)),
+           "bb": np.zeros((4, 1)), "em": np.zeros((4, 1)),
+           "ev": np.ones((4, 1))}
+    res = {}
+    for regions in (True, False):
+        cfg = DMLConfig()
+        cfg.codegen_enabled = regions
+        s = dml(_DNN_LOOP)
+        for k, v in ins.items():
+            s.input(k, v)
+        ml = MLContext(cfg)
+        with stats.stats_scope(None):
+            out = ml.execute(s.output("W", "s", "em"))
+        res[regions] = out
+        if regions:
+            assert ml._stats.region_counts, "the loop did not run as a region"
+            assert not ml._stats.estim_counts.get("loop_regions_refused")
+    for name in ("W", "em"):
+        a = res[True].get_tensor(name)
+        b = res[False].get_tensor(name)
+        assert torch.equal(a, b) or float(
+            torch.linalg.norm(a.double() - b.double())
+            / torch.linalg.norm(b.double())) <= 1e-5
+    assert abs(float(res[True].get_scalar("s"))
+               - float(res[False].get_scalar("s"))) <= 1e-5 * abs(
+        float(res[False].get_scalar("s")))

@@ -97,6 +97,29 @@ for optlevel in (3, 2):
         .arg("rank", 3).arg("maxi", 2).arg("mii", 2).output("L"))
         .get_matrix("L"))
 assert np.allclose(ls[0], ls[1], rtol=1e-9)
+# the DNN slice: a tiny Caffe2DML fit (the conv, pool and normal-draw
+# paths, its training loop as a region), predict, the mllearn and
+# Keras2DML surfaces, attention and the layout pass
+from systemml_tpu_torch.models import (Caffe2DML, Keras2DML,
+                                       LinearRegression, zoo)
+from systemml_tpu_torch.models import dmlgen, proto
+from systemml_tpu_torch.hops import layout
+from systemml_tpu_torch.ops import dnn
+from systemml_tpu_torch.parallel import ring
+from systemml_tpu_torch.utils.config import set_config
+import torch
+set_config(DMLConfig(device="cpu"))
+xs = rng.standard_normal((32, 64))
+ys = np.arange(32) % 10
+clf = Caffe2DML(zoo.tiny_convnet(), epochs=1, batch_size=16, seed=1).fit(
+    xs, ys)
+assert all(np.isfinite(v.numpy()).all() for v in clf.params.values())
+assert clf.predict_proba(xs[:4]).shape == (4, 10)
+assert np.allclose(LinearRegression().fit(x, x @ beta_true).coef_.ravel()[
+    :4], beta_true.ravel(), rtol=1e-6)
+q = torch.from_numpy(rng.standard_normal((5, 3)))
+assert ring.attention(q, q, q, causal=True).shape == (5, 3)
+assert datagen.rand(4, 4, pdf="normal", seed=3, device="cpu").shape == (4, 4)
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked

@@ -141,7 +141,9 @@ def test_carry_beta_from_jax_into_port():
     ("xla_cache_dir", "/tmp/x", "compiles no XLA"),
     ("pallas_mode", "always", "kernel backend and tuner"),
     ("mesh_shape", {"dp": 4}, "distributed and elastic"),
-    ("floating_point_precision", "bfloat16", "precision policies"),
+    # the bfloat16 policy came with DNN and models (item 8): a setting of
+    # serving and export (item 10) waits instead
+    ("serving_microbatch_max", 8, "serving and export"),
 ])
 def test_setting_the_port_does_not_read_raises(key, value, item):
     """A setting the port would ignore raises, naming its ROADMAP item,
