@@ -285,9 +285,10 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -3629,14 +3630,20 @@ def _busy_share(prof) -> dict:
             "kernel_union_ms": busy / 1e3, "kernels": len(ks)}
 
 
-def run_stepglm(data, optlevel, loop, dev, kernels, profile=None) -> dict:
+def run_stepglm(data, optlevel, loop, dev, kernels, profile=None,
+                fault: str = "") -> dict:
     """One run of StepGLM.dml (its defaults: logit, tol 1e-8, moi 25, thr
     0.01) on the Census X and the planted y, through MLContext();
     `profile`: the stepwise pass whose parfor runs under torch.profiler
-    (left out of the seconds per pass)."""
+    (left out of the seconds per pass); `fault`: a fault-injection spec
+    armed for the run."""
     from systemml_tpu_torch.api.mlcontext import MLContext, dml
 
-    ml = MLContext(config(optlevel))
+    cfg = config(optlevel)
+    if fault:
+        cfg.fault_injection = fault
+        cfg.resil_backoff_base_s = 0.01
+    ml = MLContext(cfg)
     lines = []
     ml.printer = lines.append
     src = _loop_variant("StepGLM.dml", STEPGLM_PARFOR, loop)
@@ -3668,7 +3675,8 @@ def run_stepglm(data, optlevel, loop, dev, kernels, profile=None) -> dict:
                         if spy.merge_ms else None),
            "lanes": _lanes(spy.program), "launches": launches,
            "peak_bytes_over_data": peak,
-           "stats": dict(ml._stats.estim_counts)}
+           "stats": dict(ml._stats.estim_counts),
+           "resil": dict(ml._stats.resil_counts.items())}
     if spy.busy is not None:
         out.update(spy.busy)
     return out
@@ -3748,6 +3756,10 @@ def stepglm_phase(data, dev, kernels, smi) -> dict:
         out[f"optlevel{optlevel}"] = {
             k: {kk: vv for kk, vv in r.items() if kk != "out"}
             for k, r in runs.items()}
+        if optlevel == 3:
+            # `[remote]`'s reference
+            data["stepglm_for"] = {"B": runs["for"]["out"],
+                                   "selected": runs["for"]["selected"]}
         del runs
     o3 = out["optlevel3"]
     print(f"[parfor-stepglm] optlevel 3, s per stepwise pass: default par "
@@ -4653,6 +4665,357 @@ def check_normal(dev) -> dict:
     return out
 
 
+POISSON_LAMBDAS = (0.5, 3.0, 9.99, 10.0, 50.0, 1000.0)
+
+
+def check_poisson(dev) -> dict:
+    """`[poisson]`: seeded rand(pdf="poisson") on the card against the
+    CPU's, bit for bit, at every lambda of POISSON_LAMBDAS (Knuth's rounds
+    below 10, the transformed rejection from 10 on), in fp32 and fp64.
+    The draw is fp32 whatever the output dtype, and its values integers:
+    one CPU draw per lambda (fp64) is held against the card's fp64 draw
+    and, cast to fp32, against its fp32 draw."""
+    from systemml_tpu_torch.ops import datagen
+
+    out = {}
+    rows, cols, seed = 256, 128, 11
+    for lam in POISSON_LAMBDAS:
+        t0 = time.perf_counter()
+        b = datagen.rand(rows, cols, pdf="poisson", seed=seed, lambda_=lam,
+                         dtype=torch.float64, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for dtype, bits in ((torch.float32, torch.int32),
+                            (torch.float64, torch.int64)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = datagen.rand(rows, cols, pdf="poisson", seed=seed,
+                             lambda_=lam, dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            same = bool(torch.equal(a.cpu().view(bits),
+                                    b.to(dtype).view(bits)))
+            key = f"lambda {lam:g} {str(dtype)[6:]}"
+            out[key] = {"bit_identical": same, "card_s": card_s,
+                        "cpu_s": cpu_s, "mean": float(a.double().mean())}
+            print(f"[poisson] rand ({rows}, {cols}) pdf poisson seed {seed} "
+                  f"{key}: card equals CPU bit for bit {same}; mean "
+                  f"{float(a.double().mean()):.4f}; card {card_s:.3f} s, "
+                  f"CPU {cpu_s:.3f} s", flush=True)
+            if not same:
+                fail(f"poisson draw {key}: the card's differs from the CPU's")
+    return out
+
+
+def _kernel_verdicts(label, calls, tune_mode, trials=2) -> dict:
+    """The kernel backend's choice for each call of `calls` (family ->
+    thunk) on a fresh memo: its source, its choice, each arm's median ms
+    and measurements (tune_mode "online"), or the analytic costs
+    ("off")."""
+    from systemml_tpu_torch.codegen import backend, tune
+    from systemml_tpu_torch.obs import trace as obs
+    from systemml_tpu_torch.utils.config import get_config
+
+    cfg = get_config()
+    saved = (cfg.codegen_tune_mode, cfg.codegen_tune_cache,
+             cfg.codegen_tune_trials)
+    cfg.codegen_tune_mode, cfg.codegen_tune_cache = tune_mode, ""
+    cfg.codegen_tune_trials = trials
+    out = {}
+    try:
+        for op, call in calls.items():
+            backend.reset_process_state()
+            with obs.session() as rec:
+                call()
+                torch.cuda.synchronize()
+            sel = [e.args for e in rec.events() if e.name == "kernel_select"
+                   and e.args["op"] == op]
+            search = [e.args for e in rec.events()
+                      if e.name == "kernel_search" and e.args["op"] == op]
+            if len(sel) != 1:
+                fail(f"[backend] {label} {op}: {len(sel)} selections")
+            rounds = [e.args for e in rec.events()
+                      if e.name == "kernel_select"]
+            out[op] = {"choice": sel[0]["choice"], "source": sel[0]["source"],
+                       "key": sel[0]["key"], "analytic_s": sel[0]["costs"],
+                       "measurements": tune.measurement_count(),
+                       "shortlist": search[0]["shortlist"] if search
+                       else None, "selections": len(rounds)}
+    finally:
+        (cfg.codegen_tune_mode, cfg.codegen_tune_cache,
+         cfg.codegen_tune_trials) = saved
+        backend.reset_process_state()
+    return out
+
+
+def _measured_arms(op: str) -> dict:
+    """Each measured arm's median ms and its number of measurements, from
+    the tournament's meta (tune.measure), kept by the spy below."""
+    meta = _TOURNAMENTS.get(op) or {}
+    return {n: {"median_ms": 1e3 * t, "n": meta.get("n", {}).get(n)}
+            for n, t in (meta.get("samples") or {}).items()}
+
+
+# op -> the meta of its last tournament in this process (tune.measure)
+_TOURNAMENTS: Dict[str, dict] = {}
+
+
+class TournamentSpy:
+    """For the duration of a with-block, keeps each tournament's meta
+    (its arms' median seconds and counts) by family."""
+
+    def __enter__(self):
+        from systemml_tpu_torch.codegen import tune
+
+        self._orig = tune.measure
+
+        def measure(fam, order, ctx, args, kwargs):
+            winner, meta = self._orig(fam, order, ctx, args, kwargs)
+            if meta is not None:
+                _TOURNAMENTS[fam.op] = dict(meta, winner=winner)
+            return winner, meta
+
+        tune.measure = measure
+        return self
+
+    def __exit__(self, *exc):
+        from systemml_tpu_torch.codegen import tune
+
+        tune.measure = self._orig
+
+
+def backend_phase(data, cla, ratings, dev, kernels, smi, untuned) -> dict:
+    """`[backend]`: the kernel backend's tuner on the main path. LinearRegCG
+    at M x K fp32 (optlevel 2, its CG loop a region) with
+    codegen_tune_mode "online" against a fresh temporary cache (read by no
+    run before), then "cached" against it (measures and writes the
+    verdict), then, after backend.reset_process_state() (a fresh
+    process's memory), "cached" again: that run makes 0 measurements,
+    picks the mmchain variant the online run picked, and gives beta equal
+    bit for bit to the online run's, within 1e-3 of beta_true. The
+    mmchain key's winner, each arm's median ms and its measurements; ms
+    per CG iteration tuned (the cached run, and its second run on the
+    same MLContext) against untuned (`untuned`: the main path's first and
+    second runs); the analytic and measured verdicts of cla_right,
+    cla_left and cla_mmchain at the Census shape (the LinearRegCG-cla
+    block) and of the five quaternary families over ALS-CG-ml10m's V as
+    CSR."""
+    from systemml_tpu_torch.api.mlcontext import MLContext
+    from systemml_tpu_torch.codegen import backend, tune
+    from systemml_tpu_torch.compress import device as cla_dev
+    from systemml_tpu_torch.ops import mult
+    from systemml_tpu_torch.runtime.sparse import SparseMatrix
+    from systemml_tpu_torch.utils.config import get_config, set_config
+
+    cache = os.path.join(tempfile.mkdtemp(prefix="smtorch-tune-"),
+                         "tune.json")
+    beta_true = data["beta_true"].double()
+    runs = {}
+    with TournamentSpy():
+        for label, mode, reset in (("online", "online", True),
+                                   ("cached-first", "cached", False),
+                                   ("cached", "cached", True)):
+            if reset:
+                backend.reset_process_state()
+            cfg = config(2)
+            cfg.codegen_tune_mode = mode
+            cfg.codegen_tune_cache = cache
+            ml = MLContext(cfg)
+            lines = []
+            ml.printer = lines.append
+            before = tune.measurement_count()
+            reset_launches(kernels)
+            with PhaseTimer() as timer:
+                beta = ml.execute(path_script("LinearRegCG", data)) \
+                    .get_tensor("beta")
+                torch.cuda.synchronize()
+            iters = outer_iterations("LinearRegCG", lines)
+            picks = {k: v for k, v in ml._stats.estim_counts.items()
+                     if k.startswith("kb_")}
+            mm = next((k[len("kb_pick_mmchain."):] for k in picks
+                       if k.startswith("kb_pick_mmchain.")), None)
+            rel = float(torch.linalg.norm(beta.double() - beta_true)
+                        / torch.linalg.norm(beta_true))
+            runs[label] = {
+                "beta": beta, "iterations": iters, "mmchain_pick": mm,
+                "measurements": tune.measurement_count() - before,
+                "launches": read_launches(kernels), "kb": picks,
+                "beta_rel_err": rel,
+                "windows": phase_windows(timer, iters,
+                                         f"[backend] LinearRegCG {label}")}
+            if label == "cached":
+                # again on the same MLContext: the region's graph replays,
+                # as in the untuned main path's second run
+                with PhaseTimer() as timer:
+                    ml.execute(path_script("LinearRegCG", data)) \
+                        .get_tensor("beta")
+                    torch.cuda.synchronize()
+                runs[label]["second_windows"] = phase_windows(
+                    timer, iters, "[backend] LinearRegCG cached, again")
+            print(f"[backend] LinearRegCG ({M}, {K}) fp32 optlevel 2, "
+                  f"codegen_tune_mode {mode} ({label}): mmchain picks "
+                  f"{mm}; {runs[label]['measurements']} measurements; "
+                  f"launches {runs[label]['launches']}; kernel backend "
+                  f"{picks}; |beta - beta_true| / |beta_true| = {rel:.3e}; "
+                  f"{runs[label]['windows']['iteration_ms']:.3f} ms per CG "
+                  f"iteration; on {smi}", flush=True)
+        arms = _measured_arms("mmchain")
+    with open(cache) as f:
+        entries = json.load(f)["entries"]
+    on, cached = runs["online"], runs["cached"]
+    same_beta = bool(torch.equal(on["beta"], cached["beta"]))
+    tuned_ms = {"first": cached["windows"]["iteration_ms"],
+                "second": cached["second_windows"]["iteration_ms"]}
+    print(f"[backend] mmchain key {[k for k in entries if k.startswith('mmchain|')]}"
+          f": winner {on['mmchain_pick']} (online), {cached['mmchain_pick']} "
+          f"(cached, {cached['measurements']} measurements); arms "
+          + ", ".join(f"{n} median {a['median_ms']:.3f} ms over {a['n']} "
+                      f"measurements" for n, a in arms.items())
+          + f"; beta cached equals online bit for bit {same_beta}; ms per "
+          f"CG iteration (the loop's device window over its iterations, "
+          f"its first entry's peel and capture included) tuned against "
+          f"untuned: first run {tuned_ms['first']:.3f} / "
+          f"{untuned['first']:.3f}, second run {tuned_ms['second']:.3f} / "
+          f"{untuned['second']:.3f}; on {smi}", flush=True)
+    if cached["measurements"] != 0:
+        fail(f"[backend] the cached run made {cached['measurements']} "
+             f"measurements")
+    if on["mmchain_pick"] is None or \
+            cached["mmchain_pick"] != on["mmchain_pick"]:
+        fail(f"[backend] the cached run picked {cached['mmchain_pick']}, "
+             f"the online run {on['mmchain_pick']}")
+    if not same_beta:
+        fail("[backend] the cached run's beta differs from the online run's")
+    if not cached["beta_rel_err"] <= 1e-3:
+        fail(f"[backend] beta is {cached['beta_rel_err']} from beta_true")
+    if on["measurements"] < 1:
+        fail("[backend] the online run measured nothing")
+    for r in runs.values():
+        del r["beta"]
+
+    # the compressed families at the Census shape, the quaternary ones on
+    # ALS-CG-ml10m's V (CSR): analytic, then measured
+    c = cla["LinearRegCG"]["auto"]["compressed"][0]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n, m = c.shape
+    w = torch.randn(m, 1, generator=gen, device=dev)
+    yt = torch.randn(1, n, generator=gen, device=dev)
+    wy = torch.rand(n, 1, generator=gen, device=dev)
+    cla_calls = {"cla_right": lambda: cla_dev.right_mult(c, w),
+                 "cla_left": lambda: cla_dev.left_mult(c, yt),
+                 "cla_mmchain": lambda: cla_dev.mmchain(c, w, wy, "XtwXv")}
+    vs = SparseMatrix.from_dense(ratings)
+    u = torch.rand(ML10M_USERS, 10, generator=gen, device=dev)
+    vv = torch.rand(ML10M_MOVIES, 10, generator=gen, device=dev)
+    q_calls = {
+        "q_wsloss": lambda: mult.wsloss(vs, u, vv, None, "POST_NZ"),
+        "q_wsigmoid": lambda: mult.wsigmoid(vs, u, vv, ""),
+        "q_wdivmm": lambda: mult.wdivmm(vs, u, vv, False, False, 1e-3),
+        "q_wcemm": lambda: mult.wcemm(vs, u, vv, 1e-3),
+        "q_wumm": lambda: mult.wumm(vs, u, vv, "*", uop="exp")}
+    verdicts = {}
+    prev = get_config()
+    set_config(config(2))
+    try:
+        with TournamentSpy():
+            for label, calls in (("Census", cla_calls),
+                                 ("ALS-CG-ml10m", q_calls)):
+                ana = _kernel_verdicts(label, calls, "off")
+                meas = _kernel_verdicts(label, calls, "online")
+                for op in calls:
+                    verdicts[op] = {"analytic": ana[op], "measured": meas[op],
+                                    "arms": _measured_arms(op)}
+                    print(f"[backend] {op} on {label}: analytic "
+                          f"{ana[op]['choice']} (costs {ana[op]['analytic_s']}"
+                          f" s), measured {meas[op]['choice']} "
+                          f"({meas[op]['source']}; arms "
+                          + ", ".join(f"{k} {a['median_ms']:.3f} ms x "
+                                      f"{a['n']}" for k, a in
+                                      _measured_arms(op).items())
+                          + f"); key {ana[op]['key']}; on {smi}", flush=True)
+    finally:
+        set_config(prev)
+    del vs, u, vv
+    torch.cuda.empty_cache()
+    return {"linregcg": runs, "mmchain_arms": arms,
+            "cache_keys": sorted(entries), "tuned_iteration_ms": tuned_ms,
+            "untuned_iteration_ms": untuned, "verdicts": verdicts}
+
+
+REMOTE_PAR = 2
+# the remote.job arrival the fault kills: each pass sends REMOTE_PAR jobs,
+# so the 5th is the first job of the third pass (the first two spawn and
+# reuse the pool without a fault)
+REMOTE_KILL = "remote.job:kill:5"
+
+
+def remote_phase(data, dev, kernels, smi) -> dict:
+    """`[remote]`: StepGLM at the Census shape with its parfor in mode
+    "remote" on REMOTE_PAR worker processes on the card (optlevel 3, as
+    `[parfor-stepglm]`'s runs), one `remote.job` kill armed in its third
+    pass (REMOTE_KILL). The selected set equal to the for run's and B
+    within 1e-5 of it (the check `[parfor-stepglm]` makes), and B bit for
+    bit the for run's: the killed worker's group is requeued on a fresh
+    worker and the result does not move. Printed: s per stepwise pass,
+    the first pass's spawn (each worker's start to READY) and payload s
+    apart, the spawns of each later pass (the second spawns none: the
+    pool is reused; the third one replacement), each worker's device.
+    The pool is shut down at the end."""
+    from systemml_tpu_torch.runtime import remote
+
+    ref = data["stepglm_for"]
+    loop = f'mode="remote", par={REMOTE_PAR}'
+    passes = []
+    orig = remote.run_remote
+
+    def spy(pb, ec, tasks, k, body_reads):
+        t0 = time.perf_counter()
+        out = orig(pb, ec, tasks, k, body_reads)
+        passes.append(dict(remote.last_run, pass_s=time.perf_counter() - t0))
+        return out
+
+    remote.run_remote = spy
+    try:
+        r = run_stepglm(data, 3, loop, dev, kernels, fault=REMOTE_KILL)
+    finally:
+        remote.run_remote = orig
+        remote.shutdown_pool()
+    diff = float(torch.linalg.norm(r["out"].double() - ref["B"].double())
+                 / torch.linalg.norm(ref["B"].double()))
+    same = bool(torch.equal(r["out"], ref["B"]))
+    first = passes[0] if passes else {}
+    spawns = [p.get("spawned") for p in passes]
+    devices = sorted({d for p in passes for d in p["devices"]})
+    print(f"[remote] StepGLM ({CENSUS_N}, {CENSUS_M}) optlevel 3 parfor mode "
+          f"remote, par={REMOTE_PAR}, {REMOTE_KILL} armed: selected "
+          f"{r['selected']}; {r['seconds']:.3f} s in all, {len(passes)} "
+          f"passes of " + ", ".join(f"{p['pass_s']:.3f}" for p in passes)
+          + f" s (local, one worker lane: 0.5071 s a pass); first pass: "
+          f"payload {first.get('payload_s', 0):.3f} s, workers spawned "
+          f"{first.get('spawned')}, start to READY "
+          f"{[round(x, 3) for x in first.get('ready_s', [])]} s; spawns by "
+          f"pass {spawns}; worker devices {devices}; resil {r['resil']}; "
+          f"|B - B(for)| / |B(for)| = {diff:.3e} (bar 1e-5), B bit for bit "
+          f"the for run's {same}; on {smi}", flush=True)
+    if r["selected"] != ref["selected"]:
+        fail(f"[remote] selected {r['selected']}, the for run "
+             f"{ref['selected']}")
+    if not diff <= 1e-5:
+        fail(f"[remote] B is {diff} from the for run's")
+    if len(passes) < 3 or r["stats"].get("parfor_remote_unshippable"):
+        fail(f"[remote] the parfor ran remotely in {len(passes)} passes")
+    if spawns[:3] != [REMOTE_PAR, 0, 1] or any(spawns[3:]):
+        fail(f"[remote] spawns by pass {spawns}: the second pass did not "
+             f"reuse the pool, or the kill was not replaced once")
+    if devices != [torch.cuda.get_device_name(0)]:
+        fail(f"[remote] workers ran on {devices}")
+    if r["resil"].get("requeue") != 1 or not same:
+        fail(f"[remote] the killed worker's group was not requeued once "
+             f"({r['resil']}), or B moved")
+    r["passes_remote"] = [dict(p) for p in passes]
+    r["B_vs_for"], r["B_bit_identical_to_for"] = diff, same
+    return {k: v for k, v in r.items() if k != "out"}
+
+
 def _resnet_inputs(dev):
     """X (N, 3*224*224) fp32 on the card from a seeded generator, and the
     labels: every class 1 to 3 times, shuffled, with a planted class
@@ -5303,6 +5666,7 @@ def main() -> None:
                           ratings, progs, dev, kernels, max_abs_err)
     check_rand(dev)
     normal = check_normal(dev)
+    poisson = check_poisson(dev)
     set_cond_rec = check_set_cond(dev)
 
     # ---- 2b. the region bridge on small scripts, card against CPU ---------
@@ -5468,6 +5832,14 @@ def main() -> None:
     univar = univar_phase(census, dev, kernels, smi)
     transform = transform_phase(census, dev, smi)
     syncs = audit.finish()
+    torch.cuda.empty_cache()
+    # this slice: the kernel backend's tuner on the main path and its
+    # verdicts on the compressed and quaternary families; StepGLM's parfor
+    # on worker processes
+    backend = backend_phase(
+        data, cla, ratings, dev, kernels, smi,
+        {k: windows[k]["iteration_ms"] for k in ("first", "second")})
+    remote = remote_phase(census, dev, kernels, smi)
     torch.cuda.empty_cache()
     # the buffer pool under pressure, the block compile's Kmeans, JMLC
     pool = pool_phase(data, dev)
@@ -5672,10 +6044,67 @@ def main() -> None:
                       "jmlc": jmlc, "parfor_stepglm": stepglm,
                       "parfor_univar": univar, "transform": transform,
                       "resnet18": resnet, "lenet": lenet,
-                      "normal_draw": normal,
+                      "normal_draw": normal, "poisson_draw": poisson,
+                      "backend": backend, "remote_parfor": remote,
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path,
                       "device_ms_fallbacks": DEVICE_MS_FALLBACKS}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def slice14_only() -> None:
+    """The kernel backend's, remote parfor's and the poisson draw's phases
+    alone (`[poisson]`, `[backend]`, `[remote]`), with what they read:
+    the main path's untuned run, LinearRegCG-cla's compressed X, the
+    ratings V, and StepGLM's for run: what `--slice14` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    from systemml_tpu_torch.api.mlcontext import MLContext
+    from systemml_tpu_torch.codegen import kernels
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    data = make_data(dev)
+    poisson = check_poisson(dev)
+    ml = MLContext()
+    lines = []
+    ml.printer = lambda s: None
+    ml.execute(path_script("LinearRegCG", data, rows=8192))
+    ml.printer = lines.append
+    untuned = {}
+    for run in ("first", "second"):
+        with PhaseTimer() as timer:
+            ml.execute(path_script("LinearRegCG", data)).get_tensor("beta")
+            torch.cuda.synchronize()
+        untuned[run] = phase_windows(
+            timer, outer_iterations("LinearRegCG", lines),
+            f"LinearRegCG untuned, {run} run")["iteration_ms"]
+    census = make_census(dev)
+    cla = {"LinearRegCG": {"auto": run_cla_path("LinearRegCG", "auto",
+                                                census, dev, kernels)},
+           "data": census}
+    ratings = make_ratings(dev)
+    t1 = time.perf_counter()
+    backend = backend_phase(data, cla, ratings, dev, kernels, smi, untuned)
+    backend_s = time.perf_counter() - t1
+    del ratings, data
+    torch.cuda.empty_cache()
+    stepglm_data(census, dev)
+    ref = run_stepglm(census, 3, "for", dev, kernels)
+    census["stepglm_for"] = {"B": ref["out"], "selected": ref["selected"]}
+    t1 = time.perf_counter()
+    remote = remote_phase(census, dev, kernels, smi)
+    remote_s = time.perf_counter() - t1
+    print(f"[slice14] backend phase {backend_s:.1f} s, remote phase "
+          f"{remote_s:.1f} s, all {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(json.dumps({"poisson_draw": poisson, "backend": backend,
+                      "remote_parfor": remote, "backend_s": backend_s,
+                      "remote_s": remote_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
@@ -5745,6 +6174,8 @@ if __name__ == "__main__":
         dnn_only()
     elif sys.argv[1:2] == ["--breadth"]:
         breadth_only()
+    elif sys.argv[1:2] == ["--slice14"]:
+        slice14_only()
     elif sys.argv[1:2] == ["--parfor"]:
         parfor_only()
     elif sys.argv[1:2] == ["--bench"]:

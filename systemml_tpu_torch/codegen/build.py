@@ -16,14 +16,20 @@ flags, so an edited source never loads a stale library. `build_plans`
 builds every plan of a program at once, one nvcc per source, all running
 together, before the program runs: no nvcc runs inside a loop iteration.
 An nvcc that runs past NVCC_TIMEOUT_S is killed with the processes it
-started, and the build raises.
+started, and the build raises. Processes share the build directory (a
+remote parfor's workers, runtime/remote.py): a source is built under a
+file lock beside its library (`file_lock`), into a temporary name that
+os.replace then moves into place, so that two processes building one
+source build it once and neither loads half a library.
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a card may have no nvcc.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -99,8 +105,22 @@ def _compile(name: str, src: str, lib: str,
         return lib
     with _lock:
         one = _lib_locks.setdefault(lib, threading.Lock())
-    with one:
+    with one, file_lock(lib):
         return _compile_once(name, src, lib, limit)
+
+
+@contextlib.contextmanager
+def file_lock(path: str):
+    """An exclusive lock, across processes, on `path` with its extension
+    replaced by ".lock" (flock: the kernel drops it with its holder, so a
+    killed builder leaves none held)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(os.path.splitext(path)[0] + ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _compile_once(name: str, src: str, lib: str,

@@ -1,8 +1,12 @@
 # Port of systemml_tpu/codegen/compiler.py: SpoofCompiler, _extract_cell, _apply
 # and compile_spoof (lines 33-284) are copied with their imports pointed at
-# systemml_tpu_torch; execute_spoof is rewritten without the kernel backend,
-# and _outer_sampled (line 510 there) so that it runs (the JAX package's
-# uses jnp without importing it, and raises NameError on a sparse X).
+# systemml_tpu_torch; the four spoof families of the kernel backend
+# (lines 345-420 there) register the hand kernels K2-K5 as their templates
+# and the plain versions as their fallbacks; execute_spoof dispatches
+# through the backend as there, with each hop's build.Variant; and
+# _outer_sampled (line 510 there) is rewritten so that it runs (the JAX
+# package's uses jnp without importing it, and raises NameError on a
+# sparse X).
 """Codegen planner: template matching over HOP DAGs + plan cache.
 
 TPU-native equivalent of the reference's SpoofCompiler
@@ -307,12 +311,175 @@ def compile_spoof(blk: BlockHops, wide_single_op: bool = False) -> int:
 
 # --------------------------------------------------------------------------
 # spoof execution (reference: SpoofCPInstruction dispatching the janino-
-# compiled operator). The JAX package dispatches through its kernel
-# backend (systemml_tpu/codegen/compiler.py:445-502); the port has no
-# backend yet (ROADMAP queue 1), so each template goes straight to its
-# kernel wrapper, which launches the hand-written kernel for a CUDA tensor
-# and runs the plain version for a CPU tensor.
+# compiled operator). Each template is a family of the kernel backend
+# (codegen/backend.py): its hand kernel (codegen/kernels.py, csrc/
+# spoof.cuh), swept over the launch's grid, and its plain version, which
+# runs where the kernel does not: on the CPU (pallas_mode "auto"), under
+# pallas_mode "never", and for a call whose leaf layout (or outer rank)
+# the kernel refuses, which counts spoof_plain_by_layout as before.
 # --------------------------------------------------------------------------
+
+from systemml_tpu_torch.codegen import backend as kbackend
+from systemml_tpu_torch.codegen import kernels
+
+
+def _spoof_kernel_ok(ctx) -> bool:
+    return kbackend.use_kernel(ctx["backend"]) and ctx.get("has_matrix",
+                                                           False)
+
+
+def _spoof_cost_kernel(ctx) -> float:
+    """One pass over the leaves and one launch."""
+    from systemml_tpu_torch.hops.cost import HwProfile
+
+    hw = HwProfile.detect()
+    return ctx.get("bytes", 0.0) / hw.hbm_bw + hw.dispatch_us * 1e-6
+
+
+def _spoof_cost_plain(ctx) -> float:
+    """The plain arm, modeled as the two-pass lowering of the same region
+    (the memo table's alt arm uses the same additive shape)."""
+    from systemml_tpu_torch.hops.cost import HwProfile
+
+    hw = HwProfile.detect()
+    return 2.0 * ctx.get("bytes", 0.0) / hw.hbm_bw + hw.dispatch_us * 1e-6
+
+
+def _spoof_grid_sweep():
+    """The resident blocks per SM of the kernel's grid: the empty point
+    keeps the kernel's own (as many as fit); the others cap it. Each is a
+    run-time launch parameter of the one build of the plan."""
+    return [{}] + [{"bps": b} for b in (1, 2, 4)]
+
+
+def _outer_grid_sweep():
+    """Rows of blocks of the outer kernel's grid, each striding over X's
+    row tiles: the empty point keeps one per tile (up to 65,535)."""
+    return [{}] + [{"grid_y": g} for g in (64, 256, 1024)]
+
+
+def _bps(ctx):
+    return (ctx.get("sched") or {}).get("bps")
+
+
+def _layout_ok(ctx, plan, names, op, env, variant) -> bool:
+    """Whether the spoof kernels take the call's leaf layout (a plan with
+    no matrix leaf runs on its scalars in the wrapper)."""
+    return not kernels._matrices(names, env) or kernels.spoof_layout_ok(
+        names, env)
+
+
+def _plain_layout_count(names, env) -> None:
+    """The count of a call whose leaf layout the kernels refuse, as the
+    wrappers count it (codegen/kernels._kernel_main)."""
+    if kernels._matrices(names, env) and not kernels.spoof_layout_ok(names,
+                                                                     env):
+        kernels._count_plain_by_layout()
+
+
+_cell_fam = kbackend.family("spoof_cell")
+
+
+@_cell_fam.template("kernel", _spoof_grid_sweep, cost=_spoof_cost_kernel,
+                    supported=_spoof_kernel_ok, accepts=_layout_ok,
+                    fallback="plain")
+def _cell_kernel(ctx, plan, names, agg, env, variant):
+    return kernels.cell_kernel(plan, names, agg, env, variant,
+                               blocks_per_sm=_bps(ctx))
+
+
+@_cell_fam.variant("plain", cost=_spoof_cost_plain, is_fallback=True)
+def _cell_plain(ctx, plan, names, agg, env, variant):
+    _plain_layout_count(names, env)
+    return kernels.cell_plain(plan, names, agg, env)
+
+
+_row_fam = kbackend.family("spoof_row")
+
+
+@_row_fam.template("kernel", _spoof_grid_sweep, cost=_spoof_cost_kernel,
+                   supported=_spoof_kernel_ok, accepts=_layout_ok,
+                   fallback="plain")
+def _row_kernel(ctx, plan, names, row_agg, env, variant):
+    return kernels.row_kernel(plan, names, row_agg, env, variant,
+                              blocks_per_sm=_bps(ctx))
+
+
+@_row_fam.variant("plain", cost=_spoof_cost_plain, is_fallback=True)
+def _row_plain(ctx, plan, names, row_agg, env, variant):
+    _plain_layout_count(names, env)
+    return kernels.row_plain(plan, names, row_agg, env)
+
+
+_magg_fam = kbackend.family("spoof_multiagg")
+
+
+@_magg_fam.template("kernel", _spoof_grid_sweep, cost=_spoof_cost_kernel,
+                    supported=_spoof_kernel_ok, accepts=_layout_ok,
+                    fallback="plain")
+def _magg_kernel(ctx, plan, names, aggs, env, variant):
+    return kernels.multiagg_kernel(plan, names, aggs, env, variant,
+                                   blocks_per_sm=_bps(ctx))
+
+
+@_magg_fam.variant("plain", cost=_spoof_cost_plain, is_fallback=True)
+def _magg_plain(ctx, plan, names, aggs, env, variant):
+    _plain_layout_count(names, env)
+    return kernels.multiagg_plain(plan, names, aggs, env)
+
+
+_outer_fam = kbackend.family("spoof_outer")
+
+
+def _outer_rank_ok(ctx, plan, x, u, v, extra, variant) -> bool:
+    return u.shape[1] <= kernels.OUTER_MAX_RANK
+
+
+@_outer_fam.template("kernel", _outer_grid_sweep, cost=_spoof_cost_kernel,
+                     supported=_spoof_kernel_ok, accepts=_outer_rank_ok,
+                     fallback="plain")
+def _outer_kernel(ctx, plan, x, u, v, extra, variant):
+    return kernels.outer_kernel(plan, x, u, v, extra, variant,
+                                grid_y=(ctx.get("sched") or {}).get("grid_y"))
+
+
+@_outer_fam.variant("plain", cost=_spoof_cost_plain, is_fallback=True)
+def _outer_plain(ctx, plan, x, u, v, extra, variant):
+    # the wrapper counts a rank above its bound on the card only (a CPU X
+    # runs the plain version first)
+    if x.device.type == "cuda" and u.shape[1] > kernels.OUTER_MAX_RANK:
+        kernels._count_plain_by_layout()
+    return kernels.outer_plain(plan, x, u, v, extra)
+
+
+def _spoof_ctx(env) -> dict:
+    """Key and cost fields: the main leaf's shape and dtype, and the
+    leaves' bytes that the roofline costs read."""
+    import torch
+
+    mats = [v for v in env.values()
+            if isinstance(v, torch.Tensor) and v.ndim == 2]
+    main = mats[0] if mats else None
+    return {
+        "has_matrix": bool(mats),
+        "bytes": sum(float(m.shape[0]) * m.shape[1] * m.element_size()
+                     for m in mats),
+        "shape": tuple(int(d) for d in main.shape) if main is not None
+        else (),
+        "dtype": main.dtype if main is not None else "f32",
+        "backend": (main.device.type if main is not None
+                    else kbackend._device_type(env.values())),
+    }
+
+
+def plan_key_digest(h: Hop) -> str:
+    """The kernel key's digest of a spoof hop's plan, kept on the hop."""
+    d = h.params.get("plan_digest")
+    if d is None:
+        d = h.params["plan_digest"] = kbackend.plan_digest(
+            h.params["plan"].key())
+    return d
+
 
 def _leaf_hops(h: Hop) -> Dict[str, Hop]:
     """A spoof hop's leaf names and the hops that give their values (the
@@ -464,8 +631,6 @@ def assign_variants(program) -> None:
 
 
 def execute_spoof(h: Hop, arg_values: List) -> object:
-    from systemml_tpu_torch.codegen import kernels
-
     from systemml_tpu_torch.compiler.lower import current_region
 
     t = h.params["template"]
@@ -473,6 +638,10 @@ def execute_spoof(h: Hop, arg_values: List) -> object:
     run = current_region()
     if run is not None:
         run.check_spoof_numbers(h, arg_values)
+    digest = plan_key_digest(h)
+    # the memo selector's fused/alt modeled-time ratio rides along as a
+    # feature of the learned cost model (memo.MemoEntry.cost_ratio)
+    cost_ratio = h.params.get("cost_ratio")
     if t == "outer":
         # inputs: X, the scalar leaves, U, V (SpoofCompiler._apply)
         sca = h.params["scalar_names"]
@@ -485,21 +654,43 @@ def execute_spoof(h: Hop, arg_values: List) -> object:
             r = _outer_sampled(plan, x, u, v, extra)
             if r is not None:
                 return r
-        return kernels.outer_kernel(plan, ensure_dense(x), u, v, extra,
-                                    hop_variant(h))
+        x = ensure_dense(x)
+        m, n = x.shape
+        ctx = {"has_matrix": True, "shape": (int(m), int(n)),
+               "bytes": float(m * n + m * u.shape[1]
+                              + n * v.shape[1]) * x.element_size(),
+               "cost_ratio": cost_ratio}
+        return kbackend.dispatch(
+            "spoof_outer", (plan, x, u, v, extra, hop_variant(h)),
+            shape=(m, n, u.shape[1]), dtype=x.dtype,
+            config={"plan": digest}, ctx=ctx, backend=x.device.type)
     names = h.params["leaf_names"]
     # a sparse leaf of a cell, row or multi-aggregate plan densifies, as
     # in the JAX package (its _prep)
     env = {nm: ensure_dense(v) for nm, v in zip(names, arg_values)}
+    ctx = _spoof_ctx(env)
+    ctx["cost_ratio"] = cost_ratio
+    backend = ctx.pop("backend")
     if t == "cell":
-        return kernels.cell_kernel(plan, names, h.params.get("agg"), env,
-                                   hop_variant(h))
+        agg = h.params.get("agg")
+        return kbackend.dispatch(
+            "spoof_cell", (plan, names, agg, env, hop_variant(h)),
+            shape=ctx["shape"], dtype=ctx["dtype"],
+            config={"plan": digest, "agg": agg}, ctx=ctx, backend=backend)
     if t == "row":
-        return kernels.row_kernel(plan, names, h.params["row_agg"], env,
-                                  hop_variant(h))
+        return kbackend.dispatch(
+            "spoof_row", (plan, names, h.params["row_agg"], env,
+                          hop_variant(h)),
+            shape=ctx["shape"], dtype=ctx["dtype"],
+            config={"plan": digest, "row_agg": h.params["row_agg"]},
+            ctx=ctx, backend=backend)
     if t == "multiagg":
-        return kernels.multiagg_kernel(plan, names, h.params["aggs"], env,
-                                       hop_variant(h))
+        return kbackend.dispatch(
+            "spoof_multiagg", (plan, names, h.params["aggs"], env,
+                               hop_variant(h)),
+            shape=ctx["shape"], dtype=ctx["dtype"],
+            config={"plan": digest, "aggs": tuple(h.params["aggs"])},
+            ctx=ctx, backend=backend)
     raise ValueError(f"unknown spoof template {t!r}")
 
 

@@ -122,7 +122,10 @@ def _check(err: int, what: str) -> None:
 
 
 def _mmchain_grid(lib, dev: torch.device, m: int, k: int, c: int,
-                  flat: bool) -> int:
+                  flat: bool, blocks_per_sm: Optional[int] = None) -> int:
+    """A block per chunk of rows, at most the SMs times the blocks
+    resident per SM (capped at `blocks_per_sm`, the kernel backend's
+    sweep of K1)."""
     key = (dev.index, k, c, flat)
     per_sm = _mmchain_occupancy.get(key)
     if per_sm is None:
@@ -134,12 +137,14 @@ def _mmchain_grid(lib, dev: torch.device, m: int, k: int, c: int,
             raise RuntimeError(f"mmchain kernel cannot be resident at k={k}, "
                                f"c={c}")
         per_sm = _mmchain_occupancy[key] = n.value
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if blocks_per_sm is not None:
+        per_sm = max(1, min(per_sm, int(blocks_per_sm)))
     chunks = -(-m // lib.smtorch_mmchain_chunk_rows())
-    return max(1, min(chunks, per_sm * sms))
+    return max(1, min(chunks, per_sm * _sms(dev)))
 
 
-def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
+def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True,
+                   blocks_per_sm: Optional[int] = None):
     """t(X) %*% (X %*% v) (XtXv), t(X) %*% (w * (X %*% v)) (XtwXv) or
     t(X) %*% ((X %*% v) - y) (XtXvy), reading X once (csrc/mmchain.cu).
 
@@ -149,7 +154,9 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
     contiguous, k or c outside mmchain_supported). X may be a row or
     column slice of a wider matrix: the kernel reads it in place; on a CPU tensor it runs
     mmchain_plain. `precise` is accepted for the JAX package's signature
-    and changes nothing: the kernel always multiplies in true fp32."""
+    and changes nothing: the kernel always multiplies in true fp32.
+    `blocks_per_sm` caps the grid's resident blocks per SM (None: as
+    many as fit)."""
     if x.device.type == "cpu":
         return mmchain_plain(x, v, w, ctype)
     if x.device.type != "cuda":
@@ -174,7 +181,8 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
     w = None if w is None else w.contiguous()
     lib = _library()
     with torch.cuda.device(x.device):
-        grid = _mmchain_grid(lib, x.device, m, k, c, ldx == k)
+        grid = _mmchain_grid(lib, x.device, m, k, c, ldx == k,
+                             blocks_per_sm)
         partial = torch.empty((grid, k, c), dtype=torch.float32,
                               device=x.device)
         out = torch.empty((k, c), dtype=torch.float32, device=x.device)
@@ -571,19 +579,30 @@ def _sms(dev: torch.device) -> int:
     return sms
 
 
-def _spoof_grid(dev: torch.device, work: int) -> int:
-    return max(1, min(-(-work // SPOOF_THREADS), SPOOF_BLOCKS_PER_SM
+def _per_sm(resident: int, blocks_per_sm: Optional[int]) -> int:
+    """Blocks per SM of a grid: those resident, capped at
+    `blocks_per_sm` (the kernel backend's sweep; None: no cap)."""
+    if blocks_per_sm is None:
+        return resident
+    return max(1, min(resident, int(blocks_per_sm)))
+
+
+def _spoof_grid(dev: torch.device, work: int,
+                blocks_per_sm: Optional[int] = None) -> int:
+    return max(1, min(-(-work // SPOOF_THREADS),
+                      _per_sm(SPOOF_BLOCKS_PER_SM, blocks_per_sm)
                       * _sms(dev)))
 
 
 def _walk_grid(launcher: _Launcher, main, key: Tuple[int, ...], walk: int,
-               cells: int) -> int:
-    """A persistent grid: the SMs times the kernel's resident blocks, or
-    fewer when the work needs fewer threads (the flat walk gives a thread
-    two vectors a step, and the ragged tail a thread a cell)."""
+               cells: int, blocks_per_sm: Optional[int] = None) -> int:
+    """A persistent grid: the SMs times the kernel's resident blocks
+    (capped at `blocks_per_sm`), or fewer when the work needs fewer
+    threads (the flat walk gives a thread two vectors a step, and the
+    ragged tail a thread a cell)."""
     dev = main.device
     gkey = (dev.index, SPOOF_DTYPES[main.dtype]) + key + (walk, cells)
-    grid = launcher.grids.get(gkey)
+    grid = launcher.grids.get(gkey + (blocks_per_sm,))
     if grid is None:
         if walk == WALK_FLAT:
             per_vec = SPOOF_VECTOR_BYTES // main.element_size()
@@ -591,8 +610,8 @@ def _walk_grid(launcher: _Launcher, main, key: Tuple[int, ...], walk: int,
             threads = max(-(-nvec // 2), cells - nvec * per_vec)
         else:
             threads = cells
-        per_sm = launcher.per_sm(dev, *gkey[1:-1])
-        grid = launcher.grids[gkey] = max(1, min(
+        per_sm = _per_sm(launcher.per_sm(dev, *gkey[1:-1]), blocks_per_sm)
+        grid = launcher.grids[gkey + (blocks_per_sm,)] = max(1, min(
             -(-threads // SPOOF_THREADS), per_sm * _sms(dev)))
     return grid
 
@@ -657,7 +676,8 @@ def _variant_of(template, plan, env, variant, aggs=()):
 
 
 def cell_kernel(plan, names: Sequence[str], agg: Optional[str],
-                env: Dict[str, object], variant=None):
+                env: Dict[str, object], variant=None,
+                blocks_per_sm: Optional[int] = None):
     """The cell template (systemml_tpu/codegen/kernels.py:124): the plan
     evaluated at every cell of the main leaf's (m, n), written out as
     (m, n) (agg None) or summed (agg "sum", a 0-d tensor), in the main
@@ -672,7 +692,8 @@ def cell_kernel(plan, names: Sequence[str], agg: Optional[str],
     (csrc/spoof.cuh) on the flat walk or the general one (counted in
     spoof_flat_walk / spoof_general_walk), or raises on what the kernel
     does not take; on a CPU main leaf it runs cell_plain. A plan with no
-    matrix leaf runs on its scalars."""
+    matrix leaf runs on its scalars. `blocks_per_sm` caps the grid's
+    resident blocks per SM (None: as many as fit)."""
     if agg not in (None, "sum"):
         raise ValueError(f"unknown cell aggregate {agg!r}")
     main = _kernel_main(names, env, "cell_kernel")
@@ -686,7 +707,7 @@ def cell_kernel(plan, names: Sequence[str], agg: Optional[str],
     walk = WALK_GENERAL if "general" in classes else WALK_FLAT
     with torch.cuda.device(main.device):
         stream = torch.cuda.current_stream(main.device).cuda_stream
-        grid = _walk_grid(la, main, (code,), walk, m * n)
+        grid = _walk_grid(la, main, (code,), walk, m * n, blocks_per_sm)
         if agg is None:
             out = torch.empty((m, n), dtype=main.dtype, device=main.device)
             partial = ticket = None
@@ -705,12 +726,13 @@ def cell_kernel(plan, names: Sequence[str], agg: Optional[str],
 
 
 def row_kernel(plan, names: Sequence[str], row_agg: str,
-               env: Dict[str, object], variant=None):
+               env: Dict[str, object], variant=None,
+               blocks_per_sm: Optional[int] = None):
     """The row template (systemml_tpu/codegen/kernels.py:199): the plan
     evaluated over the main leaf's (m, n), then each row reduced under
     `row_agg` ("sum", "min" or "max"), giving (m, 1) in the main leaf's
-    dtype. Dispatch as cell_kernel's; the row kernels read every leaf
-    through its descriptor."""
+    dtype. Dispatch and `blocks_per_sm` as cell_kernel's; the row kernels
+    read every leaf through its descriptor."""
     if row_agg not in SPOOF_AGGS:
         raise ValueError(f"unknown row aggregate {row_agg!r}")
     main = _kernel_main(names, env, "row_kernel")
@@ -722,7 +744,8 @@ def row_kernel(plan, names: Sequence[str], row_agg: str,
                                                       main, variant)
     la = _launcher(plan, "row", variant)
     with torch.cuda.device(main.device):
-        grid = _spoof_grid(main.device, m if n <= 32 else 32 * m)
+        grid = _spoof_grid(main.device, m if n <= 32 else 32 * m,
+                           blocks_per_sm)
         out = torch.empty((m, 1), dtype=main.dtype, device=main.device)
         err = la.fn(SPOOF_DTYPES[main.dtype], SPOOF_AGGS[row_agg], ptrs, rs,
                     cs, scal, len(la.order), m, n, out.data_ptr(), grid,
@@ -758,14 +781,16 @@ def multiagg_plain(plan, names: Sequence[str], aggs: Sequence[str],
 
 
 def multiagg_kernel(plan, names: Sequence[str], aggs: Sequence[str],
-                    env: Dict[str, object], variant=None):
+                    env: Dict[str, object], variant=None,
+                    blocks_per_sm: Optional[int] = None):
     """The multi-aggregate template (systemml_tpu/codegen/kernels.py:242):
     the plan evaluated once at every cell of the main leaf's (m, n) and
     reduced under every aggregate of `aggs` ("sum", "min", "max", any
     order, repeats allowed), a tuple of 0-d tensors in the main leaf's
     dtype; the aggregates are compiled into the plan's source (`variant`,
-    whose aggs are `aggs`). Dispatch as cell_kernel's. A min or max over
-    no cells raises ValueError on either device."""
+    whose aggs are `aggs`). Dispatch and `blocks_per_sm` as
+    cell_kernel's. A min or max over no cells raises ValueError on either
+    device."""
     aggs = tuple(str(a) for a in aggs)
     if not aggs or any(a not in SPOOF_AGGS for a in aggs):
         raise ValueError(f"multi-aggregate takes sum, min and max; got "
@@ -783,7 +808,7 @@ def multiagg_kernel(plan, names: Sequence[str], aggs: Sequence[str],
     walk = WALK_GENERAL if "general" in classes else WALK_FLAT
     with torch.cuda.device(main.device):
         stream = torch.cuda.current_stream(main.device).cuda_stream
-        grid = _walk_grid(la, main, (), walk, m * n)
+        grid = _walk_grid(la, main, (), walk, m * n, blocks_per_sm)
         out = torch.empty(len(aggs), dtype=main.dtype, device=main.device)
         partial, ticket = _reduce_scratch(main.device, stream)
         err = la.fn(SPOOF_DTYPES[main.dtype], walk, ptrs, rs, cs, scal,
@@ -835,7 +860,8 @@ def outer_plain(plan, x, u, v, extra: Dict[str, object]):
     return torch.sum(emit(plan, _plain_env(names, env, x))).to(x.dtype)
 
 
-def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None):
+def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None,
+                 grid_y: Optional[int] = None):
     """The outer-product template (systemml_tpu/codegen/kernels.py:419):
     sum over X's (m, n) of the plan on X, UV = U %*% t(V) and the scalar
     leaves `extra` (Python numbers or 0-d tensors), in X's dtype; X (m, n),
@@ -845,7 +871,9 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None):
     OUTER_MAX_RANK takes the plain arm by shape, counted in
     spoof_plain_by_layout; on a CPU X it runs outer_plain. `variant` is
     the build.Variant of the plan's source (its scalar leaves), derived
-    from `extra` when None."""
+    from `extra` when None. `grid_y` caps the grid's rows of blocks, each
+    of which strides over X's tiles of OUTER_ROWS rows (None: a block row
+    per tile, up to CUDA's 65,535)."""
     m, n, r = _outer_shapes(x, u, v)
     if x.device.type == "cpu":
         return outer_plain(plan, x, u, v, extra)
@@ -866,7 +894,8 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None):
                                                       variant)
     la = _launcher(plan, "outer", variant)
     grid_x = max(1, -(-n // SPOOF_THREADS))
-    grid_y = max(1, min(-(-m // OUTER_ROWS), _MAX_GRID_Y))
+    grid_y = max(1, min(-(-m // OUTER_ROWS), _MAX_GRID_Y,
+                        _MAX_GRID_Y if grid_y is None else int(grid_y)))
     stride = lambda t, d: t.stride(d) if t.shape[d] > 1 else 0
     with torch.cuda.device(x.device):
         out = torch.empty((), dtype=x.dtype, device=x.device)

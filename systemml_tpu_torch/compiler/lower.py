@@ -1779,6 +1779,9 @@ def _bi_rand(ev, pos, named, h):
     key = None
     run = _REGION.get()
     seed = named.get("seed")
+    if run is not None and named.get("pdf") == "poisson":
+        # its rounds end when every cell is done: a read of the device
+        run.note_sync('rand(pdf="poisson")\'s rejection rounds')
     if run is not None and not isinstance(seed, torch.Tensor) and (
             seed is None or int(_scalar(seed)) == -1):
         key = run.stream_key()

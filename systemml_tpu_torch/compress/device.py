@@ -25,14 +25,15 @@ The JAX package leaves the first three to XLA (its left mult is
 run to run and read nothing on the host, so a loop region captures them;
 tsmm counts codes with `bincount` (a host read: a region refuses it).
 
-Each op family chooses between its coded arm and its decompress_dense arm
-(and mmchain between K6 and the gather arm) with the JAX package's
-analytic costs (`_cla_cost_*`) read against hops/cost.HwProfile of the
-configured device: the kernel backend's registry, tuner and measured
-verdicts wait (ROADMAP queue 1, kernel backend and tuner). As there, a
-choice is made once per kernel key (op, device, dtype, power-of-two
-shape bucket, group layout) and process, and counted then in the stats as
-kb_pick_<family>.<arm>, under the JAX package's names. A compressed
+Each op is a family of the kernel backend (codegen/backend.py), as in
+the JAX package: cla_right, cla_left and cla_tsmm choose between the
+coded arm and decompress_dense, cla_mmchain between K6 ("tpu_chain") and
+the gather arm, by the JAX package's analytic costs (`_cla_cost_*`) read
+against hops/cost.HwProfile of the configured device, or by measurement
+when tuning is on. A choice is made once per kernel key (op, device,
+dtype, power-of-two shape bucket, group layout) and process, and counted
+then in the stats as kb_pick_<family>.<arm>, under the JAX package's
+names. A compressed
 mmchain that K6 cannot take by its layout or shape (an uncompressed
 group, a dictionary of more than 8 rows, or a block's table, codes and
 histograms past the kernel's shared memory, chain_smem_bytes) counts
@@ -44,12 +45,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from systemml_tpu_torch.codegen import backend as kbackend
 from systemml_tpu_torch.codegen import counts
 from systemml_tpu_torch.compress.block import CompressedMatrixBlock
 from systemml_tpu_torch.compress.colgroup import ColGroupUncompressed
@@ -313,8 +314,8 @@ def _tsmm(dc: DeviceCompressed):
 
 
 # --------------------------------------------------------------------------
-# variant choice: the JAX package's analytic costs (device.py:155-195,
-# :385-394) and its once-per-key selection (codegen/backend.py select)
+# the kernel backend's four compressed families (the JAX package's
+# device.py:197-450) with its analytic costs (:155-195, :385-394)
 # --------------------------------------------------------------------------
 
 
@@ -394,59 +395,18 @@ def _cla_cost_tpu_chain(ctx) -> float:
             + vpu_flops / hw.peak_flops_f32 + hw.dispatch_us * 1e-6)
 
 
-# family -> its arms in registration order (a tie goes to the first) and
-# their costs
-_COSTS = {
-    "cla_right": {"coded": _cla_cost_coded,
-                  "decompress_dense": _cla_cost_dense},
-    "cla_left": {"coded": _cla_cost_coded,
-                 "decompress_dense": _cla_cost_dense},
-    "cla_tsmm": {"coded": _cla_cost_coded,
-                 "decompress_dense": _cla_cost_dense},
-    "cla_mmchain": {"tpu_chain": _cla_cost_tpu_chain,
-                    "gather_segment": _cla_cost_coded},
-}
-
-# kernel key -> the arm chosen, per process (codegen/backend.py _DECISIONS
-# in the JAX package)
-_DECISIONS: Dict[tuple, str] = {}
-_lock = threading.Lock()
+def _cla_chain_kernel_ok(ctx) -> bool:
+    """The JAX package's gate of its chain kernel (tpu_chain_supported:
+    on the accelerator, every group coded, at most CHAIN_MAX_DICT
+    dictionary rows), which pallas_mode "never" also closes here; K6
+    takes the call when chain_supported accepts it."""
+    shape = _host_meta(ctx["c"])[2]
+    return (ctx["backend"] == "cuda" and get_config().pallas_mode != "never"
+            and shape is not None and shape[0] <= CHAIN_MAX_DICT)
 
 
-def reset_decisions() -> None:
-    """Forget every choice made, as a new process starts (tests)."""
-    with _lock:
-        _DECISIONS.clear()
-
-
-def _shape_bucket(dims) -> Tuple[int, ...]:
-    """Per-dim next power of two (codegen/backend.py shape_bucket)."""
-    return tuple(0 if d <= 0 else 1 << max(0, d - 1).bit_length()
-                 for d in (int(x) for x in dims))
-
-
-def _select(op: str, ctx: dict, arms: List[str], dtype: str,
-            extra=None) -> str:
-    """The arm of `op` with the least modeled time among `arms`, chosen
-    once per kernel key and counted then as kb_pick_<op>.<arm>."""
-    key = (op, get_config().device, dtype, _shape_bucket(ctx["shape"]),
-           ctx["layout_sig"], extra, tuple(arms))
-    with _lock:
-        hit = _DECISIONS.get(key)
-    if hit is not None:
-        return hit
-    costs = {a: _COSTS[op][a](ctx) for a in arms}
-    choice = min(costs, key=costs.get)
-    with _lock:
-        _DECISIONS[key] = choice
-    _count(f"kb_pick_{op}.{choice}")
-    return choice
-
-
-def _count(kind: str) -> None:
-    st = stats_mod.current()
-    if st is not None:
-        st.count_estim(kind)
+def _cla_chain_accepts(ctx, c, v, w, ctype) -> bool:
+    return chain_supported(c, ctx["k"], v.dtype)
 
 
 def _dense_of(c: CompressedMatrixBlock, like):
@@ -454,28 +414,76 @@ def _dense_of(c: CompressedMatrixBlock, like):
                            device=like.device)
 
 
+def _dispatch(op: str, args: tuple, ctx: dict, dtype, backend: str,
+              extra=()):
+    """Dispatch a compressed family (key: its shape bucket, its group
+    layout's digest, `extra` static config)."""
+    return kbackend.dispatch(
+        op, args, shape=ctx["shape"], dtype=dtype,
+        config=(("layout", kbackend.plan_digest(ctx["layout_sig"])),)
+        + tuple(extra), ctx=ctx, backend=backend)
+
+
+_cla_right_fam = kbackend.family("cla_right")
+
+
+@_cla_right_fam.variant("coded", cost=_cla_cost_coded,
+                        fallback="decompress_dense")
+def _cla_right_coded(ctx, c, w):
+    return _right(device_mirror(c), w)
+
+
+@_cla_right_fam.variant("decompress_dense", cost=_cla_cost_dense,
+                        is_fallback=True)
+def _cla_right_dense(ctx, c, w):
+    return torch.matmul(_dense_of(c, w), w)
+
+
 def right_mult(c: CompressedMatrixBlock, w):
     """X @ W -> dense (n, k) on the device."""
     if w.ndim == 1:
         w = w.reshape(-1, 1)
-    ctx = _cla_ctx(c, int(w.shape[1]))
-    arm = _select("cla_right", ctx, ["coded", "decompress_dense"],
-                  str(w.dtype))
-    if arm == "coded":
-        return _right(device_mirror(c), w)
-    return torch.matmul(_dense_of(c, w), w)
+    return _dispatch("cla_right", (c, w), _cla_ctx(c, int(w.shape[1])),
+                     w.dtype, w.device.type)
+
+
+_cla_left_fam = kbackend.family("cla_left")
+
+
+@_cla_left_fam.variant("coded", cost=_cla_cost_coded,
+                       fallback="decompress_dense")
+def _cla_left_coded(ctx, c, yt):
+    return _left(device_mirror(c), yt)
+
+
+@_cla_left_fam.variant("decompress_dense", cost=_cla_cost_dense,
+                       is_fallback=True)
+def _cla_left_dense(ctx, c, yt):
+    return torch.matmul(yt, _dense_of(c, yt))
 
 
 def left_mult(c: CompressedMatrixBlock, yt):
     """Y^T @ X -> dense (k, m) on the device. yt is (k, n)."""
     if yt.ndim == 1:
         yt = yt.reshape(1, -1)
-    ctx = _cla_ctx(c, int(yt.shape[0]))
-    arm = _select("cla_left", ctx, ["coded", "decompress_dense"],
-                  str(yt.dtype))
-    if arm == "coded":
-        return _left(device_mirror(c), yt)
-    return torch.matmul(yt, _dense_of(c, yt))
+    return _dispatch("cla_left", (c, yt), _cla_ctx(c, int(yt.shape[0])),
+                     yt.dtype, yt.device.type)
+
+
+_cla_tsmm_fam = kbackend.family("cla_tsmm")
+
+
+@_cla_tsmm_fam.variant("coded", cost=_cla_cost_coded,
+                       fallback="decompress_dense")
+def _cla_tsmm_coded(ctx, c):
+    return _tsmm(device_mirror(c))
+
+
+@_cla_tsmm_fam.variant("decompress_dense", cost=_cla_cost_dense,
+                       is_fallback=True)
+def _cla_tsmm_dense(ctx, c):
+    x = c.to_dense()
+    return torch.matmul(x.T, x)
 
 
 def tsmm(c: CompressedMatrixBlock):
@@ -483,12 +491,8 @@ def tsmm(c: CompressedMatrixBlock):
     from systemml_tpu_torch.compress.block import _host_op
 
     _host_op("tsmm")      # bincount reads the largest code
-    ctx = _cla_ctx(c, c.shape[1])
-    arm = _select("cla_tsmm", ctx, ["coded", "decompress_dense"], "f32")
-    if arm == "coded":
-        return _tsmm(device_mirror(c))
-    x = c.to_dense()
-    return torch.matmul(x.T, x)
+    return _dispatch("cla_tsmm", (c,), _cla_ctx(c, c.shape[1]), "f32",
+                     torch.device(get_config().device).type)
 
 
 def gather_mmchain(c: CompressedMatrixBlock, v, w, ctype: str):
@@ -503,27 +507,44 @@ def gather_mmchain(c: CompressedMatrixBlock, v, w, ctype: str):
     return _left(dc, xv.T).T
 
 
+_cla_chain_fam = kbackend.family("cla_mmchain")
+
+
+@_cla_chain_fam.variant("tpu_chain", cost=_cla_cost_tpu_chain,
+                        supported=_cla_chain_kernel_ok,
+                        accepts=_cla_chain_accepts,
+                        fallback="gather_segment")
+def _cla_chain_kernel(ctx, c, v, w, ctype):
+    return chain_mmchain(c, v, w, ctype)
+
+
+@_cla_chain_fam.variant("gather_segment", cost=_cla_cost_coded,
+                        is_fallback=True)
+def _cla_chain_gather(ctx, c, v, w, ctype):
+    if not chain_supported(c, ctx["k"], v.dtype):
+        _count("cla_chain_plain_by_layout")
+    return gather_mmchain(c, v, w, ctype)
+
+
 def mmchain(c: CompressedMatrixBlock, v, w=None, ctype: str = "XtXv"):
     """t(X) %*% (w? * (X %*% v) -? y) with X compressed; X's dense form
-    never exists. K6 (chain_mmchain) when the block's layout and v's width
-    fit it and v lies on the card; otherwise the gather arm, and
-    cla_chain_plain_by_layout counts the calls whose layout or shape K6
-    refuses."""
+    never exists. Family `cla_mmchain`: K6 ("tpu_chain", chain_mmchain)
+    or the gather arm; a call whose block layout or shape K6 refuses
+    (chain_supported) takes the gather arm and counts
+    cla_chain_plain_by_layout, decided before any launch."""
     if ctype not in CHAIN_CTYPES:
         raise ValueError(f"unknown mmchain ctype {ctype!r}")
     if ctype != "XtXv" and w is None:
         raise ValueError(f"mmchain {ctype} needs w/y")
     k = int(v.shape[1]) if v.ndim == 2 else 1
-    ctx = _cla_ctx(c, k)
-    fits = chain_supported(c, k, v.dtype)
-    if not fits:
-        _count("cla_chain_plain_by_layout")
-    arms = (["tpu_chain", "gather_segment"]
-            if fits and v.device.type == "cuda" else ["gather_segment"])
-    arm = _select("cla_mmchain", ctx, arms, "f32", ctype)
-    if arm == "tpu_chain":
-        return chain_mmchain(c, v, w, ctype)
-    return gather_mmchain(c, v, w, ctype)
+    return _dispatch("cla_mmchain", (c, v, w, ctype), _cla_ctx(c, k), "f32",
+                     v.device.type, (("ctype", ctype),))
+
+
+def _count(kind: str) -> None:
+    st = stats_mod.current()
+    if st is not None:
+        st.count_estim(kind)
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 # Port of systemml_tpu/hops/cost.py: HwProfile and OpCost (lines 23-63),
 # op_cost (line 104; codegen/memo.py costs matmult leaves with it),
 # quaternary_exploit (line 179, the decision of ops/mult.py's weighted
-# quaternary ops) and estimate_dag_cost (line 231, the parfor optimizer's
-# body cost, runtime/parfor_opt.py), with the imports pointed at
-# systemml_tpu_torch. What differs: HwProfile gains h100(), and detect()
-# chooses by the active config's device instead of the JAX backend.
-# kernel_feature_row and the collective costs wait for their callers
-# (ROADMAP queue 1: kernel backend, distributed).
+# quaternary ops), estimate_dag_cost (line 231, the parfor optimizer's
+# body cost, runtime/parfor_opt.py) and kernel_feature_row (line 66, the
+# kernel cost model's roofline features, codegen/costmodel.py), with the
+# imports pointed at systemml_tpu_torch. What differs: HwProfile gains
+# h100(), and detect() chooses by the active config's device instead of
+# the JAX backend. The collective costs wait for their callers (ROADMAP
+# queue 1: distributed).
 """Static time-cost estimator for HOP plans.
 
 TPU-native equivalent of the reference's hops/cost/ package
@@ -76,6 +77,32 @@ class OpCost:
     def time(self, hw: HwProfile) -> float:
         rate = hw.peak_flops if self.dtype == "bf16" else hw.peak_flops_f32
         return max(self.flops / rate, self.bytes / hw.hbm_bw)
+
+
+def kernel_feature_row(shape, dtype_bytes: int = 4,
+                       sparsity: Optional[float] = None,
+                       hw: Optional[HwProfile] = None) -> list:
+    """Hand-engineered roofline features for the learned kernel cost
+    model (codegen/costmodel.py): log-scale cell/byte/nnz volumes and
+    the modeled memory + dispatch times of touching the carrier once.
+    Log scale because kernel wall time spans ~6 decades across the
+    shape buckets and the model regresses log time."""
+    import math
+
+    hw = hw or HwProfile.detect()
+    cells = 1.0
+    for d in shape:
+        cells *= max(1, int(d))
+    frac = (float(sparsity)
+            if sparsity is not None and 0.0 <= float(sparsity) <= 1.0
+            else 1.0)
+    byts = cells * max(1, int(dtype_bytes))
+    return [
+        math.log10(cells + 1.0),
+        math.log10(cells * frac + 1.0),             # nnz volume
+        math.log10(byts / hw.hbm_bw + 1e-12),       # one-pass memory time
+        math.log10(hw.dispatch_us * 1e-6 + 1e-12),  # launch overhead floor
+    ]
 
 
 def _cells(h: Hop) -> float:

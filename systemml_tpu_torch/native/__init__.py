@@ -109,10 +109,16 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
+    from systemml_tpu_torch.codegen.build import file_lock
+
     with _lock:
         if _lib is None:
             if _stale(_OUT):
-                _build(_OUT)
+                # processes share the build directory: one builds, the
+                # others wait and load the whole library
+                with file_lock(_OUT):
+                    if _stale(_OUT):
+                        _build(_OUT)
             loaded = ctypes.CDLL(_OUT)
             if loaded.smtpu_abi_version() != _ABI:
                 raise NativeBuildError(f"{_OUT}: ABI "

@@ -42,8 +42,13 @@ with no host read, as the JAX package derives a traced seed's key
   [nextafter(-1, 0), 1), with erf_inv (and the log1p and log inside it)
   written out as XLA on the CPU evaluates them (`erf_inv`): fp32 bit for
   bit; fp64 within the bound tests/test_torch_datagen.py states, since
-  XLA calls libm's log there. The poisson pdf waits for ROADMAP queue 1,
-  item 8b.
+  XLA calls libm's log there.
+- poisson: jax.random.poisson's rounds (Knuth below lambda 10, the
+  transformed rejection above), each a full-shape fp32 uniform from a
+  split of the round's key, with XLA's fp32 log and lgamma written out
+  (`poisson`); bit for bit in every dtype, the draw being integers.
+  Each round reads whether every cell is done: a host read, so a loop
+  region with a poisson draw is refused ("host read").
 
 A parfor iteration draws its unseeded rand() calls from a sub-stream of
 its own (`stream_scope`, systemml_tpu/ops/datagen.py:30-46): with a
@@ -70,12 +75,6 @@ _seed_counter = itertools.count(1)
 _global_seed = [None]   # makes unseeded rand() calls reproducible
 # the parfor iteration's sub-stream: {"id": iteration id, "n": counter}
 _stream = contextvars.ContextVar("rand_stream", default=None)
-
-
-def _waits(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it waits for "
-                               f"ROADMAP queue 1, the poisson pdf and "
-                               f"double-float operands (item 8b)")
 
 
 def set_global_seed(seed: Optional[int]) -> None:
@@ -149,15 +148,16 @@ def prng_key(seed):
     return s >> 32, s & _MASK
 
 
-def split(key):
-    """jax.random.split(key) into two keys: threefry over the counters
-    (hi 0, lo 0) and (hi 0, lo 1), in one pass of the hash."""
+def split(key, num: int = 2):
+    """jax.random.split(key, num): threefry over the counters (hi 0, lo
+    i), i = 0 .. num - 1, in one pass of the hash, each output pair a
+    key."""
     dev = next((v.device for v in key if isinstance(v, torch.Tensor)), None)
-    lo = torch.arange(2, dtype=torch.int64, device=dev)
+    lo = torch.arange(num, dtype=torch.int64, device=dev)
     b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
     if dev is None:
-        return (int(b1[0]), int(b2[0])), (int(b1[1]), int(b2[1]))
-    return (b1[0], b2[0]), (b1[1], b2[1])
+        return tuple((int(b1[i]), int(b2[i])) for i in range(num))
+    return tuple((b1[i], b2[i]) for i in range(num))
 
 
 def fold_in(key, data):
@@ -510,6 +510,102 @@ def normal(key: Tuple[int, int], shape: Tuple[int, int], dtype,
     return torch.full((), sqrt2, dtype=dtype, device=device) * erf_inv(u)
 
 
+# --------------------------------------------------------------------------
+# pdf="poisson": jax.random.poisson (jax/_src/random.py `_poisson`), in
+# fp32 whatever the output dtype: Knuth's product of uniforms below lambda
+# 10, Hormann's transformed rejection from 10 on, each round drawing one
+# fp32 uniform (two for rejection) over the whole shape from a key split
+# off the round's key, until every cell is done. XLA's lgamma (its Lanczos
+# approximation, as CHLO decomposes it) and log are written out as XLA on
+# the CPU evaluates them, multiply-adds contracted.
+# --------------------------------------------------------------------------
+
+_LANCZOS_BASE = 0.99999999999980993227684700473478
+_LANCZOS = (676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+            771.3234287776530788486528258894, -176.61502916214059906584551354,
+            12.507343278686904814458936853, -0.13857109526572011689554707,
+            9.984369578019570859563e-6, 1.50563273514931155834e-7)
+_LANCZOS_G = 7.0
+
+
+def _lgamma32(x: torch.Tensor) -> torch.Tensor:
+    """lgamma of fp32 x >= 0.5 as XLA's Lanczos form: z = x - 1,
+    a = base + sum c_i / (z + i + 1), t = g + 0.5 + z,
+    log t = log(g + 0.5) + log1p(z / (g + 0.5)), and
+    (log(2) + log(pi)) / 2 + (z + 0.5 - t / log t) * log t + log a, the
+    product contracted with the first sum. Below 0.5 XLA reflects; the
+    poisson rejection never reads those cells (k < 0 is rejected)."""
+    z = x - 1.0
+    a = _const(_LANCZOS_BASE, x)
+    for i, c in enumerate(_LANCZOS):
+        a = a + _const(c, x) / (z + _const(i + 1.0, x))
+    half = _const(_LANCZOS_G + 0.5, x)
+    t = half + z
+    # XLA's simplifier turns z / 7.5 into z times the fp32 reciprocal
+    log_t = _const(math.log(_LANCZOS_G + 0.5), x) + _log1p(
+        z * _const(1.0 / (_LANCZOS_G + 0.5), x))
+    r = (z + 0.5) - t / log_t
+    c0 = _const((math.log(2) + math.log(math.pi)) / 2, x)
+    return _fma(r, log_t, c0) + _log32(a)
+
+
+def _poisson_knuth(key, lam: float, shape, device) -> torch.Tensor:
+    """jax's `_poisson_knuth`: k counts the rounds in which the running
+    sum of log u stays above -lambda; the result is k - 1."""
+    k = torch.zeros(shape, dtype=torch.int64, device=device)
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=device)
+    neg = _const(-lam, log_prod)
+    while True:
+        live = log_prod > neg
+        if not bool(live.any()):
+            break
+        key, sub = split(key)
+        k = k + live.to(torch.int64)
+        log_prod = log_prod + _log32(uniform(sub, shape, torch.float32,
+                                             device))
+    return k - 1
+
+
+def _poisson_rejection(key, lam: float, shape, device) -> torch.Tensor:
+    """jax's `_poisson_rejection` (Hormann's PTRS), every constant of
+    lambda in fp32 as XLA forms it per cell."""
+    f32 = torch.float32
+    lam_t = torch.full((), lam, dtype=f32, device=device)
+    log_lam = _log32(lam_t)
+    b = _fma(_const(2.53, lam_t), _sqrt(lam_t), _const(0.931, lam_t))
+    a = _fma(_const(0.02483, lam_t), b, _const(-0.059, lam_t))
+    inv_alpha = _const(1.1239, lam_t) + _const(1.1328, lam_t) / (b - 3.4)
+    v_r = _const(0.9277, lam_t) - _const(3.6224, lam_t) / (b - 2.0)
+    k_out = torch.full(shape, -1.0, dtype=f32, device=device)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=device)
+    while not bool(accepted.all()):
+        key, k0, k1 = split(key, 3)
+        u = uniform(k0, shape, f32, device) - 0.5
+        v = uniform(k1, shape, f32, device)
+        us = 0.5 - u.abs()
+        k = torch.floor(_fma(2.0 * a / us + b, u, lam_t.expand(shape)) + 0.43)
+        s = _log32(v * inv_alpha / (a / (us * us) + b))
+        t = _fma(k, log_lam, -lam_t) - _lgamma32(k + 1.0)
+        accept1 = (us >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((us < 0.013) & (v > us))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, k, k_out)
+        accepted = accepted | accept
+    return k_out.to(torch.int64)
+
+
+def poisson(key: Tuple[int, int], lam: float, shape: Tuple[int, int],
+            device) -> torch.Tensor:
+    """jax.random.poisson(key, lam, shape) as int64: 0 where lambda is 0,
+    Knuth below 10 (and for NaN), rejection from 10 on."""
+    lam = float(np.float32(lam))
+    if lam == 0.0:
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+    if math.isnan(lam) or lam < 10.0:
+        return _poisson_knuth(key, lam, shape, device)
+    return _poisson_rejection(key, lam, shape, device)
+
+
 def rand(rows: int, cols: int, min_v=0.0, max_v=1.0, sparsity: float = 1.0,
          pdf: str = "uniform", seed=None, lambda_: float = 1.0, dtype=None,
          device=None, key=None) -> torch.Tensor:
@@ -522,9 +618,7 @@ def rand(rows: int, cols: int, min_v=0.0, max_v=1.0, sparsity: float = 1.0,
     `key` (a loop region's stream) takes the place of the seed's."""
     from systemml_tpu_torch.utils.config import default_dtype, get_config
 
-    if pdf not in ("uniform", "normal"):
-        if pdf == "poisson":
-            raise _waits(f"rand(pdf={pdf!r})")
+    if pdf not in ("uniform", "normal", "poisson"):
         raise ValueError(f"unknown pdf {pdf!r}")
     device = torch.device(get_config().device if device is None else device)
     dtype = dtype or default_dtype(device)
@@ -532,6 +626,8 @@ def rand(rows: int, cols: int, min_v=0.0, max_v=1.0, sparsity: float = 1.0,
     shape = (int(rows), int(cols))
     if pdf == "normal":
         m = normal(k1, shape, dtype, device)
+    elif pdf == "poisson":
+        m = poisson(k1, float(lambda_), shape, device).to(dtype)
     elif float(min_v) == float(max_v) != 0.0:
         # (f - 1) * 0 + min rounds to min whatever the bits: a dropout
         # mask's constant, with no hash of k1

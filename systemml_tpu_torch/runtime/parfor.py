@@ -42,9 +42,10 @@ What differs, in the port's idiom of explicit devices and streams:
   transient one (resil/faults.classify, a CUDA OOM included) retries
   through resil/policy.run_with_retry at the `parfor.task` site.
 - Device mode: one draining worker per CUDA device (on one card, one
-  worker), its inputs replicated there with `.to(device)`. Remote mode
-  waits for ROADMAP queue 1, item 9b (runtime/parfor_opt.py raises); so
-  does the elastic mid-task chunk checkpoint of the JAX package (item 12).
+  worker), its inputs replicated there with `.to(device)`. Remote mode:
+  worker processes on the caller's device (runtime/remote.py), their
+  results read back onto it and merged here. The elastic mid-task chunk
+  checkpoint of the JAX package waits for ROADMAP queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -233,7 +234,12 @@ def execute_parfor(pb, ec):
             if n in base:
                 base[n] = resolve(base[n])
         run = _ParforRun(pb, ec, base, body_reads, devs, k)
-        if mode == "device":
+        if mode == "remote":
+            from systemml_tpu_torch.runtime import remote
+
+            ec.stats.count_mesh_op("parfor_remote")
+            worker_results = remote.run_remote(pb, ec, tasks, k, body_reads)
+        elif mode == "device":
             # one worker per device, each draining its group of tasks in
             # turn: at most one task working set lives on a device at a
             # time (the budget assumption of parfor_opt's replica gate)

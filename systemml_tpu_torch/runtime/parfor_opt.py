@@ -4,8 +4,9 @@ Port of systemml_tpu/runtime/parfor_opt.py. What differs: the devices
 are the CUDA devices when the config's device is "cuda" and the one CPU
 otherwise (one device: AUTO picks local; on one card with no par set,
 k=1), the roofline is the card's
-(hops/cost.HwProfile.h100) or the host's, and mode "remote" raises
-NotImplementedError: remote parfor waits for ROADMAP queue 1, item 9b.
+(hops/cost.HwProfile.h100) or the host's. Mode "remote" runs on worker
+processes (runtime/remote.py) when its inputs ship, and locally
+otherwise, counted as parfor_remote_unshippable.
 
 TPU-native equivalent of the reference's rule-based parfor optimizer
 (parfor/opt/OptimizerRuleBased.java, 2,696 LoC — decides exec mode,
@@ -195,9 +196,14 @@ def optimize(pb, ec, iters: List, k_req: int, body_reads: Set[str],
         return ParForPlan(mode_req, max(1, min(k_req, n)), partitioner,
                           iter_t, "user-requested")
     if mode_req == "remote":
-        raise NotImplementedError(
-            "parfor mode=\"remote\" (worker processes) waits for ROADMAP "
-            "queue 1, remote parfor (item 9b)")
+        from systemml_tpu_torch.runtime import remote
+
+        if remote.shippable(pb, ec, body_reads):
+            return ParForPlan("remote", k_req, partitioner, iter_t,
+                              "user-requested")
+        ec.stats.count_estim("parfor_remote_unshippable")
+        return ParForPlan("local", max(1, min(k_req, n)), partitioner,
+                          iter_t, "remote requested but inputs unshippable")
     if mode_req == "device":
         return ParForPlan("device", dev_k(), partitioner, iter_t,
                           "user-requested")

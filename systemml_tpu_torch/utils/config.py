@@ -97,9 +97,10 @@ class DMLConfig:
     # enable operator fusion within statement blocks (whole-block jit);
     # the reference's codegen/Spoof analog (hops/codegen/SpoofCompiler.java)
     codegen_enabled: bool = True
-    # Pallas kernel usage for spoof templates / mmchain: auto = only on
-    # TPU backends, always = also in interpret mode (tests), never = plain
-    # XLA lowering
+    # hand-kernel usage (codegen/backend.use_kernel; the name is the
+    # reference's): auto = the hand kernels on the card, always = the
+    # kernel variants also on the CPU (their wrappers run the plain
+    # versions there), never = the plain or library arms
     pallas_mode: str = "auto"
     # generated-kernel backend tuning (codegen/backend.py + tune.py):
     # off = analytic cost model only; online = measure short-listed
@@ -113,8 +114,8 @@ class DMLConfig:
     # tournament per kernel key
     codegen_tune_shortlist: int = 2
     # on-disk tuning-cache path (JSON, keyed by kernel key + device
-    # kind; docs/codegen.md); empty string disables persistence
-    codegen_tune_cache: str = "~/.cache/systemml_tpu/tune.json"
+    # name, codegen/tune.py); empty string disables persistence
+    codegen_tune_cache: str = "~/.cache/systemml_tpu_torch/tune.json"
     # learned kernel cost model (codegen/costmodel.py): ridge regression
     # over accumulated measured records short-lists the swept schedule
     # space for the measured tournament; "off" = analytic ranking only
@@ -187,8 +188,9 @@ class DMLConfig:
     # per-job wall-clock deadline for remote parfor workers: a worker
     # that does not reply in time is presumed hung, retired (SIGKILL)
     # and its task group requeued on a fresh worker. 0 disables (the
-    # pre-resilience blocking-readline behavior). Worker cold start
-    # (process spawn + jax import) is excluded via the READY handshake.
+    # pre-resilience blocking-readline behavior). The clock starts when
+    # the worker acknowledges the job: its start (process spawn, torch
+    # import) and its wait for the job never count.
     # The deadline bounds a worker's WHOLE task group, so the default
     # is deliberately generous — it exists to catch wedged workers,
     # not to police slow-but-healthy ones; tune down per deployment.
@@ -485,7 +487,13 @@ PORTED_FIELDS = frozenset({
     # parfor (runtime/parfor.py) and its task retries (resil/)
     "parfor_par", "resil_enabled", "resil_max_attempts",
     "resil_backoff_base_s", "resil_backoff_max_s", "resil_backoff_jitter",
-    "fault_injection"})
+    "fault_injection",
+    # the kernel backend and its tuner (codegen/{backend,tune,costmodel}.py)
+    "pallas_mode", "codegen_tune_mode", "codegen_tune_trials",
+    "codegen_tune_shortlist", "codegen_tune_cache", "codegen_cost_model",
+    "codegen_cost_model_min_records",
+    # remote parfor (runtime/remote.py)
+    "remote_deadline_s"})
 
 # fields that have no meaning in the port: set to anything but their
 # default they raise with the reason
@@ -496,8 +504,6 @@ _MEANINGLESS = {
 
 # field-name prefix -> the ROADMAP queue-1 item that brings it
 _WAITING = (
-    (("pallas_mode", "codegen_"), "kernel backend and tuner"),
-    (("remote_deadline_s",), "remote parfor (item 9b)"),
     (("serving_",), "serving and export"),
     (("profile_", "obs_", "donation_sanitizer"),
      "observability and static analysis"),
@@ -530,9 +536,10 @@ def check_ported(cfg: DMLConfig) -> None:
                               if item else ""))
 
 
-# the fault-injection sites the port runs (resil/inject.py); the others
-# belong to the mesh, the remote workers and the fleet
-PORTED_FAULT_SITES = frozenset({"parfor.task"})
+# the fault-injection sites the port runs (resil/inject.py): a parfor
+# task, and a remote parfor job (runtime/remote.py); the others belong to
+# the mesh and the fleet
+PORTED_FAULT_SITES = frozenset({"parfor.task", "remote.job"})
 
 
 def check_fault_sites(spec: str) -> None:

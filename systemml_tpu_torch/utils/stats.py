@@ -61,6 +61,13 @@ ESTIM_GROUPS = (
     # transposes and their bytes, the layout pass's NHWC edges and its
     # failures (dnn_layout_errors, hops/layout.py)
     ("dnn_", "dnn"),
+    # the kernel backend (codegen/backend.py): selection sources
+    # (select_analytic / select_structural / select_cache /
+    # select_measured), per-family picks (pick_<op>.<variant>), calls a
+    # kernel refused by shape, dtype or layout (fallback), keys met in a
+    # graph capture that kept their analytic choice (capture_unmeasured)
+    # and the tuner's search counts
+    ("kb_", "kernel_backend"),
 )
 
 
@@ -234,8 +241,9 @@ class Statistics:
             for i, (op, t) in enumerate(hh, 1):
                 lines.append(f"  {i}  {op}\t{t:.3f}\t{self.op_count[op]}")
         g = self.estim_counts.grouped()
-        rw, spoof, spx, dnn, opt = (g["rewrites"], g["spoof"],
-                                    g["sparse_exec"], g["dnn"], g[""])
+        rw, spoof, spx, dnn, kb, opt = (g["rewrites"], g["spoof"],
+                                        g["sparse_exec"], g["dnn"],
+                                        g["kernel_backend"], g[""])
         if rw:
             top = sorted(rw.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
             suffix = ", ..." if len(rw) > len(top) else ""
@@ -246,6 +254,10 @@ class Statistics:
         if spoof:
             lines.append("Spoof fusion: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(spoof.items())))
+        if kb:
+            # how each hand kernel's arm was chosen, next to how it ran
+            lines.append("Kernel backend (event=count): " + ", ".join(
+                f"{k}={v}" for k, v in sorted(kb.items())))
         if spx:
             # which arm each weighted quaternary op ran: the sampled one
             # (exploit_ell / exploit_csr) or the (m, n) product (densify /

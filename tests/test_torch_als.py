@@ -338,15 +338,20 @@ def test_optlevel3_runs_outer_plan_once_per_iteration(monkeypatch):
     """At optlevel 3 the loss check's sum((W * (L %*% t(R)))^2) is the
     outer template, b(^)(b(*)(X, UV), 2.0): its kernel wrapper runs once
     per outer iteration, the wdivmm capture stays off (codegen owns the
-    products), and the result equals optlevel 2's at 1e-9."""
+    products), and the result equals optlevel 2's at 1e-9. pallas_mode
+    "always" makes the kernel backend take the kernel variant on the CPU
+    (its wrapper runs the plain version there); "auto" takes the plain
+    arm there, as the JAX package's jnp arm."""
     calls = []
     outer = kernels.outer_kernel
-    monkeypatch.setattr(kernels, "outer_kernel", lambda plan, *a: (
-        calls.append(plan.pretty()) or outer(plan, *a)))
+    monkeypatch.setattr(kernels, "outer_kernel", lambda plan, *a, **kw: (
+        calls.append(plan.pretty()) or outer(plan, *a, **kw)))
     v = _ratings(1)
     runs = {}
     for optlevel in (3, 2):
-        ml = MLContext(_port_cfg(optlevel, "double"))
+        cfg = _port_cfg(optlevel, "double")
+        cfg.pallas_mode = "always"
+        ml = MLContext(cfg)
         runs[optlevel] = _als(ml, dmlFromFile(ALS), v, "L2")
         if optlevel == 3:
             assert calls == ["b(^)(b(*)(X, UV), 2.0)"] * runs[3][1]
@@ -408,13 +413,16 @@ def test_ratings_summary_matches_jax(monkeypatch, prec, ndt):
     calls = []
     magg = kernels.multiagg_kernel
     monkeypatch.setattr(kernels, "multiagg_kernel", lambda plan, names, aggs,
-                        env, *variant: calls.append((plan.pretty(), list(aggs),
-                                                     len(names))) or magg(
-                            plan, names, aggs, env, *variant))
+                        env, *variant, **kw: calls.append((
+                            plan.pretty(), list(aggs), len(names))) or magg(
+                            plan, names, aggs, env, *variant, **kw))
     v = _ratings(2).astype(ndt)
     rj = JaxMLContext(_jax_cfg(3, prec)).execute(
         jax_dml(SUMMARY).input("V", v).output("s", "lo", "hi"))
-    rp = MLContext(_port_cfg(3, prec)).execute(
+    # the kernel variant on the CPU (its wrapper runs the plain version)
+    cfg = _port_cfg(3, prec)
+    cfg.pallas_mode = "always"
+    rp = MLContext(cfg).execute(
         dml(SUMMARY).input("V", v).output("s", "lo", "hi"))
     # V enters twice (i0, i1: its reads in the two factors) beside the
     # two 0-d sums

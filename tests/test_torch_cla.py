@@ -15,7 +15,7 @@ numpy-seeded inputs:
 The JAX package runs with exec_mode SINGLE_NODE (tests/conftest.py's
 virtual 8-device CPU mesh would otherwise take its mesh branches, which
 the port does not have yet) and with its kernel-choice memo cleared before
-each run, as the port's (compress/device.reset_decisions), so that the
+each run, as the port's (codegen/backend.reset_process_state), so that the
 kb_pick counts are those of one fresh process each.
 
 Bars: relative 1e-9 in fp64, 1e-3 in fp32 (the reference's CP and GPU
@@ -45,6 +45,7 @@ from systemml_tpu.runtime import program as jax_program
 from systemml_tpu.utils.config import DMLConfig as JaxConfig
 from systemml_tpu.utils.config import set_config as jax_set_config
 from systemml_tpu_torch.api.mlcontext import MLContext, dml, dmlFromFile
+from systemml_tpu_torch.codegen import backend as port_backend
 from systemml_tpu_torch.compress import device as cla_dev
 from systemml_tpu_torch.lang.parser import parse
 from systemml_tpu_torch.runtime import program
@@ -100,7 +101,7 @@ def _both(src, inputs, outputs, cla="auto", blocksize=None, optlevel=2,
     else:
         js, ps = jax_dml(src), dml(src)
     jax_backend.reset_process_state()
-    cla_dev.reset_decisions()
+    port_backend.reset_process_state()
     rj = _execute(JaxMLContext(jc), js, inputs, args or {}, outputs, dtype)
     rp = _execute(MLContext(pc), ps, inputs, args or {}, outputs, dtype)
     return rj, rp

@@ -115,17 +115,172 @@ def test_rand_builtin_through_mlcontext():
 
 @pytest.mark.parametrize("pdf", ["normal", "poisson"])
 def test_other_pdfs_wait_by_name(pdf):
-    """The normal pdf came with DNN and models (item 8) and no longer
-    waits: it draws the JAX package's values; poisson waits for item 8b,
-    by name."""
-    if pdf == "normal":
-        _same_bits(datagen.rand(3, 3, pdf=pdf, seed=1, dtype=torch.float32,
-                                device="cpu").numpy(),
-                   np.asarray(jax_datagen.rand(3, 3, pdf=pdf, seed=1,
-                                               dtype=np.float32)))
-        return
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        datagen.rand(3, 3, pdf=pdf, seed=1, device="cpu")
+    """The normal pdf came with DNN and models (item 8), the poisson pdf
+    with item 8b: neither waits any longer, and each draws the JAX
+    package's values."""
+    _same_bits(datagen.rand(3, 3, pdf=pdf, seed=1, dtype=torch.float32,
+                            device="cpu").numpy(),
+               np.asarray(jax_datagen.rand(3, 3, pdf=pdf, seed=1,
+                                           dtype=np.float32)))
+
+
+# ---- pdf="poisson": jax.random.poisson's Knuth and rejection rounds -----
+
+POISSON_LAMBDAS = [0.5, 3.0, 9.99, 10.0, 50.0, 1000.0]
+
+
+def _jax_poisson(rows, cols, lam, seed, ndt, sp=1.0):
+    return np.asarray(jax_datagen.rand(rows, cols, sparsity=sp,
+                                       pdf="poisson", seed=seed,
+                                       lambda_=lam, dtype=ndt))
+
+
+@pytest.mark.parametrize("ndt,tdt", DTYPES)
+@pytest.mark.parametrize("lam", POISSON_LAMBDAS)
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_poisson_bit_identical_to_jax(ndt, tdt, lam, seed):
+    """Bit for bit: below lambda 10 Knuth's product of uniforms, from 10
+    on the transformed rejection, whose fp32 log and lgamma the port
+    writes out as XLA on the CPU evaluates them (60,000 cells, so that
+    a rejection round's decision at an ulp would show)."""
+    got = datagen.rand(300, 200, pdf="poisson", seed=seed, lambda_=lam,
+                       dtype=tdt, device="cpu").numpy()
+    _same_bits(got, _jax_poisson(300, 200, lam, seed, ndt))
+
+
+@pytest.mark.parametrize("ndt,tdt", DTYPES)
+def test_poisson_zero_lambda_sparsity_and_device_seed(ndt, tdt):
+    """lambda 0 draws zeros; sparsity's Bernoulli mask and a seed held as
+    a 0-d tensor (a loop region's) follow as for the other pdfs."""
+    for lam, sp in ((0.0, 1.0), (4.0, 0.3), (25.0, 0.6)):
+        got = datagen.rand(40, 30, sparsity=sp, pdf="poisson",
+                           seed=torch.tensor(11), lambda_=lam, dtype=tdt,
+                           device="cpu").numpy()
+        _same_bits(got, _jax_poisson(40, 30, lam, 11, ndt, sp))
+
+
+def test_lgamma32_matches_xla():
+    """The rejection's lgamma, fp32, against jax.lax.lgamma on the CPU
+    for every integer it reads up to 3,000 and 100,000 real arguments."""
+    import jax
+    import jax.numpy as jnp
+
+    x = np.concatenate([
+        np.arange(1, 3000, dtype=np.float32),
+        np.random.default_rng(0).uniform(1, 200, 100_000).astype(
+            np.float32)])
+    ref = np.asarray(jax.jit(jax.lax.lgamma)(jnp.asarray(x)))
+    _same_bits(datagen._lgamma32(torch.from_numpy(x)).numpy(), ref)
+
+
+def test_poisson_through_mlcontext_and_a_loop():
+    """rand(pdf="poisson", lambda=...) in a DML script, and inside a
+    while loop, which its rounds' reads of the device refuse as a region
+    ("host read"): the values are the JAX package's either way."""
+    from systemml_tpu.api.mlcontext import MLContext as JaxMLContext
+    from systemml_tpu.api.mlcontext import dml as jax_dml
+
+    src = """
+A = rand(rows=13, cols=5, pdf="poisson", lambda=3.5, seed=3)
+s = 0
+i = 0
+while (i < 3) {
+  B = rand(rows=20, cols=4, pdf="poisson", lambda=12 + i, seed=7 + i)
+  s = s + sum(B)
+  i = i + 1
+}
+"""
+    got = MLContext(DMLConfig(device="cpu")).execute(
+        dml(src).output("A", "s"))
+    ref = JaxMLContext().execute(jax_dml(src).output("A", "s"))
+    _same_bits(got.get_matrix("A"), np.asarray(ref.get_matrix("A")))
+    assert float(got.get_scalar("s")) == float(ref.get_scalar("s"))
+
+
+# ---- precision "double": native fp64 where the JAX package emulates it ----
+# The DML-level cases of tests/test_doublefloat.py, through the port. The
+# JAX package carries "double" as double-float pairs of fp32
+# (ops/doublefloat.py) because the TPU has no fp64; the port computes in
+# torch.float64, so doublefloat.py has no counterpart. Both are held to
+# the bar the JAX package's own tests grant its double-float path: 1e-9
+# of the exact solution (GPUTests.java:57-62), and to each other at the
+# same bar.
+
+def _df_case(script, n, m, args, seed, codegen=True, jax_too=True):
+    """(port beta, JAX package beta (None without `jax_too`), exact beta,
+    the port's Statistics) of `script` on a seeded (n, m) X under
+    precision "double"."""
+    import os
+
+    from systemml_tpu.api.mlcontext import MLContext as JaxMLContext
+    from systemml_tpu.api.mlcontext import dmlFromFile as jax_dml_file
+    from systemml_tpu.ops.doublefloat import DFMatrix
+    from systemml_tpu.utils.config import DMLConfig as JConfig
+    from systemml_tpu_torch.api.mlcontext import dmlFromFile
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, m))
+    y = X @ rng.standard_normal((m, 1)) + 0.01 * rng.standard_normal((n, 1))
+    path = os.path.join("scripts", "algorithms", script)
+    cfg = DMLConfig(device="cpu")
+    cfg.floating_point_precision = "double"
+    cfg.codegen_enabled = codegen
+    s = dmlFromFile(path).input("X", X).input("y", y)
+    jcfg = JConfig()
+    jcfg.floating_point_precision = "double"
+    jcfg.codegen_enabled = codegen
+    js = jax_dml_file(path).input("X", DFMatrix.from_f64(X)).input(
+        "y", DFMatrix.from_f64(y))
+    for k, v in args.items():
+        s.arg(k, v)
+        js.arg(k, v)
+    ml = MLContext(cfg)
+    got = ml.execute(s.output("beta")).get_matrix("beta")
+    assert got.dtype == np.float64
+    ref = np.asarray(JaxMLContext(jcfg).execute(js.output("beta"))
+                     .get_matrix("beta"), dtype=np.float64) if jax_too \
+        else None
+    reg = args["reg"]
+    exact = np.linalg.solve(X.T @ X + reg * np.eye(m), X.T @ y)
+    return got, ref, exact, ml._stats
+
+
+def _rel_max(got, exp):
+    return float(np.abs(np.asarray(got) - exp).max()) / max(
+        float(np.abs(exp).max()), 1e-300)
+
+
+@pytest.mark.parametrize("script,n,m,args", [
+    ("LinearRegCG.dml", 2000, 40,
+     {"maxi": 80, "tol": 1e-14, "reg": 1e-3, "icpt": 0}),
+    ("LinearRegDS.dml", 3000, 30, {"reg": 1e-3, "icpt": 0}),
+])
+def test_double_precision_scripts_match_the_double_float_path(script, n, m,
+                                                              args):
+    """tests/test_doublefloat.py's LinearRegCG and LinearRegDS end-to-end
+    cases: the port's fp64 beta within 1e-9 of the exact solution and of
+    the JAX package's double-float beta."""
+    got, ref, exact, _ = _df_case(script, n, m, args, seed=17)
+    assert _rel_max(got, exact) < 1e-9
+    assert _rel_max(ref, exact) < 1e-9
+    assert _rel_max(got, ref) < 1e-9
+
+
+def test_double_precision_fused_loop_matches_eager():
+    """tests/test_doublefloat.py's loop-fusion case: LinearRegCG with
+    codegen on (its CG loop a region, blocks through their plans) and
+    off agree at 1e-11, and each is within 1e-9 of the exact solution
+    and of the JAX package's fused double-float run."""
+    args = {"maxi": 60, "tol": 1e-14, "reg": 1e-3, "icpt": 0}
+    fused, ref, exact, st_f = _df_case("LinearRegCG.dml", 1500, 30, args,
+                                       seed=23)
+    eager, _, _, st_e = _df_case("LinearRegCG.dml", 1500, 30, args,
+                                 seed=23, codegen=False, jax_too=False)
+    assert st_f.fused_blocks > 0
+    assert _rel_max(fused, eager) < 1e-11
+    for got in (fused, eager):
+        assert _rel_max(got, exact) < 1e-9
+        assert _rel_max(got, ref) < 1e-9
 
 
 # ---- pdf="normal": sqrt(2) * erf_inv(uniform), XLA's erf_inv ------------

@@ -2351,3 +2351,208 @@ def test_dnn_loop_is_one_region_equal_to_its_eager_run(cuda):
     assert abs(float(res[True].get_scalar("s"))
                - float(res[False].get_scalar("s"))) <= 1e-5 * abs(
         float(res[False].get_scalar("s")))
+
+
+# ---- the kernel backend on the card (codegen/backend.py, tune.py) -------
+
+def _selected_choice(rec, op):
+    sel = [e.args for e in rec.events() if e.name == "kernel_select"
+           and e.args["op"] == op]
+    assert len(sel) == 1, sel
+    return sel[0]
+
+
+def test_backend_dispatches_every_family_on_the_card(cuda):
+    """Every family through its entry point on CUDA tensors: the key's
+    backend is "cuda"; the hand-kernel families choose their kernel
+    (K1, K2-K5, K6) and launch it; each value equals the CPU's (the
+    plain arms) within 1e-5 normwise."""
+    from systemml_tpu_torch.codegen import backend
+    from systemml_tpu_torch.codegen.compiler import execute_spoof
+    from systemml_tpu_torch.compress import compress
+    from systemml_tpu_torch.compress import device as cla_dev
+    from systemml_tpu_torch.hops.hop import Hop
+    from systemml_tpu_torch.obs import trace as obs
+    from systemml_tpu_torch.runtime.sparse import SparseMatrix
+    from systemml_tpu_torch.utils.config import (DMLConfig, get_config,
+                                                 set_config)
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4096, 256)).astype(np.float32)
+    a = rng.standard_normal((2048, 6)).astype(np.float32)
+    v = rng.standard_normal((256, 1)).astype(np.float32)
+    w = rng.standard_normal((4096, 1)).astype(np.float32)
+    sp = np.where(rng.random((300, 200)) < 0.05,
+                  rng.uniform(1, 5, (300, 200)), 0.0).astype(np.float32)
+    # positive factors: wcemm takes log(U %*% t(V) + eps)
+    uf = rng.uniform(0.1, 1.0, (300, 4)).astype(np.float32)
+    vf = rng.uniform(0.1, 1.0, (200, 4)).astype(np.float32)
+    cat = np.floor(rng.random((5000, 6)) * 4) + 1
+    cv = cat[:1].T.astype(np.float32)
+    cw = cat[:, :1].astype(np.float32)
+    plan = CNode("b(*)", [CNode("in", name="a"), CNode("in", name="b")])
+    row = CNode("u(exp)", [CNode("in", name="a")])
+    mag = CNode("u(abs)", [CNode("in", name="a")])
+    outer = CNode("b(*)", [CNode("in", name="X"), CNode("in", name="UV")])
+
+    def calls(dev):
+        t = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        c = compress(cat)
+        vs = SparseMatrix.from_dense(t(sp))
+        h = lambda tmpl, p: Hop("spoof", [], dict(p, template=tmpl))
+        return {
+            "mmchain": lambda: mult.mmchain(t(x), t(v), t(w), "XtwXv"),
+            "spoof_cell": lambda: execute_spoof(h("cell", {
+                "plan": plan, "agg": "sum", "leaf_names": ["a", "b"]}),
+                [t(a), t(a)]),
+            "spoof_row": lambda: execute_spoof(h("row", {
+                "plan": row, "row_agg": "max", "leaf_names": ["a"]}), [t(a)]),
+            "spoof_multiagg": lambda: execute_spoof(h("multiagg", {
+                "plan": mag, "aggs": ["sum", "max"], "leaf_names": ["a"]}),
+                [t(a)]),
+            "spoof_outer": lambda: execute_spoof(h("outer", {
+                "plan": outer, "scalar_names": []}), [t(sp), t(uf), t(vf)]),
+            "q_wsloss": lambda: mult.wsloss(vs, t(uf), t(vf), None,
+                                            "POST_NZ"),
+            "q_wsigmoid": lambda: mult.wsigmoid(vs, t(uf), t(vf), ""),
+            "q_wdivmm": lambda: mult.wdivmm(vs, t(uf), t(vf), False),
+            "q_wcemm": lambda: mult.wcemm(vs, t(uf), t(vf), 1e-3),
+            "q_wumm": lambda: mult.wumm(vs, t(uf), t(vf), "*", uop="exp"),
+            "cla_right": lambda: cla_dev.right_mult(c, t(cv)),
+            "cla_left": lambda: cla_dev.left_mult(c, t(cw.T)),
+            "cla_tsmm": lambda: cla_dev.tsmm(c),
+            "cla_mmchain": lambda: cla_dev.mmchain(c, t(cv), t(cw),
+                                                   "XtwXv")}
+
+    def value(r):
+        if isinstance(r, tuple):
+            return torch.stack([x.reshape(()) for x in r]).double().cpu()
+        if isinstance(r, SparseMatrix):
+            r = r.to_dense()
+        return r.double().cpu()
+
+    kernel_of = {"mmchain": "kernel", "spoof_cell": "kernel",
+                 "spoof_row": "kernel", "spoof_multiagg": "kernel",
+                 "spoof_outer": "kernel", "cla_mmchain": "tpu_chain"}
+    prev = get_config()
+    try:
+        set_config(DMLConfig(device="cpu"))
+        backend.reset_process_state()
+        ref = {op: value(f()) for op, f in calls("cpu").items()}
+        cfg = DMLConfig()
+        cfg.floating_point_precision = "single"
+        set_config(cfg)
+        backend.reset_process_state()
+        for op, f in calls(cuda).items():
+            with obs.session() as rec:
+                got = value(f())
+            sel = _selected_choice(rec, op)
+            assert "|cuda|" in sel["key"], sel
+            if op in kernel_of:
+                assert sel["choice"] == kernel_of[op], (op, sel)
+            err = float(torch.linalg.norm(got - ref[op])
+                        / max(float(torch.linalg.norm(ref[op])), 1e-30))
+            assert err <= 1e-5, (op, err)
+    finally:
+        set_config(prev)
+        backend.reset_process_state()
+
+
+def test_a_variant_that_raises_on_the_card_raises_through_dispatch(cuda):
+    """K1 accepts the call's shapes, then its wrapper refuses operands on
+    two devices: the error reaches the caller, with no fallback run."""
+    from systemml_tpu_torch.codegen import backend
+    from systemml_tpu_torch.obs import trace as obs
+
+    x, v, _ = _inputs(cuda, 1, 0)
+    backend.reset_process_state()
+    with obs.session() as rec:
+        with pytest.raises(ValueError, match="different devices"):
+            mult.mmchain(x, v.cpu())
+    assert not [e for e in rec.events() if e.name == "kernel_fallback"]
+
+
+def test_tune_cache_keyed_by_the_cards_name(cuda, tmp_path):
+    """codegen_tune_mode "cached" on the card: the verdict's key is the
+    kernel key (backend "cuda") and torch.cuda.get_device_name(); a fresh
+    process's memory serves it with 0 measurements."""
+    import json
+
+    from systemml_tpu_torch.codegen import backend, tune
+    from systemml_tpu_torch.utils.config import (DMLConfig, get_config,
+                                                 set_config)
+
+    x, v, w = _inputs(cuda, 1, 1, m=200_000, k=256)
+    prev = get_config()
+    cfg = DMLConfig()
+    cfg.codegen_tune_mode = "cached"
+    cfg.codegen_tune_cache = str(tmp_path / "tune.json")
+    cfg.codegen_tune_trials = 2
+    set_config(cfg)
+    try:
+        backend.reset_process_state()
+        first = mult.mmchain(x, v, w, "XtwXv")
+        assert tune.measurement_count() == 1
+        (key, ent), = json.loads(
+            (tmp_path / "tune.json").read_text())["entries"].items()
+        assert key.startswith("mmchain|cuda|float32|")
+        assert key.endswith("|" + torch.cuda.get_device_name())
+        assert ent["measured_on"]["device_kind"] == \
+            torch.cuda.get_device_name()
+        backend.reset_process_state()
+        again = mult.mmchain(x, v, w, "XtwXv")
+        assert tune.measurement_count() == 0
+        assert torch.equal(first, again)
+    finally:
+        set_config(prev)
+        backend.reset_process_state()
+
+
+_BUILD_CHILD = r"""
+import sys
+import time
+import torch
+from systemml_tpu_torch.codegen import build, kernels
+
+while time.time() < float(sys.argv[1]):
+    time.sleep(0.01)
+x = torch.randn(4096, 256, device="cuda")
+v = torch.randn(256, 1, device="cuda")
+out = kernels.mmchain_kernel(x, v)
+ref = kernels.mmchain_plain(x.double(), v.double())
+err = float(torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref))
+assert err <= 1e-5, err
+print("BUILT", sorted(build.build_reports), flush=True)
+"""
+
+
+def test_two_processes_build_one_source_at_once(cuda, tmp_path):
+    """Two processes (a remote parfor's workers) reach the same source at
+    the same moment in a fresh build directory: the file lock lets one
+    nvcc build it while the other waits; both load the whole library and
+    launch it, and the directory holds one library and no temporary."""
+    import shutil
+    import subprocess
+    import sys
+    import time
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(root, "systemml_tpu_torch"),
+                    tmp_path / "systemml_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    start = str(time.time() + 8.0)
+    ps = [subprocess.Popen([sys.executable, "-c", _BUILD_CHILD, start],
+                           cwd=str(tmp_path), env=env, text=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+          for _ in range(2)]
+    outs = [p.communicate(timeout=600) for p in ps]
+    for p, (out, err) in zip(ps, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "BUILT" in out
+    built = [o for o, _ in outs if "'mmchain'" in o]
+    assert len(built) == 1, outs       # one nvcc ran; the other waited
+    libs = os.listdir(tmp_path / "systemml_tpu_torch" / "_build")
+    assert len([f for f in libs if f.startswith("libmmchain-")
+                and f.endswith(".so")]) == 1, libs
+    assert not [f for f in libs if f.endswith(".tmp")], libs

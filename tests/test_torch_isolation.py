@@ -13,7 +13,10 @@ neither jax nor the JAX package (systemml_tpu).
    from `cli.main` over a binary-block X read by the native arm, under a
    pool budget that evicts. Parfor (StepGLM.dml with a task retried after
    an injected OOM, seeded rand() in a parfor body), frames and frame IO,
-   and transformencode run the same way.
+   and transformencode run the same way. So do the kernel backend and its
+   tuner (LinearRegCG at optlevel 3 tuned online, then served from the
+   disk cache with no measurement), the cost model, obs/ab, the poisson
+   draw and remote parfor's coordinator.
 2. No source file of the port (Python, CUDA, the host C++), and not
    chip_smoke.py, names them in an import or a dotted module path.
 """
@@ -238,6 +241,74 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 print("ISOLATED_OK")
 '''
+
+
+# the kernel backend with its tuner (online, then cached from disk), the
+# cost model, the paired A/B harness, the poisson draw and remote parfor
+# (its coordinator; the workers are processes of the port's own module)
+_CHILD_BACKEND = _CHILD.split("import numpy as np")[0] + r'''
+import os
+import tempfile
+
+import numpy as np
+
+from systemml_tpu_torch.api.mlcontext import MLContext, dml, dmlFromFile
+from systemml_tpu_torch.codegen import backend, costmodel, tune
+from systemml_tpu_torch.hops.cost import kernel_feature_row
+from systemml_tpu_torch.obs import ab
+from systemml_tpu_torch.ops import datagen
+from systemml_tpu_torch.runtime import remote
+from systemml_tpu_torch.utils.config import DMLConfig
+
+rng = np.random.default_rng(0)
+x = rng.standard_normal((200, 4))
+beta_true = rng.standard_normal((4, 1))
+cfg = DMLConfig(device="cpu")
+cfg.optlevel = 3
+cfg.pallas_mode = "always"
+cfg.codegen_tune_mode = "cached"
+cfg.codegen_tune_cache = os.path.join(tempfile.mkdtemp(), "tune.json")
+cfg.codegen_tune_trials = 2
+betas = []
+for run in range(2):
+    backend.reset_process_state()
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+    betas.append(ml.execute(
+        dmlFromFile("scripts/algorithms/LinearRegCG.dml").input("X", x)
+        .input("y", x @ beta_true).arg("tol", 1e-12).arg("reg", 0.0)
+        .output("beta")).get_matrix("beta"))
+    if run == 0:
+        assert tune.measurement_count() > 0
+assert tune.measurement_count() == 0
+assert np.array_equal(betas[0], betas[1])
+assert np.allclose(betas[0], beta_true, rtol=1e-8)
+assert len(kernel_feature_row((10, 10))) == 4
+assert ab.compare_samples([1.0, 1.1, 1.0], [2.0, 2.1, 2.0],
+                          higher_is_better=False).verdict == ab.VERDICT_A
+p = datagen.rand(30, 20, pdf="poisson", lambda_=12.0, seed=5, device="cpu")
+assert float(p.min()) >= 0 and float(p.sum()) > 0
+src = ("R = matrix(0, rows=4, cols=1)\n"
+       "parfor (i in 1:4, mode=\"remote\", par=2) {\n"
+       "  R[i, 1] = sum(X) * i\n}")
+r = MLContext(device="cpu").execute(dml(src).input("X", x).output("R"))
+assert np.allclose(r.get_matrix("R").ravel(), x.sum() * np.arange(1, 5))
+assert remote.last_run["devices"] == ["cpu", "cpu"]
+remote.shutdown_pool()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("ISOLATED_OK")
+'''
+
+
+def test_backend_tuner_poisson_remote_run_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _CHILD_BACKEND], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
 
 
 def test_parfor_frames_transform_run_with_jax_blocked():

@@ -137,9 +137,12 @@ def test_carry_beta_from_jax_into_port():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("remote_deadline_s", 60.0, "remote parfor"),
+    # remote parfor (item 9b) and the kernel backend (item 7) came in
+    # one slice: settings of observability (item 11) and the fleet
+    # (item 13) wait instead
+    ("donation_sanitizer", "check", "observability and static analysis"),
     ("xla_cache_dir", "/tmp/x", "compiles no XLA"),
-    ("pallas_mode", "always", "kernel backend and tuner"),
+    ("fleet_heartbeat_s", 2.0, "fleet"),
     ("mesh_shape", {"dp": 4}, "distributed and elastic"),
     # the bfloat16 policy came with DNN and models (item 8): a setting of
     # serving and export (item 10) waits instead

@@ -502,9 +502,21 @@ def test_parfor_rand_bit_identical_to_jax(par, mode):
 
 
 def test_remote_mode_and_other_fault_sites_raise():
-    with pytest.raises(NotImplementedError, match="remote parfor.*9b"):
-        _run('R = matrix(0, rows=2, cols=1)\n'
-             'parfor (i in 1:2, mode="remote") {\n  R[i, 1] = i\n}', {}, ())
+    """Remote parfor came with item 9b: mode "remote" runs on a worker
+    process (runtime/remote.py; tests/test_torch_remote.py holds it to
+    seq) and its `remote.job` site arms; the mesh's sites still raise,
+    naming item 12."""
+    from systemml_tpu_torch.runtime import remote
+
+    try:
+        _, mats, st = _run('R = matrix(0, rows=2, cols=1)\n'
+                           'parfor (i in 1:2, mode="remote") {\n'
+                           '  R[i, 1] = i\n}', {}, (), matrices=("R",))
+    finally:
+        remote.shutdown_pool()
+    assert mats[0].ravel().tolist() == [1.0, 2.0]
+    assert st.mesh_op_count.get("parfor_remote", 0) == 1
+    assert set(remote.last_run["devices"]) == {"cpu"}
     cfg = DMLConfig(device="cpu")
     cfg.fault_injection = "dispatch.fused:oom:1"
     with pytest.raises(NotImplementedError,
