@@ -6,6 +6,7 @@
     python3 chip_smoke.py --breadth
     python3 chip_smoke.py --parfor
     python3 chip_smoke.py --dnn
+    python3 chip_smoke.py --serving
 
 The second form times only the spoof kernels K2, K3 and K5, the spoof
 wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
@@ -238,7 +239,28 @@ failed check):
   of X: the scorer's calls through the plan until one is free of
   synchronizing calls, the next captured as a CUDA graph, the rest
   launches; the product refused a graph as one op; each result against
-  the same call without graphs; ms per call of both.
+  the same call without graphs; ms per call of both;
+- `[serving]`, after `[jmlc]`: the softmax scorer over X's 1,000
+  features and 10 classes (W 1,000 x 10 and b 1 x 10 fp32 from a seeded
+  generator) prepared at optlevel 3, where it is one row plan (K4), and
+  served through api/serving.ScoringService with validate "force" on the
+  ladder 1/8/64/512: warmup(1000) (a capture per rung), then 16 client
+  threads sending 2,000 requests of log-uniform 1-512 rows taken from a
+  host copy of X's first 100,000 rows (two, of 700 and 900 rows, open
+  rung 1,024 mid-traffic: one miss, one plan compile, one capture), then
+  64 client threads of 50 single-row requests each through a
+  MicroBatcher (max_batch 64, deadline 2,000 us), with /metrics served on
+  loopback. It fails unless: "auto" is refused at optlevel 3 with the
+  JAX package's reason and proven at optlevel 2; every answer is within
+  1e-5 normwise of torch's softmax on the card and within 1e-6 of the
+  same rows at their exact shape with validate "off" and codegen off;
+  after warmup nothing compiles, captures or builds but rung 1,024's
+  plan and capture; K4's launches equal the optlevel-3 dispatches; the
+  srv_* counters equal the registry's; the scraped requests_total equals
+  the requests served. It prints per-request p50 and p99 ms, requests/s
+  and rows/s, the block graphs' captures and launches, the pad share,
+  the flushes by cause and requests per flush, and K4 against its plain
+  version at the scorer's plan at (512, 10). `--serving` runs it alone.
 
 After the sparse paths, on LinearRegCG-cla's Census-shaped X and still
 under the `[syncs]` audit (per thread, so each parfor lane's region
@@ -286,6 +308,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
@@ -4259,6 +4282,505 @@ def jmlc_phase(data, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# [serving]: the serving tier over the softmax scorer at 1,000 features
+# --------------------------------------------------------------------------
+
+SERVING_LADDER = (1, 8, 64, 512)
+# a host copy of X's first rows: the requests are taken from it, as
+# requests arrive from a user's host
+SERVING_HOST_ROWS = 100_000
+SERVING_CLASSES = 10
+SERVING_CLIENTS, SERVING_REQUESTS = 16, 2_000
+# one client alone first, for the host time of a request without
+# contention; its second half under cProfile
+SERVING_ALONE = 400
+# the two requests beyond the ladder, mid-traffic, from two clients: the
+# first opens rung 1,024 (a miss: its plan compiled, its run watched),
+# the second captures its graph
+SERVING_BEYOND = ((3, 60, 700), (11, 80, 900))
+MB_CLIENTS, MB_REQUESTS, MB_MAX, MB_DEADLINE_US = 64, 50, 64, 2_000
+SERVING_BARS = {"torch": 1e-5, "exact": 1e-6}
+SERVING_AUTO3_REASON = ("output 'yhat' is not row-decomposable (spoof: "
+                        "row-mixing or unanalyzed op)")
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _srv_counts(stats) -> dict:
+    return dict(stats.estim_counts.grouped()["serving"])
+
+
+class _WaitClock:
+    """Where a request's host wall goes under concurrent clients: seconds
+    each thread waits for the block compile's locks (each warm plan's and
+    each captured graph's lock wrapped, so a graph captured later is not
+    seen) and spends in the prepared script's host-to-card copy of the
+    request, summed per thread since its last `take()`."""
+
+    def __init__(self, prepared):
+        from systemml_tpu_torch.runtime.program import iter_basic_blocks
+
+        self._tls = threading.local()
+        for blk in iter_basic_blocks(prepared._program):
+            for plan in blk._plans.values():
+                plan.lock = self._Timed(plan.lock, self._tls)
+                for g in plan.graphs.values():
+                    g.lock = self._Timed(g.lock, self._tls)
+        unwrap = prepared._unwrap
+        tls = self._tls
+
+        def timed_unwrap(value):
+            t0 = time.perf_counter()
+            try:
+                return unwrap(value)
+            finally:
+                tls.upload = getattr(tls, "upload", 0.0) \
+                    + time.perf_counter() - t0
+
+        prepared._unwrap = timed_unwrap
+
+    class _Timed:
+        def __init__(self, lock, tls):
+            self._lock, self._tls = lock, tls
+
+        def __enter__(self):
+            t0 = time.perf_counter()
+            self._lock.acquire()
+            self._tls.wait = getattr(self._tls, "wait", 0.0) \
+                + time.perf_counter() - t0
+            return self
+
+        def __exit__(self, *exc):
+            self._lock.release()
+
+    def take(self):
+        """(lock wait s, upload s) of this thread since its last take."""
+        got = (getattr(self._tls, "wait", 0.0),
+               getattr(self._tls, "upload", 0.0))
+        self._tls.wait = self._tls.upload = 0.0
+        return got
+
+
+def _breakdown(parts) -> dict:
+    """Per-request ms (median and mean) of each part of a list of
+    per-request dicts of seconds, and each part's share of the summed
+    wall."""
+    wall = sum(p["wall"] for p in parts)
+    out = {}
+    for k in parts[0]:
+        xs = [p[k] for p in parts]
+        out[k] = {"p50_ms": 1e3 * _pct(xs, 0.5),
+                  "mean_ms": 1e3 * sum(xs) / len(xs),
+                  "share_of_wall": sum(xs) / wall}
+    return out
+
+
+def serving_phase(data, dev, kernels, smi) -> dict:
+    """`[serving]`: the softmax scorer (JMLC_SCRIPTS' second) over X's
+    1,000 features and 10 classes, prepared once at optlevel 3 (one row
+    plan: K4) and served by a ScoringService with validate "force" on the
+    ladder 1/8/64/512: warmup(1000), then SERVING_CLIENTS threads sending
+    SERVING_REQUESTS requests of log-uniform 1-512 rows of a host copy of
+    X's first rows (two beyond the ladder, SERVING_BEYOND), then
+    MB_CLIENTS threads of MB_REQUESTS single-row requests through a
+    MicroBatcher; the launch counters set to 0 just before the traffic
+    and read just after. Checks (each fails the run): "auto" refused at
+    optlevel 3 with the JAX package's reason and proven at optlevel 2
+    (rows, batchable); every answer within 1e-5 normwise of torch's
+    softmax on the card and within 1e-6 of the same rows at their exact
+    shape with validate "off" and codegen off; after warmup no plan
+    compile, capture or nvcc build but rung 1,024's; K4 launches equal
+    to the optlevel-3 dispatches; the statistics' srv_* counters equal
+    to the registry's; one scrape of /metrics on loopback with
+    requests_total equal to the requests served. K4 against its plain
+    version at the scorer's plan and the largest rung's shape, timed.
+    Each request of the direct traffic and of the client alone is broken
+    down (_WaitClock): in score(), the host-to-card copy, the wait for the
+    block compile's locks, the thread's CPU time and the rest (off the
+    CPU: the GIL, the card's copies); and the answer's copy to the host,
+    which waits for what the clients queued on the shared stream."""
+    import urllib.request
+
+    from systemml_tpu_torch.api.jmlc import Connection
+    from systemml_tpu_torch.api.serving import MicroBatcher, ScoringService
+    from systemml_tpu_torch.codegen import build
+    from systemml_tpu_torch.runtime.program import iter_spoof_hops
+
+    t_phase = time.perf_counter()
+    src = JMLC_SCRIPTS["softmax"][0]
+    host = data["X"][:SERVING_HOST_ROWS].cpu().numpy()
+    rng = np.random.default_rng(15)
+    w = (rng.standard_normal((K, SERVING_CLASSES)) / math.sqrt(K)).astype(
+        np.float32)
+    b = rng.standard_normal((1, SERVING_CLASSES)).astype(np.float32)
+    consts = {"W": w, "b": b}
+    meta = {"X": {"shape": (None, K)}, "W": {"shape": (K, SERVING_CLASSES)},
+            "b": {"shape": (1, SERVING_CLASSES)}}
+    names = dict(input_names=["X", "W", "b"], output_names=["yhat"],
+                 input_meta=meta)
+    w_dev, b_dev = torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev)
+
+    # the proof: refused at optlevel 3 (a fused plan), held at 2
+    ps3 = Connection(config(3)).prepare_script(src, **names)
+    auto3 = ScoringService(ps3, constants=consts)
+    auto2 = ScoringService(Connection(config(2)).prepare_script(src, **names),
+                           constants=consts)
+    rows = [h for h in iter_spoof_hops(ps3._program)
+            if h.params["template"] == "row"]
+    print(f"[serving] proof: optlevel 2 bucketing "
+          f"{auto2.bucketing_enabled}, batchable {auto2.batchable}, out "
+          f"classes {auto2._out_classes}; optlevel 3 bucketing "
+          f"{auto3.bucketing_enabled} ({auto3.safety_reason!r}); the "
+          f"scorer's fused plans at optlevel 3: "
+          f"{[h.params['plan'].pretty() for h in rows]}", flush=True)
+    if not (auto2.bucketing_enabled and auto2.batchable
+            and auto2._out_classes == {"yhat": "rows"}):
+        fail(f"[serving] optlevel 2: the proof refused: "
+             f"{auto2.safety_reason!r}")
+    if auto3.bucketing_enabled or auto3.safety_reason != SERVING_AUTO3_REASON:
+        fail(f"[serving] optlevel 3 'auto': {auto3.bucketing_enabled}, "
+             f"{auto3.safety_reason!r}, not {SERVING_AUTO3_REASON!r}")
+    if len(rows) != 1:
+        fail(f"[serving] the scorer at optlevel 3 has {len(rows)} row plans, "
+             f"not one")
+    del auto3, auto2
+
+    svc = ScoringService(ps3, constants=consts, ladder=SERVING_LADDER,
+                         validate="force")
+    ref_cfg = config(2, regions=False)
+    ref = ScoringService(Connection(ref_cfg).prepare_script(src, **names),
+                         constants=consts, validate="off")
+    t0 = time.perf_counter()
+    warmed = svc.warmup(K)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    st = ps3.stats
+    g_warm = dict(st.block_graph_counts.items())
+    after_warmup = {"compiles": st.compile_count,
+                    "captures": g_warm.get("capture", 0),
+                    "builds": len(build.build_reports),
+                    "requests": svc.registry.get("requests_total").value}
+    print(f"[serving] warmup of rungs {warmed} on {smi}: {warmup_s:.2f} s, "
+          f"plans {st.compile_count}, block graphs {g_warm}", flush=True)
+    if g_warm.get("capture", 0) != len(SERVING_LADDER):
+        fail(f"[serving] warmup: {g_warm}, not one capture per rung")
+    endpoint = svc.serve_metrics(port=0)
+    clock = _WaitClock(ps3)
+
+    def timed_request(x):
+        """One request's answer on the host and its parts in seconds."""
+        clock.take()
+        t1, c1 = time.perf_counter(), time.thread_time()
+        y = svc.score(x)["yhat"]
+        t2, c2 = time.perf_counter(), time.thread_time()
+        y = y.cpu()
+        t3 = time.perf_counter()
+        wait, upload = clock.take()
+        return y, {"wall": t3 - t1, "score": t2 - t1, "upload": upload,
+                   "lock_wait": wait, "score_cpu": c2 - c1,
+                   "score_off_cpu": max(0.0, (t2 - t1) - (c2 - c1) - wait),
+                   "to_host": t3 - t2}
+
+    def log_uniform(count):
+        n = np.exp(rng.uniform(0.0, math.log(SERVING_LADDER[-1]), count))
+        return np.clip(n.astype(np.int64), 1, SERVING_LADDER[-1])
+
+    # one client alone: the host time of a request without contention
+    import cProfile
+    import pstats
+
+    alone = [(int(rng.integers(0, SERVING_HOST_ROWS - n + 1)), int(n))
+             for n in log_uniform(SERVING_ALONE)]
+    alone_answers, alone_lat, alone_parts = [], [], []
+    for r0, n in alone[:10]:   # untimed: the client's first calls
+        svc.score(host[r0:r0 + n])["yhat"].cpu()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    for i, (r0, n) in enumerate(alone):
+        if i == SERVING_ALONE // 2:
+            alone_s = time.perf_counter() - t0
+            prof.enable()
+        y, parts = timed_request(host[r0:r0 + n])
+        alone_answers.append(y)
+        alone_lat.append(parts["wall"])
+        if i < SERVING_ALONE // 2:
+            alone_parts.append(parts)
+    prof.disable()
+    alone_rows = sum(n for _, n in alone[:SERVING_ALONE // 2])
+    top = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: -kv[1][2])[:10]
+    alone_top = [{"function": f"{os.path.basename(f)}:{ln}({fn})",
+                  "calls": v[1], "tottime_ms_per_request":
+                      1e3 * v[2] / (SERVING_ALONE // 2)}
+                 for (f, ln, fn), v in top]
+    before_direct = svc.registry.get("requests_total").value
+
+    # direct traffic: SERVING_CLIENTS clients, log-uniform sizes
+    sizes = log_uniform(SERVING_REQUESTS)
+    per = SERVING_REQUESTS // SERVING_CLIENTS
+    plan = [[int(n) for n in sizes[c * per:(c + 1) * per]]
+            for c in range(SERVING_CLIENTS)]
+    for c, i, n in SERVING_BEYOND:
+        plan[c][i] = n
+    starts = [[int(rng.integers(0, SERVING_HOST_ROWS - n + 1)) for n in ns]
+              for ns in plan]
+    answers = [[None] * per for _ in range(SERVING_CLIENTS)]
+    lat = [[0.0] * per for _ in range(SERVING_CLIENTS)]
+    d_parts = [[None] * per for _ in range(SERVING_CLIENTS)]
+    errors = []
+    barrier = threading.Barrier(SERVING_CLIENTS)
+
+    def direct(c):
+        try:
+            barrier.wait()
+            for i, n in enumerate(plan[c]):
+                s0 = starts[c][i]
+                answers[c][i], d_parts[c][i] = timed_request(
+                    host[s0:s0 + n])
+                lat[c][i] = d_parts[c][i]["wall"]
+        except Exception as e:  # the run fails on it below
+            errors.append(repr(e))
+
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=direct, args=(c,))
+          for c in range(SERVING_CLIENTS)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    direct_s = time.perf_counter() - t0
+    if errors:
+        fail(f"[serving] direct traffic raised: {errors[:3]}")
+    direct_requests = sum(len(p) for p in plan)
+    direct_rows = sum(sum(p) for p in plan)
+    d_lat = [x for row in lat for x in row]
+
+    # coalesced traffic: MB_CLIENTS clients of single rows
+    mb_rows = rng.integers(0, SERVING_HOST_ROWS, (MB_CLIENTS, MB_REQUESTS))
+    mb_answers = [[None] * MB_REQUESTS for _ in range(MB_CLIENTS)]
+    mb_lat = [[0.0] * MB_REQUESTS for _ in range(MB_CLIENTS)]
+    before_mb = _srv_counts(st)
+    barrier = threading.Barrier(MB_CLIENTS)
+    with MicroBatcher(svc, max_batch=MB_MAX,
+                      deadline_us=MB_DEADLINE_US) as mb:
+        def coalesced(c):
+            try:
+                barrier.wait()
+                for i in range(MB_REQUESTS):
+                    r0 = int(mb_rows[c, i])
+                    t1 = time.perf_counter()
+                    mb_answers[c][i] = mb.score(host[r0:r0 + 1])
+                    mb_lat[c][i] = time.perf_counter() - t1
+            except Exception as e:  # the run fails on it below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=coalesced, args=(c,))
+              for c in range(MB_CLIENTS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        mb_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    if errors:
+        fail(f"[serving] coalesced traffic raised: {errors[:3]}")
+    with urllib.request.urlopen(endpoint.url, timeout=30) as resp:
+        scraped = resp.read().decode("utf-8")
+    endpoint.close()
+    srv = _srv_counts(st)
+    mb_counts = {k: srv.get(k, 0) - before_mb.get(k, 0) for k in
+                 ("microbatch_flush", "microbatch_flush_size",
+                  "microbatch_flush_deadline", "microbatched_requests")}
+    flushes = mb_counts["microbatch_flush"]
+    g = dict(st.block_graph_counts.items())
+    reg = svc.registry
+    served = reg.get("requests_total").value
+    dispatches = served - before_direct
+    scraped_total = [float(ln.split()[-1]) for ln in scraped.splitlines()
+                     if ln.startswith("smtpu_serving_requests_total")]
+
+    # every answer against torch on the card and the exact-shape run
+    worst = {"torch": 0.0, "exact": 0.0}
+
+    def hold(r0, n, y):
+        xs = data["X"][r0:r0 + n]
+        ref_t = torch.softmax(xs.double() @ w_dev.double()
+                              + b_dev.double(), dim=1)
+        got = y.to(dev).double()
+        worst["torch"] = max(worst["torch"], normwise(got, ref_t))
+        exact = ref.score(host[r0:r0 + n])["yhat"].double()
+        worst["exact"] = max(worst["exact"], normwise(got, exact))
+        if tuple(y.shape) != (n, SERVING_CLASSES):
+            fail(f"[serving] an answer of shape {tuple(y.shape)} for {n} "
+                 f"rows")
+
+    for (r0, n), y in zip(alone, alone_answers):
+        hold(r0, n, y)
+    for c in range(SERVING_CLIENTS):
+        for i, n in enumerate(plan[c]):
+            hold(starts[c][i], n, answers[c][i])
+    for c in range(MB_CLIENTS):
+        for i in range(MB_REQUESTS):
+            hold(int(mb_rows[c, i]), 1, torch.from_numpy(mb_answers[c][i]))
+
+    # K4 at the scorer's plan and the largest warm rung's shape
+    hop = rows[0]
+    leaf = list(hop.params["leaf_names"])
+    m = SERVING_LADDER[-1]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    z = torch.randn(m, SERVING_CLASSES, generator=gen, device=dev)
+    bias = torch.randn(1, SERVING_CLASSES, generator=gen, device=dev)
+    env = dict(zip(leaf, (z, bias, (z + bias).amax(dim=1, keepdim=True))))
+    agg = hop.params["row_agg"]
+    got = kernels.row_kernel(hop.params["plan"], leaf, agg, env)
+    plain = kernels.row_plain(hop.params["plan"], leaf, agg,
+                              {k: v.double() for k, v in env.items()})
+    k4_err = normwise(got, plain)
+    k4_abs = float((got.double() - plain).abs().max())
+    k4_ms = device_ms(lambda: kernels.row_kernel(hop.params["plan"], leaf,
+                                                 agg, env), cold=True)
+    k4_plain_ms = device_ms(lambda: kernels.row_plain(hop.params["plan"],
+                                                      leaf, agg, env))
+    k4_bound, k4_by = spoof_bound(hop.params["plan"], env, 4 * m,
+                                  m * SERVING_CLASSES)
+    # the rows of every bucketed dispatch, warmup's included: rung x count
+    dispatched_rows = sum(v * int(k[k.index("[") + 1:-1])
+                          for k, v in srv.items()
+                          if k.startswith(("bucket_hit[", "bucket_miss[")))
+    rec = {
+        "warmup_s": warmup_s, "warmed": warmed, "after_warmup": after_warmup,
+        "alone": {"requests": SERVING_ALONE // 2, "rows": alone_rows,
+                  "seconds": alone_s,
+                  "p50_ms": 1e3 * _pct(alone_lat[:SERVING_ALONE // 2], 0.5),
+                  "p99_ms": 1e3 * _pct(alone_lat[:SERVING_ALONE // 2], 0.99),
+                  "requests_per_s": SERVING_ALONE // 2 / alone_s,
+                  "breakdown": _breakdown(alone_parts),
+                  "profiled_ms_per_request":
+                      1e3 * sum(alone_lat[SERVING_ALONE // 2:])
+                      / (SERVING_ALONE // 2),
+                  "top_tottime": alone_top},
+        "direct": {"requests": direct_requests, "rows": direct_rows,
+                   "seconds": direct_s, "p50_ms": 1e3 * _pct(d_lat, 0.5),
+                   "p99_ms": 1e3 * _pct(d_lat, 0.99),
+                   "requests_per_s": direct_requests / direct_s,
+                   "breakdown": _breakdown(
+                       [p for row in d_parts for p in row]),
+                   "rows_per_s": direct_rows / direct_s},
+        "coalesced": {"requests": MB_CLIENTS * MB_REQUESTS, "seconds": mb_s,
+                      "p50_ms": 1e3 * _pct(sum(mb_lat, []), 0.5),
+                      "p99_ms": 1e3 * _pct(sum(mb_lat, []), 0.99),
+                      "requests_per_s": MB_CLIENTS * MB_REQUESTS / mb_s,
+                      "flushes": flushes,
+                      "requests_per_flush":
+                          mb_counts["microbatched_requests"] / max(1, flushes),
+                      "by_cause": {"size": mb_counts["microbatch_flush_size"],
+                                   "deadline":
+                                       mb_counts["microbatch_flush_deadline"]}},
+        "block_graphs": g, "serving_counters": srv,
+        "pad_share": srv.get("pad_rows", 0) / max(1, dispatched_rows),
+        "launches": launches, "dispatches": dispatches, "served": served,
+        "scraped_requests_total": scraped_total,
+        "max_normwise": worst, "k4_serving": {
+            "shape": [m, SERVING_CLASSES], "max_normwise": k4_err,
+            "max_abs_err": k4_abs, "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound, "bound_by": k4_by},
+        "seconds": time.perf_counter() - t_phase}
+    d, c, a = rec["direct"], rec["coalesced"], rec["alone"]
+    print(f"[serving] one client alone on {smi}: {a['requests']} requests "
+          f"({a['rows']} rows) in {a['seconds']:.3f} s: p50 "
+          f"{a['p50_ms']:.3f} ms, p99 {a['p99_ms']:.3f} ms, "
+          f"{a['requests_per_s']:.1f} requests/s; under cProfile "
+          f"{a['profiled_ms_per_request']:.3f} ms a request, the most "
+          f"host time (ms a request): " + ", ".join(
+              f"{t['function']} {t['tottime_ms_per_request']:.4f}"
+              for t in alone_top), flush=True)
+    print(f"[serving] direct on {smi}: {d['requests']} requests "
+          f"({d['rows']} rows) from {SERVING_CLIENTS} clients in "
+          f"{direct_s:.3f} s: per request p50 {d['p50_ms']:.3f} ms, p99 "
+          f"{d['p99_ms']:.3f} ms (host wall, answer on the host), "
+          f"{d['requests_per_s']:.1f} requests/s, {d['rows_per_s']:.0f} "
+          f"rows/s", flush=True)
+    for who, part in (("one client alone", a), (f"{SERVING_CLIENTS} "
+                                                  "direct clients", d)):
+        print(f"[serving] where a request's host wall goes, {who}, on "
+              f"{smi} (p50 ms / mean ms / share of the summed wall): "
+              + "; ".join(f"{k} {v['p50_ms']:.4f} / {v['mean_ms']:.4f} / "
+                          f"{v['share_of_wall']:.3f}"
+                          for k, v in part["breakdown"].items()),
+              flush=True)
+    print(f"[serving] coalesced on {smi}: {c['requests']} single-row "
+          f"requests from {MB_CLIENTS} clients in {mb_s:.3f} s: p50 "
+          f"{c['p50_ms']:.3f} ms, p99 {c['p99_ms']:.3f} ms, "
+          f"{c['requests_per_s']:.1f} requests/s; {flushes} flushes, "
+          f"{c['requests_per_flush']:.2f} requests per flush, by cause "
+          f"{c['by_cause']}", flush=True)
+    print(f"[serving] block graphs {g} (captures and launches, warmup "
+          f"included); pad rows {rec['pad_share']:.4f} of the rows "
+          f"dispatched; serving counters {srv}; launches in the traffic "
+          f"{launches}; dispatches {dispatches}; requests served {served}, "
+          f"scraped {scraped_total}; worst normwise against torch "
+          f"{worst['torch']:.3e}, against the exact shape "
+          f"{worst['exact']:.3e}; on {smi}", flush=True)
+    print(f"[serving] K4 spoof_row {agg} at the scorer's plan "
+          f"{hop.params['plan'].pretty()} ({m}, {SERVING_CLASSES}) fp32 on "
+          f"{smi}: device time {k4_ms:.4f} ms with the L2 cache evicted, "
+          f"plain {k4_plain_ms:.4f} ms, bound {k4_bound:.5f} ms ({k4_by}); "
+          f"normwise {k4_err:.3e} against the plain version in fp64",
+          flush=True)
+
+    # the checks
+    for key, bar in SERVING_BARS.items():
+        if worst[key] > bar:
+            fail(f"[serving] an answer {worst[key]:.3e} from the {key} "
+                 f"reference (bar {bar})")
+    if k4_err > SPOOF_BARS[torch.float32]:
+        fail(f"[serving] K4 at the scorer's plan: {k4_err} from its plain "
+             f"version")
+    after = {"compiles": st.compile_count - after_warmup["compiles"],
+             "captures": g.get("capture", 0) - after_warmup["captures"],
+             "builds": len(build.build_reports) - after_warmup["builds"]}
+    if after != {"compiles": 1, "captures": 1, "builds": 0}:
+        fail(f"[serving] after warmup {after}: rung 1,024's plan compile "
+             f"and capture only, and no build, expected")
+    if launches["spoof_row"] != dispatches or any(
+            v for k, v in launches.items() if k != "spoof_row"):
+        fail(f"[serving] launches {launches} against {dispatches} "
+             f"optlevel-3 dispatches: K4 once a dispatch, nothing else")
+    if dispatches != direct_requests + flushes:
+        fail(f"[serving] {dispatches} dispatches, not {direct_requests} "
+             f"direct and {flushes} flushes")
+    for kind in ("hit", "miss"):
+        total = sum(v for k, v in srv.items()
+                    if k.startswith(f"bucket_{kind}["))
+        if total != reg.get(f"bucket_{kind}{'s' if kind == 'hit' else 'es'}"
+                            "_total").value:
+            fail(f"[serving] srv_bucket_{kind} {total} against the "
+                 f"registry's")
+    if srv.get("bucket_miss[1024]") != 1 or sum(
+            v for k, v in srv.items() if k.startswith("bucket_miss[")) != \
+            len(SERVING_LADDER) + 1:
+        fail(f"[serving] misses {srv}: one per rung and rung 1,024's")
+    if not (flushes == reg.get("microbatch_flushes_total").value
+            == mb_counts["microbatch_flush_size"]
+            + mb_counts["microbatch_flush_deadline"]
+            and mb_counts["microbatched_requests"]
+            == MB_CLIENTS * MB_REQUESTS):
+        fail(f"[serving] flushes {mb_counts} against the registry's "
+             f"{reg.get('microbatch_flushes_total').value}")
+    if scraped_total != [float(served)]:
+        fail(f"[serving] /metrics requests_total {scraped_total}, served "
+             f"{served}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # --bench: the spoof kernels and wrappers of this tree, for parent/change
 # pairs in one chip call
 # --------------------------------------------------------------------------
@@ -5854,6 +6376,8 @@ def main() -> None:
         sparse["ALS-CG-netflix"]["optlevel3"]["launches"]
     block = block_phase(breadth, block_launches)
     jmlc = jmlc_phase(data, dev)
+    # this slice: the serving tier over the softmax scorer (K4)
+    serving = serving_phase(data, dev, kernels, smi)
     torch.cuda.empty_cache()
     # this slice's paths: Caffe2DML ResNet-18 at 3x224x224 with 1,000
     # classes, and mnist_lenet's train() through MLContext
@@ -5900,6 +6424,7 @@ def main() -> None:
     by_path["parfor-univar"] = univar["parfor"]["launches"]
     by_path["resnet18"] = resnet["launches"]
     by_path["lenet"] = lenet["launches"]
+    by_path["serving"] = serving["launches"]
     spoof_launches = {k: sum(c[k] for c in by_path.values())
                       for k in ("spoof_cell", "spoof_row")}
     replaces = {"spoof_cell": "systemml_tpu/codegen/kernels.py:124 "
@@ -5961,7 +6486,8 @@ def main() -> None:
           f"{mb_plain:.4f} ms, bound {mb_bound:.5f} ms ({mb_by})", flush=True)
     records[2].update({"minibatch_ms": mb_ms, "minibatch_plain_ms": mb_plain,
                        "minibatch_bound_ms": mb_bound,
-                       "minibatch_bound_by": mb_by})
+                       "minibatch_bound_by": mb_by,
+                       "serving": serving["k4_serving"]})
     del env
     records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
     left_mult = time_left_mult(cla, dev, smi)
@@ -6041,7 +6567,8 @@ def main() -> None:
                       "cla_left_mult": left_mult, "region_syncs": syncs,
                       "breadth_datagen": breadth_datagen,
                       "cli": cli, "pool": pool, "block": block,
-                      "jmlc": jmlc, "parfor_stepglm": stepglm,
+                      "jmlc": jmlc, "serving": serving,
+                      "parfor_stepglm": stepglm,
                       "parfor_univar": univar, "transform": transform,
                       "resnet18": resnet, "lenet": lenet,
                       "normal_draw": normal, "poisson_draw": poisson,
@@ -6105,6 +6632,29 @@ def slice14_only() -> None:
     print(json.dumps({"poisson_draw": poisson, "backend": backend,
                       "remote_parfor": remote, "backend_s": backend_s,
                       "remote_s": remote_s}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def serving_only() -> None:
+    """The serving phase alone (`[serving]`), on the dense X: what
+    `--serving` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "systemml_tpu_torch")):
+        fail("systemml_tpu_torch/ is not beside chip_smoke.py")
+    from systemml_tpu_torch.codegen import kernels
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    data = make_data(dev)
+    res = serving_phase(data, dev, kernels, smi)
+    res["all_seconds"] = time.perf_counter() - t0
+    print(json.dumps({"serving": res}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
@@ -6178,6 +6728,8 @@ if __name__ == "__main__":
         slice14_only()
     elif sys.argv[1:2] == ["--parfor"]:
         parfor_only()
+    elif sys.argv[1:2] == ["--serving"]:
+        serving_only()
     elif sys.argv[1:2] == ["--bench"]:
         bench(sys.argv[2] if len(sys.argv) > 2 else os.path.basename(ROOT))
     elif sys.argv[1:2] == ["--phases"]:

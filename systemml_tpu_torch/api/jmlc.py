@@ -12,9 +12,17 @@ graph's input buffers and a launch.
 The connection runs on the device its config names: the card by default,
 the CPU only when the caller sets `device="cpu"`; with "cuda" and no card
 it raises, as MLContext does. `ensure_xla_cache` of the JAX package has
-no counterpart here. The binding context is request-scoped: the fluent
-`set_* ... execute_script()` API binds into a thread-local slot, and
-`execute(inputs=...)` takes the whole binding per call.
+no counterpart here.
+
+Threads (docs/serving.md, "Thread-safety contract"): one PreparedScript
+may be executed from any number of threads at once. The binding context
+is request-scoped: the fluent `set_* ... execute_script()` API binds
+into a thread-local slot, and `execute(inputs=...)` takes the whole
+binding per call. The identity unwrap cache is guarded by a lock and its
+entries are immutable; the program's plans and block graphs are guarded
+per key (runtime/blockcompile.py); the statistics count under locks and
+`run_time` is the union of overlapping runs. api/serving.py serves
+concurrent traffic over one PreparedScript on these terms.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ from __future__ import annotations
 import threading
 import weakref
 from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
 
 from systemml_tpu_torch.api.mlcontext import (MLResults, Script,
                                               _input_sparsity, _unwrap_input)
@@ -33,6 +44,14 @@ from systemml_tpu_torch.utils.config import (DMLConfig, apply_matmul_precision,
 
 def SILENT_PRINTER(s: str) -> None:
     """JMLC runs discard print() output (the reference's JMLC mode)."""
+
+
+def _shares_memory(u, value) -> bool:
+    """Is `u` a tensor over `value`'s own memory (a host array unwrapped
+    on the CPU without a copy)?"""
+    return (isinstance(u, torch.Tensor) and isinstance(value, np.ndarray)
+            and u.device.type == "cpu" and u.layout == torch.strided
+            and np.shares_memory(u.numpy(), value))
 
 
 class PreparedScript:
@@ -71,18 +90,25 @@ class PreparedScript:
         self._bindings()[name] = self._unwrap_cached(name, value)
         return self
 
+    def _unwrap(self, value):
+        """`value` as a runtime value on this script's device, under its
+        config, without the identity cache (a per-request value)."""
+        old = get_config()
+        set_config(self._config)
+        try:
+            return _unwrap_input(value, self._device)
+        finally:
+            set_config(old)
+
     def _unwrap_cached(self, name: str, value):
         with self._cache_lock:
             cached = self._unwrap_cache.get(name)
         if cached is not None and cached[0]() is value:
             return cached[1]
-        old = get_config()
-        set_config(self._config)
-        try:
-            u = _unwrap_input(value, self._device)
-        finally:
-            set_config(old)
-        if u is value:
+        u = self._unwrap(value)
+        if u is value or _shares_memory(u, value):
+            # no copy was made, so there is none to reuse; an entry would
+            # hold the host array through the tensor over its memory
             return u
         try:
             ref = weakref.ref(value, lambda r: self._evict(name, r))

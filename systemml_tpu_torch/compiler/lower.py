@@ -7,7 +7,10 @@ script eagerly: the `Evaluator` on its dense single-device branches
 lower.py:41-200 there (`analyze_block`, which the whole-block compile of
 runtime/blockcompile.py reads); and the loop analysis and region planner
 of lower.py:483-960 there (`plan_loop_regions`, whose `LoopRegion`s
-runtime/loopfuse.py executes as CUDA graphs). What waits, each raising
+runtime/loopfuse.py executes as CUDA graphs); and the serving tier's
+row-wise safety proof of lower.py:225-450 there
+(`analyze_rowwise_safety`, which api/serving.py reads). What waits, each
+raising
 NotImplementedError that names its ROADMAP item:
 
 - MESH dispatch and collectives (distributed and elastic), among them
@@ -27,7 +30,8 @@ import contextlib
 import contextvars
 import math
 import time
-from typing import Any, Callable, Dict, List, Optional, Set, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Set, Tuple)
 
 import numpy as np
 import torch
@@ -193,6 +197,238 @@ class BlockAnalysis:
         self.fused_writes = fused_writes
         self.host_writes = host_writes
         self.host_read_names = host_read_names
+
+
+# --------------------------------------------------------------------------
+# bucket-pad (row-wise) safety — the serving tier's compile-side entry
+# --------------------------------------------------------------------------
+
+_RW_ROWS = "rows"    # rows aligned 1:1 with the batch input's rows
+_RW_CONST = "const"  # value independent of the batch input entirely
+_RW_TAINT = "taint"  # mixes batch rows (padding could change kept rows)
+
+# elementwise unary builtins (hops/builder._UNARY) plus the operator
+# unaries: per-cell maps, so padded rows never leak into kept rows
+_RW_ELEMENTWISE_UNARY = {
+    "abs", "sin", "cos", "tan", "asin", "acos", "atan", "sinh", "cosh",
+    "tanh", "sqrt", "exp", "floor", "ceiling", "ceil", "round", "sign",
+    "sigmoid", "sprop", "gamma", "lgamma", "digamma", "trigamma",
+    "isNA", "isNaN", "isInf", "log", "-", "!", "+",
+}
+
+
+class RowwiseSafety(NamedTuple):
+    """Result of analyze_rowwise_safety. `safe` licenses PAD-to-bucket
+    dispatch; `row_local` additionally licenses request COALESCING
+    (every output row depends only on its own input row);
+    `out_classes` gives the per-output rows/const class so the service
+    un-pads exactly instead of guessing by shape."""
+
+    safe: bool
+    reason: str
+    out_classes: Dict[str, str]
+    row_local: bool
+
+
+def analyze_rowwise_safety(program, batch_input: str,
+                           output_names, known_dims=None):
+    """Decide whether PADDING `batch_input` with extra rows can change
+    any requested output's value on the original rows — the proof
+    obligation behind the serving tier's shape-bucketed dispatch
+    (api/serving.py pads requests to the nearest bucket and slices the
+    first n rows back out; that is only sound when every output is
+    either row-aligned with the batch input or independent of it).
+
+    Conservative dataflow classification over the compiled program:
+    each hop is `rows` (rows aligned 1:1 with the batch input), `const`
+    (independent of it), or `taint` (row-mixing: full/column
+    aggregates, nrow(), transposes, matmults contracting over the
+    batch dimension, indexing, anything unknown). Any control flow
+    refuses outright — a predicate could read nrow(X).
+
+    known_dims: optional name -> (rows, cols) metadata for non-batch
+    inputs (prepare-time input_meta); a declared 1-row input may
+    broadcast against a batched operand (the `+ b` bias shape) without
+    tainting.
+
+    Returns RowwiseSafety(safe, reason, out_classes, row_local):
+    `reason` names the first offender so the service can surface WHY
+    bucketing is off; `out_classes` maps each requested output to its
+    rows/const class (exact un-padding instead of shape guessing);
+    `row_local` strengthens `safe` to PER-ROW decomposability — every
+    output row depends on its own input row only — which is what
+    request COALESCING (MicroBatcher) needs: a cumsum is pad-safe
+    (pad rows append after the real ones) yet not row-local (row i
+    reads rows < i, so one user's rows would see another's)."""
+    from systemml_tpu_torch.runtime.program import BasicBlock
+
+    known_dims = known_dims or {}
+
+    for b in program.blocks:
+        if not isinstance(b, BasicBlock):
+            return RowwiseSafety(
+                False, "control flow in the scoring script: a "
+                       "predicate may observe the padded shape", {}, False)
+    # classification env across blocks, program order; rows1 tracks
+    # provably single-row const values (broadcast-safe against a batch)
+    env: Dict[str, Tuple[str, bool]] = {batch_input: (_RW_ROWS, False)}
+    offender: List[str] = []
+    # cross-row-but-pad-safe ops seen on a rows path (cumulative
+    # aggregates): sound for padding, UNSOUND for request coalescing
+    order_dep: List[str] = []
+
+    def taint(h: Hop, why: str) -> Tuple[str, bool]:
+        if not offender:
+            offender.append(f"{h.op}: {why}")
+        return (_RW_TAINT, False)
+
+    def fcall_class(h: Hop, kids, file_id: int, seen: frozenset):
+        """Classify a user-function call by classifying its BODY with
+        the argument classes bound to its formals, so that a row-wise
+        function does not refuse bucketing. Only pure, if-free,
+        single-return functions qualify — control flow could observe
+        the padded shape, impurity could fire per-trace side effects.
+        Returns the output class, or None when the call must taint."""
+        ns, name = h.params.get("namespace"), h.params.get("name")
+        if h.params.get("n_outputs", 1) != 1:
+            return None
+        fb = program.resolve_function(file_id, ns, name)
+        if fb is None or fb.fn_def.external \
+                or len(fb.fn_def.outputs) != 1:
+            return None
+        key = (fb.file_id, fb.fn_def.name)
+        if key in seen:
+            return None  # recursive function: refuse
+        if not program.fn_is_pure(file_id, ns, name):
+            return None
+        for bb in fb.blocks:
+            if not isinstance(bb, BasicBlock):
+                return None  # if/while/for in the body
+        params = [a.name for a in fb.fn_def.inputs]
+        argnames = h.params.get("argnames") or [None] * len(kids)
+        fenv: Dict[str, Tuple[str, bool]] = {}
+        for i, k in enumerate(kids):
+            an = argnames[i] if i < len(argnames) else None
+            if an is not None:
+                if an not in params:
+                    return None
+                fenv[an] = k
+            elif i < len(params):
+                fenv[params[i]] = k
+            else:
+                return None
+        for pn in params:
+            # unbound formals take their default literals: batch-independent
+            fenv.setdefault(pn, (_RW_CONST, False))
+        for bb in fb.blocks:
+            fenv.update(classify_block(bb.hops, fenv, fb.file_id,
+                                       seen | {key}))
+        out = fenv.get(fb.fn_def.outputs[0].name)
+        if out is None or out[0] == _RW_TAINT:
+            return None
+        return out
+
+    def classify_block(blk, env, file_id: int,
+                       seen: frozenset = frozenset()) \
+            -> Dict[str, Tuple[str, bool]]:
+        memo: Dict[int, Tuple[str, bool]] = {}
+
+        def rec(h: Hop) -> Tuple[str, bool]:
+            got = memo.get(h.id)
+            if got is not None:
+                return got
+            memo[h.id] = out = _rec(h)
+            return out
+
+        def _rec(h: Hop) -> Tuple[str, bool]:
+            op = h.op
+            if op == "lit":
+                return (_RW_CONST, True)
+            if op == "tread":
+                if h.name in env:
+                    return env[h.name]
+                dims = known_dims.get(h.name)
+                return (_RW_CONST, bool(dims and dims[0] == 1))
+            if op == "twrite":
+                return rec(h.inputs[0])
+            kids = [rec(c) for c in h.inputs]
+            if any(k[0] == _RW_TAINT for k in kids):
+                return (_RW_TAINT, False)
+            if all(k[0] == _RW_CONST for k in kids):
+                # batch-independent subtree: padding cannot reach it.
+                # rows1 survives elementwise/scalar ops and col-aggs
+                if op.startswith(("u(", "b(")) \
+                        or (op.startswith("ua(") and op.endswith(",col)")):
+                    r1 = (all(k[1] for k in kids)
+                          or op.endswith(",col)"))
+                    return (_RW_CONST, r1)
+                return (_RW_CONST, False)
+            # at least one rows-classified input from here on
+            if op.startswith("u("):
+                o = h.params.get("op", op[2:-1])
+                if o in _RW_ELEMENTWISE_UNARY:
+                    return kids[0]
+                return taint(h, "non-elementwise unary over batch rows")
+            if op.startswith("cum("):
+                # column-wise cumulative: row i reads rows <= i only,
+                # and pad rows append AFTER the real ones — pad-safe,
+                # but NOT row-local (coalesced requests would leak
+                # running totals across request boundaries)
+                order_dep.append(op)
+                return kids[0]
+            if op.startswith("b(") and len(kids) == 2:
+                safe = []
+                for (cls, r1), c in zip(kids, h.inputs):
+                    safe.append(cls == _RW_ROWS
+                                or c.dt == "scalar" or r1)
+                if all(safe):
+                    return (_RW_ROWS, False)
+                return taint(h, "broadcast against a batch operand "
+                                "with unproven single-row shape")
+            if op == "ba+*":
+                (lc, _), (rc, _) = kids
+                if lc == _RW_ROWS and rc == _RW_CONST:
+                    return (_RW_ROWS, False)
+                return taint(h, "matmult contracting over the batch "
+                                "dimension")
+            if op.startswith("ua("):
+                if op.endswith(",row)") and kids[0][0] == _RW_ROWS:
+                    # per-row aggregate: each output row reads one
+                    # input row
+                    return (_RW_ROWS, False)
+                return taint(h, "full/column aggregate over batch rows")
+            if op == "ncol":
+                return (_RW_CONST, True)
+            if op in ("nrow", "length"):
+                return taint(h, "observes the padded row count")
+            if op == "fcall":
+                # a PURE, if-free, single-return function classifies by
+                # its body with the argument classes bound (a row-wise
+                # fn no longer refuses bucketing); anything else refuses
+                # at the CALL site — a program that merely DEFINES
+                # functions but never calls them on a batch path stays
+                # eligible
+                got = fcall_class(h, kids, file_id, seen)
+                if got is not None:
+                    return got
+                return taint(h, "user function over batch rows")
+            return taint(h, "row-mixing or unanalyzed op")
+
+        return {name: rec(hop) for name, hop in blk.writes.items()}
+
+    for b in program.blocks:
+        env.update(classify_block(b.hops, env, b.file_id))
+
+    out_classes: Dict[str, str] = {}
+    for out in output_names:
+        cls, _ = env.get(out, (_RW_CONST, False))
+        out_classes[out] = cls
+        if cls == _RW_TAINT:
+            why = offender[0] if offender else "row-mixing op"
+            return RowwiseSafety(
+                False, f"output {out!r} is not row-decomposable ({why})",
+                out_classes, False)
+    return RowwiseSafety(True, "", out_classes, not order_dep)
 
 
 class NotLoopFusable(Exception):

@@ -208,9 +208,7 @@ class Caffe2DML:
         datagen.set_global_seed(int(self.hyper["seed"]))
         # FRESH stats per fit (plan caches stay): resetting in place
         # would retroactively zero a fit_stats_ a caller saved earlier
-        from systemml_tpu_torch.utils.stats import Statistics
-
-        self._fit_prog.stats = Statistics()
+        self._fit_prog.fresh_stats()
         try:
             from systemml_tpu_torch.api.mlcontext import _unwrap_input
 

@@ -51,6 +51,22 @@ executable per key, the port's counterpart is:
    GRAPH_INPUT_BYTES of tensors runs without a graph, counted by reason
    (`nograph:<reason>`).
 
+Threads. One prepared script may be executed from any number of
+threads at once (api/serving.py). A key's plan holds a lock under which
+its runs are counted, its watched runs run and a new graph is captured:
+a second thread that reaches a graph being captured waits for it and
+launches it. Captures of different keys take turns (they share the
+capture streams), and a watched run holds a process-wide lock while
+torch's sync debug mode, which is process-wide, is on; synchronizing
+calls of other threads in that window are not the block's: they do not
+count against it, and their warnings are dropped (one that torch hands
+to Python only after the window has closed is printed once). A launch
+(copy in, launch, clone out) holds its graph's lock, so two requests
+never interleave in one graph's buffers; launches of different keys do
+not wait for each other. A capture counts into a Statistics of its own,
+so that what other threads count meanwhile does not enter the counts
+that each launch adds again.
+
 A block takes the eager path, counted by reason, when it reads a sparse
 or compressed value or a list (as `_execute_fused:160-207` demotes
 them), or when the analysis finds nothing to plan (a `restore`, or only
@@ -85,6 +101,12 @@ GRAPH_INPUT_BYTES = 256 << 20
 GRAPHS_PER_PLAN = 4
 # held while a new key's plan is made (and its kernels built)
 _plan_lock = threading.RLock()
+# held by a capture: the capture streams are shared by the threads that
+# are not parfor lanes
+_capture_lock = threading.RLock()
+# held by a watched run: torch's sync debug mode and the warnings
+# filters are process-wide
+_watch_lock = threading.RLock()
 
 
 class BlockPlan:
@@ -92,7 +114,7 @@ class BlockPlan:
     the host numbers it reads, and why it runs without one."""
 
     __slots__ = ("hops", "runs", "graphs", "refusal", "counted", "clean",
-                 "synced")
+                 "synced", "lock")
 
     def __init__(self, hops, refusal: Optional[str]):
         self.hops = hops
@@ -104,12 +126,16 @@ class BlockPlan:
         # that synchronized
         self.clean = False
         self.synced = 0
+        # guards runs, clean, synced, counted, refusal and graphs
+        self.lock = threading.RLock()
 
 
 class _BlockGraph:
     """A captured block: its static input buffers, its outputs (in the
     graph's pool), the host numbers it wrote, and the counters its capture
-    moved (applied again at each later launch)."""
+    moved (applied again at each later launch). `lock` is held from the
+    copy into its buffers to the clone of its outputs; `stream` is the
+    last launch's stream, which a launch on another stream waits for."""
 
     def __init__(self):
         self.inputs: Dict[str, torch.Tensor] = {}
@@ -120,6 +146,8 @@ class _BlockGraph:
         self.pool = None
         self.delta: Dict[tuple, int] = {}
         self.launched = False
+        self.lock = threading.Lock()
+        self.stream = None
 
     def __del__(self):
         if (self.exec is not None or self.graph is not None) \
@@ -326,34 +354,38 @@ def execute(block, ec) -> None:
                 plan = compile_plan(block, env, cfg, ec.stats)
                 block._plans[key] = plan
                 ec.stats.count_compile()
-    plan.runs += 1
     dev = _region_device(ec)
     graphs = dev.type == "cuda" and ec.block_graphs and cfg.codegen_enabled
-    if graphs and plan.refusal is None:
-        if not plan.clean:
-            _watched_run(block, plan, ec)
-            return
-        gkey = tuple((n, v) for n, v in sorted(
-            (n, env[n]) for n in block.hops.reads
-            if n in env and _is_number(env[n])))
-        g = plan.graphs.get(gkey)
-        if g is None and plan.refusal is None:
-            if len(plan.graphs) >= GRAPHS_PER_PLAN:
-                plan.refusal = "host numbers vary"
-            elif _input_bytes(block, env) > GRAPH_INPUT_BYTES:
-                plan.refusal = "inputs too large"
-            else:
-                g = plan.graphs[gkey] = _capture(block, plan, ec, dev)
-                ec.stats.count_block_graph("capture")
-        if g is not None:
-            with obs.span("block", obs.CAT_RUNTIME, mode="graph"):
-                _launch(block, g, ec, dev)
-            ec.stats.count_block_graph("replay")
-            return
-    if graphs and plan.refusal is not None and plan.runs > 1 \
-            and not plan.counted:
-        plan.counted = True
-        ec.stats.count_block_graph(f"nograph:{plan.refusal}")
+    g = None
+    with plan.lock:
+        plan.runs += 1
+        if graphs and plan.refusal is None:
+            if not plan.clean:
+                _watched_run(block, plan, ec)
+                return
+            gkey = tuple((n, v) for n, v in sorted(
+                (n, env[n]) for n in block.hops.reads
+                if n in env and _is_number(env[n])))
+            g = plan.graphs.get(gkey)
+            if g is None:
+                if len(plan.graphs) >= GRAPHS_PER_PLAN:
+                    plan.refusal = "host numbers vary"
+                elif _input_bytes(block, env) > GRAPH_INPUT_BYTES:
+                    plan.refusal = "inputs too large"
+                else:
+                    # under the plan's lock: a second thread of this key
+                    # waits for the capture and launches it
+                    g = plan.graphs[gkey] = _capture(block, plan, ec, dev)
+                    ec.stats.count_block_graph("capture")
+        if g is None and graphs and plan.refusal is not None \
+                and plan.runs > 1 and not plan.counted:
+            plan.counted = True
+            ec.stats.count_block_graph(f"nograph:{plan.refusal}")
+    if g is not None:
+        with obs.span("block", obs.CAT_RUNTIME, mode="graph"):
+            _launch(block, g, ec, dev)
+        ec.stats.count_block_graph("replay")
+        return
     with obs.span("block", obs.CAT_RUNTIME, mode="fused"):
         ev = Evaluator(env, ec.call_function, ec.printer, stats=ec.stats,
                        timing=True, skip_writes=ec.skip_writes)
@@ -361,20 +393,34 @@ def execute(block, ec) -> None:
 
 
 def _watched_run(block, plan, ec) -> None:
-    """A run of a key on the card before its capture: through the plan,
-    under torch's sync debug mode. A run free of synchronizing calls
-    lets the next capture; a second run that synchronizes refuses the
-    key's graph ("host read")."""
+    """A run of a key on the card before its capture (under the plan's
+    lock): through the plan, under torch's sync debug mode. A run free of
+    synchronizing calls lets the next capture; a second run that
+    synchronizes refuses the key's graph ("host read")."""
     from systemml_tpu_torch.compiler.lower import Evaluator
     from systemml_tpu_torch.obs import trace as obs
 
     if ec.stats.fine_grained:
         plan.refusal = "fine-grained stats"
     ec.stats.count_block_graph("watched")
-    prev = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings(record=True) as seen, \
+    me = threading.get_ident()
+    seen = []
+    with _watch_lock, warnings.catch_warnings(), \
             obs.span("block", obs.CAT_RUNTIME, mode="fused"):
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None,
+                 line=None):
+            if threading.get_ident() == me:
+                seen.append((message, category, filename, lineno))
+            elif "synchroniz" not in str(message):
+                # another thread's own warning; its synchronizing calls
+                # warn only because the debug mode is on for this run
+                shown(message, category, filename, lineno, file, line)
+
         warnings.simplefilter("always")
+        warnings.showwarning = show
+        prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(1)
         try:
             ev = Evaluator(ec.vars, ec.call_function, ec.printer,
@@ -384,12 +430,11 @@ def _watched_run(block, plan, ec) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(prev)
     synced = False
-    for w in seen:
-        if "synchroniz" in str(w.message):
+    for message, category, filename, lineno in seen:
+        if "synchroniz" in str(message):
             synced = True
         else:
-            warnings.warn_explicit(w.message, w.category, w.filename,
-                                   w.lineno)
+            warnings.warn_explicit(message, category, filename, lineno)
     if synced:
         plan.synced += 1
         if plan.synced >= 2 and plan.refusal is None:
@@ -411,10 +456,18 @@ def _input_bytes(block, env) -> int:
 
 def _capture(block, plan, ec, dev) -> _BlockGraph:
     """Captures the block over static copies of its tensor reads into one
-    CUDA graph, in a memory pool of its own, and instantiates it."""
+    CUDA graph, in a memory pool of its own, and instantiates it. The
+    capture counts into a Statistics of its own, which is then merged
+    into the run's (module docstring, Threads)."""
+    with _capture_lock:
+        return _capture_locked(block, plan, ec, dev)
+
+
+def _capture_locked(block, plan, ec, dev) -> _BlockGraph:
     from systemml_tpu_torch.codegen import loop_graph as lg
     from systemml_tpu_torch.compiler.lower import Evaluator
     from systemml_tpu_torch.runtime import loopfuse
+    from systemml_tpu_torch.utils import stats as stats_mod
 
     env = ec.vars
     g = _BlockGraph()
@@ -433,13 +486,15 @@ def _capture(block, plan, ec, dev) -> _BlockGraph:
     s0 = streams[0]
     s0.wait_stream(torch.cuda.current_stream(dev))
     g.pool = torch.cuda.MemPool()
-    before = loopfuse._snapshot(ec.stats)
+    mine = stats_mod.Statistics()
+    before = loopfuse._snapshot(mine)
     try:
         with torch.cuda.device(dev), torch.cuda.stream(s0), \
-                torch.cuda.use_mem_pool(g.pool, dev):
+                torch.cuda.use_mem_pool(g.pool, dev), \
+                stats_mod.stats_scope(mine):
             lg.capture_begin(s0.cuda_stream)
             ev = Evaluator(local, ec.call_function, ec.printer,
-                           stats=ec.stats, timing=False,
+                           stats=mine, timing=False,
                            skip_writes=ec.skip_writes)
             writes = ev.run(plan.hops)
             g.graph = lg.capture_end(s0.cuda_stream)
@@ -448,7 +503,8 @@ def _capture(block, plan, ec, dev) -> _BlockGraph:
         raise
     torch.cuda.current_stream(dev).wait_stream(s0)
     g.exec = lg.instantiate(g.graph)
-    g.delta = loopfuse._delta(loopfuse._snapshot(ec.stats), before)
+    g.delta = loopfuse._delta(loopfuse._snapshot(mine), before)
+    ec.stats.merge(mine)
     for n, v in writes.items():
         h = plan.hops.writes[n]
         if h.op == "tread" and h.name == n:
@@ -463,19 +519,26 @@ def _capture(block, plan, ec, dev) -> _BlockGraph:
 def _launch(block, g: _BlockGraph, ec, dev) -> None:
     """Copies this run's tensor reads into the graph's buffers (one that
     is already there is not copied), launches, and binds the outputs as
-    copies (the next launch writes the graph's own again)."""
+    copies (the next launch writes the graph's own again): all under the
+    graph's lock, after the last launch's clones where that launch was on
+    another stream."""
     from systemml_tpu_torch.codegen import loop_graph as lg
     from systemml_tpu_torch.runtime import loopfuse
 
     env = ec.vars
-    for n, buf in g.inputs.items():
-        v = env[n]
-        if v.data_ptr() != buf.data_ptr():
-            buf.copy_(v)
-    lg.launch(g.exec, torch.cuda.current_stream(dev).cuda_stream)
-    if g.launched:
+    cur = torch.cuda.current_stream(dev)
+    with g.lock:
+        if g.stream is not None and g.stream != cur:
+            cur.wait_stream(g.stream)
+        g.stream = cur
+        for n, buf in g.inputs.items():
+            v = env[n]
+            if v.data_ptr() != buf.data_ptr():
+                buf.copy_(v)
+        lg.launch(g.exec, cur.cuda_stream)
+        out = {n: t.clone() for n, t in g.outputs.items()}
+        launched, g.launched = g.launched, True
+    if launched:
         loopfuse._apply(ec.stats, g.delta, 1)
-    g.launched = True
-    out = {n: t.clone() for n, t in g.outputs.items()}
     out.update(g.host)
     env.update(out)

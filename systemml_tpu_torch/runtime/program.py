@@ -57,6 +57,7 @@ does not read (utils/config.check_ported), raises NotImplementedError.
 from __future__ import annotations
 
 import copy
+import threading
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -520,16 +521,33 @@ class Program:
         self.stats = stats or Statistics()
         self._purity: Dict[Tuple[int, str], bool] = {}
         self._pool = None
+        self._lock = threading.Lock()
 
     @property
     def pool(self):
         """The buffer pool every ExecutionContext of this program shares,
-        made at first use."""
+        made at first use (once, whichever threads run it first)."""
         if self._pool is None:
             from systemml_tpu_torch.runtime.bufferpool import BufferPool
 
-            self._pool = BufferPool(stats=self.stats)
+            with self._lock:
+                if self._pool is None:
+                    self._pool = BufferPool(stats=self.stats)
         return self._pool
+
+    def fresh_stats(self):
+        """Swaps in a new Statistics (the pool counting into it), so that
+        re-executions of a prepared Program count apart without zeroing a
+        snapshot an earlier caller kept. Not while requests are in
+        flight: a run counts into the Statistics it started with
+        (systemml_tpu/runtime/program.py:1078)."""
+        from systemml_tpu_torch.utils.stats import Statistics
+
+        with self._lock:
+            self.stats = Statistics()
+            if self._pool is not None:
+                self._pool.stats = self.stats
+            return self.stats
 
     # builtins whose execution has host side effects or host state: a
     # function reaching any of these must not run inside a captured loop
@@ -611,14 +629,16 @@ class Program:
         # run entry: counters reset per execution, so a prepared script
         # re-run under injection sees the same deterministic schedule
         inject.arm(get_config().fault_injection)
-        ec = ExecutionContext(self, printer=printer)
+        # bound once for the run: a fresh_stats() swap mid-run must end the
+        # run on the Statistics that started it
+        stats = self.stats
+        ec = ExecutionContext(self, stats=stats, printer=printer)
         ec.skip_writes = skip_writes
         ec.block_graphs = block_graphs
         if inputs:
             # the caller holds its inputs: the pool never admits them
             for k, v in inputs.items():
                 ec.vars.bind_external(k, v)
-        stats = self.stats
         stats.start_run()
         try:
             with stats_mod.stats_scope(stats), \

@@ -249,10 +249,11 @@ class DMLConfig:
     # --- serving (api/serving.py) ------------------------------------------
     # bucket ladder for the shape-bucketed compile cache: a request's
     # leading (batch) dimension pads up to the nearest rung, so one
-    # cached XLA executable per rung serves every request size (beyond
-    # the top rung: next power-of-two multiple — bounded shape count
-    # for unbounded requests). Tune to the deployment's size mix: each
-    # rung is one compile + one resident executable.
+    # cached plan per rung (on the card, one block graph per rung)
+    # serves every request size (beyond the top rung: next power-of-two
+    # multiple — bounded shape count for unbounded requests). Tune to the
+    # deployment's size mix: each rung is one compile + one resident
+    # graph.
     serving_bucket_ladder: tuple = (1, 8, 64, 512)
     # micro-batching flush policy (api/serving.MicroBatcher): flush the
     # queued single-row requests when this many rows are waiting...
@@ -493,7 +494,11 @@ PORTED_FIELDS = frozenset({
     "codegen_tune_shortlist", "codegen_tune_cache", "codegen_cost_model",
     "codegen_cost_model_min_records",
     # remote parfor (runtime/remote.py)
-    "remote_deadline_s"})
+    "remote_deadline_s",
+    # the serving tier (api/serving.py)
+    "serving_bucket_ladder", "serving_microbatch_max",
+    "serving_microbatch_deadline_us", "serving_metrics_port",
+    "serving_metrics_host", "serving_queue_rows_max"})
 
 # fields that have no meaning in the port: set to anything but their
 # default they raise with the reason
@@ -504,7 +509,6 @@ _MEANINGLESS = {
 
 # field-name prefix -> the ROADMAP queue-1 item that brings it
 _WAITING = (
-    (("serving_",), "serving and export"),
     (("profile_", "obs_", "donation_sanitizer"),
      "observability and static analysis"),
     (("elastic_", "mesh_", "distributed_", "comm_"),

@@ -5,10 +5,12 @@ port's runtime touches: run time, executed blocks, function calls,
 per-op heavy hitters, the optimizer/rewrite event families that the
 copied HOP passes (hops/rewrite.py, hoist.py, ipa.py) and the spoof
 fusion pass (codegen/) report, the fused loop regions
-(`loop_regions`, `loop_regions_refused`, `region_counts`) and the sparse
+(`loop_regions`, `loop_regions_refused`, `region_counts`), the sparse
 plane (the `spx_*` quaternary paths in their "Sparse exec" line; the
 `spmm_*`, `spgemm_*`, `sp_tsmm_*`, `sddmm` and `sparse_densify` decisions
-among the optimizer decisions). Every family lives in a run-scoped
+among the optimizer decisions) and the serving tier (the `srv_*`
+counters of api/serving.py in their "Serving" line, and the overload
+decisions of fleet/admission.py). Every family lives in a run-scoped
 ``MetricsRegistry`` (obs/metrics.py), as in the JAX package.
 """
 
@@ -29,6 +31,24 @@ _current: contextvars.ContextVar[Optional["Statistics"]] = \
 
 def current() -> Optional["Statistics"]:
     return _current.get()
+
+
+def _active_trace_dropped() -> int:
+    """Live callback for the trace_dropped_events gauge: the installed
+    flight recorder's ring-eviction count (0 with no recorder)."""
+    from systemml_tpu_torch.obs import trace as obs
+
+    rec = obs.active()
+    return rec.dropped if rec is not None else 0
+
+
+def register_trace_dropped(registry) -> None:
+    """Registers the live trace-truncation gauge on `registry`: the one
+    definition that every scrapeable surface (Statistics, ScoringService)
+    shares (systemml_tpu/utils/stats.py:70)."""
+    registry.gauge("trace_dropped_events",
+                   "trace events evicted by the ring buffer "
+                   "(trace_max_events)", fn=_active_trace_dropped)
 
 
 @contextlib.contextmanager
@@ -68,6 +88,10 @@ ESTIM_GROUPS = (
     # graph capture that kept their analytic choice (capture_unmeasured)
     # and the tuner's search counts
     ("kb_", "kernel_backend"),
+    # the serving tier (api/serving.py): bucketed dispatches by rung
+    # (bucket_hit[b] / bucket_miss[b]), pad rows, exact-shape requests,
+    # micro-batch flushes by cause, coalesced, shed and refused requests
+    ("srv_", "serving"),
 )
 
 
@@ -135,6 +159,13 @@ class Statistics:
             "mesh_op_total", "parfor device-mode runs")
         self.resil_counts = reg.labeled(
             "resil_events_total", "fault/retry decisions")
+        # overload decisions (fleet/admission.emit_overload): the
+        # micro-batcher's refusals at its bounded queue and its sheds of
+        # expired requests, labeled ``name[reason]``
+        self.overload_counts = reg.labeled(
+            "overload_events_total",
+            "admission/budget/breaker/queue-shed decisions by reason")
+        register_trace_dropped(reg)
 
     def merge(self, other: "Statistics") -> None:
         """Adds `other`'s counters to this one's (a parfor worker's
@@ -206,6 +237,9 @@ class Statistics:
     def count_resil(self, kind: str, n: int = 1):
         self.resil_counts.inc(kind, n)
 
+    def count_overload(self, kind: str, n: int = 1):
+        self.overload_counts.inc(kind, n)
+
     def time_op(self, op: str, seconds: float):
         with self._lock:
             self.op_time.inc(op, seconds)
@@ -241,9 +275,9 @@ class Statistics:
             for i, (op, t) in enumerate(hh, 1):
                 lines.append(f"  {i}  {op}\t{t:.3f}\t{self.op_count[op]}")
         g = self.estim_counts.grouped()
-        rw, spoof, spx, dnn, kb, opt = (g["rewrites"], g["spoof"],
-                                        g["sparse_exec"], g["dnn"],
-                                        g["kernel_backend"], g[""])
+        rw, spoof, spx, dnn, kb, srv, opt = (
+            g["rewrites"], g["spoof"], g["sparse_exec"], g["dnn"],
+            g["kernel_backend"], g["serving"], g[""])
         if rw:
             top = sorted(rw.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
             suffix = ", ..." if len(rw) > len(top) else ""
@@ -258,6 +292,12 @@ class Statistics:
             # how each hand kernel's arm was chosen, next to how it ran
             lines.append("Kernel backend (event=count): " + ", ".join(
                 f"{k}={v}" for k, v in sorted(kb.items())))
+        if srv:
+            # the serving tier (api/serving.py): bucketed dispatches by
+            # rung, pad rows, micro-batch flushes by cause
+            # (systemml_tpu/utils/stats.py:328-334)
+            lines.append("Serving (event=count): " + ", ".join(
+                f"{k}={v}" for k, v in sorted(srv.items())))
         if spx:
             # which arm each weighted quaternary op ran: the sampled one
             # (exploit_ell / exploit_csr) or the (m, n) product (densify /
@@ -313,6 +353,11 @@ class Statistics:
         if self.resil_counts:
             lines.append("Resilience events: " + ", ".join(
                 f"{k}={v}" for k, v in sorted(self.resil_counts.items())))
+        if self.overload_counts:
+            # refused and shed load (fleet/admission), by name[reason]
+            lines.append("Overload events: " + ", ".join(
+                f"{k}={v}"
+                for k, v in sorted(self.overload_counts.items())))
         if self.fcall_counts:
             top = sorted(self.fcall_counts.items(), key=lambda kv: -kv[1])[:5]
             lines.append("Function calls: " +

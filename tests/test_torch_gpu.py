@@ -8,7 +8,10 @@ the sparse arms, and the algorithm-breadth ops on the card (solvers in a
 captured region, seq and sample equal to the CPU's draw, the index
 aggregates, repeatable weighted tables, betainc); the DNN ops (both conv
 arms, max-pool ties, the normal draw equal to the CPU's, a loop of
-conv2d, batch norm and pooling captured as one region).
+conv2d, batch norm and pooling captured as one region); block graphs
+under concurrent requests (16 threads on one graph, bit-identical to
+each input run alone; two threads opening one rung capture it once;
+warmup, then traffic with no capture).
 
 Marked `gpu`: without a CUDA card every test skips, with the reason,
 from the `cuda` fixture (decided at run time, never at import, so every
@@ -1896,6 +1899,162 @@ def test_block_graph_replays_under_a_new_binding(cuda):
     g = dict(ps.stats.block_graph_counts.items())
     assert g["capture"] == 1 and g["watched"] in (1, 2)
     assert g["watched"] + g["replay"] == 5
+
+
+_SERVE_SRC = ("Z = X %*% W + b\nE = exp(Z - rowMaxs(Z))\n"
+              "yhat = E / rowSums(E)")
+
+
+def _scorer(optlevel=3, ncols=256, classes=10, seed=21):
+    """The softmax scorer prepared on the card with W and b from a seed."""
+    from systemml_tpu_torch.api.jmlc import Connection
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    cfg = DMLConfig()
+    cfg.optlevel = optlevel
+    ps = Connection(cfg).prepare_script(
+        _SERVE_SRC, input_names=["X", "W", "b"], output_names=["yhat"],
+        input_meta={"X": {"shape": (None, ncols)},
+                    "W": {"shape": (ncols, classes)},
+                    "b": {"shape": (1, classes)}})
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((ncols, classes)) / np.sqrt(ncols)).astype(
+        np.float32)
+    b = rng.standard_normal((1, classes)).astype(np.float32)
+    return ps, w, b
+
+
+def _threads(n, fn):
+    import threading
+
+    barrier = threading.Barrier(n)
+    errors = []
+
+    def run(t):
+        try:
+            barrier.wait()
+            fn(t)
+        except Exception as e:  # the test fails on it below
+            errors.append(repr(e))
+
+    ts = [threading.Thread(target=run, args=(t,)) for t in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in ts)
+    assert errors == []
+
+
+def test_block_graph_16_threads_bit_identical_to_sequential(cuda):
+    """16 threads launching one key's block graph (the scorer at one
+    rung, K4 inside) at once, each call on an input of its own: every
+    answer bit-identical to the same input run alone. A launch holds its
+    graph's lock from the copy into its buffers to the clone of its
+    outputs, so no two requests interleave (without it, copy, copy,
+    launch, launch hands both threads the second input's answer)."""
+    ps, w, b = _scorer()
+    wd, bd = torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for _ in range(3):   # watched, captured
+        ps.execute({"X": torch.randn(512, 256, generator=gen, device=cuda),
+                    "W": wd, "b": bd})
+    assert ps.stats.block_graph_counts.get("capture") == 1
+    xs = [[torch.randn(512, 256, generator=gen, device=cuda)
+           for _ in range(20)] for _ in range(16)]
+    alone = [[ps.execute({"X": x, "W": wd, "b": bd}).get_tensor("yhat")
+              .clone() for x in row] for row in xs]
+    got = [[None] * 20 for _ in range(16)]
+
+    def client(t):
+        for i, x in enumerate(xs[t]):
+            got[t][i] = ps.execute({"X": x, "W": wd, "b": bd}) \
+                .get_tensor("yhat")
+
+    _threads(16, client)
+    torch.cuda.synchronize()
+    bad = [(t, i) for t in range(16) for i in range(20)
+           if not torch.equal(got[t][i], alone[t][i])]
+    assert bad == []
+    g = dict(ps.stats.block_graph_counts.items())
+    assert g["capture"] == 1
+    assert g["watched"] + g["replay"] == 3 + 16 * 20 * 2
+
+
+def test_two_threads_opening_one_rung_capture_it_once(cuda):
+    """Two requests reaching a rung whose graph is not captured yet at
+    the same time: one captures, the other waits for that capture and
+    launches it; both answers right."""
+    from systemml_tpu_torch.api.serving import ScoringService
+
+    ps, w, b = _scorer()
+    svc = ScoringService(ps, constants={"W": w, "b": b}, ladder=(64,),
+                         validate="force")
+    blk = ps._program.blocks[0]
+    x0 = np.zeros((40, 256), np.float32)
+    for _ in range(3):   # until the key's watched run is clean
+        svc.score(x0)
+        if all(p.clean for p in blk._plans.values()):
+            break
+    assert ps.stats.block_graph_counts.get("capture", 0) == 0
+    rng = np.random.default_rng(3)
+    xs = [rng.standard_normal((n, 256)).astype(np.float32) for n in (33, 64)]
+    got = {}
+
+    def client(t):
+        got[t] = svc.score(xs[t])["yhat"]
+
+    _threads(2, client)
+    for t, x in enumerate(xs):
+        z = x.astype(np.float64) @ w + b
+        ref = np.exp(z - z.max(1, keepdims=True))
+        ref /= ref.sum(1, keepdims=True)
+        assert np.abs(got[t].double().cpu().numpy() - ref).max() < 1e-5
+    g = dict(ps.stats.block_graph_counts.items())
+    assert g["capture"] == 1 and g["replay"] == 2
+
+
+def test_warmup_then_traffic_makes_no_capture(cuda):
+    """After warmup every rung of the ladder has its graph: 8 threads of
+    traffic within the ladder compile no plan, capture nothing and build
+    nothing; K4 launches once a dispatch, and every answer is within
+    1e-5 of torch's softmax."""
+    from systemml_tpu_torch.api.serving import ScoringService
+    from systemml_tpu_torch.codegen import build
+
+    ps, w, b = _scorer()
+    svc = ScoringService(ps, constants={"W": w, "b": b}, ladder=(1, 8, 64),
+                         validate="force")
+    assert svc.warmup(256) == [1, 8, 64]
+    st = ps.stats
+    before = (st.compile_count, st.block_graph_counts.get("capture"),
+              len(build.build_reports))
+    assert before[1] == 3
+    requests = svc.registry.get("requests_total").value
+    k4 = kernels.row_kernel.launches
+    rng = np.random.default_rng(5)
+    xs = [[rng.standard_normal((int(n), 256)).astype(np.float32)
+           for n in rng.integers(1, 65, 12)] for _ in range(8)]
+    got = [[None] * 12 for _ in range(8)]
+
+    def client(t):
+        for i, x in enumerate(xs[t]):
+            got[t][i] = svc.score(x)["yhat"].cpu().numpy()
+
+    _threads(8, client)
+    assert (st.compile_count, st.block_graph_counts.get("capture"),
+            len(build.build_reports)) == before
+    dispatches = svc.registry.get("requests_total").value - requests
+    assert dispatches == 96
+    assert kernels.row_kernel.launches - k4 == dispatches
+    for t in range(8):
+        for i, x in enumerate(xs[t]):
+            z = x.astype(np.float64) @ w + b
+            ref = np.exp(z - z.max(1, keepdims=True))
+            ref /= ref.sum(1, keepdims=True)
+            assert got[t][i].shape == ref.shape
+            assert np.linalg.norm(got[t][i] - ref) / np.linalg.norm(ref) \
+                < 1e-5
 
 
 def test_block_graph_draws_unseeded_rand_anew(cuda):

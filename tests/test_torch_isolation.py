@@ -16,7 +16,11 @@ neither jax nor the JAX package (systemml_tpu).
    and transformencode run the same way. So do the kernel backend and its
    tuner (LinearRegCG at optlevel 3 tuned online, then served from the
    disk cache with no measurement), the cost model, obs/ab, the poisson
-   draw and remote parfor's coordinator.
+   draw and remote parfor's coordinator. So does the serving tier: the
+   row-wise safety proof at optlevels 2 and 3, a ScoringService's warmup
+   and bucketed scoring, a MicroBatcher's flush, fleet/admission's
+   refusal at the bounded queue, a /metrics scrape and the "Serving"
+   line of -stats.
 2. No source file of the port (Python, CUDA, the host C++), and not
    chip_smoke.py, names them in an import or a dotted module path.
 """
@@ -300,6 +304,84 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 print("ISOLATED_OK")
 '''
+
+
+# the serving tier: the row-wise proof, bucketed scoring, the micro-batcher,
+# admission's bounded queue, /metrics and the -stats line
+_CHILD_SERVING = _CHILD.split("import numpy as np")[0] + r'''
+import threading
+import urllib.request
+
+import numpy as np
+
+from systemml_tpu_torch.api.jmlc import Connection
+from systemml_tpu_torch.api.serving import MicroBatcher, ScoringService
+from systemml_tpu_torch.compiler.lower import analyze_rowwise_safety
+from systemml_tpu_torch.fleet.admission import QueueFullError
+from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+set_config(DMLConfig(device="cpu"))
+src = ("Z = X %*% W + b\nE = exp(Z - rowMaxs(Z))\n"
+       "yhat = E / rowSums(E)")
+meta = {"X": {"shape": (None, 6)}, "W": {"shape": (6, 3)},
+        "b": {"shape": (1, 3)}}
+rng = np.random.default_rng(0)
+consts = {"W": rng.standard_normal((6, 3)), "b": rng.standard_normal((1, 3))}
+svcs = {}
+for optlevel in (2, 3):
+    cfg = DMLConfig(device="cpu")
+    cfg.optlevel = optlevel
+    ps = Connection(cfg).prepare_script(
+        src, input_names=["X", "W", "b"], output_names=["yhat"],
+        input_meta=meta)
+    proof = analyze_rowwise_safety(ps._program, "X", ["yhat"],
+                                   known_dims={"W": (6, 3), "b": (1, 3)})
+    assert proof.safe == (optlevel == 2), proof
+    svcs[optlevel] = ScoringService(
+        ps, constants=consts, ladder=(1, 8),
+        validate="auto" if optlevel == 2 else "force")
+svc = svcs[3]
+assert svc.warmup(6) == [1, 8]
+x = rng.standard_normal((5, 6))
+z = x @ consts["W"] + consts["b"]
+ref = np.exp(z - z.max(1, keepdims=True))
+ref /= ref.sum(1, keepdims=True)
+assert np.allclose(svc.score(x)["yhat"].numpy(), ref, rtol=1e-12)
+with MicroBatcher(svcs[2], max_batch=4, deadline_us=50_000,
+                  queue_rows_max=64) as mb:
+    outs = {}
+    ts = [threading.Thread(target=lambda t=t: outs.__setitem__(
+        t, mb.score(x[t:t + 1]))) for t in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert all(np.allclose(outs[t], ref[t:t + 1], rtol=1e-12)
+               for t in range(4))
+    try:
+        mb.score(np.zeros((65, 6)))
+        raise AssertionError("the bounded queue took 65 rows")
+    except QueueFullError:
+        pass
+with svc.serve_metrics(port=0) as ep:
+    with urllib.request.urlopen(ep.url, timeout=10) as resp:
+        body = resp.read().decode()
+assert "smtpu_serving_requests_total 5" in body, body
+assert "Serving (event=count)" in svcs[2]._ps.stats.display()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("ISOLATED_OK")
+'''
+
+
+def test_serving_tier_runs_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _CHILD_SERVING], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
 
 
 def test_backend_tuner_poisson_remote_run_with_jax_blocked():

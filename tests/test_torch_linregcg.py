@@ -144,9 +144,10 @@ def test_carry_beta_from_jax_into_port():
     ("xla_cache_dir", "/tmp/x", "compiles no XLA"),
     ("fleet_heartbeat_s", 2.0, "fleet"),
     ("mesh_shape", {"dp": 4}, "distributed and elastic"),
-    # the bfloat16 policy came with DNN and models (item 8): a setting of
-    # serving and export (item 10) waits instead
-    ("serving_microbatch_max", 8, "serving and export"),
+    # the bfloat16 policy came with DNN and models (item 8), the serving
+    # settings with the serving tier (item 10a): a setting of the
+    # profiler (item 11) waits instead
+    ("profile_mode", "full", "observability and static analysis"),
 ])
 def test_setting_the_port_does_not_read_raises(key, value, item):
     """A setting the port would ignore raises, naming its ROADMAP item,
