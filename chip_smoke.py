@@ -7,6 +7,7 @@
     python3 chip_smoke.py --parfor
     python3 chip_smoke.py --dnn
     python3 chip_smoke.py --serving
+    python3 chip_smoke.py --profile
 
 The second form times only the spoof kernels K2, K3 and K5, the spoof
 wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
@@ -294,6 +295,24 @@ transform (each failing the run on a failed check):
   X was on the card; host seconds of the frame read, the encode and the
   apply.
 
+The kernel phase also holds K2's functor for a product by a mask of the
+same block (`[mask]`: op_mask_mul on `X * (X > 0)` over NaN, +-Inf and
+negative cells, fp32 and fp64): +0 without a sign bit at every masked
+cell, equal to its plain arm. After the kernels' times, `[profile]` (the
+profiler, obs/profile.py; `--profile` runs it alone with K1's time and
+`[mask]`): LinearRegCG on the dense X at optlevel 2 under profile_mode
+"full" with regions (tol 0: 40 CG iterations; and with the path's own
+arguments, 6) and as the eager configuration (codegen_enabled False), and
+l2-svm at optlevel 3 (K2's rows): the bucket seconds and the named
+coverage (failing below 0.95 on the first run), the region rows against
+dispatch_stats and -stats' counters, each kernel row's ms a launch and
+roofline_frac (the eager run's K1 rows counting every K1 launch, within
+10% of K1's CUDA-event time), ingest_profile's rows; "off" with a
+recorder against no recorder (launches, each region's entries, launches
+and host syncs) and "sample" against "off" (dispatch counts); the CLI's
+`-profile -trace out.json` and `out.jsonl` on 200,000 rows of X as
+files; PreparedScript.set_trace on the softmax scorer.
+
 The kernels line also has set_cond: its ms the control of a WHILE loop
 per iteration inside one graph, its plain_ms the same loop driven from
 the host. Prints a {"kernels": [...]} line before the last, and as the last line
@@ -302,9 +321,11 @@ card, or without the repository around it, it exits non-zero before any
 result.
 """
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -6173,6 +6194,7 @@ def main() -> None:
         del xk, v, xd, w, out, again, ref
     torch.cuda.empty_cache()
     max_abs_err.update(check_spoof_kernels(progs, dev, kernels))
+    mask = check_masked_product(dev, kernels)
     max_abs_err["cla_chain"] = check_chain_kernel(dev)
     ratings = make_ratings(dev)
     n_ratings = int((ratings != 0).sum())
@@ -6411,6 +6433,10 @@ def main() -> None:
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
         else "operations",
         "library_ms": lib_ms}]
+    # this slice: the profiler on the main path, K1's rows against the
+    # CUDA-event time just taken
+    profile = profile_phase(data, dev, kernels, smi, kern_ms)
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(3)
     by_path = {p: paths[p]["optlevel3"]["launches"] for p in paths}
     by_path.update({p: breadth[p]["optlevel3"]["launches"]
@@ -6568,6 +6594,7 @@ def main() -> None:
                       "breadth_datagen": breadth_datagen,
                       "cli": cli, "pool": pool, "block": block,
                       "jmlc": jmlc, "serving": serving,
+                      "masked_product": mask, "profile": profile,
                       "parfor_stepglm": stepglm,
                       "parfor_univar": univar, "transform": transform,
                       "resnet18": resnet, "lenet": lenet,
@@ -6576,6 +6603,387 @@ def main() -> None:
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path,
                       "device_ms_fallbacks": DEVICE_MS_FALLBACKS}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def check_masked_product(dev, kernels) -> dict:
+    """K2's fused functor on `X * (X > 0)` as the compiler writes it (a
+    b(*) by a mask of the same block: op_mask_mul) over NaN, +-Inf and
+    negative cells, fp32 and fp64, elementwise and summed, against its
+    plain arm: +0 without a sign bit at every masked cell, as the JAX
+    package's select (ROADMAP queue 3, fault 1)."""
+    from systemml_tpu_torch.codegen.cplan import CNode, emit_cuda
+
+    leaf = CNode("in", name="i0")
+    plan = CNode("b(*)", [leaf, CNode("b(>)", [leaf,
+                                               CNode("lit", value=0.0)])],
+                 value=1)
+    if "op_mask_mul" not in emit_cuda(plan, ["i0"]):
+        fail(f"[mask] the functor of {plan.pretty()} is "
+             f"{emit_cuda(plan, ['i0'])}, not op_mask_mul")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out_rec = {}
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn(M // 8, 8, generator=gen, device=dev, dtype=dtype)
+        x[::7, 0] = float("nan")
+        x[1::11, 1] = float("inf")
+        x[2::13, 2] = float("-inf")
+        env = {"i0": x}
+        got = kernels.cell_kernel(plan, ["i0"], None, env)
+        total = kernels.cell_kernel(plan, ["i0"], "sum", env)
+        ref = kernels.cell_plain(plan, ["i0"], None, env)
+        ref_sum = kernels.cell_plain(plan, ["i0"], "sum",
+                                     {"i0": x.double()})
+        torch.cuda.synchronize()
+        masked = ~(x > 0)
+        n_masked = int(masked.sum())
+        plus_zero = bool((got[masked] == 0).all()) and not bool(
+            torch.signbit(got[masked]).any())
+        same = bool(torch.equal(got, ref))
+        ieee_nan = int((x * (x > 0).to(dtype)).isnan().sum())
+        # +Inf cells are not masked: both sums are +Inf, or both finite
+        rel = (0.0 if float(total) == float(ref_sum) else
+               abs(float(total) - float(ref_sum)) / abs(float(ref_sum)))
+        print(f"[mask] K2 op_mask_mul {tuple(x.shape)} {str(dtype)[6:]}: "
+              f"{n_masked} masked cells all +0 without a sign bit "
+              f"{plus_zero} (the IEEE product has {ieee_nan} NaN there); "
+              f"equal to the plain arm {same}; sum {float(total):.6e} vs "
+              f"fp64 plain {float(ref_sum):.6e} (rel {rel:.2e})",
+              flush=True)
+        if not plus_zero or not same or bool(got.isnan().any()):
+            fail(f"[mask] {dtype}: masked cells +0 {plus_zero}, equal to "
+                 f"the plain arm {same}")
+        if not rel <= SPOOF_BARS[dtype] * 100:
+            fail(f"[mask] {dtype}: the sum is {rel} from the plain arm's")
+        out_rec[str(dtype)[6:]] = {"masked_cells": n_masked,
+                                   "plus_zero": plus_zero, "equal": same,
+                                   "sum_rel": rel}
+        del x, got, ref
+    return out_rec
+
+
+def _profiled_run(name, optlevel, data, kernels, mode, regions=True,
+                  args=None, record=True):
+    """One run of a path through MLContext after a warm run on the same
+    data, under profile_mode `mode`, recorded (`record`) or not; returns
+    the recorder (None), the report, the launch counters of the run, the
+    regions' records and the output."""
+    from systemml_tpu_torch import obs
+    from systemml_tpu_torch.api.mlcontext import MLContext
+    from systemml_tpu_torch.obs import profile as prof
+    from systemml_tpu_torch.runtime import loopfuse
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    cfg = config(optlevel, regions)
+    cfg.profile_mode = mode
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+    ml.execute(path_script(name, data, args=args))
+    torch.cuda.synchronize()
+    prof.reset_sampling()
+    reset_launches(kernels)
+    with PhaseTimer() as timer:
+        with (obs.session() if record else contextlib.nullcontext()) as rec:
+            out = ml.execute(path_script(name, data, args=args)) \
+                .get_tensor(PATHS[name][3])
+        torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    regions_rec = [{k: r.get(k) for k in ("label", "entries", "launches",
+                                          "host_syncs", "trips")}
+                   for r in loopfuse.region_report(timer.program)]
+    rep = None
+    if rec is not None:
+        set_config(cfg)
+        try:
+            rep = obs.profile_report(rec)
+        finally:
+            set_config(DMLConfig())
+    if not bool(torch.isfinite(out).all()):
+        fail(f"[profile] {name} optlevel {optlevel} {mode}: output not "
+             f"finite")
+    return rec, rep, launches, regions_rec, out, ml._stats
+
+
+def span_breakdown(rec, top: int = 12) -> list:
+    """The run's exclusive span time by (bucket, span name, its mode,
+    region or block), largest first, in ms: where each bucket's time
+    went."""
+    from systemml_tpu_torch.obs.profile import _bucket_of
+
+    spans = [e for e in rec.events() if e.ph == "X"]
+    ids = {e.id for e in spans}
+    child = {}
+    for e in spans:
+        if e.parent in ids:
+            child[e.parent] = child.get(e.parent, 0) + e.dur
+    acc = {}
+    for e in spans:
+        a = e.args or {}
+        key = (_bucket_of(e), e.name, str(a.get("mode") or a.get("region")
+                                          or a.get("block") or a.get("kind")
+                                          or ""))
+        acc[key] = acc.get(key, 0.0) + (e.dur - child.get(e.id, 0)) / 1e6
+    return sorted(([*k, round(v, 3)] for k, v in acc.items()),
+                  key=lambda r: -r[3])[:top]
+
+
+def profile_phase(data, dev, kernels, smi, k1_ms: float) -> dict:
+    """[profile]: LinearRegCG at 2,000,000 x 1,000 fp32, optlevel 2 (K1),
+    under profile_mode "full": with regions (each while entry one graph
+    launch) and as the [eager] configuration (codegen_enabled False: each
+    K1 launch a kernel_launch row); l2-svm at optlevel 3 (K2's rows, its
+    functor with op_mask_mul). The bucket seconds and named coverage
+    (bar 0.95, the JAX package's, on LinearRegCG with regions over 40
+    CG iterations, tol 0), the region rows against dispatch_stats, each
+    kernel row's device ms a launch and roofline_frac (K1's within 10% of
+    `k1_ms`, the CUDA-event time of phase 4), ingest_profile; "off" with a
+    recorder against no recorder (launches, host syncs per while entry)
+    and "sample" against "off" (dispatch counts); -profile and -trace by
+    the CLI; PreparedScript.set_trace on the softmax scorer."""
+    from systemml_tpu_torch import obs
+    from systemml_tpu_torch.codegen import costmodel
+
+    out = {"card": smi}
+    long_args = {"tol": 0, "maxi": 40}
+    rows = {}
+    for tag, name, optlevel, regions, args in (
+            ("LinearRegCG regions", "LinearRegCG", 2, True, long_args),
+            ("LinearRegCG regions, path args", "LinearRegCG", 2, True, None),
+            ("LinearRegCG eager", "LinearRegCG", 2, False, long_args),
+            ("l2-svm optlevel 3", "l2-svm", 3, True, None)):
+        rec, rep, launches, regs, _, st = _profiled_run(
+            name, optlevel, data, kernels, "full", regions, args)
+        ds = obs.dispatch_stats(rec)
+        b = {k: round(v, 6) for k, v in rep.buckets.items()}
+        top = span_breakdown(rec)
+        print(f"[profile] {tag} on {smi}: wall {rep.wall_s:.4f} s, named "
+              f"coverage {rep.coverage:.4f}, buckets s {b}; dispatches "
+              f"{rep.total_dispatches} ({rep.fenced_dispatches} fenced); "
+              f"region trips {[r['trips'] for r in regs]}; exclusive ms "
+              f"by span {top}", flush=True)
+        for label, r in sorted(rep.regions.items()):
+            want = (ds.get("loop_regions") or {}).get(label, {}).get(
+                "dispatches")
+            print(f"[profile] {tag} row {label}: {r['count']} dispatches "
+                  f"(dispatch_stats {want}), device {r['device_s']:.4f} s",
+                  flush=True)
+            if want is not None and want != r["count"]:
+                fail(f"[profile] {tag} {label}: {r['count']} dispatches, "
+                     f"dispatch_stats {want}")
+        if set(l for l in rep.regions if l.startswith("while[")) != \
+                set(st.region_counts):
+            fail(f"[profile] {tag}: region rows {sorted(rep.regions)} are "
+                 f"not -stats' {sorted(st.region_counts)}")
+        krows = {}
+        for key, r in sorted(rep.kernels.items()):
+            per = 1e3 * r["device_s"] / r["count"]
+            rf = r.get("roofline_frac")
+            krows[key] = {"count": r["count"], "ms_per_launch": per,
+                          "roofline_frac": rf,
+                          "modeled_ms": 1e3 * r.get("modeled_s", 0.0)}
+            print(f"[profile] {tag} kernel {key}: {r['count']} launches, "
+                  f"{per:.4f} ms a launch, roofline_frac "
+                  f"{'-' if rf is None else f'{rf:.4f}'}", flush=True)
+            if rf is not None and not rf <= 1.0:
+                fail(f"[profile] {tag} {key}: roofline_frac {rf} > 1")
+        n_ingested = costmodel.ingest_profile(rep)
+        print(f"[profile] {tag}: ingest_profile took {n_ingested} rows",
+              flush=True)
+        rows[tag] = {"wall_s": rep.wall_s, "coverage": rep.coverage,
+                     "by_span_ms": top,
+                     "buckets_s": rep.buckets, "regions": rep.regions,
+                     "kernels": krows, "launches": launches,
+                     "region_records": regs, "ingested": n_ingested,
+                     "dispatches": ds["dispatches"]}
+        if tag == "LinearRegCG regions" and not rep.coverage >= 0.95:
+            fail(f"[profile] {tag}: named coverage {rep.coverage} < 0.95:\n"
+                 f"{rep.text()}")
+        if tag == "LinearRegCG eager":
+            k1 = [r for k, r in rep.kernels.items()
+                  if k.startswith("mmchain.kernel")]
+            n = sum(r["count"] for r in k1)
+            if n != launches["mmchain"] or n < 1:
+                fail(f"[profile] eager: K1 rows count {n}, its counter "
+                     f"{launches['mmchain']}")
+            per = 1e3 * sum(r["device_s"] for r in k1) / n
+            rel = per / k1_ms - 1.0
+            print(f"[profile] eager K1: {per:.4f} ms a launch in its rows "
+                  f"against {k1_ms:.4f} ms by CUDA events (phase 4): "
+                  f"{100 * rel:+.2f}% (bar 10%)", flush=True)
+            rows[tag]["k1_vs_events"] = rel
+            if not abs(rel) <= 0.10:
+                fail(f"[profile] eager K1 row {per} ms vs {k1_ms} ms")
+            if not all(r.get("roofline_frac") is not None for r in k1):
+                fail("[profile] eager: K1's row has no roofline_frac")
+            if n_ingested < 1:
+                fail("[profile] eager: ingest_profile took no row")
+        if tag == "l2-svm optlevel 3" and not any(
+                k.startswith("spoof_cell.") for k in rep.kernels):
+            fail(f"[profile] l2-svm: no K2 row in {sorted(rep.kernels)}")
+        del rec, rep
+    out["runs"] = rows
+    # "off" with a recorder against none; "sample" against "off"
+    _, _, l_none, r_none, _, _ = _profiled_run(
+        "LinearRegCG", 2, data, kernels, "off", record=False)
+    rec_off, _, l_off, r_off, _, _ = _profiled_run(
+        "LinearRegCG", 2, data, kernels, "off")
+    rec_smp, rep_smp, l_smp, r_smp, _, _ = _profiled_run(
+        "LinearRegCG", 2, data, kernels, "sample")
+    off_events = [e.name for e in rec_off.events()
+                  if e.name in ("host_sync", "kernel_launch")
+                  or (e.args or {}).get("fenced")]
+    d_off = obs.dispatch_stats(rec_off)["dispatches"]
+    d_smp = obs.dispatch_stats(rec_smp)["dispatches"]
+    print(f"[profile] off with a recorder / none: launches {l_off} / "
+          f"{l_none}; regions {r_off} / {r_none}; profiler events under "
+          f"off {len(off_events)}; sample / off dispatches {d_smp} / "
+          f"{d_off} ({rep_smp.fenced_dispatches} fenced), launches "
+          f"{l_smp}", flush=True)
+    if l_off != l_none or r_off != r_none or off_events:
+        fail("[profile] profile_mode off with a recorder changed the run")
+    if d_smp != d_off or l_smp != l_off or \
+            not 0 < rep_smp.fenced_dispatches <= rep_smp.total_dispatches:
+        fail("[profile] sample changed the dispatch counts")
+    out["off_vs_none"] = {"launches": l_off, "regions": r_off,
+                          "equal": True}
+    out["sample_vs_off"] = {"dispatches": [d_smp, d_off],
+                            "fenced": rep_smp.fenced_dispatches}
+    del rec_off, rec_smp
+    out["cli"] = profile_cli(data, dev)
+    out["set_trace"] = profile_set_trace(data, dev)
+    return out
+
+
+def profile_cli(data, dev) -> dict:
+    """`python -m systemml_tpu_torch -f LinearRegCG.dml ... -profile -trace
+    out.json` on 200,000 rows of X (binary block), then `-trace
+    out.jsonl`: the report is printed, out.json a Chrome trace with
+    program_execute and dispatch events, out.jsonl one event a line."""
+    import subprocess
+    import tempfile
+
+    from systemml_tpu_torch.io import matrixio
+    from systemml_tpu_torch.runtime.data import MatrixObject
+
+    d = tempfile.mkdtemp(prefix="smtorch-prof-")
+    try:
+        rows = 200_000
+        matrixio.write_matrix(MatrixObject(data["X"][:rows].cpu()),
+                              os.path.join(d, "X.bb"), "binary_block")
+        matrixio.write_matrix(MatrixObject(data["y"][:rows].cpu()),
+                              os.path.join(d, "y.csv"), "csv")
+        res = {}
+        for ext in ("json", "jsonl"):
+            trace = os.path.join(d, f"out.{ext}")
+            cmd = [sys.executable, "-m", "systemml_tpu_torch", "-f",
+                   os.path.join(ALG, "LinearRegCG.dml"), "-nvargs",
+                   f"X={d}/X.bb", f"Y={d}/y.csv", f"B={d}/B",
+                   "fmt=binary", "maxi=20", "-profile", "-trace", trace]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               cwd=ROOT, timeout=600)
+            secs = time.perf_counter() - t0
+            if r.returncode != 0 or "Profile report (mode=full)" not in \
+                    r.stdout:
+                fail(f"[profile] CLI -profile -trace out.{ext}: rc "
+                     f"{r.returncode}\n{r.stdout[-2000:]}\n"
+                     f"{r.stderr[-2000:]}")
+            if ext == "json":
+                evs = json.load(open(trace))["traceEvents"]
+            else:
+                evs = [json.loads(ln) for ln in open(trace)]
+            names = {e["name"] for e in evs}
+            if not {"program_execute", "dispatch"} <= names:
+                fail(f"[profile] CLI trace out.{ext} lacks program_execute "
+                     f"or dispatch: {sorted(names)[:40]}")
+            cov = [ln for ln in r.stdout.splitlines()
+                   if ln.startswith("Profile report")][0]
+            print(f"[profile] CLI -profile -trace out.{ext}: {len(evs)} "
+                  f"events, {secs:.1f} s; {cov}", flush=True)
+            res[ext] = {"events": len(evs), "seconds": secs, "report": cov}
+        return res
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def profile_set_trace(data, dev) -> dict:
+    """PreparedScript.set_trace on [serving]'s softmax scorer: a call
+    writes its trace, keeps last_recorder and leaves no recorder
+    installed."""
+    import tempfile
+
+    from systemml_tpu_torch import obs
+    from systemml_tpu_torch.api.jmlc import Connection
+    from systemml_tpu_torch.api.serving import ScoringService
+
+    c = SERVING_CLASSES
+    ps = Connection(config(3)).prepare_script(
+        JMLC_SCRIPTS["softmax"][0], input_names=["X", "W", "b"],
+        output_names=["yhat"],
+        input_meta={"X": {"shape": (None, K)}, "W": {"shape": (K, c)},
+                    "b": {"shape": (1, c)}})
+    rng = np.random.default_rng(15)
+    w = (rng.standard_normal((K, c)) / math.sqrt(K)).astype(np.float32)
+    b = rng.standard_normal((1, c)).astype(np.float32)
+    svc = ScoringService(ps, constants={"W": w, "b": b}, ladder=(64,),
+                         validate="force")
+    svc.warmup(K)
+    d = tempfile.mkdtemp(prefix="smtorch-trace-")
+    try:
+        path = os.path.join(d, "score.json")
+        ps.set_trace(path)
+        x = data["X"][:40].cpu().numpy()
+        got = svc.score(x)["yhat"]
+        ps.set_trace(None)
+        evs = json.load(open(path))["traceEvents"]
+        z = x.astype(np.float64) @ w + b
+        e = np.exp(z - z.max(axis=1, keepdims=True))
+        ref = e / e.sum(axis=1, keepdims=True)
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else \
+            np.asarray(got)
+        err = float(np.abs(got - ref).max())
+        names = {e["name"] for e in evs}
+        ok = ("program_execute" in names and ps.last_recorder is not None
+              and obs.active() is None and err <= 1e-5)
+        print(f"[profile] PreparedScript.set_trace on the softmax scorer: "
+              f"{len(evs)} events ({'dispatch' in names and 'dispatch'}), "
+              f"last_recorder kept {ps.last_recorder is not None}, "
+              f"obs.active() None {obs.active() is None}, answer within "
+              f"{err:.2e} of torch's softmax", flush=True)
+        if not ok:
+            fail("[profile] PreparedScript.set_trace")
+        return {"events": len(evs), "max_abs_err": err}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def profile_only() -> None:
+    """K1's time and the [profile] phase alone, on the dense X: what
+    `--profile` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "systemml_tpu_torch")):
+        fail("systemml_tpu_torch/ is not beside chip_smoke.py")
+    from systemml_tpu_torch.codegen import kernels
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    data = make_data(dev)
+    x = data["X"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    v = torch.randn(K, 1, generator=gen, device=dev)
+    k1_ms, = time_ms([lambda: kernels.mmchain_kernel(x, v)])
+    mask = check_masked_product(dev, kernels)
+    res = profile_phase(data, dev, kernels, smi, k1_ms)
+    res["k1_ms"] = k1_ms
+    res["mask"] = mask
+    res["all_seconds"] = time.perf_counter() - t0
+    print(json.dumps({"profile": res}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
@@ -6730,6 +7138,8 @@ if __name__ == "__main__":
         parfor_only()
     elif sys.argv[1:2] == ["--serving"]:
         serving_only()
+    elif sys.argv[1:2] == ["--profile"]:
+        profile_only()
     elif sys.argv[1:2] == ["--bench"]:
         bench(sys.argv[2] if len(sys.argv) > 2 else os.path.basename(ROOT))
     elif sys.argv[1:2] == ["--phases"]:

@@ -6,23 +6,25 @@ flag surface, :239 main, :659-753 execute):
     python -m systemml_tpu_torch -f script.dml [-args ... | -nvargs k=v ...]
         [-stats [N]] [-explain [hops|runtime]] [-config file.json]
         [-exec auto|single_node] [-seed N] [-python] [-debug] [-trace FILE]
+        [-profile [sample|full]]
 
 The run goes through the same compile chain and runtime as MLContext, on
 the device of the config (the card unless `-config` names a file whose
 JSON sets `"device": "cpu"`). A script's results leave only through its
 write() and print() statements (`outputs=()`), so every top-level write
 may die at its last use. `-trace FILE` writes the run's flight-recorder
-events (obs/trace.py) as JSON lines. `-profile` waits for ROADMAP queue 1,
-observability and static analysis; `-fault` arms the parfor.task site
-(resil/inject.py), and any other site raises, waiting for distributed and
-elastic; `-exec mesh` raises at compile (runtime/program.py), also waiting for
-distributed and elastic.
+events (obs/trace.py) through obs/export.write: a Chrome trace, or JSON
+lines for a FILE ending in `.jsonl`; with `-stats` it also prints the
+event-stream summary. `-profile [sample|full]` fences the dispatch sites
+(obs/profile.py) and prints the attribution report. `-fault` arms the
+parfor.task site (resil/inject.py), and any other site raises, waiting for
+distributed and elastic; `-exec mesh` raises at compile
+(runtime/program.py), also waiting for distributed and elastic.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 import time
 from typing import Dict, List, Optional
@@ -57,11 +59,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="print the compiled plan before execution")
     p.add_argument("-trace", dest="trace", metavar="FILE",
                    help="write this run's flight-recorder events to FILE "
-                        "as JSON lines")
+                        "(Chrome-trace JSON; .jsonl: one event a line)")
     p.add_argument("-profile", dest="profile", nargs="?", const="full",
                    choices=["sample", "full"],
-                   help="device-time profiling (waits for ROADMAP queue "
-                        "1, observability and static analysis)")
+                   help="device-time profiling: fence the dispatch sites "
+                        "and print the attribution report")
     p.add_argument("-fault", dest="fault", metavar="SPEC",
                    help="fault injection at the parfor.task site "
                         "(other sites wait for ROADMAP queue 1, "
@@ -114,22 +116,8 @@ def parse_script_args(args: Optional[List[str]],
     return bound
 
 
-def _write_trace(rec, path: str) -> None:
-    with open(path, "w") as f:
-        for ev in rec.events():
-            f.write(json.dumps({"name": ev.name, "cat": ev.cat, "ph": ev.ph,
-                                "ts": ev.ts, "dur": ev.dur, "tid": ev.tid,
-                                "id": ev.id, "parent": ev.parent,
-                                "args": ev.args or {}}, default=str))
-            f.write("\n")
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     ns = build_arg_parser().parse_args(argv)
-    if ns.profile:
-        raise NotImplementedError(
-            "-profile waits for ROADMAP queue 1, observability and static "
-            "analysis (item 11)")
     from systemml_tpu_torch.utils.config import (DMLConfig,
                                                  apply_matmul_precision,
                                                  check_fault_sites,
@@ -148,71 +136,91 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg.explain = ns.explain
     if ns.fault:
         cfg.fault_injection = ns.fault
+    if ns.profile:
+        cfg.profile_mode = ns.profile
     resolve_device(cfg)
     set_config(cfg)
     apply_matmul_precision()
 
     clargs = parse_script_args(ns.args, ns.nvargs)
 
+    from systemml_tpu_torch import obs
     from systemml_tpu_torch.lang.parser import (parse, parse_file,
                                                 resolve_imports)
-    from systemml_tpu_torch.obs import trace as obs
     from systemml_tpu_torch.runtime.program import compile_program
 
     t0 = time.perf_counter()
-    rec = None
-    if ns.trace:
-        rec = obs.FlightRecorder()
-        if not obs.begin_exclusive(rec):
-            raise RuntimeError("-trace: another trace is already recording")
-    try:
-        with obs.span("parse", obs.CAT_COMPILE,
-                      source=ns.file or "<inline>"):
-            if ns.pydml:
-                from systemml_tpu_torch.lang.pydml import (parse_pydml,
-                                                           parse_pydml_file)
+    # -trace records the whole run into the flight recorder; -profile
+    # without -trace still needs a recorder for attribution: an in-memory
+    # one, released before the report is printed
+    prof_rec = None
+    with obs.traced_run(ns.trace) as recorder:
+        if recorder is not None:
+            prof_rec = recorder
+        elif ns.profile:
+            prof_rec = obs.FlightRecorder()
+            if not obs.begin_exclusive(prof_rec):
+                import warnings
 
-                ast_prog = (parse_pydml_file(ns.file) if ns.file
-                            else parse_pydml(ns.script))
-            elif ns.file:
-                ast_prog = parse_file(ns.file)
+                warnings.warn("another trace is already active; this "
+                              "run will not be profiled", RuntimeWarning)
+                prof_rec = None
+        try:
+            with obs.span("parse", obs.CAT_COMPILE,
+                          source=ns.file or "<inline>"):
+                if ns.pydml:
+                    from systemml_tpu_torch.lang.pydml import (
+                        parse_pydml, parse_pydml_file)
+
+                    ast_prog = (parse_pydml_file(ns.file) if ns.file
+                                else parse_pydml(ns.script))
+                elif ns.file:
+                    ast_prog = parse_file(ns.file)
+                else:
+                    ast_prog = parse(ns.script)
+                    resolve_imports(ast_prog, ".")
+
+            from systemml_tpu_torch.ops import datagen
+
+            datagen.set_global_seed(ns.seed)  # None clears a prior seed
+
+            with obs.span("compile", obs.CAT_COMPILE):
+                # results leave only through write() and print(): nothing
+                # is exit-live (the debugger keeps every write: it
+                # inspects the symbol table)
+                prog = compile_program(ast_prog, clargs=clargs,
+                                       outputs=None if ns.debug else ())
+            prog.stats.compile_time = time.perf_counter() - t0
+            if ns.stats is not None:
+                # heavy-hitter times are the ops', not their launches'
+                prog.stats.fine_grained = True
+            from systemml_tpu_torch.utils.explain import explain_program
+
+            if ns.explain == "hops":
+                print(explain_program(prog, mode=ns.explain))
+            if ns.debug:
+                from systemml_tpu_torch.utils.debugger import DMLDebugger
+
+                DMLDebugger(prog).run()
             else:
-                ast_prog = parse(ns.script)
-                resolve_imports(ast_prog, ".")
-
-        from systemml_tpu_torch.ops import datagen
-
-        datagen.set_global_seed(ns.seed)  # None clears a prior seed
-
-        with obs.span("compile", obs.CAT_COMPILE):
-            # results leave only through write() and print(): nothing is
-            # exit-live (the debugger keeps every write: it inspects the
-            # symbol table)
-            prog = compile_program(ast_prog, clargs=clargs,
-                                   outputs=None if ns.debug else ())
-        prog.stats.compile_time = time.perf_counter() - t0
+                prog.execute()
+            if ns.explain == "runtime":
+                # after the run: a parfor shows the plan it ran with
+                print(explain_program(prog, mode=ns.explain))
+        finally:
+            # the -profile-only recorder holds the process-global slot
+            # with no file to write: release it whatever the run raised
+            if prof_rec is not None and prof_rec is not recorder:
+                obs.end_exclusive(prof_rec)
         if ns.stats is not None:
-            # heavy-hitter times are the ops', not their launches'
-            prog.stats.fine_grained = True
-        from systemml_tpu_torch.utils.explain import explain_program
-
-        if ns.explain == "hops":
-            print(explain_program(prog, mode=ns.explain))
-        if ns.debug:
-            from systemml_tpu_torch.utils.debugger import DMLDebugger
-
-            DMLDebugger(prog).run()
-        else:
-            prog.execute()
-        if ns.explain == "runtime":
-            # after the run: a parfor shows the plan it ran with
-            print(explain_program(prog, mode=ns.explain))
-    finally:
-        if rec is not None:
-            obs.end_exclusive(rec)
-            _write_trace(rec, ns.trace)
-    if ns.stats is not None:
-        print(prog.stats.display(cfg.stats_max_heavy_hitters))
+            print(prog.stats.display(cfg.stats_max_heavy_hitters))
+    if recorder is not None and ns.stats is not None:
+        # -stats with -trace also prints the summary of the same events
+        # the trace file holds
+        print(obs.render_summary(recorder, cfg.stats_max_heavy_hitters))
+    if ns.profile and prof_rec is not None:
+        print(obs.profile_report(prof_rec).text(
+            cfg.stats_max_heavy_hitters))
     return 0
 
 

@@ -70,6 +70,11 @@ class PreparedScript:
         # batch's device copy dies with it
         self._unwrap_cache: Dict[str, tuple] = {}
         self._cache_lock = threading.RLock()
+        # set_trace(path): every execute records into a fresh recorder
+        # and writes it to `path`; the last recorder stays on
+        # last_recorder (a debugging hook: set it before traffic starts)
+        self._trace_path: Optional[str] = None
+        self.last_recorder = None
 
     @property
     def stats(self):
@@ -124,6 +129,11 @@ class PreparedScript:
             if cached is not None and cached[0] is ref:
                 del self._unwrap_cache[name]
 
+    def set_trace(self, path: Optional[str]) -> "PreparedScript":
+        """Trace every execute to `path` (None: stop tracing)."""
+        self._trace_path = path
+        return self
+
     def set_scalar(self, name: str, value) -> "PreparedScript":
         self._bindings()[name] = value
         return self
@@ -147,13 +157,20 @@ class PreparedScript:
         missing = [n for n in self._input_names if n not in inputs]
         if missing:
             raise ValueError(f"unbound inputs: {missing}")
+        from systemml_tpu_torch import obs
+
         old = get_config()
         set_config(self._config)
         try:
-            apply_matmul_precision()
-            ec = self._program.execute(inputs=dict(inputs),
-                                       printer=SILENT_PRINTER,
-                                       skip_writes=True, block_graphs=True)
+            with obs.traced_run(self._trace_path) as recorder:
+                try:
+                    apply_matmul_precision()
+                    ec = self._program.execute(
+                        inputs=dict(inputs), printer=SILENT_PRINTER,
+                        skip_writes=True, block_graphs=True)
+                finally:
+                    if recorder is not None:
+                        self.last_recorder = recorder
         finally:
             set_config(old)
         # the outputs leave as live values, and the run's pool scope is

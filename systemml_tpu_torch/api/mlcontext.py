@@ -234,13 +234,35 @@ class MLContext:
         # where print() output of the script goes
         self.printer = print
         self._stats = None  # Statistics of the last execute()
+        # set_trace(path) records every execute() into a fresh recorder
+        # and writes it to `path` (obs.export.write: Chrome-trace JSON, or
+        # JSON lines for .jsonl); the last recorder stays on last_recorder
+        self.trace_file: Optional[str] = None
+        self.last_recorder = None
 
     def set_config_property(self, key: str, value):
         self.config.set(key, value)
         if key in ("device", "sysml.device"):
             self.device = resolve_device(self.config)
 
+    def set_trace(self, path: Optional[str]) -> "MLContext":
+        """Trace every execute() to `path` (None: stop tracing)."""
+        self.trace_file = path
+        return self
+
     def execute(self, script: Script) -> MLResults:
+        from systemml_tpu_torch import obs
+
+        # traced_run installs the recorder (or warns and skips when
+        # another trace is active), releases it and writes the file
+        with obs.traced_run(self.trace_file) as recorder:
+            try:
+                return self._execute(script)
+            finally:
+                if recorder is not None:
+                    self.last_recorder = recorder
+
+    def _execute(self, script: Script) -> MLResults:
         from systemml_tpu_torch.obs import trace as obs
 
         old = get_config()

@@ -448,7 +448,28 @@ def run(op: str, name: str, ctx: dict, args: tuple,
         _instant("kernel_fallback", op=op, kind="unsupported",
                  variant=v.name, fallback=v.fallback)
         v = fam.variants[v.fallback]
-    return v.fn(v.with_sched(ctx), *args, **kwargs)
+    vctx = v.with_sched(ctx)
+    from systemml_tpu_torch.obs import profile as prof
+
+    # under the profiler each launch is a kernel_launch span with the
+    # variant's modeled time for the roofline join; a fenced one first
+    # waits for the stream's earlier work (its block's), so that the span
+    # times this launch alone, then for its outputs. A launch into a graph
+    # capture is recorded, not run: no span
+    if prof.enabled() and not _capturing():
+        from systemml_tpu_torch.obs import trace as obs
+
+        modeled = float(v.cost(vctx)) if v.cost else None
+        due = prof.fence_due(f"kernel:{op}")
+        if due:
+            prof.fence(args)
+        with obs.span("kernel_launch", obs.CAT_CODEGEN, op=op,
+                      variant=v.name, modeled_s=modeled) as sp:
+            out = v.fn(vctx, *args, **kwargs)
+            if due:
+                prof.fenced(sp, out)
+        return out
+    return v.fn(vctx, *args, **kwargs)
 
 
 def _device_type(args) -> Optional[str]:

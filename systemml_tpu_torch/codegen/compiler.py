@@ -34,7 +34,7 @@ from systemml_tpu_torch.codegen.cplan import CELL_BINARY, CELL_UNARY, CNode
 from systemml_tpu_torch.codegen.memo import (MemoEntry, MemoTable,
                                              build_consumers, select_plans)
 from systemml_tpu_torch.hops.builder import BlockHops
-from systemml_tpu_torch.hops.hop import Hop, postorder
+from systemml_tpu_torch.hops.hop import Hop, mask_operand, postorder
 from systemml_tpu_torch.runtime.sparse import ensure_dense, is_ell, is_sparse
 
 # minimum fused-op count for a plan to be worth a spoof operator
@@ -241,7 +241,8 @@ def _extract_cell(h: Hop, allow_one_mm: bool,
                 return None
             state["nops"] += 1
             cover.add(x.id)
-            return CNode(x.op, kids)
+            # a product by a mask of this block: where(mask, other, +0)
+            return CNode(x.op, kids, value=mask_operand(x))
         if allow_one_mm and x.op == "ba+*" and state["mm"] is None and \
                 x.inputs[1].op == "reorg(t)" and x.id not in stop:
             state["mm"] = x

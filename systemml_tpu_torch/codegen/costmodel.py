@@ -1,7 +1,7 @@
 # Port of systemml_tpu/codegen/costmodel.py, with the imports pointed at
 # systemml_tpu_torch: the ridge model over tune.training_records,
-# shortlist and residual as they are. ingest_profile (:160) reads the
-# device-time profiler's report, which waits for item 11, and raises.
+# shortlist, residual and ingest_profile (:160, over obs/profile.py's
+# report) as they are.
 """Learned cost model for the kernel backend's schedule-space search.
 
 TVM-style (arXiv:1802.04799): exhaustive tournaments over the swept
@@ -17,8 +17,7 @@ row. Training records accumulate from two sources:
 
 - measured tournament samples (``record``, persisted per entry in the
   ``codegen_tune_cache`` schema-v2 ``records`` field), and
-- the profiler's per-kernel rows (``ingest_profile``; waits for the
-  profiler, ROADMAP queue 1 item 11).
+- the profiler's per-kernel rows (``ingest_profile``).
 
 Because features are key-derived (not raw shapes), a model fit on one
 shape bucket **transfers** to sibling buckets of the same family — that
@@ -162,13 +161,37 @@ def record(key, fam, ctx: dict, costs: Dict[str, float],
 
 
 def ingest_profile(report: Any) -> int:
-    """Ingest the per-kernel rows of a device-time profile as weak
-    training records. The profiler (obs/profile.py) waits for ROADMAP
-    queue 1, observability and static analysis (item 11)."""
-    raise NotImplementedError(
-        "costmodel.ingest_profile reads obs/profile.py's report, which is "
-        "not ported yet: it waits for ROADMAP queue 1, observability and "
-        "static analysis (item 11)")
+    """Ingest the per-kernel roofline rows of a device-time profile
+    (obs/profile.py report ``kernels`` dict: "op.variant" -> {count,
+    device_s, modeled_s, ...}) as weak training records: per-launch
+    device seconds against a key-less feature vector built from the
+    row's own analytic cost. Returns the number of records added."""
+    from systemml_tpu_torch.codegen import backend as kb
+
+    kernels = getattr(report, "kernels", None)
+    if kernels is None and isinstance(report, dict):
+        kernels = report.get("kernels")
+    if not isinstance(kernels, dict):
+        return 0
+    n = 0
+    for row in kernels.values():
+        if not isinstance(row, dict):
+            continue
+        op, variant = row.get("op"), row.get("variant")
+        count = int(row.get("count", 0) or 0)
+        dev_s = float(row.get("device_s", 0.0) or 0.0)
+        if not op or not variant or count <= 0 or dev_s <= 0:
+            continue
+        fam = kb.families().get(op)
+        v = fam.variants.get(variant) if fam else None
+        if v is None:
+            continue
+        key = kb.KernelKey(op, "profile", "f32", (), "dense", ())
+        modeled = row.get("modeled_s")
+        feat = featurize(key, v, {}, modeled)
+        add_record(op, variant, dev_s / count, feat)
+        n += 1
+    return n
 
 
 def records_for(op: str) -> List[dict]:

@@ -29,7 +29,9 @@ import torch
 class CNode:
     op: str                       # 'in' | 'lit' | 'b(+)' ... | 'u(exp)' ...
     inputs: List["CNode"] = field(default_factory=list)
-    value: Any = None             # literal value (op == 'lit')
+    # literal value (op == 'lit'); for 'b(*)', the position of its mask
+    # operand (hops.hop.mask_operand), or None for the IEEE product
+    value: Any = None
     name: Optional[str] = None    # input name (op == 'in')
 
     def key(self) -> Tuple:
@@ -78,6 +80,15 @@ def _minmax(fn):
     return f
 
 
+def _mask_mul(m, x):
+    """x where the mask m is set, +0 elsewhere (op_mask_mul)."""
+    like = m if isinstance(m, torch.Tensor) else x
+    m, x = _tensor_like(m, like), _tensor_like(x, like)
+    dt = torch.result_type(m, x)
+    return torch.where(m != 0, x.to(dt), torch.zeros((), dtype=dt,
+                                                     device=x.device))
+
+
 _BINARY = {
     "+": lambda a, b: a + b, "-": lambda a, b: a - b,
     "*": lambda a, b: a * b, "/": lambda a, b: a / b,
@@ -114,6 +125,8 @@ def emit(node: CNode, env: Dict[str, Any]):
         fn = _BINARY[o[2:-1]]
         if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
             a = _tensor_like(a, None)
+        if o == "b(*)" and node.value is not None:
+            return _mask_mul(*((a, b) if node.value == 0 else (b, a)))
         return fn(a, b)
     if o.startswith("u("):
         (x,) = xs
@@ -208,7 +221,7 @@ def emit_cuda(plan: CNode, names: Optional[List[str]] = None) -> str:
     inputs `_h<k>` that `hoist` made), for the functor of csrc/spoof.cuh.
     Every op is a device function of that header, so each operand is
     evaluated once; `b(^)` with a literal 2 is `op_sq` (v * v, what XLA
-    lowers it to)."""
+    lowers it to), and a `b(*)` by a mask is `op_mask_mul`."""
     names = plan.input_names() if names is None else names
 
     def rec(n: CNode) -> str:
@@ -222,6 +235,9 @@ def emit_cuda(plan: CNode, names: Optional[List[str]] = None) -> str:
         if n.op == "b(^)" and n.inputs[1].op == "lit" \
                 and float(n.inputs[1].value) == 2.0:
             return f"op_sq({args[0]})"
+        if n.op == "b(*)" and n.value is not None:
+            m = int(n.value)
+            return f"op_mask_mul({args[m]}, {args[1 - m]})"
         if n.op in CUDA_BINARY:
             return f"{CUDA_BINARY[n.op]}({args[0]}, {args[1]})"
         if n.op in CUDA_UNARY:

@@ -131,6 +131,10 @@ namespace ops {
 template <typename T> __device__ __forceinline__ T op_add(T a, T b) { return add_rn(a, b); }
 template <typename T> __device__ __forceinline__ T op_sub(T a, T b) { return sub_rn(a, b); }
 template <typename T> __device__ __forceinline__ T op_mul(T a, T b) { return mul_rn(a, b); }
+// a product by a 0/1 mask of the same block (hops.hop.mask_operand): +0 at
+// a masked cell whatever the other operand holds, as the JAX package's
+// select(pred, other, 0)
+template <typename T> __device__ __forceinline__ T op_mask_mul(T m, T b) { return m != T(0) ? b : T(0); }
 template <typename T> __device__ __forceinline__ T op_div(T a, T b) { return a / b; }
 template <typename T> __device__ __forceinline__ T op_pow(T a, T b) { return pow(a, b); }
 template <typename T> __device__ __forceinline__ T op_sq(T a) { return mul_rn(a, a); }

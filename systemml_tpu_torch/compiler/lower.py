@@ -38,7 +38,7 @@ import torch
 
 from systemml_tpu_torch.compress import is_compressed
 from systemml_tpu_torch.hops.builder import BlockHops, DMLValidationError
-from systemml_tpu_torch.hops.hop import Hop, postorder
+from systemml_tpu_torch.hops.hop import Hop, mask_operand, postorder
 from systemml_tpu_torch.runtime.bufferpool import CacheableMatrix
 
 # --------------------------------------------------------------------------
@@ -1013,10 +1013,12 @@ def region_refuse(reason: str) -> None:
 
 def _host_read(v, what: str):
     """v.item(): a synchronisation, which a captured region cannot make."""
+    from systemml_tpu_torch.obs import profile as prof
+
     run = _REGION.get()
     if run is not None:
         run.note_sync(what)
-    return v.item()
+    return prof.host_read(v, "read", what=what)
 
 
 def _is_int_scalar(v) -> bool:
@@ -1381,7 +1383,7 @@ class Evaluator:
                 r = _region_binary(o, a, b)
                 if r is not None:
                     return r
-            return cellwise.binary_op(o, a, b)
+            return cellwise.binary_op(o, a, b, mask=mask_operand(h))
         if op.startswith("u("):
             x = self.eval(h.inputs[0])
             o = h.params["op"]

@@ -1,5 +1,6 @@
 # Copy of systemml_tpu/hops/hop.py for the PyTorch port: the same code, with its
-# imports pointed at systemml_tpu_torch.
+# imports pointed at systemml_tpu_torch. New: `mask_operand`, the one place
+# that decides which `b(*)` hops multiply by a mask.
 """HOP (high-level operator) IR.
 
 TPU-native equivalent of the reference's Hop DAG (hops/Hop.java and its
@@ -162,3 +163,39 @@ def rewire(roots: List[Hop], old: Hop, new: Hop) -> List[Hop]:
         if old in h.inputs:
             replace_input(h, old, new)
     return [new if r is old else r for r in roots]
+
+
+# relational and logical hops: a matrix of 0/1 whose product the JAX
+# package's jitted block computes as a select (XLA's algebraic simplifier
+# rewrites multiply(A, convert(pred)) to select(pred, A, 0))
+_MASK_OPS = frozenset({"b(==)", "b(!=)", "b(<)", "b(<=)", "b(>)", "b(>=)",
+                       "b(&)", "b(|)", "u(!)", "call:xor", "call:ppred"})
+
+
+def _is_mask(h: Hop) -> bool:
+    if h.dt != "matrix":
+        return False  # a scalar comparison keeps the IEEE product
+    if h.op == "call:as.matrix" and len(h.inputs) == 1:
+        return _is_mask(h.inputs[0])  # as.matrix of a matrix is itself
+    if h.op.startswith("call:") and not any(c.dt == "matrix"
+                                            for c in h.inputs):
+        return False  # xor of two scalars
+    return h.op in _MASK_OPS
+
+
+def mask_operand(h: Hop) -> Optional[int]:
+    """The position (0 or 1) of the operand of a `b(*)` hop that is a
+    relational or logical hop of the same block, or None. Such a product
+    is `where(mask, other, +0)`: +0 at a masked cell whatever the other
+    operand holds (NaN, Inf, a negative number), as in the JAX package.
+    Every other product is the IEEE product: a mask read from another
+    block or given as an input, a scalar comparison, and a mask that is
+    broadcast (a row or column vector against a matrix; the dense arm
+    also checks the shapes it meets, `ops.cellwise.mask_mul`)."""
+    if h.op != "b(*)" or len(h.inputs) != 2:
+        return None
+    for i, x in enumerate(h.inputs):
+        if _is_mask(x) and not (x.dims_known() and h.dims_known() and (
+                x.rows, x.cols) != (h.rows, h.cols)):
+            return i
+    return None

@@ -23,6 +23,7 @@ policies).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -209,12 +210,13 @@ def _binary_sparse(op: str, a, b):
     if sp.is_sparse(a) and sp.is_sparse(b) and a.shape == b.shape:
         if op == "*" and _same_pattern(a, b):
             # W * V with W = (V != 0): one pattern, the values multiplied
-            out = a.with_values(a.data * b.data)
+            out = _drop_zeros(a.with_values(a.data * b.data))
             out._from = ("mul2", a, b)
             return out
         if op in ("+", "-", "*"):
             out = _sparse_sparse(op, a, b)
             if op == "*":
+                out = _drop_zeros(out)
                 out._from = ("mul2", a, b)
             return out
     # sparse * dense keeps the sparse pattern
@@ -225,6 +227,29 @@ def _binary_sparse(op: str, a, b):
             and tuple(a.shape) == b.shape:
         return b.with_values(a[b.rows(), b.indices] * b.data)
     return None
+
+
+def mask_mul(m, x):
+    """m * x where m is a 0/1 mask: x where m is set, +0 elsewhere,
+    whatever x holds there (NaN, Inf, a negative number). A mask that is
+    broadcast against x keeps the IEEE product, as in the JAX package."""
+    m, x = as_tensor(m, x), as_tensor(x, m)
+    if m.dim() and tuple(m.shape) != tuple(torch.broadcast_shapes(
+            m.shape, x.shape)):
+        return m * x
+    dt = _result_dtype(m, x)
+    return torch.where(m != 0, x.to(dt), torch.zeros((), dtype=dt,
+                                                     device=x.device))
+
+
+def _drop_zeros(m):
+    """`m` without its stored zeros, as scipy's sparse product stores none
+    (a -0 among them; NaN stays)."""
+    keep = m.data != 0
+    if bool(keep.all()):
+        return m
+    return sp.SparseMatrix.from_coo(m.rows()[keep], m.indices[keep],
+                                    m.data[keep], m.shape)
 
 
 def _sparse_sparse(op: str, a, b):
@@ -246,10 +271,13 @@ def _sparse_sparse(op: str, a, b):
     return sp.SparseMatrix.from_coo(keys // n, keys % n, vals, a.shape)
 
 
-def binary_op(op: str, a, b):
+def binary_op(op: str, a, b, mask: Optional[int] = None):
     """Dispatch a DML binary operator to torch. a/b: tensor or python
     scalar; a scalar pair is lifted to a tensor (the evaluator computes
-    host scalar pairs itself before it gets here)."""
+    host scalar pairs itself before it gets here). `mask` is the position
+    of a `*`'s mask operand (`hops.hop.mask_operand`): the dense product
+    is then `where(mask, other, +0)`. The sparse and compressed arms keep
+    their own products."""
     if is_compressed(a) or is_compressed(b):
         r = _binary_compressed(op, a, b)
         if r is not None:
@@ -267,6 +295,8 @@ def binary_op(op: str, a, b):
             return r
         a, b = sp.ensure_dense(a), sp.ensure_dense(b)
     a, b = _operands(a, b)
+    if op == "*" and mask is not None:
+        return mask_mul(*((a, b) if mask == 0 else (b, a)))
     if op in _ARITH:
         return _ARITH[op](a, b)
     if op in _REL:

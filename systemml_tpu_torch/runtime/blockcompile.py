@@ -336,8 +336,10 @@ def compile_plan(block, env, cfg, stats) -> BlockPlan:
 # --------------------------------------------------------------------------
 
 def execute(block, ec) -> None:
-    """Runs `block` through its plan for this key (module docstring)."""
+    """Runs `block` through its plan for this key (module docstring): one
+    `dispatch` span, fenced on the block's writes under the profiler."""
     from systemml_tpu_torch.compiler.lower import Evaluator
+    from systemml_tpu_torch.obs import profile as prof
     from systemml_tpu_torch.obs import trace as obs
     from systemml_tpu_torch.runtime.loopfuse import _region_device
     from systemml_tpu_torch.utils.config import get_config
@@ -361,7 +363,10 @@ def execute(block, ec) -> None:
         plan.runs += 1
         if graphs and plan.refusal is None:
             if not plan.clean:
-                _watched_run(block, plan, ec)
+                with obs.span("dispatch", obs.CAT_RUNTIME,
+                              block=block.label()) as sp:
+                    prof.maybe_fence(sp, _watched_run(block, plan, ec),
+                                     site="block_dispatch")
                 return
             gkey = tuple((n, v) for n, v in sorted(
                 (n, env[n]) for n in block.hops.reads
@@ -375,28 +380,38 @@ def execute(block, ec) -> None:
                 else:
                     # under the plan's lock: a second thread of this key
                     # waits for the capture and launches it
-                    g = plan.graphs[gkey] = _capture(block, plan, ec, dev)
+                    with obs.span("recompile", obs.CAT_COMPILE,
+                                  block=block.label(), graph=True):
+                        g = plan.graphs[gkey] = _capture(block, plan, ec,
+                                                         dev)
                     ec.stats.count_block_graph("capture")
         if g is None and graphs and plan.refusal is not None \
                 and plan.runs > 1 and not plan.counted:
             plan.counted = True
             ec.stats.count_block_graph(f"nograph:{plan.refusal}")
     if g is not None:
-        with obs.span("block", obs.CAT_RUNTIME, mode="graph"):
-            _launch(block, g, ec, dev)
+        with obs.span("block", obs.CAT_RUNTIME, mode="graph"), \
+                obs.span("dispatch", obs.CAT_RUNTIME,
+                         block=block.label()) as sp:
+            prof.maybe_fence(sp, _launch(block, g, ec, dev),
+                             site="block_dispatch")
         ec.stats.count_block_graph("replay")
         return
-    with obs.span("block", obs.CAT_RUNTIME, mode="fused"):
+    with obs.span("block", obs.CAT_RUNTIME, mode="fused"), \
+            obs.span("dispatch", obs.CAT_RUNTIME, block=block.label()) as sp:
         ev = Evaluator(env, ec.call_function, ec.printer, stats=ec.stats,
                        timing=True, skip_writes=ec.skip_writes)
-        env.update(ev.run(plan.hops))
+        writes = ev.run(plan.hops)
+        env.update(writes)
+        prof.maybe_fence(sp, writes, site="block_dispatch")
 
 
-def _watched_run(block, plan, ec) -> None:
+def _watched_run(block, plan, ec) -> dict:
     """A run of a key on the card before its capture (under the plan's
     lock): through the plan, under torch's sync debug mode. A run free of
     synchronizing calls lets the next capture; a second run that
-    synchronizes refuses the key's graph ("host read")."""
+    synchronizes refuses the key's graph ("host read"). Returns the
+    block's writes."""
     from systemml_tpu_torch.compiler.lower import Evaluator
     from systemml_tpu_torch.obs import trace as obs
 
@@ -446,6 +461,7 @@ def _watched_run(block, plan, ec) -> None:
             for v in writes.values()):
         plan.refusal = "host write"
     ec.vars.update(writes)
+    return writes
 
 
 def _input_bytes(block, env) -> int:
@@ -516,12 +532,12 @@ def _capture_locked(block, plan, ec, dev) -> _BlockGraph:
     return g
 
 
-def _launch(block, g: _BlockGraph, ec, dev) -> None:
+def _launch(block, g: _BlockGraph, ec, dev) -> dict:
     """Copies this run's tensor reads into the graph's buffers (one that
     is already there is not copied), launches, and binds the outputs as
     copies (the next launch writes the graph's own again): all under the
     graph's lock, after the last launch's clones where that launch was on
-    another stream."""
+    another stream. Returns the outputs it bound."""
     from systemml_tpu_torch.codegen import loop_graph as lg
     from systemml_tpu_torch.runtime import loopfuse
 
@@ -542,3 +558,4 @@ def _launch(block, g: _BlockGraph, ec, dev) -> None:
         loopfuse._apply(ec.stats, g.delta, 1)
     out.update(g.host)
     env.update(out)
+    return out

@@ -1358,6 +1358,9 @@ class FusedLoop:
         return (kind, tuple(parts))
 
     def _enter(self, loop, ec, plan, kind, iters, dev) -> bool:
+        from systemml_tpu_torch.obs import profile as prof
+        from systemml_tpu_torch.obs import trace as obs
+
         env = ec.vars
         stats = ec.stats
         carried = [n for n in plan.carried if n != getattr(loop, "var", None)]
@@ -1401,7 +1404,14 @@ class FusedLoop:
         self._bump("entries", 1)
         # step 3: the entry test, one sync
         if kind == "while":
-            if not _truth(loop.pred.eval_device(ec)):
+            pred = loop.pred.eval_device(ec)
+            if isinstance(pred, torch.Tensor) and prof.enabled():
+                with obs.span("host_sync", obs.CAT_RUNTIME, kind="entry",
+                              region=plan.label):
+                    go = _truth(pred)
+            else:
+                go = _truth(pred)
+            if not go:
                 self._bump("host_syncs", 1)
                 self.record["trips"].append(0)
                 env.update({n: v for n, v in originals.items()
@@ -1453,7 +1463,9 @@ class FusedLoop:
                 entry.inv_buffers["\0step"].fill_(
                     iters[1] - iters[0] if len(iters) > 1 else 1)
             if dev.type == "cuda":
-                self._capture(loop, ec, plan, kind, entry, run, dev)
+                with obs.span("recompile", obs.CAT_COMPILE,
+                              region=plan.label):
+                    self._capture(loop, ec, plan, kind, entry, run, dev)
                 self._bump("captures")
             with self._lock:
                 if len(self._cache) >= CACHE_CAP:
@@ -1462,15 +1474,17 @@ class FusedLoop:
         else:
             _load(entry, env, carried, traced | inv_small, kind, iters)
         launches0 = self.record["launches"]
-        trips = peeled + self._loop(loop, ec, plan, kind, entry, dev)
+        # the entry's graph launches (each with its one sync): one
+        # dispatch, fenced on the carried buffers under the profiler
+        with obs.span("dispatch", obs.CAT_RUNTIME, region=plan.label) as sp:
+            trips = peeled + self._loop(loop, ec, plan, kind, entry, dev)
+            prof.maybe_fence(sp, entry.buffers, site="region_dispatch")
         self.record["trips"].append(trips)
         _exit(entry, env, pre_kinds, originals,
               traced | inv_small | set(statics))
         if kind == "for":
             env[loop.var] = iters[-1]
         stats.count_region(plan.label)
-        from systemml_tpu_torch.obs import trace as obs
-
         if obs.recording():
             obs.instant("region_dispatch", obs.CAT_RUNTIME, region=plan.label,
                         kind=kind, pred="device", carried=len(carried),

@@ -56,6 +56,7 @@ does not read (utils/config.check_ported), raises NotImplementedError.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 import weakref
@@ -121,6 +122,16 @@ class BasicBlock(ProgramBlock):
             self._analysis = analyze_block(self.hops, fcall_ok=fcall_ok)
         return self._analysis
 
+    def label(self) -> str:
+        """The block's name in traces and profiles: its first writes, as
+        the JAX package's fused[...] label."""
+        lbl = getattr(self, "_label", None)
+        if lbl is None:
+            ws = list(self.hops.writes)
+            more = "" if len(ws) <= 3 else ",..."
+            lbl = self._label = f"fused[{','.join(ws[:3])}{more}]"
+        return lbl
+
     def execute(self, ec: "ExecutionContext"):
         from systemml_tpu_torch.compiler.lower import (Evaluator,
                                                        current_region)
@@ -145,7 +156,11 @@ class BasicBlock(ProgramBlock):
                     blockcompile.execute(self, ec)
                     ec.stats.count_block(fused=True)
             if reason is not None or run is not None:
-                with obs.span("block", obs.CAT_RUNTIME, mode="eager"):
+                # a block inside a graph capture is recorded, not run: its
+                # host time is the capture's (a recompile span)
+                with (obs.span("block", obs.CAT_RUNTIME, mode="eager")
+                      if run is None or run.mode != "capture"
+                      else contextlib.nullcontext()):
                     ev = Evaluator(ec.vars, ec.call_function, ec.printer,
                                    stats=ec.stats, timing=True,
                                    skip_writes=ec.skip_writes)
@@ -159,7 +174,14 @@ def _host_value(v):
     """A one-element tensor as a host scalar: control flow needs a value,
     so this is where a device predicate synchronises."""
     if isinstance(v, torch.Tensor) and v.numel() == 1:
-        return v.item()
+        from systemml_tpu_torch.obs import profile as prof
+        from systemml_tpu_torch.obs import trace as obs
+
+        if obs.recording():
+            # a host evaluation of a device predicate (dispatch_stats'
+            # host_pred_syncs): what a loop region saves per iteration
+            obs.instant("pred_host_sync", obs.CAT_RUNTIME)
+        return prof.host_read(v, "pred")
     return v
 
 

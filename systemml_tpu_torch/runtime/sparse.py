@@ -283,7 +283,12 @@ class SparseMatrix:
             other = self._from[2]
             if other._dense is None and other._from is None:
                 return None
-            return pd * other.to_dense()
+            prod = pd * other.to_dense()
+            # +0 where the product is zero: the sparse product stores no
+            # zero (a -0 among them), as scipy's
+            return torch.where(prod == 0, torch.zeros((), dtype=prod.dtype,
+                                                      device=prod.device),
+                               prod)
         return None
 
     def to_numpy(self) -> np.ndarray:

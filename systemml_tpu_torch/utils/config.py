@@ -475,6 +475,8 @@ PORTED_FIELDS = frozenset({
     "matmul_precision", "compensated_sum", "sparsity_turn_point",
     "ultra_sparsity_turn_point", "mem_budget_bytes",
     "trace_max_events", "stats_max_heavy_hitters",
+    # the profiler (obs/profile.py)
+    "profile_mode", "profile_sample_every",
     "liveness_enabled", "validate_enabled",
     # the DNN ops (ops/dnn.py)
     "conv_layout", "conv_algorithm",
@@ -509,11 +511,11 @@ _MEANINGLESS = {
 
 # field-name prefix -> the ROADMAP queue-1 item that brings it
 _WAITING = (
-    (("profile_", "obs_", "donation_sanitizer"),
-     "observability and static analysis"),
+    (("donation_sanitizer",),
+     "observability and static analysis, its static analysis (item 11b)"),
     (("elastic_", "mesh_", "distributed_", "comm_"),
      "distributed and elastic"),
-    (("fleet_",), "fleet"),
+    (("fleet_", "obs_fleet"), "fleet"),
 )
 
 

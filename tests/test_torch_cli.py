@@ -136,8 +136,7 @@ def test_cli_requires_source():
         cli.main(["-stats"])
 
 
-@pytest.mark.parametrize("flag,item", [(["-profile"], "observability"),
-                                       (["-fault", "x:oom"], "distributed")])
+@pytest.mark.parametrize("flag,item", [(["-fault", "x:oom"], "distributed")])
 def test_cli_waiting_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["-s", "print(1)"] + flag)

@@ -9,8 +9,8 @@ predictions and shortlists, and the residual. Held in the port: the
 cold-start ladder (a kernel_fallback "cold_model" event and the analytic
 shortlist with the guardrail arm), a warm model's ranking, the schema-2
 records a cached tournament persists and that a fresh process reads
-back, and ingest_profile raising until the profiler is ported (ROADMAP
-queue 1, item 11).
+back, and ingest_profile reading the profiler's report (ROADMAP queue 1,
+item 11).
 """
 
 import json
@@ -230,5 +230,21 @@ def test_fit_memoised_and_switched_off(_isolated):
 
 
 def test_ingest_profile_waits_for_the_profiler():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        costmodel.ingest_profile({"kernels": {}})
+    """The profiler is ported: ingest_profile reads its report's kernel
+    rows into training records, as the JAX package's does."""
+    from systemml_tpu.codegen import costmodel as jax_costmodel
+    from systemml_tpu_torch.ops import mult  # noqa: F401 (mmchain family)
+
+    assert costmodel.ingest_profile({"kernels": {}}) == 0
+    row = {"op": "mmchain", "variant": "two_pass", "count": 4,
+           "device_s": 4e-3, "modeled_s": 5e-4}
+    report = {"kernels": {"mmchain.two_pass": row,
+                          "nope.x": dict(row, op="nope")}}
+    before = len(costmodel.records_for("mmchain"))
+    assert costmodel.ingest_profile(report) == 1
+    assert len(costmodel.records_for("mmchain")) == before + 1
+    # a row of an op neither package has, and no kernels, add nothing
+    for rep in ({"kernels": {"nope.x": report["kernels"]["nope.x"]}},
+                {"kernels": {}}, {}):
+        assert costmodel.ingest_profile(rep) == \
+            jax_costmodel.ingest_profile(rep) == 0

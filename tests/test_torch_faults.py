@@ -13,8 +13,16 @@ CPU, through both packages' MLContext on the same numpy-made inputs.
 5. `ifelse` of host scalars gave a double where the JAX package keeps an
    int.
 
+And the masked multiply (ROADMAP queue 3, the fault the re-anchor at
+`f473a2c` found): a dense product by a relational or logical hop of the
+same block is `where(mask, other, +0)` in the JAX package (XLA's
+simplifier inside the jitted block), so a masked cell is +0 whatever the
+other operand holds; every other product, and the sparse arms, keep the
+IEEE product (scipy's drops a zero product).
+
 Bar: fp64 relative 1e-9, or the printed text where that is what the
-fault breaks.
+fault breaks; for the masked multiply also the NaN pattern and the sign
+of zero, exactly.
 """
 
 import contextlib
@@ -233,3 +241,178 @@ def test_fault5_ifelse_in_region():
     src = "s = 0; for (i in 1:4) { s = s + ifelse(i > 2, i, 0) }; print(s)"
     _, tp, _, tj = _both(src, out=None)
     assert tp == tj == "7\n"
+
+
+# --------------------------------------------------------------------------
+# the masked multiply
+# --------------------------------------------------------------------------
+
+# NaN, -Inf and Inf at masked and unmasked cells; negative cells whose
+# IEEE product by 0 is -0
+MASK_X = (np.array([[2.0, np.nan], [-np.inf, np.inf]]),
+          np.array([[2.0, -2.5], [-0.5, 1.0]]))
+RELU_DML = "scripts/nn/layers/relu.dml"
+
+# forms that the JAX package computes as where(mask, other, +0)
+MASKED = {
+    "direct": "Z = X * (X > 0)",
+    "direct_reversed": "Z = (X > 0) * X",
+    "assigned_earlier": "M = X > 0\nZ = X * M",
+    "and": "Z = X * ((X > 0) & (X < 10))",
+    "or": "Z = X * ((X > 0) | (X > 10))",
+    "not": "Z = X * (!(X <= 0))",
+    "xor": "Z = X * xor(X > 0, X > 10)",
+    "ppred": 'Z = X * ppred(X, 0, ">")',
+    "as_matrix": "Z = X * as.matrix(X > 0)",
+    "eq": "Z = (X == 2) * X",
+    "ne": "Z = X * (X != -0.5)",
+    "lt": "Z = X * (X < 0)",
+    "le": "Z = X * (X <= 1)",
+    "ge": "Z = X * (X >= 1)",
+    "then_times_2": "Z = X * (X > 0) * 2",
+    "nan_scalar": "s = 0/0\nZ = s * (X > 0)",
+    "sum": "Z = matrix(sum(X * (X > 0)), rows=1, cols=1)",
+    "function": ("f = function(matrix[double] A) return (matrix[double] B)"
+                 " { B = A * (A > 0) }\nZ = f(X)"),
+    "for": "Z = X\nfor (i in 1:2) { Z = X * (X > 0) }",
+    "while": "Z = X\ni = 0\nwhile (i < 2) { Z = X * (X > 0)\n i = i + 1 }",
+    "while_carried": ("Z = X\ni = 0\nwhile (i < 2) { Z = Z * (Z > 0)\n"
+                      " i = i + 1 }"),
+    "if_body": "Z = X\nif (nrow(X) > 0) { Z = X * (X > 0) }",
+    "relu_backward": (f'source("{RELU_DML}") as relu\n'
+                      "Z = relu::backward(X, X)"),
+}
+
+# forms that both packages compute as the IEEE product
+KEEP_IEEE = {
+    "input_mask": "Z = X * M",
+    "scalar_comparison": "s = -1\nZ = X * (s > 0)",
+    "scalar_comparison_of_a_cell": "s = as.scalar(X[1,1])\nZ = X * (s < 0)",
+    "mask_across_an_if": "M = X\nif (nrow(X) > 0) { M = X > 0 }\nZ = X * M",
+    "mask_before_a_loop": ("M = X > 0\ni = 0\nZ = X\nwhile (i < 2) "
+                           "{ Z = X * M\n i = i + 1 }"),
+    "scalar_times_mask_first": "Z = 2 * (X > 0) * X",
+    "mask_times_scalar": "Z = X * ((X > 0) * 2)",
+    "broadcast_row_mask": "Z = X * (X[1,] > 0)",
+    "transposed_mask": "Z = X * t(X > 0)",
+}
+
+
+def _same_cells(got, ref):
+    """Equal at 1e-9 relative, with the NaN pattern and the sign bit of
+    every other cell (a zero's among them) exactly equal."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(np.signbit(got[~nan]),
+                                  np.signbit(ref[~nan]))
+    np.testing.assert_allclose(got, ref, rtol=1e-9)
+
+
+def _masked_case(src, optlevel):
+    for x in MASK_X:
+        inputs = {"X": x}
+        if "M" in src.split("=")[1].split():
+            inputs["M"] = (x > 0).astype(np.float64)
+        rp, _, rj, _ = _both(src, inputs, out="Z", optlevel=optlevel)
+        _same_cells(_value(rp, "Z"), _value(rj, "Z"))
+    return rp, rj
+
+
+@pytest.mark.parametrize("optlevel", [0, 2, 3])
+@pytest.mark.parametrize("form", sorted(MASKED))
+def test_masked_multiply_gives_plus_zero_as_the_jax_package(form, optlevel):
+    _masked_case(MASKED[form], optlevel)
+
+
+@pytest.mark.parametrize("optlevel", [0, 2, 3])
+@pytest.mark.parametrize("form", sorted(KEEP_IEEE))
+def test_masked_multiply_keeps_the_ieee_product(form, optlevel):
+    _masked_case(KEEP_IEEE[form], optlevel)
+
+
+def test_masked_multiply_expected_values():
+    rp, rj = _masked_case(MASKED["direct"], 2)
+    z = _value(rp, "Z")
+    _same_cells(z, [[2.0, 0.0], [0.0, 1.0]])
+    src = "Z = sign(1 / (X * (X > 0)))"
+    rp, _, rj, _ = _both(src, {"X": MASK_X[1]}, out="Z")
+    _same_cells(_value(rp, "Z"), [[1.0, 1.0], [1.0, 1.0]])
+    rp, _, _, _ = _both(KEEP_IEEE["input_mask"], {
+        "X": MASK_X[0], "M": (MASK_X[0] > 0).astype(np.float64)}, out="Z")
+    _same_cells(_value(rp, "Z"), [[2.0, np.nan], [np.nan, np.inf]])
+
+
+def test_masked_multiply_decided_at_the_hop():
+    from systemml_tpu_torch.hops.builder import HopBuilder
+    from systemml_tpu_torch.hops.hop import mask_operand
+    from systemml_tpu_torch.lang.parser import parse
+
+    src = ("X = rand(rows=3, cols=3)\ns = 2\nA = X * (X > 0)\n"
+           "B = (X > 0) * X\nC = X * (s > 0)\nD = 2 * (X > 0) * X\n"
+           "E = X * xor(X > 0, X > 1)\nF = X * Y\n")
+    blk = HopBuilder().build_block(list(parse(src).statements))
+    got = {name: mask_operand(h) for name, h in blk.writes.items()
+           if h.op == "b(*)"}
+    assert got == {"A": 1, "B": 0, "C": None, "D": None, "E": 1, "F": None}
+
+
+# the 6 x 5 CSR of ROADMAP queue 3: NaN, -3, Inf and 2, and -Inf
+CSR_CELLS = {(0, 1): np.nan, (1, 3): -3.0, (2, 0): np.inf, (3, 4): 2.0,
+             (4, 2): -np.inf, (5, 1): -3.0, (5, 4): np.nan}
+
+
+def _csr65():
+    d = np.zeros((6, 5))
+    for (i, j), v in CSR_CELLS.items():
+        d[i, j] = v
+    return scipy.sparse.csr_matrix(d)
+
+
+def _stored(m):
+    """(row, col) -> value of a sparse result's stored cells."""
+    c = m.to_scipy().tocoo()
+    return {(int(i), int(j)): float(v)
+            for i, j, v in zip(c.row, c.col, c.data)}
+
+
+def _same_stored(got, ref):
+    assert sorted(got) == sorted(ref)
+    keys = sorted(ref)
+    _same_cells([got[k] for k in keys], [ref[k] for k in keys])
+
+
+@pytest.mark.parametrize("mask_src", ["gt0", "gt1", "ne0"])
+def test_masked_multiply_sparse_arm_drops_zero_products(mask_src):
+    import torch
+
+    from systemml_tpu.ops import cellwise as jax_cellwise
+    from systemml_tpu.runtime import sparse as jax_sparse
+    from systemml_tpu_torch.ops import cellwise
+    from systemml_tpu_torch.runtime import sparse
+
+    op, v = {"gt0": (">", 0), "gt1": (">", 1), "ne0": ("!=", 0)}[mask_src]
+    s = _csr65()
+    js = jax_sparse.SparseMatrix.from_scipy(s)
+    ps = sparse.SparseMatrix.from_scipy(s, device="cpu",
+                                        dtype=torch.float64)
+    ref = jax_cellwise.binary_op("*", js, jax_cellwise.binary_op(op, js, v))
+    got = cellwise.binary_op("*", ps, cellwise.binary_op(op, ps, v))
+    assert sparse.is_sparse(got) and jax_sparse.is_sparse(ref)
+    _same_stored(_stored(got), _stored(ref))
+    if mask_src == "gt0":
+        # the masked -3 and -Inf cells: no -0 stored, the NaN cells stay
+        assert (1, 3) not in _stored(got)
+        assert np.isnan(_stored(got)[(0, 1)])
+        # the dense mirror derived from the operands' says the same
+        d = got.to_dense().numpy()
+        assert not np.signbit(d[1, 3]) and not np.signbit(d[5, 1])
+
+
+@pytest.mark.parametrize("optlevel", [0, 2, 3])
+@pytest.mark.parametrize("src", ["Z = X * (X > 0)", "M = X > 0\nZ = M * X",
+                                 "Z = X * (X != 0)", "Z = X * (X > 1)"])
+def test_masked_multiply_sparse_input(src, optlevel):
+    rp, _, rj, _ = _both(src, {"X": _csr65()}, out="Z", optlevel=optlevel)
+    _same_stored(_stored(rp.get("Z")), _stored(rj.get("Z")))

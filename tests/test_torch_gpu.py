@@ -2715,3 +2715,212 @@ def test_two_processes_build_one_source_at_once(cuda, tmp_path):
     assert len([f for f in libs if f.startswith("libmmchain-")
                 and f.endswith(".so")]) == 1, libs
     assert not [f for f in libs if f.endswith(".tmp")], libs
+
+
+# --------------------------------------------------------------------------
+# the masked multiply in K2's functor (ROADMAP queue 3, fault 1)
+# --------------------------------------------------------------------------
+
+def _masked_x(dtype, dev, m=1037, n=9):
+    """NaN, +Inf, -Inf and negative cells among positive ones."""
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((m, n))
+    x[::7, 0] = np.nan
+    x[1::11, 1] = np.inf
+    x[2::13, 2] = -np.inf
+    return torch.from_numpy(x).to(dtype).to(dev)
+
+
+def _masked_plan():
+    """X * (X > 0) as the compiler writes it: a b(*) whose operand 1 is
+    its mask (codegen/cplan.CNode.value)."""
+    x = CNode("in", name="i0")
+    return CNode("b(*)", [x, CNode("b(>)", [x, CNode("lit", value=0.0)])],
+                 value=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_masked_product_gives_plus_zero(cuda, dtype):
+    plan, x = _masked_plan(), _masked_x(dtype, cuda)
+    env = {"i0": x}
+    before = kernels.cell_kernel.launches
+    out = kernels.cell_kernel(plan, ["i0"], None, env)
+    total = kernels.cell_kernel(plan, ["i0"], "sum", env)
+    ref = kernels.cell_plain(plan, ["i0"], None, {"i0": x.cpu()})
+    torch.cuda.synchronize()
+    assert kernels.cell_kernel.launches == before + 2
+    assert torch.equal(out.cpu(), ref)
+    masked = ~(x > 0)
+    assert bool((out[masked] == 0).all())
+    assert not bool(torch.signbit(out[masked]).any())
+    assert not bool(out.isnan().any())
+    # the IEEE product would hold NaN at the masked NaN and -Inf cells
+    assert bool((x * (x > 0).to(dtype)).isnan().any())
+    np.testing.assert_allclose(float(total), float(ref.double().sum()),
+                               rtol=1e-5 if dtype == torch.float32
+                               else 1e-12)
+
+
+def test_k2_masked_product_through_an_optlevel3_program(cuda):
+    """`X * (X > 0)` and `sum(X * (X > 0))` at optlevel 3 on the card run
+    the fused functor and give the CPU's answer, +0 at the masked cells."""
+    from systemml_tpu_torch.api.mlcontext import MLContext, dml
+    from systemml_tpu_torch.utils.config import DMLConfig
+
+    x = _masked_x(torch.float64, "cpu").numpy()
+    outs = {}
+    for device in ("cuda", "cpu"):
+        cfg = DMLConfig(device=device)
+        cfg.optlevel = 3
+        cfg.floating_point_precision = "double"
+        before = kernels.cell_kernel.launches
+        res = MLContext(cfg).execute(
+            dml("Z = X * (X > 0) + 0\ns = sum(X * (X > 0))")
+            .input("X", x).output("Z", "s"))
+        outs[device] = (res.get_matrix("Z"), float(res.get_scalar("s")))
+        if device == "cuda":
+            assert kernels.cell_kernel.launches > before
+    z, zc = outs["cuda"][0], outs["cpu"][0]
+    np.testing.assert_array_equal(np.signbit(z), np.signbit(zc))
+    np.testing.assert_allclose(z, zc, rtol=1e-12)
+    assert not np.isnan(z).any() and not np.signbit(z[~(x > 0)]).any()
+    np.testing.assert_allclose(outs["cuda"][1], outs["cpu"][1], rtol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# the profiler on the card (obs/profile.py)
+# --------------------------------------------------------------------------
+
+def _fence_spy(monkeypatch):
+    """Records, for each fence the profiler takes, whether the current
+    stream was capturing."""
+    from systemml_tpu_torch.obs import profile as prof
+
+    seen = []
+    fence = prof.fence
+
+    def spy(value):
+        seen.append(torch.cuda.is_current_stream_capturing())
+        return fence(value)
+
+    monkeypatch.setattr(prof, "fence", spy)
+    return seen
+
+
+def test_profile_full_takes_no_fence_inside_a_capture(cuda, monkeypatch):
+    """A loop region and a served block graph under profile_mode "full":
+    each capture succeeds, no fence is taken while a stream captures,
+    and the launch counts and host syncs equal the profiler-off run's."""
+    from systemml_tpu_torch import obs
+    from systemml_tpu_torch.api.serving import ScoringService
+    from systemml_tpu_torch.runtime import loopfuse
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    seen = _fence_spy(monkeypatch)
+    src = """
+w = matrix(0, rows=ncol(X), cols=1)
+i = 0
+while (i < 6) {
+  w = w + 0.001 * (t(X) %*% (X %*% w + 1))
+  i = i + 1
+}
+r = sum(w)
+"""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4096, 256)).astype(
+        np.float32)).to(cuda)
+    records, counts = {}, {}
+    for mode in ("off", "full"):
+        prog = _region_program(src, ["X"], ["r"])
+        cfg = DMLConfig()
+        cfg.profile_mode = mode
+        for f in loopfuse.launch_counters().values():
+            f.launches = 0
+        set_config(cfg)
+        try:
+            with obs.session() as rec:
+                for _ in range(2):
+                    prog.execute({"X": x})
+            rep = obs.profile_report(rec)
+        finally:
+            set_config(DMLConfig())
+        torch.cuda.synchronize()
+        fl = _top_loop(prog)._fused_loop
+        records[mode] = {k: fl.record[k] for k in
+                         ("captures", "launches", "host_syncs", "trips")}
+        counts[mode] = {k: f.launches for k, f in
+                        loopfuse.launch_counters().items()}
+        if mode == "full":
+            assert rep.fenced_dispatches == rep.total_dispatches > 0
+    assert records["full"] == records["off"]
+    assert records["full"]["captures"] == 1
+    assert counts["full"] == counts["off"]
+    assert seen and not any(seen)
+    # a served block graph: warmup captures it under "full"
+    seen.clear()
+    ps, w, b = _scorer()
+    ps._config.profile_mode = "full"
+    svc = ScoringService(ps, constants={"W": w, "b": b}, ladder=(64,),
+                         validate="force")
+    with obs.session() as rec:
+        svc.warmup(256)
+        xs = rng.standard_normal((40, 256)).astype(np.float32)
+        got = svc.score(xs)["yhat"]
+    g = dict(ps.stats.block_graph_counts.items())
+    assert g.get("capture") == 1
+    assert seen and not any(seen)
+    z = xs @ w + b
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    np.testing.assert_allclose(np.asarray(got.cpu() if hasattr(got, "cpu")
+                                          else got),
+                               e / e.sum(axis=1, keepdims=True), rtol=1e-5,
+                               atol=1e-6)
+    assert obs.dispatch_stats(rec)["dispatches"] >= 1
+
+
+def test_profile_full_linregcg_covers_95pct_named(cuda):
+    """LinearRegCG with its CG loop as a region, fp32 at 2,000,000 x 1,000
+    over 40 CG iterations (tol 0; device work sized to dominate a run's
+    fixed host cost, as the JAX package's test sizes its fits), under
+    "full": the named buckets cover at least 95% of the run's wall (the
+    JAX package's bar), the region rows' counts equal dispatch_stats',
+    and the report round-trips through json."""
+    import json
+    import os
+
+    from systemml_tpu_torch import obs
+    from systemml_tpu_torch.api.mlcontext import MLContext, dmlFromFile
+    from systemml_tpu_torch.utils.config import DMLConfig, set_config
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2_000_000, 1_000, generator=gen, device=cuda)
+    y = x @ torch.randn(1_000, 1, generator=gen, device=cuda)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "algorithms",
+        "LinearRegCG.dml")
+    cfg = DMLConfig()
+    cfg.profile_mode = "full"
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+
+    def script():
+        return dmlFromFile(path).input("X", x).input("y", y) \
+            .arg("maxi", 40).arg("tol", 0).output("beta")
+
+    ml.execute(script())
+    with obs.session() as rec:
+        beta = ml.execute(script()).get_tensor("beta")
+    set_config(cfg)
+    try:
+        rep = obs.profile_report(rec)
+    finally:
+        set_config(DMLConfig())
+    assert bool(torch.isfinite(beta).all())
+    assert rep.coverage >= 0.95, rep.text()
+    ds = obs.dispatch_stats(rec)
+    assert ds["loop_regions"]
+    for label, info in ds["loop_regions"].items():
+        assert rep.regions[label]["count"] == info["dispatches"]
+    assert json.loads(json.dumps(rep.to_dict()))["coverage_named"] >= 0.95
+    del x, y
+    torch.cuda.empty_cache()

@@ -138,16 +138,15 @@ def test_carry_beta_from_jax_into_port():
 
 @pytest.mark.parametrize("key,value,item", [
     # remote parfor (item 9b) and the kernel backend (item 7) came in
-    # one slice: settings of observability (item 11) and the fleet
+    # one slice: settings of static analysis (item 11b) and the fleet
     # (item 13) wait instead
     ("donation_sanitizer", "check", "observability and static analysis"),
     ("xla_cache_dir", "/tmp/x", "compiles no XLA"),
     ("fleet_heartbeat_s", 2.0, "fleet"),
     ("mesh_shape", {"dp": 4}, "distributed and elastic"),
-    # the bfloat16 policy came with DNN and models (item 8), the serving
-    # settings with the serving tier (item 10a): a setting of the
-    # profiler (item 11) waits instead
-    ("profile_mode", "full", "observability and static analysis"),
+    # the profiler's settings came with observability (item 11): the
+    # fleet's trace directory (item 13) waits instead
+    ("obs_fleet_dir", "/tmp/fleet", "fleet"),
 ])
 def test_setting_the_port_does_not_read_raises(key, value, item):
     """A setting the port would ignore raises, naming its ROADMAP item,
