@@ -8,6 +8,7 @@
     python3 chip_smoke.py --dnn
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --profile
+    python3 chip_smoke.py --fleet
 
 The second form times only the spoof kernels K2, K3 and K5, the spoof
 wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
@@ -262,6 +263,29 @@ failed check):
   and rows/s, the block graphs' captures and launches, the pad share,
   the flushes by cause and requests per flush, and K4 against its plain
   version at the scorer's plan at (512, 10). `--serving` runs it alone.
+- `[fleet]`, after `[serving]`: the same scorer in three replica
+  processes (`chip_smoke.py --fleet-replica RANK DIR`, fresh
+  interpreters, a CUDA context each), each with its fleet identity, its
+  trace shard and a Replica (fleet/replica.py) that serves generation 0
+  only once warm; this process routes 16 client threads of log-uniform
+  1-64-row requests (JSON, `{"x": rows}`) through a Router over
+  http_transport. The last replica SIGKILLs itself after 150 answers;
+  then a rolling update to generation 1 (its own W and b) runs under the
+  same load, and an overload run follows: each survivor admits 2
+  requests at a time while requests arrive open-loop at twice the first
+  run's rate for 4 s, with a 2 s deadline each. It fails unless every
+  answer is within 1e-5 of torch's softmax with its generation's weights
+  and more than 1e-3 from the other's, no request failed in the first
+  run and the rollout, the kill was one route-epoch bump, each
+  survivor's K4 launches equal its dispatches with nothing compiled or
+  captured after either warmup, the merged shards tell the rollout and
+  the epoch bump, every overload request was served in time or shed
+  with a named 429 reason within the retry budget, and `python -m
+  systemml_tpu_torch.obs.fleet_trace` prints both storylines. It prints
+  p50, p99 and requests/s through the router beside `[serving]`'s,
+  redispatches, hedges, the kill's first redispatched answer, the
+  rollout's seconds, the JSON share of a request and each replica's
+  wait for the block compile's locks. `--fleet` runs it alone.
 
 After the sparse paths, on LinearRegCG-cla's Census-shaped X and still
 under the `[syncs]` audit (per thread, so each parfor lane's region
@@ -4802,6 +4826,847 @@ def serving_phase(data, dev, kernels, smi) -> dict:
 
 
 # --------------------------------------------------------------------------
+# [fleet]: three replica processes behind a router (fleet/, obs/fleet.py)
+# --------------------------------------------------------------------------
+
+FLEET_REPLICAS, FLEET_CLIENTS = 3, 16
+# each request: log-uniform 1-64 rows of the host copy of X's first rows
+FLEET_MAX_ROWS = 64
+# the first run: this many answered requests, and the last replica gone
+FLEET_FIRST_REQUESTS = 1_000
+# the last replica SIGKILLs itself once it has answered this many
+FLEET_KILL_AFTER = 150
+FLEET_AFTER_ROLLOUT_S = 1.0
+# the overload run: each survivor admits this many requests at a time,
+# while requests arrive open-loop at twice the first run's rate into a
+# client pool of as many sender threads as the first run had clients (an
+# arrival waits in the pool for a free sender; its deadline starts when
+# it is sent). The router is one process whose JSON encoding bounds the
+# first run: with 64 senders, 3 of 336 requests ran out their deadline
+# inside it, waiting for its interpreter lock
+FLEET_OVERLOAD_INFLIGHT, FLEET_OVERLOAD_S = 2, 4.0
+FLEET_OVERLOAD_DEADLINE_S, FLEET_OVERLOAD_SENDERS = 2.0, FLEET_CLIENTS
+# a served answer's wall, read by the client thread after submit returns,
+# may pass the router's deadline by the thread's wake-up on a shared host
+FLEET_DEADLINE_SLACK_S = 0.05
+FLEET_HEARTBEAT_S = 0.2
+FLEET_SEED = 19
+FLEET_LIMIT_S = 480.0
+# an answer against torch's softmax with its generation's W and b, and
+# against the other generation's
+FLEET_BAR, FLEET_GAP = 1e-5, 1e-3
+FLEET_JSON_SAMPLES = 300
+
+
+def fleet_weights(g: int):
+    """Generation g's W (K, 10) and b (1, 10) fp32, from a generator seeded
+    per generation: two generations' answers on the same rows are far
+    apart, so an answer's value says which generation served it."""
+    rng = np.random.default_rng(FLEET_SEED + g)
+    w = (rng.standard_normal((K, SERVING_CLASSES)) / math.sqrt(K)).astype(
+        np.float32)
+    b = rng.standard_normal((1, SERVING_CLASSES)).astype(np.float32)
+    return w, b
+
+
+def _fleet_names():
+    meta = {"X": {"shape": (None, K)}, "W": {"shape": (K, SERVING_CLASSES)},
+            "b": {"shape": (1, SERVING_CLASSES)}}
+    return dict(input_names=["X", "W", "b"], output_names=["yhat"],
+                input_meta=meta)
+
+
+def fleet_replica(rank: int, shared: str) -> None:
+    """`--fleet-replica RANK DIR`: one replica process of `[fleet]`. It
+    sets its fleet identity, streams its trace into DIR/fleet, prepares
+    the softmax scorer at optlevel 3 (one row plan, K4) into a
+    ScoringService with validate "force" on the ladder, warms it, and only
+    then serves generation 0 on an ephemeral port, registers and beats.
+    Then it follows the router's markers in DIR: it loads generation 1
+    (warmed before it serves), retires generation 0, narrows its admission
+    gate for the overload run, and at the end writes its metrics snapshot
+    (K4's launches against its dispatches, compiles and captures after
+    each generation's warmup, the scorer's wall and its wait for the block
+    compile's locks) and exits. The last replica SIGKILLs itself once it
+    has answered FLEET_KILL_AFTER requests. A replica that cannot see the
+    card fails: it never serves on the CPU."""
+    import signal
+
+    if not torch.cuda.is_available():
+        fail("[fleet] a replica cannot see the card: it never serves on "
+             "the CPU")
+    from systemml_tpu_torch import fleet
+    from systemml_tpu_torch.api.jmlc import Connection
+    from systemml_tpu_torch.api.serving import ScoringService
+    from systemml_tpu_torch.codegen import build, kernels
+    from systemml_tpu_torch.obs import fleet as obs_fleet
+    from systemml_tpu_torch.obs import trace as obs
+
+    with open(os.path.join(shared, "fleet.json")) as f:
+        spec = json.load(f)
+    fleet_dir = os.path.join(shared, "fleet")
+    victim = spec["replicas"] - 1
+    deadline = time.monotonic() + spec["limit_s"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # every process derives the run's id alike from the shared facts: the
+    # directory that is the fleet's meeting point and the process count
+    obs_fleet.set_identity(
+        obs_fleet.derive_run_id(shared, spec["replicas"] + 1), rank, rank,
+        0, spec["replicas"] + 1)
+    rec = obs.FlightRecorder()
+    obs.install(rec)
+    writer = obs_fleet.attach_shard(rec, fleet_dir)
+    src = JMLC_SCRIPTS["softmax"][0]
+    services, warm, clocks = {}, {}, {}
+
+    def build_generation(g):
+        t0 = time.perf_counter()
+        ps = Connection(config(3)).prepare_script(src, **_fleet_names())
+        w, b = fleet_weights(g)
+        svc = ScoringService(ps, constants={"W": w, "b": b},
+                             ladder=SERVING_LADDER, validate="force")
+        warmed = svc.warmup(K)
+        torch.cuda.synchronize()
+        st = ps.stats
+        warm[g] = {"seconds": time.perf_counter() - t0, "warmed": warmed,
+                   "compiles": st.compile_count,
+                   "captures": st.block_graph_counts.get("capture", 0),
+                   "requests": svc.registry.get("requests_total").value}
+        clocks[g] = _WaitClock(ps)
+        services[g] = svc
+
+    answered = [0]
+    lock = threading.Lock()
+    parts = {"wall": 0.0, "lock_wait": 0.0, "requests": 0}
+
+    def factory(g):
+        svc, clock = services[g], clocks[g]
+
+        def score(payload):
+            t0 = time.perf_counter()
+            clock.take()
+            x = np.asarray(payload["x"], dtype=np.float32)
+            y = svc.score(x)["yhat"].cpu().tolist()
+            wait, _ = clock.take()
+            with lock:
+                parts["wall"] += time.perf_counter() - t0
+                parts["lock_wait"] += wait
+                parts["requests"] += 1
+                answered[0] += 1
+                n = answered[0]
+            if rank == victim and n == spec["kill_after"]:
+                with open(os.path.join(shared, "dying"), "w") as f:
+                    f.write(str(time.time_ns()))
+                os.kill(os.getpid(), signal.SIGKILL)
+            return {"yhat": y}
+        return score
+
+    build_generation(0)
+    builds_at_warmup = sorted(os.path.basename(p)
+                              for p in build.build_reports)
+    # what this replica built to warm up, for the router's check that no
+    # source was built twice (the last replica leaves no snapshot)
+    with open(os.path.join(shared, f"builds_{rank}.json"), "w") as f:
+        json.dump(builds_at_warmup, f)
+    reset_launches(kernels)
+    replica = fleet.Replica(factory, fleet_dir=fleet_dir)
+    replica.serve(0, port=0)
+    replica.register(0)
+    replica.start_heartbeat(FLEET_HEARTBEAT_S)
+
+    def marker(name):
+        return os.path.exists(os.path.join(shared, name))
+
+    def ack(name):
+        open(os.path.join(shared, f"{name}_{rank}"), "w").close()
+
+    done = set()
+    while not marker("phase_done"):
+        if time.monotonic() > deadline or os.getppid() == 1:
+            fail(f"[fleet] replica {rank}: the router is gone or the phase "
+                 f"ran past its limit")
+        if "g1" not in done and marker("rollout_go"):
+            build_generation(1)
+            replica.serve(1, port=0)
+            replica.heartbeat()
+            ack("g1_ready")
+            done.add("g1")
+        if "retire" not in done and marker("retire_g0"):
+            replica.retire_generation(0)
+            ack("retired")
+            done.add("retire")
+        if "overload" not in done and marker("overload_go"):
+            replica.gate.inflight_max = spec["overload_inflight"]
+            ack("overload_ready")
+            done.add("overload")
+        time.sleep(0.01)
+    replica.close()
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    after = {}
+    dispatches = 0
+    for g, svc in services.items():
+        st = svc._ps.stats
+        served = svc.registry.get("requests_total").value
+        # generation 0's warmup ran before the counters were set to 0;
+        # generation 1's ran after, and its dispatches launch K4 too
+        dispatches += served - (warm[g]["requests"] if g == 0 else 0)
+        after[g] = {"compiles": st.compile_count - warm[g]["compiles"],
+                    "captures": st.block_graph_counts.get("capture", 0)
+                    - warm[g]["captures"],
+                    "served": served - warm[g]["requests"]}
+    rejects = dict(replica._m_admission_rejects.items())
+    service = replica.registry.get("fleet_service_seconds")
+    writer.close()
+    obs.install(None)
+    obs_fleet.write_metrics_snapshot(fleet_dir, services[0]._ps.stats, extra={
+        "launches": launches, "dispatches": dispatches,
+        "warmup": {str(g): w for g, w in warm.items()},
+        "after_warmup": {str(g): a for g, a in after.items()},
+        "builds_at_warmup": builds_at_warmup,
+        "builds_at_end": sorted(os.path.basename(p)
+                                for p in build.build_reports),
+        "admission_rejects": rejects,
+        "service_p50_ms": 1e3 * service.quantile(0.5),
+        "score_wall_ms_mean": 1e3 * parts["wall"] / max(1, parts["requests"]),
+        "lock_wait_share": parts["lock_wait"] / max(1e-12, parts["wall"]),
+        "replica_registry": replica.registry.to_dict()})
+    print(f"[fleet] replica {rank} done: launches {launches}, dispatches "
+          f"{dispatches}", flush=True)
+
+
+class _Request(dict):
+    """A request payload (encoded as the dict it is) that carries a
+    sequence number the transport can read and does not send."""
+
+    seq = -1
+
+
+class _AttemptLog:
+    """Wraps a Router transport: the addresses each request was sent to,
+    in order (a redispatch or a hedge adds one), by its sequence number."""
+
+    def __init__(self, send):
+        self._send = send
+        self._lock = threading.Lock()
+        self.sent: Dict[int, list] = {}
+
+    def __call__(self, addr, request, remaining_s=None):
+        with self._lock:
+            self.sent.setdefault(request.seq, []).append(addr)
+        return self._send(addr, request, remaining_s=remaining_s)
+
+
+def _picking_router(fleet):
+    """fleet.Router that logs each pick with the epoch the table had when
+    the pick began (read before the targets: a pick that read the bumped
+    epoch read the bumped targets too)."""
+    class Picking(fleet.Router):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.picks = []
+
+        def _pick(self, prog_gen, exclude=()):
+            epoch = self.table.epoch
+            rank, addr = super()._pick(prog_gen, exclude)
+            if rank is not None:
+                self.picks.append((epoch, rank))
+            return rank, addr
+    return Picking
+
+
+def fleet_host_rows(dev) -> np.ndarray:
+    """The host copy of X's first rows, as `[serving]` takes it, without
+    the rest of make_data's targets."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(M, K, generator=gen, device=dev)
+    host = x[:SERVING_HOST_ROWS].cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    return host
+
+
+def _fleet_k4(dev, kernels, smi) -> dict:
+    """K4 at the scorer's plan and the largest rung the fleet's requests
+    reach (64 rows) against its plain version, timed."""
+    from systemml_tpu_torch.api.jmlc import Connection
+    from systemml_tpu_torch.runtime.program import iter_spoof_hops
+
+    ps = Connection(config(3)).prepare_script(JMLC_SCRIPTS["softmax"][0],
+                                              **_fleet_names())
+    hop = [h for h in iter_spoof_hops(ps._program)
+           if h.params["template"] == "row"][0]
+    leaf = list(hop.params["leaf_names"])
+    m = FLEET_MAX_ROWS
+    gen = torch.Generator(device=dev).manual_seed(23)
+    z = torch.randn(m, SERVING_CLASSES, generator=gen, device=dev)
+    bias = torch.randn(1, SERVING_CLASSES, generator=gen, device=dev)
+    env = dict(zip(leaf, (z, bias, (z + bias).amax(dim=1, keepdim=True))))
+    agg = hop.params["row_agg"]
+    got = kernels.row_kernel(hop.params["plan"], leaf, agg, env)
+    plain = kernels.row_plain(hop.params["plan"], leaf, agg,
+                              {k: v.double() for k, v in env.items()})
+    err = normwise(got, plain)
+    rec = {"shape": [m, SERVING_CLASSES], "max_normwise": err,
+           "max_abs_err": float((got.double() - plain).abs().max()),
+           "ms": device_ms(lambda: kernels.row_kernel(
+               hop.params["plan"], leaf, agg, env), cold=True),
+           "plain_ms": device_ms(lambda: kernels.row_plain(
+               hop.params["plan"], leaf, agg, env))}
+    rec["bound_ms"], rec["bound_by"] = spoof_bound(
+        hop.params["plan"], env, 4 * m, m * SERVING_CLASSES)
+    print(f"[fleet] K4 spoof_row {agg} at the scorer's plan ({m}, "
+          f"{SERVING_CLASSES}) fp32 on {smi}: device time {rec['ms']:.4f} ms "
+          f"with the L2 cache evicted, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}); normwise "
+          f"{err:.3e} against the plain version in fp64", flush=True)
+    if not err <= SPOOF_BARS[torch.float32]:
+        fail(f"[fleet] K4 at the scorer's plan: {err} from its plain "
+             f"version")
+    return rec
+
+
+def _json_shares(samples, mean_wall_s, rate_per_s) -> dict:
+    """Host ms of the JSON encode and decode of a request on each side,
+    single-threaded over sampled requests of the run (each payload and
+    answer as the run sent them), their share of the mean routed
+    request's wall, and the router's JSON seconds per second of the run at
+    its request rate (the router is one process: its threads share one
+    interpreter lock)."""
+    enc = dec = renc = rdec = 0.0
+    for payload, answer in samples:
+        t0 = time.perf_counter()
+        body = json.dumps(payload).encode("utf-8")
+        t1 = time.perf_counter()
+        json.loads(body.decode("utf-8"))
+        t2 = time.perf_counter()
+        reply = json.dumps(answer).encode("utf-8")
+        t3 = time.perf_counter()
+        json.loads(reply.decode("utf-8"))
+        t4 = time.perf_counter()
+        enc, rdec, renc, dec = enc + t1 - t0, rdec + t2 - t1, \
+            renc + t3 - t2, dec + t4 - t3
+    n = max(1, len(samples))
+    router_ms, replica_ms = 1e3 * (enc + dec) / n, 1e3 * (rdec + renc) / n
+    return {"samples": len(samples),
+            "router_encode_decode_ms": router_ms,
+            "router_json_per_s": router_ms * rate_per_s / 1e3,
+            "replica_decode_encode_ms": replica_ms,
+            "mean_request_ms": 1e3 * mean_wall_s,
+            "router_share": router_ms / (1e3 * mean_wall_s),
+            "replica_share": replica_ms / (1e3 * mean_wall_s)}
+
+
+def fleet_phase(host, dev, kernels, smi, serving=None) -> dict:
+    """`[fleet]`: FLEET_REPLICAS replica processes (fresh interpreters,
+    `chip_smoke.py --fleet-replica`, each with a CUDA context of its own)
+    serve the softmax scorer of `[serving]` behind a Router over
+    http_transport in this process. FLEET_CLIENTS threads send log-uniform
+    1-FLEET_MAX_ROWS-row requests of `host`; the last replica SIGKILLs
+    itself mid-stream; then a rolling update from generation 0 to 1 runs
+    under the same load, and an overload run follows (each survivor
+    admits FLEET_OVERLOAD_INFLIGHT requests, requests arrive open-loop at
+    twice the first run's rate). Checks (each fails the run): no client
+    request failed in the closed-loop run; every answer carries its rank
+    and generation, is within FLEET_BAR of torch's softmax on the card
+    with that generation's W and b and more than FLEET_GAP from the
+    other's; the death was one route-epoch bump, and no pick of the dead
+    replica read that epoch; each survivor's K4 launches equal its
+    optlevel-3 dispatches, nothing compiled or captured after either
+    generation's warmup, no plan source built by two processes; the
+    merged shards give the rollout storyline g0 -> g1 and the epoch in
+    the failover storyline; in the overload run every request was served
+    within its deadline or shed with a named 429 reason, redispatches,
+    shed retries and hedges stayed within the retry budget, and
+    overload_summary counts the replicas' sheds; `python -m
+    systemml_tpu_torch.obs.fleet_trace` exits 0 and prints both
+    storylines. Every child is killed in a `finally`."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from systemml_tpu_torch import fleet
+    from systemml_tpu_torch.codegen import build
+    from systemml_tpu_torch.fleet import admission
+    from systemml_tpu_torch.obs import fleet as obs_fleet
+    from systemml_tpu_torch.obs import trace as obs
+
+    t_phase = time.perf_counter()
+    builds_before = set(build.build_reports)
+    limit = time.monotonic() + FLEET_LIMIT_S
+    shared = tempfile.mkdtemp(prefix="smtpu_fleet_")
+    fleet_dir = os.path.join(shared, "fleet")
+    os.makedirs(fleet_dir)
+    nrep, victim = FLEET_REPLICAS, FLEET_REPLICAS - 1
+    survivors = list(range(nrep - 1))
+    spec = {"replicas": nrep, "kill_after": FLEET_KILL_AFTER,
+            "overload_inflight": FLEET_OVERLOAD_INFLIGHT,
+            "limit_s": FLEET_LIMIT_S}
+    with open(os.path.join(shared, "fleet.json"), "w") as f:
+        json.dump(spec, f)
+
+    def left() -> float:
+        if time.monotonic() > limit:
+            fail(f"[fleet] the phase ran past its limit of "
+                 f"{FLEET_LIMIT_S:.0f} s; replica logs in {shared}")
+        return limit - time.monotonic()
+
+    def log_tail(r) -> str:
+        with open(os.path.join(shared, f"replica_{r}.log")) as f:
+            return f.read()[-3000:]
+
+    def wait_for(cond, what):
+        while not cond():
+            for r, p in enumerate(procs):
+                if p.poll() is not None and not (r == victim and os.path.exists(
+                        os.path.join(shared, "dying"))):
+                    fail(f"[fleet] replica {r} exited ({p.returncode}) "
+                         f"waiting for {what}:\n{log_tail(r)}")
+            left()
+            time.sleep(0.01)
+
+    def marker(name):
+        open(os.path.join(shared, name), "w").close()
+
+    def acked(name, ranks):
+        return lambda: all(os.path.exists(
+            os.path.join(shared, f"{name}_{r}")) for r in ranks)
+
+    procs, logs = [], []
+    rec = obs.FlightRecorder()
+    prev = obs.install(rec)
+    writer = None
+    try:
+        t0 = time.perf_counter()
+        for r in range(nrep):
+            logs.append(open(os.path.join(shared, f"replica_{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--fleet-replica", str(r), shared], cwd=ROOT,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        # the replicas start cold together: one builds K4's plan library
+        # under the build lock, the others wait for it and load it
+        wait_for(lambda: len(fleet.read_registry(
+            fleet_dir, note_clocks=False)) == nrep, "the registry")
+        start_s = time.perf_counter() - t0
+        # K4 at the fleet's largest rung (this process builds nothing:
+        # the library is there)
+        k4 = _fleet_k4(dev, kernels, smi)
+        k4["router_builds"] = sorted(os.path.basename(p) for p in set(
+            build.build_reports) - builds_before)
+        # this process is the router's lane, after the replicas'; one
+        # host, one clock: a registry row's age is no clock probe
+        run_id = obs_fleet.derive_run_id(shared, nrep + 1)
+        obs_fleet.set_identity(run_id, nrep, nrep, 0, nrep + 1)
+        writer = obs_fleet.attach_shard(rec, fleet_dir)
+        reg = fleet.read_registry(fleet_dir, note_clocks=False)
+        table = fleet.RoutingTable()
+        table.install({(q, 0): info.url(0) for q, info in reg.items()})
+        urls = {info.url(0): q for q, info in reg.items()}
+        send = _AttemptLog(fleet.http_transport(timeout_s=30.0))
+        router = _picking_router(fleet)(
+            table, send, straggler_report=lambda: {"slowest_rank": 1},
+            hedge_floor_s=0.010, hedge_min_samples=8)
+        print(f"[fleet] {nrep} replica processes warmed and registered in "
+              f"{start_s:.2f} s on {smi}", flush=True)
+
+        lock = threading.Lock()
+        stop = threading.Event()
+        done, failures = [], []
+        seq = [0]
+        rng = np.random.default_rng(FLEET_SEED)
+        seeds = rng.integers(0, 2**31, FLEET_CLIENTS)
+
+        def client(c):
+            crng = np.random.default_rng(int(seeds[c]))
+            while not stop.is_set():
+                n = int(np.clip(np.exp(crng.uniform(
+                    0.0, math.log(FLEET_MAX_ROWS))), 1, FLEET_MAX_ROWS))
+                r0 = int(crng.integers(0, len(host) - n + 1))
+                payload = _Request(x=host[r0:r0 + n].tolist())
+                with lock:
+                    seq[0] += 1
+                    payload.seq = seq[0]
+                t1 = time.perf_counter()
+                try:
+                    resp = router.submit(payload, timeout_s=30.0)
+                except Exception as e:  # the run fails on it below
+                    with lock:
+                        failures.append(repr(e))
+                    continue
+                t2 = time.perf_counter()
+                with lock:
+                    done.append((t1, t2, time.time_ns(), r0, n,
+                                 resp.get("rank"), resp.get("prog_gen"),
+                                 resp.get("outputs", {}).get("yhat"),
+                                 payload.seq))
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(FLEET_CLIENTS)]
+        t_first = time.perf_counter()
+        for t in threads:
+            t.start()
+        wait_for(lambda: victim not in table.live_ranks()
+                 and len(done) >= FLEET_FIRST_REQUESTS or failures,
+                 "the first run")
+        first_s = time.perf_counter() - t_first
+        n_first = len(done)
+        if failures:
+            fail(f"[fleet] {len(failures)} client requests failed in the "
+                 f"first run: {failures[:3]}")
+        if procs[victim].wait(timeout=left()) != -signal.SIGKILL:
+            fail(f"[fleet] replica {victim} exited "
+                 f"{procs[victim].returncode}, not by its SIGKILL:\n"
+                 f"{log_tail(victim)}")
+        with open(os.path.join(shared, "dying")) as f:
+            kill_ns = int(f.read())
+        bump_epoch = table.epoch
+
+        # the rolling update g0 -> g1 under the same load
+        marker("rollout_go")
+        wait_for(acked("g1_ready", survivors), "generation 1's warmup")
+        for q, info in fleet.read_registry(fleet_dir,
+                                           note_clocks=False).items():
+            if q in survivors and info.url(1):
+                table.add(q, 1, info.url(1))
+
+        def retire(from_gen):
+            marker("retire_g0")
+            wait_for(acked("retired", survivors), "generation 0's retirement")
+
+        t_roll = time.perf_counter()
+        fleet.RollingUpdate(router, 0, 1).run(retire=retire,
+                                              drain_timeout_s=60.0)
+        rollout_s = time.perf_counter() - t_roll
+        time.sleep(FLEET_AFTER_ROLLOUT_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=left())
+        closed_s = time.perf_counter() - t_first
+        if failures:
+            fail(f"[fleet] {len(failures)} client requests failed in the "
+                 f"rollout: {failures[:3]}")
+
+        # the overload run: open-loop arrivals at twice the first rate
+        marker("overload_go")
+        wait_for(acked("overload_ready", survivors), "the narrowed gates")
+        rate = 2.0 * n_first / first_s
+        before = {k: router.registry.get(k).value for k in (
+            "fleet_requests_total", "fleet_redispatch_total",
+            "fleet_shed_retries_total", "fleet_hedges_total",
+            "fleet_retry_budget_exhausted_total")}
+        outcomes, over_fail, queued = [], [], []
+
+        def one(i, t_arrive):
+            crng = np.random.default_rng(10_000 + i)
+            n = int(np.clip(np.exp(crng.uniform(
+                0.0, math.log(FLEET_MAX_ROWS))), 1, FLEET_MAX_ROWS))
+            r0 = int(crng.integers(0, len(host) - n + 1))
+            t1 = time.perf_counter()
+            payload = _Request(x=host[r0:r0 + n].tolist())
+            try:
+                resp = router.submit(payload,
+                                     timeout_s=FLEET_OVERLOAD_DEADLINE_S)
+                wall = time.perf_counter() - t1
+                with lock:
+                    queued.append(t1 - t_arrive)
+                    outcomes.append(("served", wall, None))
+                    done.append((t1, t1 + wall, time.time_ns(), r0, n,
+                                 resp.get("rank"), resp.get("prog_gen"),
+                                 resp.get("outputs", {}).get("yhat"), -1))
+            except admission.AdmissionRejectedError as e:
+                with lock:
+                    queued.append(t1 - t_arrive)
+                    outcomes.append(("shed", time.perf_counter() - t1,
+                                     e.reason))
+            except Exception as e:  # the run fails on it below
+                with lock:
+                    over_fail.append(repr(e))
+
+        issued = 0
+        t_over = time.perf_counter()
+        with Pool(max_workers=FLEET_OVERLOAD_SENDERS) as pool:
+            while True:
+                now = time.perf_counter() - t_over
+                if now >= FLEET_OVERLOAD_S:
+                    break
+                while issued < rate * now:
+                    pool.submit(one, issued, time.perf_counter())
+                    issued += 1
+                time.sleep(0.001)
+            issue_s = time.perf_counter() - t_over
+        over_s = time.perf_counter() - t_over
+        marker("phase_done")
+        for q in survivors:
+            if procs[q].wait(timeout=left()) != 0:
+                fail(f"[fleet] replica {q} exited {procs[q].returncode}:\n"
+                     f"{log_tail(q)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait(timeout=60)
+        for log in logs:
+            log.close()
+        if writer is not None:
+            writer.close()
+        obs.install(prev)
+        obs_fleet.clear_identity()
+    end_epoch_events = [e.args for e in rec.events()
+                        if e.name == "fleet_route_epoch"]
+
+    # every answer against torch's softmax on the card, per generation
+    refs = {g: tuple(torch.from_numpy(a).to(dev).double()
+                     for a in fleet_weights(g)) for g in (0, 1)}
+    worst, gap = 0.0, math.inf
+    by_rank, by_gen = {}, {}
+    for (_, _, _, r0, n, rank, g, y, _) in done:
+        if g not in (0, 1) or rank not in range(nrep) or y is None:
+            fail(f"[fleet] an answer without its rank and generation: "
+                 f"rank {rank}, prog_gen {g}")
+        xs = torch.from_numpy(host[r0:r0 + n]).to(dev).double()
+        got = torch.tensor(y, dtype=torch.float64, device=dev)
+        if tuple(got.shape) != (n, SERVING_CLASSES):
+            fail(f"[fleet] an answer of shape {tuple(got.shape)} for {n} "
+                 f"rows")
+        ref = torch.softmax(xs @ refs[g][0] + refs[g][1], dim=1)
+        other = torch.softmax(xs @ refs[1 - g][0] + refs[1 - g][1], dim=1)
+        worst = max(worst, normwise(got, ref))
+        gap = min(gap, normwise(got, other))
+        by_rank[rank] = by_rank.get(rank, 0) + 1
+        by_gen[g] = by_gen.get(g, 0) + 1
+
+    # the first run's latencies, and the kill's first redispatched answer
+    first = done[:n_first]
+    lat = [t2 - t1 for (t1, t2, *_rest) in first]
+    victim_urls = {u for u, q in urls.items() if q == victim}
+    redone = []
+    for (_, _, t_ns, _, _, _, _, _, s) in done:
+        sent = send.sent.get(s, [])
+        if len(sent) > 1 and victim_urls & set(sent) and t_ns > kill_ns:
+            redone.append(t_ns)
+    kill_to_redispatch_ms = ((min(redone) - kill_ns) / 1e6 if redone
+                             else None)
+    rank_picks_after = [r for e, r in router.picks
+                        if e >= bump_epoch and r == victim]
+    samples = [({"x": host[r0:r0 + n].tolist()},
+                {"rank": rank, "prog_gen": g, "outputs": {"yhat": y}})
+               for (_, _, _, r0, n, rank, g, y, _) in
+               first[::max(1, len(first) // FLEET_JSON_SAMPLES)]]
+    shares = _json_shares(samples, sum(lat) / len(lat), n_first / first_s)
+
+    # the survivors' snapshots, rolled up
+    snaps = obs_fleet.load_metrics_snapshots(fleet_dir,
+                                             run_id=run_id)
+    roll = obs_fleet.rollup_metrics(snaps)
+    extra = {s["identity"]["orig_rank"]: s.get("extra", {}) for s in snaps}
+    launches = {k: sum(e["launches"][k] for e in extra.values())
+                for k in read_launches(kernels)}
+    merged = obs_fleet.merge_dir(fleet_dir)
+    story = obs_fleet.failover_storyline(merged)
+    rollout = obs_fleet.rollout_storyline(merged)
+    overload = obs_fleet.overload_summary(merged)
+    cli = subprocess.run([sys.executable, "-m",
+                          "systemml_tpu_torch.obs.fleet_trace", fleet_dir],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    reg_m = router.registry
+    counts = {k: reg_m.get(k).value for k in (
+        "fleet_requests_total", "fleet_failed_requests_total",
+        "fleet_redispatch_total", "fleet_hedges_total",
+        "fleet_hedge_wins_total", "fleet_hedges_cancelled_total",
+        "fleet_shed_retries_total", "fleet_retry_budget_exhausted_total")}
+    served_over = [o for o in outcomes if o[0] == "served"]
+    shed_over = [o for o in outcomes if o[0] == "shed"]
+    replica_rejects = sum(sum(e["admission_rejects"].values())
+                          for e in extra.values())
+    rec_out = {
+        "replicas": nrep, "start_s": start_s, "k4_fleet": k4,
+        "first": {"requests": n_first, "seconds": first_s,
+                  "requests_per_s": n_first / first_s,
+                  "p50_ms": 1e3 * _pct(lat, 0.5),
+                  "p99_ms": 1e3 * _pct(lat, 0.99),
+                  "rows": sum(n for (_, _, _, _, n, *_r) in first)},
+        "closed_loop": {"requests": len(done) - len(served_over),
+                        "seconds": closed_s},
+        "kill_to_first_redispatched_answer_ms": kill_to_redispatch_ms,
+        "rollout_s": rollout_s, "by_rank": by_rank, "by_gen": by_gen,
+        "router": counts, "epoch_events": end_epoch_events,
+        "worst_normwise": worst, "least_gap": gap, "json": shares,
+        "overload": {"target_rate": rate, "issued": issued,
+                     "offered_per_s": issued / issue_s,
+                     "seconds": over_s,
+                     "served": len(served_over), "shed": len(shed_over),
+                     "shed_reasons": {r: sum(1 for o in shed_over
+                                             if o[2] == r)
+                                      for r in {o[2] for o in shed_over}},
+                     "served_p99_ms": 1e3 * _pct([o[1] for o in served_over],
+                                                 0.99)
+                     if served_over else None,
+                     "senders": FLEET_OVERLOAD_SENDERS,
+                     "queued_p99_ms": 1e3 * _pct(queued, 0.99)
+                     if queued else None,
+                     "replica_rejects": replica_rejects,
+                     "summary": overload,
+                     "router_delta": {k: reg_m.get(k).value - v
+                                      for k, v in before.items()}},
+        "launches": launches,
+        "survivors": {q: {k: extra[q][k] for k in (
+            "launches", "dispatches", "after_warmup", "warmup",
+            "builds_at_warmup", "builds_at_end", "admission_rejects",
+            "service_p50_ms", "score_wall_ms_mean", "lock_wait_share")}
+            for q in sorted(extra)},
+        "rollup_ranks": sorted(roll["ranks"]),
+        "storyline": [s["name"] for s in story],
+        "rollout": [s["name"] for s in rollout],
+        "seconds": time.perf_counter() - t_phase}
+    f1, ov = rec_out["first"], rec_out["overload"]
+    print(f"[fleet] first run through the router on {smi}: {n_first} "
+          f"requests ({f1['rows']} rows) from {FLEET_CLIENTS} clients in "
+          f"{first_s:.3f} s: per request p50 {f1['p50_ms']:.3f} ms, p99 "
+          f"{f1['p99_ms']:.3f} ms (host wall, answer on the host), "
+          f"{f1['requests_per_s']:.1f} requests/s; beside it [serving]'s "
+          f"one process under {SERVING_CLIENTS} direct clients: "
+          + (f"{serving['direct']['requests_per_s']:.1f} requests/s, p50 "
+             f"{serving['direct']['p50_ms']:.3f} ms"
+             if serving else "not run in this call"), flush=True)
+    print(f"[fleet] answers by replica {by_rank}, by generation {by_gen}; "
+          f"router {counts}; kill to the first redispatched answer "
+          f"{kill_to_redispatch_ms} ms; rollout g0 -> g1 {rollout_s:.3f} s; "
+          f"worst normwise against its generation's softmax {worst:.3e}, "
+          f"least against the other's {gap:.3e}", flush=True)
+    print(f"[fleet] JSON per request, {shares['samples']} sampled requests "
+          f"of the first run, one thread on the host: router encode and "
+          f"decode {shares['router_encode_decode_ms']:.4f} ms "
+          f"({shares['router_share']:.3f} of the mean request's "
+          f"{shares['mean_request_ms']:.3f} ms; at the first run's rate "
+          f"{shares['router_json_per_s']:.3f} s of JSON a second in the "
+          f"router's one process), replica decode and encode "
+          f"{shares['replica_decode_encode_ms']:.4f} ms "
+          f"({shares['replica_share']:.3f})", flush=True)
+    for q, e in rec_out["survivors"].items():
+        print(f"[fleet] replica {q}: K4 launches {e['launches']['spoof_row']}"
+              f", dispatches {e['dispatches']}; after warmup {e['after_warmup']}"
+              f"; builds {e['builds_at_end']}; scorer wall "
+              f"{e['score_wall_ms_mean']:.3f} ms a request, its wait for "
+              f"the block compile's locks {e['lock_wait_share']:.3f} of it; "
+              f"429s {e['admission_rejects']}", flush=True)
+    print(f"[fleet] overload on {smi}: {issued} requests offered at "
+          f"{ov['offered_per_s']:.1f}/s (target {rate:.1f}/s) over "
+          f"{issue_s:.2f} s into {FLEET_OVERLOAD_SENDERS} senders (p99 "
+          f"{ov['queued_p99_ms']} ms waiting for one), done by "
+          f"{over_s:.2f} s: {len(served_over)} served (p99 "
+          f"{ov['served_p99_ms']} ms), {len(shed_over)} shed "
+          f"{ov['shed_reasons']}; replicas' 429s {replica_rejects}; "
+          f"overload_summary {overload['by_reason']}; router "
+          f"{ov['router_delta']}", flush=True)
+    print(f"[fleet] storylines: failover {rec_out['storyline']}, rollout "
+          f"{rec_out['rollout']}; phase {rec_out['seconds']:.1f} s on {smi}",
+          flush=True)
+
+    # the checks
+    if set(by_rank) != set(range(nrep)):
+        fail(f"[fleet] answers by replica {by_rank}: not all {nrep} served")
+    if not (worst <= FLEET_BAR and gap > FLEET_GAP):
+        fail(f"[fleet] an answer {worst:.3e} from its generation's softmax "
+             f"(bar {FLEET_BAR}) or {gap:.3e} from the other's (at least "
+             f"{FLEET_GAP})")
+    if set(by_gen) != {0, 1}:
+        fail(f"[fleet] answers by generation {by_gen}")
+    if end_epoch_events != [{"epoch": bump_epoch, "dead": [victim],
+                             "reason": "transport"}] or bump_epoch != 1:
+        fail(f"[fleet] the kill gave route epochs {end_epoch_events}, not "
+             f"one bump for replica {victim}")
+    if rank_picks_after:
+        fail(f"[fleet] {len(rank_picks_after)} picks of the dead replica "
+             f"read epoch {bump_epoch} or later")
+    if counts["fleet_failed_requests_total"] or counts[
+            "fleet_redispatch_total"] < 1:
+        fail(f"[fleet] router {counts}")
+    if sorted(extra) != survivors or rec_out["rollup_ranks"] != survivors:
+        fail(f"[fleet] snapshots of {sorted(extra)}, rollup "
+             f"{rec_out['rollup_ranks']}, not the survivors {survivors}")
+    built = k4["router_builds"]
+    for q in range(nrep):
+        with open(os.path.join(shared, f"builds_{q}.json")) as f:
+            built = built + (extra[q]["builds_at_end"] if q in extra
+                             else json.load(f))
+    rec_out["builds"] = built
+    print(f"[fleet] plan sources built during the phase, by any of its "
+          f"processes: {built}", flush=True)
+    if len(built) != len(set(built)):
+        fail(f"[fleet] a plan source built by two processes: {built}")
+    for q, e in extra.items():
+        if e["launches"]["spoof_row"] != e["dispatches"] or any(
+                v for k, v in e["launches"].items() if k != "spoof_row"):
+            fail(f"[fleet] replica {q}: launches {e['launches']} against "
+                 f"{e['dispatches']} optlevel-3 dispatches")
+        for g, a in e["after_warmup"].items():
+            if a["compiles"] or a["captures"]:
+                fail(f"[fleet] replica {q} generation {g}: {a} after "
+                     f"warmup (no new rung: requests stay within 64 rows)")
+    if "fleet_route_epoch" not in rec_out["storyline"]:
+        fail(f"[fleet] failover storyline {rec_out['storyline']}")
+    names = rec_out["rollout"]
+    want = ["rollout_load"] * len(survivors) + ["rollout_start"] + \
+        ["rollout_shift"] * 4 + ["rollout_drain"] + \
+        ["rollout_retire"] * len(survivors) + ["rollout_done"]
+    if names != want:
+        fail(f"[fleet] rollout storyline {names}, not {want}")
+    if over_fail:
+        fail(f"[fleet] overload run: {len(over_fail)} requests neither "
+             f"served nor shed with a named reason: {over_fail[:3]}")
+    late = [o[1] for o in served_over
+            if o[1] > FLEET_OVERLOAD_DEADLINE_S + FLEET_DEADLINE_SLACK_S]
+    if late:
+        fail(f"[fleet] overload run: {len(late)} requests served past their "
+             f"deadline: {sorted(late)[-3:]} s")
+    if not shed_over or any(o[2] not in admission.ADMISSION_REASONS
+                            for o in shed_over):
+        fail(f"[fleet] overload run: sheds {ov['shed_reasons']}")
+    spends = (counts["fleet_redispatch_total"]
+              + counts["fleet_shed_retries_total"]
+              + counts["fleet_hedges_total"])
+    bound = (router.budget.cap + router.budget.ratio
+             * counts["fleet_requests_total"]
+             + counts["fleet_retry_budget_exhausted_total"])
+    if spends > bound + 1e-9:
+        fail(f"[fleet] {spends} redispatches, shed retries and hedges "
+             f"beyond the retry budget's {bound}")
+    summed = sum(n for k, n in overload["by_reason"].items()
+                 if k.startswith("fleet_admission_reject["))
+    if summed != replica_rejects or not summed:
+        fail(f"[fleet] overload_summary counts {summed} sheds, the replicas "
+             f"{replica_rejects}")
+    if cli.returncode != 0 or "Failover storyline" not in cli.stdout \
+            or "Rollout storyline" not in cli.stdout:
+        fail(f"[fleet] fleet_trace: {cli.returncode} {cli.stderr[-2000:]}")
+    shutil.rmtree(shared, ignore_errors=True)
+    return rec_out
+
+
+def fleet_only() -> None:
+    """The fleet phase alone (`[fleet]`): what `--fleet` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "systemml_tpu_torch")):
+        fail("systemml_tpu_torch/ is not beside chip_smoke.py")
+    from systemml_tpu_torch.codegen import kernels
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = fleet_phase(fleet_host_rows(dev), dev, kernels, smi)
+    res["all_seconds"] = time.perf_counter() - t0
+    print(json.dumps({"fleet": res}, default=str))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+# --------------------------------------------------------------------------
 # --bench: the spoof kernels and wrappers of this tree, for parent/change
 # pairs in one chip call
 # --------------------------------------------------------------------------
@@ -6401,6 +7266,10 @@ def main() -> None:
     # this slice: the serving tier over the softmax scorer (K4)
     serving = serving_phase(data, dev, kernels, smi)
     torch.cuda.empty_cache()
+    # this slice: the same scorer in three replica processes behind a
+    # router, across a SIGKILL, a rolling update and an overload run
+    fleet = fleet_phase(x[:SERVING_HOST_ROWS].cpu().numpy(), dev, kernels,
+                        smi, serving)
     # this slice's paths: Caffe2DML ResNet-18 at 3x224x224 with 1,000
     # classes, and mnist_lenet's train() through MLContext
     resnet = resnet18_phase(dev, kernels, smi)
@@ -6451,6 +7320,8 @@ def main() -> None:
     by_path["resnet18"] = resnet["launches"]
     by_path["lenet"] = lenet["launches"]
     by_path["serving"] = serving["launches"]
+    # the survivors' counts, summed (the killed replica reports none)
+    by_path["fleet"] = fleet["launches"]
     spoof_launches = {k: sum(c[k] for c in by_path.values())
                       for k in ("spoof_cell", "spoof_row")}
     replaces = {"spoof_cell": "systemml_tpu/codegen/kernels.py:124 "
@@ -6513,7 +7384,8 @@ def main() -> None:
     records[2].update({"minibatch_ms": mb_ms, "minibatch_plain_ms": mb_plain,
                        "minibatch_bound_ms": mb_bound,
                        "minibatch_bound_by": mb_by,
-                       "serving": serving["k4_serving"]})
+                       "serving": serving["k4_serving"],
+                       "fleet": fleet["k4_fleet"]})
     del env
     records.append(time_chain_kernel(cla, dev, smi, max_abs_err))
     left_mult = time_left_mult(cla, dev, smi)
@@ -6593,7 +7465,7 @@ def main() -> None:
                       "cla_left_mult": left_mult, "region_syncs": syncs,
                       "breadth_datagen": breadth_datagen,
                       "cli": cli, "pool": pool, "block": block,
-                      "jmlc": jmlc, "serving": serving,
+                      "jmlc": jmlc, "serving": serving, "fleet": fleet,
                       "masked_product": mask, "profile": profile,
                       "parfor_stepglm": stepglm,
                       "parfor_univar": univar, "transform": transform,
@@ -7138,6 +8010,10 @@ if __name__ == "__main__":
         parfor_only()
     elif sys.argv[1:2] == ["--serving"]:
         serving_only()
+    elif sys.argv[1:2] == ["--fleet"]:
+        fleet_only()
+    elif sys.argv[1:2] == ["--fleet-replica"]:
+        fleet_replica(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--profile"]:
         profile_only()
     elif sys.argv[1:2] == ["--bench"]:

@@ -1,6 +1,5 @@
 # Port of systemml_tpu/obs/__init__.py: the same re-exports and
-# traced_run, over the port's modules. obs/fleet.py holds only the run
-# identity that the exporters stamp (the rest waits for item 13).
+# traced_run, over the port's modules.
 """Observability subsystem: events, metrics, and device-time profiling.
 
 Two layers over one instrumented stack (reference analogs:
@@ -22,7 +21,11 @@ timers, and the Explain plan dumps):
 - ``obs.export``  — Chrome-trace/Perfetto JSON and compact JSONL
   exporters, plus per-category summaries rendered from the same
   stream.
-- ``obs.fleet``   — this process's run/rank identity.
+- ``obs.fleet``   — fleet observability for multi-process runs: run/
+  rank identity, per-rank JSONL trace shards with clock-offset
+  alignment, the merged Chrome timeline + failover and rollout
+  storylines (``python -m systemml_tpu_torch.obs.fleet_trace``), fleet
+  metrics rollup and straggler attribution.
 - ``obs.ab``      — in-session interleaved A/B benchmarking with
   confidence intervals.
 

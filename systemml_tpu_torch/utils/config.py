@@ -500,7 +500,15 @@ PORTED_FIELDS = frozenset({
     # the serving tier (api/serving.py)
     "serving_bucket_ladder", "serving_microbatch_max",
     "serving_microbatch_deadline_us", "serving_metrics_port",
-    "serving_metrics_host", "serving_queue_rows_max"})
+    "serving_metrics_host", "serving_queue_rows_max",
+    # the serving fleet (fleet/{replica,router,admission}.py) and its
+    # trace directory (obs/fleet.py)
+    "fleet_liveness_ttl_s", "fleet_heartbeat_s", "fleet_hedge_quantile",
+    "fleet_hedge_min_samples", "fleet_hedge_floor_s",
+    "fleet_max_redispatch", "fleet_admission_inflight_max",
+    "fleet_admission_slack", "fleet_retry_budget_cap",
+    "fleet_retry_budget_ratio", "fleet_breaker_threshold",
+    "fleet_breaker_reset_s", "obs_fleet_dir"})
 
 # fields that have no meaning in the port: set to anything but their
 # default they raise with the reason
@@ -513,9 +521,10 @@ _MEANINGLESS = {
 _WAITING = (
     (("donation_sanitizer",),
      "observability and static analysis, its static analysis (item 11b)"),
-    (("elastic_", "mesh_", "distributed_", "comm_"),
-     "distributed and elastic"),
-    (("fleet_", "obs_fleet"), "fleet"),
+    # fleet_serving_ports is the port schedule of the JAX package's
+    # multihost.scheduled_port, which comes with the multi-process runtime
+    (("elastic_", "mesh_", "distributed_", "comm_", "fleet_serving_ports"),
+     "distributed and elastic (item 12)"),
 )
 
 
@@ -543,9 +552,12 @@ def check_ported(cfg: DMLConfig) -> None:
 
 
 # the fault-injection sites the port runs (resil/inject.py): a parfor
-# task, and a remote parfor job (runtime/remote.py); the others belong to
-# the mesh and the fleet
-PORTED_FAULT_SITES = frozenset({"parfor.task", "remote.job"})
+# task, a remote parfor job (runtime/remote.py), and the serving fleet's
+# dispatch, hedge, rollout shift, admission and retry-budget spend
+# (fleet/{router,rollout,replica}.py); the others belong to the mesh
+PORTED_FAULT_SITES = frozenset({"parfor.task", "remote.job", "fleet.route",
+                                "fleet.hedge", "fleet.rollout",
+                                "fleet.admit", "router.budget"})
 
 
 def check_fault_sites(spec: str) -> None:

@@ -10,7 +10,9 @@ plane (the `spx_*` quaternary paths in their "Sparse exec" line; the
 `spmm_*`, `spgemm_*`, `sp_tsmm_*`, `sddmm` and `sparse_densify` decisions
 among the optimizer decisions) and the serving tier (the `srv_*`
 counters of api/serving.py in their "Serving" line, and the overload
-decisions of fleet/admission.py). Every family lives in a run-scoped
+decisions of fleet/admission.py) and the fleet's step counter
+(obs/fleet.note_step, which rollup_metrics sums across ranks). Every
+family lives in a run-scoped
 ``MetricsRegistry`` (obs/metrics.py), as in the JAX package.
 """
 
@@ -165,6 +167,10 @@ class Statistics:
         self.overload_counts = reg.labeled(
             "overload_events_total",
             "admission/budget/breaker/queue-shed decisions by reason")
+        # steps completed (obs/fleet.note_step): the counter the fleet
+        # rollup SUMS across ranks (systemml_tpu/utils/stats.py:182-186)
+        self._fleet_steps = reg.counter(
+            "fleet_steps_total", "elastic-loop steps completed")
         register_trace_dropped(reg)
 
     def merge(self, other: "Statistics") -> None:
@@ -239,6 +245,24 @@ class Statistics:
 
     def count_overload(self, kind: str, n: int = 1):
         self.overload_counts.inc(kind, n)
+
+    def count_step(self, n: int = 1):
+        self._fleet_steps.inc(n)
+
+    @property
+    def fleet_steps(self) -> int:
+        return self._fleet_steps.value
+
+    def to_dict(self, include_timings: bool = True):
+        """Machine-readable snapshot of every registered metric (what
+        obs/fleet.write_metrics_snapshot persists per rank).
+        ``include_timings=False`` drops the wall-clock-valued metrics,
+        leaving the run-invariant counters."""
+        d = self.registry.to_dict()
+        if not include_timings:
+            for k in ("run_seconds", "op_seconds"):
+                d.pop(k, None)
+        return d
 
     def time_op(self, op: str, seconds: float):
         with self._lock:
@@ -358,6 +382,10 @@ class Statistics:
             lines.append("Overload events: " + ", ".join(
                 f"{k}={v}"
                 for k, v in sorted(self.overload_counts.items())))
+        if self.fleet_steps:
+            # steps reported through obs/fleet.note_step: the counter the
+            # fleet rollup sums across ranks
+            lines.append(f"Elastic steps completed:\t{self.fleet_steps}.")
         if self.fcall_counts:
             top = sorted(self.fcall_counts.items(), key=lambda kv: -kv[1])[:5]
             lines.append("Function calls: " +

@@ -20,7 +20,10 @@ neither jax nor the JAX package (systemml_tpu).
    row-wise safety proof at optlevels 2 and 3, a ScoringService's warmup
    and bucketed scoring, a MicroBatcher's flush, fleet/admission's
    refusal at the bounded queue, a /metrics scrape and the "Serving"
-   line of -stats.
+   line of -stats. So does the serving fleet: a Replica over the scorer,
+   the Router over http_transport, a rolling update, the trace shards,
+   their merge, `python -m systemml_tpu_torch.obs.fleet_trace`'s main and
+   the metrics rollup.
 2. No source file of the port (Python, CUDA, the host C++), and not
    chip_smoke.py, names them in an import or a dotted module path.
 """
@@ -373,6 +376,89 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 print("ISOLATED_OK")
 '''
+
+
+# the serving fleet: a replica over the scorer, the router, a rolling
+# update, the trace shards, the merge and its command, the metrics rollup
+_CHILD_FLEET = _CHILD.split("import numpy as np")[0] + r'''
+import os
+import subprocess
+import tempfile
+
+import numpy as np
+
+from systemml_tpu_torch import fleet
+from systemml_tpu_torch.api.jmlc import Connection
+from systemml_tpu_torch.api.serving import ScoringService
+from systemml_tpu_torch.obs import fleet as obs_fleet
+from systemml_tpu_torch.obs import trace as obs
+from systemml_tpu_torch.utils.config import DMLConfig, set_config
+from systemml_tpu_torch.utils.stats import Statistics
+
+cfg = DMLConfig(device="cpu")
+cfg.optlevel = 3
+set_config(cfg)
+d = tempfile.mkdtemp()
+obs_fleet.set_identity("run-iso", 0, 0, 0, 1)
+rec = obs.FlightRecorder()
+obs.install(rec)
+writer = obs_fleet.attach_shard(rec, d)
+src = ("Z = X %*% W + b\nE = exp(Z - rowMaxs(Z))\n"
+       "yhat = E / rowSums(E)")
+meta = {"X": {"shape": (None, 6)}, "W": {"shape": (6, 3)},
+        "b": {"shape": (1, 3)}}
+rng = np.random.default_rng(0)
+
+
+def factory(g):
+    ps = Connection(cfg).prepare_script(
+        src, input_names=["X", "W", "b"], output_names=["yhat"],
+        input_meta=meta)
+    svc = ScoringService(ps, constants={"W": rng.standard_normal((6, 3)),
+                                        "b": rng.standard_normal((1, 3))},
+                         ladder=(1, 8), validate="force")
+    svc.warmup(6)
+    return lambda payload: {"yhat": svc.score(
+        np.asarray(payload["x"]))["yhat"].tolist()}
+
+
+replica = fleet.Replica(factory, fleet_dir=d)
+replica.serve(0, port=0)
+replica.serve(1, port=0)
+replica.register()
+reg = fleet.read_registry(d)
+table = fleet.RoutingTable()
+table.install({(0, g): reg[0].url(g) for g in (0, 1)})
+router = fleet.Router(table, fleet.http_transport(timeout_s=30.0))
+x = rng.standard_normal((3, 6)).tolist()
+assert router.submit({"x": x})["prog_gen"] == 0
+fleet.RollingUpdate(router, 0, 1, weights=(100,)).run(
+    retire=replica.retire_generation)
+out = router.submit({"x": x})
+assert out["prog_gen"] == 1 and len(out["outputs"]["yhat"]) == 3
+replica.close()
+writer.close()
+obs_fleet.write_metrics_snapshot(d, Statistics())
+merged = obs_fleet.merge_dir(d)
+names = [s["name"] for s in obs_fleet.rollout_storyline(merged)]
+assert names[-1] == "rollout_done", names
+assert obs_fleet.rollup_metrics(obs_fleet.load_metrics_snapshots(d))
+from systemml_tpu_torch.obs import fleet_trace
+assert fleet_trace.main([d, "--json"]) == 0
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("ISOLATED_OK")
+'''
+
+
+def test_serving_fleet_runs_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _CHILD_FLEET], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
 
 
 def test_serving_tier_runs_with_jax_blocked():

@@ -137,16 +137,13 @@ def test_carry_beta_from_jax_into_port():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    # remote parfor (item 9b) and the kernel backend (item 7) came in
-    # one slice: settings of static analysis (item 11b) and the fleet
-    # (item 13) wait instead
+    # settings of static analysis (item 11b) and of the multi-process
+    # runtime (item 12) wait; the port's fleet (item 13a) reads its own
     ("donation_sanitizer", "check", "observability and static analysis"),
     ("xla_cache_dir", "/tmp/x", "compiles no XLA"),
-    ("fleet_heartbeat_s", 2.0, "fleet"),
     ("mesh_shape", {"dp": 4}, "distributed and elastic"),
-    # the profiler's settings came with observability (item 11): the
-    # fleet's trace directory (item 13) waits instead
-    ("obs_fleet_dir", "/tmp/fleet", "fleet"),
+    # the port schedule of the multi-process runtime's scheduled_port
+    ("fleet_serving_ports", (7101, 7102), "distributed and elastic"),
 ])
 def test_setting_the_port_does_not_read_raises(key, value, item):
     """A setting the port would ignore raises, naming its ROADMAP item,
@@ -155,3 +152,19 @@ def test_setting_the_port_does_not_read_raises(key, value, item):
     cfg.set(key, value)
     with pytest.raises(NotImplementedError, match=item):
         MLContext(cfg).execute(dml("x = 1"))
+
+
+@pytest.mark.parametrize("key,value", [
+    # the fleet's settings (fleet/, obs/fleet.py) now run
+    ("fleet_heartbeat_s", 2.0),
+    ("obs_fleet_dir", "fleet"),
+    ("fleet_admission_inflight_max", 2),
+    # and its fault-injection sites are accepted
+    ("fault_injection", "fleet.route:worker:1"),
+    ("fault_injection", "fleet.admit:error:1,router.budget:error:2"),
+])
+def test_fleet_settings_and_fault_sites_run(key, value):
+    cfg = DMLConfig(device="cpu")
+    cfg.set(key, value)
+    res = MLContext(cfg).execute(dml("x = 1 + 2").output("x"))
+    assert res.get_scalar("x") == 3

@@ -12,7 +12,7 @@ and keys; the CLI's `-trace` as a Chrome trace (`.json`) or JSON lines
 `PreparedScript.set_trace` writing a trace, keeping `last_recorder` and
 leaving no recorder installed; `traced_run`'s warnings; the fleet
 identity stamped into a Chrome trace, and the rest of obs/fleet.py
-raising until the fleet (ROADMAP queue 1, item 13).
+ported (tests/test_torch_fleet.py holds it against the JAX package's).
 
 The mesh's collective events (`test_mesh_dispatch_events_with_collective
 _bytes`) wait for item 12.
@@ -324,12 +324,18 @@ def test_chrome_trace_stamps_the_fleet_identity(monkeypatch):
 @pytest.mark.parametrize("name", ["set_identity", "attach_shard",
                                   "merge_dir", "chrome_fleet_trace",
                                   "rollup_metrics", "fleet_report"])
-def test_the_rest_of_obs_fleet_waits_for_the_fleet(name):
+def test_the_rest_of_obs_fleet_is_ported(name):
+    """The names that raised until the fleet (item 13a) are the port's
+    own functions now, with the JAX package's signatures
+    (tests/test_torch_fleet.py holds their results equal)."""
+    import inspect
+
     from systemml_tpu.obs import fleet as jax_fleet
 
-    assert callable(getattr(jax_fleet, name))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(fleet, name)
+    ported = getattr(fleet, name)
+    assert callable(ported) and ported.__module__ == fleet.__name__
+    assert inspect.signature(ported) == \
+        inspect.signature(getattr(jax_fleet, name))
     assert not hasattr(fleet, "no_such_name")
 
 
