@@ -9,6 +9,7 @@
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --profile
     python3 chip_smoke.py --fleet
+    python3 chip_smoke.py --shapes
 
 The second form times only the spoof kernels K2, K3 and K5, the spoof
 wrappers' host time, K6 and LinearRegCG-cla (see `bench`); copied into a
@@ -336,6 +337,25 @@ recorder against no recorder (launches, each region's entries, launches
 and host syncs) and "sample" against "off" (dispatch counts); the CLI's
 `-profile -trace out.json` and `out.jsonl` on 200,000 rows of X as
 files; PreparedScript.set_trace on the softmax scorer.
+
+`--shapes` (and the full run, after `[lenet]`) drives K1, K5 and K6 at
+shapes past their former bounds, each path at full width on seeded data
+made on the card: `[k1-wide]` LinearRegCG (optlevel 2, with regions and
+without) on a 1,281,167 x 4,096 fp32 X (ImageNet-1k's training images x
+VGG-16's fc7 width, a linear probe; 20.99 GB), K1 (its cluster kernel)
+once per CG iteration, no kb_fallback, beta within 1e-3 of beta_true;
+`[k5-rank100]` ALS-CG at rank 100 on the MovieLens-10M-shaped V,
+optlevel 3 (K5, its rank slabs, once per outer iteration; no outer plan
+by the plain arm) against optlevel 2, the losses within 1e-3;
+`[k6-groups]` LinearRegCG with cla "true" on a categorical X of
+2,458,285 rows and 408 columns of 2..8 values (six times the Census
+columns: at k = 1 more groups than one block of K6 holds, 376 in fp32),
+passed as one DDC group per column, against cla "false" on the dense X,
+K6 (its group slabs) once per CG iteration, no
+cla_chain_plain_by_layout, the betas within 1e-3. Each kernel is held
+against its plain version in fp64 at its path's shape and timed beside
+its bound, its plain version and a library call or yardstick; the
+kernels line adds these paths' launches to K1's, K5's and K6's.
 
 The kernels line also has set_cond: its ms the control of a WHILE loop
 per iteration inside one graph, its plain_ms the same loop driven from
@@ -709,6 +729,12 @@ def _kernel_name(line: str) -> str:
     m = re.match(r"_ZN5spoof\d+([A-Za-z_]+?)I([fd])", sym)
     if m:
         return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+    # a kernel in a source's anonymous namespace: its name, and the head
+    # of its template arguments
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", sym)
+    if m:
+        n = int(m.group(1))
+        return sym[m.end():m.end() + n] + sym[m.end() + n:m.end() + n + 8]
     return sym[:60]
 
 
@@ -2760,11 +2786,11 @@ def make_ratings(dev):
     return v
 
 
-def als_script(v):
+def als_script(v, rank=None):
     from systemml_tpu_torch.api.mlcontext import dmlFromFile
 
     s = dmlFromFile(os.path.join(ALG, "ALS-CG.dml")).input("V", v)
-    for k, val in ALS_ARGS.items():
+    for k, val in dict(ALS_ARGS, **({"rank": rank} if rank else {})).items():
         s.arg(k, val)
     return s.output("L", "R")
 
@@ -2985,16 +3011,19 @@ def check_rand(dev) -> None:
 _LOSS_MARK = "ALS-CG: iterations = "
 
 
-def run_als(optlevel, v, dev, kernels, regions=True) -> dict:
+def run_als(optlevel, v, dev, kernels, regions=True, rank=None,
+            profile=True) -> dict:
     """One unprofiled run of ALS-CG-ml10m through MLContext, after a
     warm-up on the first 8,192 users; the launch counters are set to 0
     just before it and read just after. `regions` False: with
-    codegen_enabled False."""
+    codegen_enabled False. `rank` replaces ALS_ARGS' rank; `profile`
+    False skips the run under torch.profiler."""
     from systemml_tpu_torch.api.mlcontext import MLContext
 
+    rank = rank or ALS_ARGS["rank"]
     ml = MLContext(config(optlevel, regions))
     ml.printer = lambda s: None
-    ml.execute(als_script(v[:8192]))
+    ml.execute(als_script(v[:8192], rank))
     lines = []
     ml.printer = lines.append
     torch.cuda.synchronize()
@@ -3003,7 +3032,7 @@ def run_als(optlevel, v, dev, kernels, regions=True) -> dict:
     reset_launches(kernels)
     t0 = time.perf_counter()
     with PhaseTimer() as timer, SpoofSpy() as spy:
-        res = ml.execute(als_script(v))
+        res = ml.execute(als_script(v, rank))
         lo, ro = res.get_tensor("L"), res.get_tensor("R")
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -3016,11 +3045,12 @@ def run_als(optlevel, v, dev, kernels, regions=True) -> dict:
     iters = int(hits[0][len(_LOSS_MARK):].split(",")[0])
     loss = float(hits[0].split("loss = ")[1])
     events = dict(ml._stats.estim_counts.items())
-    tag = f"ALS-CG-ml10m optlevel {optlevel}" + ("" if regions else " eager")
+    tag = (f"ALS-CG-ml10m{'' if rank == ALS_ARGS['rank'] else f' rank {rank}'}"
+           f" optlevel {optlevel}" + ("" if regions else " eager"))
     windows = phase_windows(timer, iters, tag, "outer loop")
     reg = region_report(timer, tag, "ALS-CG", regions)
     print(f"[script] {hits[0]}")
-    print(f"[als] ALS-CG-ml10m optlevel {optlevel}: {iters} outer "
+    print(f"[als] {tag}: {iters} outer "
           f"iterations, {secs:.3f} s with parse and compile, "
           f"{ml._stats.run_time:.3f} s executing; "
           f"{windows['iteration_ms']:.3f} ms per outer iteration (device "
@@ -3033,7 +3063,7 @@ def run_als(optlevel, v, dev, kernels, regions=True) -> dict:
     check_walks(f"ALS-CG optlevel {optlevel}", events, launches)
     for t, nm in ((lo, "L"), (ro, "R")):
         if t.dtype != torch.float32 or t.device != v.device \
-                or not bool(torch.isfinite(t).all()) or t.shape[1] != 10:
+                or not bool(torch.isfinite(t).all()) or t.shape[1] != rank:
             fail(f"ALS-CG optlevel {optlevel}: {nm} is {t.dtype} "
                  f"{tuple(t.shape)} on {t.device}, or not finite")
     if events.get("spoof_compile_errors", 0):
@@ -3063,8 +3093,9 @@ def run_als(optlevel, v, dev, kernels, regions=True) -> dict:
     # device time by kernel and the device's busy share from one more run
     # under torch.profiler; at optlevel 3 also the outer loop's period (K5
     # launches once per outer iteration)
-    profile = profile_main_path(ml, als_script(v), False, kernel="outer_sum",
-                                loop="outer loop")
+    profile = (profile_main_path(ml, als_script(v, rank), False,
+                                 kernel="outer_sum", loop="outer loop")
+               if profile else None)
     return {"L": lo, "R": ro, "iterations": iters, "loss": loss,
             "LR": torch.cat([lo.flatten(), ro.flatten()]),
             "profile": profile,
@@ -5917,7 +5948,9 @@ def phases() -> None:
     registers and spills of each k = 1 kernel, full's normwise error
     against chain_plain, and one JSON line per probe: ms per call by CUDA
     events over back-to-back launches (the probes in turns) and device ms
-    per call (torch.profiler); beside them the wrapper chain_kernel."""
+    per call (torch.profiler); beside them the wrapper chain_kernel. Then
+    the slab path at [k6-groups]' shape (K6_GROUPS groups): the kernel
+    against its copies alone, device ms by kernel."""
     import ctypes
 
     from systemml_tpu_torch.codegen import build
@@ -5975,7 +6008,7 @@ def phases() -> None:
         def fn():
             err = h.smtorch_cla_chain(
                 codes.data_ptr(), codes.stride(0), sv.data_ptr(), None,
-                partial.data_ptr(), out.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), None,
                 CENSUS_N, CENSUS_M, 8, 1, 0, 1, 0, grid, stream)
             if err:
                 fail(f"K6 probe {name}: CUDA error {err}")
@@ -5996,6 +6029,37 @@ def phases() -> None:
               for i, k in enumerate(names)}
     print(smi)
     print(json.dumps(result), flush=True)
+    del codes, partial, outs
+    # the slab path at [k6-groups]' shape: K6_GROUPS groups, the kernel
+    # against its copies alone, by kernel
+    g = K6_GROUPS
+    codes = cla_dev.chain_codes(torch.randint(
+        0, 8, (g, CENSUS_N), generator=gen, device=dev, dtype=torch.uint8))
+    sv = torch.randn(8, g, 1, generator=gen, device=dev)
+    _, _, slabs = cla_dev.chain_kernel_plan(8, g, 1, torch.float32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = cla_dev.CHAIN_SLAB_BLOCKS_PER_SM * sms // slabs
+    partial = torch.empty((grid, 8, g, 1), dtype=torch.float64, device=dev)
+    z = torch.empty((CENSUS_N, 1), device=dev)
+    out = torch.empty((8, g, 1), dtype=torch.float64, device=dev)
+
+    def slab_launcher(name):
+        h = libs[name]
+
+        def fn():
+            err = h.smtorch_cla_chain(
+                codes.data_ptr(), codes.stride(0), sv.data_ptr(), None,
+                partial.data_ptr(), out.data_ptr(), z.data_ptr(), CENSUS_N,
+                g, 8, 1, 0, 1, 0, grid, stream)
+            if err:
+                fail(f"K6 slab probe {name}: CUDA error {err}")
+        return fn
+
+    split = {name: kernel_split(slab_launcher(name))
+             for name in ("full", "copies_only")}
+    print(f"[phases] slab path, {g} groups x {CENSUS_N} rows, k = 1, fp32 "
+          f"({slabs} group slabs), device ms by kernel (profiler): {split}",
+          flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -6953,6 +7017,508 @@ def lenet_phase(dev, kernels, smi) -> dict:
             "refused": refused, "card": smi}
 
 
+# --------------------------------------------------------------------------
+# the kernels at every shape their TPU kernels take: K1 past k = 2,048, K5
+# past rank 32, K6 past the groups one block holds (`--shapes`)
+# --------------------------------------------------------------------------
+
+# ImageNet-1k's training images x VGG-16's fc7 width: a linear probe
+K1_WIDE_M, K1_WIDE_K = 1_281_167, 4_096
+K5_RANK = 100
+# the Census rows with six times its columns, each of at most 8 values: at
+# k = 1 more groups than one block of K6 holds (376 in fp32)
+K6_GROUPS = 6 * CENSUS_M
+
+
+def kernel_split(fn, reps: int = 5) -> dict:
+    """Device ms per call of each kernel that `fn` launches, by name
+    (torch.profiler, device activity only, over `reps` calls after one);
+    "not measured" when the profiler records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    import re
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ids = [w for w in re.findall(r"([A-Za-z_]\w*)\s*[<(]", e.name)
+                   if w not in ("void", "anonymous")]
+            name = ids[0] if ids else e.name[:40]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not out:
+        return "not measured"
+    return {k: round(val / reps, 4) for k, val in sorted(
+        out.items(), key=lambda kv: -kv[1])}
+
+
+def _fp64_chain_ref(x, v, rows: int = 100_000):
+    """t(X) %*% (X %*% v) in fp64 on the card, X taken in row chunks (an
+    fp64 copy of a 21 GB X would not fit beside it)."""
+    out = torch.zeros(x.shape[1], v.shape[1], dtype=torch.float64,
+                      device=x.device)
+    vd = v.double()
+    for r0 in range(0, x.shape[0], rows):
+        xc = x[r0:r0 + rows].double()
+        out += xc.T @ (xc @ vd)
+        del xc
+    return out
+
+
+def _wide_cg_run(data, regions, dev, kernels) -> dict:
+    """LinearRegCG at optlevel 2 on data["X"], after a warm-up on its first
+    8,192 rows; the counters set to 0 just before and read just after."""
+    from systemml_tpu_torch.api.mlcontext import MLContext
+
+    ml = MLContext(config(2, regions))
+    ml.printer = lambda s: None
+    ml.execute(path_script("LinearRegCG", data, rows=8192))
+    lines = []
+    ml.printer = lines.append
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with PhaseTimer() as timer:
+        beta = ml.execute(path_script("LinearRegCG", data)).get_tensor(
+            "beta")
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    iters = outer_iterations("LinearRegCG", lines)
+    tag = f"k1-wide LinearRegCG{'' if regions else ' eager'}"
+    windows = phase_windows(timer, iters, tag)
+    reg = region_report(timer, tag, "LinearRegCG", regions)
+    events = dict(ml._stats.estim_counts.items())
+    return {"beta": beta, "iterations": iters, "seconds": secs,
+            "launches": launches, "windows": windows, "regions": reg,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "kb_fallback": events.get("kb_fallback", 0),
+            "kb_pick": {k: c for k, c in events.items()
+                        if k.startswith("kb_pick_mmchain")}}
+
+
+def _k1_tuned(data, kernels) -> dict:
+    """LinearRegCG on the wide X with the tuner on, each run on a fresh
+    kernel backend memo: "online" (measures, keeps nothing), then "cached"
+    against a new temporary cache (measures, writes) and "cached" again
+    (reads the verdict: no measurement). Each must pick K1; the last
+    launches it once per CG iteration (the others also in their
+    tournaments)."""
+    from systemml_tpu_torch.api.mlcontext import MLContext
+    from systemml_tpu_torch.codegen import backend, tune
+
+    cache = os.path.join(tempfile.mkdtemp(prefix="smtorch-tune-"),
+                         "tune.json")
+    out = {}
+    for label, mode, path in (("online", "online", ""),
+                              ("cached-first", "cached", cache),
+                              ("cached", "cached", cache)):
+        backend.reset_process_state()
+        cfg = config(2)
+        cfg.codegen_tune_mode, cfg.codegen_tune_cache = mode, path
+        ml = MLContext(cfg)
+        lines = []
+        ml.printer = lines.append
+        before = tune.measurement_count()
+        reset_launches(kernels)
+        ml.execute(path_script("LinearRegCG", data)).get_tensor("beta")
+        torch.cuda.synchronize()
+        iters = outer_iterations("LinearRegCG", lines)
+        picks = {k: c for k, c in ml._stats.estim_counts.items()
+                 if k.startswith("kb_pick_mmchain") or k == "kb_fallback"}
+        out[label] = {"picks": picks, "iterations": iters,
+                      "measurements": tune.measurement_count() - before,
+                      "launches": kernels.mmchain_kernel.launches}
+        print(f"[k1-wide] tuner {label} (codegen_tune_mode {mode}): "
+              f"{out[label]}", flush=True)
+        # a measuring run also launches K1 in its tournament
+        launched = out[label]["launches"]
+        if picks.get("kb_pick_mmchain.kernel", 0) != 1 or \
+                picks.get("kb_fallback", 0) or launched < iters or \
+                (label == "cached" and launched != iters):
+            fail(f"k1-wide tuner {label}: {out[label]}")
+        if (out[label]["measurements"] == 0) != (label == "cached"):
+            fail(f"k1-wide tuner {label}: {out[label]['measurements']} "
+                 f"measurements")
+    backend.reset_process_state()
+    return out
+
+
+def k1_wide_phase(dev, kernels, smi) -> dict:
+    """[k1-wide]: LinearRegCG at 1,281,167 x 4,096 fp32 through MLContext,
+    optlevel 2, with regions and without, and with the tuner's measured
+    and cached verdicts; K1 against its plain version in fp64 and timed at
+    the path's shape."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    m, k = K1_WIDE_M, K1_WIDE_K
+    x = torch.randn(m, k, generator=gen, device=dev)
+    beta_true = torch.randn(k, 1, generator=gen, device=dev)
+    data = {"X": x, "y": x @ beta_true}
+    x_bytes = x.numel() * 4
+    print(f"[k1-wide] X ({m}, {k}) fp32, {x_bytes / 1e9:.3f} GB on the "
+          f"card", flush=True)
+    runs = {r: _wide_cg_run(data, r, dev, kernels) for r in (True, False)}
+    bt = beta_true.double()
+    out = {}
+    for r, run in runs.items():
+        rel = float(torch.linalg.norm(run["beta"].double() - bt)
+                    / torch.linalg.norm(bt))
+        label = "regions" if r else "eager"
+        print(f"[k1-wide] LinearRegCG {label}: {run['iterations']} CG "
+              f"iterations, {run['windows']['iteration_ms']:.3f} ms each, "
+              f"{run['seconds']:.3f} s in all; launches {run['launches']}; "
+              f"kb_fallback {run['kb_fallback']}, {run['kb_pick']}; "
+              f"|beta - beta_true| / |beta_true| = {rel:.3e} (bar 1e-3); "
+              f"peak allocated {run['peak_bytes'] / 1e9:.2f} GB", flush=True)
+        if not rel <= 1e-3:
+            fail(f"k1-wide {label}: beta is {rel} from beta_true")
+        if run["launches"]["mmchain"] != run["iterations"] or \
+                run["iterations"] < 1:
+            fail(f"k1-wide {label}: K1 launched "
+                 f"{run['launches']['mmchain']} times in "
+                 f"{run['iterations']} CG iterations")
+        if run["kb_fallback"]:
+            fail(f"k1-wide {label}: kb_fallback {run['kb_fallback']}")
+        out[label] = {kk: val for kk, val in run.items() if kk != "beta"}
+        out[label]["beta_rel_err"] = rel
+    if out["regions"]["launches"]["mmchain"] != \
+            out["eager"]["launches"]["mmchain"]:
+        fail("k1-wide: K1's launches differ with regions and without")
+    del runs
+    out["tuner"] = _k1_tuned(data, kernels)
+    v = torch.randn(k, 1, generator=gen, device=dev)
+    got = kernels.mmchain_kernel(x, v)
+    again = kernels.mmchain_kernel(x, v)
+    ref = _fp64_chain_ref(x, v)
+    torch.cuda.synchronize()
+    err = normwise(got, ref)
+    abs_err = float((got.double() - ref).abs().max())
+    same = bool(torch.equal(got, again))
+    print(f"[kernel] mmchain XtXv m={m} k={k} c=1: normwise {err:.3e} (bar "
+          f"{KERNEL_BAR:g}) against the plain version in fp64, max abs "
+          f"{abs_err:.3e}, repeat bit-identical {same}", flush=True)
+    if not (math.isfinite(err) and err <= KERNEL_BAR and same):
+        fail(f"k1-wide: mmchain normwise {err}, repeat identical {same}")
+    del got, again, ref
+    kern_ms, plain_ms, lib_ms = time_ms([
+        lambda: kernels.mmchain_kernel(x, v),
+        lambda: kernels.mmchain_plain(x, v),
+        lambda: torch.matmul(x.T, torch.matmul(x, v)),
+    ], reps=10)
+    nbytes = x_bytes + 2 * v.numel() * 4
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 4.0 * m * k / FP32_OPS_PER_S
+    bound = max(bytes_ms, ops_ms)
+    split = kernel_split(lambda: kernels.mmchain_kernel(x, v))
+    print(f"[times] mmchain XtXv ({m}, {k}, 1) on {smi}: kernel "
+          f"{kern_ms:.3f} ms, plain {plain_ms:.3f} ms, two torch.matmul "
+          f"{lib_ms:.3f} ms, bound {bound:.3f} ms (bytes {bytes_ms:.3f}, "
+          f"operations {ops_ms:.3f}): {bound / kern_ms:.1%} of the bound; "
+          f"device ms by kernel (profiler) {split}", flush=True)
+    out["kernel"] = {"shape": [m, k, 1], "launches": sum(
+        out[r]["launches"]["mmchain"] for r in ("regions", "eager")),
+        "max_abs_err": abs_err, "ms": kern_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "bound_ms": bound,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "device_ms_by_kernel": split}
+    del x, data, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def k5_rank_phase(ratings, dev, kernels, smi) -> dict:
+    """[k5-rank100]: ALS-CG at rank 100 on the MovieLens-10M-shaped V,
+    optlevel 3 (K5 once per outer iteration, no outer plan by the plain
+    arm) against optlevel 2 (the loss within 1e-3); K5 against its plain
+    version in fp64 and timed at that shape."""
+    from systemml_tpu_torch.runtime.program import compile_program
+    from systemml_tpu_torch.utils.config import get_config, set_config
+
+    runs = {o: run_als(o, ratings, dev, kernels, rank=K5_RANK,
+                       profile=False) for o in (3, 2)}
+    loss_rel = abs(runs[3]["loss"] - runs[2]["loss"]) / abs(runs[2]["loss"])
+    diffs = {nm: float(torch.linalg.norm(runs[3][nm].double()
+                                         - runs[2][nm].double())
+                       / torch.linalg.norm(runs[2][nm].double()))
+             for nm in ("L", "R")}
+    print(f"[k5-rank100] ALS-CG rank {K5_RANK}: loss optlevel 3 "
+          f"{runs[3]['loss']:.6e}, optlevel 2 {runs[2]['loss']:.6e}, "
+          f"relative {loss_rel:.3e} (bar 1e-3); |L3 - L2| / |L2| "
+          f"{diffs['L']:.3e}, |R3 - R2| / |R2| {diffs['R']:.3e}; K5 "
+          f"launches {runs[3]['launches']['spoof_outer']} in "
+          f"{runs[3]['iterations']} outer iterations; ms per outer "
+          f"iteration {runs[3]['windows']['iteration_ms']:.3f} / "
+          f"{runs[2]['windows']['iteration_ms']:.3f}", flush=True)
+    if not loss_rel <= 1e-3:
+        fail(f"k5-rank100: optlevel 3's loss is {loss_rel} from optlevel 2's")
+    old = get_config()
+    set_config(config(3))
+    try:
+        s = als_script(None, K5_RANK)
+        prog = compile_program(s.parse(), clargs=s._args, outputs=s._outputs,
+                               input_names=list(s._inputs))
+    finally:
+        set_config(old)
+    plan = _plan_of(prog, "outer").params["plan"]
+    lf, rf = runs[3]["L"], runs[3]["R"]
+    x = (ratings != 0).to(torch.float32)
+    m, n = x.shape
+    got = kernels.outer_kernel(plan, x, lf, rf, {})
+    again = kernels.outer_kernel(plan, x, lf, rf, {})
+    ref = kernels.outer_plain(plan, x.double(), lf.double(), rf.double(), {})
+    torch.cuda.synchronize()
+    rel = abs(float(got) - float(ref)) / abs(float(ref))
+    abs_err = abs(float(got) - float(ref))
+    same = bool(torch.equal(got, again))
+    print(f"[kernel] spoof_outer {plan.pretty()} X ({m}, {n}) r={K5_RANK} "
+          f"fp32: {float(got):.9e} against the plain version in fp64 "
+          f"{float(ref):.9e}, relative {rel:.3e} (bar "
+          f"{SPOOF_BARS[torch.float32]:g}), repeat bit-identical {same}",
+          flush=True)
+    if not (rel <= SPOOF_BARS[torch.float32] and same):
+        fail(f"k5-rank100: K5 relative error {rel}, repeat identical {same}")
+    del ref
+    torch.cuda.empty_cache()
+    kern_ms, plain_ms, mm_ms = time_ms([
+        lambda: kernels.outer_kernel(plan, x, lf, rf, {}),
+        lambda: kernels.outer_plain(plan, x, lf, rf, {}),
+        lambda: torch.matmul(lf, rf.T),
+    ], reps=10)
+    nbytes = (x.numel() + lf.numel() + rf.numel()) * 4 + 4
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * (2.0 * K5_RANK + plan_ops(plan)) * m * n / FP32_OPS_PER_S
+    bound = max(bytes_ms, ops_ms)
+    split = kernel_split(lambda: kernels.outer_kernel(plan, x, lf, rf, {}))
+    print(f"[times] spoof_outer X ({m}, {n}) r={K5_RANK} fp32 on {smi}: "
+          f"kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms (bytes {bytes_ms:.4f}, operations {ops_ms:.4f}): "
+          f"{bound / kern_ms:.1%} of the bound; yardstick "
+          f"torch.matmul(U, V.T) alone {mm_ms:.4f} ms; device ms by kernel "
+          f"(profiler) {split}", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return {"loss_rel_diff": loss_rel, "diff_from_optlevel2": diffs,
+            **{f"optlevel{o}": {kk: val for kk, val in r.items()
+                                if kk not in ("L", "R", "LR", "cell_sums")}
+               for o, r in runs.items()},
+            "kernel": {"shape": [m, n, K5_RANK],
+                       "launches": runs[3]["launches"]["spoof_outer"],
+                       "max_abs_err": abs_err, "ms": kern_ms,
+                       "plain_ms": plain_ms, "library_ms": None,
+                       "yardstick_matmul_ms": mm_ms, "bound_ms": bound,
+                       "bound_by": "bytes" if bytes_ms >= ops_ms
+                       else "operations", "device_ms_by_kernel": split}}
+
+
+def make_groups(dev, groups: int):
+    """A categorical X (CENSUS_N, groups) as make_census draws it (column
+    j takes d_j values, d_j in 2..8, column 0 all 8; dictionaries drawn
+    N(0, 1) and standardised), its codes (CENSUS_N, groups) uint8 and
+    dictionaries, and y = X beta_true + 0.01 noise; from one seeded
+    generator on the card."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = CENSUS_N
+    dims = [8] + torch.randint(2, 9, (groups - 1,), generator=gen,
+                               device=dev).tolist()
+    x = torch.empty(n, groups, device=dev)
+    codes = torch.empty(groups, n, dtype=torch.uint8, device=dev)
+    dicts = []
+    for j, d in enumerate(dims):
+        dct = torch.randn(d, generator=gen, device=dev)
+        dct = (dct - dct.mean()) / dct.std(correction=0)
+        idx = torch.randint(0, d, (n,), generator=gen, device=dev)
+        codes[j] = idx.to(torch.uint8)
+        x[:, j] = dct[idx]
+        dicts.append(dct)
+    beta_true = torch.randn(groups, 1, generator=gen, device=dev)
+    y = x @ beta_true + 0.01 * torch.randn(n, 1, generator=gen, device=dev)
+    return {"X": x, "y": y, "codes": codes, "dicts": dicts, "dims": dims}
+
+
+def compressed_of(data, rows=None):
+    """The categorical X as a CompressedMatrixBlock of one DDC group per
+    column (its codes and dictionary as drawn), on the host; its first
+    `rows` rows when given."""
+    from systemml_tpu_torch.compress import CompressedMatrixBlock
+    from systemml_tpu_torch.compress import colgroup as cg
+
+    codes = data["codes"] if rows is None else data["codes"][:, :rows]
+    host = codes.cpu().numpy()
+    groups = [cg.ColGroupDDC([j], d.cpu().numpy().reshape(-1, 1), host[j])
+              for j, d in enumerate(data["dicts"])]
+    return CompressedMatrixBlock(groups, (host.shape[1], len(groups)))
+
+
+def _groups_cg_run(x, y, cla, dev, kernels, warm) -> dict:
+    """LinearRegCG at optlevel 2 with `cla` on X (a compressed block or
+    the dense X), after a warm-up on `warm` (X's first rows, y's); the
+    counters set to 0 just before and read just after."""
+    from systemml_tpu_torch.api.mlcontext import MLContext
+
+    cfg = config(2)
+    cfg.cla = cla
+    ml = MLContext(cfg)
+    ml.printer = lambda s: None
+    data = {"X": warm[0], "y": warm[1]}
+    ml.execute(path_script("LinearRegCG", data))
+    lines = []
+    ml.printer = lines.append
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with PhaseTimer() as timer:
+        beta = ml.execute(path_script("LinearRegCG", {"X": x, "y": y})
+                          ).get_tensor("beta")
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    iters = outer_iterations("LinearRegCG", lines)
+    tag = f"k6-groups LinearRegCG cla={cla}"
+    windows = phase_windows(timer, iters, tag)
+    reg = region_report(timer, tag, "LinearRegCG", True)
+    events = {k: c for k, c in ml._stats.estim_counts.items()
+              if k.startswith(("cla_", "kb_pick_cla_", "kb_fallback"))}
+    return {"beta": beta, "iterations": iters, "seconds": secs,
+            "launches": launches, "windows": windows, "events": events,
+            "regions": reg}
+
+
+def k6_groups_phase(dev, kernels, smi) -> dict:
+    """[k6-groups]: LinearRegCG with cla "true" on a categorical X of
+    CENSUS_N rows and K6_GROUPS coded columns of at most 8 values (passed
+    compressed: one DDC group per column, as drawn), against cla "false"
+    on the dense X; K6 against its plain version in fp64 and timed at
+    that shape, beside the gather arm."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    data = make_groups(dev, K6_GROUPS)
+    n, g = CENSUS_N, K6_GROUPS
+    t0 = time.perf_counter()
+    comp = compressed_of(data)
+    warm_c = compressed_of(data, rows=65_536)
+    build_s = time.perf_counter() - t0
+    plan = cla_dev.chain_kernel_plan(8, g, 1, torch.float32)
+    print(f"[k6-groups] categorical X ({n}, {g}) fp32, "
+          f"{n * g * 4 / 1e9:.3f} GB dense, {g} DDC groups of "
+          f"{min(data['dims'])}-{max(data['dims'])} values built on the host "
+          f"from the card's codes in {build_s:.1f} s; K6's plan at k = 1 "
+          f"(rows a tile, shared bytes, group slabs) {plan}", flush=True)
+    if not plan[2]:
+        fail(f"k6-groups: {g} groups at k = 1 fit one block: no slab path")
+    warm_y = data["y"][:65_536]
+    runs = {"true": _groups_cg_run(comp, data["y"], "true", dev, kernels,
+                                   (warm_c, warm_y)),
+            "false": _groups_cg_run(data["X"], data["y"], "false", dev,
+                                    kernels, (data["X"][:65_536], warm_y))}
+    a = runs["true"]["beta"].double()
+    b = runs["false"]["beta"].double()
+    diff = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    for cla, run in runs.items():
+        print(f"[k6-groups] LinearRegCG cla={cla}: {run['iterations']} CG "
+              f"iterations, {run['windows']['iteration_ms']:.3f} ms each, "
+              f"{run['seconds']:.3f} s in all; launches {run['launches']}; "
+              f"{run['events']}", flush=True)
+    print(f"[k6-groups] |beta cla true - beta cla false| / |beta cla false| "
+          f"= {diff:.3e} (bar 1e-3)", flush=True)
+    t = runs["true"]
+    if t["launches"]["cla_chain"] != t["iterations"] or t["iterations"] < 1:
+        fail(f"k6-groups: K6 launched {t['launches']['cla_chain']} times in "
+             f"{t['iterations']} CG iterations")
+    if t["events"].get("cla_chain_plain_by_layout", 0):
+        fail(f"k6-groups: cla_chain_plain_by_layout "
+             f"{t['events']['cla_chain_plain_by_layout']}")
+    if runs["false"]["launches"]["cla_chain"]:
+        fail("k6-groups: cla false launched K6")
+    if not diff <= 1e-3:
+        fail(f"k6-groups: cla true is {diff} from cla false")
+    lay = cla_dev.chain_layout(comp)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    v = torch.randn(g, 1, generator=gen, device=dev)
+    sv = cla_dev.chain_table(lay, v)
+    _chain_case(f"k6-groups ({n}, {g}) XtXv k=1 fp32", lay.codes, sv, None,
+                "XtXv")
+    out = cla_dev.chain_kernel(lay.codes, sv)
+    ref = cla_dev.chain_plain(lay.codes, sv.double())
+    abs_err = float((out - ref).abs().max())
+    del out, ref
+    kern_ms, plain_ms, gather_ms, mm_ms = time_ms([
+        lambda: cla_dev.chain_kernel(lay.codes, sv),
+        lambda: cla_dev.chain_plain(lay.codes, sv),
+        lambda: cla_dev.gather_mmchain(comp, v, None, "XtXv"),
+        lambda: torch.matmul(data["X"].T, torch.matmul(data["X"], v)),
+    ], reps=5, warm=1)
+    nbytes = g * n + sv.numel() * 4 + 8 * sv.numel()
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    split = kernel_split(lambda: cla_dev.chain_kernel(lay.codes, sv))
+    print(f"[times] cla_chain XtXv ({n}, {g}) k=1 fp32 on {smi}: device ms "
+          f"by kernel (profiler) {split}")
+    print(f"[times] cla_chain XtXv ({n}, {g}) k=1 fp32 on {smi}: kernel "
+          f"{kern_ms:.4f} ms (z, then {plan[2]} group slabs), plain "
+          f"{plain_ms:.4f} ms, the gather arm {gather_ms:.4f} ms, bound "
+          f"{bound:.4f} ms (bytes: the codes once): {bound / kern_ms:.1%} of "
+          f"the bound; yardstick two torch.matmul on the dense X "
+          f"{mm_ms:.4f} ms", flush=True)
+    res = {"diff_from_cla_false": diff, "plan": list(plan),
+           "host_build_s": build_s,
+           **{f"cla_{c}": {kk: val for kk, val in r.items() if kk != "beta"}
+              for c, r in runs.items()},
+           "kernel": {"shape": [n, g, 1], "launches": t["launches"][
+               "cla_chain"], "max_abs_err": abs_err, "ms": kern_ms,
+               "plain_ms": plain_ms, "gather_ms": gather_ms,
+               "library_ms": None, "yardstick_matmul_ms": mm_ms,
+               "bound_ms": bound, "bound_by": "bytes",
+               "device_ms_by_kernel": split}}
+    del data, comp, lay, sv
+    torch.cuda.empty_cache()
+    return res
+
+
+def shapes_phase(ratings, dev, kernels, smi) -> dict:
+    """[k1-wide], [k5-rank100] and [k6-groups], with their seconds."""
+    out = {}
+    for name, fn in (("k1-wide", lambda: k1_wide_phase(dev, kernels, smi)),
+                     ("k5-rank100", lambda: k5_rank_phase(ratings, dev,
+                                                          kernels, smi)),
+                     ("k6-groups", lambda: k6_groups_phase(dev, kernels,
+                                                           smi))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"[shapes] {name} {out[name]['seconds']:.1f} s", flush=True)
+    return out
+
+
+def shapes_only() -> None:
+    """The kernels at the shapes past their old bounds alone: what
+    `--shapes` runs."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "systemml_tpu_torch")):
+        fail("systemml_tpu_torch/ is not beside chip_smoke.py")
+    from systemml_tpu_torch.codegen import build, kernels
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.build_plans((), KERNEL_SOURCES)
+    print_build_reports(build)
+    res = shapes_phase(make_ratings(dev), dev, kernels, smi)
+    res["all_seconds"] = time.perf_counter() - t0
+    print(json.dumps({"shapes": res}, default=str))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -7275,6 +7841,8 @@ def main() -> None:
     resnet = resnet18_phase(dev, kernels, smi)
     lenet = lenet_phase(dev, kernels, smi)
     torch.cuda.empty_cache()
+    # this slice: K1, K5 and K6 at the shapes past their old bounds
+    shapes = shapes_phase(ratings, dev, kernels, smi)
 
     # ---- 4. times -----------------------------------------------------------
     v = torch.randn(K, 1, generator=gen, device=dev)
@@ -7443,6 +8011,16 @@ def main() -> None:
           f"us; "
           f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    # the shapes phase's launches added to K1's, K5's and K6's, and each
+    # kernel's figures at its path's shape
+    for rec in records:
+        key = {"mmchain": "k1-wide", "spoof_outer": "k5-rank100",
+               "cla_chain": "k6-groups"}.get(rec["name"])
+        if key:
+            kr = shapes[key]["kernel"]
+            rec.setdefault("launches_by_path", {})[key] = kr["launches"]
+            rec["launches"] += kr["launches"]
+            rec["shapes"] = {key: kr}
     cla_summary = {
         name: {mode: {k: v for k, v in r.items()
                       if k not in ("out", "compressed", "lines")}
@@ -7472,6 +8050,7 @@ def main() -> None:
                       "resnet18": resnet, "lenet": lenet,
                       "normal_draw": normal, "poisson_draw": poisson,
                       "backend": backend, "remote_parfor": remote,
+                      "shapes": shapes,
                       "build_seconds": build_s,
                       "nvcc_by_path": nvcc_by_path,
                       "device_ms_fallbacks": DEVICE_MS_FALLBACKS}))
@@ -8020,5 +8599,7 @@ if __name__ == "__main__":
         bench(sys.argv[2] if len(sys.argv) > 2 else os.path.basename(ROOT))
     elif sys.argv[1:2] == ["--phases"]:
         phases()
+    elif sys.argv[1:2] == ["--shapes"]:
+        shapes_only()
     else:
         main()

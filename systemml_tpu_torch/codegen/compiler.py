@@ -432,13 +432,8 @@ def _magg_plain(ctx, plan, names, aggs, env, variant):
 _outer_fam = kbackend.family("spoof_outer")
 
 
-def _outer_rank_ok(ctx, plan, x, u, v, extra, variant) -> bool:
-    return u.shape[1] <= kernels.OUTER_MAX_RANK
-
-
 @_outer_fam.template("kernel", _outer_grid_sweep, cost=_spoof_cost_kernel,
-                     supported=_spoof_kernel_ok, accepts=_outer_rank_ok,
-                     fallback="plain")
+                     supported=_spoof_kernel_ok, fallback="plain")
 def _outer_kernel(ctx, plan, x, u, v, extra, variant):
     return kernels.outer_kernel(plan, x, u, v, extra, variant,
                                 grid_y=(ctx.get("sched") or {}).get("grid_y"))
@@ -446,10 +441,6 @@ def _outer_kernel(ctx, plan, x, u, v, extra, variant):
 
 @_outer_fam.variant("plain", cost=_spoof_cost_plain, is_fallback=True)
 def _outer_plain(ctx, plan, x, u, v, extra, variant):
-    # the wrapper counts a rank above its bound on the card only (a CPU X
-    # runs the plain version first)
-    if x.device.type == "cuda" and u.shape[1] > kernels.OUTER_MAX_RANK:
-        kernels._count_plain_by_layout()
     return kernels.outer_plain(plan, x, u, v, extra)
 
 

@@ -83,15 +83,34 @@
 // are 256 pairs or more) that add z in row order to their own histogram
 // slot in shared memory. Not on the main path.
 //
-// Both end alike: per-block fp64 histograms, summed by cla_chain_reduce in
+// Many groups (fp32 past about 112 groups of 8 codes, fp64 past about 168):
+// when a block of the kernel above cannot hold every group's table,
+// histograms and codes in its 227 KB (smem_f32_at / smem_f64 below), the
+// groups go to slabs instead, in two kernels:
+// - cla_chain_z: z of every row, a thread per 16 rows for k = 1 (a 16-byte
+//   word of each group's codes; 4 rows, a 32-bit word, for wider v),
+//   summing the table's entries over the groups in group order in the
+//   table's type (fp32 as the kernel above, fp64 in double), into a (n, k)
+//   scratch of that type; the table sits in shared memory, group-major,
+//   where it fits (else it is read from L2). The codes are read once;
+// - cla_chain_slab: a grid of (row ranges, slabs of groups); a block holds
+//   its slab's histograms in shared memory as cla_chain_f64 does (row
+//   slices adding z in row order, in double; a code's row of pairs padded
+//   to 16 doubles, so that the lanes' read-modify-writes fall in
+//   different banks whatever the codes) and takes its row range's
+//   tiles of 256 rows: the slab's codes and the tile's z, read again (the
+//   codes once more in all, z once per slab). Slabs are as large as fit
+//   a sixth of an SM's shared memory (six blocks per SM), and balanced.
+// Bound as above: the codes once, G * n bytes; this path reads them twice
+// and z (n k values) S + 1 times.
+//
+// All end alike: per-block fp64 histograms, summed by cla_chain_reduce in
 // block order (a warp per entry, lanes over blocks, a fixed shuffle tree).
 // Two launches on the same inputs give bit-identical output.
 //
-// Limits: dmax <= 8, k <= 8 (the caller runs a wider v 8 columns at a
-// time), and a block's shared memory within the card's 227 KB (smem_f32_at
-// / smem_f64 below; compress/device.py chain_smem_bytes mirrors them at the
-// smallest tile, to decide without a build). The codes
-// must be < dmax (the caller's layout builds them so).
+// Limits: dmax <= 8 (the JAX package's kernel's), k <= 8 (the caller runs
+// a wider v 8 columns at a time); any number of groups. The codes must be
+// < dmax (the caller's layout builds them so).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -189,7 +208,9 @@ __device__ __forceinline__ float4 lds_v4f(uint32_t a) {
 
 // chip_smoke.py --phases builds this file also with K6_PROBE = 1 (phase
 // B's atomics left out), 2 (plain stores in their place) and 3 (each
-// tile's codes copied and nothing else): wrong results, timed to show
+// tile's codes copied and nothing else; in the slab path, cla_chain_z
+// streams the codes without the table and cla_chain_slab copies each
+// tile's codes and z without the histogram): wrong results, timed to show
 // where the kernel's time goes. 0 is the kernel.
 #ifndef K6_PROBE
 #define K6_PROBE 0
@@ -723,6 +744,260 @@ cla_chain_f64(const uint8_t* __restrict__ codes, long long ldc,
   }
 }
 
+// ---- many groups: z, then slabs of groups ----------------------------------
+
+// a slab block's shared memory: six blocks per SM (of its 228 KB, less the
+// 1 KB each block reserves), so that many blocks' row slices (each a chain
+// of dependent shared-memory adds) run at once
+constexpr size_t kSlabSmem = (233472 - 6 * 1024) / 6;
+
+// z (n, k) of T: a thread per kR rows (16 for k = 1, a 16-byte word of
+// each group's codes; else 4, a 32-bit word), the groups in order
+// (grid-stride). kShared: the table copied into shared memory group-major,
+// (g, j, c), so that a group's entries sit together; else read from sv as
+// it is, (j, g, c). kK: the columns of v the registers hold (k <= kK).
+template <typename T, bool kShared, int kR, int kK>
+__global__ void __launch_bounds__(256)
+cla_chain_z(const uint8_t* __restrict__ codes, long long ldc,
+            const T* __restrict__ sv, const T* __restrict__ w,
+            T* __restrict__ z, long long n, int groups, int dmax, int k,
+            int ctype, int w_cols) {
+  static_assert(kR == 4 || kR == 16, "a 32-bit or a 16-byte code word");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T* tbl = sv;
+  long long sj = (long long)groups * k, sg = k;
+  if constexpr (kShared) {
+    T* t = reinterpret_cast<T*>(smem);
+    const int e = dmax * groups * k;
+    for (int i = threadIdx.x; i < e; i += blockDim.x) {
+      const int c = i % k, gj = i / k, j = gj % dmax, g = gj / dmax;
+      t[i] = sv[((long long)j * groups + g) * k + c];
+    }
+    __syncthreads();
+    tbl = t;
+    sj = k;
+    sg = (long long)dmax * k;
+  }
+  const long long units = (n + kR - 1) / kR;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       q < units; q += (long long)gridDim.x * blockDim.x) {
+    const long long r0 = kR * q;
+    T xv[kR][kK];
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+#pragma unroll
+      for (int c = 0; c < kK; ++c) xv[i][c] = T(0);
+#pragma unroll 4
+    for (int g = 0; g < groups; ++g) {
+      // r0 + kR - 1 < ldc: ldc >= n is a multiple of 16, r0 < n a
+      // multiple of kR
+      const uint8_t* src = codes + (long long)g * ldc + r0;
+      uint32_t word[kR / 4];
+      if constexpr (kR == 16) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+        word[0] = v.x;
+        word[1] = v.y;
+        word[2] = v.z;
+        word[3] = v.w;
+      } else {
+        word[0] = __ldg(reinterpret_cast<const uint32_t*>(src));
+      }
+      if constexpr (K6_PROBE == 3) {  // the codes streamed alone
+#pragma unroll
+        for (int i = 0; i < kR / 4; ++i) xv[i][0] += (T)word[i];
+        continue;
+      }
+      const T* tg = tbl + g * sg;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const T* e = tg + ((word[i / 4] >> (8 * (i % 4))) & 0xffu) * sj;
+#pragma unroll
+        for (int c = 0; c < kK; ++c)
+          if (c < k) xv[i][c] += e[c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const long long row = r0 + i;
+      if (row >= n) break;
+#pragma unroll
+      for (int c = 0; c < kK; ++c) {
+        if (c < k) {
+          T v = xv[i][c];
+          if (ctype != 0) {
+            const T wv = w[row * w_cols + (w_cols == 1 ? 0 : c)];
+            v = ctype == 1 ? v * wv : v - wv;
+          }
+          z[row * k + c] = v;
+        }
+      }
+    }
+  }
+}
+
+// Launches cla_chain_z<T, kShared, kR, kK> on a persistent grid: the
+// blocks resident at once, at most one per 256 units of kR rows.
+template <typename T, bool kShared, int kR, int kK>
+cudaError_t launch_z(const uint8_t* codes, long long ldc, const T* sv,
+                     const T* w, T* z, long long n, int groups, int dmax,
+                     int k, int ctype, int w_cols, size_t tbl,
+                     cudaStream_t stream) {
+  static int allowed[kMaxDevices] = {};
+  auto kernel = cla_chain_z<T, kShared, kR, kK>;
+  const size_t smem = kShared ? tbl : 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem, allowed);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  const long long units = (n + kR - 1) / kR;
+  long long grid = (long long)(per_sm < 1 ? 1 : per_sm) * sms;
+  if ((units + 255) / 256 < grid) grid = (units + 255) / 256;
+  if (grid < 1) grid = 1;
+  kernel<<<(int)grid, 256, smem, stream>>>(codes, ldc, sv, w, z, n, groups,
+                                           dmax, k, ctype, w_cols);
+  return cudaGetLastError();
+}
+
+int slab_slices(int pairs) { return pairs >= kTile64 ? 1 : kTile64 / pairs; }
+
+// A code's row of a slab histogram: the slab's (group, column) pairs,
+// padded to a multiple of 16 doubles, so that 16 lanes on consecutive
+// pairs hit 16 different bank pairs whatever their codes.
+__host__ __device__ constexpr int slab_pitch(int pairs) {
+  return (pairs + 15) & ~15;
+}
+
+// A slab block's shared memory at `gs` groups: its row slices'
+// histograms and the tile's z in double, the tile's codes.
+size_t smem_slab(int dmax, int gs, int k) {
+  return sizeof(double) * ((size_t)slab_slices(gs * k) * dmax *
+                               slab_pitch(gs * k) +
+                           (size_t)kTile64 * k) +
+         (size_t)gs * kCodeStride64;
+}
+
+// Groups per slab: the largest count that fits kSlabSmem, then balanced
+// over the slabs that count needs; 0 if not even one group fits.
+int slab_groups(int dmax, int groups, int k) {
+  int best = 0;
+  for (int gs = groups; gs >= 1; --gs)
+    if (smem_slab(dmax, gs, k) <= kSlabSmem) {
+      best = gs;
+      break;
+    }
+  if (!best) return 0;
+  const int slabs = (groups + best - 1) / best;
+  const int even = (groups + slabs - 1) / slabs;
+  return smem_slab(dmax, even, k) <= kSlabSmem ? even : best;
+}
+
+// Block (b, s): groups s gs .. of the slab, rows of tiles b, b + gridDim.x,
+// ...; partial (gridDim.x, dmax, groups, k), the slab's groups of row b.
+template <typename T>
+__global__ void __launch_bounds__(kTile64)
+cla_chain_slab(const uint8_t* __restrict__ codes, long long ldc,
+               const T* __restrict__ z, double* __restrict__ partial,
+               long long n, int groups, int gs_max, int slices, int dmax,
+               int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g0 = blockIdx.y * gs_max;
+  const int gs = groups - g0 < gs_max ? groups - g0 : gs_max;
+  const int pairs = gs * k;
+  const int e = dmax * pairs;
+  const int pitch = slab_pitch(pairs), ep = dmax * pitch;
+  // (slices, dmax, pitch): pair p of code j in slice sl at sl ep + j pitch + p
+  double* hist_s = reinterpret_cast<double*>(smem);
+  double* z_s = hist_s + (size_t)slices * dmax * slab_pitch(gs_max * k);
+  uint8_t* codes_s = reinterpret_cast<uint8_t*>(z_s + kTile64 * k);
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < slices * ep; i += kTile64) hist_s[i] = 0.0;
+
+  constexpr int kChunks = kTile64 / 16;
+  const long long tiles = (n + kTile64 - 1) / kTile64;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * kTile64;
+    const int rows = (int)(n - r0 < kTile64 ? n - r0 : kTile64);
+    __syncthreads();  // the previous tile is consumed; hist_s is zero
+    for (int i = tid; i < gs * kChunks; i += kTile64) {
+      const int g = i / kChunks, ch = i - g * kChunks;
+      const long long off = r0 + 16 * ch;
+      if (off < ldc) {  // the row's allocation ends at ldc
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+            codes + (long long)(g0 + g) * ldc + off));
+        uint32_t* dst =
+            reinterpret_cast<uint32_t*>(codes_s + g * kCodeStride64 + 16 * ch);
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+      }
+    }
+    for (int i = tid; i < rows * k; i += kTile64)
+      z_s[i] = (double)z[r0 * k + i];
+    __syncthreads();
+    if constexpr (K6_PROBE == 3) continue;
+    for (int q = tid; q < slices * pairs; q += kTile64) {
+      const int sl = q / pairs, p = q - sl * pairs;
+      const int g = p / k, c = p - g * k;
+      const uint8_t* cg = codes_s + g * kCodeStride64;
+      double* h = hist_s + sl * ep + p;
+      for (int r = sl; r < rows; r += slices) h[cg[r] * pitch] += z_s[r * k + c];
+    }
+  }
+  __syncthreads();
+  double* out = partial + (long long)blockIdx.x * dmax * groups * k;
+  for (int i = tid; i < e; i += kTile64) {
+    const int j = i / pairs, p = i - j * pairs;
+    double s = 0.0;
+    for (int sl = 0; sl < slices; ++sl) s += hist_s[sl * ep + j * pitch + p];
+    out[((long long)j * groups + g0) * k + p] = s;
+  }
+}
+
+template <typename T>
+cudaError_t launch_slabs(const uint8_t* codes, long long ldc, const void* sv,
+                         const void* w, void* z, double* partial, long long n,
+                         int groups, int dmax, int k, int ctype, int w_cols,
+                         int grid, cudaStream_t stream) {
+  static int allowed[kMaxDevices] = {};
+  const int gs = slab_groups(dmax, groups, k);
+  if (!gs || z == nullptr) return cudaErrorInvalidValue;
+  // z of every row, the table in shared memory where it fits
+  const size_t tbl = sizeof(T) * (size_t)dmax * groups * k;
+  T* zt = static_cast<T*>(z);
+  const T* svt = static_cast<const T*>(sv);
+  const T* wt = static_cast<const T*>(w);
+  cudaError_t err;
+  if (tbl <= kMaxSmem)
+    err = k == 1 ? launch_z<T, true, 16, 1>(codes, ldc, svt, wt, zt, n, groups,
+                                            dmax, k, ctype, w_cols, tbl,
+                                            stream)
+                 : launch_z<T, true, 4, kMaxK>(codes, ldc, svt, wt, zt, n,
+                                               groups, dmax, k, ctype, w_cols,
+                                               tbl, stream);
+  else
+    err = k == 1 ? launch_z<T, false, 16, 1>(codes, ldc, svt, wt, zt, n,
+                                             groups, dmax, k, ctype, w_cols,
+                                             tbl, stream)
+                 : launch_z<T, false, 4, kMaxK>(codes, ldc, svt, wt, zt, n,
+                                                groups, dmax, k, ctype, w_cols,
+                                                tbl, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_slab(dmax, gs, k);
+  err = allow_smem(cla_chain_slab<T>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 g(grid, (groups + gs - 1) / gs);
+  cla_chain_slab<T><<<g, kTile64, smem, stream>>>(
+      codes, ldc, zt, partial, n, groups, gs, slab_slices(gs * k), dmax, k);
+  return cudaGetLastError();
+}
+
 // ---- both ------------------------------------------------------------------
 
 // out[i] = sum over blocks b of partial[b][i]: a warp per entry, lane l
@@ -741,8 +1016,9 @@ __global__ void cla_chain_reduce(const double* __restrict__ partial,
   if (lane == 0) out[i] = s;
 }
 
-// A block's shared memory for (dmax, groups, k, dtype); 0 if the shape is
-// outside the limits or no block fits.
+// A block's shared memory for (dmax, groups, k, dtype) in the one-kernel
+// path; 0 if the shape is outside the limits or no block fits (the slabs
+// take it then).
 size_t smem_bytes(int dmax, int groups, int k, int dtype) {
   if (groups < 1 || dmax < 1 || dmax > kMaxDict || k < 1 || k > kMaxK)
     return 0;
@@ -758,15 +1034,27 @@ size_t smem_bytes(int dmax, int groups, int k, int dtype) {
 
 extern "C" {
 
-// The shared memory of a block of this kernel for (dmax, groups, k, dtype)
-// (dtype 0 = fp32, 1 = fp64), and its rows per tile; 0 and 0 when the
-// kernel does not take the shape.
+// How the kernel takes (dmax, groups, k, dtype) (dtype 0 = fp32, 1 =
+// fp64): the shared memory of a block, its rows per tile, and the slabs of
+// groups (0: the one-kernel path, every group in a block); 0, 0 and 0 when
+// the kernel does not take the shape (dmax or k past 8).
 long long smtorch_cla_chain_smem(int dmax, int groups, int k, int dtype,
-                                 int* tile) {
-  const size_t s = dtype == 0 || dtype == 1 ? smem_bytes(dmax, groups, k, dtype)
-                                            : 0;
-  *tile = !s ? 0 : dtype == 1 ? kTile64 : tile_f32(dmax, groups, k);
-  return (long long)s;
+                                 int* tile, int* slabs) {
+  *tile = 0;
+  *slabs = 0;
+  if ((dtype != 0 && dtype != 1) || groups < 1 || dmax < 1 ||
+      dmax > kMaxDict || k < 1 || k > kMaxK)
+    return 0;
+  const size_t s = smem_bytes(dmax, groups, k, dtype);
+  if (s) {
+    *tile = dtype == 1 ? kTile64 : tile_f32(dmax, groups, k);
+    return (long long)s;
+  }
+  const int gs = slab_groups(dmax, groups, k);
+  if (!gs) return 0;
+  *tile = kTile64;
+  *slabs = (groups + gs - 1) / gs;
+  return (long long)smem_slab(dmax, gs, k);
 }
 
 // codes (groups, n) uint8, rows ldc bytes apart, ldc >= n a multiple of 16
@@ -774,15 +1062,19 @@ long long smtorch_cla_chain_smem(int dmax, int groups, int k, int dtype,
 // sv (dmax, groups, k) of dtype 0 = fp32, 1 = fp64;
 // w (n, w_cols) of the same dtype, w_cols 1 or k, or null for ctype 0;
 // partial (grid, dmax, groups, k) double scratch; out (dmax, groups, k)
-// double. All contiguous on the current device. Launches on `stream` and
-// returns a cudaError_t: the first launch's error, else the second's.
+// double; z (n, k) of the dtype, scratch of the slab path (null when
+// smtorch_cla_chain_smem gives no slabs), whose grid is the row ranges.
+// All contiguous on the current device. Launches on `stream` and returns a
+// cudaError_t: the first failing launch's error.
 int smtorch_cla_chain(const void* codes, long long ldc, const void* sv,
-                      const void* w, void* partial, void* out, long long n,
-                      int groups, int dmax, int k, int ctype, int w_cols,
-                      int dtype, int grid, void* stream) {
+                      const void* w, void* partial, void* out, void* z,
+                      long long n, int groups, int dmax, int k, int ctype,
+                      int w_cols, int dtype, int grid, void* stream) {
+  int tile = 0, slabs = 0;
   if (n < 0 || ctype < 0 || ctype > 2 || grid < 1 ||
       (dtype != 0 && dtype != 1) || ldc < n || ldc % 16 != 0 ||
-      (uintptr_t)codes % 16 != 0 || !smem_bytes(dmax, groups, k, dtype))
+      (uintptr_t)codes % 16 != 0 ||
+      !smtorch_cla_chain_smem(dmax, groups, k, dtype, &tile, &slabs))
     return (int)cudaErrorInvalidValue;
   if (ctype != 0 && (w == nullptr || (w_cols != 1 && w_cols != k)))
     return (int)cudaErrorInvalidValue;
@@ -790,7 +1082,12 @@ int smtorch_cla_chain(const void* codes, long long ldc, const void* sv,
   double* pf = static_cast<double*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1) {
+  if (slabs) {
+    err = dtype == 1 ? launch_slabs<double>(c, ldc, sv, w, z, pf, n, groups,
+                                            dmax, k, ctype, w_cols, grid, s)
+                     : launch_slabs<float>(c, ldc, sv, w, z, pf, n, groups,
+                                           dmax, k, ctype, w_cols, grid, s);
+  } else if (dtype == 1) {
     static int allowed[kMaxDevices] = {};
     const size_t smem = smem_f64(dmax, groups, k);
     err = allow_smem(cla_chain_f64, smem, allowed);

@@ -72,6 +72,14 @@
 //   are summed in block order by sum_partials. Bound: bytes of X when the
 //   rank is small (ALS-CG-ml10m, 71,567 x 10,681 fp32, rank 10: X's
 //   3.058 GB take >= 0.913 ms, its 1.53e10 FLOP >= 0.23 ms at 67 TFLOP/s).
+//   A rank above 32 (the largest bucket) takes outer_sum_wide, a product
+//   tiled as a GEMM's: a block per 128 x 128 tile of cells, a thread per
+//   8 x 8 of them, whose dot products stay in registers while the rank is
+//   walked in slabs of 16 (the tile's U and V rows staged rank-major in
+//   shared memory: 16 shared loads for 64 FMAs a rank step), in the same
+//   k order as above. X is read once. At rank 100 the bound is
+//   operations: ALS-CG-ml10m's 1.53e11 FLOP take >= 2.28 ms at 67 TFLOP/s
+//   fp32, against 0.913 ms for X's bytes.
 
 #pragma once
 
@@ -605,7 +613,12 @@ row_warp(const __grid_constant__ Args<T> a, long long m, long long n,
 // ---- outer-product template --------------------------------------------------
 
 constexpr int kOuterRows = 64;
-constexpr int kOuterMaxRank = 32;
+constexpr int kOuterBucketRank = 32;  // the largest rank bucket of outer_sum
+// outer_sum_wide: rows and columns of X a block takes, a thread's rows
+// and columns (16 x 16 threads), ranks per slab
+constexpr int kWideTile = 128;
+constexpr int kMicro = 8;
+constexpr int kRankSlab = 16;
 
 template <typename T>
 __device__ __forceinline__ T fma_t(T a, T b, T c);
@@ -684,6 +697,84 @@ outer_sum(const __grid_constant__ Args<T> a, const Leaf u, const Leaf v,
 #pragma unroll
         for (int k = 0; k < RB; ++k) uv = fma_t(su[i][k], vr[k], uv);
         acc += (double)eval_at<T, P>(plan, a, h, row0 + i, c, uv);
+      }
+    }
+  }
+  const double b = block_sum(s, acc);
+  if (threadIdx.x == 0)
+    partial[(long long)blockIdx.y * gridDim.x + blockIdx.x] = b;
+}
+
+// As outer_sum, for any rank: a block takes a kWideTile x kWideTile tile of
+// X's cells (its columns blockIdx.x, its row tiles grid-stride over
+// blockIdx.y), a thread kMicro x kMicro of them (rows 8 ty .., columns
+// 8 tx ..), whose uv stay in registers while the rank is walked in slabs
+// of kRankSlab: the slab of the tile's U rows and V rows is staged rank-
+// major in shared memory (rows padded by 4: the staging writes spread
+// over the banks), and each rank step is 2 x kMicro shared loads for
+// kMicro^2 FMAs, in the same k order as outer_sum.
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+outer_sum_wide(const __grid_constant__ Args<T> a, const Leaf u, const Leaf v,
+               long long m, long long n, int r, double* __restrict__ partial) {
+  __shared__ __align__(16) T us[kRankSlab][kWideTile + 4];
+  __shared__ __align__(16) T vs[kRankSlab][kWideTile + 4];
+  __shared__ double s[kThreads];
+  const P plan{};
+  T h[Slots<P>::kHoisted];
+  plan.hoist(a, h);
+  const T* up = static_cast<const T*>(u.ptr);
+  const T* vp = static_cast<const T*>(v.ptr);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long c0 = (long long)blockIdx.x * kWideTile;
+  const long long tiles = (m + kWideTile - 1) / kWideTile;
+  double acc = 0.0;
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long row0 = tile * kWideTile;
+    T uv[kMicro][kMicro];
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j) uv[i][j] = T(0);
+    for (int k0 = 0; k0 < r; k0 += kRankSlab) {
+      __syncthreads();  // the previous slab's readers are done
+      // element e: rank k = e % kRankSlab of row (column) i = e / kRankSlab:
+      // a warp reads two rows' slabs, contiguous where the rank is
+#pragma unroll 4
+      for (int e = threadIdx.x; e < kRankSlab * kWideTile; e += kThreads) {
+        const int i = e / kRankSlab, k = e - i * kRankSlab;
+        const bool kin = k0 + k < r;
+        us[k][i] = (kin && row0 + i < m)
+                       ? __ldg(up + (row0 + i) * u.rs + (k0 + k) * u.cs)
+                       : T(0);
+        vs[k][i] = (kin && c0 + i < n)
+                       ? __ldg(vp + (c0 + i) * v.rs + (k0 + k) * v.cs)
+                       : T(0);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kRankSlab; ++k) {
+        T ur[kMicro], vr[kMicro];
+#pragma unroll
+        for (int i = 0; i < kMicro; ++i) {
+          ur[i] = us[k][kMicro * ty + i];
+          vr[i] = vs[k][kMicro * tx + i];
+        }
+#pragma unroll
+        for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+          for (int j = 0; j < kMicro; ++j)
+            uv[i][j] = fma_t(ur[i], vr[j], uv[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+      const long long row = row0 + kMicro * ty + i;
+      if (row >= m) break;
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j) {
+        const long long c = c0 + kMicro * tx + j;
+        if (c < n) acc += (double)eval_at<T, P>(plan, a, h, row, c, uv[i][j]);
       }
     }
   }
@@ -820,7 +911,7 @@ int launch_outer(const void* const* ptrs, const long long* rs,
   const int e = fill_args(&a, ptrs, rs, cs, scal, n_leaves);
   if (e) return e;
   if (grid_x < 1 || grid_y < 1 || grid_y > 65535 || m < 0 || n < 0 ||
-      r < 0 || r > kOuterMaxRank || n_leaves != P::kLeaves)
+      r < 0 || n_leaves != P::kLeaves)
     return (int)cudaErrorInvalidValue;
   const Leaf lu{u, urs, ucs}, lv{v, vrs, vcs};
   const dim3 grid(grid_x, grid_y);
@@ -831,8 +922,10 @@ int launch_outer(const void* const* ptrs, const long long* rs,
     outer_sum<T, P, 8><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
   else if (r <= 16)
     outer_sum<T, P, 16><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
-  else
+  else if (r <= kOuterBucketRank)
     outer_sum<T, P, 32><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
+  else
+    outer_sum_wide<T, P><<<grid, kThreads, 0, stream>>>(a, lu, lv, m, n, r, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials<T><<<1, kThreads, 0, stream>>>(p, grid_x * grid_y,

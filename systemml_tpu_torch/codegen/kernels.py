@@ -40,23 +40,23 @@ from systemml_tpu_torch.utils import stats as stats_mod
 # --------------------------------------------------------------------------
 
 MMCHAIN_CTYPES = {"XtXv": 0, "XtwXv": 1, "XtXvy": 2}
-# what the kernel takes (csrc/mmchain.cu): 8 accumulator columns of k per
-# thread of a 256-thread block, and c <= 8 chain columns
+# what the kernel takes (csrc/mmchain.cu), the JAX package's family
+# predicate: k >= 128 and c <= 8 chain columns, any k above (a k past
+# 2,048 takes the cluster kernel, mmchain_wide)
 MMCHAIN_MIN_K = 128
-MMCHAIN_MAX_K = 2048
 MMCHAIN_MAX_C = 8
 
 _mmchain_lib: Optional[ctypes.CDLL] = None
 # (device index, k, c, rows contiguous) -> blocks of the partial kernel
-# resident per SM
-_mmchain_occupancy: Dict[Tuple[int, int, int, bool], int] = {}
+# resident per SM; for k past the narrow kernel's width, (blocks per
+# cluster, passes, clusters resident on the device) of the wide kernel
+_mmchain_occupancy: Dict[Tuple[int, int, int, bool], object] = {}
 
 
 def mmchain_supported(m: int, k: int, c: int, dtype) -> bool:
-    """The shapes and dtype the hand kernel takes. The JAX package's
-    family predicate (fp32, k >= 128, c <= 8) plus this kernel's own
-    bound k <= 2048 (ROADMAP lists lifting it)."""
-    return (dtype == torch.float32 and MMCHAIN_MIN_K <= k <= MMCHAIN_MAX_K
+    """The shapes and dtype the hand kernel takes: the JAX package's
+    family predicate (fp32, k >= 128, c <= 8), at any k."""
+    return (dtype == torch.float32 and k >= MMCHAIN_MIN_K
             and 1 <= c <= MMCHAIN_MAX_C)
 
 
@@ -96,6 +96,11 @@ def _library() -> ctypes.CDLL:
         lib.smtorch_mmchain_blocks_per_sm.restype = ctypes.c_int
         lib.smtorch_mmchain_chunk_rows.argtypes = []
         lib.smtorch_mmchain_chunk_rows.restype = ctypes.c_int
+        lib.smtorch_mmchain_narrow_max_k.argtypes = []
+        lib.smtorch_mmchain_narrow_max_k.restype = ctypes.c_int
+        lib.smtorch_mmchain_wide_plan.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
+        lib.smtorch_mmchain_wide_plan.restype = ctypes.c_int
         lib.smtorch_mmchain.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -125,7 +130,30 @@ def _mmchain_grid(lib, dev: torch.device, m: int, k: int, c: int,
                   flat: bool, blocks_per_sm: Optional[int] = None) -> int:
     """A block per chunk of rows, at most the SMs times the blocks
     resident per SM (capped at `blocks_per_sm`, the kernel backend's
-    sweep of K1)."""
+    sweep of K1). For k past the narrow kernel's width, the clusters of
+    the wide kernel per pass: a cluster per chunk of rows, at most the
+    clusters resident on the device over the passes (the cap counting
+    the cluster's blocks)."""
+    chunks = -(-m // lib.smtorch_mmchain_chunk_rows())
+    if k > lib.smtorch_mmchain_narrow_max_k():
+        key = (dev.index, k, c, "wide")
+        plan = _mmchain_occupancy.get(key)
+        if plan is None:
+            blocks, passes, clusters = (ctypes.c_int(0), ctypes.c_int(0),
+                                        ctypes.c_int(0))
+            _check(lib.smtorch_mmchain_wide_plan(
+                k, c, ctypes.byref(blocks), ctypes.byref(passes),
+                ctypes.byref(clusters)), "mmchain wide occupancy query")
+            if clusters.value < 1:
+                raise RuntimeError(f"mmchain wide kernel cannot be resident "
+                                   f"at k={k}, c={c}")
+            plan = _mmchain_occupancy[key] = (blocks.value, passes.value,
+                                              clusters.value)
+        blocks, passes, clusters = plan
+        if blocks_per_sm is not None:
+            clusters = min(clusters, max(1, int(blocks_per_sm) * _sms(dev)
+                                         // blocks))
+        return max(1, min(chunks, clusters // passes))
     key = (dev.index, k, c, flat)
     per_sm = _mmchain_occupancy.get(key)
     if per_sm is None:
@@ -139,7 +167,6 @@ def _mmchain_grid(lib, dev: torch.device, m: int, k: int, c: int,
         per_sm = _mmchain_occupancy[key] = n.value
     if blocks_per_sm is not None:
         per_sm = max(1, min(per_sm, int(blocks_per_sm)))
-    chunks = -(-m // lib.smtorch_mmchain_chunk_rows())
     return max(1, min(chunks, per_sm * _sms(dev)))
 
 
@@ -174,9 +201,8 @@ def mmchain_kernel(x, v, w=None, ctype: str = "XtXv", precise: bool = True,
         raise ValueError(f"mmchain_kernel: X's rows are not contiguous and "
                          f"apart (strides {tuple(x.stride())})")
     if not mmchain_supported(m, k, c, x.dtype):
-        raise ValueError(f"mmchain_kernel takes {MMCHAIN_MIN_K} <= k <= "
-                         f"{MMCHAIN_MAX_K} and c <= {MMCHAIN_MAX_C}; got "
-                         f"k={k}, c={c}")
+        raise ValueError(f"mmchain_kernel takes k >= {MMCHAIN_MIN_K} and "
+                         f"c <= {MMCHAIN_MAX_C}; got k={k}, c={c}")
     v = v.contiguous()
     w = None if w is None else w.contiguous()
     lib = _library()
@@ -829,8 +855,11 @@ multiagg_kernel.launches = 0
 # product (csrc/spoof.cuh outer_sum; reference: SpoofOuterProduct)
 # --------------------------------------------------------------------------
 
-OUTER_MAX_RANK = 32        # spoof::kOuterMaxRank
 OUTER_ROWS = 64            # spoof::kOuterRows
+# past spoof::kOuterBucketRank, outer_sum_wide's blocks take tiles of
+# OUTER_WIDE_TILE x OUTER_WIDE_TILE cells (spoof::kWideTile)
+OUTER_BUCKET_RANK = 32
+OUTER_WIDE_TILE = 128
 _MAX_GRID_Y = 65535
 
 
@@ -865,15 +894,14 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None,
     """The outer-product template (systemml_tpu/codegen/kernels.py:419):
     sum over X's (m, n) of the plan on X, UV = U %*% t(V) and the scalar
     leaves `extra` (Python numbers or 0-d tensors), in X's dtype; X (m, n),
-    U (m, r), V (n, r), any strides. On a CUDA X it launches the plan's
-    kernel (csrc/spoof.cuh outer_sum, which never builds the (m, n)
-    product), or raises on what the kernel does not take; a rank above
-    OUTER_MAX_RANK takes the plain arm by shape, counted in
-    spoof_plain_by_layout; on a CPU X it runs outer_plain. `variant` is
+    U (m, r), V (n, r), any strides, any rank. On a CUDA X it launches
+    the plan's kernel (csrc/spoof.cuh outer_sum, or outer_sum_wide for a
+    rank above 32; neither builds the (m, n) product), or raises on what
+    the kernel does not take; on a CPU X it runs outer_plain. `variant` is
     the build.Variant of the plan's source (its scalar leaves), derived
     from `extra` when None. `grid_y` caps the grid's rows of blocks, each
-    of which strides over X's tiles of OUTER_ROWS rows (None: a block row
-    per tile, up to CUDA's 65,535)."""
+    of which strides over X's tiles of OUTER_ROWS rows (of OUTER_WIDE_TILE
+    past rank 32; None: a block row per tile, up to CUDA's 65,535)."""
     m, n, r = _outer_shapes(x, u, v)
     if x.device.type == "cpu":
         return outer_plain(plan, x, u, v, extra)
@@ -881,9 +909,6 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None,
         raise ValueError(f"outer_kernel: unsupported device {x.device}")
     if x.dtype not in SPOOF_DTYPES:
         raise TypeError(f"outer_kernel takes fp32 and fp64 X; got {x.dtype}")
-    if r > OUTER_MAX_RANK:
-        _count_plain_by_layout()
-        return outer_plain(plan, x, u, v, extra)
     if u.device != x.device or v.device != x.device:
         raise ValueError("outer_kernel: X, U and V on different devices")
     u, v = u.to(x.dtype), v.to(x.dtype)
@@ -893,8 +918,10 @@ def outer_kernel(plan, x, u, v, extra: Dict[str, object], variant=None,
     variant, (ptrs, rs, cs, scal), _, keep = _prepare(plan, "outer", env, x,
                                                       variant)
     la = _launcher(plan, "outer", variant)
-    grid_x = max(1, -(-n // SPOOF_THREADS))
-    grid_y = max(1, min(-(-m // OUTER_ROWS), _MAX_GRID_Y,
+    cols, rows = ((SPOOF_THREADS, OUTER_ROWS) if r <= OUTER_BUCKET_RANK
+                  else (OUTER_WIDE_TILE, OUTER_WIDE_TILE))
+    grid_x = max(1, -(-n // cols))
+    grid_y = max(1, min(-(-m // rows), _MAX_GRID_Y,
                         _MAX_GRID_Y if grid_y is None else int(grid_y)))
     stride = lambda t, d: t.stride(d) if t.shape[d] > 1 else 0
     with torch.cuda.device(x.device):

@@ -34,11 +34,10 @@ when tuning is on. A choice is made once per kernel key (op, device,
 dtype, power-of-two shape bucket, group layout) and process, and counted
 then in the stats as kb_pick_<family>.<arm>, under the JAX package's
 names. A compressed
-mmchain that K6 cannot take by its layout or shape (an uncompressed
-group, a dictionary of more than 8 rows, or a block's table, codes and
-histograms past the kernel's shared memory, chain_smem_bytes) counts
-cla_chain_plain_by_layout and takes the gather arm, decided before any
-launch.
+mmchain that K6 cannot take by its layout (an uncompressed group or a
+dictionary of more than 8 rows, what the JAX package's kernel refuses)
+counts cla_chain_plain_by_layout and takes the gather arm, decided before
+any launch. K6 takes any number of groups.
 """
 
 from __future__ import annotations
@@ -555,66 +554,28 @@ def _count(kind: str) -> None:
 CHAIN_CTYPES = {"XtXv": 0, "XtwXv": 1, "XtXvy": 2}
 CHAIN_DTYPES = {torch.float32: 0, torch.float64: 1}
 # what the kernel takes (csrc/cla_chain.cu): at most 8 dictionary rows per
-# group (the JAX package's _TPU_CHAIN_DMAX), at most 8 columns of v a launch
-# (chain_mmchain runs a wider v in chunks of 8), and a block's shared
-# memory within the card's 227 KB
+# group (the JAX package's _TPU_CHAIN_DMAX) and at most 8 columns of v a
+# launch (chain_mmchain runs a wider v in chunks of 8); any number of groups
 CHAIN_MAX_DICT = 8
 CHAIN_MAX_K = 8
-CHAIN_MAX_SMEM = 232448
-# fp32: one block per SM, at most 1024 rows a tile (the kernel picks the
-# largest of 1024, 512, ..., 64 whose block fits); fp64: 4 blocks of 256
-# threads per SM, a row a thread
+# blocks per SM of the one-kernel path: fp32 one (at most 1024 rows a tile,
+# the kernel picks the largest of 1024, 512, ..., 64 whose block fits);
+# fp64 four blocks of 256 threads, a row a thread. The slab path (more
+# groups than a block holds): six blocks per SM over the slabs
 CHAIN_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 4}
-_CHAIN_MIN_TILE = 64
-_CHAIN_TILE_F64 = 256
-
-
-def chain_smem_bytes(dmax: int, groups: int, k: int,
-                     dtype=torch.float32) -> int:
-    """The least shared memory a block of K6 takes for k <= 8 columns of
-    v, as csrc/cla_chain.cu computes it (smem_f32_at at its smallest tile
-    / smem_f64): the kernel takes the shape if and only if this fits. The
-    launch takes its tile and bytes from the built kernel
-    (chain_kernel_plan).
-
-    fp32, at 64 rows a tile: the alignment slack, the table (256-byte
-    blocks of 8 // kp groups, kp the power of two at or above k; of 2 for
-    k = 1, a lookup adding a pair of groups), two stages of codes (a
-    group's row padded by 16 bytes), the tile's z, the int32 histogram (8
-    code slots of 128 max(kp, 2) bytes per 8 groups, and one chunk more
-    for its alignment), the fp64 accumulators and the per-warp maxima of
-    512 threads (k <= 2) or 256.
-
-    fp64: the table and one histogram per row slice (256 // (groups * k)
-    slices, at least 1) in double, the tile's z in double, and its codes,
-    each group's row padded by 4 bytes."""
-    if dtype == torch.float64:
-        pairs = groups * k
-        slices = 1 if pairs >= _CHAIN_TILE_F64 else _CHAIN_TILE_F64 // pairs
-        return (8 * (dmax * pairs * (1 + slices) + _CHAIN_TILE_F64 * k)
-                + groups * (_CHAIN_TILE_F64 + 4))
-    kp = 1 << (k - 1).bit_length()
-    tile = _CHAIN_MIN_TILE
-    table = 256 * -(-groups // (2 if k == 1 else max(1, 8 // kp)))
-    warps = (512 if k <= 2 else 256) // 32
-    return (256 + table + 2 * groups * (tile + 16) + 4 * kp * tile
-            + 1024 * max(kp, 2) * (-(-groups // 8) + 1)
-            + 8 * dmax * groups * k + 4 * kp * warps)
+CHAIN_SLAB_BLOCKS_PER_SM = 6
 
 
 def chain_supported(c: CompressedMatrixBlock, k: int, dtype) -> bool:
     """Whether K6 takes the block with k columns of v of `dtype`: the JAX
-    package's predicate (every group coded, dmax <= 8), and this kernel's
-    own bounds (fp32 or fp64, the shared memory of a block at the widest
-    chunk of v, min(k, 8) columns). From host metadata alone: nothing is
-    uploaded."""
+    package's predicate (every group coded, dmax <= 8), for fp32 or fp64,
+    at any number of groups and any k (a v wider than 8 columns runs in
+    chunks of 8). From host metadata alone: nothing is uploaded."""
     shape = _host_meta(c)[2]
     if shape is None:
         return False
     dmax, groups = shape
-    return (dmax <= CHAIN_MAX_DICT and k >= 1 and dtype in CHAIN_DTYPES
-            and chain_smem_bytes(dmax, groups, min(k, CHAIN_MAX_K), dtype)
-            <= CHAIN_MAX_SMEM)
+    return dmax <= CHAIN_MAX_DICT and k >= 1 and dtype in CHAIN_DTYPES
 
 
 def chain_codes(codes):
@@ -747,11 +708,11 @@ def _chain_library() -> ctypes.CDLL:
 
         lib = build.load("cla_chain")
         lib.smtorch_cla_chain.argtypes = (
-            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+            [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
             + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.smtorch_cla_chain.restype = ctypes.c_int
         lib.smtorch_cla_chain_smem.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)
         lib.smtorch_cla_chain_smem.restype = ctypes.c_longlong
         _chain_lib = lib
     return _chain_lib
@@ -759,13 +720,15 @@ def _chain_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def chain_kernel_plan(dmax: int, groups: int, k: int, dtype):
-    """(rows per tile, shared bytes) of a block as the built kernel computes
-    them (smtorch_cla_chain_smem), (0, 0) for a shape it does not take.
-    Builds the kernel."""
-    tile = ctypes.c_int(0)
+    """(rows per tile, shared bytes of a block, slabs of groups) as the
+    built kernel computes them (smtorch_cla_chain_smem): slabs 0 for the
+    one-kernel path, else the number of group slabs of the slab path;
+    (0, 0, 0) for a shape it does not take. Builds the kernel."""
+    tile, slabs = ctypes.c_int(0), ctypes.c_int(0)
     smem = _chain_library().smtorch_cla_chain_smem(
-        dmax, groups, k, CHAIN_DTYPES[dtype], ctypes.byref(tile))
-    return tile.value, int(smem)
+        dmax, groups, k, CHAIN_DTYPES[dtype], ctypes.byref(tile),
+        ctypes.byref(slabs))
+    return tile.value, int(smem), slabs.value
 
 
 _chain_sm_count: Dict[Optional[int], int] = {}
@@ -785,8 +748,9 @@ def chain_kernel(codes, sv, w=None, ctype: str = "XtXv"):
     or raises on what the kernel does not take: codes not a (G, n) uint8
     tensor whose rows start 16 bytes aligned (chain_codes lays them out
     so), a table not contiguous (dmax, G, k) fp32 or fp64 with dmax <= 8
-    and k <= 8 (chain_mmchain takes a wider v 8 columns at a time), w/y of
-    another dtype, or a block past its shared memory (chain_kernel_plan). The
+    and k <= 8 (chain_mmchain takes a wider v 8 columns at a time), or w/y
+    of another dtype. Any number of groups: past what one block holds the
+    kernel takes the groups in slabs (chain_kernel_plan). The
     codes must index rows of the table (the layout that builds them
     guarantees it). On a CPU tensor it runs chain_plain. Returns
     (dmax, G, k) float64."""
@@ -814,27 +778,32 @@ def chain_kernel(codes, sv, w=None, ctype: str = "XtXv"):
         if w.dtype != sv.dtype:
             raise TypeError("chain_kernel: w/y and the table differ in dtype")
         w = w.contiguous()
-    tile = chain_kernel_plan(dmax, G, k, sv.dtype)[0]
+    tile, _, slabs = chain_kernel_plan(dmax, G, k, sv.dtype)
     if not tile:
-        raise ValueError(f"chain_kernel takes dmax <= {CHAIN_MAX_DICT}, k <= "
-                         f"{CHAIN_MAX_K} and {CHAIN_MAX_SMEM} B of shared "
-                         f"memory; got dmax={dmax}, G={G}, k={k}")
+        raise ValueError(f"chain_kernel takes dmax <= {CHAIN_MAX_DICT} and k "
+                         f"<= {CHAIN_MAX_K}; got dmax={dmax}, G={G}, k={k}")
     lib = _chain_library()
     dev = codes.device
     if dev.index is not None and dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return chain_kernel(codes, sv, w, ctype)
     sms = _chain_sms(dev)
-    grid = max(1, min(-(-n // tile), CHAIN_BLOCKS_PER_SM[sv.dtype] * sms))
+    if slabs:   # a block per row range and slab, z of every row first
+        grid = max(1, min(-(-n // tile),
+                          CHAIN_SLAB_BLOCKS_PER_SM * sms // slabs))
+        z = torch.empty((n, k), dtype=sv.dtype, device=dev)
+    else:
+        grid = max(1, min(-(-n // tile), CHAIN_BLOCKS_PER_SM[sv.dtype] * sms))
+        z = None
     partial = torch.empty((grid, dmax, G, k), dtype=torch.float64,
                           device=dev)
     out = torch.empty((dmax, G, k), dtype=torch.float64, device=dev)
     err = lib.smtorch_cla_chain(
         codes.data_ptr(), ldc, sv.data_ptr(),
         None if w is None else w.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), n, G, dmax, k, CHAIN_CTYPES[ctype],
-        1 if w is None else w.shape[1], CHAIN_DTYPES[sv.dtype], grid,
-        torch.cuda.current_stream().cuda_stream)
+        out.data_ptr(), None if z is None else z.data_ptr(), n, G, dmax, k,
+        CHAIN_CTYPES[ctype], 1 if w is None else w.shape[1],
+        CHAIN_DTYPES[sv.dtype], grid, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"cla_chain kernel launch failed: CUDA error {err}")
     counts.count(chain_kernel)

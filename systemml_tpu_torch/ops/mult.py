@@ -102,8 +102,8 @@ def mmchain(x, v, w=None, ctype: str = "XtXv", precise: bool = True):
     Dense chains dispatch through the kernel backend (the `mmchain`
     family below): the hand kernel K1 (one pass over X) or two
     torch.matmul calls. K1 takes the JAX family's shapes (fp32, k >= 128,
-    c <= 8) and its own k <= 2048; another call of the kernel variant
-    runs the two-pass arm, counted as a fallback. Under the "bfloat16"
+    c <= 8), at any k; a call of the kernel variant with c > 8 runs the
+    two-pass arm, counted as a fallback. Under the "bfloat16"
     policy X and v are rounded to bf16 first and the same dispatch
     follows: the kernel reads the rounded X in fp32; the two-pass arm
     rounds X v again for its second product, as the JAX package's does.
@@ -150,10 +150,12 @@ _MMCHAIN_CPU_OVERHEAD_S = 44e-6
 def _mmchain_kernel_ok(ctx) -> bool:
     m, k, c = ctx["shape"]
     return (kbackend.use_kernel(ctx["backend"]) and ctx["dtype"] == "float32"
-            and k >= kernels.MMCHAIN_MIN_K and c <= kernels.MMCHAIN_MAX_C)
+            and k >= kernels.MMCHAIN_MIN_K)
 
 
 def _mmchain_kernel_accepts(ctx, x, v, w) -> bool:
+    """The kernel's own bounds, per call: c <= 8 chain columns (the JAX
+    family's bound too, which its selection applies instead)."""
     m, k, c = ctx["shape"]
     return kernels.mmchain_supported(m, k, c, x.dtype)
 

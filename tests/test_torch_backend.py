@@ -341,11 +341,12 @@ def test_force_variant_overrides_selection():
 
 
 def test_a_call_the_kernel_refuses_is_an_unsupported_fallback(_fresh):
-    """pallas_mode "always" makes K1 and K2 candidates on the CPU. A k
-    above K1's bound (2,048) and a leaf layout the spoof kernels refuse
-    are turned away by the variants' `accepts` before any launch: the
-    fallback runs, counted kb_fallback and evented kind "unsupported"
-    (the spoof one also counts spoof_plain_by_layout, as before)."""
+    """pallas_mode "always" makes K1 and K2 candidates on the CPU. A
+    chain of c = 9 columns (K1 takes c <= 8, as the JAX family) and a leaf
+    layout the spoof kernels refuse are turned away by the variants'
+    `accepts` before any launch: the fallback runs, counted kb_fallback
+    and evented kind "unsupported" (the spoof one also counts
+    spoof_plain_by_layout, as before)."""
     from systemml_tpu_torch.codegen.compiler import execute_spoof
     from systemml_tpu_torch.ops import mult
 
@@ -354,7 +355,7 @@ def test_a_call_the_kernel_refuses_is_an_unsupported_fallback(_fresh):
     # 300 x 2,100: large enough that the CPU profile prices K1 below the
     # two products (the JAX package's crossover, about 430,000 cells)
     x = _t(rng.standard_normal((300, 2100)), torch.float32)
-    v = _t(rng.standard_normal((2100, 1)), torch.float32)
+    v = _t(rng.standard_normal((2100, 9)), torch.float32)
     h = Hop("spoof", [], {"template": "cell", "plan": _plan("port", "cell"),
                           "agg": "sum", "leaf_names": ["a", "b"]})
     a = rng.standard_normal((8, 6))

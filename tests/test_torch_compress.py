@@ -432,8 +432,10 @@ def test_chain_support_refuses_what_jax_refuses():
         [cg.ColGroupDDC([i], rng.standard_normal((8, 1)),
                         rng.integers(0, 8, 50)) for i in range(800)],
         (50, 800))
-    assert cla_dev.chain_smem_bytes(8, 800, 1) > cla_dev.CHAIN_MAX_SMEM
-    assert not cla_dev.chain_supported(many, 1, torch.float32)
+    # any number of groups: past one block's shared memory the kernel
+    # takes them in slabs
+    assert cla_dev.chain_supported(many, 1, torch.float32)
+    assert cla_dev.chain_supported(many, 8, torch.float64)
 
 
 def _to_jax(g):

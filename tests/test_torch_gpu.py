@@ -131,6 +131,22 @@ def test_dispatch_launches_on_views(cuda):
 
 
 
+@pytest.mark.parametrize("k", [2049, 3000, 4096, 8192, 65_536])
+@pytest.mark.parametrize("c", [1, 8])
+@pytest.mark.parametrize("layout", ["contiguous", "column slice"])
+def test_kernel_wide_k(cuda, k, c, layout):
+    """k past the narrow kernel's 2,048 (the cluster kernel; past 16,384
+    its passes): every chain type, ragged m, X contiguous or a column
+    slice of a wider matrix read in place (unaligned: 4-byte loads);
+    against the plain version in fp64, repeats bit-identical."""
+    m = 1037 if k < 65_536 else 301
+    x, v, w = _inputs(cuda, c, c, k=k + 5, m=m, seed=k + c)
+    xs = x[:, :k].contiguous() if layout == "contiguous" else x[:, 1:k + 1]
+    assert xs.is_contiguous() == (layout == "contiguous")
+    for ctype, wv in (("XtXv", None), ("XtwXv", w[:, :1]), ("XtXvy", w)):
+        _check(xs, v[:k], wv, ctype)
+
+
 # ---- spoof cell and row templates ----------------------------------------
 
 def _n(op, *kids):
@@ -594,35 +610,60 @@ def test_cla_chain_repeats_bit_identical(cuda, dtype):
 
 
 def test_cla_chain_plan_matches_the_kernel(cuda):
-    """The wrapper's estimate of a block's least shared memory
-    (chain_smem_bytes, which chain_supported reads without a build)
-    accepts exactly the shapes the built kernel accepts
-    (smtorch_cla_chain_smem), and equals the kernel's bytes where the
-    kernel takes its smallest tile (fp32: 64 rows; fp64: always)."""
+    """The built kernel's plan (smtorch_cla_chain_smem) takes every shape
+    with dmax <= 8 and k <= 8, any number of groups, within a block's
+    227 KB: the one-kernel path while a block holds every group (fp32:
+    tiles of 1,024 down to 64 rows), the group slabs past that, each
+    slab's block within a sixth of it (six blocks per SM)."""
     from systemml_tpu_torch.compress import device as cla_dev
 
-    smallest = 0
+    slabbed = 0
     for dtype in (torch.float32, torch.float64):
         for dmax in (1, 3, 8):
-            for groups in (1, 31, 32, 33, 68, 200, 330, 450, 800):
+            for groups in (1, 31, 32, 33, 68, 112, 113, 136, 168, 169, 200,
+                           330, 450, 800, 5000):
                 for k in range(1, 9):
-                    est = cla_dev.chain_smem_bytes(dmax, groups, k, dtype)
-                    tile, smem = cla_dev.chain_kernel_plan(dmax, groups, k,
-                                                           dtype)
+                    tile, smem, slabs = cla_dev.chain_kernel_plan(
+                        dmax, groups, k, dtype)
                     at = (dtype, dmax, groups, k)
-                    assert (est <= cla_dev.CHAIN_MAX_SMEM) == (tile > 0), at
-                    if not tile:
-                        assert smem == 0, at
-                    elif dtype == torch.float64 or tile == 64:
-                        assert smem == est, at
-                        smallest += tile == 64
-                    else:
-                        assert est < smem <= cla_dev.CHAIN_MAX_SMEM, at
-    assert smallest > 0
-    assert cla_dev.chain_kernel_plan(9, 4, 1, torch.float32) == (0, 0)
-    assert cla_dev.chain_kernel_plan(8, 4, 9, torch.float32) == (0, 0)
-    # the Census shape takes the largest tile
-    assert cla_dev.chain_kernel_plan(8, 68, 1, torch.float32)[0] == 1024
+                    assert tile > 0 and 0 < smem <= 232_448, at
+                    if slabs:
+                        assert tile == 256 and smem <= 232_448 // 6, at
+                        slabbed += 1
+                    elif dtype == torch.float32:
+                        assert tile in (64, 128, 256, 512, 1024), at
+    assert slabbed > 0
+    assert cla_dev.chain_kernel_plan(9, 4, 1, torch.float32) == (0, 0, 0)
+    assert cla_dev.chain_kernel_plan(8, 4, 9, torch.float32) == (0, 0, 0)
+    # the Census shape takes the largest tile; 800 groups of 8 take slabs
+    assert cla_dev.chain_kernel_plan(8, 68, 1, torch.float32)[:3:2] == (1024,
+                                                                         0)
+    assert cla_dev.chain_kernel_plan(8, 800, 1, torch.float32)[2] > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("groups", [113, 136, 300, 800])
+@pytest.mark.parametrize("k", [1, 8, 12])
+def test_cla_chain_many_groups(cuda, dtype, groups, k):
+    """More groups of 8 codes than one block holds: the slab path, every
+    chain type, v's columns 8 a launch (k = 12 takes two), against
+    chain_plain in fp64; repeats bit-identical."""
+    from systemml_tpu_torch.compress import device as cla_dev
+
+    codes, sv, w = _chain_inputs(cuda, 8, groups, 100_003, k, k, dtype,
+                                 seed=groups + k)
+    tile, _, slabs = cla_dev.chain_kernel_plan(8, groups, min(k, 8), dtype)
+    # the one-kernel path holds up to 112 groups at k = 8 in fp32, 376 at
+    # k = 1; 800 groups take the slabs in both dtypes at every k
+    assert tile and (slabs or groups < 800)
+    if (groups, min(k, 8), dtype) == (113, 8, torch.float32):
+        assert slabs
+    for c0 in range(0, k, 8):
+        c1 = min(k, c0 + 8)
+        svc, wc = sv[:, :, c0:c1].contiguous(), w[:, c0:c1].contiguous()
+        for ctype, wv in (("XtXv", None), ("XtwXv", wc[:, :1]),
+                          ("XtXvy", wc)):
+            _chain_check(codes, svc, wv, ctype, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -729,15 +770,30 @@ def test_outer_reads_views_in_place(cuda):
 
 
 def test_outer_wide_rank_takes_plain_arm(cuda):
+    """A rank above the largest bucket (32) launches the kernel (its
+    rank slabs), counting no plain arm."""
     x, u, v, extra = _outer_inputs(cuda, torch.float32, 300, 40, 33)
     st = stats.Statistics()
     before = kernels.outer_kernel.launches
     with stats.stats_scope(st):
         out = kernels.outer_kernel(OUTER_PLANS["als_loss"], x, u, v, extra)
-    ref = kernels.outer_plain(OUTER_PLANS["als_loss"], x, u, v, extra)
-    assert kernels.outer_kernel.launches == before
-    assert st.estim_counts["spoof_plain_by_layout"] == 1
-    assert torch.equal(out, ref)
+    ref = kernels.outer_plain(OUTER_PLANS["als_loss"], x.double(),
+                              u.double(), v.double(), extra)
+    torch.cuda.synchronize()
+    assert kernels.outer_kernel.launches == before + 1
+    assert st.estim_counts.get("spoof_plain_by_layout", 0) == 0
+    assert abs(float(out) - float(ref)) <= 1e-5 * abs(float(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(OUTER_PLANS))
+@pytest.mark.parametrize("r", [33, 50, 64, 100, 256])
+def test_outer_wide_rank_matches_plain(cuda, dtype, case, r):
+    """Ranks past 32 (slabs of 16, the last one partial but at 64 and
+    256), ragged row tiles of 32 and column chunks of 256; repeats
+    bit-identical."""
+    x, u, v, extra = _outer_inputs(cuda, dtype, 1037, 300, r, seed=r)
+    _outer_check(OUTER_PLANS[case], x, u, v, extra, dtype)
 
 
 @pytest.mark.parametrize("m,n", [(0, 7), (9, 0)])

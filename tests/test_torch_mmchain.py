@@ -104,7 +104,7 @@ def test_support_predicate_is_shape_and_dtype_only():
     assert pk.mmchain_supported(2_000_000, 1000, 1, torch.float32)
     assert pk.mmchain_supported(4097, 128, 8, torch.float32)
     assert not pk.mmchain_supported(4097, 127, 1, torch.float32)
-    assert not pk.mmchain_supported(4097, 2049, 1, torch.float32)
+    assert pk.mmchain_supported(4097, 2049, 1, torch.float32)
     assert not pk.mmchain_supported(4097, 1000, 9, torch.float32)
     assert not pk.mmchain_supported(4097, 1000, 1, torch.float64)
 
